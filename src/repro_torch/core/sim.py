@@ -1,0 +1,118 @@
+"""Virtual-processor simulator of the PGX.D distributed sort.
+
+Counterpart of ``repro/core/sim.py``. ``x`` has shape (p, n_local): axis
+0 is the processor axis, and the exchange is an explicit gather and
+transpose. On one GPU this grid is the shape of the whole sort. The six
+paper steps map 1:1 onto the code below. The traced (phased) and the
+serving (flat) variants are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import merge as merge_lib
+from repro_torch.core import splitters as spl
+from repro_torch.core.local_sort import local_sort, local_sort_kv
+from repro_torch.kernels import ops as kops
+
+
+class SortResult(NamedTuple):
+    """Sort output in the global view (leading axis = processor).
+
+    values:      (p, p2 * cap) sorted per processor, sentinel padded.
+    counts:      (p,) int32 valid prefix length per processor.
+    overflowed:  bool scalar, True iff a static bucket overflowed (the
+                 exchange then dropped data and the result is invalid).
+    send_counts: (p, p) int32 bucket sizes per (source, destination).
+    """
+
+    values: torch.Tensor
+    counts: torch.Tensor
+    overflowed: torch.Tensor
+    send_counts: torch.Tensor
+
+
+class SortKVResult(NamedTuple):
+    keys: torch.Tensor
+    values: torch.Tensor
+    counts: torch.Tensor
+    overflowed: torch.Tensor
+    send_counts: torch.Tensor
+
+
+def _bounds_all(xs, splitters, investigator: bool) -> torch.Tensor:
+    fn = spl.investigator_bounds if investigator else spl.naive_bounds
+    return fn(xs, splitters)  # (p, p+1)
+
+
+def _split(xs, config: spl.SortConfig, investigator: bool, key_bytes: int):
+    """Steps 2-4: samples, splitters, bounds, and the overflow flag."""
+    p, n = xs.shape
+    s = config.num_samples(p, n, key_bytes=key_bytes)
+    samples = spl.regular_sample(xs, s)  # "send to master"
+    splitters = spl.select_splitters(samples.reshape(-1), p)
+    bounds = _bounds_all(xs, splitters, investigator)
+    send_counts = bounds[:, 1:] - bounds[:, :-1]
+    overflowed = (send_counts > config.capacity(p, n)).any()
+    return bounds, send_counts, overflowed
+
+
+def _gather_buckets(xs: torch.Tensor, bounds: torch.Tensor, cap: int) -> torch.Tensor:
+    """Cut the p destination buckets out of every sorted shard at once.
+
+    Bucket (i, j) is ``xs[i, bounds[i, j] + arange(cap)]`` with positions
+    at or past its count set to the sentinel: (p_src, p_dst, cap). A kept
+    position never passes the end of its shard (start + count <= n), so
+    clamping the index only touches positions that are masked anyway."""
+    p, n = xs.shape
+    fill = kops.sentinel_for(xs.dtype)
+    start = bounds[:, :-1].to(torch.int64)
+    count = (bounds[:, 1:] - bounds[:, :-1])[..., None]
+    pos = torch.arange(cap, device=xs.device)
+    idx = (start[..., None] + pos).clamp_(max=n - 1).reshape(p, -1)
+    seg = torch.gather(xs, 1, idx).reshape(p, p, cap)
+    return seg.masked_fill_(pos >= count, fill)
+
+
+def sample_sort_sim(x: torch.Tensor, config: spl.SortConfig = spl.SortConfig(), *,
+                    investigator: bool = True) -> SortResult:
+    """PGX.D sample sort over virtual processors. x: (p, n_local)."""
+    p, n = x.shape
+    cap = config.capacity(p, n)
+
+    # (1) local sort: Fig. 2 tile sort + balanced merge tree, every shard
+    xs = local_sort(x, tile=config.tile, use_pallas=config.use_pallas)
+
+    # (2) regular sampling; (3) splitters; (4) investigator bounds
+    bounds, send_counts, overflowed = _split(xs, config, investigator, x.element_size())
+
+    # (5) exchange: static-capacity buckets, transpose = all_to_all
+    recv = _gather_buckets(xs, bounds, cap).transpose(0, 1)  # (p_dst, p_src, cap)
+    counts = send_counts.sum(dim=0, dtype=torch.int32)  # (p_dst,)
+
+    # (6) balanced pairwise merge of the received runs
+    merged = merge_lib.merge_padded_runs(recv, use_pallas=config.use_pallas)
+    return SortResult(merged, counts, overflowed, send_counts)
+
+
+def sample_sort_sim_kv(keys: torch.Tensor, values: torch.Tensor,
+                       config: spl.SortConfig = spl.SortConfig(), *,
+                       investigator: bool = True) -> SortKVResult:
+    """Key/value variant: values ride along (provenance, user payloads).
+
+    Exactly stable when ``values`` are globally unique, processor-then-
+    position increasing indices (the provenance payload)."""
+    p, n = keys.shape
+    cap = config.capacity(p, n)
+
+    ks, vs = local_sort_kv(keys, values, tile=config.tile, use_pallas=config.use_pallas)
+    bounds, send_counts, overflowed = _split(ks, config, investigator, keys.element_size())
+
+    recv_k = _gather_buckets(ks, bounds, cap).transpose(0, 1)
+    recv_v = _gather_buckets(vs, bounds, cap).transpose(0, 1)
+    counts = send_counts.sum(dim=0, dtype=torch.int32)
+
+    mk, mv = merge_lib.merge_padded_runs_kv(recv_k, recv_v, use_pallas=config.use_pallas)
+    return SortKVResult(mk, mv, counts, overflowed, send_counts)

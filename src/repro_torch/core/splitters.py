@@ -1,0 +1,108 @@
+"""Sampling, splitter selection and the paper's investigator (§IV, Fig. 3).
+
+Counterpart of ``repro/core/splitters.py``. The functions take a batch
+of sorted shards (p, n) at once where ``repro`` mapped one shard with
+``vmap``; the arithmetic is the same, bounds are int32.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SortConfig:
+    """Tuning knobs of the PGX.D sort, with the paper's defaults.
+
+    buffer_bytes: the read-buffer size that bounds the total sample
+      volume arriving at splitter selection (paper: 64 KB).
+    capacity_factor: slack over the balanced shard size for the static
+      exchange buckets; overflow is detected and reported, never silent.
+    tile: tile width of the local bitonic sort phase.
+    use_pallas: False sorts and merges with ``torch.sort`` and the rank
+      merge instead of the bitonic kernels (the name is ``repro``'s).
+    samples_per_shard: explicit override of the buffer rule (ablations).
+    """
+
+    buffer_bytes: int = 65536
+    capacity_factor: float = 1.25
+    tile: int = 1024
+    use_pallas: bool = True
+    samples_per_shard: int | None = None
+
+    def num_samples(self, p: int, n_local: int, key_bytes: int = 4) -> int:
+        """Paper rule: 64KB / p per processor, clamped to the shard size."""
+        if self.samples_per_shard is not None:
+            s = self.samples_per_shard
+        else:
+            s = max(1, self.buffer_bytes // (p * key_bytes))
+        return max(1, min(s, n_local))
+
+    def capacity(self, p: int, n_local: int) -> int:
+        """Static per-destination bucket size: ideal * capacity_factor
+        plus an additive floor of 32 (splitter noise is O(sqrt) in the
+        sample count, so small shards need relatively more slack)."""
+        ideal = (n_local + p - 1) // p
+        cap = int(ideal * self.capacity_factor) + 32
+        return min(cap, n_local)
+
+
+def regular_sample(xs_sorted: torch.Tensor, s: int) -> torch.Tensor:
+    """Regularly spaced samples of each sorted shard (p, n) -> (p, s).
+
+    The index arithmetic is int64: ``repro`` computes it in int32, which
+    wraps once (2s - 1) * n reaches 2^31 (n = 2^24 with s = 2048), so the
+    two agree exactly below that size."""
+    n = xs_sorted.shape[-1]
+    idx = ((2 * torch.arange(s, device=xs_sorted.device) + 1) * n) // (2 * s)
+    return xs_sorted[..., idx]
+
+
+def select_splitters(all_samples: torch.Tensor, p: int) -> torch.Tensor:
+    """Replicated splitter selection (paper step 3): p-1 splitters at the
+    regular ranks of the sorted (p*s,) sample set."""
+    srt = torch.sort(all_samples, stable=True).values
+    m = srt.shape[0]
+    idx = (torch.arange(1, p, dtype=torch.int32, device=srt.device) * m) // p
+    return srt[idx]
+
+
+def _search(xs_sorted: torch.Tensor, splitters: torch.Tensor, side: str) -> torch.Tensor:
+    queries = splitters.expand(xs_sorted.shape[0], -1).contiguous()
+    return torch.searchsorted(xs_sorted.contiguous(), queries, side=side).to(torch.int32)
+
+
+def _with_ends(bound: torch.Tensor, n: int) -> torch.Tensor:
+    p = bound.shape[0]
+    zero = torch.zeros((p, 1), dtype=torch.int32, device=bound.device)
+    full = torch.full((p, 1), n, dtype=torch.int32, device=bound.device)
+    return torch.cat([zero, bound, full], dim=1)
+
+
+def investigator_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor) -> torch.Tensor:
+    """Destination bounds with the paper's investigator (step 4, Fig. 3).
+
+    For each splitter j the tied range [L_j, R_j] is found by a left and
+    a right binary search, and bound j is the destination's ideal local
+    rank j*n/p clipped into it: clip(j*n/p, L_j, R_j). This is a plain
+    binary search on distinct data and the paper's equal division of a
+    tied run that spans several splitters. Exact int32 arithmetic.
+
+    xs_sorted: (p, n) sorted shards. Returns (p, p+1) int32 bounds:
+    bounds[i, j]..bounds[i, j+1] is the slice of shard i bound for j.
+    """
+    n = xs_sorted.shape[-1]
+    p = splitters.shape[0] + 1
+    left = _search(xs_sorted, splitters, "left")
+    right = _search(xs_sorted, splitters, "right")
+    j = torch.arange(1, p, dtype=torch.int32, device=xs_sorted.device)
+    ideal = (n // p) * j + ((n % p) * j) // p  # j*n/p without int32 overflow
+    bound = torch.minimum(torch.maximum(ideal, left), right)
+    return _with_ends(bound, n)
+
+
+def naive_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor) -> torch.Tensor:
+    """Plain sample-sort bounds (no investigator): the paper's Fig. 3b
+    failure mode, kept as the ablation baseline."""
+    return _with_ends(_search(xs_sorted, splitters, "left"), xs_sorted.shape[-1])

@@ -1,0 +1,263 @@
+"""Bitonic sorting-network kernels: CUDA wrappers and their plain twins.
+
+Counterpart of ``repro/kernels/bitonic.py``. Each of the four wrappers
+below launches a hand-written CUDA kernel (``csrc/bitonic.cu``) on a CUDA
+tensor and runs its plain PyTorch twin on a CPU tensor; any other device
+raises. The twin runs the same compare-exchange schedule as the Pallas
+kernel (``_sort_network`` / ``_merge_network``: a static reshape to
+``(rows, n_blocks, 2, j)`` and a ``torch.where`` swap per stage), so the
+CPU tests hold it against ``repro`` and ``chip_smoke.py`` holds each
+kernel against it on the card, both with exact equality.
+
+Every wrapper counts its launches in ``<wrapper>.launches``: one is added
+where the kernel is launched and nowhere else.
+
+Rows have a power-of-two length of at most 8192 (``ops`` pads). Keys and
+values are int32, uint32 or float32 inside the kernel; int8, int16,
+uint8, uint16, float16 and bfloat16 widen before it and narrow after it,
+which is exact because widening preserves every comparison.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+MAX_ROW = 8192
+
+_TYPE_CODES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
+_WIDEN = {
+    torch.int8: torch.int32, torch.int16: torch.int32,
+    torch.uint8: torch.int32, torch.uint16: torch.int32,
+    torch.float16: torch.float32, torch.bfloat16: torch.float32,
+}
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "bitonic_sort_rows": [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+    "bitonic_sort_rows_kv": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "bitonic_merge_rows": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+    "bitonic_merge_rows_kv": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+}
+
+
+# ------------------------------------------------------------ plain twins
+
+
+def _dir_mask(n_blocks: int, j: int, stage_span: int, device) -> torch.Tensor:
+    """Ascending flag per compare block: block ``b`` covers flat indices
+    [b*2j, (b+1)*2j) and is ascending iff (b*2j // span) % 2 == 0."""
+    starts = torch.arange(n_blocks, dtype=torch.int32, device=device) * (2 * j)
+    return (starts // stage_span) % 2 == 0
+
+
+def _cmpx(keys, payloads, j: int, stage_span: int, tiebreak: int):
+    """One compare-exchange stage at distance ``j`` on (R, N) keys.
+    ``tiebreak`` indexes the payload that breaks key ties (-1: none)."""
+    rows, n = keys.shape
+    n_blocks = n // (2 * j)
+
+    def split(x):
+        x4 = x.reshape(rows, n_blocks, 2, j)
+        return x4[:, :, 0, :], x4[:, :, 1, :]
+
+    def fuse(lo, hi):
+        return torch.stack([lo, hi], dim=2).reshape(rows, n)
+
+    klo, khi = split(keys)
+    asc = _dir_mask(n_blocks, j, stage_span, keys.device)[None, :, None]
+    gt = klo > khi
+    lt = klo < khi
+    if tiebreak >= 0:
+        tlo, thi = split(payloads[tiebreak])
+        eq = klo == khi
+        gt = gt | (eq & (tlo > thi))
+        lt = lt | (eq & (tlo < thi))
+    swap = torch.where(asc, gt, lt)
+    new_keys = fuse(torch.where(swap, khi, klo), torch.where(swap, klo, khi))
+    new_payloads = []
+    for p in payloads:
+        plo, phi = split(p)
+        new_payloads.append(fuse(torch.where(swap, phi, plo), torch.where(swap, plo, phi)))
+    return new_keys, tuple(new_payloads)
+
+
+def _sort_network(keys, payloads, tiebreak: int):
+    """Full bitonic sort network, ascending."""
+    k = int(math.log2(keys.shape[-1]))
+    for s in range(k):
+        span = 1 << (s + 1)
+        for sub in range(s, -1, -1):
+            keys, payloads = _cmpx(keys, payloads, 1 << sub, span, tiebreak)
+    return keys, payloads
+
+
+def _merge_network(keys, payloads, tiebreak: int):
+    """Bitonic half-cleaner stages over rows that are bitonic sequences."""
+    k = int(math.log2(keys.shape[-1]))
+    span = 1 << k  # one ascending run over the whole row
+    for sub in range(k - 1, -1, -1):
+        keys, payloads = _cmpx(keys, payloads, 1 << sub, span, tiebreak)
+    return keys, payloads
+
+
+def _signed(x: torch.Tensor) -> torch.Tensor:
+    """uint32 -> int32 by flipping the top bit: a monotone bijection, for
+    the twin only (PyTorch has no comparisons on uint32 tensors)."""
+    return x.view(torch.int32) ^ (-(1 << 31)) if x.dtype == torch.uint32 else x
+
+
+def _unsigned(x: torch.Tensor, dtype) -> torch.Tensor:
+    return (x ^ (-(1 << 31))).view(torch.uint32) if dtype == torch.uint32 else x
+
+
+def sort_rows_twin(keys, values=None, *, stable: bool = True):
+    """Plain version of the (kv) sort kernel, on int32/uint32/float32 rows."""
+    if values is None:
+        out, _ = _sort_network(_signed(keys), (), tiebreak=-1)
+        return _unsigned(out, keys.dtype)
+    k, (v,) = _sort_network(_signed(keys), (_signed(values),), 0 if stable else -1)
+    return _unsigned(k, keys.dtype), _unsigned(v, values.dtype)
+
+
+def merge_rows_twin(ak, bk, av=None, bv=None, *, stable: bool = True):
+    """Plain version of the (kv) merge kernel: a ++ reverse(b), then the
+    half-cleaner network."""
+    keys = torch.cat([_signed(ak), _signed(bk).flip(-1)], dim=-1)
+    if av is None:
+        out, _ = _merge_network(keys, (), tiebreak=-1)
+        return _unsigned(out, ak.dtype)
+    vals = torch.cat([_signed(av), _signed(bv).flip(-1)], dim=-1)
+    k, (v,) = _merge_network(keys, (vals,), 0 if stable else -1)
+    return _unsigned(k, ak.dtype), _unsigned(v, av.dtype)
+
+
+# --------------------------------------------------------------- launching
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built library, with every entry point's C signature declared."""
+    lib = build.load("bitonic")
+    for fn, args in _ARGTYPES.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.bitonic_error_string.argtypes = [ctypes.c_int]
+    lib.bitonic_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(fn: str, *args) -> None:
+    lib = _lib()
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        msg = lib.bitonic_error_string(err).decode()
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err} ({msg})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    return x.to(_WIDEN.get(x.dtype, x.dtype)).contiguous()
+
+
+def _check(name: str, *tensors: torch.Tensor, n_max: int = MAX_ROW) -> str:
+    """Validate shapes and dtypes; return the device type that runs."""
+    first = tensors[0]
+    if first.dim() != 2:
+        raise ValueError(f"{name}: rows must be 2-D (R, N), got {tuple(first.shape)}")
+    n = first.shape[1]
+    if n < 1 or n & (n - 1) or n > n_max:
+        raise ValueError(f"{name}: row length {n} must be a power of two <= {n_max}")
+    for t in tensors:
+        if t.shape != first.shape or t.device != first.device:
+            raise ValueError(f"{name}: operands differ in shape or device")
+        if _WIDEN.get(t.dtype, t.dtype) not in _TYPE_CODES:
+            raise TypeError(f"{name}: unsupported dtype {t.dtype}")
+    if first.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: tensors on {first.device} (want cuda or cpu)")
+    return first.device.type
+
+
+def bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
+    """Sort each row of ``keys`` (R, N) ascending. N must be a power of 2."""
+    on = _check("bitonic_sort_rows", keys)
+    k = _wide(keys)
+    if on == "cpu" or k.shape[1] == 1 or k.shape[0] == 0:
+        out = k if k.shape[1] == 1 or k.shape[0] == 0 else sort_rows_twin(k)
+        return out.to(keys.dtype)
+    out = torch.empty_like(k)
+    with torch.cuda.device(k.device):
+        _launch("bitonic_sort_rows", k.data_ptr(), out.data_ptr(), k.shape[0],
+                k.shape[1], _TYPE_CODES[k.dtype], _stream(k))
+    bitonic_sort_rows.launches += 1
+    return out.to(keys.dtype)
+
+
+def bitonic_sort_rows_kv(keys: torch.Tensor, values: torch.Tensor, *,
+                         stable: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Key/value row sort. ``stable=True`` breaks key ties on the value,
+    giving (key, value) lexicographic order."""
+    on = _check("bitonic_sort_rows_kv", keys, values)
+    k, v = _wide(keys), _wide(values)
+    if on == "cpu" or k.shape[1] == 1 or k.shape[0] == 0:
+        if k.shape[1] > 1 and k.shape[0] > 0:
+            k, v = sort_rows_twin(k, v, stable=stable)
+        return k.to(keys.dtype), v.to(values.dtype)
+    ok, ov = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(k.device):
+        _launch("bitonic_sort_rows_kv", k.data_ptr(), v.data_ptr(), ok.data_ptr(),
+                ov.data_ptr(), k.shape[0], k.shape[1], _TYPE_CODES[k.dtype],
+                _TYPE_CODES[v.dtype], int(stable), _stream(k))
+    bitonic_sort_rows_kv.launches += 1
+    return ok.to(keys.dtype), ov.to(values.dtype)
+
+
+def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge row-wise sorted (R, N) + (R, N) -> sorted (R, 2N)."""
+    on = _check("bitonic_merge_rows", a, b, n_max=MAX_ROW // 2)
+    wa, wb = _wide(a), _wide(b)
+    if on == "cpu" or wa.shape[0] == 0:
+        return merge_rows_twin(wa, wb).to(a.dtype)
+    out = torch.empty((wa.shape[0], 2 * wa.shape[1]), dtype=wa.dtype, device=wa.device)
+    with torch.cuda.device(wa.device):
+        _launch("bitonic_merge_rows", wa.data_ptr(), wb.data_ptr(), out.data_ptr(),
+                wa.shape[0], wa.shape[1], _TYPE_CODES[wa.dtype], _stream(wa))
+    bitonic_merge_rows.launches += 1
+    return out.to(a.dtype)
+
+
+def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
+    """Key/value merge with the same tie rule as ``bitonic_sort_rows_kv``."""
+    on = _check("bitonic_merge_rows_kv", ak, av, bk, bv, n_max=MAX_ROW // 2)
+    wak, wav, wbk, wbv = _wide(ak), _wide(av), _wide(bk), _wide(bv)
+    if on == "cpu" or wak.shape[0] == 0:
+        ok, ov = merge_rows_twin(wak, wbk, wav, wbv, stable=stable)
+        return ok.to(ak.dtype), ov.to(av.dtype)
+    rows, n = wak.shape
+    ok = torch.empty((rows, 2 * n), dtype=wak.dtype, device=wak.device)
+    ov = torch.empty((rows, 2 * n), dtype=wav.dtype, device=wak.device)
+    with torch.cuda.device(wak.device):
+        _launch("bitonic_merge_rows_kv", wak.data_ptr(), wav.data_ptr(), wbk.data_ptr(),
+                wbv.data_ptr(), ok.data_ptr(), ov.data_ptr(), rows, n,
+                _TYPE_CODES[wak.dtype], _TYPE_CODES[wav.dtype], int(stable), _stream(wak))
+    bitonic_merge_rows_kv.launches += 1
+    return ok.to(ak.dtype), ov.to(av.dtype)
+
+
+KERNELS = (bitonic_sort_rows, bitonic_sort_rows_kv, bitonic_merge_rows, bitonic_merge_rows_kv)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0

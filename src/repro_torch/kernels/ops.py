@@ -1,0 +1,199 @@
+"""Dispatch around the sorting kernels.
+
+Counterpart of ``repro/kernels/ops.py``:
+  * pad rows to a power of two with order-preserving sentinels,
+  * choose the path: the bitonic kernels (``use_pallas=True``, the name
+    kept from ``repro.SortConfig``) or a stable ``torch.sort``, which is
+    also the path for rows longer than ``MAX_PALLAS_ROW``,
+  * merge rows whose output exceeds ``MAX_PALLAS_ROW`` by rank
+    arithmetic (``_scatter_merge``): a batched ``torch.searchsorted`` plus
+    a scatter, ties keeping ``a`` first,
+  * ``tile_sort``: the paper's local phase (sort fixed-size tiles, then a
+    balanced pairwise merge tree, Fig. 2), over a batch of rows at once
+    where ``repro`` used ``vmap``: one kernel launch sorts the tiles of
+    every row, and one launch runs each merge round for every row.
+
+Unsigned 16- and 32-bit keys never reach this module: PyTorch has no
+comparisons, ``where`` or ``searchsorted`` on those dtypes, so
+``core.keyenc.to_lane`` maps them onto signed lanes of the same width.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import bitonic
+
+# Above this row length repro leaves the Pallas kernels (VMEM budget); the
+# port keeps the same threshold so both take the same paths.
+MAX_PALLAS_ROW = 8192
+# Tile width used by tile_sort for the paper's local phase.
+DEFAULT_TILE = 1024
+
+
+def sentinel_for(dtype: torch.dtype):
+    """Largest representable value: padding that sorts to the end."""
+    if dtype.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dtype).max
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _pad_rows(x: torch.Tensor, n_to: int, fill) -> torch.Tensor:
+    pad = n_to - x.shape[-1]
+    if pad == 0:
+        return x
+    tail = torch.full((*x.shape[:-1], pad), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x, tail], dim=-1)
+
+
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def sort_rows(keys: torch.Tensor, *, use_pallas: bool = True) -> torch.Tensor:
+    """Sort each row of (R, N) ascending; any row length."""
+    n = keys.shape[-1]
+    np2 = _next_pow2(n)
+    if not use_pallas or np2 > MAX_PALLAS_ROW:
+        return torch.sort(keys, dim=-1, stable=True).values
+    work = _work_dtype(keys.dtype)
+    padded = _pad_rows(keys.to(work), np2, sentinel_for(work))
+    out = bitonic.bitonic_sort_rows(padded)
+    return out[:, :n].to(keys.dtype)
+
+
+def sort_rows_kv(keys, values, *, stable: bool = True, use_pallas: bool = True):
+    """Key/value row sort (values carried through the same permutation)."""
+    n = keys.shape[-1]
+    np2 = _next_pow2(n)
+    if not use_pallas or np2 > MAX_PALLAS_ROW:
+        order = torch.sort(keys, dim=-1, stable=stable).indices
+        return torch.gather(keys, -1, order), torch.gather(values, -1, order)
+    kdtype = _work_dtype(keys.dtype)
+    pk = _pad_rows(keys.to(kdtype), np2, sentinel_for(kdtype))
+    pv = _pad_rows(values, np2, sentinel_for(values.dtype))
+    ok, ov = bitonic.bitonic_sort_rows_kv(pk, pv, stable=stable)
+    return ok[:, :n].to(keys.dtype), ov[:, :n]
+
+
+def merge_rows(a: torch.Tensor, b: torch.Tensor, *, use_pallas: bool = True) -> torch.Tensor:
+    """Merge two row-wise sorted (R, N) tensors into sorted (R, 2N)."""
+    n = a.shape[-1]
+    np2 = _next_pow2(n)
+    if not use_pallas or 2 * np2 > MAX_PALLAS_ROW:
+        return _scatter_merge(a, b)
+    fill = sentinel_for(a.dtype)
+    out = bitonic.bitonic_merge_rows(_pad_rows(a, np2, fill), _pad_rows(b, np2, fill))
+    return out[:, : 2 * n]
+
+
+def merge_rows_kv(ak, av, bk, bv, *, stable: bool = True, use_pallas: bool = True):
+    n = ak.shape[-1]
+    np2 = _next_pow2(n)
+    if not use_pallas or 2 * np2 > MAX_PALLAS_ROW:
+        return _scatter_merge_kv(ak, av, bk, bv)
+    kfill = sentinel_for(ak.dtype)
+    vfill = sentinel_for(av.dtype)
+    ok, ov = bitonic.bitonic_merge_rows_kv(
+        _pad_rows(ak, np2, kfill), _pad_rows(av, np2, vfill),
+        _pad_rows(bk, np2, kfill), _pad_rows(bv, np2, vfill), stable=stable,
+    )
+    return ok[:, : 2 * n], ov[:, : 2 * n]
+
+
+def _merge_ranks(a: torch.Tensor, b: torch.Tensor):
+    """Output positions of every element of sorted rows ``a`` and ``b``:
+    ties keep ``a`` first."""
+    a, b = a.contiguous(), b.contiguous()
+    ra = torch.arange(a.shape[-1], device=a.device) + torch.searchsorted(b, a, side="left")
+    rb = torch.arange(b.shape[-1], device=a.device) + torch.searchsorted(a, b, side="right")
+    return ra, rb
+
+
+def _scatter_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge sorted rows by rank arithmetic. Stable: ties keep ``a`` first."""
+    ra, rb = _merge_ranks(a, b)
+    out = torch.zeros((a.shape[0], a.shape[-1] + b.shape[-1]), dtype=a.dtype, device=a.device)
+    out.scatter_(1, ra, a)
+    out.scatter_(1, rb, b)
+    return out
+
+
+def _scatter_merge_kv(ak, av, bk, bv):
+    ra, rb = _merge_ranks(ak, bk)
+    shape = (ak.shape[0], ak.shape[-1] + bk.shape[-1])
+    ok = torch.zeros(shape, dtype=ak.dtype, device=ak.device)
+    ok.scatter_(1, ra, ak)
+    ok.scatter_(1, rb, bk)
+    ov = torch.zeros(shape, dtype=av.dtype, device=av.device)
+    ov.scatter_(1, ra, av)
+    ov.scatter_(1, rb, bv)
+    return ok, ov
+
+
+# ------------------------------------------------------- paper local phase
+
+
+def _merge_tree(runs, batch: int, merge):
+    """Balanced pairwise merge rounds over (batch * r, L) runs: each round
+    merges the even and odd runs of every batch row (Fig. 2's pairing)."""
+    r = runs[0].shape[0] // batch
+    while r > 1:
+        halves = [x.reshape(batch, r, -1) for x in runs]
+        evens = [x[:, 0::2].reshape(batch * r // 2, -1) for x in halves]
+        odds = [x[:, 1::2].reshape(batch * r // 2, -1) for x in halves]
+        runs = merge(evens, odds)
+        r //= 2
+    return runs
+
+
+def tile_sort(x: torch.Tensor, *, tile: int = DEFAULT_TILE, use_pallas: bool = True) -> torch.Tensor:
+    """Sort every row of ``x`` (..., n) like the paper's local phase.
+
+    1. cut each row into ``tile``-sized slices (the paper's per-thread
+       slices);
+    2. sort every tile with the bitonic kernel (one launch for all rows);
+    3. balanced pairwise merge tree: log2(T) rounds, each merging
+       neighbouring runs.
+    """
+    n = x.shape[-1]
+    rows = x.reshape(-1, n)
+    batch = rows.shape[0]
+    np2 = _next_pow2(n)
+    work_dtype = _work_dtype(x.dtype)
+    work = _pad_rows(rows.to(work_dtype), np2, sentinel_for(work_dtype))
+    t = min(tile, np2)
+    runs = sort_rows(work.reshape(batch * (np2 // t), t), use_pallas=use_pallas)
+    (runs,) = _merge_tree(
+        [runs], batch, lambda a, b: [merge_rows(a[0], b[0], use_pallas=use_pallas)]
+    )
+    return runs.reshape(batch, np2)[:, :n].to(x.dtype).reshape(x.shape)
+
+
+def tile_sort_kv(keys, values, *, tile: int = DEFAULT_TILE, stable: bool = True,
+                 use_pallas: bool = True):
+    """Key/value variant of ``tile_sort`` over rows of (..., n)."""
+    n = keys.shape[-1]
+    rk = keys.reshape(-1, n)
+    batch = rk.shape[0]
+    np2 = _next_pow2(n)
+    kdtype = _work_dtype(keys.dtype)
+    wk = _pad_rows(rk.to(kdtype), np2, sentinel_for(kdtype))
+    wv = _pad_rows(values.reshape(-1, n), np2, sentinel_for(values.dtype))
+    t = min(tile, np2)
+    rk, rv = sort_rows_kv(
+        wk.reshape(-1, t), wv.reshape(-1, t), stable=stable, use_pallas=use_pallas
+    )
+    rk, rv = _merge_tree(
+        [rk, rv], batch,
+        lambda a, b: merge_rows_kv(a[0], a[1], b[0], b[1], stable=stable,
+                                   use_pallas=use_pallas),
+    )
+    ok = rk.reshape(batch, np2)[:, :n].to(keys.dtype).reshape(keys.shape)
+    return ok, rv.reshape(batch, np2)[:, :n].reshape(values.shape)

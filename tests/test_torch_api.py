@@ -1,0 +1,205 @@
+"""``repro_torch.sort`` against ``repro.sort`` on the sim backend.
+
+Every case sends the same numpy input through both packages (the port on
+the CPU) and compares keys, values / order, counts, send_counts,
+overflowed, the ladder's retries and the final config, bit for bit. Also
+the errors both raise, what the port refuses as not yet ported, the
+device rule, and that the port loads neither JAX nor ``repro``.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro
+import repro_torch
+from repro_torch import convert
+from torch_parity import assert_sort_equal, make_keys, np_dtype, port_limits, sort_both
+
+RNG = np.random.default_rng(3)
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+def _pallas(use_pallas: bool, p: int = 4, **cfg):
+    return dict(config=repro.SortConfig(tile=256, use_pallas=use_pallas, **cfg),
+                limits=repro.SortLimits(n_procs=p))
+
+
+@pytest.mark.parametrize("kdtype,vdtype,order", [("float32", "float32", "asc"),
+                                                 ("float16", "bfloat16", "desc"),
+                                                 ("uint32", "uint16", "asc")])
+def test_values_payload_pallas(kdtype, vdtype, order):
+    """User values with few distinct keys: the network's tie rule (break on
+    the value) decides the payload order, as in repro's Pallas path."""
+    keys = make_keys(RNG, 2000, kdtype, distinct=6)
+    vals = make_keys(RNG, 2000, vdtype)
+    assert_sort_equal(*sort_both(keys, vals, order=order, **_pallas(True)))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("layout", ["grid", "nondivisible", "fewer-than-p"])
+def test_layouts(layout, use_pallas):
+    if layout == "grid":
+        keys, p = make_keys(RNG, (4, 700), "float32"), 4
+    elif layout == "nondivisible":
+        keys, p = make_keys(RNG, 1001, "int32", distinct=50), 7
+    else:
+        keys, p = np.array([3, -1, 2], np.int32), 8
+    kw = _pallas(use_pallas, p)
+    assert_sort_equal(*sort_both(keys, **kw))
+    assert_sort_equal(*sort_both(keys, want="order", **kw))
+
+
+def test_duplicates_and_naive_bounds():
+    keys = make_keys(RNG, 4096, "int32", distinct=4)
+    assert_sort_equal(*sort_both(keys, want="order", **_pallas(True, 8)))
+    kw = _pallas(False, 8)
+    kw["limits"] = repro.SortLimits(n_procs=8, raise_on_overflow=False)
+    assert_sort_equal(*sort_both(keys, investigator=False, **kw))
+
+
+def test_scatter_branch_through_sort():
+    """n_local > 8192 with the kernels on: the late local merge rounds take
+    the scatter merge."""
+    keys = make_keys(RNG, 2 * 9000, "float32")
+    assert_sort_equal(*sort_both(keys, want="order", config=repro.SortConfig(),
+                                 limits=repro.SortLimits(n_procs=2)))
+
+
+@pytest.mark.parametrize("want", ["values", "order"])
+def test_overflow_ladder_through_sort(want):
+    keys = make_keys(RNG, 4096, "int32", distinct=4)
+    r, t = sort_both(keys, want=want, investigator=False,
+                     **_pallas(False, 8, capacity_factor=0.3))
+    assert r.meta.retries > 0
+    assert_sort_equal(r, t)
+
+
+def test_overflow_ladder_exhausted():
+    keys = make_keys(RNG, 4096, "float32")
+    cfg = repro.SortConfig(capacity_factor=0.01, use_pallas=False)
+    lim = repro.SortLimits(max_doublings=1, raise_on_overflow=False)
+    r, t = sort_both(keys, config=cfg, limits=lim)
+    assert r.overflowed and t.overflowed
+    assert_sort_equal(r, t)
+    with pytest.raises(repro_torch.SortOverflowError, match="capacity_factor=0.02"):
+        repro_torch.sort(keys, config=convert.config_from_dict(
+            {"capacity_factor": 0.01, "use_pallas": False}),
+            limits=repro_torch.SortLimits(max_doublings=1), device="cpu")
+
+
+def _errors_of(fn_repro, fn_port):
+    with pytest.raises(Exception) as want:
+        fn_repro()
+    with pytest.raises(Exception) as got:
+        fn_port()
+    return want.value, got.value
+
+
+@pytest.mark.parametrize("keys,kw", [
+    (np.array([1, 2**31 - 1, 3], np.int32), dict(want="order")),
+    (np.array([1, -128, 3], np.int8), dict(want="order", order="desc")),
+    (np.array([1, 2**32 - 1], np.uint32), dict(values=np.arange(2, dtype=np.int32))),
+    (np.array([1.0, np.inf], np.float32), dict(want="order")),
+    (np.array([1.0, np.nan, 2.0], np.float32), dict(want="order")),
+    (np.array([1.0, -np.inf], np.float16), dict(want="order", order="desc")),
+    (np.array([1.0, np.inf], np_dtype("bfloat16")), dict(want="order")),
+    (np.arange(4, dtype=np.int32), dict(want="order", values=np.arange(4, dtype=np.int32))),
+    (np.arange(4, dtype=np.int32), dict(want="argsort")),
+    (np.arange(4, dtype=np.int32), dict(order="up")),
+])
+def test_errors_match_repro(keys, kw):
+    """Sentinel or NaN keys with a payload, want="order" with values, bad
+    arguments: the same exception type and text as repro."""
+    want, got = _errors_of(lambda: repro.sort(keys, where="sim", **kw),
+                           lambda: repro_torch.sort(keys, device="cpu", **kw))
+    assert type(got) is type(want) is ValueError
+    assert str(got) == str(want)
+
+
+@pytest.mark.parametrize("dtype", ["int64", "float64", "uint64"])
+def test_64bit_dtypes_refused_at_the_door(dtype):
+    keys = np.arange(4).astype(dtype)
+    want, got = _errors_of(lambda: repro.sort(keys, where="sim"),
+                           lambda: repro_torch.sort(keys, device="cpu"))
+    assert isinstance(want, TypeError) and isinstance(got, TypeError)
+    assert isinstance(got, NotImplementedError) and "x64" in str(got)
+    with pytest.raises(TypeError):
+        repro_torch.sort(np.arange(4, dtype=np.float32), np.arange(4), device="cpu")
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda k: repro_torch.sort((k, k), device="cpu"), "item 1"),
+    (lambda k: repro_torch.sort(iter([k]), device="cpu"), "item 7"),
+    (lambda k: repro_torch.sort(k, where="stream", device="cpu"), "item 7"),
+    (lambda k: repro_torch.sort(k, where="mesh", device="cpu"), "item 9"),
+    (lambda k: repro_torch.sort(k, where=object(), device="cpu"), "item 9"),
+    (lambda k: repro_torch.sort(
+        k, limits=repro_torch.SortLimits(stream_threshold=10), device="cpu"), "item 7"),
+    (lambda k: repro_torch.sort(
+        k, limits=repro_torch.SortLimits(trace=True), device="cpu"), "item 4"),
+    (lambda k: repro_torch.sort(
+        k, limits=repro_torch.SortLimits(decode="host"), device="cpu"), "item 3"),
+    (lambda k: repro_torch.sort(
+        k, limits=repro_torch.SortLimits(x64=True), device="cpu"), "item 2"),
+])
+def test_not_ported_raises_naming_the_roadmap_item(call, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, {item} "):
+        call(np.arange(100, dtype=np.int32))
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = np.arange(10, dtype=np.float32)
+    for fn in (repro_torch.sort, repro_torch.plan, repro_torch.explain):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(keys)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.sort(torch.from_numpy(keys), device="cuda")
+    assert repro_torch.plan(keys, device="cpu").device == torch.device("cpu")
+
+
+def test_outputs_are_tensors_in_the_callers_dtypes():
+    keys = make_keys(RNG, 500, "uint16")
+    vals = make_keys(RNG, 500, "bfloat16")
+    out = repro_torch.sort(keys, vals, device="cpu", config=repro_torch.SortConfig(
+        use_pallas=False))
+    assert out.keys.dtype == torch.uint16 and out.values.dtype == torch.bfloat16
+    assert out.keys.device.type == "cpu" and len(out) == 500
+    np.testing.assert_array_equal(convert.to_numpy(out.keys), np.sort(keys))
+    empty = repro_torch.sort(np.zeros(0, np.float32), want="order", device="cpu")
+    assert empty.keys.shape == (0,) and empty.order().dtype == torch.int32
+
+
+def test_plan_and_explain_match_repro():
+    keys = make_keys(RNG, (4, 300), "int16")
+    want = repro.plan(keys, want="order", order="desc")
+    got = repro_torch.plan(keys, want="order", order="desc", device="cpu")
+    assert (got.backend, got.n_procs, got.key_width) == (want.backend, want.n_procs,
+                                                         want.key_width)
+    assert got.reasons == want.reasons
+    text = repro_torch.explain(keys, device="cpu")
+    assert text.startswith("repro_torch.sort plan: backend='sim'") and "device=cpu" in text
+    lim = port_limits(repro.SortLimits(n_procs=3, growth=1.5))
+    assert lim == repro_torch.SortLimits(n_procs=3, growth=1.5)
+
+
+def test_import_loads_neither_jax_nor_repro():
+    code = (
+        "import pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
+    for script in [SRC.parent / "chip_smoke.py", *(SRC.parent / "tools").glob("*.py")]:
+        text = script.read_text()
+        for banned in ("import jax", "from jax", "import repro\n", "from repro ",
+                       "from repro.", "import repro."):
+            assert banned not in text, (script.name, banned)

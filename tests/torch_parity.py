@@ -1,0 +1,106 @@
+"""Helpers for the parity tests of ``repro_torch`` against ``repro``.
+
+Inputs are numpy arrays made from a seed; each goes through the JAX
+function and its port (on the CPU) and the outputs are compared bit for
+bit, since sorting is exact. bfloat16 arrives from the port as its uint16
+bit patterns (``repro_torch.convert.to_numpy``), so every comparison is
+made on bit views.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import torch
+
+import repro
+import repro_torch
+from repro_torch import convert
+
+DTYPES = ["float32", "int32", "uint32", "int8", "uint8", "int16", "uint16",
+          "float16", "bfloat16"]
+
+
+def np_dtype(name: str):
+    return ml_dtypes.bfloat16 if name == "bfloat16" else np.dtype(name)
+
+
+def bits(a) -> np.ndarray:
+    """The bit patterns of an array (bfloat16 and float16 as uint16)."""
+    a = np.asarray(a)
+    if a.dtype.kind in "fiV" or a.dtype.name == "bfloat16":
+        return a.view(f"u{a.dtype.itemsize}")
+    return a
+
+
+def assert_bits_equal(a, b) -> None:
+    a, b = bits(a), bits(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    np.testing.assert_array_equal(a, b)
+
+
+def tt(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a CPU tensor."""
+    return convert.to_tensor(a, "cpu")
+
+
+def port_np(t) -> np.ndarray:
+    return convert.to_numpy(t)
+
+
+def make_keys(rng: np.random.Generator, n, dtype: str, *, distinct: int | None = None,
+              zeros: bool = True) -> np.ndarray:
+    """Keys of ``dtype`` away from the dtype's extremes (so payload sorts
+    are admitted in both orders); ``distinct`` draws from that many values;
+    float keys carry +0.0 and -0.0 ties."""
+    if distinct is not None:
+        x = rng.integers(0, distinct, n)
+        return x.astype(np.float32).astype(np_dtype(dtype)) if "float" in dtype else x.astype(dtype)
+    if "float" in dtype:
+        x = rng.standard_normal(n).astype(np.float32)
+        if zeros:
+            x.reshape(-1)[::7] = 0.0
+            x.reshape(-1)[::11] = -0.0
+        return x.astype(np_dtype(dtype))
+    info = np.iinfo(dtype)
+    return rng.integers(int(info.min) + 1, int(info.max), n).astype(dtype)
+
+
+def port_config(cfg):
+    return None if cfg is None else convert.config_from_dict(dataclasses.asdict(cfg))
+
+
+def port_limits(lim):
+    return None if lim is None else convert.limits_from_dict(dataclasses.asdict(lim))
+
+
+def sort_both(keys, values=None, *, config=None, limits=None, **kw):
+    """The same request through ``repro.sort`` on sim and the port on CPU."""
+    r = repro.sort(keys, values, where="sim", config=config, limits=limits, **kw)
+    t = repro_torch.sort(keys, values, config=port_config(config),
+                         limits=port_limits(limits), device="cpu", **kw)
+    return r, t
+
+
+def assert_sort_equal(r, t) -> None:
+    """Every field the two SortOutputs share is the same, bit for bit."""
+    o = convert.output_to_numpy(t)
+    assert_bits_equal(r.keys, o["keys"])
+    if r.values is None:
+        assert o["values"] is None
+    else:
+        assert_bits_equal(r.values, o["values"])
+    assert r.counts.dtype == o["counts"].dtype
+    np.testing.assert_array_equal(r.counts, o["counts"])
+    np.testing.assert_array_equal(r.send_counts, o["send_counts"])
+    assert o["send_counts"].dtype == np.asarray(r.send_counts).dtype
+    assert r.overflowed == o["overflowed"]
+    assert r.meta.retries == o["retries"]
+    assert dataclasses.asdict(r.meta.config) == dataclasses.asdict(o["config"])
+    assert r.imbalance() == t.imbalance()
+
+
+def jx(a: np.ndarray):
+    return jnp.asarray(a)

@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Where the time of one ``repro_torch.sort`` goes on the GPU.
+
+    python3 tools/profile_sort.py [--n 4194304] [--want values|order]
+
+Sorts n float32 keys (made on the card from a seed) once to warm up, then
+prints: the wall time per sort without the profiler (host clock,
+synchronised, median of 5) beside one ``torch.sort`` of the same keys
+(CUDA events, median of 5); and, over three sorts under
+``torch.profiler``, the device time per sort summed over the device-side
+events (kernels, copies, fills), the device's idle share of the wall time
+under the profiler, and the kernels with the most device time. Needs one
+CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import pathlib
+import statistics
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--n", type=int, default=1 << 22)
+    parser.add_argument("--want", default="values", choices=("values", "order"))
+    parser.add_argument("--top", type=int, default=15)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_sort: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(args.n, generator=gen, device="cuda")
+    limits = repro_torch.SortLimits(stream_threshold=None)
+    repro_torch.sort(x, want=args.want, limits=limits)
+    torch.cuda.synchronize()
+    walls, libs = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        repro_torch.sort(x, want=args.want, limits=limits)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.sort(x, stable=args.want == "order")
+        end.record()
+        end.synchronize()
+        libs.append(start.elapsed_time(end))
+    print(f"n={args.n} want={args.want}: wall {statistics.median(walls):.3f} ms per sort "
+          f"(runs {', '.join(f'{w:.3f}' for w in walls)}); one torch.sort "
+          f"{statistics.median(libs):.3f} ms")
+    reps = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            repro_torch.sort(x, want=args.want, limits=limits)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+
+    def dev_us(e) -> float:  # renamed from self_cuda_time_total in newer torch
+        v = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if v is None else v
+
+    # device-side rows only: an aten:: row repeats the time of its kernels
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    device_ms = sum(dev_us(e) for e in events) / 1e3 / reps
+    if device_ms == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    print(f"  under the profiler: wall {wall_ms:.3f} ms per sort, device "
+          f"{device_ms:.3f} ms per sort, idle share {max(0.0, 1 - device_ms / wall_ms):.3f}")
+    events.sort(key=dev_us, reverse=True)
+    for e in events[: args.top]:
+        ms = dev_us(e) / 1e3 / reps
+        print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  x{e.count // reps:<4d} {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
