@@ -5,20 +5,39 @@
 
 Phases, one line or more each:
   1. the card (nvidia-smi) and the build of the CUDA kernels from the
-     sources in this checkout, with its time;
+     sources in this checkout (bitonic.cu and flash.cu, one nvcc each,
+     started together), with its time and the ptxas report;
   2. each of the four bitonic kernels against its plain PyTorch twin on the
      card, at the main path's shapes and at edge shapes (rows of 1024 to
      8192, the key/value type combinations, stable on and off, duplicate
      keys and +-0.0), with exact equality; each kernel's median time beside
      its bound, the twin's time and one torch.sort call on the same rows;
-  3. ``repro_torch.sort`` through its entry point (the main path), checked
-     against torch.sort on the card: n = 2^22 float32 keys at the default
-     limits, n = 2^22 int32 keys with 4 distinct values (imbalance below
-     1.01), want="order", order="desc", a float32 payload, and n = 2^27
-     float32 keys on p = 8 with stream_threshold=None. Every kernel's
-     launch count is set to 0 before this phase and read after it; each of
-     the four must have launched;
-  4. one JSON line {"kernels": [...]} with each kernel's numbers, the card's
+  3. ``repro_torch.sort`` through its entry point (the sort's main path),
+     checked against torch.sort on the card: n = 2^22 float32 keys at the
+     default limits, n = 2^22 int32 keys with 4 distinct values (imbalance
+     below 1.01), want="order", order="desc", a float32 payload, and
+     n = 2^27 float32 keys on p = 8 with stream_threshold=None. Every
+     bitonic kernel's launch count is set to 0 before this phase and read
+     after it; each of the four must have launched;
+  4. the flash-attention kernel against its twins on the card, causal and
+     full, bf16 and float32, at (B, S, H, KV, dh) = (1, 256, 4, 2, 16),
+     (2, 1000, 4, 1, 64), (1, 8192, 32, 8, 128) and the qwen3-4b prefill
+     shape (2, 8192, 32, 8, 128): max abs err <= 2e-2 (bf16) and <= 1e-4
+     (float32) against the Pallas-faithful twin, and in bf16 within
+     ``flash.bf16_error``'s limit (one bf16 ulp of each output plus 2^-6
+     of its row's rms, mean error <= 1e-3 rms) of the twin that rounds
+     where the kernel does; its median time at the prefill shape in bf16, causal,
+     beside its bound, that twin's time and one
+     scaled_dot_product_attention call on the same tensors;
+  5. serving (the model tier's main path): qwen3-4b at full width with
+     seeded random bf16 weights answers 2 prompts of 8192 seeded tokens
+     with 16 new tokens each through ``engine.generate``; the flash launch
+     count is set to 0 before it and must read 36 (one per layer) after
+     it. Then prefill and decode again with times, tokens/s and peak
+     memory, and the prefill's last-position logits against the same
+     weights with flash_attention=False (max abs diff <= 5e-2 x max|logit|
+     and the same greedy first token);
+  6. one JSON line {"kernels": [...]} with each kernel's numbers, the card's
      name and power limit, and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -37,7 +56,10 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM non-tensor float32 rate (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 SOURCE = "src/repro_torch/kernels/csrc/bitonic.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
+FLASH_REPLACES = "src/repro/kernels/flash.py:41"
 REPLACES = {
     "bitonic_sort_rows": "src/repro/kernels/bitonic.py:123",
     "bitonic_sort_rows_kv": "src/repro/kernels/bitonic.py:128",
@@ -88,9 +110,9 @@ def network_ops(rows: int, n: int, merge: bool) -> int:
     return rows * (n // 2) * stages
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -218,6 +240,85 @@ def check_kernels(device) -> dict:
     return numbers
 
 
+# ------------------------------------------------------------------ phase 4
+
+FLASH_SHAPES = [(1, 256, 4, 2, 16), (2, 1000, 4, 1, 64), (1, 8192, 32, 8, 128),
+                (2, 8192, 32, 8, 128)]
+# max abs err against flash_attention_twin; bf16: tests/test_flash_kernel.py's
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def flash_inputs(gen, B, S, H, KV, dh, dtype, device):
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    return randn(B, S, H, dh), randn(B, S, KV, dh), randn(B, S, KV, dh)
+
+
+def flash_work(B, S, H, KV, dh, causal: bool, itemsize: int) -> tuple[int, int]:
+    """Bytes (q, k, v read once, o written once) and the useful products'
+    operations: 4 * dh per (query, key) pair that the mask keeps."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return (2 * B * S * H + 2 * B * S * KV) * dh * itemsize, 4 * B * H * dh * pairs
+
+
+def check_flash(device) -> dict:
+    """Phase 4: the flash kernel against its twins on the card (causal and
+    full, bf16 and f32, the ragged S = 1000 and the prefill shape
+    included); times at the qwen3-4b prefill shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twin's f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(2)
+    worst = 0.0
+    for B, S, H, KV, dh in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                q, k, v = flash_inputs(gen, B, S, H, KV, dh, dtype, device)
+                got = flash.flash_attention(q, k, v, causal=causal)
+                want = flash.flash_attention_twin(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                name = str(dtype).removeprefix("torch.")
+                label = f"flash {(B, S, H, KV, dh)} {name} causal={causal}"
+                err = float((got.float() - want.float()).abs().max())
+                if not (err <= FLASH_TOL[name]) or got.shape != want.shape:
+                    raise AssertionError(f"{label}: max abs err {err} > {FLASH_TOL[name]}")
+                line = f"max abs err {err:.3e} (tolerance {FLASH_TOL[name]})"
+                if dtype == torch.bfloat16:
+                    tight = flash.bf16_error(got, flash.kernel_twin(q, k, v, causal=causal))
+                    line += (f"; against kernel_twin: max abs err {tight['max_abs']:.3e}, "
+                             f"limit use {tight['limit_use']:.4f} (limit 1; floor needed "
+                             f"{tight['floor_needed']:.3e} x rms_row), mean err / rms "
+                             f"{tight['mean_rel']:.3e} (limit {flash.BF16_MEAN_REL})")
+                    if not tight["ok"]:
+                        raise AssertionError(f"{label}: outside bf16_error's limit: {tight}")
+                    worst = max(worst, tight["max_abs"])
+                log(f"phase 4: {label}: {line}")
+                del q, k, v, got, want
+
+    B, S, H, KV, dh = 2, 8192, 32, 8, 128  # qwen3-4b prefill at B = 2
+    q, k, v = flash_inputs(gen, B, S, H, KV, dh, torch.bfloat16, device)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    moved, ops = flash_work(B, S, H, KV, dh, True, 2)
+    b_ms, b_by = bound(moved, ops, BF16_OPS_PER_S)
+    num = dict(
+        ms=time_ms(lambda: flash.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: flash.kernel_twin(q, k, v, causal=True), reps=3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
+    log(f"phase 4: flash_attention {(B, S, H, KV, dh)} bf16 causal: kernel {num['ms']:.4f} ms "
+        f"({ops / num['ms'] / 1e9:.1f} TFLOP/s useful), bound {b_ms:.4f} ms ({b_by}), "
+        f"kernel_twin {num['plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{num['library_ms']:.4f} ms")
+    return num
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -295,31 +396,139 @@ def run_main_path(device) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 5
+
+SERVE_B, SERVE_S, SERVE_NEW = 2, 8192, 16
+
+
+def run_serve(device) -> dict:
+    """Phase 5: qwen3-4b at full width (flash_attention=True, bf16, seeded
+    random weights) answers B = 2 prompts of 8192 seeded tokens with 16 new
+    tokens each, through ``engine.generate`` (the main path; the flash
+    launch count is set to 0 before it and read after it), then again
+    through ``make_prefill`` / ``make_serve_step`` with times. The prefill's
+    last-position logits are held against the same weights with
+    flash_attention=False (``repro``'s other prefill path, plain torch)."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), flash_attention=True, dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 5: qwen3-4b built on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{n_params} parameters, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    B, S, n_new, vocab = SERVE_B, SERVE_S, SERVE_NEW, cfg.vocab
+    gen = torch.Generator(device=device).manual_seed(3)
+    batch = {"tokens": torch.randint(0, vocab, (B, S), generator=gen, device=device,
+                                     dtype=torch.int32)}
+
+    flash.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(model, batch, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = flash.flash_attention.launches
+    log(f"phase 5: generate {B} x {S} prompt tokens + {n_new} new: {gen_s * 1e3:.3f} ms wall "
+        f"(first call), flash launches {launches}, tokens {out.tolist()}")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"flash launches {launches} per prefill, want {cfg.n_layers}")
+    if out.shape != (B, n_new) or not bool(((out >= 0) & (out < vocab)).all()):
+        raise AssertionError(f"generated tokens out of [0, {vocab}) or of shape {out.shape}")
+
+    prefill, step = engine.make_prefill(model), engine.make_serve_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if flash.flash_attention.launches != 2 * cfg.n_layers:
+        raise AssertionError("the timed prefill did not launch the flash kernel once per layer")
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    steps, step_ms = [tok], []
+    for i in range(n_new - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = step(caches, tok, S + i)
+        tok = lg[..., :vocab].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(tok)
+    if not torch.equal(torch.cat(steps, dim=1), out):
+        raise AssertionError("the timed prefill and steps gave other tokens than generate")
+    del caches
+    decode_ms = statistics.median(step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    plain = copy.copy(model)  # the same parameters, read with another config
+    plain.cfg = dataclasses.replace(cfg, flash_attention=False)
+    before = flash.flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, _ = engine.make_prefill(plain)(batch)
+    torch.cuda.synchronize()
+    plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    if flash.flash_attention.launches != before:
+        raise AssertionError("the flash_attention=False prefill launched the flash kernel")
+    got, ref = logits.float(), ref.float()
+    diff, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    same_first = torch.equal(got[..., :vocab].argmax(-1), ref[..., :vocab].argmax(-1))
+    log(f"phase 5: prefill logits vs flash_attention=False: max abs diff {diff:.4f}, "
+        f"max |logit| {scale:.4f}, same greedy first token {same_first}")
+    if not (torch.isfinite(got).all() and diff <= 5e-2 * scale and same_first):
+        raise AssertionError("the flash prefill disagrees with the plain prefill")
+    num = dict(prefill_ms=prefill_ms, plain_prefill_ms=plain_prefill_ms,
+               decode_ms_per_step=decode_ms, decode_tokens_per_s=B / decode_ms * 1e3,
+               generate_ms=gen_s * 1e3, peak_gb=peak_gb, flash_launches=launches)
+    log("phase 5: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                                for k, v in num.items()))
+    return num
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "bitonic.cu").exists():
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    if not ((csrc / "bitonic.cu").exists() and (csrc / "flash.cu").exists()):
         print("chip_smoke: the repro_torch sources are not beside this script",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import bitonic, build, flash
 
     device = torch.device("cuda")
     card = card_line()
     log(f"phase 1: card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib = build.build("bitonic")
-    log(f"phase 1: built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log("phase 1: ptxas:", line.strip())
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        libs = list(pool.map(build.build, ["bitonic", "flash"]))
+    log(f"phase 1: built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("phase 1: ptxas:", line.strip())
 
     numbers = check_kernels(device)
     launches = run_main_path(device)
+    flash_num = check_flash(device)
+    serve = run_serve(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -328,6 +537,13 @@ def main() -> int:
              library_ms=num["library_ms"])
         for name, num in numbers.items()
     ]
+    kernels.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES,
+        launches=serve["flash_launches"], max_abs_err=flash_num["max_abs_err"],
+        ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
+        bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"]))
+    assert {k["name"] for k in kernels} == {f.__name__ for f in (*bitonic.KERNELS,
+                                                                  flash.flash_attention)}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,19 +8,31 @@ A port of the JAX package ``repro``, module for module::
     repro_torch.sort(keys, device="cpu")           # only when asked
     repro_torch.plan(keys, device="cpu").backend   # which backend, and why
 
-This slice covers the sim backend: flat or (p, n_local) keys of 8-32
-bit ints and floats, ascending or descending, values or argsort, with
-the overflow ladder. What it does not cover raises NotImplementedError
-naming the ROADMAP.md item that ports it.
-"""
-from repro_torch.core.api import explain, plan, sort
-from repro_torch.core.overflow import OverflowPolicy, SortOverflowError
-from repro_torch.core.planner import SortLimits, SortPlan, register_backend
-from repro_torch.core.result import SortMeta, SortOutput
-from repro_torch.core.splitters import SortConfig
+The sort covers the sim backend: flat or (p, n_local) keys of 8-32 bit
+ints and floats, ascending or descending, values or argsort, with the
+overflow ladder. The model tier serves dense GQA decoders
+(``repro_torch.models.model.Model``, ``repro_torch.serve.engine``), with
+prefill attention on a CUDA flash kernel. What neither covers raises
+NotImplementedError naming the ROADMAP.md item that ports it.
 
-__all__ = [
-    "sort", "plan", "explain",
-    "SortOutput", "SortMeta", "SortPlan", "SortLimits", "SortConfig",
-    "OverflowPolicy", "SortOverflowError", "register_backend",
-]
+The sort's names load on first use, so that importing the model tier does
+not import the sort.
+"""
+import importlib
+
+_EXPORTS = {
+    "sort": "core.api", "plan": "core.api", "explain": "core.api",
+    "OverflowPolicy": "core.overflow", "SortOverflowError": "core.overflow",
+    "SortLimits": "core.planner", "SortPlan": "core.planner",
+    "register_backend": "core.planner",
+    "SortMeta": "core.result", "SortOutput": "core.result",
+    "SortConfig": "core.splitters",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+    return getattr(importlib.import_module(f"repro_torch.{_EXPORTS[name]}"), name)

@@ -1,10 +1,11 @@
 """Carry inputs and settings from ``repro`` to the port and results back.
 
-A sort has no weights; what crosses between the two packages is the
-configuration (``SortConfig`` / ``SortLimits``, given as the plain dicts
-of ``dataclasses.asdict``), the input arrays, and the output. The tests
-use these to feed both packages the same thing and compare the results
-as numpy arrays.
+For a sort, what crosses between the two packages is the configuration
+(``SortConfig`` / ``SortLimits``, given as the plain dicts of
+``dataclasses.asdict``), the input arrays, and the output. For a model it
+is also the weights (``params_from_jax``) and the caches
+(``caches_to_numpy``). The tests use these to feed both packages the same
+thing and compare the results as numpy arrays.
 """
 from __future__ import annotations
 
@@ -51,3 +52,53 @@ def output_to_numpy(out: SortOutput) -> dict:
         "retries": out.meta.retries,
         "config": out.meta.config,
     }
+
+
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, array) for every leaf of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _leaves(sub, f"{prefix}.{key}" if prefix else key)
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def params_from_jax(cfg, params: dict) -> dict[str, torch.Tensor]:
+    """``repro``'s parameter pytree (numpy or jax arrays) as a ``state_dict``
+    of the port's ``Model`` (CPU tensors, bfloat16 included).
+
+    The port names its parameters as the pytree's leaves. ``repro`` stacks
+    each period position of a segment over the segment's count, ``(count,
+    ...)``; the port holds one module per layer, ``layers.<i>``, in the
+    order ``cfg.layer_list()`` gives, so each stacked leaf is split."""
+    out = {}
+    for key, tree in params.items():
+        if key != "segments":
+            out.update((name, as_tensor(a)) for name, a in _leaves(tree, key))
+    layer = 0
+    for (period, count), seg in zip(cfg.segments, params["segments"], strict=True):
+        for c in range(count):
+            for i in range(len(period)):
+                for name, a in _leaves(seg[i]):
+                    out[f"layers.{layer}.{name}"] = as_tensor(a[c])
+                layer += 1
+    return out
+
+
+def caches_to_numpy(cfg, caches: list) -> list:
+    """The port's per-layer caches in ``repro``'s layout: per segment, a
+    tuple per period position of dicts whose arrays are stacked over the
+    segment's count, ``(count, B, S, KV, dh)`` (bfloat16 as uint16 bits)."""
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {key: stack([t[key] for t in trees]) for key in trees[0]}
+        return np.stack([to_numpy(t) for t in trees])
+
+    out, layer = [], 0
+    for period, count in cfg.segments:
+        n = len(period)
+        seg = caches[layer:layer + n * count]
+        out.append(tuple(stack(seg[i::n]) for i in range(n)))
+        layer += n * count
+    return out

@@ -1,0 +1,261 @@
+"""GQA attention with chunked prefill, flash prefill and cached decode.
+
+The port of the GQA part of ``repro/models/attention.py`` (QKV bias,
+qk-norm, rope). Each branch keeps the rounding points of its JAX
+counterpart, so that a bfloat16 comparison with ``repro`` differs only by
+the order of accumulation:
+
+  * ``_grouped_attn`` forms the scores in the input dtype, then softmaxes
+    in float32 and casts the probabilities back to v's dtype before PV;
+  * ``_flash_attn_train`` (``_tile_update``) accumulates both products in
+    float32 and rounds p to v's dtype before PV;
+  * prefill at S >= FLASH_MIN_SEQ with cfg.flash_attention calls
+    ``kernels.flash.flash_attention``, as ``repro`` calls its Pallas kernel
+    on a TPU: on the card the CUDA kernel, on the CPU its plain twin,
+    which keeps everything in float32 as the Pallas kernel does.
+
+Decode caches are full-length (B, S_max, KV, dh) k/v buffers. Decode
+writes the new entry into them in place (``repro`` returns updated
+copies): the cache of a long prompt is gigabytes, and the old buffers are
+never read again.
+
+Cross-attention, sliding windows, per-slot decode positions and MLA raise
+NotImplementedError naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash import flash_attention
+from repro_torch.models import not_ported
+from repro_torch.models.layers import _const, _init, apply_rope, rms_norm_simple, rope_table, torch_dtype
+
+Q_CHUNK = 512
+# flash attention pays (tile re-reads) only once the score matrix stops
+# fitting comfortably: below this sequence length the single-level chunked
+# path is strictly better on the memory term (repro's own threshold).
+FLASH_MIN_SEQ = 8192
+
+
+# ----------------------------------------------------------------- params
+
+
+class Attention(nn.Module):
+    """``init_attention``: ``wq`` (d, H*dh), ``wk``/``wv`` (d, KV*dh),
+    ``wo`` (H*dh, d); zero biases ``bq``/``bk``/``bv`` with cfg.attn_bias;
+    float32 ``q_norm``/``k_norm`` (ones) with cfg.qk_norm."""
+
+    def __init__(self, cfg, gen, device=None, cross: bool = False):
+        super().__init__()
+        if cross:
+            raise not_ported("cross-attention", "cross")
+        dtype = torch_dtype(cfg.dtype)
+        d, dh, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        s = d ** -0.5
+        self.wq = _init(gen, (d, H * dh), s, dtype, device)
+        self.wk = _init(gen, (d, KV * dh), s, dtype, device)
+        self.wv = _init(gen, (d, KV * dh), s, dtype, device)
+        self.wo = _init(gen, (H * dh, d), (H * dh) ** -0.5, dtype, device)
+        bias = cfg.attn_bias
+        self.bq = _const(0.0, (H * dh,), dtype, device) if bias else None
+        self.bk = _const(0.0, (KV * dh,), dtype, device) if bias else None
+        self.bv = _const(0.0, (KV * dh,), dtype, device) if bias else None
+        norm = cfg.qk_norm
+        self.q_norm = _const(1.0, (dh,), torch.float32, device) if norm else None
+        self.k_norm = _const(1.0, (dh,), torch.float32, device) if norm else None
+
+
+def init_mla(*args, **kwargs):
+    raise not_ported("MLA attention (init_mla)", "mla")
+
+
+def mla_forward(*args, **kwargs):
+    raise not_ported("MLA attention (mla_forward)", "mla")
+
+
+# ------------------------------------------------------------ core einsum
+
+
+def _grouped_attn(q, k, v, mask, scale):
+    """q: (B,S,H,dh) with H = KV*rep; k/v: (B,T,KV,dk). mask: broadcastable
+    to (B,KV,rep,S,T) or None. fp32 softmax."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    qg = q.reshape(B, S, KV, rep, dh)
+    scores = torch.einsum("bskrd,btkd->bkrst", qg, k).float() * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    ctx = torch.einsum("bkrst,btkd->bskrd", probs, v)
+    return ctx.reshape(B, S, KV * rep, v.shape[-1])
+
+
+def _causal_mask(q_pos, k_pos):
+    """(S, T) bool mask."""
+    return q_pos[:, None] >= k_pos[None, :]
+
+
+def _chunked_attn(q, k, v, *, causal, q_positions, k_positions, scale):
+    """Query chunks of Q_CHUNK rows, each against all keys."""
+    S = q.shape[1]
+    if S <= Q_CHUNK:
+        mask = _causal_mask(q_positions, k_positions)[None, None, None] if causal else None
+        return _grouped_attn(q, k, v, mask, scale)
+    if S % Q_CHUNK:
+        raise ValueError(f"seq {S} must be divisible by Q_CHUNK {Q_CHUNK}")
+    chunks = []
+    for start in range(0, S, Q_CHUNK):
+        qp = q_positions[start:start + Q_CHUNK]
+        mask = _causal_mask(qp, k_positions)[None, None, None] if causal else None
+        chunks.append(_grouped_attn(q[:, start:start + Q_CHUNK], k, v, mask, scale))
+    return torch.cat(chunks, dim=1)
+
+
+# ----------------------------------------------------- flash attention
+
+
+def _pick_chunks(B, H, S, T, budget_bytes=64 << 20):
+    cq = min(S, 512)
+    ck = min(T, 1024)
+    while B * H * cq * ck * 4 > budget_bytes and ck > 128:
+        ck //= 2
+    while B * H * cq * ck * 4 > budget_bytes and cq > 128:
+        cq //= 2
+    while S % cq:
+        cq //= 2
+    while T % ck:
+        ck //= 2
+    return max(cq, 1), max(ck, 1)
+
+
+def _tile_update(qc, kc, vc, m, l, acc, qp, kp, scale, causal):
+    """One online-softmax tile update. qc: (B,cq,KV,rep,dh); kc/vc:
+    (B,ck,KV,d*); m/l: (B,KV,rep,cq); acc: (B,KV,rep,cq,dv). Both products
+    accumulate in f32 (JAX's preferred_element_type); p is rounded to v's
+    dtype before PV, as in ``repro``."""
+    s = torch.einsum("bqkrd,btkd->bkrqt", qc.float(), kc.float()) * scale
+    if causal:
+        s = torch.where((qp[:, None] >= kp[None, :])[None, None, None], s, -torch.inf)
+    m_new = torch.maximum(m, s.amax(-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    finite = torch.isfinite(m)
+    corr = torch.exp(torch.where(finite, m - m_safe, -torch.inf))
+    corr = torch.where(finite, corr, 0.0)
+    l_new = l * corr + p.sum(-1)
+    pv = torch.einsum("bkrqt,btkd->bkrqd", p.to(vc.dtype).float(), vc.float())
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def _finalize(acc, l, dtype):
+    norm = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B,KV,rep,cq,dv)
+    B, KV, rep, cq, dv = norm.shape
+    return norm.permute(0, 3, 1, 2, 4).reshape(B, cq, KV * rep, dv).to(dtype)
+
+
+def _flash_attn_train(q, k, v, *, causal, scale):
+    """Outer-q / inner-k online softmax over all key chunks: the forward
+    of ``repro``'s differentiable flash path (the port does not train)."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    rep = H // KV
+    cq, ck = _pick_chunks(B, H, S, T)
+    rows = []
+    for qs in range(0, S, cq):
+        qc = q[:, qs:qs + cq].reshape(B, cq, KV, rep, dh)
+        qp = torch.arange(qs, qs + cq, device=q.device)
+        m = torch.full((B, KV, rep, cq), -torch.inf, device=q.device)
+        l = torch.zeros((B, KV, rep, cq), device=q.device)
+        acc = torch.zeros((B, KV, rep, cq, dv), device=q.device)
+        for ks in range(0, T, ck):
+            kp = torch.arange(ks, ks + ck, device=q.device)
+            m, l, acc = _tile_update(qc, k[:, ks:ks + ck], v[:, ks:ks + ck], m, l, acc,
+                                     qp, kp, scale, causal)
+        rows.append(_finalize(acc, l, v.dtype))
+    return torch.cat(rows, dim=1)
+
+
+def _flash_attn(q, k, v, *, causal, scale, inference: bool):
+    if inference:
+        # the flash kernel (kernels/flash.py): on the card the CUDA kernel,
+        # on the CPU its plain twin
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    return _flash_attn_train(q, k, v, causal=causal, scale=scale)
+
+
+# ------------------------------------------------------------- GQA mixer
+
+
+def _proj(x, w, b=None):
+    y = x @ w
+    return y + b if b is not None else y
+
+
+def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
+                positions=None, rope: bool = True, cache=None, decode: bool = False,
+                memory=None):
+    """Returns (out, new_cache). Prefill (``cache`` given, ``decode``
+    False) returns the prompt's k/v as the cache; decode (S == 1) writes
+    the new k/v at the one position in ``positions`` in place and attends
+    over the cache up to it."""
+    if memory is not None or (cache is not None and "ck" in cache):
+        raise not_ported("cross-attention", "cross")
+    if window:
+        raise not_ported("sliding-window attention", "window")
+    B, S, d = x.shape
+    dh = cfg.head_dim
+    H = p.wq.shape[-1] // dh
+    KV = cfg.n_kv_heads
+    scale = dh ** -0.5
+
+    q = _proj(x, p.wq, p.bq).reshape(B, S, H, dh)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, p.q_norm, cfg.norm_eps)
+    k = _proj(x, p.wk, p.bk).reshape(B, -1, KV, dh)
+    v = _proj(x, p.wv, p.bv).reshape(B, -1, KV, dh)
+    if cfg.qk_norm:
+        k = rms_norm_simple(k, p.k_norm, cfg.norm_eps)
+
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if decode and positions.dim() == 1 and positions.shape[0] == B and B > 1:
+        raise not_ported("per-slot decode positions", "batching")
+
+    if rope:
+        cos, sin = rope_table(positions, dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    if decode:
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token (S == 1) and a cache")
+        pos = positions.reshape(1).long()
+        ck = cache["k"].index_copy_(1, pos, k)
+        cv = cache["v"].index_copy_(1, pos, v)
+        t = torch.arange(ck.shape[1], device=x.device)
+        mask = (t <= pos)[None, None, None, None, :]
+        ctx = _grouped_attn(q, ck, cv, mask, scale)
+        return ctx.reshape(B, S, H * dh) @ p.wo, {"k": ck, "v": cv}
+
+    # training / prefill; window is 0 here (windows raise above), so this is
+    # repro's condition (attention.py:400)
+    if cfg.flash_attention and S >= FLASH_MIN_SEQ:
+        # online-softmax tiles; the kernel at prefill (cache given <=> inference)
+        ctx = _flash_attn(q, k, v, causal=causal, scale=scale, inference=cache is not None)
+    else:
+        ctx = _chunked_attn(q, k, v, causal=causal, q_positions=positions,
+                            k_positions=positions, scale=scale)
+    out = ctx.reshape(B, S, H * dh) @ p.wo
+    return out, ({"k": k, "v": v} if cache is not None else None)
+
+
+def init_gqa_cache(cfg, B: int, S_max: int, window: int = 0, device=None):
+    if window:
+        raise not_ported("sliding-window ring caches", "window")
+    dtype = torch_dtype(cfg.dtype)
+    shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

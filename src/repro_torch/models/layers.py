@@ -1,0 +1,150 @@
+"""Shared neural layers: norms, rotary embeddings, MLPs, embeddings.
+
+The port of ``repro/models/layers.py``. Parameters live in ``nn.Module``s
+whose attributes are named as the JAX pytree's leaves (``scale``, ``wi``,
+``table``, ...) and kept in the JAX layout (a projection is ``x @ w`` with
+``w`` of shape (d_in, d_out)), so ``convert.params_from_jax`` maps one onto
+the other by name. The ``apply_*`` functions take such a module where the
+JAX ones take a dict. Weights are drawn as ``_init`` draws them, a normal
+times a scale, then cast: the same distribution, not the same bits.
+Compute dtype is cfg.dtype; norm statistics are taken in float32.
+Parameters never require gradients: the port serves, it does not train.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _init(gen, shape, scale, dtype, device) -> nn.Parameter:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
+    return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+def _const(value: float, shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ------------------------------------------------------------------ norms
+
+
+class Norm(nn.Module):
+    """``init_norm``: a float32 ``scale`` (ones), and ``bias`` (zeros) for
+    layernorm."""
+
+    def __init__(self, cfg, dim: int, device=None):
+        super().__init__()
+        self.scale = _const(1.0, (dim,), torch.float32, device)
+        self.bias = _const(0.0, (dim,), torch.float32, device) if cfg.norm == "layernorm" else None
+
+
+def apply_norm(x, p: Norm, cfg):
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps) * p.scale + p.bias
+    else:  # rmsnorm
+        var = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + cfg.norm_eps) * p.scale
+    return out.to(x.dtype)
+
+
+def rms_norm_simple(x, scale, eps=1e-6):
+    """Per-head RMS norm (qk_norm)."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+# ------------------------------------------------------------------- rope
+
+
+def rope_table(positions: torch.Tensor, dim: int, theta: float) -> tuple:
+    """cos/sin tables for rotary embedding, float32, of shape
+    positions.shape + (dim/2,)."""
+    half = dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) or (S, D/2). The product is
+    taken in float32 (JAX promotes bf16 x f32 the same way), then cast
+    back to x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_embed(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embeddings at ``positions``, float32 (positions, dim)."""
+    pos = positions.float()[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=positions.device)[None, :]
+    ang = pos / (10000 ** (2 * i / dim))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# -------------------------------------------------------------------- mlp
+
+
+class MLP(nn.Module):
+    """``init_mlp``: ``wi`` (and ``wg`` when gated) (d_in, d_ff), ``wo``
+    (d_ff, d_in), and zero biases ``bi``/``bo`` when cfg.mlp_bias."""
+
+    def __init__(self, cfg, d_in: int, d_ff: int, gen, device=None):
+        super().__init__()
+        dtype = torch_dtype(cfg.dtype)
+        self.wi = _init(gen, (d_in, d_ff), d_in ** -0.5, dtype, device)
+        self.wg = _init(gen, (d_in, d_ff), d_in ** -0.5, dtype, device) if cfg.mlp_gated else None
+        self.wo = _init(gen, (d_ff, d_in), d_ff ** -0.5, dtype, device)
+        self.bi = _const(0.0, (d_ff,), dtype, device) if cfg.mlp_bias else None
+        self.bo = _const(0.0, (d_in,), dtype, device) if cfg.mlp_bias else None
+
+
+def _act(x, name: str):
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    return F.silu(x)
+
+
+def apply_mlp(x, p: MLP, cfg):
+    h = x @ p.wi
+    if p.bi is not None:
+        h = h + p.bi
+    if p.wg is not None:
+        h = _act(x @ p.wg, cfg.act) * h
+    else:
+        h = _act(h, cfg.act)
+    out = h @ p.wo
+    if p.bo is not None:
+        out = out + p.bo
+    return out
+
+
+# ------------------------------------------------------------- embeddings
+
+
+class Embed(nn.Module):
+    """``init_embed``: ``table`` (vocab_padded, d_model)."""
+
+    def __init__(self, cfg, vocab_padded: int, gen, device=None):
+        super().__init__()
+        self.table = _init(gen, (vocab_padded, cfg.d_model), 0.02, torch_dtype(cfg.dtype), device)
+
+
+def embed_tokens(ids, p: Embed):
+    return p.table[ids]

@@ -1,0 +1,106 @@
+"""Config -> model: parameters, the forward pass for prefill and decode.
+
+The port of ``repro/models/model.py`` for decoder-only configs whose
+blocks this slice runs (dense GQA). ``repro``'s ``Model`` is a frozen
+description plus a parameter pytree; here it is an ``nn.Module`` that
+holds its parameters, drawn from a seeded ``torch.Generator`` on its
+device, or loaded from ``repro``'s with ``convert.params_from_jax``.
+
+Batch dict keys: ``tokens`` (B, S) integer token ids. Encoder frames and
+vision embeddings (whisper, the VLM) raise NotImplementedError naming
+their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import not_ported
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (
+    Embed, Norm, _init, apply_norm, embed_tokens, sinusoidal_embed, torch_dtype,
+)
+from repro_torch.sharding.spec import vocab_pad
+
+
+class LMHead(nn.Module):
+    """The untied output projection ``w`` (d_model, vocab_padded)."""
+
+    def __init__(self, cfg, vocab_padded: int, gen, device=None):
+        super().__init__()
+        self.w = _init(gen, (cfg.d_model, vocab_padded), cfg.d_model ** -0.5,
+                       torch_dtype(cfg.dtype), device)
+
+
+class Model(nn.Module):
+    """A decoder on ``device`` (None means "cuda"; "meta" builds shapes
+    only, for ``ModelConfig.param_count``) with weights drawn from
+    ``seed``. ``cfg`` is read at every forward."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        if cfg.encoder_segments:
+            raise not_ported("encoder-decoder models (the encoder)", "cross")
+        if cfg.n_vision_tokens:
+            raise not_ported("vision memory", "cross")
+        dev = torch.device("meta") if str(device) == "meta" else resolve(device)
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+        self.cfg = cfg
+        self.embed = Embed(cfg, self.vocab_padded, gen, dev)
+        self.layers = nn.ModuleList(tfm.Block(spec, cfg, gen, dev) for spec in cfg.layer_list())
+        self.final_norm = Norm(cfg, cfg.d_model, dev)
+        self.lm_head = None if cfg.tie_embeddings else LMHead(cfg, self.vocab_padded, gen, dev)
+        self.pos_embed = (_init(gen, (8192, cfg.d_model), 0.02, torch_dtype(cfg.dtype), dev)
+                          if cfg.pos_embedding == "learned" else None)
+
+    @property
+    def vocab_padded(self) -> int:
+        return vocab_pad(self.cfg.vocab)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    # ------------------------------------------------------------- caches
+    def init_caches(self, B: int, S_max: int, device=None) -> list:
+        """One zeroed cache per layer, on ``device`` (default: the model's)."""
+        device = self.device if device is None else device
+        return [tfm.init_block_cache(spec, self.cfg, B, S_max, device)
+                for spec in self.cfg.layer_list()]
+
+    # ------------------------------------------------------------ forward
+    def _embed_in(self, batch, positions):
+        cfg = self.cfg
+        x = embed_tokens(batch["tokens"], self.embed)
+        if cfg.pos_embedding == "sinusoidal":
+            x = x + sinusoidal_embed(positions, cfg.d_model).to(x.dtype)[None]
+        elif cfg.pos_embedding == "learned":
+            x = x + self.pos_embed[positions][None]
+        return x
+
+    def _logits(self, x):
+        x = apply_norm(x, self.final_norm, self.cfg)
+        if self.lm_head is None:
+            return x @ self.embed.table.T
+        return x @ self.lm_head.w
+
+    def forward(self, batch, caches=None, decode: bool = False, pos=None):
+        """Returns (logits, new_caches, aux). ``pos``: the decode position
+        (S == 1), one int or 0-d tensor for the whole batch; otherwise the
+        positions are 0..S-1."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if decode:
+            if pos is None or torch.as_tensor(pos).dim() != 0:
+                raise not_ported("per-slot decode positions", "batching")
+            positions = torch.as_tensor(pos, dtype=torch.long, device=tokens.device).reshape(1)
+        else:
+            positions = torch.arange(S, device=tokens.device)
+        x = self._embed_in(batch, positions)
+        x, new_caches, aux = tfm.run_segments(
+            x, self.layers, self.cfg.segments, self.cfg,
+            positions=positions, caches=caches, decode=decode,
+        )
+        return self._logits(x), new_caches, aux

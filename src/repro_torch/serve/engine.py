@@ -1,0 +1,103 @@
+"""Serving: prefill and batched greedy decode with static KV caches.
+
+The port of ``repro/serve/engine.py``. ``make_prefill`` runs the prompt
+through the model and returns the last position's logits and the filled
+caches; ``extend_caches`` grows them to the generation budget;
+``make_serve_step`` decodes one token for the whole batch against the
+full-length caches; ``generate`` strings the three together greedily.
+The model holds its own parameters, so the functions take no ``params``.
+Every entry point runs under ``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import not_ported
+from repro_torch.models.model import Model
+
+
+def make_serve_step(model: Model):
+    """Decode one token: (caches, tokens (B, 1), pos) -> (logits (B, 1, Vp),
+    new_caches). The caches are updated in place."""
+
+    @torch.no_grad()
+    def serve_step(caches, tokens, pos):
+        logits, caches, _ = model({"tokens": tokens}, caches=caches, decode=True, pos=pos)
+        return logits, caches
+
+    return serve_step
+
+
+def make_prefill(model: Model):
+    """Run the prompt through the model, returning last-position logits and
+    the populated caches (length = prompt length)."""
+
+    @torch.no_grad()
+    def prefill(batch):
+        B, S = batch["tokens"].shape
+        caches = model.init_caches(B, S, device=batch["tokens"].device)
+        logits, caches, _ = model(batch, caches=caches)
+        return logits[:, -1:].clone(), caches  # a copy: frees the (B, S, Vp) logits
+
+    return prefill
+
+
+@torch.no_grad()
+def extend_caches(model: Model, caches, prefill_len: int, S_max: int):
+    """Grow full-attention caches from prefill length to the decode budget
+    by zero-padding their sequence axis (axis 1 of each layer's (B, S, KV,
+    dh) buffers; ``repro`` pads axis 2 of its stacked ones). Sliding-window
+    ring caches, the only ones that need ``prefill_len``, and MLA caches
+    raise NotImplementedError."""
+    out = []
+    for c in caches:
+        mix = c["mix"]
+        if "pos" in mix:
+            raise not_ported("sliding-window ring caches", "window")
+        if "c_kv" in mix:
+            raise not_ported("MLA caches", "mla")
+        pad = S_max - mix["k"].shape[1]
+        if pad > 0:
+            mix = {name: F.pad(mix[name], (0, 0, 0, 0, 0, pad)) for name in ("k", "v")}
+        out.append({**c, "mix": mix})
+    return out
+
+
+@torch.no_grad()
+def sample_logits(logits, generator: torch.Generator | None = None, *, top_k: int = 0,
+                  temperature: float = 1.0, real_vocab: int | None = None):
+    """Top-k / temperature sampling over (B, 1, Vp) logits (pads masked);
+    greedy when temperature <= 0. Returns (B, 1) int32."""
+    lf = logits[:, 0].float()
+    if real_vocab is not None:
+        cols = torch.arange(lf.shape[-1], device=lf.device)
+        lf = torch.where(cols < real_vocab, lf, -1e30)
+    if temperature <= 0:
+        return lf.argmax(-1).to(torch.int32)[:, None]
+    lf = lf / temperature
+    if top_k:
+        v, idx = torch.topk(lf, top_k)
+        draw = torch.multinomial(torch.softmax(v, -1), 1, generator=generator)
+        tok = torch.gather(idx, 1, draw)[:, 0]
+    else:
+        tok = torch.multinomial(torch.softmax(lf, -1), 1, generator=generator)[:, 0]
+    return tok.to(torch.int32)[:, None]
+
+
+@torch.no_grad()
+def generate(model: Model, batch, n_new: int):
+    """Greedy batched generation: (B, n_new) int32 tokens."""
+    prefill = make_prefill(model)
+    step = make_serve_step(model)
+    B, S = batch["tokens"].shape
+    vocab = model.cfg.vocab
+    logits, caches = prefill(batch)
+    caches = extend_caches(model, caches, S, S + n_new)
+    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    outs = [tok]
+    for i in range(n_new - 1):
+        logits, caches = step(caches, tok, S + i)
+        tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+        outs.append(tok)
+    return torch.cat(outs, dim=1)

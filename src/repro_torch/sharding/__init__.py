@@ -1,0 +1,1 @@
+"""Sharding helpers of the port (single device for now)."""

@@ -190,7 +190,11 @@ def test_plan_and_explain_match_repro():
 
 def test_import_loads_neither_jax_nor_repro():
     code = (
-        "import pkgutil, sys, repro_torch\n"
+        "import sys\n"
+        "import repro_torch.models.model, repro_torch.serve.engine, repro_torch.kernels.flash\n"
+        "sort = [m for m in sys.modules if m.startswith('repro_torch.core')]\n"
+        "assert not sort, ('serving imported the sort', sort)\n"
+        "import pkgutil, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

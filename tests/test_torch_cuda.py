@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain twin, and the
-whole ``repro_torch.sort`` path on CUDA against the same path on the CPU
-(which the other ``test_torch_*`` files hold against ``repro``).
+whole ``repro_torch.sort`` path and the smoke-size model's prefill and
+generation on CUDA against the same paths on the CPU (which the other
+``test_torch_*`` files hold against ``repro``).
 
 Needs an NVIDIA GPU with nvcc; skipped elsewhere. On the card:
 
@@ -85,3 +86,77 @@ def test_wrapper_raises_on_cuda_instead_of_falling_back(gpu):
     with pytest.raises(ValueError, match="power of two"):
         bitonic.bitonic_merge_rows(torch.zeros((2, 8192), device=gpu),
                                    torch.zeros((2, 8192), device=gpu))
+
+
+# ---------------------------------------------------------------- model tier
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 4, 2, 16), (2, 1000, 4, 1, 64),
+                                   (1, 8192, 32, 8, 128), (2, 8192, 32, 8, 128),
+                                   (1, 77, 8, 8, 32)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_twin(gpu, shape, dtype, tol, causal):
+    """Max abs err within ``tol`` of the Pallas-faithful twin; in bf16 also
+    within ``bf16_error``'s limit of the twin that rounds where the kernel
+    does (one bf16 ulp of each output plus 2^-6 of its row's rms, mean
+    err <= 1e-3 rms)."""
+    from repro_torch.kernels import flash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, KV, dh = shape
+    gen = torch.Generator(device=gpu).manual_seed(S)
+    q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=gpu).to(dtype)
+               for h in (H, KV, KV))
+    before = flash.flash_attention.launches
+    got = flash.flash_attention(q, k, v, causal=causal)
+    assert flash.flash_attention.launches == before + 1
+    want = flash.flash_attention_twin(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, dh)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if dtype == torch.bfloat16:
+        err = flash.bf16_error(got, flash.kernel_twin(q, k, v, causal=causal))
+        assert err["ok"], err
+
+
+def test_flash_wrapper_raises_on_cuda_instead_of_falling_back(gpu):
+    from repro_torch.kernels import flash
+
+    q = torch.zeros((1, 8, 4, 24), device=gpu)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(TypeError, match="dtype"):
+        h = torch.zeros((1, 8, 4, 16), device=gpu, dtype=torch.float16)
+        flash.flash_attention(h, h, h)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol):
+    """The qwen3-4b smoke config at S = 8192 with flash_attention=True:
+    on the card the prefill launches the kernel once per layer; on the CPU
+    the same weights run the twin (which the CPU tests hold against repro)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels import flash
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(smoke_config("qwen3-4b"), dtype=dtype, flash_attention=True)
+    m_gpu = Model(cfg, device=gpu, seed=4)
+    m_cpu = Model(cfg, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (2, 8192), generator=torch.Generator().manual_seed(0))
+    before = flash.flash_attention.launches
+    lg_gpu, caches = engine.make_prefill(m_gpu)({"tokens": toks.to(gpu)})
+    assert flash.flash_attention.launches == before + cfg.n_layers
+    lg_cpu, _ = engine.make_prefill(m_cpu)({"tokens": toks})
+    want = lg_cpu.float()
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((lg_gpu.cpu().float() - want).abs().max()) <= tol * scale
+    if dtype == "float32":  # bf16 rounding may flip a near-tie argmax
+        got = engine.generate(m_gpu, {"tokens": toks[:, :64].to(gpu)}, 4)
+        want = engine.generate(m_cpu, {"tokens": toks[:, :64]}, 4)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

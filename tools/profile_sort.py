@@ -23,6 +23,39 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+def device_profile(label: str, fn, reps: int, top: int) -> None:
+    """Run ``fn`` ``reps`` times under ``torch.profiler`` and print the wall
+    time (host clock, synchronised) and the device time per run, the
+    device's idle share, and the ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+
+    def dev_us(e) -> float:  # renamed from self_cuda_time_total in newer torch
+        v = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if v is None else v
+
+    # device-side rows only: an aten:: row repeats the time of its kernels
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    device_ms = sum(dev_us(e) for e in events) / 1e3 / reps
+    if device_ms == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    print(f"{label} wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, "
+          f"idle share {max(0.0, 1 - device_ms / wall_ms):.3f}")
+    events.sort(key=dev_us, reverse=True)
+    for e in events[:top]:
+        ms = dev_us(e) / 1e3 / reps
+        print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  x{e.count // reps:<5d} {e.key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -36,7 +69,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
-    from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(args.n, generator=gen, device="cuda")
@@ -58,30 +90,8 @@ def main() -> int:
     print(f"n={args.n} want={args.want}: wall {statistics.median(walls):.3f} ms per sort "
           f"(runs {', '.join(f'{w:.3f}' for w in walls)}); one torch.sort "
           f"{statistics.median(libs):.3f} ms")
-    reps = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            repro_torch.sort(x, want=args.want, limits=limits)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-
-    def dev_us(e) -> float:  # renamed from self_cuda_time_total in newer torch
-        v = getattr(e, "self_device_time_total", None)
-        return e.self_cuda_time_total if v is None else v
-
-    # device-side rows only: an aten:: row repeats the time of its kernels
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
-    device_ms = sum(dev_us(e) for e in events) / 1e3 / reps
-    if device_ms == 0:
-        raise RuntimeError("the profiler recorded no device time")
-    print(f"  under the profiler: wall {wall_ms:.3f} ms per sort, device "
-          f"{device_ms:.3f} ms per sort, idle share {max(0.0, 1 - device_ms / wall_ms):.3f}")
-    events.sort(key=dev_us, reverse=True)
-    for e in events[: args.top]:
-        ms = dev_us(e) / 1e3 / reps
-        print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  x{e.count // reps:<4d} {e.key[:90]}")
+    device_profile("  under the profiler, per sort:",
+                   lambda: repro_torch.sort(x, want=args.want, limits=limits), 3, args.top)
     return 0
 
 
