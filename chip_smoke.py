@@ -6,7 +6,9 @@
 Phases, one line or more each:
   1. the card (nvidia-smi) and the build of the CUDA kernels from the
      sources in this checkout (bitonic.cu and flash.cu, one nvcc each,
-     started together), with its time and the ptxas report;
+     started together), with its time and the ptxas report; it fails if
+     ptxas reports spills in the wgmma flash kernel, or says that it
+     ignored setmaxnreg or serialized the wgmma instructions;
   2. each of the four bitonic kernels against its plain PyTorch twin on the
      card, at the main path's shapes and at edge shapes (rows of 1024 to
      8192, the key/value type combinations, stable on and off, duplicate
@@ -21,8 +23,10 @@ Phases, one line or more each:
      after it; each of the four must have launched;
   4. the flash-attention kernel against its twins on the card, causal and
      full, bf16 and float32, at (B, S, H, KV, dh) = (1, 256, 4, 2, 16),
-     (2, 1000, 4, 1, 64), (1, 8192, 32, 8, 128) and the qwen3-4b prefill
-     shape (2, 8192, 32, 8, 128): max abs err <= 2e-2 (bf16) and <= 1e-4
+     (2, 1000, 4, 1, 64), (2, 1000, 8, 2, 128), (1, 77, 8, 8, 128),
+     (1, 8192, 32, 8, 128) and the qwen3-4b prefill shape
+     (2, 8192, 32, 8, 128), each line naming the route it took (wgmma,
+     mma.sync or fma): max abs err <= 2e-2 (bf16) and <= 1e-4
      (float32) against the Pallas-faithful twin, and in bf16 within
      ``flash.bf16_error``'s limit (one bf16 ulp of each output plus 2^-6
      of its row's rms, mean error <= 1e-3 rms) of the twin that rounds
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -122,6 +127,23 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def check_ptxas(report: str) -> None:
+    """Phase 1's check of flash.cu's ptxas report: the wgmma kernel spills
+    nothing, and ptxas neither ignored setmaxnreg (C7508) nor serialized
+    the wgmma instructions (either would cost the kernel its design)."""
+    bad = [line.strip() for line in report.splitlines()
+           if "setmaxnreg" in line or ("wgmma" in line and "serialized" in line)]
+    entry = None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            entry = line
+        elif "spill" in line and entry and "flash_fwd_wgmma" in entry:
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                bad.append(f"{entry.strip()}: {line.strip()}")
+    if bad:
+        raise AssertionError("ptxas report of flash.cu: " + "; ".join(bad))
 
 
 # ------------------------------------------------------------------ phase 2
@@ -242,8 +264,8 @@ def check_kernels(device) -> dict:
 
 # ------------------------------------------------------------------ phase 4
 
-FLASH_SHAPES = [(1, 256, 4, 2, 16), (2, 1000, 4, 1, 64), (1, 8192, 32, 8, 128),
-                (2, 8192, 32, 8, 128)]
+FLASH_SHAPES = [(1, 256, 4, 2, 16), (2, 1000, 4, 1, 64), (2, 1000, 8, 2, 128),
+                (1, 77, 8, 8, 128), (1, 8192, 32, 8, 128), (2, 8192, 32, 8, 128)]
 # max abs err against flash_attention_twin; bf16: tests/test_flash_kernel.py's
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
@@ -284,7 +306,8 @@ def check_flash(device) -> dict:
                 want = flash.flash_attention_twin(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 name = str(dtype).removeprefix("torch.")
-                label = f"flash {(B, S, H, KV, dh)} {name} causal={causal}"
+                route = flash.ROUTES[(dtype, dh)]
+                label = f"flash {(B, S, H, KV, dh)} {name} causal={causal} route={route}"
                 err = float((got.float() - want.float()).abs().max())
                 if not (err <= FLASH_TOL[name]) or got.shape != want.shape:
                     raise AssertionError(f"{label}: max abs err {err} > {FLASH_TOL[name]}")
@@ -516,14 +539,17 @@ def main() -> int:
     card = card_line()
     log(f"phase 1: card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    sources = ["bitonic", "flash"]
     with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        libs = list(pool.map(build.build, ["bitonic", "flash"]))
-    log(f"phase 1: built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in "
+        libs = dict(zip(sources, pool.map(build.build, sources)))
+    log(f"phase 1: built {', '.join(str(lib.relative_to(ROOT)) for lib in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for lib in libs:
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+    reports = {name: lib.with_suffix(".log").read_text() for name, lib in libs.items()}
+    for report in reports.values():
+        for line in report.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
                 log("phase 1: ptxas:", line.strip())
+    check_ptxas(reports["flash"])
 
     numbers = check_kernels(device)
     launches = run_main_path(device)

@@ -8,41 +8,52 @@
 // scores set to -1e30, fully masked causal key tiles skipped, and the
 // output acc / max(l, 1e-30) in the input dtype, laid out (B, S, H, dh).
 //
-// Grid: one CTA per (q tile, h, b). The TPU's sequential ki grid axis is a
-// loop inside the CTA over the key tiles up to the last one that is not
-// fully masked (the same block-level skip as k_start <= q_start + bq - 1).
-// The K/V head is h / (H / KV), as the BlockSpec index maps take it: no
-// head is ever replicated. The kernel computes its own offsets and masks
-// the ragged edge, so S and T need not be multiples of a tile.
+// Grid: one CTA per (q tile, h, b), the longest causal rows first. The
+// TPU's sequential ki grid axis is a loop inside the CTA over the key tiles
+// up to the last one that is not fully masked (the same block-level skip
+// as k_start <= q_start + bq - 1). The K/V head is h / (H / KV), as the
+// BlockSpec index maps take it: no head is ever replicated. The kernel
+// masks the ragged edge itself, so S and T need not be multiples of a tile.
 //
 // Bound on this card: at the qwen3-4b prefill shape (B 2, S = T = 8192,
 // H 32, KV 8, dh 128, bf16, causal) the useful products are
 // 4 * B * H * S^2 * dh / 2 = 1.10e12 operations, 1.11 ms at 989 TFLOP/s
 // of dense bf16; the bytes (q, k, v read once, o written once: 0.17 GB)
-// take 0.05 ms at 3.35 TB/s. So the tensor cores are the bound, and the
-// design keeps every product on them and every intermediate on chip:
-//   * bf16 (the path's dtype): 4 warps, each owning 16 query rows of a
-//     64-row tile. Q fragments live in registers for the whole key loop.
-//     K and V tiles of 64 keys are copied row-major into shared memory
-//     with cp.async, two stages deep, so the next tile's copies run under
-//     this tile's products. S = Q K^T and O += P V are mma.sync m16n8k16
-//     bf16 products with f32 accumulation, their B fragments read with
-//     ldmatrix (.trans for V); P passes from the S accumulators to the A
-//     operand of the second product in registers (rounded to bf16 there,
-//     as the tensor core needs). m and l stay per row in registers; the
-//     mask is applied only on tiles that cross the diagonal or the ragged
-//     end. The scores never reach device memory.
+// take 0.05 ms at 3.35 TB/s. So the tensor cores are the bound, and every
+// route keeps every product on them (or, in f32, on the FMA units) and
+// every intermediate on chip. Three routes, chosen by dtype and dh:
+//   * bf16, dh 64 and 128 (every served model): wgmma. Three warpgroups:
+//     warpgroup 0 is the producer, one thread of which issues TMA loads
+//     (Q once; K and V through a ring of kStages tiles of kWgBk keys, each
+//     slot with a "full" and an "empty" mbarrier); warpgroups 1 and 2 each
+//     own 64 rows of the 128-row query tile. S = Q K^T is wgmma m64nBk k16
+//     with both operands in 128-byte-swizzled shared memory (K-major);
+//     O += P V is the register-A form, P packed to bf16 straight from the
+//     S accumulators (whose layout is the A fragment's) and V read
+//     MN-major through the transpose bit, never transposed in memory.
+//     setmaxnreg moves registers from the producer to the consumers. The
+//     consumers take turns (two named barriers) to issue tile kt's Q K^T
+//     and tile kt - 1's P V together, and tile kt's mask and row max run
+//     under that P V, so the tensor cores wait less on the softmax.
+//   * bf16, dh 16 and 32 (test shapes only): mma.sync m16n8k16, 4 warps
+//     over a 64-row tile, 64-key tiles double-buffered with cp.async,
+//     B fragments by ldmatrix (.trans for V).
 //   * float32 (accepted so that tests can compare at a tight tolerance):
-//     the same schedule with 32x32 tiles, f32 FMA from shared memory.
-// What is left for later (ROADMAP): wgmma with TMA loads and a producer
-// warp, and larger tiles.
+//     32x32 tiles, f32 FMA from shared memory.
+// In every bf16 route p is rounded to bf16 as the A operand of PV, l sums
+// the unrounded p, m and l stay per row in registers, and the mask is
+// applied only on tiles that cross the diagonal or the ragged end.
 //
-// Every entry point returns the cudaError_t of its launch (0 = success)
-// and never synchronises.
+// Every entry point returns the cudaError_t of its launch (0 = success),
+// or kTmaEncodeFailed + the CUresult of a failed tensor-map encode, and
+// never synchronises.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -315,6 +326,417 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ------------------------------------------------- bf16, wgmma (dh 64, 128)
+constexpr int kWgBq = 128;       // query rows per CTA: two consumer warpgroups of 64
+constexpr int kWgBk = 128;       // keys per tile
+constexpr int kStages = 3;       // K/V tiles in the ring: two in use, one loading
+constexpr int kWgThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
+constexpr int kSwz = 64;         // bf16 in a 128-byte swizzled row: one TMA box's width
+constexpr int kTmaEncodeFailed = 100000;  // + CUresult: a tensor map was refused
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory. The mbarrier counts it
+// in bytes, whole: rows past the tensor's end arrive zero-filled.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma's descriptor of a tile of 128-byte rows in the 128-byte swizzle:
+// start address, leading and stride byte offsets (in 16-byte units).
+// K-major (Q, K): 8-row groups 1024 bytes apart (SBO), LBO unused; a step
+// of 16 along dh is 32 bytes further inside the swizzled row. MN-major
+// (V): 8-key groups 1024 bytes apart (SBO), the next 64 of dh one box
+// further (LBO). Every tile starts 1024-byte aligned.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Named barriers over the two consumer warpgroups (256 threads): sync
+// waits for the other warpgroup's arrive; barrier 0 is __syncthreads'.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous product (between issue and wait).
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(r[i]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+#define WG_OUT8(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_OUT32(d, i) WG_OUT8(d, i), WG_OUT8(d, i + 8), WG_OUT8(d, i + 16), WG_OUT8(d, i + 24)
+#define WG_REGS32                                                      \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31"
+#define WG_REGS64 WG_REGS32                                                  \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
+  "%60, %61, %62, %63"
+
+// D (64 x N, f32) = [D +] A B over k16, bf16 operands. ss: A and B from
+// shared memory, both K-major (D = D + A B unless !acc). rs: A from
+// registers (the m16n8k16 A fragment of each warp's 16 rows), B MN-major
+// (transpose bit set), always accumulating.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS32 "},"
+                 " %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : WG_OUT32(d, 0) : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS32 "},"
+                 " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                 : WG_OUT32(d, 0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS64 "},"
+                 " %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : WG_OUT32(d, 0), WG_OUT32(d, 32) : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+                 " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS64 "},"
+                 " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+                 : WG_OUT32(d, 0), WG_OUT32(d, 32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// Shared memory: Q (kWgBq rows), then kStages K tiles, kStages V tiles,
+// each as DH / 64 boxes of rows x 128 bytes; then the mbarriers.
+template <int DH>
+struct WgSmem {
+  static constexpr int kQBox = kWgBq * kSwz * 2;   // bytes of one 64-wide box of Q
+  static constexpr int kKVBox = kWgBk * kSwz * 2;  // ... of K or V
+  static constexpr int kQ = kQBox * (DH / kSwz);
+  static constexpr int kKV = kKVBox * (DH / kSwz);  // one K or V tile
+  static constexpr int kBars = kQ + 2 * kStages * kKV;
+  // 1024 bytes of room to align the start, and 1 + 2 * kStages mbarriers
+  static constexpr int kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
+};
+
+// Accumulator layout of wgmma m64nNk16 (f32), lane = 4 * g + t of warp w
+// of the warpgroup: d[4j + 0..1] at row 16w + g, columns 8j + 2t and
+// 8j + 2t + 1; d[4j + 2..3] the same columns of row 16w + g + 8. Packed to
+// bf16 pairs, d[8kk .. 8kk + 7] of S are the A fragment of k16 step kk of
+// P V, so P never leaves the registers.
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                __nv_bfloat16* __restrict__ o, int S, int T, int H, int KV,
+                float scale_log2, int causal) {
+  using L = WgSmem<DH>;
+  extern __shared__ unsigned char wg_smem[];
+  const uint32_t sQ = (smem_u32(wg_smem) + 1023) & ~1023u;  // the swizzle's alignment
+  const uint32_t sK = sQ + L::kQ;
+  const uint32_t sV = sK + kStages * L::kKV;
+  const uint32_t q_full = sQ + L::kBars;
+  const uint32_t full0 = q_full + 8;               // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kStages;     // empty[s] = empty0 + 8 s
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBq;  // longest causal rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_kt = key_tiles(q0, kWgBq, S, T, kWgBk, causal);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      const int kvh = h / (H / KV);
+      mbar_expect_tx(q_full, L::kQ);
+      for (int x = 0; x < DH / kSwz; ++x)
+        tma_load(sQ + x * L::kQBox, &q_map, q_full, x * kSwz, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(full0 + 8 * s, 2 * L::kKV);
+        for (int x = 0; x < DH / kSwz; ++x) {
+          const uint32_t off = s * L::kKV + x * L::kKVBox;
+          tma_load(sK + off, &k_map, full0 + 8 * s, x * kSwz, kvh, kt * kWgBk, b);
+          tma_load(sV + off, &v_map, full0 + 8 * s, x * kSwz, kvh, kt * kWgBk, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows 64 (wg - 1) .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wq0 = q0 + 64 * (wg - 1);
+    const int row0 = wq0 + 16 * warp + g, row1 = row0 + 8;
+    const uint64_t q_desc = smem_desc(sQ + 64 * (wg - 1) * 128, 16, 1024);
+
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    float sc[kWgBk / 2];         // S of one tile, then its p
+    uint32_t pa[kWgBk / 16][4];  // p in bf16: the A fragments of P V
+
+    // S = Q K^T of the tile in slot s, issued: step kk of dh is in box
+    // kk / 4, 32 bytes per step within it
+    auto issue_qk = [&](int s) {
+      const uint64_t k_desc = smem_desc(sK + s * L::kKV, 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t qo = ((kk / 4) * L::kQBox + (kk % 4) * 32) >> 4;
+        const uint32_t ko = ((kk / 4) * L::kKVBox + (kk % 4) * 32) >> 4;
+        Wgmma<kWgBk>::ss(sc, q_desc + qo, k_desc + ko, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V of the tile in slot s, issued: step kk takes keys 16 kk ..
+    // 16 kk + 15, 16 rows of V further
+    auto issue_pv = [&](int s) {
+      const uint64_t v_desc = smem_desc(sV + s * L::kKV, L::kKVBox, 1024);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBk / 16; ++kk)
+        Wgmma<DH>::rs(acc, pa[kk], v_desc + ((kk * 16 * 128) >> 4));
+      wgmma_commit();
+    };
+    // The online softmax of tile kt on sc: the mask (on edge tiles only),
+    // the running max and sum, and p in place of the scores. Returns the
+    // factors that rescale acc to the new running max.
+    auto softmax = [&](int kt) {
+      const int k0 = kt * kWgBk;
+      const bool edge_tile = k0 + kWgBk > T || (causal && k0 + kWgBk - 1 > wq0);
+      float rmax0 = kNegInf, rmax1 = kNegInf;
+      if (edge_tile) {
+#pragma unroll
+        for (int j = 0; j < kWgBk / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * j + e] * scale_log2;
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            const int qpos = e < 2 ? row0 : row1;
+            if (key >= T || (causal && key > qpos)) x = kNegInf;
+            sc[4 * j + e] = x;
+            if (e < 2) rmax0 = fmaxf(rmax0, x); else rmax1 = fmaxf(rmax1, x);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kWgBk / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = sc[4 * j + e] * scale_log2;
+            sc[4 * j + e] = x;
+            if (e < 2) rmax0 = fmaxf(rmax0, x); else rmax1 = fmaxf(rmax1, x);
+          }
+        }
+      }
+      rmax0 = fmaxf(rmax0, __shfl_xor_sync(0xffffffffu, rmax0, 1));
+      rmax0 = fmaxf(rmax0, __shfl_xor_sync(0xffffffffu, rmax0, 2));
+      rmax1 = fmaxf(rmax1, __shfl_xor_sync(0xffffffffu, rmax1, 1));
+      rmax1 = fmaxf(rmax1, __shfl_xor_sync(0xffffffffu, rmax1, 2));
+      const float new0 = fmaxf(m0, rmax0), new1 = fmaxf(m1, rmax1);
+      const float corr0 = exp2f(m0 - new0), corr1 = exp2f(m1 - new1);
+      m0 = new0;
+      m1 = new1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kWgBk / 8; ++j) {
+        sc[4 * j + 0] = exp2f(sc[4 * j + 0] - new0);
+        sc[4 * j + 1] = exp2f(sc[4 * j + 1] - new0);
+        sc[4 * j + 2] = exp2f(sc[4 * j + 2] - new1);
+        sc[4 * j + 3] = exp2f(sc[4 * j + 3] - new1);
+        sum0 += sc[4 * j + 0] + sc[4 * j + 1];
+        sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * corr0 + sum0;
+      l1 = l1 * corr1 + sum1;
+      return make_float2(corr0, corr1);
+    };
+    // acc to the new running max: between the products that write it
+    auto rescale = [&](float2 corr) {
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        acc[4 * j + 0] *= corr.x;
+        acc[4 * j + 1] *= corr.x;
+        acc[4 * j + 2] *= corr.y;
+        acc[4 * j + 3] *= corr.y;
+      }
+    };
+    // p, rounded to bf16, into pa: once the P V product reading pa is done
+    auto pack = [&] {
+#pragma unroll
+      for (int kk = 0; kk < kWgBk / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    auto release = [&](int s) {  // this warp is done with slot s
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    };
+
+    // The two consumer warpgroups take turns to issue their products
+    // (named barriers 1 and 2, the first turn warpgroup 1's), so that one's
+    // softmax runs under the other's products. A turn issues tile kt's
+    // S = Q K^T and tile kt - 1's P V, with acc rescaled between the two;
+    // tile kt's softmax starts under that P V (ptxas puts the wait for it
+    // after the mask and the row max, before the exponentials). The
+    // operations on acc, and so its rounding, are those of
+    // acc = acc * corr_kt + P_kt V_kt.
+    const int me = wg - 1;
+    auto my_turn = [&] { named_sync(1 + me); };
+    auto their_turn = [&] { named_arrive(2 - me); };
+    if (me == 1) their_turn();
+    mbar_wait(q_full, 0);
+    mbar_wait(full0, 0);
+    my_turn();
+    issue_qk(0);
+    their_turn();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    float2 corr = softmax(0);
+    pack();
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const int s = kt % kStages, prev = (kt - 1) % kStages;
+      mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
+      my_turn();
+      issue_qk(s);
+      rescale(corr);
+      issue_pv(prev);
+      their_turn();
+      wgmma_wait<1>();  // S of tile kt (committed first) has completed
+      fence_regs(sc);
+      corr = softmax(kt);
+      wgmma_wait<0>();  // and P V of tile kt - 1
+      fence_regs(acc);
+      fence_regs(pa);  // live to here: its registers are not reused under P V
+      release(prev);
+      pack();
+    }
+    my_turn();
+    rescale(corr);
+    issue_pv((n_kt - 1) % kStages);
+    if (me == 0) their_turn();  // each warpgroup has as many turns as it is given
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release((n_kt - 1) % kStages);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const long long q_stride = static_cast<long long>(H) * DH;
+    __nv_bfloat16* ob = o + (static_cast<long long>(b) * S * H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (row0 < S)
+        *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + col) =
+            pack_bf16(acc[4 * j + 0] / d0, acc[4 * j + 1] / d0);
+      if (row1 < S)
+        *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + col) =
+            pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+    }
+  }
+}
+
 // ------------------------------------------------------------ f32, FMA
 constexpr int kFq = 32;  // query rows per CTA
 constexpr int kFk = 32;  // keys per tile (= warp width: one lane per key)
@@ -466,6 +888,69 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled is a driver-API function: found through the
+// runtime, so the library needs no link against libcuda.
+cudaError_t encode_tiled(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// x (batch, rows, heads, dh) in bf16 as the 4-D tensor (dh, heads, rows,
+// batch), innermost first, in boxes of (64, 1, box_rows, 1) with the
+// 128-byte swizzle; rows past the end are zero-filled.
+int tensor_map(EncodeTiled encode, CUtensorMap* map, const void* x, int dh, int heads,
+               int rows, int batch, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(heads) * dh * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(dh) * 2, row_bytes, rows * row_bytes};
+  const cuuint32_t box[4] = {kSwz, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTmaEncodeFailed + static_cast<int>(r);
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int T,
+                 int H, int KV, float scale_log2, int causal, cudaStream_t stream) {
+  EncodeTiled encode;
+  int err = encode_tiled(&encode);
+  if (err != 0) return err;
+  CUtensorMap q_map, k_map, v_map;
+  if ((err = tensor_map(encode, &q_map, q, DH, H, S, B, kWgBq)) != 0) return err;
+  if ((err = tensor_map(encode, &k_map, k, DH, KV, T, B, kWgBk)) != 0) return err;
+  if ((err = tensor_map(encode, &v_map, v, DH, KV, T, B, kWgBk)) != 0) return err;
+  constexpr int smem = WgSmem<DH>::kBytes;
+  auto kern = flash_fwd_wgmma<DH>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kWgBq - 1) / kWgBq, H, B);
+  kern<<<grid, kWgThreads, smem, stream>>>(q_map, k_map, v_map,
+                                           static_cast<__nv_bfloat16*>(o), S, T, H, KV,
+                                           scale_log2, causal);
+  return cudaGetLastError();
+}
+
 #define DISPATCH_DH(dh, D, ...)            \
   switch (dh) {                            \
     case 16: { constexpr int D = 16; __VA_ARGS__ } \
@@ -482,7 +967,9 @@ extern "C" {
 // q (B, S, H, dh), k/v (B, T, KV, dh), o (B, S, H, dh), all contiguous and
 // 16-byte aligned. dtype: 0 = bfloat16, 1 = float32 (shared by all four).
 // dh in {16, 32, 64, 128}. scale multiplies the scores (dh ** -0.5 by
-// default, chosen by the caller).
+// default, chosen by the caller). The route is chosen by shape: bf16 at
+// dh 64 and 128 runs the wgmma kernel, bf16 at dh 16 and 32 the mma.sync
+// kernel, float32 the FMA kernel.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int T, int H, int KV, int dh, int dtype,
                         float scale, int causal, void* stream) {
@@ -492,8 +979,13 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = scale * kLog2e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    DISPATCH_DH(dh, D, return launch_bf16<D>(q, k, v, o, B, S, T, H, KV,
-                                             scale_log2, causal, st);)
+    switch (dh) {
+      case 16: return launch_bf16<16>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
+      case 32: return launch_bf16<32>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
+      case 64: return launch_wgmma<64>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
+      case 128: return launch_wgmma<128>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
   if (dtype == 1) {
     DISPATCH_DH(dh, D, return launch_f32<D>(q, k, v, o, B, S, T, H, KV,
@@ -503,6 +995,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 const char* flash_error_string(int code) {
+  if (code >= kTmaEncodeFailed) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             code - kTmaEncodeFailed);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

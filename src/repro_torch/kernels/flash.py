@@ -26,7 +26,10 @@ The layout is JAX's: q (B, S, H, dh), k and v (B, T, KV, dh) with
 H % KV == 0, output (B, S, H, dh) in v's dtype. S and T need not be
 multiples of a tile (the Pallas kernel asserts it; neither the twin nor
 the kernel needs it). dtypes: bfloat16 (the serving path's) and float32;
-head_dim 16, 32, 64 or 128.
+head_dim 16, 32, 64 or 128. ``ROUTES`` names the kernel each (dtype, dh)
+reaches in ``csrc/flash.cu``: bf16 at dh 64 and 128 (every served model)
+the Hopper kernel (wgmma, TMA, a producer warpgroup), bf16 at dh 16 and 32
+the mma.sync kernel, float32 the FMA kernel.
 """
 from __future__ import annotations
 
@@ -39,13 +42,20 @@ from repro_torch.kernels import build
 
 DEFAULT_BQ = 256  # the Pallas kernel's default tiles, which the twin uses
 DEFAULT_BK = 512
-KERNEL_BK = {torch.bfloat16: 64, torch.float32: 32}  # flash.cu's key tiles (kBk, kFk)
+HEAD_DIMS = (16, 32, 64, 128)
+# flash.cu's route for each (dtype, dh) (its dispatch in flash_attention_fwd)
+# and each route's key tile width (kWgBk, kBk, kFk). The width sets the
+# running max and so where each p is rounded: kernel_twin follows it.
+ROUTES = {**{(torch.bfloat16, dh): "wgmma" for dh in (64, 128)},
+          **{(torch.bfloat16, dh): "mma.sync" for dh in (16, 32)},
+          **{(torch.float32, dh): "fma" for dh in HEAD_DIMS}}
+ROUTE_BK = {"wgmma": 128, "mma.sync": 64, "fma": 32}
+KERNEL_BK = {key: ROUTE_BK[route] for key, route in ROUTES.items()}
 # bf16_error's limits, as fractions of the output's scale (see there)
 BF16_ULP_REL = 2.0 ** -7
 BF16_ROW_FLOOR = 2.0 ** -6
 BF16_MEAN_REL = 1e-3
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -95,11 +105,13 @@ def flash_attention_twin(q, k, v, *, causal: bool = True, scale: float | None = 
 
 def kernel_twin(q, k, v, *, causal: bool = True, scale: float | None = None) -> torch.Tensor:
     """The twin at the CUDA kernel's own rounding points: key tiles as wide
-    as the kernel's (so the running max, and with it each p, is the same)
-    and, in bf16, p rounded to bf16 before PV. The query tile width and the
-    causal skip change no value (a fully masked tile adds exact zeros)."""
+    as those of the route the shape takes (so the running max, and with it
+    each p, is the same) and, in bf16, p rounded to bf16 before PV. The
+    query tile width and the causal skip change no value (a fully masked
+    tile adds exact zeros)."""
     bf16 = q.dtype == torch.bfloat16
-    return flash_attention_twin(q, k, v, causal=causal, scale=scale, bk=KERNEL_BK[q.dtype],
+    return flash_attention_twin(q, k, v, causal=causal, scale=scale,
+                                bk=KERNEL_BK[(q.dtype, q.shape[-1])],
                                 p_dtype=torch.bfloat16 if bf16 else None)
 
 

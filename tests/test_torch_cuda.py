@@ -93,7 +93,8 @@ def test_wrapper_raises_on_cuda_instead_of_falling_back(gpu):
 
 @pytest.mark.parametrize("shape", [(1, 256, 4, 2, 16), (2, 1000, 4, 1, 64),
                                    (1, 8192, 32, 8, 128), (2, 8192, 32, 8, 128),
-                                   (1, 77, 8, 8, 32)])
+                                   (1, 77, 8, 8, 32), (2, 1000, 8, 2, 128),
+                                   (1, 77, 8, 8, 128)])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_twin(gpu, shape, dtype, tol, causal):
@@ -129,6 +130,23 @@ def test_flash_wrapper_raises_on_cuda_instead_of_falling_back(gpu):
     with pytest.raises(TypeError, match="dtype"):
         h = torch.zeros((1, 8, 4, 16), device=gpu, dtype=torch.float16)
         flash.flash_attention(h, h, h)
+
+
+def test_flash_tma_encode_failure_raises(gpu, monkeypatch):
+    """A tensor map that the driver refuses surfaces as an error from
+    flash_attention: here a q whose base is off TMA's 16-byte alignment,
+    with the wrapper's own alignment step taken out. The kernel does not
+    launch."""
+    from repro_torch.kernels import flash
+
+    monkeypatch.setattr(flash, "_aligned", lambda t: t)
+    buf = torch.zeros(1 * 64 * 2 * 64 + 8, device=gpu, dtype=torch.bfloat16)
+    q = buf[1:1 + 64 * 2 * 64].view(1, 64, 2, 64)  # 2 bytes past an aligned base
+    kv = torch.zeros((1, 64, 2, 64), device=gpu, dtype=torch.bfloat16)
+    before = flash.flash_attention.launches
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        flash.flash_attention(q, kv, kv)
+    assert flash.flash_attention.launches == before
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])

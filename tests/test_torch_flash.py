@@ -2,6 +2,8 @@
 Pallas kernel (interpret mode) and against the attention oracles, and the
 wrapper's contract. The CUDA kernel itself is held against the twin on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+import re
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -10,16 +12,16 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash import flash_attention as pallas_flash
-from repro_torch.kernels import flash, ref
+from repro_torch.kernels import build, flash, ref
 
 RNG = np.random.default_rng(7)
 
 
-def _mk(B, S, H, KV, dh, dtype=np.float32, T=None):
+def _mk(B, S, H, KV, dh, dtype=np.float32, T=None, rng=RNG):
     T = S if T is None else T
-    return (RNG.standard_normal((B, S, H, dh)).astype(dtype),
-            RNG.standard_normal((B, T, KV, dh)).astype(dtype),
-            RNG.standard_normal((B, T, KV, dh)).astype(dtype))
+    return (rng.standard_normal((B, S, H, dh)).astype(dtype),
+            rng.standard_normal((B, T, KV, dh)).astype(dtype),
+            rng.standard_normal((B, T, KV, dh)).astype(dtype))
 
 
 def _t(a):
@@ -65,21 +67,47 @@ def test_twin_at_ragged_lengths_matches_oracle(S, bq, bk, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernel_twin_rounds_p_where_the_kernel_does(causal):
-    """kernel_twin is the twin at the kernel's key tile width with p rounded
-    to bf16 before PV; the query tile width changes no value, and the
-    rounding of p is the only thing that sets it apart from the twin."""
-    q, k, v = (_t(a) for a in _mk(1, 300, 4, 2, 32, ml_dtypes.bfloat16))
-    got = flash.kernel_twin(q, k, v, causal=causal)
-    assert torch.equal(got, flash.flash_attention_twin(
-        q, k, v, causal=causal, bq=64, bk=flash.KERNEL_BK[torch.bfloat16],
-        p_dtype=torch.bfloat16))
-    f32 = flash.flash_attention_twin(q, k, v, causal=causal, bk=64)
-    assert not torch.equal(got, f32)
-    np.testing.assert_allclose(got.float().numpy(), f32.float().numpy(), rtol=2e-2, atol=2e-2)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    np.testing.assert_allclose(flash.kernel_twin(qf, kf, vf, causal=causal).numpy(),
-                               flash.flash_attention_twin(qf, kf, vf, causal=causal).numpy(),
-                               rtol=3e-5, atol=3e-5)
+    """kernel_twin is the twin at the key tile width of the route the shape
+    takes (mma.sync at dh 32, wgmma at dh 128) with p rounded to bf16 before
+    PV; the query tile width changes no value, and the rounding of p is the
+    only thing that sets it apart from the twin. The dh-128 inputs come from
+    a generator of their own, so the later tests draw what they drew before."""
+    for dh, rng in ((32, RNG), (128, np.random.default_rng(128))):
+        q, k, v = (_t(a) for a in _mk(1, 300, 4, 2, dh, ml_dtypes.bfloat16, rng=rng))
+        bk = flash.KERNEL_BK[(torch.bfloat16, dh)]
+        got = flash.kernel_twin(q, k, v, causal=causal)
+        assert torch.equal(got, flash.flash_attention_twin(
+            q, k, v, causal=causal, bq=64, bk=bk, p_dtype=torch.bfloat16))
+        f32 = flash.flash_attention_twin(q, k, v, causal=causal, bk=bk)
+        assert not torch.equal(got, f32)
+        np.testing.assert_allclose(got.float().numpy(), f32.float().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        np.testing.assert_allclose(flash.kernel_twin(qf, kf, vf, causal=causal).numpy(),
+                                   flash.flash_attention_twin(qf, kf, vf, causal=causal).numpy(),
+                                   rtol=3e-5, atol=3e-5)
+
+
+def test_kernel_bk_follows_flash_cu():
+    """ROUTES and KERNEL_BK (the twin's key tiles) agree with the dispatch
+    and the tile constants of csrc/flash.cu, so that the twin and the
+    kernel cannot drift apart unnoticed."""
+    src = (build.CSRC / "flash.cu").read_text()
+    const = {name: int(val) for name, val in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    # each kernel walks its key tiles in steps of its own constant
+    assert "key_tiles(q0, kWgBq, S, T, kWgBk, causal)" in src
+    assert "key_tiles(q0, kBq, S, T, kBk, causal)" in src
+    assert "key_tiles(q0, kFq, S, T, kFk, causal)" in src
+    routes = {"launch_wgmma": ("wgmma", const["kWgBk"]), "launch_bf16": ("mma.sync", const["kBk"])}
+    bf16 = {int(dh): fn for dh, fn in re.findall(r"case (\d+): return (launch_\w+)<", src)}
+    assert sorted(bf16) == list(flash.HEAD_DIMS)
+    for dh, fn in bf16.items():
+        assert (flash.ROUTES[(torch.bfloat16, dh)], flash.KERNEL_BK[(torch.bfloat16, dh)]) \
+            == routes[fn], dh
+    assert "DISPATCH_DH(dh, D, return launch_f32<D>" in src  # float32: every dh
+    for dh in flash.HEAD_DIMS:
+        assert flash.ROUTES[(torch.float32, dh)] == "fma"
+        assert flash.KERNEL_BK[(torch.float32, dh)] == const["kFk"]
 
 
 def test_bf16_error_passes_one_ulp_and_fails_a_dropped_key_tile():
