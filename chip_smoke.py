@@ -8,12 +8,17 @@ Phases, one line or more each:
      sources in this checkout (bitonic.cu and flash.cu, one nvcc each,
      started together), with its time and the ptxas report; it fails if
      ptxas reports spills in the wgmma flash kernel, or says that it
-     ignored setmaxnreg or serialized the wgmma instructions;
+     ignored setmaxnreg or serialized the wgmma instructions, or if any
+     instantiation of the row-sort kernel has a stack frame or spills;
   2. each of the four bitonic kernels against its plain PyTorch twin on the
-     card, at the main path's shapes and at edge shapes (rows of 1024 to
-     8192, the key/value type combinations, stable on and off, duplicate
-     keys and +-0.0), with exact equality; each kernel's median time beside
-     its bound, the twin's time and one torch.sort call on the same rows;
+     card, bit for bit: the two row sorts at every row length 2..8192,
+     1, 3 and a number of rows that is not a multiple of a CTA's, every
+     key/value type pair, stable on and off, uniform keys and heavy
+     duplicates with +-0.0, +-inf and NaN; the merges at the main path's
+     shapes and at edge shapes. Each kernel's time (``time_ms``: CUDA
+     events around a batch of 10 calls, median of 20 batches) beside its
+     bound, the twin's time and one torch.sort call on the same rows, the
+     row sorts also at (131072, 1024), the launch of a 2^27 sort;
   3. ``repro_torch.sort`` through its entry point (the sort's main path),
      checked against torch.sort on the card: n = 2^22 float32 keys at the
      default limits, n = 2^22 int32 keys with 4 distinct values (imbalance
@@ -78,21 +83,24 @@ def log(*parts) -> None:
 
 
 def max_abs_err(a, b) -> float:
-    """Largest |a - b| over the pair (0.0 when equal bit for bit); raises
-    unless the two agree bit for bit."""
+    """0.0 when the pair agrees bit for bit (NaN included); raises with the
+    largest |a - b| otherwise."""
     import torch
 
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"shape/dtype differ: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    if torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        return 0.0
     wide = torch.float64 if a.dtype.is_floating_point else torch.int64
-    err = float((a.to(wide) - b.to(wide)).abs().max()) if a.numel() else 0.0
-    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-        raise AssertionError(f"kernel and twin differ (max abs err {err})")
-    return err
+    err = float((a.to(wide) - b.to(wide)).abs().nan_to_num(float("inf")).max())
+    raise AssertionError(f"kernel and twin differ (max abs err {err})")
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median time of ``fn`` on the card over ``reps`` runs (CUDA events)."""
+def time_ms(fn, reps: int = 20, batch: int = 10) -> float:
+    """Time of one ``fn`` on the card: the median over ``reps`` samples of a
+    batch of ``batch`` calls between two CUDA events, divided by ``batch``
+    (a batch keeps the card busy while the host launches the next call, so a
+    short kernel's time is not the host's)."""
     import torch
 
     fn()
@@ -101,10 +109,11 @@ def time_ms(fn, reps: int = 20) -> float:
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -129,29 +138,89 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_entries(report: str) -> dict:
+    """Each kernel of a ``ptxas -v`` report (by mangled name): registers,
+    stack frame and spill bytes."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m[1]
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            out[name].update(stack=int(m[1]), spills=int(m[2]) + int(m[3]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m[1])
+    return out
+
+
+# sort_rows_kernel<LOG_N, HAS_V, TB, K, V>; i = int32, j = uint32, f = float
+SORT_ENTRY = re.compile(r"sort_rows_kernelILi(\d+)ELb([01])ELb([01])E([ijf])([ijf])E")
+SORT_INSTANTIATIONS = 13 * (3 + 3 + 9)  # log N 1..13 x (keys, kv, kv stable) types
+
+
 def check_ptxas(report: str) -> None:
     """Phase 1's check of flash.cu's ptxas report: the wgmma kernel spills
     nothing, and ptxas neither ignored setmaxnreg (C7508) nor serialized
     the wgmma instructions (either would cost the kernel its design)."""
     bad = [line.strip() for line in report.splitlines()
            if "setmaxnreg" in line or ("wgmma" in line and "serialized" in line)]
-    entry = None
-    for line in report.splitlines():
-        if "Function properties for" in line:
-            entry = line
-        elif "spill" in line and entry and "flash_fwd_wgmma" in entry:
-            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
-                bad.append(f"{entry.strip()}: {line.strip()}")
+    for name, e in ptxas_entries(report).items():
+        if "flash_fwd_wgmma" in name and e.get("spills"):
+            bad.append(f"{name}: {e['spills']} bytes spilled")
     if bad:
         raise AssertionError("ptxas report of flash.cu: " + "; ".join(bad))
+
+
+def check_sort_ptxas(report: str) -> None:
+    """Phase 1's check of bitonic.cu's ptxas report: every instantiation of
+    the row-sort kernel keeps its registers in registers (no stack frame,
+    no spills: a register array indexed at run time would show there).
+    Logs the registers per row length."""
+    entries = ptxas_entries(report)
+    sort = {tuple(m.groups()): e for name, e in entries.items()
+            if (m := SORT_ENTRY.search(name))}
+    bad = [f"{key}: {e}" for key, e in sort.items()
+           if e.get("stack", 1) or e.get("spills", 1) or "registers" not in e]
+    if len(sort) != SORT_INSTANTIATIONS or bad:
+        raise AssertionError(f"ptxas report of bitonic.cu: {len(sort)} row-sort "
+                             f"instantiations (want {SORT_INSTANTIATIONS}); " + "; ".join(bad))
+    for log_n in range(1, 14):
+        regs = {kind: max(e["registers"] for (ln, v, tb, _, _), e in sort.items()
+                          if int(ln) == log_n and (v, tb) == flags)
+                for kind, flags in (("keys", ("0", "0")), ("kv", ("1", "0")),
+                                    ("kv stable", ("1", "1")))}
+        log(f"phase 1: ptxas: sort_rows_kernel N={1 << log_n}: registers (most over the "
+            f"key/value types) {regs}, no stack frame, no spills")
+    merge = [e for name, e in entries.items() if "merge_rows_kernel" in name]
+    log(f"phase 1: ptxas: merge_rows_kernel: {len(merge)} instantiations, registers "
+        f"{min(e['registers'] for e in merge)}-{max(e['registers'] for e in merge)}, "
+        f"stack frames {sorted({e['stack'] for e in merge})}")
 
 
 # ------------------------------------------------------------------ phase 2
 
 
 def rows_of(gen, rows, n, dtype, kind, device):
+    """Seeded (rows, n) keys: "uniform" over 2^21 values, "dup" over 5
+    (with +-0.0 ties among floats), "special" over 7: heavy duplicates
+    with +-0.0, +-inf and NaN among floats, the type's extremes among
+    integers."""
     import torch
 
+    if kind == "special":
+        x = torch.randint(-3, 4, (rows, n), generator=gen, device=device)
+        coin = torch.rand(x.shape, generator=gen, device=device) < 0.5
+        if dtype == torch.float32:
+            f = x.to(torch.float32)
+            f = torch.where((x == 0) & coin, torch.full_like(f, -0.0), f)
+            f = torch.where(x == 3, torch.full_like(f, float("inf")), f)
+            f = torch.where(x == -3, torch.full_like(f, float("-inf")), f)
+            return torch.where((x == 2) & coin, torch.full_like(f, float("nan")), f)
+        x = x.to(torch.int32)
+        x = torch.where(x == 3, torch.full_like(x, (1 << 31) - 1), x)
+        x = torch.where(x == -3, torch.full_like(x, -(1 << 31)), x)
+        return (x ^ (-(1 << 31))).view(torch.uint32) if dtype == torch.uint32 else x
     if kind == "dup":
         x = torch.randint(0, 5, (rows, n), generator=gen, device=device)
     else:
@@ -164,6 +233,59 @@ def rows_of(gen, rows, n, dtype, kind, device):
     if dtype == torch.uint32:
         return (x.to(torch.int32) ^ (-(1 << 31))).view(torch.uint32)
     return x.to(dtype)
+
+
+def check_sorts(gen, device, errs: dict) -> None:
+    """Both row sorts equal their twin bit for bit at every row length,
+    row counts 1, 3 and one that leaves the last CTA short, every
+    key/value type pair, stable on and off."""
+    import torch
+    from repro_torch.kernels import bitonic
+
+    types = (torch.int32, torch.uint32, torch.float32)
+    for log_n in range(1, 14):
+        n = 1 << log_n
+        per_cta = bitonic.sort_rows_per_cta(n)
+        counts = sorted({1, 3, 2 * per_cta + 1 if per_cta > 1 else 5})
+        for rows in counts:
+            for kd in types:
+                for kind in ("uniform", "special"):
+                    k = rows_of(gen, rows, n, kd, kind, device)
+                    e = max_abs_err(bitonic.bitonic_sort_rows(k), bitonic.sort_rows_twin(k))
+                    errs["bitonic_sort_rows"] = max(errs["bitonic_sort_rows"], e)
+                    for vd in types:
+                        v = rows_of(gen, rows, n, vd, "special", device)
+                        for stable in (True, False):
+                            ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
+                            tk, tv = bitonic.sort_rows_twin(k, v, stable=stable)
+                            e = max(max_abs_err(ok, tk), max_abs_err(ov, tv))
+                            errs["bitonic_sort_rows_kv"] = max(errs["bitonic_sort_rows_kv"], e)
+        log(f"phase 2: row sorts of {n}, rows {counts}, {per_cta} rows a CTA: both kernels "
+            f"equal their twin bit for bit (3 x 3 types, stable on/off, uniform and special)")
+    torch.cuda.synchronize()
+
+
+def time_sorts(gen, rows: int, device) -> dict:
+    """Both row sorts on (rows, 1024) float32 keys (the kv sort with int32
+    provenance values, stable): kernel, twin and torch.sort times and the
+    bound."""
+    import torch
+    from repro_torch.kernels import bitonic
+
+    keys = rows_of(gen, rows, 1024, torch.float32, "uniform", device)
+    vals = torch.arange(keys.numel(), dtype=torch.int32, device=device).reshape(keys.shape)
+    numbers = {}
+    for name, kern, twin, lib, moved in (
+            ("bitonic_sort_rows", lambda: bitonic.bitonic_sort_rows(keys),
+             lambda: bitonic.sort_rows_twin(keys), lambda: torch.sort(keys, dim=-1), 2),
+            ("bitonic_sort_rows_kv", lambda: bitonic.bitonic_sort_rows_kv(keys, vals),
+             lambda: bitonic.sort_rows_twin(keys, vals),
+             lambda: torch.sort(keys, dim=-1, stable=True), 4)):
+        b_ms, b_by = bound(moved * keys.numel() * 4, network_ops(rows, 1024, merge=False))
+        numbers[name] = dict(ms=time_ms(kern), plain_ms=time_ms(twin, reps=3, batch=1),
+                             library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                             shapes=f"({rows}, 1024)")
+    return numbers
 
 
 def check_kernels(device) -> dict:
@@ -180,55 +302,34 @@ def check_kernels(device) -> dict:
         x = rows_of(gen, rows, n, dtype, kind, device)
         return bitonic.sort_rows_twin(x)
 
-    edge = [(4096, 1024), (64, 2048), (32, 4096), (16, 8192)]
-    for rows, n in edge:
+    check_sorts(gen, device, errs)
+    for rows, n in [(4096, 1024), (64, 2048), (32, 4096)]:
         for kd in (i32, u32, f32):
             for kind in ("uniform", "dup"):
-                k = rows_of(gen, rows, n, kd, kind, device)
-                e = max_abs_err(bitonic.bitonic_sort_rows(k), bitonic.sort_rows_twin(k))
-                errs["bitonic_sort_rows"] = max(errs["bitonic_sort_rows"], e)
-                for vd in (i32, u32, f32):
-                    v = rows_of(gen, rows, n, vd, "uniform", device)
+                a, b = sorted_rows(rows, n, kd, kind), sorted_rows(rows, n, kd, kind)
+                e = max_abs_err(bitonic.bitonic_merge_rows(a, b), bitonic.merge_rows_twin(a, b))
+                errs["bitonic_merge_rows"] = max(errs["bitonic_merge_rows"], e)
+                for vd in (i32, f32):
+                    av = rows_of(gen, rows, n, vd, "dup", device)
+                    bv = rows_of(gen, rows, n, vd, "dup", device)
                     for stable in (True, False):
-                        ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
-                        tk, tv = bitonic.sort_rows_twin(k, v, stable=stable)
+                        ok, ov = bitonic.bitonic_merge_rows_kv(a, av, b, bv, stable=stable)
+                        tk, tv = bitonic.merge_rows_twin(a, b, av, bv, stable=stable)
                         e = max(max_abs_err(ok, tk), max_abs_err(ov, tv))
-                        errs["bitonic_sort_rows_kv"] = max(errs["bitonic_sort_rows_kv"], e)
-                if n <= 4096:
-                    a, b = sorted_rows(rows, n, kd, kind), sorted_rows(rows, n, kd, kind)
-                    e = max_abs_err(bitonic.bitonic_merge_rows(a, b),
-                                    bitonic.merge_rows_twin(a, b))
-                    errs["bitonic_merge_rows"] = max(errs["bitonic_merge_rows"], e)
-                    for vd in (i32, f32):
-                        av = rows_of(gen, rows, n, vd, "dup", device)
-                        bv = rows_of(gen, rows, n, vd, "dup", device)
-                        for stable in (True, False):
-                            ok, ov = bitonic.bitonic_merge_rows_kv(a, av, b, bv, stable=stable)
-                            tk, tv = bitonic.merge_rows_twin(a, b, av, bv, stable=stable)
-                            e = max(max_abs_err(ok, tk), max_abs_err(ov, tv))
-                            errs["bitonic_merge_rows_kv"] = max(errs["bitonic_merge_rows_kv"], e)
-        log(f"phase 2: rows ({rows}, {n}): all four kernels equal their twins exactly")
+                        errs["bitonic_merge_rows_kv"] = max(errs["bitonic_merge_rows_kv"], e)
+        log(f"phase 2: merges of ({rows}, {n}) + ({rows}, {n}): both kernels equal their "
+            f"twins exactly")
     torch.cuda.synchronize()
 
     # Timing at the shapes one sort of n = 2^22 float32 keys (p = 8,
     # tile = 1024) gives each kernel: one sort launch on (4096, 1024), and
-    # merges whose outputs are 2048, 4096 and 8192 wide.
-    numbers = {}
-    keys = rows_of(gen, 4096, 1024, f32, "uniform", device)
-    vals = torch.arange(keys.numel(), dtype=i32, device=device).reshape(keys.shape)
-    nbytes = keys.numel() * 4
-    b_ms, b_by = bound(2 * nbytes, network_ops(4096, 1024, merge=False))
-    numbers["bitonic_sort_rows"] = dict(
-        ms=time_ms(lambda: bitonic.bitonic_sort_rows(keys)),
-        plain_ms=time_ms(lambda: bitonic.sort_rows_twin(keys), reps=3),
-        library_ms=time_ms(lambda: torch.sort(keys, dim=-1)),
-        bound_ms=b_ms, bound_by=b_by, shapes="(4096, 1024)")
-    b_ms, b_by = bound(4 * nbytes, network_ops(4096, 1024, merge=False))
-    numbers["bitonic_sort_rows_kv"] = dict(
-        ms=time_ms(lambda: bitonic.bitonic_sort_rows_kv(keys, vals)),
-        plain_ms=time_ms(lambda: bitonic.sort_rows_twin(keys, vals), reps=3),
-        library_ms=time_ms(lambda: torch.sort(keys, dim=-1, stable=True)),
-        bound_ms=b_ms, bound_by=b_by, shapes="(4096, 1024)")
+    # merges whose outputs are 2048, 4096 and 8192 wide; the row sorts also
+    # at (131072, 1024), the launch of a 2^27 sort (logged only).
+    for name, num in time_sorts(gen, 131072, device).items():
+        log(f"phase 2: {name} {num['shapes']}: kernel {num['ms']:.4f} ms, bound "
+            f"{num['bound_ms']:.4f} ms ({num['bound_by']}), twin {num['plain_ms']:.4f} ms, "
+            f"torch.sort {num['library_ms']:.4f} ms")
+    numbers = time_sorts(gen, 4096, device)
     for name, kv in (("bitonic_merge_rows", False), ("bitonic_merge_rows_kv", True)):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         for rows, n in ((2048, 1024), (1024, 2048), (512, 4096)):
@@ -247,7 +348,7 @@ def check_kernels(device) -> dict:
                 lib = lambda: torch.sort(both, dim=-1)
             moved = (4 if kv else 2) * both.numel() * 4
             b_ms, b_by = bound(moved, network_ops(rows, 2 * n, merge=True))
-            t = dict(ms=time_ms(kern), plain_ms=time_ms(twin, reps=3),
+            t = dict(ms=time_ms(kern), plain_ms=time_ms(twin, reps=3, batch=1),
                      library_ms=time_ms(lib), bound_ms=b_ms)
             log(f"phase 2: {name} ({rows}, {n}) -> {2 * n}: "
                 + " ".join(f"{k}={v:.4f}" for k, v in t.items()))
@@ -331,7 +432,7 @@ def check_flash(device) -> dict:
     b_ms, b_by = bound(moved, ops, BF16_OPS_PER_S)
     num = dict(
         ms=time_ms(lambda: flash.flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: flash.kernel_twin(q, k, v, causal=True), reps=3),
+        plain_ms=time_ms(lambda: flash.kernel_twin(q, k, v, causal=True), reps=3, batch=1),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=worst)
@@ -545,11 +646,14 @@ def main() -> int:
     log(f"phase 1: built {', '.join(str(lib.relative_to(ROOT)) for lib in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     reports = {name: lib.with_suffix(".log").read_text() for name, lib in libs.items()}
-    for report in reports.values():
-        for line in report.splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
-                log("phase 1: ptxas:", line.strip())
+    for line in reports["flash"].splitlines():
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
+            log("phase 1: ptxas:", line.strip())
+    for line in reports["bitonic"].splitlines():
+        if "warning" in line:
+            log("phase 1: ptxas:", line.strip())
     check_ptxas(reports["flash"])
+    check_sort_ptxas(reports["bitonic"])
 
     numbers = check_kernels(device)
     launches = run_main_path(device)

@@ -28,6 +28,13 @@ import torch
 from repro_torch.kernels import build
 
 MAX_ROW = 8192
+# The row-sort kernel's layout (csrc/bitonic.cu's kElems, kMinThreads and
+# kMaxThreads; tests/test_torch_kernels.py holds them equal): each thread
+# holds SORT_ELEMS consecutive keys (twice that where a row would take more
+# than SORT_MAX_THREADS threads), and a CTA has at least SORT_MIN_THREADS.
+SORT_ELEMS = 8
+SORT_MIN_THREADS = 128
+SORT_MAX_THREADS = 512
 
 _TYPE_CODES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
 _WIDEN = {
@@ -140,6 +147,17 @@ def merge_rows_twin(ak, bk, av=None, bv=None, *, stable: bool = True):
 # --------------------------------------------------------------- launching
 
 
+def sort_elems(n: int) -> int:
+    """Keys a thread of the row-sort kernel holds for rows of ``n``."""
+    return SORT_ELEMS * (2 if n // SORT_ELEMS > SORT_MAX_THREADS else 1)
+
+
+def sort_rows_per_cta(n: int) -> int:
+    """Rows of length ``n`` that one CTA of the row-sort kernel sorts."""
+    e = sort_elems(n)
+    return max(n // e, SORT_MIN_THREADS) * e // n
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built library, with every entry point's C signature declared."""
@@ -165,7 +183,10 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
-    return x.to(_WIDEN.get(x.dtype, x.dtype)).contiguous()
+    """32-bit, contiguous, and 16-byte aligned: the row-sort kernel moves
+    its elements with 16-byte accesses and refuses an unaligned pointer."""
+    x = x.to(_WIDEN.get(x.dtype, x.dtype)).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _check(name: str, *tensors: torch.Tensor, n_max: int = MAX_ROW) -> str:

@@ -15,16 +15,42 @@
 // keys land where the network puts them), so a different algorithm, such
 // as a radix sort or a merge-path merge, would not give the same output.
 //
-// Design: one CTA per row. The row (keys, and values for the kv kernels)
-// sits in dynamic shared memory: 8192 keys + 8192 values = 64 KB, above
-// the 48 KB default, hence cudaFuncSetAttribute before each launch. Every
-// stage is one pass of the block's threads over the row's N/2 pairs,
-// followed by __syncthreads().
+// Row sort (sort_rows_kernel). The row is read from device memory once and
+// written once, so bytes do not bound it (2^22 float32 keys are 32 MiB a
+// way, about 10 us at 3.35 TB/s, 20 us with int32 values): the network's
+// N/2 * log N (log N + 1) / 2 compare-exchanges do, and the compares and
+// selects that carry them out all run on the ALU pipe. So each
+// compare-exchange is one compare and two selects on registers:
+//   - Thread t of a CTA holds E = 2^log_elems(log N) consecutive elements
+//     (kElems; twice that for rows of 8192, so that a CTA has at most
+//     kMaxThreads threads and 128 registers each), CTA-flat indices
+//     f = t * E + r (r < E), loaded and stored with 16-byte accesses. A
+//     CTA of sort_threads(log N) threads holds whole rows (several when N
+//     is short); bits >= log N of f select the row, and no stage crosses
+//     them.
+//   - A stage at distance 2^d runs on the registers as they are for
+//     d < log E. For the longer distances of a phase, the thread
+//     stores its elements to shared memory and reloads them by
+//     butterflies: groups of up to log E distances, each thread
+//     taking whole butterflies (the 2^G elements those stages pair) into
+//     registers, running the stages there and storing them back. A group
+//     within the warp's 32 E elements needs __syncwarp(); one that reaches
+//     across warps, __syncthreads() (4 a row at N = 1024). The word
+//     addresses are swizzled (swz) so that no access pattern has bank
+//     conflicts.
+//   - From span E on, a block's direction is one per thread for
+//     the phase. The elements of a descending block are flipped for the
+//     phase by an order-reversing bijection (float: the sign bit, which
+//     also keeps -0.0 == +0.0 and NaN unordered; integers: all bits), so
+//     every stage compares ascending and the flip is undone exactly.
+//   - Everything is unrolled at compile time (templates on log N, the
+//     value flag and the tie-break), so every register index is a
+//     constant and nothing goes to local memory.
 //
-// Bound on the card: each kernel must read its row bytes once and write
-// them once. For n = 2^22 float32 keys one pass is 32 MiB, about 10 us at
-// 3.35 TB/s (20 us with int32 values). The network's k(k+1)/2 stages run
-// out of shared memory, so device memory sees the row only twice.
+// Merge (merge_rows_kernel): one CTA per row in dynamic shared memory
+// (up to 8192 keys + 8192 values = 64 KB, hence cudaFuncSetAttribute), one
+// pass of the block's threads over the row's pairs per stage, followed by
+// __syncthreads().
 //
 // Types: keys and values are int32 (code 0), uint32 (code 1) or float32
 // (code 2). Narrower types are widened by the Python wrapper. Every entry
@@ -37,7 +63,33 @@
 namespace {
 
 constexpr int kMaxRow = 8192;
+constexpr int kLogMaxRow = 13;
 constexpr int kMaxThreads = 512;
+
+// Row-sort layout (tests/test_torch_kernels.py reads these constants;
+// kMaxThreads above bounds a row-sort CTA too).
+constexpr int kElems = 8;         // consecutive elements a thread holds
+constexpr int kLogElems = 3;
+constexpr int kWarp = 32;
+constexpr int kLogWarp = 5;
+constexpr int kMinThreads = 128;  // a CTA's threads when rows are short
+static_assert(1 << kLogElems == kElems && 1 << kLogWarp == kWarp && kElems % 4 == 0,
+              "elements a thread in 16-byte pieces");
+
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// log2 of the elements a thread holds for rows of 2^log_n: kElems, or
+// twice that where kElems would take more than kMaxThreads threads.
+__host__ __device__ constexpr int log_elems(int log_n) {
+  return (1 << log_n) / kElems > kMaxThreads ? kLogElems + 1 : kLogElems;
+}
+
+// Threads of a row-sort CTA: one per 2^log_elems elements of a row, at
+// least kMinThreads (then the CTA holds several rows).
+__host__ __device__ constexpr int sort_threads(int log_n) {
+  return cmax((1 << log_n) >> log_elems(log_n), kMinThreads);
+}
 
 // One compare-exchange stage at distance j = 2^sub over a row of 2*half
 // elements in shared memory. Pair q sits at lo = block*2j + (q mod j).
@@ -73,34 +125,253 @@ __device__ __forceinline__ void cmpx_stage(K* sk, V* sv, int half, int sub,
   }
 }
 
-// Full bitonic sort network, ascending: for s in 0..k-1, span 2^(s+1),
-// distances 2^s down to 1 (repro/kernels/bitonic.py::_sort_network).
-template <typename K, typename V, bool HAS_V>
-__global__ void sort_rows_kernel(const K* __restrict__ kin,
-                                 const V* __restrict__ vin,
-                                 K* __restrict__ kout, V* __restrict__ vout,
-                                 int n, int log_n, bool tiebreak) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  K* sk = reinterpret_cast<K*>(smem);
-  V* sv = reinterpret_cast<V*>(smem + static_cast<size_t>(n) * sizeof(K));
-  const size_t base = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sk[i] = kin[base + i];
-    if (HAS_V) sv[i] = vin[base + i];
+// ---------------------------------------------------------------- row sort
+
+// The network's rule for the ordered pair (a at the lower flat index, b at
+// the higher): out of order iff a > b in an ascending block and a < b in a
+// descending one; with TB, equal keys go by their values the same way.
+// Strict comparisons and selects only, never min/max: an element moves
+// only where the network swaps it, so -0.0 / +0.0 and NaN stay put.
+template <bool TB, typename K, typename V>
+__device__ __forceinline__ bool out_of_order(bool asc, K a, K b, V va, V vb) {
+  bool gt = a > b;
+  bool lt = a < b;
+  if constexpr (TB) {
+    const bool eq = a == b;
+    gt = gt || (eq && va > vb);
+    lt = lt || (eq && va < vb);
   }
-  __syncthreads();
-  const int half = n >> 1;
-  for (int s = 0; s < log_n; ++s) {
-    const int span = 2 << s;
-    for (int sub = s; sub >= 0; --sub) {
-      cmpx_stage<K, V, HAS_V>(sk, sv, half, sub, span, tiebreak);
-      __syncthreads();
+  return asc ? gt : lt;
+}
+
+// One stage at register bit BIT: x[r] against x[r + 2^BIT] for each r
+// with that bit clear, in the direction asc[r] (known at compile time).
+template <int BIT, bool HAS_V, bool TB, typename K, typename V, int E>
+__device__ __forceinline__ void cmpx_regs(K (&k)[E], V (&v)[E], const bool (&asc)[E]) {
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    if (r & (1 << BIT)) continue;
+    const int h = r + (1 << BIT);
+    const bool swap = out_of_order<TB>(asc[r], k[r], k[h], v[r], v[h]);
+    const K ka = k[r];
+    k[r] = swap ? k[h] : ka;
+    k[h] = swap ? ka : k[h];
+    if constexpr (HAS_V) {
+      const V va = v[r];
+      v[r] = swap ? v[h] : va;
+      v[h] = swap ? va : v[h];
     }
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    kout[base + i] = sk[i];
-    if (HAS_V) vout[base + i] = sv[i];
+}
+
+// Stages at register bits HI down to LO.
+template <int HI, int LO, bool HAS_V, bool TB, typename K, typename V, int E>
+__device__ __forceinline__ void reg_stages(K (&k)[E], V (&v)[E], const bool (&asc)[E]) {
+  if constexpr (HI >= LO) {
+    cmpx_regs<HI, HAS_V, TB>(k, v, asc);
+    reg_stages<HI - 1, LO, HAS_V, TB>(k, v, asc);
   }
+}
+
+// An order-reversing bijection, applied where on is set: a < b iff
+// flip(a) > flip(b), a == b iff flip(a) == flip(b), flip(flip(x)) == x.
+__device__ __forceinline__ float flip_if(float x, bool on) {
+  return __uint_as_float(__float_as_uint(x) ^ (static_cast<uint32_t>(on) << 31));
+}
+__device__ __forceinline__ int32_t flip_if(int32_t x, bool on) { return x ^ -static_cast<int32_t>(on); }
+__device__ __forceinline__ uint32_t flip_if(uint32_t x, bool on) { return x ^ (0u - on); }
+
+// The word in shared memory of CTA-flat index a: bits 2-4 XORed with a
+// linear function of bits 5-7, so that at kElems a thread the 16-byte
+// pieces of a thread's own elements and every group's butterflies (below)
+// are free of bank conflicts (at 16, two group shapes are 2-way). Linear
+// over XOR: swz(a ^ b) == swz(a) ^ swz(b).
+__host__ __device__ constexpr int swz(int a) {
+  const int x = (a >> 5) & 7;
+  return a ^ (((x ^ (x << 1)) & 7) << 2);
+}
+
+template <typename T> struct Vec4;
+template <> struct Vec4<int32_t> { using type = int4; };
+template <> struct Vec4<uint32_t> { using type = uint4; };
+template <> struct Vec4<float> { using type = float4; };
+
+// Four consecutive elements between memory (16-byte aligned) and x[at..at+3].
+template <typename T, int E>
+__device__ __forceinline__ void load4(T (&x)[E], int at, const T* p) {
+  using W = typename Vec4<T>::type;
+  const W w = *reinterpret_cast<const W*>(p);
+  x[at] = w.x;
+  x[at + 1] = w.y;
+  x[at + 2] = w.z;
+  x[at + 3] = w.w;
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void store4(T* p, const T (&x)[E], int at) {
+  using W = typename Vec4<T>::type;
+  W w;
+  w.x = x[at];
+  w.y = x[at + 1];
+  w.z = x[at + 2];
+  w.w = x[at + 3];
+  *reinterpret_cast<W*>(p) = w;
+}
+
+// A thread's elements from device memory: elements past the last row (a
+// short last CTA, or rows of fewer than E) read as 0 and are never
+// stored, and no stage pairs them with an element of a real row.
+template <typename T, int E>
+__device__ __forceinline__ void load_part(T (&x)[E], const T* src, long long g0,
+                                          long long total) {
+  if (g0 + E <= total) {
+#pragma unroll
+    for (int i = 0; i < E; i += 4) load4(x, i, src + g0 + i);
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) x[r] = g0 + r < total ? src[g0 + r] : T(0);
+  }
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void store_part(T* dst, const T (&x)[E], long long g0,
+                                           long long total) {
+  if (g0 + E <= total) {
+#pragma unroll
+    for (int i = 0; i < E; i += 4) store4(dst + g0 + i, x, i);
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r)
+      if (g0 + r < total) dst[g0 + r] = x[r];
+  }
+}
+
+// A thread's own elements (f0 .. f0 + E - 1) to and from shared memory.
+template <typename T, int E>
+__device__ __forceinline__ void store_own(T* s, const T (&x)[E], int f0) {
+#pragma unroll
+  for (int i = 0; i < E; i += 4) store4(s + swz(f0 + i), x, i);
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void load_own(T (&x)[E], const T* s, int f0) {
+#pragma unroll
+  for (int i = 0; i < E; i += 4) load4(x, i, s + swz(f0 + i));
+}
+
+template <bool CTA>
+__device__ __forceinline__ void sync() {
+  if constexpr (CTA) __syncthreads(); else __syncwarp();
+}
+
+// Stages at bits HI down to LO (HI - LO < log E) of a phase, with the
+// CTA's elements in shared memory, all ascending. Butterfly q (the 2^G
+// elements at base + c * 2^LO, c < 2^G, that these stages pair) goes to
+// one thread, E / 2^G butterflies a thread: the CTA's butterflies in
+// turn when HI is a warp bit, else the butterflies of the thread's own
+// warp's 32 E elements, so that __syncwarp() suffices. Then the next group.
+template <int LOG_N, int HI, bool HAS_V, bool TB, typename K, typename V, int E>
+__device__ __forceinline__ void smem_group(K (&k)[E], V (&v)[E], K* sk, V* sv, int t) {
+  constexpr int T = sort_threads(LOG_N);
+  constexpr int LE = log_elems(LOG_N);
+  constexpr int LO = cmax(HI - LE + 1, LE);
+  constexpr int G = HI - LO + 1;
+  constexpr bool kCta = HI >= LE + kLogWarp;
+  // register r holds element c = r % 2^G of butterfly i = r / 2^G, at
+  // word base[i] ^ swz(c << LO) (swz is linear, and base has zeros there)
+  int base[E >> G];
+  bool asc[E];
+#pragma unroll
+  for (int i = 0; i < (E >> G); ++i) {
+    const int q = kCta ? t + i * T
+                       : (t >> kLogWarp) * (kWarp * E >> G) + (t & (kWarp - 1)) + i * kWarp;
+    base[i] = swz(((q >> LO) << (LO + G)) | (q & ((1 << LO) - 1)));
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int at = base[r >> G] ^ swz((r & ((1 << G) - 1)) << LO);
+    k[r] = sk[at];
+    if constexpr (HAS_V) v[r] = sv[at];
+    asc[r] = true;
+  }
+  reg_stages<G - 1, 0, HAS_V, TB>(k, v, asc);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int at = base[r >> G] ^ swz((r & ((1 << G) - 1)) << LO);
+    sk[at] = k[r];
+    if constexpr (HAS_V) sv[at] = v[r];
+  }
+  sync<kCta>();
+  if constexpr (LO > LE) smem_group<LOG_N, LO - 1, HAS_V, TB>(k, v, sk, sv, t);
+}
+
+// Phase S of the network (span 2^(S+1), distances 2^S down to 1). flip
+// says whether the thread's elements are flipped, on entry and on exit.
+template <int LOG_N, int S, bool HAS_V, bool TB, typename K, typename V, int E>
+__device__ __forceinline__ void sort_phase(K (&k)[E], V (&v)[E], K* sk, V* sv, int t,
+                                           bool& flip) {
+  constexpr int LE = log_elems(LOG_N);
+  constexpr int kSpan = 2 << S;
+  constexpr bool kWhole = S == LOG_N - 1;  // the last phase is one ascending block
+  const int f0 = t * E;
+  bool asc[E];
+  if constexpr (kSpan < E) {  // a direction per register pair
+#pragma unroll
+    for (int r = 0; r < E; ++r) asc[r] = kWhole || (r & kSpan) == 0;
+  } else {  // one direction for the thread: flip descending blocks
+    const bool want = !kWhole && (f0 & kSpan) != 0;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      k[r] = flip_if(k[r], want != flip);
+      if constexpr (TB) v[r] = flip_if(v[r], want != flip);
+      asc[r] = true;
+    }
+    flip = want;
+  }
+  if constexpr (S >= LE) {
+    // Each thread stores and reloads only its own elements, so the next
+    // phase's store needs no barrier before it.
+    store_own(sk, k, f0);
+    if constexpr (HAS_V) store_own(sv, v, f0);
+    sync<(S >= LE + kLogWarp)>();
+    smem_group<LOG_N, S, HAS_V, TB>(k, v, sk, sv, t);
+    load_own(k, sk, f0);
+    if constexpr (HAS_V) load_own(v, sv, f0);
+  }
+  reg_stages<cmin(S, LE - 1), 0, HAS_V, TB>(k, v, asc);
+}
+
+template <int LOG_N, int S, bool HAS_V, bool TB, typename K, typename V, int E>
+__device__ __forceinline__ void sort_phases(K (&k)[E], V (&v)[E], K* sk, V* sv, int t,
+                                            bool& flip) {
+  if constexpr (S < LOG_N) {
+    sort_phase<LOG_N, S, HAS_V, TB>(k, v, sk, sv, t, flip);
+    sort_phases<LOG_N, S + 1, HAS_V, TB>(k, v, sk, sv, t, flip);
+  }
+}
+
+// Full bitonic sort network, ascending: for s in 0..k-1, span 2^(s+1),
+// distances 2^s down to 1 (repro/kernels/bitonic.py::_sort_network), over
+// rows of N = 2^LOG_N; total = rows * N.
+template <int LOG_N, bool HAS_V, bool TB, typename K, typename V>
+__global__ void __launch_bounds__(sort_threads(LOG_N))
+sort_rows_kernel(const K* __restrict__ kin, const V* __restrict__ vin,
+                 K* __restrict__ kout, V* __restrict__ vout, long long total) {
+  constexpr int E = 1 << log_elems(LOG_N);
+  constexpr int B = sort_threads(LOG_N) * E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  K* sk = reinterpret_cast<K*>(smem);
+  V* sv = reinterpret_cast<V*>(smem + B * sizeof(K));
+  const int t = threadIdx.x;
+  const long long g0 = static_cast<long long>(blockIdx.x) * B + t * E;
+  K k[E];
+  V v[E];
+  load_part(k, kin, g0, total);
+  if constexpr (HAS_V) load_part(v, vin, g0, total);
+  bool flip = false;  // the last phase leaves every element unflipped
+  sort_phases<LOG_N, 0, HAS_V, TB>(k, v, sk, sv, t, flip);
+  store_part(kout, k, g0, total);
+  if constexpr (HAS_V) store_part(vout, v, g0, total);
 }
 
 // Merge of two sorted rows of n: a ++ reverse(b) is bitonic, then the
@@ -149,21 +420,42 @@ bool bad_shape(long long rows, int n) {
          (n & (n - 1)) != 0;
 }
 
-template <typename K, typename V, bool HAS_V>
-cudaError_t launch_sort(const void* k, const void* v, void* ok, void* ov,
-                        long long rows, int n, bool tiebreak,
-                        cudaStream_t stream) {
-  if (bad_shape(rows, n)) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(n) * (sizeof(K) + (HAS_V ? sizeof(V) : 0));
-  auto kern = sort_rows_kernel<K, V, HAS_V>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int threads = (n / 2) < kMaxThreads ? (n / 2) : kMaxThreads;
-  kern<<<static_cast<unsigned>(rows), threads, smem, stream>>>(
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int LOG_N, bool HAS_V, bool TB, typename K, typename V>
+cudaError_t launch_sort_n(const void* k, const void* v, void* ok, void* ov,
+                          long long rows, cudaStream_t stream) {
+  constexpr int T = sort_threads(LOG_N);
+  constexpr int B = T << log_elems(LOG_N);  // elements a CTA
+  // shared memory only when some phase has stages past the registers
+  const size_t smem = LOG_N > log_elems(LOG_N)
+      ? static_cast<size_t>(B) * (sizeof(K) + (HAS_V ? sizeof(V) : 0))
+      : 0;
+  auto kern = sort_rows_kernel<LOG_N, HAS_V, TB, K, V>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const long long ctas = (rows + (B >> LOG_N) - 1) / (B >> LOG_N);
+  kern<<<static_cast<unsigned>(ctas), T, smem, stream>>>(
       static_cast<const K*>(k), static_cast<const V*>(v), static_cast<K*>(ok),
-      static_cast<V*>(ov), n, ilog2(n), tiebreak);
+      static_cast<V*>(ov), rows << LOG_N);
   return cudaGetLastError();
+}
+
+template <bool HAS_V, bool TB, typename K, typename V, int LOG_N = 1>
+cudaError_t launch_sort(const void* k, const void* v, void* ok, void* ov,
+                        long long rows, int log_n, cudaStream_t stream) {
+  if constexpr (LOG_N > kLogMaxRow) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log_n == LOG_N)
+      return launch_sort_n<LOG_N, HAS_V, TB, K, V>(k, v, ok, ov, rows, stream);
+    return launch_sort<HAS_V, TB, K, V, LOG_N + 1>(k, v, ok, ov, rows, log_n, stream);
+  }
 }
 
 template <typename K, typename V, bool HAS_V>
@@ -200,19 +492,31 @@ extern "C" {
 
 int bitonic_sort_rows(const void* keys, void* out, long long rows, int n,
                       int key_type, void* stream) {
+  if (bad_shape(rows, n) || !aligned16(keys) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH_TYPE(key_type, K,
-    return launch_sort<K, K, false>(keys, nullptr, out, nullptr, rows, n,
-                                    false, static_cast<cudaStream_t>(stream));)
+    return launch_sort<false, false, K, uint32_t>(keys, nullptr, out, nullptr,
+                                                  rows, ilog2(n), s);)
 }
 
 int bitonic_sort_rows_kv(const void* keys, const void* values, void* out_keys,
                          void* out_values, long long rows, int n, int key_type,
                          int value_type, int stable, void* stream) {
+  if (bad_shape(rows, n) || !aligned16(keys) || !aligned16(values) ||
+      !aligned16(out_keys) || !aligned16(out_values) || value_type < 0 ||
+      value_type > 2)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!stable) {  // values only move: their type does not matter, their bits do
+    DISPATCH_TYPE(key_type, K,
+      return launch_sort<true, false, K, uint32_t>(keys, values, out_keys,
+                                                   out_values, rows, ilog2(n), s);)
+  }
   DISPATCH_TYPE(key_type, K,
     DISPATCH_TYPE(value_type, V,
-      return launch_sort<K, V, true>(keys, values, out_keys, out_values, rows,
-                                     n, stable != 0,
-                                     static_cast<cudaStream_t>(stream));))
+      return launch_sort<true, true, K, V>(keys, values, out_keys, out_values,
+                                           rows, ilog2(n), s);))
 }
 
 int bitonic_merge_rows(const void* a, const void* b, void* out, long long rows,

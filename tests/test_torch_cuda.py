@@ -26,28 +26,47 @@ def gpu():
 
 
 def _rows(gen, rows, n, dtype, distinct, device):
+    """Keys from ``distinct`` values; float ones with +-0.0 ties, and,
+    where ``distinct`` >= 7, +-inf and (float32 only: the two devices
+    narrow a NaN to bfloat16 with other bits) NaN."""
     x = torch.randint(0, distinct, (rows, n), generator=gen, device=device)
-    if dtype == torch.float32:
-        x = (x - distinct // 2).to(torch.float32) / 3
-        return torch.where(torch.rand(x.shape, generator=gen, device=device) < 0.5, x, -x)
+    if dtype in (torch.float32, torch.bfloat16):
+        f = (x - distinct // 2).to(torch.float32) / 3
+        f = torch.where(torch.rand(x.shape, generator=gen, device=device) < 0.5, f, -f)
+        if distinct >= 7:
+            f = torch.where(x == 0, torch.full_like(f, float("inf")), f)
+            f = torch.where(x == 1, torch.full_like(f, float("-inf")), f)
+            if dtype == torch.float32:
+                f = torch.where(x == 2, torch.full_like(f, float("nan")), f)
+        return f.to(dtype)
+    if dtype == torch.uint32:
+        return (x.to(torch.int32) * 7919 ^ (-(1 << 31))).view(torch.uint32)
     return x.to(dtype)
 
 
-@pytest.mark.parametrize("n", [2, 64, 1024, 8192])
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n", [1 << e for e in range(1, 14)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32, torch.int8,
+                                   torch.bfloat16])
 def test_kernels_equal_twins(gpu, n, dtype):
+    """Bit for bit against the twins: 1, 3 and a number of rows that leaves
+    the row sort's last CTA short, every value type, stable on and off."""
     gen = torch.Generator(device=gpu).manual_seed(n)
+    per_cta = bitonic.sort_rows_per_cta(n)
+    for rows in (1, 3, 2 * per_cta + 1 if per_cta > 1 else 5):
+        k = _rows(gen, rows, n, dtype, 7, gpu)
+        before = bitonic.bitonic_sort_rows.launches
+        assert torch.equal(bitonic.bitonic_sort_rows(k).cpu().view(torch.int8),
+                           bitonic.bitonic_sort_rows(k.cpu()).view(torch.int8))
+        assert bitonic.bitonic_sort_rows.launches == before + 1
+        for vdtype in (torch.int32, torch.uint32, torch.float32):
+            v = _rows(gen, rows, n, vdtype, 7, gpu)
+            for stable in (True, False):
+                ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
+                tk, tv = bitonic.bitonic_sort_rows_kv(k.cpu(), v.cpu(), stable=stable)
+                assert torch.equal(ok.cpu().view(torch.int8), tk.view(torch.int8))
+                assert torch.equal(ov.cpu().view(torch.int8), tv.view(torch.int8))
     k = _rows(gen, 8, n, dtype, 7, gpu)
     v = _rows(gen, 8, n, torch.int32, 1000, gpu)
-    before = bitonic.bitonic_sort_rows.launches
-    assert torch.equal(bitonic.bitonic_sort_rows(k).view(torch.int8),
-                       bitonic.bitonic_sort_rows(k.cpu()).to(gpu).view(torch.int8))
-    assert bitonic.bitonic_sort_rows.launches == before + 1
-    for stable in (True, False):
-        ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
-        tk, tv = bitonic.bitonic_sort_rows_kv(k.cpu(), v.cpu(), stable=stable)
-        assert torch.equal(ok.cpu().view(torch.int8), tk.view(torch.int8))
-        assert torch.equal(ov.cpu(), tv)
     if n <= 4096:
         a = bitonic.bitonic_sort_rows(k)
         b = bitonic.bitonic_sort_rows(_rows(gen, 8, n, dtype, 7, gpu))
@@ -58,6 +77,24 @@ def test_kernels_equal_twins(gpu, n, dtype):
         tk, tv = bitonic.bitonic_merge_rows_kv(a.cpu(), v.cpu(), b.cpu(), v.cpu())
         assert torch.equal(ok.cpu().view(torch.int8), tk.view(torch.int8))
         assert torch.equal(ov.cpu(), tv)
+
+
+def test_row_sort_takes_unaligned_views_and_refuses_unaligned_pointers(gpu):
+    """The row-sort kernel moves 16 bytes at a time: the wrapper copies a
+    view that starts off a 16-byte boundary, and the C entry point refuses
+    such a pointer instead of faulting."""
+    buf = torch.randn(4 * 1024 + 1, generator=torch.Generator(device=gpu).manual_seed(0),
+                      device=gpu)
+    k = buf[1:].view(4, 1024)
+    assert k.data_ptr() % 16 != 0
+    assert torch.equal(bitonic.bitonic_sort_rows(k).cpu(), bitonic.sort_rows_twin(k.cpu()))
+    ok, ov = bitonic.bitonic_sort_rows_kv(k, k)
+    tk, tv = bitonic.sort_rows_twin(k.cpu(), k.cpu())
+    assert torch.equal(ok.cpu(), tk) and torch.equal(ov.cpu(), tv)
+    out = torch.empty_like(k)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        bitonic._launch("bitonic_sort_rows", k.data_ptr(), out.data_ptr(), 4, 1024,
+                        bitonic._TYPE_CODES[k.dtype], bitonic._stream(k))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int16", "uint32", "bfloat16"])

@@ -7,13 +7,15 @@ equality: the same compare-exchange network gives the same output, down
 to which of two tied keys (+0.0 and -0.0, or equal keys with different
 values) lands where.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import bitonic as jbitonic
 from repro.kernels import ops as jops
-from repro_torch.kernels import bitonic, ops, ref
+from repro_torch.kernels import bitonic, build, ops, ref
 from torch_parity import assert_bits_equal, jx, make_keys, port_np, tt
 
 RNG = np.random.default_rng(7)
@@ -184,3 +186,203 @@ def test_cpu_twins_count_no_launches():
     bitonic.bitonic_sort_rows(k)
     bitonic.bitonic_merge_rows(k[:, :32].sort().values, k[:, 32:].sort().values)
     assert all(fn.launches == 0 for fn in bitonic.KERNELS)
+
+
+# ----------------------------------------------- the row-sort kernel's layout
+
+
+def _sort_layout() -> dict:
+    """The row-sort kernel's layout constants, read from csrc/bitonic.cu."""
+    src = (build.CSRC / "bitonic.cu").read_text()
+    const = {name: int(val) for name, val in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert "return (1 << log_n) / kElems > kMaxThreads ? kLogElems + 1 : kLogElems;" in src
+    assert "return cmax((1 << log_n) >> log_elems(log_n), kMinThreads);" in src  # threads
+    assert "constexpr bool kCta = HI >= LE + kLogWarp;" in src
+    assert "return a ^ (((x ^ (x << 1)) & 7) << 2);" in src  # swz
+    assert 1 << const["kLogElems"] == const["kElems"] and 1 << const["kLogWarp"] == const["kWarp"]
+    assert (bitonic.SORT_ELEMS, bitonic.SORT_MIN_THREADS, bitonic.SORT_MAX_THREADS) == (
+        const["kElems"], const["kMinThreads"], const["kMaxThreads"])
+    return const
+
+
+def _elems(n: int, const: dict) -> int:
+    """log_elems: the keys a thread holds for rows of n."""
+    e = const["kElems"]
+    return 2 * e if n // e > const["kMaxThreads"] else e
+
+
+def _swz(a):
+    """csrc/bitonic.cu's swz: the shared-memory word of CTA-flat index a."""
+    x = (a >> 5) & 7
+    return a ^ (((x ^ (x << 1)) & 7) << 2)
+
+
+def _bank_ways(words, lanes: int = 32, width: int = 1) -> int:
+    """The most distinct shared-memory words (of ``width`` 4-byte words
+    each) that ``lanes`` threads reading ``words`` (one per thread, in
+    thread order) at once send to one bank."""
+    worst = 1
+    for start in range(0, len(words), lanes):
+        by_bank = {}
+        for w in words[start:start + lanes]:
+            by_bank.setdefault(w % 32 // width, set()).add(w)
+        worst = max(worst, *map(len, by_bank.values()))
+    return worst
+
+
+def _flip_if(x, on):
+    """flip_if: float32 by the sign bit, int32 (and uint32 as the twin's
+    signed lanes) by all bits; ``on`` broadcasts over x."""
+    mask = -(1 << 31) if x.dtype == torch.float32 else -1
+    bits = x.view(torch.int32) ^ torch.where(on, mask, 0).to(torch.int32)
+    return bits.view(x.dtype)
+
+
+def _out_of_order(asc, a, b, va, vb):
+    """The kernel's out_of_order on tensors; ``va`` None: no tie-break."""
+    gt, lt = a > b, a < b
+    if va is not None:
+        eq = a == b
+        gt, lt = gt | (eq & (va > vb)), lt | (eq & (va < vb))
+    return torch.where(asc, gt, lt)
+
+
+def _reg_stage(k, v, asc, bit: int, tiebreak: bool):
+    """cmpx_regs: register r against r + 2^bit, in the direction asc[..., r]."""
+    lo = [r for r in range(k.shape[-1]) if not r & (1 << bit)]
+    hi = [r + (1 << bit) for r in lo]
+    a, b = k[..., lo], k[..., hi]
+    va, vb = (v[..., lo], v[..., hi]) if v is not None else (None, None)
+    swap = _out_of_order(asc[..., lo], a, b, va if tiebreak else None, vb)
+    k = k.clone()
+    k[..., lo], k[..., hi] = torch.where(swap, b, a), torch.where(swap, a, b)
+    if v is not None:
+        v = v.clone()
+        v[..., lo], v[..., hi] = torch.where(swap, vb, va), torch.where(swap, va, vb)
+    return k, v
+
+
+def _emulate_row_sort(keys, values, tiebreak: bool, const: dict):
+    """sort_rows_kernel's schedule in PyTorch: registers as a (CTAs,
+    threads, kElems) tensor; the phases' flips of descending blocks; the
+    longer distances as gathers of whole butterflies from the swizzled
+    shared-memory image (the CTA's in turn, or the warp's own); the
+    direction of the first phases from the register index."""
+    rows, n = keys.shape
+    log_n = n.bit_length() - 1
+    E, warp = _elems(n, const), const["kWarp"]
+    log_e = E.bit_length() - 1
+    log_warp_span = log_e + const["kLogWarp"]
+    T = max(n // E, const["kMinThreads"])  # sort_threads(log_n)
+    B = T * E
+    ctas = -(-rows // (B // n))
+    pad = ctas * (B // n) - rows  # a short last CTA reads zeros past the last row
+    assert torch.equal(_swz(torch.arange(B)).sort().values, torch.arange(B))
+
+    def regs(x):
+        x = torch.cat([x, x.new_zeros((pad, n))]) if pad else x
+        return x.reshape(ctas, T, E)
+
+    k = regs(keys)
+    v = regs(values) if values is not None else None
+    t = torch.arange(T)
+    f0 = t * E
+    own = _swz(f0[:, None] + torch.arange(E))  # (T, E) words of each thread's elements
+    if E == 8:  # 16-byte pieces go 8 threads at a time
+        assert all(_bank_ways(own[:, i].tolist(), 8, 4) == 1 for i in range(0, E, 4))
+    flip = torch.zeros(T, dtype=torch.bool)
+    for s in range(log_n):
+        span, whole = 2 << s, s == log_n - 1
+        if span < E:  # a direction per register pair
+            asc = (whole | ((torch.arange(E) & span) == 0)).expand(T, E)
+        else:  # flip descending blocks, then compare ascending
+            want = ((f0 & span) != 0) & (not whole)
+            k = _flip_if(k, (want != flip)[None, :, None])
+            if tiebreak:
+                v = _flip_if(v, (want != flip)[None, :, None])
+            flip = want
+            asc = torch.ones(T, E, dtype=torch.bool)
+        if s >= log_e:  # through shared memory
+            sk = k.new_zeros(ctas, B)
+            sk[:, own.flatten()] = k.reshape(ctas, B)
+            sv = None
+            if v is not None:
+                sv = v.new_zeros(ctas, B)
+                sv[:, own.flatten()] = v.reshape(ctas, B)
+            hi = s
+            while hi >= log_e:
+                lo = max(hi - log_e + 1, log_e)
+                g = hi - lo + 1
+                i = torch.arange(E >> g)[None, :]
+                if hi >= log_warp_span:  # the CTA's butterflies in turn
+                    q = t[:, None] + i * T
+                else:  # the warp's own butterflies
+                    q = (t >> 5)[:, None] * (warp * E >> g) + (t & (warp - 1))[:, None] + i * warp
+                base = ((q >> lo) << (lo + g)) | (q & ((1 << lo) - 1))
+                flat = (base[..., None] + (torch.arange(1 << g) << lo)).reshape(T, E)
+                if hi < log_warp_span:
+                    assert torch.equal(flat // (warp * E), (t // warp)[:, None].expand(T, E))
+                idx = _swz(flat)
+                assert torch.equal(idx.flatten().sort().values, torch.arange(B))
+                if E == 8:  # swz leaves no bank conflict in any group
+                    assert all(_bank_ways(idx[:, r].tolist()) == 1 for r in range(E))
+                bk = sk[:, idx]
+                bv = sv[:, idx] if sv is not None else None
+                for bit in range(g - 1, -1, -1):
+                    bk, bv = _reg_stage(bk, bv, torch.ones(T, E, dtype=torch.bool), bit,
+                                        tiebreak)
+                sk = sk.clone()
+                sk[:, idx.flatten()] = bk.reshape(ctas, B)
+                if sv is not None:
+                    sv = sv.clone()
+                    sv[:, idx.flatten()] = bv.reshape(ctas, B)
+                hi = lo - 1
+            k = sk[:, own]
+            v = sv[:, own] if sv is not None else None
+        for bit in range(min(s, log_e - 1), -1, -1):  # register bits
+            k, v = _reg_stage(k, v, asc, bit, tiebreak)
+    assert not flip.any()
+    k = k.reshape(-1, n)[:rows]
+    return k if v is None else (k, v.reshape(-1, n)[:rows])
+
+
+def _special_keys(rng, rows, n, dtype):
+    """Heavy duplicates, with +-0.0, +-inf and NaN among float keys."""
+    x = rng.integers(-3, 4, (rows, n))
+    if dtype != "float32":
+        info = np.iinfo(dtype)
+        return np.where(x == 3, info.max, np.where(x == -3, info.min, x)).astype(dtype)
+    f = x.astype(np.float32)
+    f[x == 0] = np.where(rng.random((x == 0).sum()) < 0.5, 0.0, -0.0)
+    f[x == 3] = np.inf
+    f[x == -3] = -np.inf
+    f[(x == 2) & (rng.random(x.shape) < 0.5)] = np.nan
+    return f
+
+
+@pytest.mark.parametrize("case", ["keys float32", "keys uint32", "kv float32/int32 stable",
+                                  "kv float32/float32", "kv int32/uint32 stable",
+                                  "kv uint32/float32 stable"])
+@pytest.mark.parametrize("n", [1 << e for e in range(1, 14)])
+def test_register_layout_runs_the_network(n, case):
+    """The kernel's layout (registers, flipped descending blocks,
+    swizzled shared-memory butterflies of the CTA or of the warp, a short
+    last CTA) runs the same network as sort_rows_twin, bit for bit, and
+    at 8 keys a thread no shared-memory access has a bank conflict."""
+    const = _sort_layout()
+    rng = np.random.default_rng(n)
+    rows_per_cta = bitonic.sort_rows_per_cta(n)
+    assert rows_per_cta == max(n // _elems(n, const), const["kMinThreads"]) * _elems(n, const) // n
+    rows = rows_per_cta + 1 if rows_per_cta > 1 else 3
+    types = case.split()[1].split("/")
+    k = bitonic._signed(tt(_special_keys(rng, rows, n, types[0])))
+    if len(types) == 1:
+        got, want = _emulate_row_sort(k, None, False, const), bitonic.sort_rows_twin(k)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        return
+    stable = case.endswith("stable")
+    v = bitonic._signed(tt(_special_keys(rng, rows, n, types[1])))
+    got = _emulate_row_sort(k, v, stable, const)
+    want = bitonic.sort_rows_twin(k, v, stable=stable)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
