@@ -11,14 +11,16 @@ Phases, one line or more each:
      ignored setmaxnreg or serialized the wgmma instructions, or if any
      instantiation of the row-sort kernel has a stack frame or spills;
   2. each of the four bitonic kernels against its plain PyTorch twin on the
-     card, bit for bit: the two row sorts at every row length 2..8192,
-     1, 3 and a number of rows that is not a multiple of a CTA's, every
-     key/value type pair, stable on and off, uniform keys and heavy
-     duplicates with +-0.0, +-inf and NaN; the merges at the main path's
-     shapes and at edge shapes. Each kernel's time (``time_ms``: CUDA
-     events around a batch of 10 calls, median of 20 batches) beside its
-     bound, the twin's time and one torch.sort call on the same rows, the
-     row sorts also at (131072, 1024), the launch of a 2^27 sort;
+     card, bit for bit: the two row sorts at every row length 2..8192
+     (1, 3 and a number of rows that is not a multiple of a CTA's) and at
+     (4096, 1024), (64, 2048), (32, 4096) and (16, 8192), every key/value
+     type pair, stable on and off, uniform keys and heavy duplicates with
+     +-0.0, +-inf and NaN; the merges at the main path's shapes and at
+     edge shapes. Each kernel's time (``time_ms``: CUDA events around a
+     batch of 10 calls, median of 20 batches) beside its bound, the twin's
+     time and one torch.sort call on the same rows; the row sorts at
+     (4096, 1024) and at (131072, 1024), the launch of a 2^27 sort, each
+     also held to its twin bit for bit on the tensors it is timed on;
   3. ``repro_torch.sort`` through its entry point (the sort's main path),
      checked against torch.sort on the card: n = 2^22 float32 keys at the
      default limits, n = 2^22 int32 keys with 4 distinct values (imbalance
@@ -156,7 +158,6 @@ def ptxas_entries(report: str) -> dict:
 
 # sort_rows_kernel<LOG_N, HAS_V, TB, K, V>; i = int32, j = uint32, f = float
 SORT_ENTRY = re.compile(r"sort_rows_kernelILi(\d+)ELb([01])ELb([01])E([ijf])([ijf])E")
-SORT_INSTANTIATIONS = 13 * (3 + 3 + 9)  # log N 1..13 x (keys, kv, kv stable) types
 
 
 def check_ptxas(report: str) -> None:
@@ -177,15 +178,19 @@ def check_sort_ptxas(report: str) -> None:
     the row-sort kernel keeps its registers in registers (no stack frame,
     no spills: a register array indexed at run time would show there).
     Logs the registers per row length."""
+    from repro_torch.kernels import bitonic
+
+    log_max, types = bitonic.MAX_ROW.bit_length() - 1, len(bitonic._TYPE_CODES)
+    want = log_max * (types + types + types * types)  # log N x (keys, kv, kv stable) types
     entries = ptxas_entries(report)
     sort = {tuple(m.groups()): e for name, e in entries.items()
             if (m := SORT_ENTRY.search(name))}
     bad = [f"{key}: {e}" for key, e in sort.items()
            if e.get("stack", 1) or e.get("spills", 1) or "registers" not in e]
-    if len(sort) != SORT_INSTANTIATIONS or bad:
+    if len(sort) != want or bad:
         raise AssertionError(f"ptxas report of bitonic.cu: {len(sort)} row-sort "
-                             f"instantiations (want {SORT_INSTANTIATIONS}); " + "; ".join(bad))
-    for log_n in range(1, 14):
+                             f"instantiations (want {want}); " + "; ".join(bad))
+    for log_n in range(1, log_max + 1):
         regs = {kind: max(e["registers"] for (ln, v, tb, _, _), e in sort.items()
                           if int(ln) == log_n and (v, tb) == flags)
                 for kind, flags in (("keys", ("0", "0")), ("kv", ("1", "0")),
@@ -236,39 +241,51 @@ def rows_of(gen, rows, n, dtype, kind, device):
 
 
 def check_sorts(gen, device, errs: dict) -> None:
-    """Both row sorts equal their twin bit for bit at every row length,
-    row counts 1, 3 and one that leaves the last CTA short, every
-    key/value type pair, stable on and off."""
+    """Both row sorts equal their twin bit for bit at every row length
+    (row counts 1, 3 and one that leaves the last CTA short) and at the
+    main path's and the widest rows' shapes (4096, 1024), (64, 2048),
+    (32, 4096) and (16, 8192): every key/value type pair, stable on and
+    off, uniform and special keys."""
     import torch
     from repro_torch.kernels import bitonic
 
     types = (torch.int32, torch.uint32, torch.float32)
-    for log_n in range(1, 14):
+
+    def check(rows, n):
+        for kd in types:
+            for kind in ("uniform", "special"):
+                k = rows_of(gen, rows, n, kd, kind, device)
+                e = max_abs_err(bitonic.bitonic_sort_rows(k), bitonic.sort_rows_twin(k))
+                errs["bitonic_sort_rows"] = max(errs["bitonic_sort_rows"], e)
+                for vd in types:
+                    v = rows_of(gen, rows, n, vd, "special", device)
+                    for stable in (True, False):
+                        ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
+                        tk, tv = bitonic.sort_rows_twin(k, v, stable=stable)
+                        e = max(max_abs_err(ok, tk), max_abs_err(ov, tv))
+                        errs["bitonic_sort_rows_kv"] = max(errs["bitonic_sort_rows_kv"], e)
+
+    what = "3 x 3 types, stable on/off, uniform and special"
+    for log_n in range(1, bitonic.MAX_ROW.bit_length()):
         n = 1 << log_n
         per_cta = bitonic.sort_rows_per_cta(n)
         counts = sorted({1, 3, 2 * per_cta + 1 if per_cta > 1 else 5})
         for rows in counts:
-            for kd in types:
-                for kind in ("uniform", "special"):
-                    k = rows_of(gen, rows, n, kd, kind, device)
-                    e = max_abs_err(bitonic.bitonic_sort_rows(k), bitonic.sort_rows_twin(k))
-                    errs["bitonic_sort_rows"] = max(errs["bitonic_sort_rows"], e)
-                    for vd in types:
-                        v = rows_of(gen, rows, n, vd, "special", device)
-                        for stable in (True, False):
-                            ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
-                            tk, tv = bitonic.sort_rows_twin(k, v, stable=stable)
-                            e = max(max_abs_err(ok, tk), max_abs_err(ov, tv))
-                            errs["bitonic_sort_rows_kv"] = max(errs["bitonic_sort_rows_kv"], e)
+            check(rows, n)
         log(f"phase 2: row sorts of {n}, rows {counts}, {per_cta} rows a CTA: both kernels "
-            f"equal their twin bit for bit (3 x 3 types, stable on/off, uniform and special)")
+            f"equal their twin bit for bit ({what})")
+    for rows, n in [(4096, 1024), (64, 2048), (32, 4096), (16, 8192)]:
+        check(rows, n)
+        log(f"phase 2: row sorts of ({rows}, {n}): both kernels equal their twin bit for bit "
+            f"({what})")
     torch.cuda.synchronize()
 
 
 def time_sorts(gen, rows: int, device) -> dict:
     """Both row sorts on (rows, 1024) float32 keys (the kv sort with int32
-    provenance values, stable): kernel, twin and torch.sort times and the
-    bound."""
+    provenance values, stable): each kernel's output against its twin's,
+    bit for bit, on the tensors it is timed on; kernel, twin and torch.sort
+    times and the bound."""
     import torch
     from repro_torch.kernels import bitonic
 
@@ -281,10 +298,15 @@ def time_sorts(gen, rows: int, device) -> dict:
             ("bitonic_sort_rows_kv", lambda: bitonic.bitonic_sort_rows_kv(keys, vals),
              lambda: bitonic.sort_rows_twin(keys, vals),
              lambda: torch.sort(keys, dim=-1, stable=True), 4)):
+        got, want = kern(), twin()
+        if name == "bitonic_sort_rows":
+            got, want = (got,), (want,)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        del got, want
         b_ms, b_by = bound(moved * keys.numel() * 4, network_ops(rows, 1024, merge=False))
         numbers[name] = dict(ms=time_ms(kern), plain_ms=time_ms(twin, reps=3, batch=1),
                              library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
-                             shapes=f"({rows}, 1024)")
+                             max_abs_err=err, shapes=f"({rows}, 1024)")
     return numbers
 
 
@@ -328,7 +350,7 @@ def check_kernels(device) -> dict:
     for name, num in time_sorts(gen, 131072, device).items():
         log(f"phase 2: {name} {num['shapes']}: kernel {num['ms']:.4f} ms, bound "
             f"{num['bound_ms']:.4f} ms ({num['bound_by']}), twin {num['plain_ms']:.4f} ms, "
-            f"torch.sort {num['library_ms']:.4f} ms")
+            f"torch.sort {num['library_ms']:.4f} ms, max abs err {num['max_abs_err']}")
     numbers = time_sorts(gen, 4096, device)
     for name, kv in (("bitonic_merge_rows", False), ("bitonic_merge_rows_kv", True)):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
@@ -354,9 +376,9 @@ def check_kernels(device) -> dict:
                 + " ".join(f"{k}={v:.4f}" for k, v in t.items()))
             for k in tot:
                 tot[k] += t[k]
-        numbers[name] = dict(tot, bound_by=b_by, shapes="(2048|1024|512, 1024|2048|4096)")
+        numbers[name] = dict(tot, bound_by=b_by, max_abs_err=errs[name],
+                             shapes="(2048|1024|512, 1024|2048|4096)")
     for name, num in numbers.items():
-        num["max_abs_err"] = errs[name]
         log(f"phase 2: {name} {num['shapes']}: kernel {num['ms']:.4f} ms, bound "
             f"{num['bound_ms']:.4f} ms ({num['bound_by']}), twin {num['plain_ms']:.4f} ms, "
             f"torch.sort {num['library_ms']:.4f} ms, max abs err {num['max_abs_err']}")

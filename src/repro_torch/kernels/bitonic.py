@@ -152,10 +152,15 @@ def sort_elems(n: int) -> int:
     return SORT_ELEMS * (2 if n // SORT_ELEMS > SORT_MAX_THREADS else 1)
 
 
+def sort_threads(n: int) -> int:
+    """Threads of a row-sort CTA for rows of ``n``: one per ``sort_elems(n)``
+    keys of a row, at least SORT_MIN_THREADS."""
+    return max(n // sort_elems(n), SORT_MIN_THREADS)
+
+
 def sort_rows_per_cta(n: int) -> int:
     """Rows of length ``n`` that one CTA of the row-sort kernel sorts."""
-    e = sort_elems(n)
-    return max(n // e, SORT_MIN_THREADS) * e // n
+    return sort_threads(n) * sort_elems(n) // n
 
 
 @functools.lru_cache(maxsize=None)

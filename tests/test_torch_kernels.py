@@ -192,7 +192,9 @@ def test_cpu_twins_count_no_launches():
 
 
 def _sort_layout() -> dict:
-    """The row-sort kernel's layout constants, read from csrc/bitonic.cu."""
+    """The row-sort kernel's layout constants, read from csrc/bitonic.cu;
+    bitonic.py's mirror of the layout (sort_elems, sort_threads) must use
+    the same constants and the same rules."""
     src = (build.CSRC / "bitonic.cu").read_text()
     const = {name: int(val) for name, val in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert "return (1 << log_n) / kElems > kMaxThreads ? kLogElems + 1 : kLogElems;" in src
@@ -200,15 +202,10 @@ def _sort_layout() -> dict:
     assert "constexpr bool kCta = HI >= LE + kLogWarp;" in src
     assert "return a ^ (((x ^ (x << 1)) & 7) << 2);" in src  # swz
     assert 1 << const["kLogElems"] == const["kElems"] and 1 << const["kLogWarp"] == const["kWarp"]
+    assert 1 << const["kLogMaxRow"] == bitonic.MAX_ROW
     assert (bitonic.SORT_ELEMS, bitonic.SORT_MIN_THREADS, bitonic.SORT_MAX_THREADS) == (
         const["kElems"], const["kMinThreads"], const["kMaxThreads"])
     return const
-
-
-def _elems(n: int, const: dict) -> int:
-    """log_elems: the keys a thread holds for rows of n."""
-    e = const["kElems"]
-    return 2 * e if n // e > const["kMaxThreads"] else e
 
 
 def _swz(a):
@@ -270,10 +267,10 @@ def _emulate_row_sort(keys, values, tiebreak: bool, const: dict):
     direction of the first phases from the register index."""
     rows, n = keys.shape
     log_n = n.bit_length() - 1
-    E, warp = _elems(n, const), const["kWarp"]
+    E, warp = bitonic.sort_elems(n), const["kWarp"]
     log_e = E.bit_length() - 1
     log_warp_span = log_e + const["kLogWarp"]
-    T = max(n // E, const["kMinThreads"])  # sort_threads(log_n)
+    T = bitonic.sort_threads(n)
     B = T * E
     ctas = -(-rows // (B // n))
     pad = ctas * (B // n) - rows  # a short last CTA reads zeros past the last row
@@ -372,7 +369,6 @@ def test_register_layout_runs_the_network(n, case):
     const = _sort_layout()
     rng = np.random.default_rng(n)
     rows_per_cta = bitonic.sort_rows_per_cta(n)
-    assert rows_per_cta == max(n // _elems(n, const), const["kMinThreads"]) * _elems(n, const) // n
     rows = rows_per_cta + 1 if rows_per_cta > 1 else 3
     types = case.split()[1].split("/")
     k = bitonic._signed(tt(_special_keys(rng, rows, n, types[0])))

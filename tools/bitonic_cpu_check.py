@@ -6,13 +6,12 @@ CUDA thread, and hold it to a serial run of the network.
 
 The CUDA source is translated for g++ (C++20, pthreads): each CTA runs as
 one std::thread per CUDA thread, ``__syncthreads()`` is a barrier over
-them, ``__syncwarp()`` a barrier over the warp, ``__shfl_xor_sync`` an
-exchange through a per-warp array between two barriers, and a launch a
-loop over the CTAs. ``bitonic_sort_rows``
-and ``bitonic_sort_rows_kv`` then sort every row length 2 .. 2^max-log-n,
-1, 3 and a number of rows that leaves the last CTA short, with five
-key/value type pairs, stable on and off, on keys with heavy duplicates,
-+-0.0, +-inf and NaN; each output must equal, bit for bit, the network of
+them, ``__syncwarp()`` a barrier over the warp, and a launch a loop over
+the CTAs. ``bitonic_sort_rows`` and ``bitonic_sort_rows_kv`` then sort
+every row length 2 .. 2^max-log-n, 1, 3 and a number of rows that
+leaves the last CTA short, with five key/value type pairs, stable on and
+off, on keys with heavy duplicates, +-0.0, +-inf and NaN; each output
+must equal, bit for bit, the network of
 repro/kernels/bitonic.py::_sort_network run serially on the same row.
 It also checks that a bad row length and an unaligned pointer are refused.
 
@@ -57,22 +56,11 @@ struct dim3 { unsigned x = 0, y = 0, z = 0; };
 thread_local dim3 threadIdx;
 static dim3 blockIdx, blockDim;
 static std::barrier<>* g_cta;
-struct Warp { std::barrier<> bar{32}; uint64_t slot[32]; };
-static std::vector<std::unique_ptr<Warp>> g_warps;
+static std::vector<std::unique_ptr<std::barrier<>>> g_warps;
 inline void __syncthreads() { g_cta->arrive_and_wait(); }
-inline void __syncwarp() { g_warps[threadIdx.x / 32]->bar.arrive_and_wait(); }
+inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
 inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
 inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
-template <class T> T __shfl_xor_sync(unsigned, T v, int m) {
-  const int lane = threadIdx.x % 32;
-  Warp& w = *g_warps[threadIdx.x / 32];
-  std::memcpy(&w.slot[lane], &v, sizeof(T));
-  w.bar.arrive_and_wait();
-  T o;
-  std::memcpy(&o, &w.slot[lane ^ m], sizeof(T));
-  w.bar.arrive_and_wait();
-  return o;
-}
 alignas(16) static unsigned char g_smem[1 << 17];
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -90,7 +78,7 @@ void emul_launch(F kern, unsigned grid, int threads, size_t smem, cudaStream_t, 
     std::barrier<> cta(threads);
     g_cta = &cta;
     g_warps.clear();
-    for (int w = 0; w < threads / 32; ++w) g_warps.emplace_back(new Warp);
+    for (int w = 0; w < threads / 32; ++w) g_warps.emplace_back(new std::barrier<>(32));
     std::vector<std::thread> ts;
     for (int t = 0; t < threads; ++t) ts.emplace_back([=] { threadIdx.x = t; kern(args...); });
     for (auto& t : ts) t.join();

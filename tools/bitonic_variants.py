@@ -2,7 +2,7 @@
 """Time text-edited variants of the row-sort kernel in csrc/bitonic.cu.
 
     python3 tools/bitonic_variants.py [--log-n 10] [--rows 4096 131072]
-                                      [--only base,memory-only,...]
+                                      [--only base,memory-only,...] [--batch 10]
 
 Each variant is bitonic.cu with the text edits of VARIANTS below, built
 for one row length only (2^log-n, so each build takes seconds) into
@@ -11,8 +11,9 @@ another version of the file as it is (the parent's, say). Then, in turns (the li
 forward, then backward, on one card), each variant's bitonic_sort_rows
 (float32 keys) and bitonic_sort_rows_kv (float32 keys, int32 values,
 stable) are launched straight through ctypes on (rows, 2^log-n) seeded
-keys: median over 20 samples of a batch of 10 launches between two CUDA
-events, so the host's launch time stays hidden. Variants marked
+keys, timed by chip_smoke.py's ``time_ms`` (median over 20 samples of a
+batch of 10 launches between two CUDA events; ``--batch 1``: one launch
+between two events, which also times the host's launch). Variants marked
 "timing only" leave part of the network out and do not sort; the others
 must equal torch.sort. Last, for each variant, its ptxas report (the most
 registers of a row-sort kernel, and any with a stack frame or spills) and
@@ -28,12 +29,16 @@ import json
 import pathlib
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+from chip_smoke import card_line, ptxas_entries, time_ms  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+
 OUT = ROOT / "build" / "variants"
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "bitonic.cu"
 
@@ -69,24 +74,12 @@ def build(name: str, src: str) -> tuple[pathlib.Path, dict]:
     """The variant's library, and from its ptxas report the most registers
     of a row-sort kernel and the row-sort kernels with a stack frame or
     spills."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build as kbuild
-
     cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
     cu.write_text(src)
     proc = subprocess.run([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-o", str(so), str(cu)],
                           check=True, capture_output=True, text=True)
-    entries, entry = {}, None
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if m := re.search(r"Compiling entry function '(\w*sort_rows_kernel\w*)'", line):
-            entry = m[1]
-            entries[entry] = {}
-        elif "Compiling entry" in line:
-            entry = None
-        elif entry and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)):
-            entries[entry].update(stack=int(m[1]), spills=int(m[2]))
-        elif entry and (m := re.search(r"Used (\d+) registers", line)):
-            entries[entry]["registers"] = int(m[1])
+    entries = {n: e for n, e in ptxas_entries(proc.stdout + proc.stderr).items()
+               if "sort_rows_kernel" in n}
     return so, {"most registers": max((e.get("registers", 0) for e in entries.values()),
                                       default=0),
                 "with stack or spills": [n for n, e in entries.items()
@@ -96,9 +89,6 @@ def build(name: str, src: str) -> tuple[pathlib.Path, dict]:
 def sass_counts(so: pathlib.Path, log_n: int) -> dict:
     """Instructions of the keys-only (float) and the stable kv (float/int)
     kernel in the library's SASS."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build as kbuild
-
     cuobjdump = pathlib.Path(kbuild.nvcc_path()).with_name("cuobjdump")
     if not cuobjdump.exists():
         cuobjdump = shutil.which("cuobjdump")
@@ -119,6 +109,7 @@ def main() -> int:
     ap.add_argument("--log-n", type=int, default=10)
     ap.add_argument("--rows", type=int, nargs="+", default=[4096, 131072])
     ap.add_argument("--only", default=",".join(VARIANTS))
+    ap.add_argument("--batch", type=int, default=10, help="launches between two CUDA events")
     ap.add_argument("--source", action="append", default=[], metavar="NAME=PATH",
                     help="also time another bitonic.cu as it is, e.g. the parent's "
                          "unpacked under build/")
@@ -166,20 +157,6 @@ def main() -> int:
                                             ov.data_ptr(), rows, n, 2, 0, 1, stream)
         return lib.bitonic_sort_rows(k.data_ptr(), ok.data_ptr(), rows, n, 2, stream)
 
-    def time_ms(fn, reps=20, batch=10):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(batch):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / batch)
-        return statistics.median(times)
-
     results = {name: collections.defaultdict(list) for name in names}
     for name in [*names, *reversed(names)]:
         for rows in args.rows:
@@ -195,15 +172,17 @@ def main() -> int:
                                                    .to(torch.int32)[:, None]))):
                     raise AssertionError(f"{name}: rows {rows} kv {kv} not sorted")
                 label = f"{'sort_kv' if kv else 'sort'} ({rows}, {n})"
-                results[name][label].append(time_ms(lambda: launch(libs[name], rows, kv)))
+                results[name][label].append(
+                    time_ms(lambda: launch(libs[name], rows, kv), batch=args.batch))
     for rows in args.rows:
         k = inputs[rows][0]
-        lib_ms = time_ms(lambda: torch.sort(k, dim=-1))
-        print(json.dumps({"torch.sort": f"({rows}, {n})", "ms": lib_ms}), flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+        lib_ms = time_ms(lambda: torch.sort(k, dim=-1), batch=args.batch)
+        print(json.dumps({"torch.sort": f"({rows}, {n})", "batch": args.batch, "ms": lib_ms}),
+              flush=True)
+    card = card_line()
     for name in names:
         print(json.dumps({"variant": name, "timing_only": VARIANTS[name][0], "card": card,
+                          "batch": args.batch,
                           "ms (forward, backward)": dict(results[name]),
                           "ptxas": built[name][1],
                           "sass": sass_counts(sos[name], args.log_n)}), flush=True)
