@@ -43,12 +43,14 @@ _WIDEN = {
     torch.float16: torch.float32, torch.bfloat16: torch.float32,
 }
 _P = ctypes.c_void_p
+_L = ctypes.c_longlong
 _ARGTYPES = {
     "bitonic_sort_rows": [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
     "bitonic_sort_rows_kv": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    "bitonic_merge_rows": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
-    "bitonic_merge_rows_kv": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+    # every merge operand is a pointer and its row stride in elements
+    "bitonic_merge_rows": [_P, _L, _P, _L, _P, _L, ctypes.c_int, ctypes.c_int, _P],
+    "bitonic_merge_rows_kv": [_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _L, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
 }
 
@@ -187,11 +189,29 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    return x.to(_WIDEN.get(x.dtype, x.dtype))
+
+
 def _wide(x: torch.Tensor) -> torch.Tensor:
     """32-bit, contiguous, and 16-byte aligned: the row-sort kernel moves
     its elements with 16-byte accesses and refuses an unaligned pointer."""
-    x = x.to(_WIDEN.get(x.dtype, x.dtype)).contiguous()
+    x = _widen(x).contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _merge_operand(x: torch.Tensor) -> torch.Tensor:
+    """A merge operand (R, n) as the kernel reads it: 32-bit rows of unit
+    stride at any row stride, so the merge tree's views of every other run
+    go in as they are; where a thread's elements are one 16-byte piece of
+    a row (n a multiple of ``sort_elems(2n)``), the start and the row stride
+    must keep every piece 16-byte aligned. A copy (``_wide``) otherwise."""
+    x = _widen(x)
+    n = x.shape[1]
+    unit = x.stride(1) == 1 or n == 1
+    if n % sort_elems(2 * n) == 0:
+        unit = unit and x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
+    return x if unit else _wide(x)
 
 
 def _check(name: str, *tensors: torch.Tensor, n_max: int = MAX_ROW) -> str:
@@ -247,15 +267,17 @@ def bitonic_sort_rows_kv(keys: torch.Tensor, values: torch.Tensor, *,
 
 
 def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Merge row-wise sorted (R, N) + (R, N) -> sorted (R, 2N)."""
+    """Merge row-wise sorted (R, N) + (R, N) -> sorted (R, 2N). On the card
+    a and b may be views with any row stride (``_merge_operand``)."""
     on = _check("bitonic_merge_rows", a, b, n_max=MAX_ROW // 2)
-    wa, wb = _wide(a), _wide(b)
-    if on == "cpu" or wa.shape[0] == 0:
-        return merge_rows_twin(wa, wb).to(a.dtype)
-    out = torch.empty((wa.shape[0], 2 * wa.shape[1]), dtype=wa.dtype, device=wa.device)
+    if on == "cpu" or a.shape[0] == 0:
+        return merge_rows_twin(_widen(a), _widen(b)).to(a.dtype)
+    wa, wb = _merge_operand(a), _merge_operand(b)
+    rows, n = wa.shape
+    out = torch.empty((rows, 2 * n), dtype=wa.dtype, device=wa.device)
     with torch.cuda.device(wa.device):
-        _launch("bitonic_merge_rows", wa.data_ptr(), wb.data_ptr(), out.data_ptr(),
-                wa.shape[0], wa.shape[1], _TYPE_CODES[wa.dtype], _stream(wa))
+        _launch("bitonic_merge_rows", wa.data_ptr(), wa.stride(0), wb.data_ptr(), wb.stride(0),
+                out.data_ptr(), rows, n, _TYPE_CODES[wa.dtype], _stream(wa))
     bitonic_merge_rows.launches += 1
     return out.to(a.dtype)
 
@@ -263,17 +285,18 @@ def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
     """Key/value merge with the same tie rule as ``bitonic_sort_rows_kv``."""
     on = _check("bitonic_merge_rows_kv", ak, av, bk, bv, n_max=MAX_ROW // 2)
-    wak, wav, wbk, wbv = _wide(ak), _wide(av), _wide(bk), _wide(bv)
-    if on == "cpu" or wak.shape[0] == 0:
-        ok, ov = merge_rows_twin(wak, wbk, wav, wbv, stable=stable)
+    if on == "cpu" or ak.shape[0] == 0:
+        ok, ov = merge_rows_twin(_widen(ak), _widen(bk), _widen(av), _widen(bv), stable=stable)
         return ok.to(ak.dtype), ov.to(av.dtype)
+    wak, wav, wbk, wbv = map(_merge_operand, (ak, av, bk, bv))
     rows, n = wak.shape
     ok = torch.empty((rows, 2 * n), dtype=wak.dtype, device=wak.device)
     ov = torch.empty((rows, 2 * n), dtype=wav.dtype, device=wak.device)
     with torch.cuda.device(wak.device):
-        _launch("bitonic_merge_rows_kv", wak.data_ptr(), wav.data_ptr(), wbk.data_ptr(),
-                wbv.data_ptr(), ok.data_ptr(), ov.data_ptr(), rows, n,
-                _TYPE_CODES[wak.dtype], _TYPE_CODES[wav.dtype], int(stable), _stream(wak))
+        _launch("bitonic_merge_rows_kv", wak.data_ptr(), wak.stride(0), wav.data_ptr(),
+                wav.stride(0), wbk.data_ptr(), wbk.stride(0), wbv.data_ptr(), wbv.stride(0),
+                ok.data_ptr(), ov.data_ptr(), rows, n, _TYPE_CODES[wak.dtype],
+                _TYPE_CODES[wav.dtype], int(stable), _stream(wak))
     bitonic_merge_rows_kv.launches += 1
     return ok.to(ak.dtype), ov.to(av.dtype)
 

@@ -47,18 +47,29 @@
 //     value flag and the tie-break), so every register index is a
 //     constant and nothing goes to local memory.
 //
-// Merge (merge_rows_kernel): one CTA per row in dynamic shared memory
-// (up to 8192 keys + 8192 values = 64 KB, hence cudaFuncSetAttribute), one
-// pass of the block's threads over the row's pairs per stage, followed by
-// __syncthreads().
+// Merge (merge_rows_kernel): the half-cleaner that merges two sorted rows
+// of n (distances n .. 1 under one ascending span of 2n) is the row sort's
+// last phase on rows of 2n, so the merge runs that phase alone in the same
+// layout. It reads and writes each element once and runs log 2n stages
+// (11-13 on the sort's path, against 55-91 in a row sort), so bytes bound
+// it on this card. Every block is ascending, so nothing is flipped. A
+// thread's E elements of a ++ reverse(b) are one 16-byte-aligned piece of
+// a, or of b reversed in registers, read through a row stride per
+// operand, so the merge tree's views of every other run are read in
+// place, without a copy.
 //
 // Types: keys and values are int32 (code 0), uint32 (code 1) or float32
-// (code 2). Narrower types are widened by the Python wrapper. Every entry
+// (code 2). Narrower types are widened by the Python wrapper. Without a
+// tie-break values only move, so they are carried as uint32 by their bits
+// (3 key types x (keys, kv, kv with each of 3 value types) = 15 kernels a
+// row length, for the row sort and for the merge). Every entry
 // point returns the cudaError_t of its launch (0 = success) and never
 // synchronises.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -89,40 +100,6 @@ __host__ __device__ constexpr int log_elems(int log_n) {
 // least kMinThreads (then the CTA holds several rows).
 __host__ __device__ constexpr int sort_threads(int log_n) {
   return cmax((1 << log_n) >> log_elems(log_n), kMinThreads);
-}
-
-// One compare-exchange stage at distance j = 2^sub over a row of 2*half
-// elements in shared memory. Pair q sits at lo = block*2j + (q mod j).
-template <typename K, typename V, bool HAS_V>
-__device__ __forceinline__ void cmpx_stage(K* sk, V* sv, int half, int sub,
-                                           int span, bool tiebreak) {
-  const int j = 1 << sub;
-  for (int q = threadIdx.x; q < half; q += blockDim.x) {
-    const int lo = ((q >> sub) << (sub + 1)) | (q & (j - 1));
-    const int hi = lo + j;
-    // span is a power of two >= 2j, so lo / span == block_start / span
-    const bool asc = (lo & span) == 0;
-    const K a = sk[lo];
-    const K b = sk[hi];
-    bool gt = a > b;
-    bool lt = a < b;
-    if (HAS_V && tiebreak) {
-      const bool eq = a == b;
-      const V va = sv[lo];
-      const V vb = sv[hi];
-      gt = gt || (eq && va > vb);
-      lt = lt || (eq && va < vb);
-    }
-    if (asc ? gt : lt) {
-      sk[lo] = b;
-      sk[hi] = a;
-      if (HAS_V) {
-        const V t = sv[lo];
-        sv[lo] = sv[hi];
-        sv[hi] = t;
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------- row sort
@@ -374,39 +351,68 @@ sort_rows_kernel(const K* __restrict__ kin, const V* __restrict__ vin,
   if constexpr (HAS_V) store_part(vout, v, g0, total);
 }
 
-// Merge of two sorted rows of n: a ++ reverse(b) is bitonic, then the
-// half-cleaner stages at distances n .. 1 under one ascending span of 2n
-// (repro/kernels/bitonic.py::_merge_network).
-template <typename K, typename V, bool HAS_V>
-__global__ void merge_rows_kernel(const K* __restrict__ ak,
-                                  const V* __restrict__ av,
-                                  const K* __restrict__ bk,
-                                  const V* __restrict__ bv,
-                                  K* __restrict__ kout, V* __restrict__ vout,
-                                  int n, int log_n2, bool tiebreak) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n2 = 2 * n;
-  K* sk = reinterpret_cast<K*>(smem);
-  V* sv = reinterpret_cast<V*>(smem + static_cast<size_t>(n2) * sizeof(K));
-  const size_t in_base = static_cast<size_t>(blockIdx.x) * n;
-  const size_t out_base = static_cast<size_t>(blockIdx.x) * n2;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sk[i] = ak[in_base + i];
-    sk[n + i] = bk[in_base + (n - 1 - i)];
-    if (HAS_V) {
-      sv[i] = av[in_base + i];
-      sv[n + i] = bv[in_base + (n - 1 - i)];
+// A thread's elements of a ++ reverse(b), for rows of 2n = 2^LOG_N2
+// (sa, sb: the row strides of a and b, in elements). Where E divides n they
+// are one piece of a, or of b backwards: E consecutive elements read with
+// 16-byte loads (the entry points refuse an operand that is not aligned for
+// them) and, for b, reversed in registers. Elements past the last row read
+// as 0 and are never stored.
+template <int LOG_N2, typename T, int E>
+__device__ __forceinline__ void load_merge(T (&x)[E], const T* a, long long sa,
+                                           const T* b, long long sb, long long g0,
+                                           long long total) {
+  constexpr int N = 1 << (LOG_N2 - 1);
+  if constexpr (N % E == 0) {
+    if (g0 < total) {
+      const long long row = g0 >> LOG_N2;
+      const int p = static_cast<int>(g0 & (2 * N - 1));
+      const bool from_b = p >= N;
+      const T* src = from_b ? b + row * sb + (2 * N - E - p) : a + row * sa + p;
+      T y[E];
+#pragma unroll
+      for (int i = 0; i < E; i += 4) load4(y, i, src + i);
+#pragma unroll
+      for (int r = 0; r < E; ++r) x[r] = from_b ? y[E - 1 - r] : y[r];
+    } else {
+#pragma unroll
+      for (int r = 0; r < E; ++r) x[r] = T(0);
+    }
+  } else {  // a thread holds several rows of 2n < 2E
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const long long g = g0 + r;
+      const long long row = g >> LOG_N2;
+      const int p = static_cast<int>(g & (2 * N - 1));
+      x[r] = g >= total ? T(0) : p < N ? a[row * sa + p] : b[row * sb + (2 * N - 1 - p)];
     }
   }
-  __syncthreads();
-  for (int sub = log_n2 - 1; sub >= 0; --sub) {
-    cmpx_stage<K, V, HAS_V>(sk, sv, n, sub, n2, tiebreak);
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-    kout[out_base + i] = sk[i];
-    if (HAS_V) vout[out_base + i] = sv[i];
-  }
+}
+
+// Merge of two sorted rows of n into rows of 2n = 2^LOG_N2: a ++ reverse(b)
+// is bitonic, then the half-cleaner stages at distances n .. 1 under one
+// ascending span of 2n (repro/kernels/bitonic.py::_merge_network), which
+// are the row sort's last phase; total = rows * 2n.
+template <int LOG_N2, bool HAS_V, bool TB, typename K, typename V>
+__global__ void __launch_bounds__(sort_threads(LOG_N2))
+merge_rows_kernel(const K* __restrict__ ak, long long sak, const V* __restrict__ av,
+                  long long sav, const K* __restrict__ bk, long long sbk,
+                  const V* __restrict__ bv, long long sbv, K* __restrict__ kout,
+                  V* __restrict__ vout, long long total) {
+  constexpr int E = 1 << log_elems(LOG_N2);
+  constexpr int B = sort_threads(LOG_N2) * E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  K* sk = reinterpret_cast<K*>(smem);
+  V* sv = reinterpret_cast<V*>(smem + B * sizeof(K));
+  const int t = threadIdx.x;
+  const long long g0 = static_cast<long long>(blockIdx.x) * B + t * E;
+  K k[E];
+  V v[E];
+  load_merge<LOG_N2>(k, ak, sak, bk, sbk, g0, total);
+  if constexpr (HAS_V) load_merge<LOG_N2>(v, av, sav, bv, sbv, g0, total);
+  bool flip = false;  // every block of the last phase is ascending: no flips
+  sort_phase<LOG_N2, LOG_N2 - 1, HAS_V, TB>(k, v, sk, sv, t, flip);
+  store_part(kout, k, g0, total);
+  if constexpr (HAS_V) store_part(vout, v, g0, total);
 }
 
 int ilog2(int n) {
@@ -424,23 +430,67 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// An operand of a merge: rows of n at a row stride of `stride` elements.
+// Where a thread's elements are one piece of it (E divides n), the piece
+// is read 16 bytes at a time, so its start and its stride must keep every
+// piece 16-byte aligned.
+bool bad_operand(const void* p, long long stride, int n) {
+  const bool pieces = n % (1 << log_elems(ilog2(2 * n))) == 0;
+  return stride < 0 || (pieces && (!aligned16(p) || stride % 4 != 0));
+}
+
+constexpr int kMaxDevices = 64;
+
+// Lets kern use smem bytes of dynamic shared memory on the current device
+// when that is over the default 48 KB: cudaFuncSetAttribute once per
+// device, whose outcome every later launch there returns too. `cap` is the
+// launcher's static, one per kernel instantiation.
+struct SmemCap {
+  std::once_flag once[kMaxDevices];
+  cudaError_t err[kMaxDevices] = {};
+};
+
+template <typename F>
+cudaError_t allow_smem(SmemCap& cap, F kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(cap.once[dev], [&] {
+    cap.err[dev] = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(smem));
+  });
+  return cap.err[dev];
+}
+
+// Dynamic shared memory of a row-sort or merge CTA for rows of 2^LOG_N:
+// only where a phase has stages past the registers.
+template <int LOG_N, bool HAS_V, typename K, typename V>
+constexpr size_t smem_bytes() {
+  return LOG_N > log_elems(LOG_N)
+      ? static_cast<size_t>(sort_threads(LOG_N) << log_elems(LOG_N)) *
+            (sizeof(K) + (HAS_V ? sizeof(V) : 0))
+      : 0;
+}
+
+// CTAs for `rows` rows of 2^LOG_N, sort_threads(LOG_N) << log_elems(LOG_N)
+// elements a CTA.
+template <int LOG_N>
+unsigned ctas(long long rows) {
+  constexpr int per_cta = (sort_threads(LOG_N) << log_elems(LOG_N)) >> LOG_N;
+  return static_cast<unsigned>((rows + per_cta - 1) / per_cta);
+}
+
 template <int LOG_N, bool HAS_V, bool TB, typename K, typename V>
 cudaError_t launch_sort_n(const void* k, const void* v, void* ok, void* ov,
                           long long rows, cudaStream_t stream) {
-  constexpr int T = sort_threads(LOG_N);
-  constexpr int B = T << log_elems(LOG_N);  // elements a CTA
-  // shared memory only when some phase has stages past the registers
-  const size_t smem = LOG_N > log_elems(LOG_N)
-      ? static_cast<size_t>(B) * (sizeof(K) + (HAS_V ? sizeof(V) : 0))
-      : 0;
+  constexpr size_t smem = smem_bytes<LOG_N, HAS_V, K, V>();
   auto kern = sort_rows_kernel<LOG_N, HAS_V, TB, K, V>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const long long ctas = (rows + (B >> LOG_N) - 1) / (B >> LOG_N);
-  kern<<<static_cast<unsigned>(ctas), T, smem, stream>>>(
+  static SmemCap cap;
+  const cudaError_t err = allow_smem(cap, kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<ctas<LOG_N>(rows), sort_threads(LOG_N), smem, stream>>>(
       static_cast<const K*>(k), static_cast<const V*>(v), static_cast<K*>(ok),
       static_cast<V*>(ov), rows << LOG_N);
   return cudaGetLastError();
@@ -458,23 +508,44 @@ cudaError_t launch_sort(const void* k, const void* v, void* ok, void* ov,
   }
 }
 
-template <typename K, typename V, bool HAS_V>
-cudaError_t launch_merge(const void* ak, const void* av, const void* bk,
-                         const void* bv, void* ok, void* ov, long long rows,
-                         int n, bool tiebreak, cudaStream_t stream) {
-  if (bad_shape(rows, 2 * n)) return cudaErrorInvalidValue;
-  const int n2 = 2 * n;
-  const size_t smem = static_cast<size_t>(n2) * (sizeof(K) + (HAS_V ? sizeof(V) : 0));
-  auto kern = merge_rows_kernel<K, V, HAS_V>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// The operands of a merge launch: a's and b's keys and values, each with
+// its row stride in elements, and the contiguous outputs.
+struct MergeArgs {
+  const void* ak;
+  long long sak;
+  const void* av;
+  long long sav;
+  const void* bk;
+  long long sbk;
+  const void* bv;
+  long long sbv;
+  void* ok;
+  void* ov;
+};
+
+template <int LOG_N2, bool HAS_V, bool TB, typename K, typename V>
+cudaError_t launch_merge_n(const MergeArgs& m, long long rows, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<LOG_N2, HAS_V, K, V>();
+  auto kern = merge_rows_kernel<LOG_N2, HAS_V, TB, K, V>;
+  static SmemCap cap;
+  const cudaError_t err = allow_smem(cap, kern, smem);
   if (err != cudaSuccess) return err;
-  const int threads = n < kMaxThreads ? n : kMaxThreads;
-  kern<<<static_cast<unsigned>(rows), threads, smem, stream>>>(
-      static_cast<const K*>(ak), static_cast<const V*>(av),
-      static_cast<const K*>(bk), static_cast<const V*>(bv),
-      static_cast<K*>(ok), static_cast<V*>(ov), n, ilog2(n2), tiebreak);
+  kern<<<ctas<LOG_N2>(rows), sort_threads(LOG_N2), smem, stream>>>(
+      static_cast<const K*>(m.ak), m.sak, static_cast<const V*>(m.av), m.sav,
+      static_cast<const K*>(m.bk), m.sbk, static_cast<const V*>(m.bv), m.sbv,
+      static_cast<K*>(m.ok), static_cast<V*>(m.ov), rows << LOG_N2);
   return cudaGetLastError();
+}
+
+template <bool HAS_V, bool TB, typename K, typename V, int LOG_N = 1>
+cudaError_t launch_merge(const MergeArgs& m, long long rows, int log_n2,
+                         cudaStream_t stream) {
+  if constexpr (LOG_N > kLogMaxRow) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (log_n2 == LOG_N) return launch_merge_n<LOG_N, HAS_V, TB, K, V>(m, rows, stream);
+    return launch_merge<HAS_V, TB, K, V, LOG_N + 1>(m, rows, log_n2, stream);
+  }
 }
 
 // Type codes shared with repro_torch/kernels/bitonic.py::_TYPE_CODES.
@@ -519,23 +590,40 @@ int bitonic_sort_rows_kv(const void* keys, const void* values, void* out_keys,
                                            rows, ilog2(n), s);))
 }
 
-int bitonic_merge_rows(const void* a, const void* b, void* out, long long rows,
-                       int n, int key_type, void* stream) {
+// a and b: rows of n at row strides a_stride and b_stride (elements; the
+// last dimension is unit-stride); out: rows of 2n, contiguous.
+int bitonic_merge_rows(const void* a, long long a_stride, const void* b,
+                       long long b_stride, void* out, long long rows, int n,
+                       int key_type, void* stream) {
+  if (n < 1 || n > kMaxRow / 2 || bad_shape(rows, 2 * n) || bad_operand(a, a_stride, n) ||
+      bad_operand(b, b_stride, n) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  const MergeArgs m{a, a_stride, nullptr, 0, b, b_stride, nullptr, 0, out, nullptr};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH_TYPE(key_type, K,
-    return launch_merge<K, K, false>(a, nullptr, b, nullptr, out, nullptr,
-                                     rows, n, false,
-                                     static_cast<cudaStream_t>(stream));)
+    return launch_merge<false, false, K, uint32_t>(m, rows, ilog2(2 * n), s);)
 }
 
-int bitonic_merge_rows_kv(const void* ak, const void* av, const void* bk,
-                          const void* bv, void* out_keys, void* out_values,
-                          long long rows, int n, int key_type, int value_type,
-                          int stable, void* stream) {
+int bitonic_merge_rows_kv(const void* ak, long long ak_stride, const void* av,
+                          long long av_stride, const void* bk, long long bk_stride,
+                          const void* bv, long long bv_stride, void* out_keys,
+                          void* out_values, long long rows, int n, int key_type,
+                          int value_type, int stable, void* stream) {
+  if (n < 1 || n > kMaxRow / 2 || bad_shape(rows, 2 * n) || bad_operand(ak, ak_stride, n) ||
+      bad_operand(av, av_stride, n) || bad_operand(bk, bk_stride, n) ||
+      bad_operand(bv, bv_stride, n) || !aligned16(out_keys) || !aligned16(out_values) ||
+      value_type < 0 || value_type > 2)
+    return cudaErrorInvalidValue;
+  const MergeArgs m{ak, ak_stride, av, av_stride, bk, bk_stride, bv, bv_stride,
+                    out_keys, out_values};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!stable) {  // values only move: their type does not matter, their bits do
+    DISPATCH_TYPE(key_type, K,
+      return launch_merge<true, false, K, uint32_t>(m, rows, ilog2(2 * n), s);)
+  }
   DISPATCH_TYPE(key_type, K,
     DISPATCH_TYPE(value_type, V,
-      return launch_merge<K, V, true>(ak, av, bk, bv, out_keys, out_values,
-                                      rows, n, stable != 0,
-                                      static_cast<cudaStream_t>(stream));))
+      return launch_merge<true, true, K, V>(m, rows, ilog2(2 * n), s);))
 }
 
 const char* bitonic_error_string(int code) {

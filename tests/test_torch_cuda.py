@@ -28,7 +28,8 @@ def gpu():
 def _rows(gen, rows, n, dtype, distinct, device):
     """Keys from ``distinct`` values; float ones with +-0.0 ties, and,
     where ``distinct`` >= 7, +-inf and (float32 only: the two devices
-    narrow a NaN to bfloat16 with other bits) NaN."""
+    narrow a NaN to bfloat16 with other bits) NaN, integer ones the
+    type's extremes."""
     x = torch.randint(0, distinct, (rows, n), generator=gen, device=device)
     if dtype in (torch.float32, torch.bfloat16):
         f = (x - distinct // 2).to(torch.float32) / 3
@@ -40,8 +41,32 @@ def _rows(gen, rows, n, dtype, distinct, device):
                 f = torch.where(x == 2, torch.full_like(f, float("nan")), f)
         return f.to(dtype)
     if dtype == torch.uint32:
-        return (x.to(torch.int32) * 7919 ^ (-(1 << 31))).view(torch.uint32)
+        u = x.to(torch.int32) * 7919 ^ (-(1 << 31))
+        if distinct >= 7:  # 0 and 2^32 - 1
+            u = torch.where(x == 0, 0, torch.where(x == 1, -1, u))
+        return u.view(torch.uint32)
+    if distinct >= 7:
+        info = torch.iinfo(dtype)
+        x = torch.where(x == 0, info.min, torch.where(x == 1, info.max, x))
     return x.to(dtype)
+
+
+def _merge_pair(gen, rows, n, dtype, distinct, device, strided: bool, sort: bool):
+    """Two (rows, n) merge operands, sorted by the row-sort kernel or not:
+    strided, the even and odd rows of one tensor (the merge tree's views,
+    row stride 2n); else two contiguous tensors."""
+    def make(r):
+        x = _rows(gen, r, n, dtype, distinct, device)
+        return bitonic.bitonic_sort_rows(x) if sort else x
+
+    if strided:
+        x = make(2 * rows)
+        return x[0::2], x[1::2]
+    return make(rows), make(rows)
+
+
+def _same_bits(got, want) -> bool:
+    return torch.equal(got.cpu().view(torch.int8), want.cpu().view(torch.int8))
 
 
 @pytest.mark.parametrize("n", [1 << e for e in range(1, 14)])
@@ -49,34 +74,35 @@ def _rows(gen, rows, n, dtype, distinct, device):
                                    torch.bfloat16])
 def test_kernels_equal_twins(gpu, n, dtype):
     """Bit for bit against the twins: 1, 3 and a number of rows that leaves
-    the row sort's last CTA short, every value type, stable on and off."""
+    the last CTA short, every value type, stable on and off; the row sorts
+    on rows of n, the merges into rows of n, from contiguous operands and
+    from the merge tree's strided views."""
     gen = torch.Generator(device=gpu).manual_seed(n)
     per_cta = bitonic.sort_rows_per_cta(n)
     for rows in (1, 3, 2 * per_cta + 1 if per_cta > 1 else 5):
         k = _rows(gen, rows, n, dtype, 7, gpu)
         before = bitonic.bitonic_sort_rows.launches
-        assert torch.equal(bitonic.bitonic_sort_rows(k).cpu().view(torch.int8),
-                           bitonic.bitonic_sort_rows(k.cpu()).view(torch.int8))
+        assert _same_bits(bitonic.bitonic_sort_rows(k), bitonic.bitonic_sort_rows(k.cpu()))
         assert bitonic.bitonic_sort_rows.launches == before + 1
         for vdtype in (torch.int32, torch.uint32, torch.float32):
             v = _rows(gen, rows, n, vdtype, 7, gpu)
             for stable in (True, False):
                 ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
                 tk, tv = bitonic.bitonic_sort_rows_kv(k.cpu(), v.cpu(), stable=stable)
-                assert torch.equal(ok.cpu().view(torch.int8), tk.view(torch.int8))
-                assert torch.equal(ov.cpu().view(torch.int8), tv.view(torch.int8))
-    k = _rows(gen, 8, n, dtype, 7, gpu)
-    v = _rows(gen, 8, n, torch.int32, 1000, gpu)
-    if n <= 4096:
-        a = bitonic.bitonic_sort_rows(k)
-        b = bitonic.bitonic_sort_rows(_rows(gen, 8, n, dtype, 7, gpu))
-        want = bitonic.bitonic_merge_rows(a.cpu(), b.cpu())
-        assert torch.equal(bitonic.bitonic_merge_rows(a, b).cpu().view(torch.int8),
-                           want.view(torch.int8))
-        ok, ov = bitonic.bitonic_merge_rows_kv(a, v, b, v)
-        tk, tv = bitonic.bitonic_merge_rows_kv(a.cpu(), v.cpu(), b.cpu(), v.cpu())
-        assert torch.equal(ok.cpu().view(torch.int8), tk.view(torch.int8))
-        assert torch.equal(ov.cpu(), tv)
+                assert _same_bits(ok, tk) and _same_bits(ov, tv)
+        for strided in (False, True):
+            a, b = _merge_pair(gen, rows, n // 2, dtype, 7, gpu, strided, sort=True)
+            before = bitonic.bitonic_merge_rows.launches
+            assert _same_bits(bitonic.bitonic_merge_rows(a, b),
+                              bitonic.bitonic_merge_rows(a.cpu(), b.cpu()))
+            assert bitonic.bitonic_merge_rows.launches == before + 1
+            for vdtype in (torch.int32, torch.uint32, torch.float32):
+                av, bv = _merge_pair(gen, rows, n // 2, vdtype, 7, gpu, strided, sort=False)
+                for stable in (True, False):
+                    ok, ov = bitonic.bitonic_merge_rows_kv(a, av, b, bv, stable=stable)
+                    tk, tv = bitonic.bitonic_merge_rows_kv(a.cpu(), av.cpu(), b.cpu(), bv.cpu(),
+                                                           stable=stable)
+                    assert _same_bits(ok, tk) and _same_bits(ov, tv)
 
 
 def test_row_sort_takes_unaligned_views_and_refuses_unaligned_pointers(gpu):
@@ -97,15 +123,31 @@ def test_row_sort_takes_unaligned_views_and_refuses_unaligned_pointers(gpu):
                         bitonic._TYPE_CODES[k.dtype], bitonic._stream(k))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int16", "uint32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "int16", "uint32", "bfloat16",
+                                   "float32 +-0.0 NaN use_pallas=False"])
 @pytest.mark.parametrize("kw", [{}, {"order": "desc"}, {"want": "order"},
                                 {"want": "order", "order": "desc"}])
 def test_sort_on_cuda_equals_sort_on_cpu(gpu, dtype, kw):
+    """The last dtype case: float32 keys mixing +-0.0 and NaN through the
+    torch.sort path (use_pallas=False); with want="order" both devices
+    refuse the NaN keys with the same error."""
     rng = np.random.default_rng(0)
     keys = rng.integers(-50, 50, 20000).astype(np.float32)
+    cfg = repro_torch.SortConfig(tile=512)
+    if dtype.startswith("float32 "):
+        keys[keys == 0] = np.where(rng.random((keys == 0).sum()) < 0.5, 0.0, -0.0)
+        keys[rng.random(keys.shape) < 0.05] = np.nan
+        keys, dtype = convert.to_tensor(keys, "cpu"), "float32"
+        cfg = repro_torch.SortConfig(tile=512, use_pallas=False)
+        if "want" in kw:
+            with pytest.raises(ValueError) as want_err:
+                repro_torch.sort(keys, config=cfg, device="cpu", **kw)
+            with pytest.raises(ValueError) as got_err:
+                repro_torch.sort(keys, config=cfg, device=gpu, **kw)
+            assert str(got_err.value) == str(want_err.value)
+            return
     keys = convert.to_tensor(keys, "cpu").to(getattr(torch, dtype)) if dtype != "uint32" \
         else convert.to_tensor(rng.integers(1, 2**32 - 1, 20000).astype(np.uint32), "cpu")
-    cfg = repro_torch.SortConfig(tile=512)
     got = repro_torch.sort(keys, config=cfg, device=gpu, **kw)
     want = repro_torch.sort(keys, config=cfg, device="cpu", **kw)
     assert got.keys.device.type == "cuda"
@@ -115,6 +157,56 @@ def test_sort_on_cuda_equals_sort_on_cpu(gpu, dtype, kw):
             assert g[name] is None
         else:
             np.testing.assert_array_equal(g[name], w[name])
+
+
+def test_merge_tree_views_go_to_the_kernel_without_a_copy(gpu, monkeypatch):
+    """ops.merge_rows[_kv] on the merge tree's views of every other run
+    (row stride 2n) launch the kernel on the views' own memory: the
+    pointers and row strides passed to bitonic._launch are theirs."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    launch = bitonic._launch
+    monkeypatch.setattr(bitonic, "_launch", lambda fn, *args: (calls.append(args),
+                                                               launch(fn, *args)))
+    gen = torch.Generator(device=gpu).manual_seed(5)
+    for n in (1, 4, 8, 1024, 4096):
+        keys = bitonic.bitonic_sort_rows(_rows(gen, 16, n, torch.float32, 7, gpu))
+        vals = _rows(gen, 16, n, torch.int32, 1000, gpu)
+        (ek, ok_), (ev, ov_) = ((x.reshape(2, 8, n)[:, 0::2].reshape(-1, n),
+                                 x.reshape(2, 8, n)[:, 1::2].reshape(-1, n)) for x in (keys, vals))
+        assert ek._base is keys and not ek.is_contiguous()
+        calls.clear()
+        out = ops.merge_rows(ek, ok_)
+        assert calls[0][:4] == (ek.data_ptr(), 2 * n, ok_.data_ptr(), 2 * n)
+        assert _same_bits(out, bitonic.merge_rows_twin(ek.cpu(), ok_.cpu()))
+        calls.clear()
+        out_k, out_v = ops.merge_rows_kv(ek, ev, ok_, ov_)
+        assert calls[0][:8] == (ek.data_ptr(), 2 * n, ev.data_ptr(), 2 * n,
+                                ok_.data_ptr(), 2 * n, ov_.data_ptr(), 2 * n)
+        tk, tv = bitonic.merge_rows_twin(ek.cpu(), ok_.cpu(), ev.cpu(), ov_.cpu())
+        assert _same_bits(out_k, tk) and _same_bits(out_v, tv)
+
+
+def test_merge_copies_unaligned_views_and_refuses_unaligned_pointers(gpu):
+    """The merge kernel reads rows of n >= 8 in 16-byte pieces: the wrapper
+    copies a view that breaks them, and the C entry point refuses such a
+    pointer or row stride instead of faulting."""
+    buf = torch.randn(4 * 1024 + 1, generator=torch.Generator(device=gpu).manual_seed(1),
+                      device=gpu)
+    a = buf[1:].view(4, 1024)[:, :512].sort(dim=-1).values
+    a_view = buf[1:1 + 4 * 512].view(4, 512)
+    a_view.copy_(a)
+    b = a.flip(0).contiguous()
+    assert a_view.data_ptr() % 16 != 0
+    assert _same_bits(bitonic.bitonic_merge_rows(a_view, b),
+                      bitonic.merge_rows_twin(a_view.cpu(), b.cpu()))
+    out = torch.empty((4, 1024), device=gpu)
+    for args in ((a_view.data_ptr(), 512, b.data_ptr(), 512),  # unaligned start
+                 (b.data_ptr(), 514, b.data_ptr(), 512)):        # row stride off the pieces
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            bitonic._launch("bitonic_merge_rows", *args, out.data_ptr(), 2, 512,
+                            bitonic._TYPE_CODES[b.dtype], bitonic._stream(b))
 
 
 def test_wrapper_raises_on_cuda_instead_of_falling_back(gpu):

@@ -51,18 +51,27 @@ def test_sort_kv_twin_matches_pallas(kdtype, vdtype, stable):
     assert_bits_equal(wv, port_np(ov))
 
 
+def _sorted_keys(rows, n, dtype, distinct=None):
+    """Sorted rows; dtype "special": float32 with +-0.0, +-inf and NaN
+    (``_special_keys``; np.sort puts NaN last)."""
+    if dtype == "special":
+        return np.sort(_special_keys(RNG, rows, n, "float32"), axis=-1)
+    return _sorted_rows(rows, n, dtype, distinct)
+
+
 @pytest.mark.parametrize("rows,n", [(1, 1), (2, 128), (8, 4096)])
-@pytest.mark.parametrize("dtype", ["float32", "int32", "uint32"])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "uint32", "special"])
 def test_merge_twin_matches_pallas(rows, n, dtype):
-    a, b = _sorted_rows(rows, n, dtype), _sorted_rows(rows, n, dtype)
+    a, b = _sorted_keys(rows, n, dtype), _sorted_keys(rows, n, dtype)
     want = jbitonic.bitonic_merge_rows(jx(a), jx(b), interpret=True)
     assert_bits_equal(want, port_np(bitonic.bitonic_merge_rows(tt(a), tt(b))))
 
 
 @pytest.mark.parametrize("stable", [True, False])
-@pytest.mark.parametrize("kdtype,vdtype", [("float32", "int32"), ("int32", "uint32")])
+@pytest.mark.parametrize("kdtype,vdtype", [("float32", "int32"), ("int32", "uint32"),
+                                           ("special", "int32")])
 def test_merge_kv_twin_matches_pallas(kdtype, vdtype, stable):
-    ak, bk = _sorted_rows(4, 128, kdtype, 6), _sorted_rows(4, 128, kdtype, 6)
+    ak, bk = _sorted_keys(4, 128, kdtype, 6), _sorted_keys(4, 128, kdtype, 6)
     av, bv = _rows(4, 128, vdtype, 30), _rows(4, 128, vdtype, 30)
     wk, wv = jbitonic.bitonic_merge_rows_kv(jx(ak), jx(av), jx(bk), jx(bv), stable=stable,
                                             interpret=True)
@@ -259,36 +268,50 @@ def _reg_stage(k, v, asc, bit: int, tiebreak: bool):
     return k, v
 
 
+def _cta_shape(n: int) -> tuple[int, int]:
+    """(threads, elements a thread) of a row-sort or merge CTA for rows of n."""
+    return bitonic.sort_threads(n), bitonic.sort_elems(n)
+
+
 def _emulate_row_sort(keys, values, tiebreak: bool, const: dict):
     """sort_rows_kernel's schedule in PyTorch: registers as a (CTAs,
-    threads, kElems) tensor; the phases' flips of descending blocks; the
-    longer distances as gathers of whole butterflies from the swizzled
-    shared-memory image (the CTA's in turn, or the warp's own); the
-    direction of the first phases from the register index."""
+    threads, kElems) tensor loaded from consecutive elements, then every
+    phase (``_emulate_phases``)."""
     rows, n = keys.shape
-    log_n = n.bit_length() - 1
-    E, warp = bitonic.sort_elems(n), const["kWarp"]
-    log_e = E.bit_length() - 1
-    log_warp_span = log_e + const["kLogWarp"]
-    T = bitonic.sort_threads(n)
-    B = T * E
-    ctas = -(-rows // (B // n))
-    pad = ctas * (B // n) - rows  # a short last CTA reads zeros past the last row
-    assert torch.equal(_swz(torch.arange(B)).sort().values, torch.arange(B))
+    T, E = _cta_shape(n)
+    ctas = -(-rows // (T * E // n))
+    pad = ctas * (T * E // n) - rows  # a short last CTA reads zeros past the last row
 
     def regs(x):
         x = torch.cat([x, x.new_zeros((pad, n))]) if pad else x
         return x.reshape(ctas, T, E)
 
-    k = regs(keys)
     v = regs(values) if values is not None else None
+    k, v = _emulate_phases(regs(keys), v, n, range(n.bit_length() - 1), tiebreak, const)
+    k = k.reshape(-1, n)[:rows]
+    return k if v is None else (k, v.reshape(-1, n)[:rows])
+
+
+def _emulate_phases(k, v, n: int, phases, tiebreak: bool, const: dict):
+    """sort_phase over registers k, v (CTAs, threads, E) holding rows of n,
+    for each phase in ``phases``: the phases' flips of descending blocks;
+    the longer distances as gathers of whole butterflies from the swizzled
+    shared-memory image (the CTA's in turn, or the warp's own); the
+    direction of the first phases from the register index."""
+    log_n = n.bit_length() - 1
+    ctas, T, E = k.shape
+    warp = const["kWarp"]
+    log_e = E.bit_length() - 1
+    log_warp_span = log_e + const["kLogWarp"]
+    B = T * E
+    assert torch.equal(_swz(torch.arange(B)).sort().values, torch.arange(B))
     t = torch.arange(T)
     f0 = t * E
     own = _swz(f0[:, None] + torch.arange(E))  # (T, E) words of each thread's elements
     if E == 8:  # 16-byte pieces go 8 threads at a time
         assert all(_bank_ways(own[:, i].tolist(), 8, 4) == 1 for i in range(0, E, 4))
     flip = torch.zeros(T, dtype=torch.bool)
-    for s in range(log_n):
+    for s in phases:
         span, whole = 2 << s, s == log_n - 1
         if span < E:  # a direction per register pair
             asc = (whole | ((torch.arange(E) & span) == 0)).expand(T, E)
@@ -339,8 +362,47 @@ def _emulate_row_sort(keys, values, tiebreak: bool, const: dict):
         for bit in range(min(s, log_e - 1), -1, -1):  # register bits
             k, v = _reg_stage(k, v, asc, bit, tiebreak)
     assert not flip.any()
-    k = k.reshape(-1, n)[:rows]
-    return k if v is None else (k, v.reshape(-1, n)[:rows])
+    return k, v
+
+
+def _emulate_merge_load(a, b):
+    """merge_rows_kernel's load into (CTAs, threads, E) registers: thread t
+    of CTA c holds the E elements of a ++ reverse(b) from flat index
+    g0 = (c T + t) E on; where E divides n they are one 16-byte-aligned
+    piece of a row of a, or of b read backwards, else element by element;
+    past the last row, zeros."""
+    rows, n = a.shape
+    T, E = _cta_shape(2 * n)
+    ctas = -(-rows * 2 * n // (T * E))
+    g = (torch.arange(ctas * T) * E)[:, None] + torch.arange(E)
+    row, p = g // (2 * n), g % (2 * n)
+    live = row < rows
+    row = row.clamp(max=rows - 1)
+    from_b = p >= n
+    if n % E == 0:  # one piece: its start, in a or in b, and its direction
+        p0 = p[:, :1]
+        assert torch.equal(from_b, (p0 >= n).expand_as(p))
+        start = torch.where(p0 >= n, 2 * n - E - p0, p0)
+        assert not (start % 4).any()  # 16-byte loads from 16-byte-aligned rows
+        piece = start + torch.arange(E)
+        got = torch.where(from_b, b[row, piece], a[row, piece])
+        x = torch.where(from_b, got.flip(-1), got)
+    else:
+        x = torch.where(from_b, b[row, (2 * n - 1 - p).clamp(max=n - 1)],
+                        a[row, p.clamp(max=n - 1)])
+    return torch.where(live, x, torch.zeros_like(x)).reshape(ctas, T, E)
+
+
+def _emulate_merge(a, b, av, bv, tiebreak: bool, const: dict):
+    """merge_rows_kernel's schedule: the reversed load, then the row sort's
+    last phase alone on rows of 2n."""
+    rows, n = a.shape
+    k = _emulate_merge_load(a, b)
+    v = _emulate_merge_load(av, bv) if av is not None else None
+    log_n2 = n.bit_length()
+    k, v = _emulate_phases(k, v, 2 * n, [log_n2 - 1], tiebreak, const)
+    k = k.reshape(-1, 2 * n)[:rows]
+    return k if v is None else (k, v.reshape(-1, 2 * n)[:rows])
 
 
 def _special_keys(rng, rows, n, dtype):
@@ -380,5 +442,36 @@ def test_register_layout_runs_the_network(n, case):
     v = bitonic._signed(tt(_special_keys(rng, rows, n, types[1])))
     got = _emulate_row_sort(k, v, stable, const)
     want = bitonic.sort_rows_twin(k, v, stable=stable)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["keys float32", "keys int32", "kv float32/int32",
+                                  "kv float32/int32 stable", "kv uint32/float32 stable"])
+@pytest.mark.parametrize("n2", [1 << e for e in range(1, 14)])
+def test_merge_layout_runs_the_network(n2, case):
+    """merge_rows_kernel's layout (the reversed load of a ++ reverse(b) as
+    16-byte pieces or element by element, a short last CTA, then the row
+    sort's last phase alone: swizzled butterflies of the CTA or of the
+    warp, no flips) runs the same network as merge_rows_twin, bit for bit."""
+    const = _sort_layout()
+    rng = np.random.default_rng(n2 + 1)
+    per_cta = bitonic.sort_rows_per_cta(n2)
+    rows = per_cta + 1 if per_cta > 1 else 3
+    types = case.split()[1].split("/")
+
+    def sorted_rows(dtype):
+        return bitonic.sort_rows_twin(bitonic._signed(tt(_special_keys(rng, rows, n2 // 2,
+                                                                       dtype))))
+
+    a, b = sorted_rows(types[0]), sorted_rows(types[0])
+    if len(types) == 1:
+        got, want = _emulate_merge(a, b, None, None, False, const), bitonic.merge_rows_twin(a, b)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        return
+    stable = case.endswith("stable")
+    av, bv = (bitonic._signed(tt(_special_keys(rng, rows, n2 // 2, types[1]))) for _ in "ab")
+    got = _emulate_merge(a, b, av, bv, stable, const)
+    want = bitonic.merge_rows_twin(a, b, av, bv, stable=stable)
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the row-sort kernel of csrc/bitonic.cu on the CPU, one thread per
-CUDA thread, and hold it to a serial run of the network.
+"""Run the row-sort and merge kernels of csrc/bitonic.cu on the CPU, one
+thread per CUDA thread, and hold them to a serial run of the network.
 
     python3 tools/bitonic_cpu_check.py [--max-log-n 13]
 
@@ -13,11 +13,16 @@ leaves the last CTA short, with five key/value type pairs, stable on and
 off, on keys with heavy duplicates, +-0.0, +-inf and NaN; each output
 must equal, bit for bit, the network of
 repro/kernels/bitonic.py::_sort_network run serially on the same row.
-It also checks that a bad row length and an unaligned pointer are refused.
+``bitonic_merge_rows`` and ``bitonic_merge_rows_kv`` then merge rows of
+the same lengths and counts, of the same types, from contiguous operands
+and from the merge tree's strided views (the even and odd rows of one
+array), each held to a serial run of ``_merge_network`` on a ++
+reverse(b). It also checks that a bad row length, a row stride that
+breaks the 16-byte pieces and an unaligned pointer are refused.
 
-This checks the kernel's logic (layout, directions, barriers) without a
-card: not its speed, nor what only nvcc would refuse. Builds in
-build/cpu_check/; about half a minute in all at --max-log-n 13. Needs g++.
+This checks the kernels' logic (layout, directions, barriers) without a
+card: not their speed, nor what only nvcc would refuse. Builds in
+build/cpu_check/; about a minute in all at --max-log-n 13. Needs g++.
 """
 from __future__ import annotations
 
@@ -63,10 +68,11 @@ inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); r
 inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
 alignas(16) static unsigned char g_smem[1 << 17];
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef void* cudaStream_t;
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 template <class F, class... A>
@@ -87,25 +93,42 @@ void emul_launch(F kern, unsigned grid, int threads, size_t smem, cudaStream_t, 
 """
 
 HARNESS = r"""
+// One stage of the network at distance 2^sub over a row of n, blocks
+// ascending iff (lo & span) == 0.
 template <class K, class V>
-void network(K* k, V* v, int n, bool has_v, bool tb) {
+void stage(K* k, V* v, int n, int sub, int span, bool has_v, bool tb) {
+  for (int q = 0; q < n / 2; ++q) {
+    const int lo = ((q >> sub) << (sub + 1)) | (q & ((1 << sub) - 1)), hi = lo + (1 << sub);
+    bool gt = k[lo] > k[hi], lt = k[lo] < k[hi];
+    if (has_v && tb) {
+      const bool eq = k[lo] == k[hi];
+      gt = gt || (eq && v[lo] > v[hi]);
+      lt = lt || (eq && v[lo] < v[hi]);
+    }
+    if ((lo & span) == 0 ? gt : lt) {
+      std::swap(k[lo], k[hi]);
+      if (has_v) std::swap(v[lo], v[hi]);
+    }
+  }
+}
+
+int log2_of(int n) {
   int log_n = 0;
   while ((1 << log_n) < n) ++log_n;
-  for (int s = 0; s < log_n; ++s)
-    for (int sub = s; sub >= 0; --sub)
-      for (int q = 0; q < n / 2; ++q) {
-        const int lo = ((q >> sub) << (sub + 1)) | (q & ((1 << sub) - 1)), hi = lo + (1 << sub);
-        bool gt = k[lo] > k[hi], lt = k[lo] < k[hi];
-        if (has_v && tb) {
-          const bool eq = k[lo] == k[hi];
-          gt = gt || (eq && v[lo] > v[hi]);
-          lt = lt || (eq && v[lo] < v[hi]);
-        }
-        if ((lo & (2 << s)) == 0 ? gt : lt) {
-          std::swap(k[lo], k[hi]);
-          if (has_v) std::swap(v[lo], v[hi]);
-        }
-      }
+  return log_n;
+}
+
+// _sort_network: phases s = 0 .. log n - 1, span 2^(s+1).
+template <class K, class V>
+void network(K* k, V* v, int n, bool has_v, bool tb) {
+  for (int s = 0; s < log2_of(n); ++s)
+    for (int sub = s; sub >= 0; --sub) stage(k, v, n, sub, 2 << s, has_v, tb);
+}
+
+// _merge_network: distances n / 2 .. 1 under one ascending span of n.
+template <class K, class V>
+void merge_network(K* k, V* v, int n, bool has_v, bool tb) {
+  for (int sub = log2_of(n) - 1; sub >= 0; --sub) stage(k, v, n, sub, n, has_v, tb);
 }
 
 static std::mt19937 rng(1);
@@ -149,6 +172,46 @@ template <class K, class V> int check(long long rows, int n, int mode) {
   return !same;
 }
 
+// Merges of rows of n2 / 2 into rows of n2 (mode as above). Contiguous: a
+// and b each in an array of its own, row stride n2 / 2; strided: a and b
+// are the even and odd rows of one array (the merge tree's views), row
+// stride n2. Each a and b row is sorted by the serial network first.
+template <class K, class V> int check_merge(long long rows, int n2, int mode, bool strided) {
+  const int n = n2 / 2;
+  const long long stride = strided ? n2 : n, total = rows * n2;
+  std::vector<K> ka(total), kb(total), ko(total), kw(total);
+  std::vector<V> va(total), vb(total), vo(total), vw(total);
+  for (auto* x : {&ka, &kb}) for (auto& e : *x) e = special<K>();
+  for (auto* x : {&va, &vb}) for (auto& e : *x) e = special<V>();
+  const K* ak = ka.data();
+  const K* bk = strided ? ka.data() + n : kb.data();
+  const V* av = va.data();
+  const V* bv = strided ? va.data() + n : vb.data();
+  for (long long r = 0; r < rows; ++r) {
+    network(const_cast<K*>(ak) + r * stride, const_cast<V*>(av) + r * stride, n, mode > 0,
+            mode == 2);
+    network(const_cast<K*>(bk) + r * stride, const_cast<V*>(bv) + r * stride, n, mode > 0,
+            mode == 2);
+    for (int i = 0; i < n; ++i) {
+      kw[r * n2 + i] = ak[r * stride + i];
+      kw[r * n2 + n2 - 1 - i] = bk[r * stride + i];
+      vw[r * n2 + i] = av[r * stride + i];
+      vw[r * n2 + n2 - 1 - i] = bv[r * stride + i];
+    }
+    merge_network(&kw[r * n2], &vw[r * n2], n2, mode > 0, mode == 2);
+  }
+  const int err = mode == 0
+      ? bitonic_merge_rows(ak, stride, bk, stride, ko.data(), rows, n, code<K>(), nullptr)
+      : bitonic_merge_rows_kv(ak, stride, av, stride, bk, stride, bv, stride, ko.data(),
+                              vo.data(), rows, n, code<K>(), code<V>(), mode == 2, nullptr);
+  const bool same = err == 0 && std::memcmp(ko.data(), kw.data(), total * 4) == 0 &&
+                    (mode == 0 || std::memcmp(vo.data(), vw.data(), total * 4) == 0);
+  if (!same)
+    std::printf("MERGE MISMATCH rows=%lld 2n=%d mode=%d strided=%d key type %d value type %d "
+                "(launch %d)\n", rows, n2, mode, strided, code<K>(), code<V>(), err);
+  return !same;
+}
+
 int main(int argc, char** argv) {
   const int max_log_n = std::atoi(argv[1]);
   int bad = 0;
@@ -164,10 +227,34 @@ int main(int argc, char** argv) {
     std::printf("N=%d: %s\n", n, bad ? "MISMATCH" : "equal to the serial network");
     std::fflush(stdout);
   }
-  alignas(16) float x[8] = {};
+  for (int log_n2 = 1; log_n2 <= max_log_n; ++log_n2) {
+    const int n2 = 1 << log_n2;
+    const int per_cta = (sort_threads(log_n2) << log_elems(log_n2)) / n2;
+    for (long long rows : {1LL, 3LL, per_cta > 1 ? 2LL * per_cta + 1 : 5LL})
+      for (bool strided : {false, true})
+        bad += check_merge<float, uint32_t>(rows, n2, 0, strided) +
+               check_merge<int32_t, uint32_t>(rows, n2, 0, strided) +
+               check_merge<uint32_t, uint32_t>(rows, n2, 0, strided) +
+               check_merge<float, int32_t>(rows, n2, 1, strided) +
+               check_merge<float, int32_t>(rows, n2, 2, strided) +
+               check_merge<float, float>(rows, n2, 2, strided) +
+               check_merge<uint32_t, int32_t>(rows, n2, 2, strided) +
+               check_merge<int32_t, float>(rows, n2, 2, strided);
+    std::printf("merge to 2n=%d: %s\n", n2, bad ? "MISMATCH" : "equal to the serial network");
+    std::fflush(stdout);
+  }
+  alignas(16) float x[64] = {}, out[64];
   if (bitonic_sort_rows(x, x, 1, 3, 2, nullptr) == 0 ||
-      bitonic_sort_rows(x + 1, x, 1, 4, 2, nullptr) == 0) {
-    std::printf("a bad row length or an unaligned pointer was accepted\n");
+      bitonic_sort_rows(x + 1, x, 1, 4, 2, nullptr) == 0 ||
+      bitonic_merge_rows(x, 3, x, 3, out, 1, 3, 2, nullptr) == 0 ||    // n not a power of 2
+      bitonic_merge_rows(x + 1, 8, x, 8, out, 1, 8, 2, nullptr) == 0 ||  // unaligned piece
+      bitonic_merge_rows(x, 10, x, 8, out, 2, 8, 2, nullptr) == 0 ||     // stride off pieces
+      bitonic_merge_rows(x, 8, x, 8, out + 1, 1, 8, 2, nullptr) == 0) {
+    std::printf("a bad row length, stride or unaligned pointer was accepted\n");
+    ++bad;
+  }
+  if (bitonic_merge_rows(x + 1, 5, x + 3, 5, out, 2, 2, 2, nullptr) != 0) {
+    std::printf("a merge of rows of 2 read element by element was refused\n");
     ++bad;
   }
   return bad != 0;
