@@ -34,8 +34,18 @@ Phases, one line or more each:
      default limits, n = 2^22 int32 keys with 4 distinct values (imbalance
      below 1.01), want="order", order="desc", a float32 payload, and
      n = 2^27 float32 keys on p = 8 with stream_threshold=None. Every
-     bitonic kernel's launch count is set to 0 before this phase and read
-     after it; each of the four must have launched;
+     bitonic kernel's launch count is set to 0 before this path and read
+     after it; each of the four must have launched. Then the multi-key
+     slice at n = 2^22, p = 8, its counts set to 0 before it and read after
+     it (each of the four kernels must launch under it): a packed pair
+     (int32 ids in [0, 1000) ascending, int32 times in [0, 2^20)
+     descending, 30 bits), keys-only and want="order"; an LSD pair
+     (float32 uniform, int32 full range: over the 31-bit budget) with a
+     float32 payload; a duplicate-heavy packed pair (4 x 16 values,
+     imbalance below 1.01); the packed pair with decode="host"; each
+     against stable torch.sort passes in LSD order, bit for bit. Last, a
+     keys-only float32 sort of 2^20 keys with 5% NaN against the same call
+     with device="cpu", bit for bit;
   4. the flash-attention kernel against its twins on the card, causal and
      full, bf16 and float32, at (B, S, H, KV, dh) = (1, 256, 4, 2, 16),
      (2, 1000, 4, 1, 64), (2, 1000, 8, 2, 128), (1, 77, 8, 8, 128),
@@ -570,7 +580,10 @@ def run_main_path(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(1)
     n = 1 << 22
 
-    def timed(label, *args, **kwargs):
+    def timed(label, *args, expect=None, **kwargs):
+        """One sort through the entry point, logged. ``expect``: the exact
+        launches of (sort_rows, sort_rows_kv, merge_rows, merge_rows_kv)
+        this sort must make on each try of the capacity ladder."""
         before = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -581,6 +594,10 @@ def run_main_path(device) -> dict:
         log(f"phase 3: {label}: {wall * 1e3:.3f} ms wall, counts {out.counts.tolist()}, "
             f"imbalance {out.imbalance():.6f}, retries {out.meta.retries}, "
             f"launches {launches}")
+        if expect is not None:
+            expect = tuple(c * (1 + out.meta.retries) for c in expect)
+            if tuple(launches.values()) != expect:
+                raise AssertionError(f"{label}: launches {launches}, expected {expect}")
         return out
 
     bitonic.reset_launches()
@@ -622,7 +639,114 @@ def run_main_path(device) -> dict:
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+
+    bitonic.reset_launches()
+    run_multikey(gen, device, timed)
+    multi = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    log(f"phase 3: launches over the multi-key path: {multi}")
+    missing = [k for k, v in multi.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the multi-key path: {missing}")
+    check_nan_keys(gen, device, timed)
     return launches
+
+
+def lex_order(cols, descending):
+    """The stable lexicographic permutation of a key tuple: stable
+    torch.sort passes from the last key to the first."""
+    import torch
+
+    perm = torch.arange(cols[0].numel(), device=cols[0].device)
+    for col, desc in zip(cols[::-1], descending[::-1]):
+        perm = perm[torch.sort(col[perm], stable=True, descending=desc).indices]
+    return perm
+
+
+def check_lex(label, out, cols, descending, values=None, want="values") -> None:
+    """``out`` is the lexicographic sort of ``cols``: every key column, the
+    permutation or the payload, bit for bit against ``lex_order``."""
+    import torch
+
+    perm = lex_order(cols, descending)
+    dev = out.keys[0].device
+    for i, (got, col) in enumerate(zip(out.keys, cols, strict=True)):
+        if not torch.equal(got, col[perm].to(dev)):
+            raise AssertionError(f"{label}: key column {i} differs from the torch.sort passes")
+    if want == "order" and not torch.equal(out.order(), perm.to(device=dev, dtype=torch.int32)):
+        raise AssertionError(f"{label}: permutation differs from the torch.sort passes")
+    if values is not None and not torch.equal(out.values, values[perm].to(dev)):
+        raise AssertionError(f"{label}: payload differs from the torch.sort passes")
+
+
+# Launches of (sort_rows, sort_rows_kv, merge_rows, merge_rows_kv) for one
+# sort pass at p = 8 with 2^17 or 2^19 keys a processor: one tile sort and
+# the merge rounds into 2048, 4096 and 8192; wider merges are rank merges.
+KEYS_ONLY = (1, 0, 3, 0)
+KEY_VALUE = (0, 1, 0, 3)
+
+
+def run_multikey(gen, device, timed, n: int = 1 << 22) -> None:
+    """Phase 3, the multi-key slice at n = 2^22 (p = 8): packed and LSD
+    pairs, keys-only, want="order" and a payload, both decodes. A packed
+    keys-only sort runs the keys-only kernels; a packed sort with a
+    payload, and each LSD pass, their key/value twins."""
+    import torch
+    import repro_torch
+
+    ids = torch.randint(0, 1000, (n,), generator=gen, device=device, dtype=torch.int32)
+    times = torch.randint(0, 1 << 20, (n,), generator=gen, device=device, dtype=torch.int32)
+    pair, orders = (ids, times), ("asc", "desc")
+    for i in range(2):
+        out = timed(f"packed (ids asc, times desc), keys-only, run {i + 1}", pair, order=orders,
+                    expect=KEYS_ONLY)
+    if out.meta.multikey != "packed" or out.meta.plan.packspec.total_bits != 30:
+        raise AssertionError(f"the ids/times pair did not pack into 30 bits: {out.meta.plan.explain()}")
+    check_lex("packed keys-only", out, pair, (False, True))
+    out = timed('packed (ids asc, times desc), want="order"', pair, order=orders, want="order",
+                expect=KEY_VALUE)
+    check_lex("packed order", out, pair, (False, True), want="order")
+
+    f = torch.rand(n, generator=gen, device=device)
+    wide = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen, device=device,
+                         dtype=torch.int32)
+    vals = torch.rand(n, generator=gen, device=device)
+    out = timed("LSD (float32 asc, int32 full range desc) + float32 payload", (f, wide), vals,
+                order=("asc", "desc"), expect=tuple(2 * c for c in KEY_VALUE))
+    if out.meta.multikey != "lsd":
+        raise AssertionError("the float32/int32 pair did not fall back to LSD")
+    check_lex("LSD payload", out, (f, wide), (False, True), values=vals)
+
+    d1 = torch.randint(0, 4, (n,), generator=gen, device=device, dtype=torch.int32)
+    d2 = torch.randint(0, 16, (n,), generator=gen, device=device, dtype=torch.int32)
+    out = timed("packed, 4 x 16 distinct values", (d1, d2), expect=KEYS_ONLY)
+    check_lex("packed duplicates", out, (d1, d2), (False, False))
+    if out.meta.multikey != "packed" or not out.imbalance() < 1.01:
+        raise AssertionError(f"duplicate-heavy pair: {out.meta.multikey}, imbalance {out.imbalance()}")
+
+    out = timed('packed (ids asc, times desc), want="order", decode="host"', pair, order=orders,
+                want="order", limits=repro_torch.SortLimits(decode="host"), expect=KEY_VALUE)
+    if out.keys[0].device.type != "cpu":
+        raise AssertionError("decode='host' did not return CPU tensors")
+    check_lex("packed order, host decode", out, pair, (False, True), want="order")
+
+
+def check_nan_keys(gen, device, timed, n: int = 1 << 20) -> None:
+    """Phase 3: keys-only float32 keys with 5% NaN sort on the card as they
+    do on the CPU (the searches follow jax's probes on both)."""
+    import torch
+    import repro_torch
+
+    x = torch.rand(n, generator=gen, device=device)
+    x[torch.rand(x.shape, generator=gen, device=device) < 0.05] = float("nan")
+    got = timed("n=2^20 float32, 5% NaN, keys-only", x, expect=KEYS_ONLY)
+    t0 = time.perf_counter()
+    want = repro_torch.sort(x.cpu(), device="cpu")
+    log(f"phase 3: the same sort on the CPU: {(time.perf_counter() - t0) * 1e3:.3f} ms wall")
+    if not (torch.equal(got.keys.cpu().view(torch.int32), want.keys.view(torch.int32))
+            and (got.counts == want.counts).all()):
+        raise AssertionError("NaN keys: the card's sort differs from the CPU's")
+    log(f"phase 3: NaN keys: card equals CPU bit for bit ({int(want.keys.isnan().sum())} NaN "
+        f"kept of {int(x.isnan().sum())})")
 
 
 # ------------------------------------------------------------------ phase 5

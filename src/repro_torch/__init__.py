@@ -10,7 +10,8 @@ A port of the JAX package ``repro``, module for module::
 
 The sort covers the sim backend: flat or (p, n_local) keys of 8-32 bit
 ints and floats, ascending or descending, values or argsort, with the
-overflow ladder. The model tier serves dense GQA decoders
+overflow ladder; tuples of key columns (packed into one int32 sort or as
+LSD passes); the device and the host decode. The model tier serves dense GQA decoders
 (``repro_torch.models.model.Model``, ``repro_torch.serve.engine``), with
 prefill attention on a CUDA flash kernel. What neither covers raises
 NotImplementedError naming the ROADMAP.md item that ports it.

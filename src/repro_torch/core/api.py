@@ -6,16 +6,34 @@ Counterpart of the unified front end of ``repro/core/api.py``::
     out = repro_torch.sort(keys)             # -> SortOutput, on "cuda"
     out.keys                                 # sorted keys, a device tensor
     repro_torch.sort(keys, device="cpu")     # the plain path, on the CPU
+    out = repro_torch.sort((ids, times), order=("asc", "desc"))
+    out.keys                                 # (ids, times), sorted by ids, then times
 
-keys:   a flat tensor or numpy array, or a (p, n_local) grid whose rows
-        are the shards.
+keys:   a flat tensor or numpy array, a (p, n_local) grid whose rows
+        are the shards, or a tuple of equal-length columns (a
+        lexicographic multi-key sort; a 1-tuple is a single key).
 values: optional payload that rides the sort.
-order:  "asc" | "desc".
+order:  "asc" | "desc", or a tuple with one flag per key.
 want:   "values" (sorted keys [+ payload]) | "order" (the stable sorting
         permutation).
 where:  backend override; only "sim" is ported.
 limits: ``SortLimits``; config: ``SortConfig`` (the paper's defaults).
 device: None means "cuda", which must exist; "cpu" on request only.
+
+Multi-key strategy (``plan.multikey``, ``SortLimits.multikey``): when the
+columns' measured (or declared, ``SortLimits.key_bits``) bit widths fit
+31 bits, the tuple packs into ONE non-negative int32 key and sorts in one
+pass ("packed"); otherwise, or for unpackable columns (float16,
+bfloat16, a float column holding NaN), one stable argsort pass per key
+("lsd"). ``repro_torch.explain`` names the decision and its reason. A
+packed sort with a payload cannot hold a tuple that saturates a full
+31-bit pack (it is the int32 padding sentinel) and raises ``repro``'s
+ValueError; packed keys-only sorts have no restriction.
+
+Decode (``SortLimits.decode``): "device" (default) builds the output on
+the sort's device; "host" copies the result grid to the CPU and decodes
+it with numpy, as ``repro``'s legacy path does. Both give the same bits;
+the host decode returns CPU tensors.
 """
 from __future__ import annotations
 

@@ -1,12 +1,20 @@
-"""Key encodings and the fused device decode.
+"""Key encodings, multi-key packing and the decodes.
 
-Counterpart of the single-key part of ``repro/core/keyenc.py``:
+Counterpart of ``repro/core/keyenc.py``:
 
   * descending -> ``flip``, an order-reversing bijection per dtype (``~x``
     for integers, ``-x`` for floats); an ascending sort of flipped keys is
     a descending sort.
   * argsort    -> the payload is the flat global index (provenance); the
     kv sort is exactly stable for unique increasing payloads.
+  * multi-key  -> ``plan_pack`` / ``pack_keys``: when the tuple's measured
+    (or declared, ``SortLimits.key_bits``) bit widths fit the 31-bit
+    budget, the columns fuse into ONE non-negative int32 key, each a bit
+    field holding its monotone unsigned rank (sign-xor for ints, the IEEE
+    total-order trick for float32, minus the measured minimum), reversed
+    in place for a descending key; else the planner runs LSD passes.
+    The rank arithmetic runs in int64 on the columns' device; the
+    measurement is one host read for all columns.
   * lanes      -> ``to_lane`` / ``from_lane``: uint16 and uint32 keys and
     values travel as int16 and int32 with the top bit flipped, a monotone
     bijection that maps the dtype's maximum onto the lane's maximum (so the
@@ -15,10 +23,14 @@ Counterpart of the single-key part of ``repro/core/keyenc.py``:
     unsigned dtypes. Every other admitted dtype is its own lane.
 
 ``decode_grid`` runs on the sort's device: the compaction of the padded
-(p, W) result grid, the argsort tie fix and the inverse flip. Multi-key
-packing is not ported yet.
+(p, W) result grid, the argsort tie fix, the inverse flip and the unpack
+of packed keys (``unpack_fields``). ``flip_np`` / ``decode_np`` /
+``unpack_np`` are the numpy twins of ``decode="host"``. 64-bit packs
+(x64 mode) and the stream tier's per-chunk unpack are not ported.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -54,13 +66,33 @@ def from_lane(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for every admitted dtype: uint16 and uint32 gather through
+    their signed view (CUDA has no gather on them)."""
+    idx = idx.long()
+    if x.dtype in _LANES:
+        return x.view(_LANES[x.dtype][0])[idx].view(x.dtype)
+    return x[idx]
+
+
 def flip(x: torch.Tensor) -> torch.Tensor:
     """Order-reversing bijection; its own inverse."""
     return -x if x.dtype.is_floating_point else ~x
 
 
+def flip_np(x: np.ndarray) -> np.ndarray:
+    """numpy flip, for the host decode."""
+    if np.issubdtype(x.dtype, np.floating):
+        return -x
+    return ~x
+
+
 def encode(keys: torch.Tensor, descending: bool) -> torch.Tensor:
     return flip(keys) if descending else keys
+
+
+def decode_np(keys: np.ndarray, descending: bool) -> np.ndarray:
+    return flip_np(keys) if descending else keys
 
 
 def provenance_dtype(n: int) -> torch.dtype:
@@ -75,7 +107,312 @@ def provenance_dtype(n: int) -> torch.dtype:
     )
 
 
-def check_payload_keys(keys: torch.Tensor, descending: bool) -> None:
+# ------------------------------------------------- multi-key bit packing
+
+PACK_BUDGET_BITS = 31
+"""The packed key is a non-negative int32: 31 usable bits. Wider tuples
+run as LSD passes. Staying non-negative keeps the packed space below the
+padding sentinel, except for the one saturated value of an exactly full
+pack (``check_payload_keys``)."""
+
+PACK_BUDGET_BITS_X64 = 63
+"""``repro``'s budget under its x64 mode (a non-negative int64 pack),
+named only in the over-budget reason's hint: x64 mode is not ported
+(ROADMAP.md §1, item 2), so every pack here is an int32."""
+
+PACK_DTYPE = torch.int32
+
+_PACK_KINDS = {
+    "uint8": "uint", "uint16": "uint", "uint32": "uint",
+    "int8": "int", "int16": "int", "int32": "int",
+    "float32": "float",
+}
+
+_SIGN32 = 1 << 31
+_MASK32 = (1 << 32) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyFieldSpec:
+    """How one key column maps to and from its bit field in the packed key.
+
+    dtype: dtype name of the source column (``"int16"``, ...).
+    kind: ``"uint" | "int" | "float"``: which monotone rank transform
+      applies (identity / sign-bit xor / IEEE total-order bit trick).
+    lo: rank-space offset subtracted before packing (the measured minimum
+      rank, or the declared range's origin for ``key_bits``).
+    width: field bits; 0 for constant columns.
+    descending: the field is stored order-reversed (``mask - field``).
+    declared: the width came from ``SortLimits.key_bits`` (a promise,
+      checked at pack time) rather than from measurement.
+    """
+
+    dtype: str
+    kind: str
+    lo: int
+    width: int
+    descending: bool
+    declared: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PackSpec:
+    """The recipe that fuses a key tuple into one integer key, MSB first:
+    field 0 (the primary key) holds the most significant bits."""
+
+    fields: tuple
+
+    @property
+    def total_bits(self) -> int:
+        return sum(f.width for f in self.fields)
+
+    def describe(self) -> str:
+        widths = "+".join(str(f.width) for f in self.fields)
+        return f"widths {widths}={self.total_bits}/{PACK_BUDGET_BITS} bits"
+
+
+def _rank(col: torch.Tensor, kind: str) -> torch.Tensor:
+    """Monotone map of a column into unsigned 32-bit rank space, held in
+    int64 (``repro``'s ``_rank_np``): floats by the IEEE total-order trick
+    (flip every bit of a negative, the sign bit of a non-negative), ints by
+    adding 2^31, unsigned ints as they are."""
+    if kind == "float":
+        b = col.to(torch.float32).view(torch.int32).to(torch.int64) & _MASK32
+        return b ^ torch.where(b >> 31 != 0, _MASK32, _SIGN32)
+    if kind == "int":
+        return col.to(torch.int64) + _SIGN32
+    lane = to_lane(col).to(torch.int64)  # uint16/uint32: the value minus 2^15/2^31
+    return lane - _LANES[col.dtype][1] if col.dtype in _LANES else lane
+
+
+def _unrank(rank: torch.Tensor, f: KeyFieldSpec) -> torch.Tensor:
+    """Inverse of ``_rank`` on int64 ranks in [0, 2^32)."""
+    dtype = getattr(torch, f.dtype)
+    if f.kind == "float":
+        b = rank ^ torch.where(rank >> 31 != 0, _SIGN32, _MASK32)
+        b = torch.where(b >= _SIGN32, b - (1 << 32), b)  # the int32 lane, wrapped
+        return b.to(torch.int32).view(torch.float32)
+    if f.kind == "int":
+        return (rank - _SIGN32).to(dtype)
+    if dtype in _LANES:
+        lane, top = _LANES[dtype]
+        return from_lane((rank + top).to(lane), dtype)
+    return rank.to(dtype)
+
+
+def _unrank_np(rank: np.ndarray, f: KeyFieldSpec) -> np.ndarray:
+    if f.kind == "float":
+        mask = np.where(rank >> np.uint32(31), np.uint32(0x80000000), np.uint32(0xFFFFFFFF))
+        return (rank ^ mask).view(np.float32)
+    if f.kind == "int":
+        return (rank ^ np.uint32(_SIGN32)).view(np.int32).astype(f.dtype)
+    return rank.astype(f.dtype)
+
+
+def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None):
+    """Decide whether a key tuple can fuse into one packed integer sort.
+
+    Measures each column's effective width (the bits of its rank range)
+    unless ``key_bits`` declares it: a declared width ``w`` promises the
+    column's values lie in ``[0, 2**w)`` (ints only) and is checked at
+    pack time. Returns ``(PackSpec, reason)`` when the widths fit
+    ``PACK_BUDGET_BITS``, else ``(None, reason)``; the reasons are
+    ``repro``'s.
+
+    The columns are walked in order, as ``repro`` walks them; the minimum,
+    maximum and NaN flag of every measured column come back in one host
+    read. ``ranks``: a dict that receives each measured column's rank
+    tensor, for ``pack_keys`` to reuse.
+    """
+    if key_bits is not None:
+        if not isinstance(key_bits, tuple):
+            raise ValueError(
+                f"SortLimits.key_bits must be a tuple (hashable limits), "
+                f"got {type(key_bits).__name__}"
+            )
+        if len(key_bits) != len(klist):
+            raise ValueError(
+                f"SortLimits.key_bits has {len(key_bits)} entries for "
+                f"{len(klist)} keys (use None entries to measure a key)"
+            )
+    kinds = [_PACK_KINDS.get(dtype_name(col.dtype)) for col in klist]
+    stop = kinds.index(None) if None in kinds else len(klist)
+    measured = {i: _rank(klist[i], kinds[i]) for i in range(stop)
+                if (key_bits is None or key_bits[i] is None) and klist[i].numel()}
+    stats = {}
+    if measured:
+        rows = []
+        for i, r in measured.items():
+            col = klist[i]
+            nan = (col != col).any() if kinds[i] == "float" else torch.zeros((), dtype=torch.bool,
+                                                                              device=col.device)
+            rows.append(torch.stack([r.min(), r.max(), nan.to(torch.int64)]))
+        stats = dict(zip(measured, torch.stack(rows).tolist()))
+    fields = []
+    for i, (col, desc) in enumerate(zip(klist, descending)):
+        name = dtype_name(col.dtype)
+        kind = kinds[i]
+        if kind is None:
+            return None, f"key {i} dtype {name} is not packable"
+        declared = key_bits[i] if key_bits is not None else None
+        if declared is not None:
+            if kind == "float":
+                raise ValueError(
+                    f"SortLimits.key_bits[{i}]: declared widths are "
+                    f"unsupported for {name} keys — float field widths "
+                    f"are measured from the monotone rank range (pass "
+                    f"None for this key)"
+                )
+            declared = int(declared)
+            bits_max = 8 * col.element_size()
+            if not 0 <= declared <= bits_max:
+                raise ValueError(
+                    f"SortLimits.key_bits[{i}]={declared} out of range "
+                    f"[0, {bits_max}]"
+                )
+            lo = _SIGN32 if kind == "int" else 0
+            fields.append(KeyFieldSpec(name, kind, lo, declared, bool(desc), declared=True))
+            continue
+        if i not in stats:  # an empty column
+            fields.append(KeyFieldSpec(name, kind, 0, 0, bool(desc)))
+            continue
+        lo, hi, nan = stats[i]
+        if nan:
+            return None, f"key {i} contains NaN (unsupported keys)"
+        if ranks is not None:
+            ranks[i] = measured[i]
+        fields.append(KeyFieldSpec(name, kind, lo, (hi - lo).bit_length(), bool(desc)))
+    spec = PackSpec(tuple(fields))
+    if spec.total_bits > PACK_BUDGET_BITS:
+        widths = "+".join(str(f.width) for f in spec.fields)
+        hint = ""
+        if spec.total_bits <= PACK_BUDGET_BITS_X64:
+            hint = (
+                " (would fit the 63-bit x64 budget: opt in with "
+                "repro.enable_x64() / REPRO_X64=1 / SortLimits(x64=True))"
+            )
+        return None, (
+            f"total width {widths}={spec.total_bits} bits exceeds the "
+            f"{PACK_BUDGET_BITS}-bit pack budget{hint}"
+            f"{_float_band_hint(klist, spec)}"
+        )
+    return spec, spec.describe()
+
+
+def _float_band_hint(klist, spec: PackSpec) -> str:
+    """Why a float column measured wide: the exponent band of its finite
+    non-zero values, and whether they cross zero (one host read)."""
+    idx = [i for i, f in enumerate(spec.fields) if f.kind == "float" and f.width]
+    if not idx:
+        return ""
+    rows = []
+    for i in idx:
+        col = klist[i].reshape(-1).to(torch.float64)
+        keep = torch.isfinite(col) & (col != 0.0)
+        _, exp = torch.frexp(col.abs())
+        exp = exp.to(torch.int64)
+        rows.append(torch.stack([
+            keep.any().to(torch.int64),
+            torch.where(keep, exp, 1 << 20).min(), torch.where(keep, exp, -(1 << 20)).max(),
+            ((col > 0).any() & (col < 0).any()).to(torch.int64),
+        ]))
+    notes = []
+    for i, (any_finite, lo, hi, crosses) in zip(idx, torch.stack(rows).tolist()):
+        if not any_finite:
+            continue
+        f = spec.fields[i]
+        notes.append(
+            f"key {i} ({f.dtype}) measured {f.width} rank bits from the "
+            f"exponent band [2^{lo - 1}, 2^{hi - 1}]"
+            + (" crossing zero" if crosses else "")
+        )
+    if not notes:
+        return ""
+    return (
+        "; " + "; ".join(notes)
+        + " — packing floats needs a narrow exponent band on one side "
+        "of zero"
+    )
+
+
+def _np_scalar(col: torch.Tensor, j: int):
+    """Element ``j`` of a column as a numpy scalar of its dtype."""
+    return col[j:j + 1].cpu().numpy()[0]
+
+
+def pack_keys(klist, spec: PackSpec, ranks: dict | None = None) -> torch.Tensor:
+    """Fuse the key tuple into the packed non-negative int32 key, on the
+    columns' device: per column the rank minus the spec's offset (wrapped
+    into 32 bits, as ``repro``'s uint32 rank space wraps), reversed within
+    its field for a descending key, shifted in MSB first, in int64.
+    Declared (``key_bits``) widths are checked here, all columns in one
+    host read: a value outside its promised range raises ``repro``'s
+    error. ``ranks``: rank tensors ``plan_pack`` already computed."""
+    n = klist[0].reshape(-1).shape[0]
+    fields, over = [], {}
+    for i, (col, f) in enumerate(zip(klist, spec.fields)):
+        col = col.reshape(-1)
+        r = ranks.get(i) if ranks is not None else None
+        if r is None:
+            r = _rank(col, f.kind)
+        field = (r - f.lo) & _MASK32
+        if f.declared and f.width < 32:
+            over[i] = (field >> f.width) != 0
+        fields.append(field)
+    if over:
+        hit = torch.stack([o.any() for o in over.values()]).tolist()
+        for (i, o), bad in zip(over.items(), hit):
+            if bad:
+                j = int(torch.argmax(o.to(torch.int8)))
+                w = spec.fields[i].width
+                raise ValueError(
+                    f"key {i} value {_np_scalar(klist[i].reshape(-1), j)!r} does not fit "
+                    f"the declared SortLimits.key_bits[{i}]={w} bits (declared "
+                    f"keys must lie in [0, {2 ** w})); widen the "
+                    f"declaration or pass None to measure this key"
+                )
+    acc = torch.zeros(n, dtype=torch.int64, device=klist[0].device)
+    for field, f in zip(fields, spec.fields):
+        if f.descending:
+            field = ((1 << f.width) - 1) - field
+        acc = (acc << f.width) | field
+    return acc.to(PACK_DTYPE)
+
+
+def unpack_fields(packed: torch.Tensor, spec: PackSpec) -> tuple:
+    """Device unpack: the packed int32 key -> the original columns, in
+    their dtypes. Elementwise bit surgery in int64 (shift and mask, the
+    field reversal of a descending key, the inverse rank transform)."""
+    u = packed.to(torch.int64)
+    cols = []
+    shift = spec.total_bits
+    for f in spec.fields:
+        shift -= f.width
+        mask = (1 << f.width) - 1
+        field = (u >> shift) & mask
+        if f.descending:
+            field = mask - field
+        cols.append(_unrank(field + f.lo, f))
+    return tuple(cols)
+
+
+def unpack_np(packed: np.ndarray, spec: PackSpec) -> tuple:
+    """Host twin of ``unpack_fields`` (``repro``'s, on numpy): the host
+    decode's unpack, and the packed-sentinel error's source columns."""
+    u = np.asarray(packed).astype(np.uint64)
+    cols = []
+    shift = spec.total_bits
+    for f in spec.fields:
+        shift -= f.width
+        mask = (1 << f.width) - 1
+        field = ((u >> np.uint64(shift)) & np.uint64(mask)).astype(np.uint32)
+        if f.descending:
+            field = np.uint32(mask) - field
+        cols.append(_unrank_np(field + np.uint32(f.lo), f))
+    return tuple(cols)
+
+
+def check_payload_keys(keys: torch.Tensor, descending: bool, *, packspec=None) -> None:
     """Reject payload sorts whose keys collide with the padding sentinel.
 
     Ascending payload sorts cannot contain the key dtype's maximum (the
@@ -84,7 +421,34 @@ def check_payload_keys(keys: torch.Tensor, descending: bool) -> None:
     Either way the exchange's pads would leak into the payload, so the
     sort raises the ValueError that ``repro`` raises, with the same text.
     Keys-only sorts are exempt.
+
+    ``packspec``: ``keys`` are PACKED multi-key keys. Only an exactly full
+    31-bit pack can reach the int32 sentinel; the error then names the
+    packed value and the source column values it decodes to.
     """
+    if packspec is not None:
+        if packspec.total_bits < PACK_BUDGET_BITS:
+            return  # the packed space tops out below the sentinel
+        bad = torch.iinfo(PACK_DTYPE).max
+        hits = keys == bad
+        if not bool(hits.any()):
+            return
+        row = int(torch.argmax(hits.to(torch.int8)))
+        word = dtype_name(PACK_DTYPE)
+        src = unpack_np(np.asarray([bad], word), packspec)
+        cols = ", ".join(
+            f"key {i} ({f.dtype})={c[0]!r}"
+            for i, (c, f) in enumerate(zip(src, packspec.fields))
+        )
+        raise ValueError(
+            f"multi-key sort with a payload cannot represent the packed "
+            f"key {bad} (it is the {word} padding sentinel: this "
+            f"tuple saturates the full {packspec.total_bits}-bit pack, "
+            f"first at row {row}) — source columns: {cols}. Shift or "
+            f"drop those rows, force the LSD fallback with "
+            f"SortLimits(multikey='lsd'), or sort keys-only (packed "
+            f"keys-only sorts have no restriction)."
+        )
     dt_s = dtype_name(keys.dtype)
     if keys.dtype.is_floating_point and bool((keys != keys).any()):
         raise ValueError(
@@ -139,7 +503,8 @@ def compact_rows(grid: torch.Tensor, counts: torch.Tensor, m: int) -> torch.Tens
 
 
 def decode_grid(keys_grid, counts, values_grid=None, *, m: int,
-                descending: bool = False, want_order: bool = False):
+                descending: bool = False, want_order: bool = False,
+                packspec: PackSpec | None = None):
     """Device-side materialization of the first ``m`` sorted elements.
 
     ``m`` must not exceed the staged total (every real element and front
@@ -149,6 +514,10 @@ def decode_grid(keys_grid, counts, values_grid=None, *, m: int,
       want_order: the payload is the provenance index; restore exact
                   stability with the segment-stable pass (the investigator
                   splits tied ranges across destinations).
+      packspec:   the grid holds PACKED multi-key keys: unpack them into
+                  the tuple's columns as the last step, after the tie fix,
+                  which must see the packed keys (a packed tie is an
+                  all-columns tie). ``keys`` is then a tuple.
 
     Returns ``(keys, values-or-None)`` of shape (m,).
     """
@@ -160,4 +529,6 @@ def decode_grid(keys_grid, counts, values_grid=None, *, m: int,
             vs = segment_stable_kv(ks, vs)
     if descending:
         ks = flip(ks)
+    if packspec is not None:
+        ks = unpack_fields(ks, packspec)
     return ks, vs

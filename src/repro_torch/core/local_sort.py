@@ -10,11 +10,13 @@ import torch
 from repro_torch.kernels import ops as kops
 
 
-def local_sort(x: torch.Tensor, *, tile: int = 1024, use_pallas: bool = True) -> torch.Tensor:
-    """Sort every row of ``x`` (..., n) ascending."""
+def local_sort(x: torch.Tensor, *, tile: int = 1024, use_pallas: bool = True,
+               wide_merge=None) -> torch.Tensor:
+    """Sort every row of ``x`` (..., n) ascending (``wide_merge``: see
+    ``ops.merge_rows``)."""
     if not use_pallas:
         return torch.sort(x, dim=-1, stable=True).values
-    return kops.tile_sort(x, tile=tile, use_pallas=True)
+    return kops.tile_sort(x, tile=tile, use_pallas=True, wide_merge=wide_merge)
 
 
 def local_sort_kv(keys, values, *, tile: int = 1024, use_pallas: bool = True,

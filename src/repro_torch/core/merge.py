@@ -24,15 +24,18 @@ def _pad_runs_pow2(runs: torch.Tensor, fill) -> torch.Tensor:
     return torch.cat([runs, pad], dim=-2)
 
 
-def merge_padded_runs(runs: torch.Tensor, *, use_pallas: bool = True) -> torch.Tensor:
-    """Merge (..., p, C) row-sorted runs into sorted (..., p2*C) rows."""
+def merge_padded_runs(runs: torch.Tensor, *, use_pallas: bool = True,
+                      wide_merge=None) -> torch.Tensor:
+    """Merge (..., p, C) row-sorted runs into sorted (..., p2*C) rows
+    (``wide_merge``: see ``ops.merge_rows``)."""
     fill = kops.sentinel_for(runs.dtype)
     lead = runs.shape[:-2]
     runs = _pad_runs_pow2(runs, fill)
     batch = math.prod(lead)
     flat = runs.reshape(-1, runs.shape[-1])
     (flat,) = kops._merge_tree(
-        [flat], batch, lambda a, b: [kops.merge_rows(a[0], b[0], use_pallas=use_pallas)]
+        [flat], batch, lambda a, b: [kops.merge_rows(a[0], b[0], use_pallas=use_pallas,
+                                                wide_merge=wide_merge)]
     )
     return flat.reshape(*lead, -1)
 

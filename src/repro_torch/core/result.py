@@ -21,9 +21,13 @@ class SortMeta:
 
     config: the SortConfig actually used, after any capacity retries.
     retries: capacity-ladder steps taken by the overflow policy.
+    order: "asc" | "desc", or a tuple with one flag per key.
+    n_keys: key columns of the request (1 for a single key).
     n_local: per-processor row length when the input arrived in the
       (p, n_local) layout.
-    dtype: the key dtype.
+    dtype: the key dtype (the first column's for a multi-key sort).
+    multikey: how a multi-key request ran, "packed" or "lsd"; None for a
+      single key. ``plan.packspec`` holds a packed run's recipe.
     """
 
     backend: str
@@ -32,15 +36,19 @@ class SortMeta:
     retries: int = 0
     n: int = 0
     want: str = "values"
-    order: str = "asc"
+    order: Any = "asc"
+    n_keys: int = 1
     n_local: int | None = None
     dtype: Any = None
+    multikey: str | None = None
 
 
 class SortOutput:
     """Sorted result.
 
-    keys:        flat sorted keys (a tensor on the sort's device).
+    keys:        flat sorted keys (a tensor on the sort's device; CPU
+                 tensors under decode="host"), a tuple of them for a
+                 multi-key sort.
     values:      payload in sorted-key order: the caller's values, or the
                  original flat indices when ``want="order"``; else None.
     counts:      per-shard sizes (numpy), pads removed.
@@ -80,8 +88,9 @@ class SortOutput:
         return self.meta.n
 
     def __repr__(self) -> str:
+        first = self.keys[0] if isinstance(self.keys, tuple) else self.keys
         return (
             f"SortOutput(n={self.meta.n}, backend={self.meta.backend!r}, "
             f"want={self.meta.want!r}, order={self.meta.order!r}, "
-            f"overflowed={self.overflowed}, device={self.keys.device})"
+            f"overflowed={self.overflowed}, device={first.device})"
         )

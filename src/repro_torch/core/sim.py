@@ -42,18 +42,19 @@ class SortKVResult(NamedTuple):
     send_counts: torch.Tensor
 
 
-def _bounds_all(xs, splitters, investigator: bool) -> torch.Tensor:
+def _bounds_all(xs, splitters, investigator: bool, search) -> torch.Tensor:
     fn = spl.investigator_bounds if investigator else spl.naive_bounds
-    return fn(xs, splitters)  # (p, p+1)
+    return fn(xs, splitters, search)  # (p, p+1)
 
 
-def _split(xs, config: spl.SortConfig, investigator: bool, key_bytes: int):
+def _split(xs, config: spl.SortConfig, investigator: bool, key_bytes: int,
+           search=torch.searchsorted):
     """Steps 2-4: samples, splitters, bounds, and the overflow flag."""
     p, n = xs.shape
     s = config.num_samples(p, n, key_bytes=key_bytes)
     samples = spl.regular_sample(xs, s)  # "send to master"
     splitters = spl.select_splitters(samples.reshape(-1), p)
-    bounds = _bounds_all(xs, splitters, investigator)
+    bounds = _bounds_all(xs, splitters, investigator, search)
     send_counts = bounds[:, 1:] - bounds[:, :-1]
     overflowed = (send_counts > config.capacity(p, n)).any()
     return bounds, send_counts, overflowed
@@ -77,23 +78,31 @@ def _gather_buckets(xs: torch.Tensor, bounds: torch.Tensor, cap: int) -> torch.T
 
 
 def sample_sort_sim(x: torch.Tensor, config: spl.SortConfig = spl.SortConfig(), *,
-                    investigator: bool = True) -> SortResult:
-    """PGX.D sample sort over virtual processors. x: (p, n_local)."""
+                    investigator: bool = True, nan_keys: bool = False) -> SortResult:
+    """PGX.D sample sort over virtual processors. x: (p, n_local).
+
+    ``nan_keys``: the float keys hold a NaN (the front end's probe). The
+    splitter search and the wide-row merges then follow ``repro``'s probes
+    and its scatter's collision rule (``ops.rank_functions``), so that the
+    result equals ``repro``'s on such keys too, on either device."""
     p, n = x.shape
     cap = config.capacity(p, n)
+    search, wide_merge = kops.rank_functions(nan_keys)
 
     # (1) local sort: Fig. 2 tile sort + balanced merge tree, every shard
-    xs = local_sort(x, tile=config.tile, use_pallas=config.use_pallas)
+    xs = local_sort(x, tile=config.tile, use_pallas=config.use_pallas, wide_merge=wide_merge)
 
     # (2) regular sampling; (3) splitters; (4) investigator bounds
-    bounds, send_counts, overflowed = _split(xs, config, investigator, x.element_size())
+    bounds, send_counts, overflowed = _split(xs, config, investigator, x.element_size(),
+                                             search)
 
     # (5) exchange: static-capacity buckets, transpose = all_to_all
     recv = _gather_buckets(xs, bounds, cap).transpose(0, 1)  # (p_dst, p_src, cap)
     counts = send_counts.sum(dim=0, dtype=torch.int32)  # (p_dst,)
 
     # (6) balanced pairwise merge of the received runs
-    merged = merge_lib.merge_padded_runs(recv, use_pallas=config.use_pallas)
+    merged = merge_lib.merge_padded_runs(recv, use_pallas=config.use_pallas,
+                                         wide_merge=wide_merge)
     return SortResult(merged, counts, overflowed, send_counts)
 
 

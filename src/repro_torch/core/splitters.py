@@ -68,9 +68,10 @@ def select_splitters(all_samples: torch.Tensor, p: int) -> torch.Tensor:
     return srt[idx]
 
 
-def _search(xs_sorted: torch.Tensor, splitters: torch.Tensor, side: str) -> torch.Tensor:
+def _search(xs_sorted: torch.Tensor, splitters: torch.Tensor, side: str,
+            search) -> torch.Tensor:
     queries = splitters.expand(xs_sorted.shape[0], -1).contiguous()
-    return torch.searchsorted(xs_sorted.contiguous(), queries, side=side).to(torch.int32)
+    return search(xs_sorted.contiguous(), queries, side=side).to(torch.int32)
 
 
 def _with_ends(bound: torch.Tensor, n: int) -> torch.Tensor:
@@ -80,7 +81,8 @@ def _with_ends(bound: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([zero, bound, full], dim=1)
 
 
-def investigator_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor) -> torch.Tensor:
+def investigator_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor,
+                        search=torch.searchsorted) -> torch.Tensor:
     """Destination bounds with the paper's investigator (step 4, Fig. 3).
 
     For each splitter j the tied range [L_j, R_j] is found by a left and
@@ -89,20 +91,23 @@ def investigator_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor) -> tor
     binary search on distinct data and the paper's equal division of a
     tied run that spans several splitters. Exact int32 arithmetic.
 
-    xs_sorted: (p, n) sorted shards. Returns (p, p+1) int32 bounds:
+    xs_sorted: (p, n) sorted shards. ``search``: ``torch.searchsorted``,
+    or another with its signature (``ops.rank_functions``). Returns
+    (p, p+1) int32 bounds:
     bounds[i, j]..bounds[i, j+1] is the slice of shard i bound for j.
     """
     n = xs_sorted.shape[-1]
     p = splitters.shape[0] + 1
-    left = _search(xs_sorted, splitters, "left")
-    right = _search(xs_sorted, splitters, "right")
+    left = _search(xs_sorted, splitters, "left", search)
+    right = _search(xs_sorted, splitters, "right", search)
     j = torch.arange(1, p, dtype=torch.int32, device=xs_sorted.device)
     ideal = (n // p) * j + ((n % p) * j) // p  # j*n/p without int32 overflow
     bound = torch.minimum(torch.maximum(ideal, left), right)
     return _with_ends(bound, n)
 
 
-def naive_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor) -> torch.Tensor:
+def naive_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor,
+                 search=torch.searchsorted) -> torch.Tensor:
     """Plain sample-sort bounds (no investigator): the paper's Fig. 3b
     failure mode, kept as the ablation baseline."""
-    return _with_ends(_search(xs_sorted, splitters, "left"), xs_sorted.shape[-1])
+    return _with_ends(_search(xs_sorted, splitters, "left", search), xs_sorted.shape[-1])

@@ -7,7 +7,10 @@ Counterpart of ``repro/kernels/ops.py``:
     also the path for rows longer than ``MAX_PALLAS_ROW``,
   * merge rows whose output exceeds ``MAX_PALLAS_ROW`` by rank
     arithmetic (``_scatter_merge``): a batched ``torch.searchsorted`` plus
-    a scatter, ties keeping ``a`` first,
+    a scatter, ties keeping ``a`` first; for keys holding a NaN,
+    ``jnp.searchsorted``'s probes (``jax_searchsorted``) and one rule for
+    colliding ranks (``_last_writers``), as ``repro`` (``rank_functions``
+    picks the pair once per sort),
   * ``tile_sort``: the paper's local phase (sort fixed-size tiles, then a
     balanced pairwise merge tree, Fig. 2), over a batch of rows at once
     where ``repro`` used ``vmap``: one kernel launch sorts the tiles of
@@ -18,6 +21,8 @@ comparisons, ``where`` or ``searchsorted`` on those dtypes, so
 ``core.keyenc.to_lane`` maps them onto signed lanes of the same width.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -82,12 +87,15 @@ def sort_rows_kv(keys, values, *, stable: bool = True, use_pallas: bool = True):
     return ok[:, :n].to(keys.dtype), ov[:, :n]
 
 
-def merge_rows(a: torch.Tensor, b: torch.Tensor, *, use_pallas: bool = True) -> torch.Tensor:
-    """Merge two row-wise sorted (R, N) tensors into sorted (R, 2N)."""
+def merge_rows(a: torch.Tensor, b: torch.Tensor, *, use_pallas: bool = True,
+               wide_merge=None) -> torch.Tensor:
+    """Merge two row-wise sorted (R, N) tensors into sorted (R, 2N).
+    ``wide_merge``: the rank merge for rows past the kernels
+    (``_scatter_merge`` unless ``rank_functions`` chose another)."""
     n = a.shape[-1]
     np2 = _next_pow2(n)
     if not use_pallas or 2 * np2 > MAX_PALLAS_ROW:
-        return _scatter_merge(a, b)
+        return (wide_merge or _scatter_merge)(a, b)
     fill = sentinel_for(a.dtype)
     out = bitonic.bitonic_merge_rows(_pad_rows(a, np2, fill), _pad_rows(b, np2, fill))
     return out[:, : 2 * n]
@@ -107,13 +115,74 @@ def merge_rows_kv(ak, av, bk, bv, *, stable: bool = True, use_pallas: bool = Tru
     return ok[:, : 2 * n], ov[:, : 2 * n]
 
 
-def _merge_ranks(a: torch.Tensor, b: torch.Tensor):
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """Keys that compare as ``repro``'s searches compare ``x``: integers as
+    they are; floats in jax's sort order (``lax._sort_lt_comparator`` after
+    ``_canonicalize_float_for_sort``), where -0.0 equals +0.0, every NaN
+    equals every other and lies above +inf. The float becomes the int32
+    bits of its float32 value, sign-folded so that signed comparison is
+    the float order, with -0.0 mapped onto +0.0 and each NaN onto the
+    positive quiet NaN."""
+    if not x.dtype.is_floating_point:
+        return x
+    f = x.to(torch.float32)
+    f = torch.where(f == 0, torch.zeros_like(f), f)
+    f = torch.where(f != f, torch.full_like(f, float("nan")), f)
+    b = f.view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def jax_searchsorted(sorted_rows: torch.Tensor, queries: torch.Tensor, side: str) -> torch.Tensor:
+    """``jnp.searchsorted`` row by row, probe for probe: (R, n) rows and
+    (R, m) queries -> (R, m) int64 insertion points.
+
+    jax 0.9's default method (``_searchsorted_via_scan``) runs a fixed
+    ceil(log2(n + 1)) levels from low = 0, high = n, with
+    mid = (low + high) // 2, and goes left where ``query <= row[mid]``
+    (side "left") or ``query < row[mid]`` (side "right"), comparing in
+    its total order (``_total_order_key``); the answer is ``high``. On a
+    sorted NaN-free row this is ``torch.searchsorted``. A NaN, and the
+    unsorted row a NaN leaves behind (a NaN before the +inf padding, or
+    the bitonic network's comparisons with it), makes the answer depend
+    on the exact probes, so the sort takes this search when its float keys
+    hold a NaN."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    rows = _total_order_key(sorted_rows)
+    q = _total_order_key(queries)
+    n = rows.shape[-1]
+    low = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    high = torch.full(q.shape, n, dtype=torch.int64, device=q.device)
+    if n == 0:
+        return high
+    for _ in range(math.ceil(math.log2(n + 1))):
+        mid = (low + high) // 2
+        probe = torch.gather(rows, -1, mid)
+        go_left = q <= probe if side == "left" else q < probe
+        low, high = torch.where(go_left, low, mid), torch.where(go_left, mid, high)
+    return high
+
+
+def _merge_ranks(a: torch.Tensor, b: torch.Tensor, search=torch.searchsorted):
     """Output positions of every element of sorted rows ``a`` and ``b``:
     ties keep ``a`` first."""
     a, b = a.contiguous(), b.contiguous()
-    ra = torch.arange(a.shape[-1], device=a.device) + torch.searchsorted(b, a, side="left")
-    rb = torch.arange(b.shape[-1], device=a.device) + torch.searchsorted(a, b, side="right")
+    ra = torch.arange(a.shape[-1], device=a.device) + search(b, a, side="left")
+    rb = torch.arange(b.shape[-1], device=a.device) + search(a, b, side="right")
     return ra, rb
+
+
+def _last_writers(ra: torch.Tensor, rb: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Where ranks collide (NaN keys), the element a serial scatter of
+    ``a`` then ``b`` would leave: ``b`` over ``a``, and within one operand
+    the higher index, which is what ``repro``'s scatter keeps on the CPU.
+    Returns, per output position, the index into ``cat([a, b])`` of that
+    writer, or -1 where nothing was written. ``amax`` does not depend on
+    the order of the writes, so CUDA and the CPU keep the same element."""
+    rows, na = ra.shape
+    ids = torch.arange(na + rb.shape[-1], device=ra.device).expand(rows, -1)
+    win = torch.full((rows, n_out), -1, dtype=torch.int64, device=ra.device)
+    return win.scatter_reduce_(1, torch.cat([ra, rb], dim=1), ids, "amax")
 
 
 def _scatter_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -123,6 +192,26 @@ def _scatter_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out.scatter_(1, ra, a)
     out.scatter_(1, rb, b)
     return out
+
+
+def _scatter_merge_total_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_scatter_merge`` as ``repro`` runs it on keys holding a NaN: its
+    probes (``jax_searchsorted``), and where ranks collide the writer its
+    scatter keeps (``_last_writers``); positions nothing wrote stay 0."""
+    ra, rb = _merge_ranks(a, b, jax_searchsorted)
+    win = _last_writers(ra, rb, a.shape[-1] + b.shape[-1])
+    out = torch.gather(torch.cat([a, b], dim=1), 1, win.clamp(min=0))
+    return out.masked_fill_(win < 0, 0)
+
+
+def rank_functions(nan_keys: bool):
+    """The splitter search and the wide-row merge of a keys-only sort:
+    ``torch.searchsorted`` and ``_scatter_merge``, or, when its float keys
+    hold a NaN (``nan_keys``), ``repro``'s probes and collision rule. A
+    NaN-free sort never pays for the second pair."""
+    if nan_keys:
+        return jax_searchsorted, _scatter_merge_total_order
+    return torch.searchsorted, _scatter_merge
 
 
 def _scatter_merge_kv(ak, av, bk, bv):
@@ -153,14 +242,15 @@ def _merge_tree(runs, batch: int, merge):
     return runs
 
 
-def tile_sort(x: torch.Tensor, *, tile: int = DEFAULT_TILE, use_pallas: bool = True) -> torch.Tensor:
+def tile_sort(x: torch.Tensor, *, tile: int = DEFAULT_TILE, use_pallas: bool = True,
+              wide_merge=None) -> torch.Tensor:
     """Sort every row of ``x`` (..., n) like the paper's local phase.
 
     1. cut each row into ``tile``-sized slices (the paper's per-thread
        slices);
     2. sort every tile with the bitonic kernel (one launch for all rows);
     3. balanced pairwise merge tree: log2(T) rounds, each merging
-       neighbouring runs.
+       neighbouring runs (``wide_merge``: as in ``merge_rows``).
     """
     n = x.shape[-1]
     rows = x.reshape(-1, n)
@@ -171,7 +261,8 @@ def tile_sort(x: torch.Tensor, *, tile: int = DEFAULT_TILE, use_pallas: bool = T
     t = min(tile, np2)
     runs = sort_rows(work.reshape(batch * (np2 // t), t), use_pallas=use_pallas)
     (runs,) = _merge_tree(
-        [runs], batch, lambda a, b: [merge_rows(a[0], b[0], use_pallas=use_pallas)]
+        [runs], batch,
+        lambda a, b: [merge_rows(a[0], b[0], use_pallas=use_pallas, wide_merge=wide_merge)],
     )
     return runs.reshape(batch, np2)[:, :n].to(x.dtype).reshape(x.shape)
 

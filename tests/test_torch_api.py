@@ -18,7 +18,8 @@ import torch
 import repro
 import repro_torch
 from repro_torch import convert
-from torch_parity import assert_sort_equal, make_keys, np_dtype, port_limits, sort_both
+from torch_parity import (assert_sort_equal, make_keys, np_dtype, port_config, port_limits,
+                          sort_both)
 
 RNG = np.random.default_rng(3)
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -133,7 +134,7 @@ def test_64bit_dtypes_refused_at_the_door(dtype):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda k: repro_torch.sort((k, k), device="cpu"), "item 1"),
+    (lambda k: repro_torch.sort((k, k), where="stream", device="cpu"), "item 7"),
     (lambda k: repro_torch.sort(iter([k]), device="cpu"), "item 7"),
     (lambda k: repro_torch.sort(k, where="stream", device="cpu"), "item 7"),
     (lambda k: repro_torch.sort(k, where="mesh", device="cpu"), "item 9"),
@@ -143,7 +144,8 @@ def test_64bit_dtypes_refused_at_the_door(dtype):
     (lambda k: repro_torch.sort(
         k, limits=repro_torch.SortLimits(trace=True), device="cpu"), "item 4"),
     (lambda k: repro_torch.sort(
-        k, limits=repro_torch.SortLimits(decode="host"), device="cpu"), "item 3"),
+        (k, k), limits=repro_torch.SortLimits(decode="host", trace=True), device="cpu"),
+     "item 4"),
     (lambda k: repro_torch.sort(
         k, limits=repro_torch.SortLimits(x64=True), device="cpu"), "item 2"),
 ])
@@ -207,3 +209,60 @@ def test_import_loads_neither_jax_nor_repro():
         for banned in ("import jax", "from jax", "import repro\n", "from repro ",
                        "from repro.", "import repro."):
             assert banned not in text, (script.name, banned)
+
+
+def _nan_keys() -> np.ndarray:
+    """20000 float32 keys in [-50, 50) with +-0.0 ties and 5% NaN."""
+    rng = np.random.default_rng(0)
+    keys = rng.integers(-50, 50, 20000).astype(np.float32)
+    keys[keys == 0] = np.where(rng.random((keys == 0).sum()) < 0.5, 0.0, -0.0)
+    keys[rng.random(keys.shape) < 0.05] = np.nan
+    return keys
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("order", ["asc", "desc"])
+def test_nan_keys_match_repro(order, use_pallas):
+    """Keys-only float sorts whose keys hold NaN: repro loses some keys to
+    colliding ranks (NaN breaks its searches), and the port keeps exactly
+    what repro keeps, because it then searches with jax's probes and order
+    (ops.jax_searchsorted) and resolves collisions as XLA's scatter does."""
+    keys = _nan_keys()
+    r, t = sort_both(keys, order=order, config=repro.SortConfig(tile=512, use_pallas=use_pallas))
+    assert_sort_equal(r, t)
+    assert np.isnan(np.asarray(r.keys)).sum() > 0
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("kw", [dict(values=np.arange(20000, dtype=np.int32)),
+                                dict(values=np.ones(20000, np.float32), order="desc"),
+                                dict(want="order"), dict(want="order", order="desc")])
+def test_nan_keys_with_a_payload_raise_as_repro(kw, use_pallas):
+    """Payload sorts (values, or want="order") of keys holding NaN are
+    refused before they sort, with repro's text: the jax-order search and
+    collision rule exist only on the keys-only path."""
+    cfg = repro.SortConfig(tile=512, use_pallas=use_pallas)
+    keys = _nan_keys()
+    want, got = _errors_of(lambda: repro.sort(keys, where="sim", config=cfg, **kw),
+                           lambda: repro_torch.sort(keys, config=port_config(cfg), device="cpu",
+                                                    **kw))
+    assert type(got) is type(want) is ValueError
+    assert str(got) == str(want)
+
+
+def test_nan_free_float_sorts_keep_torch_searchsorted(monkeypatch):
+    """The jax-order search runs only when a keys-only float sort's keys
+    hold a NaN: never for NaN-free floats or integers."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    search = ops.jax_searchsorted
+    monkeypatch.setattr(ops, "jax_searchsorted", lambda *a, **k: (calls.append(1), search(*a, **k))[1])
+    cfg = repro_torch.SortConfig(tile=512, use_pallas=False)
+    keys = _nan_keys()
+    for clean in (np.nan_to_num(keys), np.arange(5000, dtype=np.int32)[::-1].copy()):
+        for kw in ({}, {"order": "desc"}, {"want": "order"}):
+            repro_torch.sort(clean, config=cfg, device="cpu", **kw)
+    assert not calls
+    repro_torch.sort(keys, config=cfg, device="cpu")
+    assert calls

@@ -124,21 +124,24 @@ def test_row_sort_takes_unaligned_views_and_refuses_unaligned_pointers(gpu):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int16", "uint32", "bfloat16",
-                                   "float32 +-0.0 NaN use_pallas=False"])
+                                   "float32 +-0.0 NaN use_pallas=False",
+                                   "float32 +-0.0 NaN use_pallas=True"])
 @pytest.mark.parametrize("kw", [{}, {"order": "desc"}, {"want": "order"},
                                 {"want": "order", "order": "desc"}])
 def test_sort_on_cuda_equals_sort_on_cpu(gpu, dtype, kw):
-    """The last dtype case: float32 keys mixing +-0.0 and NaN through the
-    torch.sort path (use_pallas=False); with want="order" both devices
-    refuse the NaN keys with the same error."""
+    """The last dtype cases: float32 keys mixing +-0.0 and NaN through the
+    torch.sort path and through the kernels: the searches follow jax's
+    probes and the rank merge's collisions keep one writer on both devices
+    (ops.jax_searchsorted, ops._last_writers); with want="order" both
+    devices refuse the NaN keys with the same error."""
     rng = np.random.default_rng(0)
     keys = rng.integers(-50, 50, 20000).astype(np.float32)
     cfg = repro_torch.SortConfig(tile=512)
     if dtype.startswith("float32 "):
         keys[keys == 0] = np.where(rng.random((keys == 0).sum()) < 0.5, 0.0, -0.0)
         keys[rng.random(keys.shape) < 0.05] = np.nan
+        cfg = repro_torch.SortConfig(tile=512, use_pallas=dtype.endswith("True"))
         keys, dtype = convert.to_tensor(keys, "cpu"), "float32"
-        cfg = repro_torch.SortConfig(tile=512, use_pallas=False)
         if "want" in kw:
             with pytest.raises(ValueError) as want_err:
                 repro_torch.sort(keys, config=cfg, device="cpu", **kw)
@@ -157,6 +160,75 @@ def test_sort_on_cuda_equals_sort_on_cpu(gpu, dtype, kw):
             assert g[name] is None
         else:
             np.testing.assert_array_equal(g[name], w[name])
+
+
+def test_jax_order_search_and_writer_rule_equal_cpu(gpu):
+    """ops.jax_searchsorted and the rank merge's NaN path on rows a NaN
+    left unsorted: CUDA equals the CPU, collisions included."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(3)
+    for n in (7, 1000, 9000):
+        a, b = (torch.randint(-6, 6, (4, n), generator=gen).float().sort(dim=1).values
+                for _ in range(2))
+        for x in (a, b):
+            x[torch.rand(x.shape, generator=gen) < 0.1] = float("nan")
+            x[:, -2:] = float("inf")
+        for side in ("left", "right"):
+            assert torch.equal(ops.jax_searchsorted(a.to(gpu), b.to(gpu), side).cpu(),
+                               ops.jax_searchsorted(a, b, side))
+        got = ops._scatter_merge_total_order(a.to(gpu), b.to(gpu))
+        assert _same_bits(got, ops._scatter_merge_total_order(a, b))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_nan_free_float_sort_keeps_torch_searchsorted(gpu, monkeypatch, use_pallas):
+    """A NaN-free float sort on the card never calls the jax-order search;
+    the same keys with a NaN do."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    search = ops.jax_searchsorted
+    monkeypatch.setattr(ops, "jax_searchsorted",
+                        lambda *a, **k: (calls.append(1), search(*a, **k))[1])
+    keys = torch.rand(1 << 16, generator=torch.Generator().manual_seed(0)).to(gpu)
+    cfg = repro_torch.SortConfig(use_pallas=use_pallas)
+    out = repro_torch.sort(keys, config=cfg, device=gpu)
+    assert torch.equal(out.keys, torch.sort(keys).values) and not calls
+    keys[::97] = float("nan")
+    repro_torch.sort(keys, config=cfg, device=gpu)
+    assert calls
+
+
+@pytest.mark.parametrize("decode", ["device", "host"])
+@pytest.mark.parametrize("multikey", ["packed", "lsd"])
+@pytest.mark.parametrize("want", ["values", "order", "kv"])
+def test_multikey_on_cuda_equals_cpu(gpu, multikey, decode, want):
+    """Multi-key sorts on the card (the packed int32 sort, or LSD passes of
+    the kv kernels over int32 provenance values) equal the same call with
+    device="cpu" (which the CPU tests hold against repro); the host decode
+    returns CPU tensors."""
+    rng = np.random.default_rng(1)
+    n = 50000
+    keys = (rng.integers(0, 1000, n).astype(np.int32),  # 10 + 18 + 3 bits
+            rng.integers(1, 1 << 18, n).astype(np.int32), rng.integers(-3, 3, n).astype(np.int8))
+    values = rng.random(n).astype(np.float32) if want == "kv" else None
+    kw = dict(order=("asc", "desc", "asc"), want="order" if want == "order" else "values",
+              limits=repro_torch.SortLimits(multikey=multikey, decode=decode),
+              config=repro_torch.SortConfig(tile=512))
+    before = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    got = repro_torch.sort(keys, values, device=gpu, **kw)
+    launched = {fn.__name__ for fn in bitonic.KERNELS if fn.launches > before[fn.__name__]}
+    want_out = repro_torch.sort(keys, values, device="cpu", **kw)
+    assert got.meta.multikey == want_out.meta.multikey == multikey
+    assert "bitonic_sort_rows_kv" in launched or (multikey == "packed" and want == "values")
+    for g, w in zip(got.keys, want_out.keys, strict=True):
+        assert g.device.type == ("cuda" if decode == "device" else "cpu")
+        assert _same_bits(g, w)
+    assert (got.values is None) == (want_out.values is None)
+    if got.values is not None:
+        assert _same_bits(got.values, want_out.values)
+    np.testing.assert_array_equal(got.counts, want_out.counts)
 
 
 def test_merge_tree_views_go_to_the_kernel_without_a_copy(gpu, monkeypatch):

@@ -475,3 +475,54 @@ def test_merge_layout_runs_the_network(n2, case):
     want = bitonic.merge_rows_twin(a, b, av, bv, stable=stable)
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def _search_rows(rng, rows, n, kind):
+    """Rows to search in: sorted, or with NaN (unsorted after it, as the
+    exchange's +inf pads and the bitonic network leave them), +-0.0 and
+    +-inf; integer rows sorted."""
+    if kind == "int32":
+        return np.sort(rng.integers(-20, 20, (rows, n)).astype(np.int32), axis=1)
+    x = rng.integers(-6, 6, (rows, n)).astype(np.float32)
+    x[x == 0] = np.where(rng.random((x == 0).sum()) < 0.5, 0.0, -0.0)
+    x[x == 5] = np.inf
+    x[x == -6] = -np.inf
+    x = np.sort(x, axis=1)
+    if kind == "nan":
+        x[rng.random(x.shape) < 0.1] = np.nan
+        x[:, -3:] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("kind", ["sorted float32", "nan", "int32"])
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 1000])
+def test_jax_searchsorted_equals_jnp_searchsorted(n, kind):
+    """Probe for probe, on sorted rows and on rows a NaN left unsorted."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n)
+    rows = _search_rows(rng, 3, n, kind)
+    queries = _search_rows(rng, 3, 50, kind)[:, rng.permutation(50)]
+    for side in ("left", "right"):
+        want = jax.vmap(lambda r, q: jnp.searchsorted(r, q, side=side))(rows, queries)
+        got = ops.jax_searchsorted(tt(rows), tt(queries), side)
+        np.testing.assert_array_equal(port_np(got), np.asarray(want))
+        if kind != "nan":
+            np.testing.assert_array_equal(
+                port_np(got), port_np(torch.searchsorted(tt(rows), tt(queries), side=side)))
+
+
+@pytest.mark.parametrize("n", [9000, 20000])
+def test_rank_merge_on_nan_rows_equals_repro(n):
+    """The rank merge a NaN sort takes (ops.rank_functions(True)) on rows a
+    NaN left unsorted: colliding ranks keep the writer XLA's CPU scatter
+    keeps (b over a, the higher index within one), holes stay 0. Payload
+    sorts refuse NaN keys, so only the keys-only merge has this path."""
+    rng = np.random.default_rng(n)
+    a, b = _search_rows(rng, 2, n, "nan"), _search_rows(rng, 2, n, "nan")
+    search, wide_merge = ops.rank_functions(True)
+    assert search is ops.jax_searchsorted
+    want = jops._scatter_merge(jx(a), jx(b))
+    assert_bits_equal(want, port_np(wide_merge(tt(a), tt(b))))
+    assert_bits_equal(want, port_np(ops.merge_rows(tt(a), tt(b), wide_merge=wide_merge)))

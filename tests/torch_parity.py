@@ -104,3 +104,48 @@ def assert_sort_equal(r, t) -> None:
 
 def jx(a: np.ndarray):
     return jnp.asarray(a)
+
+
+def sort_both_raising(keys, values=None, *, config=None, limits=None, **kw):
+    """``sort_both`` where either sort may raise: each output, or the
+    exception it raised."""
+    def call(fn):
+        try:
+            return fn()
+        except (ValueError, TypeError) as e:
+            return e
+
+    r = call(lambda: repro.sort(keys, values, where="sim", config=config, limits=limits, **kw))
+    t = call(lambda: repro_torch.sort(keys, values, config=port_config(config),
+                                      limits=port_limits(limits), device="cpu", **kw))
+    return r, t
+
+
+def assert_multikey_equal(r, t) -> None:
+    """Two multi-key SortOutputs (or the same error from both) agree on
+    everything they share: each key column (dtype and bits), values or
+    order, counts, send_counts, overflowed, retries, config and the
+    multi-key meta."""
+    if isinstance(r, Exception) or isinstance(t, Exception):
+        assert type(t) is type(r) and str(t) == str(r), (r, t)
+        return
+    assert isinstance(t.keys, tuple) and len(t.keys) == len(r.keys)
+    for a, b in zip(r.keys, t.keys):
+        b = port_np(b)
+        assert a.dtype == b.dtype, (a.dtype, b.dtype)
+        assert_bits_equal(a, b)
+    if r.values is None:
+        assert t.values is None
+    else:
+        assert_bits_equal(r.values, port_np(t.values))
+    np.testing.assert_array_equal(r.counts, t.counts)
+    assert np.asarray(r.counts).dtype == np.asarray(t.counts).dtype
+    if r.send_counts is None:
+        assert t.send_counts is None
+    else:
+        np.testing.assert_array_equal(r.send_counts, t.send_counts)
+    assert r.overflowed == t.overflowed and r.meta.retries == t.meta.retries
+    assert dataclasses.asdict(r.meta.config) == dataclasses.asdict(t.meta.config)
+    for name in ("multikey", "n_keys", "order", "want", "n"):
+        assert getattr(r.meta, name) == getattr(t.meta, name), name
+    assert r.imbalance() == t.imbalance() or (np.isnan(r.imbalance()) and np.isnan(t.imbalance()))

@@ -2,11 +2,16 @@
 """Where the time of one ``repro_torch.sort`` goes on the GPU.
 
     python3 tools/profile_sort.py [--n 4194304] [--want values|order]
+                                  [--case float32|nan|packed|lsd]
 
-Sorts n float32 keys (made on the card from a seed) once to warm up, then
-prints: the wall time per sort without the profiler (host clock,
-synchronised, median of 5) beside one ``torch.sort`` of the same keys
-(CUDA events, median of 5); and, over three sorts under
+Sorts n keys (made on the card from a seed) once to warm up: float32 keys
+(with 5% NaN for "nan"), or a multi-key pair as ``chip_smoke.py`` phase 3 sorts it ("packed": int32
+ids in [0, 1000) ascending and int32 times in [0, 2^20) descending, one
+packed int32 sort; "lsd": float32 and full-range int32 keys, two LSD
+passes, with a float32 payload). Then it prints: the wall time per sort
+without the profiler (host clock, synchronised, median of 5) beside one
+``torch.sort`` of the first key (CUDA events, median of 5); and, over
+three sorts under
 ``torch.profiler``, the device time per sort summed over the device-side
 events (kernels, copies, fills), the device's idle share of the wall time
 under the profiler, and the kernels with the most device time. Needs one
@@ -63,6 +68,7 @@ def main() -> int:
     parser.add_argument("--n", type=int, default=1 << 22)
     parser.add_argument("--want", default="values", choices=("values", "order"))
     parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("--case", default="float32", choices=("float32", "nan", "packed", "lsd"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_sort: no CUDA device", file=sys.stderr)
@@ -72,18 +78,33 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(args.n, generator=gen, device="cuda")
+    keys, values, kw = x, None, dict(want=args.want)
+    if args.case == "nan":
+        x[torch.rand(args.n, generator=gen, device="cuda") < 0.05] = float("nan")
+    elif args.case == "packed":
+        keys = (torch.randint(0, 1000, (args.n,), generator=gen, device="cuda", dtype=torch.int32),
+                torch.randint(0, 1 << 20, (args.n,), generator=gen, device="cuda",
+                              dtype=torch.int32))
+        kw["order"] = ("asc", "desc")
+    elif args.case == "lsd":
+        keys = (x, torch.randint(-(1 << 31), (1 << 31) - 1, (args.n,), generator=gen,
+                                 device="cuda", dtype=torch.int32))
+        values = torch.rand(args.n, generator=gen, device="cuda") if args.want == "values" else None
+        kw["order"] = ("asc", "desc")
+    first = keys[0] if isinstance(keys, tuple) else keys
     limits = repro_torch.SortLimits(stream_threshold=None)
-    repro_torch.sort(x, want=args.want, limits=limits)
+    out = repro_torch.sort(keys, values, limits=limits, **kw)
     torch.cuda.synchronize()
+    print(f"case {args.case}: multikey={out.meta.multikey}")
     walls, libs = [], []
     for _ in range(5):
         t0 = time.perf_counter()
-        repro_torch.sort(x, want=args.want, limits=limits)
+        repro_torch.sort(keys, values, limits=limits, **kw)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        torch.sort(x, stable=args.want == "order")
+        torch.sort(first, stable=args.want == "order")
         end.record()
         end.synchronize()
         libs.append(start.elapsed_time(end))
@@ -91,7 +112,7 @@ def main() -> int:
           f"(runs {', '.join(f'{w:.3f}' for w in walls)}); one torch.sort "
           f"{statistics.median(libs):.3f} ms")
     device_profile("  under the profiler, per sort:",
-                   lambda: repro_torch.sort(x, want=args.want, limits=limits), 3, args.top)
+                   lambda: repro_torch.sort(keys, values, limits=limits, **kw), 3, args.top)
     return 0
 
 
