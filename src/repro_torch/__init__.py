@@ -8,10 +8,13 @@ A port of the JAX package ``repro``, module for module::
     repro_torch.sort(keys, device="cpu")           # only when asked
     repro_torch.plan(keys, device="cpu").backend   # which backend, and why
 
-The sort covers the sim backend: flat or (p, n_local) keys of 8-32 bit
-ints and floats, ascending or descending, values or argsort, with the
-overflow ladder; tuples of key columns (packed into one int32 sort or as
-LSD passes); the device and the host decode. The model tier serves dense GQA decoders
+The sort covers the sim backend and the out-of-core stream backend
+(``repro_torch.stream``: inputs above ``SortLimits.stream_threshold``,
+``where="stream"`` and iterators of arrays, with CPU tensors out): flat or
+(p, n_local) keys of 8-32 bit ints and floats, ascending or descending,
+values or argsort, with the overflow ladder; tuples of key columns (packed
+into one int32 sort or as LSD passes); the device and the host decode;
+phase traces and metrics (``repro_torch.obs``). The model tier serves dense GQA decoders
 (``repro_torch.models.model.Model``, ``repro_torch.serve.engine``), with
 prefill attention on a CUDA flash kernel. What neither covers raises
 NotImplementedError naming the ROADMAP.md item that ports it.

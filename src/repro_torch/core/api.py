@@ -10,15 +10,24 @@ Counterpart of the unified front end of ``repro/core/api.py``::
     out.keys                                 # (ids, times), sorted by ids, then times
 
 keys:   a flat tensor or numpy array, a (p, n_local) grid whose rows
-        are the shards, or a tuple of equal-length columns (a
-        lexicographic multi-key sort; a 1-tuple is a single key).
+        are the shards, a tuple of equal-length columns (a lexicographic
+        multi-key sort; a 1-tuple is a single key), or an iterator (a
+        list) of arrays, which streams.
 values: optional payload that rides the sort.
 order:  "asc" | "desc", or a tuple with one flag per key.
 want:   "values" (sorted keys [+ payload]) | "order" (the stable sorting
         permutation).
-where:  backend override; only "sim" is ported.
+where:  backend override: "sim" or "stream" (the mesh is not ported).
 limits: ``SortLimits``; config: ``SortConfig`` (the paper's defaults).
 device: None means "cuda", which must exist; "cpu" on request only.
+
+Stream (``where="stream"``, iterators, and inputs above
+``SortLimits.stream_threshold`` = 2^22 elements): the keys stay where they
+are and move to the device chunk by chunk (``chunk_elems``); the output
+comes back as CPU tensors, lazily: ``.keys`` / ``.values`` / ``.order()``
+run the passes, or ``out.chunks()`` yields the sorted chunks in bounded
+memory (keys-only results; column tuples for a packed multi-key sort).
+``SortLimits(trace=True)`` puts the phase spans on ``out.meta.trace``.
 
 Multi-key strategy (``plan.multikey``, ``SortLimits.multikey``): when the
 columns' measured (or declared, ``SortLimits.key_bits``) bit widths fit

@@ -25,8 +25,9 @@ Counterpart of ``repro/core/keyenc.py``:
 ``decode_grid`` runs on the sort's device: the compaction of the padded
 (p, W) result grid, the argsort tie fix, the inverse flip and the unpack
 of packed keys (``unpack_fields``). ``flip_np`` / ``decode_np`` /
-``unpack_np`` are the numpy twins of ``decode="host"``. 64-bit packs
-(x64 mode) and the stream tier's per-chunk unpack are not ported.
+``unpack_np`` are the numpy twins of ``decode="host"``; ``unpack_chunk``
+unpacks one output chunk of the stream backend. 64-bit packs (x64 mode)
+are not ported.
 """
 from __future__ import annotations
 
@@ -75,9 +76,18 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[idx]
 
 
+_SIGN_BITS = {torch.float32: (torch.int32, -(1 << 31)), torch.float16: (torch.int16, -(1 << 15)),
+              torch.bfloat16: (torch.int16, -(1 << 15))}
+
+
 def flip(x: torch.Tensor) -> torch.Tensor:
-    """Order-reversing bijection; its own inverse."""
-    return -x if x.dtype.is_floating_point else ~x
+    """Order-reversing bijection; its own inverse. A float flips its sign
+    bit, which is what ``-x`` does on the CPU (and in ``repro``), a NaN's
+    included; the card's ``-x`` returns a NaN with other bits."""
+    if x.dtype.is_floating_point:
+        lane, sign = _SIGN_BITS[x.dtype]
+        return (x.view(lane) ^ sign).view(x.dtype)
+    return ~x
 
 
 def flip_np(x: np.ndarray) -> np.ndarray:
@@ -410,6 +420,14 @@ def unpack_np(packed: np.ndarray, spec: PackSpec) -> tuple:
             field = np.uint32(mask) - field
         cols.append(_unrank_np(field + np.uint32(f.lo), f))
     return tuple(cols)
+
+
+def unpack_chunk(packed: torch.Tensor, spec: PackSpec, device) -> tuple:
+    """Unpack ONE packed output chunk of the stream backend (a CPU tensor)
+    into its column tuple: ``unpack_fields`` on ``device``, then one copy
+    of each column back to the host, so packed multi-key results stream
+    through ``SortOutput.chunks()`` as column tuples of CPU tensors."""
+    return tuple(c.cpu() for c in unpack_fields(packed.to(device), spec))
 
 
 def check_payload_keys(keys: torch.Tensor, descending: bool, *, packspec=None) -> None:

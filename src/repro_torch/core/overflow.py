@@ -2,14 +2,23 @@
 
 Counterpart of ``repro/core/overflow.py``. The static-capacity exchange
 can overflow (detected, never silent: ``sim.SortResult.overflowed``);
-the ladder then re-runs the sort with a grown ``capacity_factor``. The
-metrics counter and the tuner's measured ladder start are not ported
-yet.
+the ladder then re-runs the sort with a grown ``capacity_factor``. Every
+growth step, in the sim's retries and the stream's per-chunk ladders,
+passes through ``retry_overflowed`` and counts on ``LADDER_RETRIES``. The
+tuner's measured ladder start (``measured_capacity_need``) is not ported
+yet (ROADMAP.md §1, item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+from repro_torch.obs import metrics as _obs_metrics
+
+LADDER_RETRIES = _obs_metrics.counter(
+    "repro_overflow_ladder_retries_total",
+    "Capacity-ladder growth steps taken after static-bucket overflow.",
+)
 
 
 class SortOverflowError(RuntimeError):
@@ -35,6 +44,13 @@ def _overflowed(result) -> bool:
     return bool(result.overflowed)
 
 
+def ladder_totals(chunk_retries) -> tuple[int, int]:
+    """Aggregate per-chunk ladder steps (one entry per stream pass-1
+    chunk) into ``(total_ladder_steps, chunks_that_retried)``."""
+    cr = [int(r) for r in chunk_retries]
+    return sum(cr), sum(1 for r in cr if r > 0)
+
+
 def bump_capacity(config, policy: OverflowPolicy):
     return dataclasses.replace(
         config, capacity_factor=config.capacity_factor * policy.growth
@@ -50,6 +66,7 @@ def retry_overflowed(run: Callable, config, policy: OverflowPolicy, *, last=None
     result = last
     for i in range(policy.max_doublings):
         config = bump_capacity(config, policy)
+        LADDER_RETRIES.inc()
         result = run(config)
         if not _overflowed(result):
             return result, config, i + 1

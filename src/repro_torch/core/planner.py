@@ -1,14 +1,19 @@
-"""Execution planner and backend registry (the sim backend).
+"""Execution planner and backend registry (the sim and stream backends).
 
 Counterpart of ``repro/core/planner.py``. Placement rules, in order:
   1. ``where`` names a backend (a mesh object means the mesh backend).
-  2. Inputs above ``limits.stream_threshold`` elements stream.
-  3. Everything else runs on the virtual-processor simulator.
+  2. Iterator inputs stream (size unknown, not host-resident).
+  3. Inputs above ``limits.stream_threshold`` elements stream.
+  4. Everything else runs on the virtual-processor simulator.
 
-Only ``"sim"`` is registered so far. The stream and mesh backends, and
-every other request the port does not cover yet, raise
-``NotImplementedError`` naming the ROADMAP.md item that will port it.
-There is no cost model: placement is the static size rule.
+The mesh backend, and every other request the port does not cover yet,
+raises ``NotImplementedError`` naming the ROADMAP.md item that will port
+it. There is no cost model: placement is the static size rule.
+
+A streamed request's keys stay where the caller put them; only chunks
+move to the sort's device, and the output comes back as CPU tensors.
+``SortLimits(trace=True)`` (or an ambient ``obs.trace()``) records the
+phase spans of ``repro``'s traces on ``SortOutput.meta.trace``.
 
 A tuple of key columns is a lexicographic multi-key sort
 (``_decide_multikey``): one packed int32 sort when the columns' widths fit
@@ -19,17 +24,27 @@ A tuple of key columns is a lexicographic multi-key sort
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
 from repro_torch.core import keyenc, sim
-from repro_torch.core.overflow import OverflowPolicy, run_with_capacity_retry
+from repro_torch.core.overflow import OverflowPolicy, ladder_totals, run_with_capacity_retry
 from repro_torch.core.result import SortMeta, SortOutput
 from repro_torch.core.splitters import SortConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
+from repro_torch.obs.tracing import maybe_span as _span
+
+# one counter for every sort the planner dispatches, by the backend it chose
+_SORTS_TOTAL = obs_metrics.counter(
+    "repro_sorts_total",
+    "Sorts executed by the unified front end, by planner backend.",
+    labels=("backend",),
+)
 
 ADMITTED_DTYPES = (
     torch.int8, torch.int16, torch.int32, torch.uint8, torch.uint16, torch.uint32,
@@ -40,8 +55,6 @@ _NEAREST_NARROW = {"int64": "int32", "uint64": "uint32", "float64": "float32"}
 # ROADMAP.md §1 items that port what the port still raises on
 _LATER = {
     "x64": "item 2 (x64 mode)",
-    "trace": "item 4 (tracing and metrics)",
-    "stream": "item 7 (stream backend)",
     "mesh": "item 9 (mesh backend)",
 }
 
@@ -91,10 +104,12 @@ class SortLimits:
     n_procs: virtual processors of the sim grid for flat inputs.
     chunk_elems: device-program capacity of one stream chunk.
     stream_threshold: element count above which the planner picks the
-      out-of-core backend (not ported: such sorts raise); None disables
-      size-based streaming.
+      out-of-core backend; None disables size-based streaming (explicit
+      ``where="stream"`` and iterator inputs still stream).
     max_doublings / growth / raise_on_overflow: the overflow policy (see
-      ``overflow.OverflowPolicy``).
+      ``overflow.OverflowPolicy``). The stream backend honours
+      max_doublings and growth but always raises when a chunk's ladder is
+      exhausted: a partially exchanged run cannot be returned.
     max_request_elems: read by the serve tier, not ported yet; ignored.
     decode: "device" (default) decodes the result grid on the sort's
       device (``keyenc.decode_grid``). "host" copies the grid to the CPU
@@ -109,7 +124,13 @@ class SortLimits:
       ``(4, None, 10)``: entry i promises key i's values lie in
       ``[0, 2**bits)`` (checked at pack time; ints only; None measures).
       Single-key sorts ignore it.
-    trace: False only; True raises.
+    trace: record the phase spans of this sort (plan, encode, stage,
+      local_sort, splitter, exchange, merge, decode, d2h; the stream's
+      passes as local_sort, splitter and one merge per bucket) on
+      ``SortOutput.meta.trace``, an ``obs.tracing.Trace``. The sim then
+      fences each phase, so a span holds its device time. Default False:
+      the untraced path is unchanged. An ambient ``obs.trace()`` block
+      traces regardless of this flag.
     x64: None or False; True raises.
     """
 
@@ -186,28 +207,31 @@ def register_backend(name: str, execute: Callable, description: str) -> None:
 class _Req:
     """Normalized sort request (internal)."""
 
-    keys: torch.Tensor | list  # flat (n,) or (p, n_local); a list of flat
-    #                            columns (on the sort's device) for multi-key
+    keys: Any  # flat (n,) or (p, n_local) tensor; a list of flat columns
+    #            for multi-key; an iterator of chunks for stream inputs
     values: torch.Tensor | None
     want: str  # "values" | "order"
     descending: tuple  # per-key flags
     config: SortConfig
     investigator: bool
-    n: int
+    n: int | None  # None for iterator inputs
     n_local: int | None  # set for (p, n_local) global-view inputs
-    dtype: torch.dtype
+    dtype: torch.dtype | None  # None for iterator inputs
     multikey: bool = False
+    is_iterator: bool = False
     packspec: keyenc.PackSpec | None = None  # set on the packed sub-request:
     #                                          the decode unpacks the columns
     pack_ranks: dict | None = None  # rank tensors measured at plan time,
     #                                 reused by keyenc.pack_keys
+    trace: Any = None  # obs.tracing.Trace of a traced sort (sub-requests
+    #                    inherit it)
 
     @property
     def needs_payload(self) -> bool:
         return self.want == "order" or self.values is not None
 
 
-def _normalize(keys, values, *, order, want, config, investigator, device) -> _Req:
+def _normalize(keys, values, *, order, want, config, investigator) -> _Req:
     if want not in ("values", "order"):
         raise ValueError(f"want must be 'values' or 'order', got {want!r}")
     if want == "order" and values is not None:
@@ -239,23 +263,25 @@ def _normalize(keys, values, *, order, want, config, investigator, device) -> _R
         values = as_tensor(values)
         check_key_dtype(values.dtype, what="values payload")
 
-    n_local = None
+    # a list is an iterable of chunks (stream input), as in repro; a bare
+    # list of Python scalars is one flat array
+    is_iterator = not multikey and not hasattr(keys, "dtype")
+    if isinstance(keys, list) and keys and not hasattr(keys[0], "dtype"):
+        keys = np.asarray(keys)
+        is_iterator = False
+    n = n_local = dtype = None
     if multikey:
-        # the columns move to the sort's device here: the pack's rank
-        # arithmetic and the LSD gathers run there
+        # the columns stay where they are: the planner moves them to the
+        # sort's device unless the request streams (_make_plan)
         klist = [as_tensor(k).reshape(-1) for k in klist]
         n = klist[0].shape[0]
         if any(k.shape[0] != n for k in klist):
             raise ValueError("multi-key arrays must have equal lengths")
         for k in klist:
             check_key_dtype(k.dtype)
-        keys = [k.to(device) for k in klist]
+        keys = klist
         dtype = klist[0].dtype
-    else:
-        if isinstance(keys, list) and keys and not hasattr(keys[0], "dtype"):
-            keys = np.asarray(keys)  # a bare list of Python scalars
-        if not hasattr(keys, "dtype"):
-            raise _not_ported("an iterator (out-of-core) input", "stream")
+    elif not is_iterator:
         keys = as_tensor(keys)
         check_key_dtype(keys.dtype)
         if keys.dim() not in (1, 2):
@@ -263,12 +289,12 @@ def _normalize(keys, values, *, order, want, config, investigator, device) -> _R
         n = keys.numel()
         n_local = int(keys.shape[1]) if keys.dim() == 2 else None
         dtype = keys.dtype
-    if values is not None and values.numel() != n:
+    if values is not None and n is not None and values.numel() != n:
         raise ValueError(f"values have {values.numel()} elements for {n} keys")
     return _Req(
         keys=keys, values=values, want=want, descending=descending,
         config=config or SortConfig(), investigator=investigator, n=n,
-        n_local=n_local, dtype=dtype, multikey=multikey,
+        n_local=n_local, dtype=dtype, multikey=multikey, is_iterator=is_iterator,
     )
 
 
@@ -278,8 +304,6 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device) -> SortPlan:
         raise ValueError(
             f'SortLimits.decode must be "device" or "host", got {limits.decode!r}'
         )
-    if limits.trace:
-        raise _not_ported("SortLimits(trace=True)", "trace")
     if limits.x64:
         raise _not_ported("SortLimits(x64=True)", "x64")
 
@@ -287,6 +311,9 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device) -> SortPlan:
     if where is not None:
         choice = where if isinstance(where, str) else "mesh"
         reasons.append(f"caller pinned backend {choice!r}")
+    elif req.is_iterator:
+        choice = "stream"
+        reasons.append("iterator input: size unknown, not host-resident")
     elif limits.stream_threshold is not None and req.n > limits.stream_threshold:
         choice = "stream"
         reasons.append(f"n={req.n} exceeds stream_threshold={limits.stream_threshold}")
@@ -297,9 +324,18 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device) -> SortPlan:
             f"(stream_threshold={limits.stream_threshold})"
         )
     if choice not in BACKENDS:
-        if choice in ("stream", "mesh"):
-            raise _not_ported(f"the {choice} backend", choice)
+        if choice == "mesh":
+            raise _not_ported("the mesh backend", "mesh")
         raise KeyError(f"unknown backend {choice!r}; have {sorted(BACKENDS)}")
+    if req.is_iterator and choice != "stream":
+        raise ValueError(
+            f"iterator inputs can only run on the stream backend, "
+            f"not {choice!r} (sim/mesh need the whole array resident)"
+        )
+    if req.multikey and choice != "stream":
+        # the pack's rank arithmetic and the LSD gathers run on the sort's
+        # device; a streamed tuple stays where it is and moves by chunks
+        req.keys = [k.to(device) for k in req.keys]
     if any(req.descending):
         reasons.append("descending: order-flip key encoding (keyenc.flip)")
     multikey, packspec = (_decide_multikey(req, limits, reasons) if req.multikey
@@ -307,7 +343,7 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device) -> SortPlan:
     if req.want == "order":
         reasons.append("argsort: provenance-index payload over the kv sort")
     n_procs = limits.n_procs
-    if req.n_local is not None:
+    if req.n_local is not None and choice == "sim":
         n_procs = int(req.keys.shape[0])
         reasons.append(f"(p={n_procs}, n_local) input: rows are the shards")
     if limits.decode == "host":
@@ -315,11 +351,13 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device) -> SortPlan:
             'decode="host": legacy numpy materialization (differential-'
             "testing / baseline path)"
         )
-    columns = req.keys if req.multikey else [req.keys]
+    # an iterator's chunk dtypes are unknown until staging: the widest the
+    # port admits (each chunk is checked at the door as it is staged)
+    columns = [] if req.is_iterator else req.keys if req.multikey else [req.keys]
     return SortPlan(
         backend=choice, n_procs=n_procs, chunk_elems=limits.chunk_elems,
         limits=limits, device=device, reasons=tuple(reasons),
-        decode=limits.decode, key_width=max(8 * k.element_size() for k in columns),
+        decode=limits.decode, key_width=max((8 * k.element_size() for k in columns), default=32),
         multikey=multikey, packspec=packspec,
     )
 
@@ -454,64 +492,127 @@ def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
-def _grid_materialize(req: _Req, plan: SortPlan, keys_grid, values_grid, counts,
-                      m: int, descending: bool, reverse: bool):
-    """The first ``m`` keys (a tuple of columns for a packed sort) and
-    payload of the result grid, in lane dtypes.
+def _stitch_bucket_ties(ks: np.ndarray, vs: np.ndarray, bucket_sizes,
+                        descending: bool = False) -> np.ndarray:
+    """Boundary stitch of the stream backend's device tie fix.
 
-    decode="device": ``keyenc.decode_grid`` on the sort's device (and the
-    keys-only reverse). decode="host": ``repro``'s legacy numpy path on a
-    CPU copy of the grid (unpad, reverse or inverse flip, the tie fix on
-    the packed keys, then the unpack); CPU tensors come back."""
-    want_order = req.want == "order"
-    if plan.decode == "device":
-        ks, vs = keyenc.decode_grid(keys_grid, counts, values_grid, m=m,
-                                    descending=descending and not reverse,
-                                    want_order=want_order, packspec=req.packspec)
-        return (ks.flip(0) if reverse else ks), vs
-    counts = counts.cpu().numpy()
-    ks = unpad_grid(_host(keys_grid), counts, m)
-    vs = None
-    if values_grid is not None:
-        vs = unpad_grid(_host(values_grid), counts, m)
-        if want_order:
-            # the tie fix sees the PACKED keys: a packed tie is an all-columns tie
-            vs = _stable_order_fix(ks, vs)
-        vs = _from_host(vs, values_grid.dtype)
-    if reverse:
-        ks = ks[::-1]
-    elif descending:
-        ks = keyenc.decode_np(ks, True)
-    if req.packspec is not None:
-        return tuple(torch.from_numpy(c) for c in keyenc.unpack_np(ks, req.packspec)), vs
-    return _from_host(ks, keys_grid.dtype), vs
+    With ``segment_stable=True`` the payload is exactly stable within every
+    bucket (``external_merge_kv``). What the per-bucket pass cannot see is
+    a run of equal keys split across bucket boundaries (the investigator
+    splits tied ranges). At each bucket offset whose neighbours tie, the
+    full equal-key run is found and its payload sorted ascending: within
+    an equal-key run of a provenance payload, exact stability is ascending
+    order. ``repro``'s host code, on numpy views of the output."""
+    if not bucket_sizes or len(bucket_sizes) <= 1 or ks.size <= 1:
+        return vs
+    n = ks.shape[0]
+    rev = ks[::-1] if descending else None
+    out = None
+    off = 0
+    for s in bucket_sizes[:-1]:
+        off += int(s)
+        if off <= 0 or off >= n or ks[off - 1] != ks[off]:
+            continue
+        v = ks[off]
+        if descending:
+            lo = n - int(np.searchsorted(rev, v, side="right"))
+            hi = n - int(np.searchsorted(rev, v, side="left"))
+        else:
+            lo = int(np.searchsorted(ks, v, side="left"))
+            hi = int(np.searchsorted(ks, v, side="right"))
+        if out is None:
+            out = np.array(vs)
+        out[lo:hi] = np.sort(out[lo:hi])
+    return vs if out is None else out
 
 
-def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
-    enc, payload, descending, reverse = _prep_single(req)
-    p = plan.n_procs
-    m = req.n
-    per = req.n_local or max(1, -(-m // p))
-    pad = p * per - m
-    # a keys-only float sort reads once whether its keys hold a NaN: only
-    # then do the searches follow repro's probes (payload sorts refuse NaN)
-    nan_keys = (payload is None and req.dtype.is_floating_point
-                and bool((req.keys != req.keys).any()))
-    xk = _stage(enc, p, per, pad, plan.device)
-    if payload is None:
-        run = lambda cfg: sim.sample_sort_sim(xk, cfg, investigator=req.investigator,
-                                              nan_keys=nan_keys)
-    else:
-        xv = _stage(payload, p, per, pad, plan.device)
-        run = lambda cfg: sim.sample_sort_sim_kv(xk, xv, cfg, investigator=req.investigator)
-    res, cfg_used, retries = run_with_capacity_retry(run, req.config, plan.limits.policy())
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A result grid as a host numpy array; bfloat16, which numpy lacks,
+    as float32 (exact, and it compares as bfloat16 does)."""
+    t = t.cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    kg, vg = (res.values, None) if payload is None else (res.keys, res.values)
-    ks, vs = _grid_materialize(req, plan, kg, vg, res.counts, m, descending, reverse)
+
+def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+def _from_lanes(req: _Req, ks, vs):
+    """Keys (unless a packed tuple) and user values out of their lanes."""
     if not isinstance(ks, tuple):
         ks = keyenc.from_lane(ks, req.dtype)
     if req.values is not None:
         vs = keyenc.from_lane(vs, req.values.dtype)
+    return ks, vs
+
+
+def _grid_materialize(req: _Req, plan: SortPlan, keys_grid, values_grid, counts,
+                      m: int, descending: bool, reverse: bool):
+    """The first ``m`` keys (a tuple of columns for a packed sort) and
+    payload of the result grid, in the caller's dtypes.
+
+    decode="device": ``keyenc.decode_grid`` on the sort's device (the
+    ``decode`` span), then the output's views (``d2h``: the keys-only
+    reverse and the lanes; the output stays on the sort's device).
+    decode="host": ``repro``'s legacy numpy path on a CPU copy of the grid
+    (unpad, reverse or inverse flip, the tie fix on the packed keys, then
+    the unpack), one ``decode`` span; CPU tensors come back."""
+    want_order = req.want == "order"
+    tr = req.trace
+    if plan.decode == "device":
+        with _span(tr, "decode") as sp:
+            ks, vs = sp.fence(keyenc.decode_grid(
+                keys_grid, counts, values_grid, m=m, descending=descending and not reverse,
+                want_order=want_order, packspec=req.packspec))
+        with _span(tr, "d2h") as sp:
+            return sp.fence(_from_lanes(req, ks.flip(0) if reverse else ks, vs))
+    with _span(tr, "decode", path="host"):
+        counts = counts.cpu().numpy()
+        ks = unpad_grid(_host(keys_grid), counts, m)
+        vs = None
+        if values_grid is not None:
+            vs = unpad_grid(_host(values_grid), counts, m)
+            if want_order:
+                # the tie fix sees the PACKED keys: a packed tie is an all-columns tie
+                vs = _stable_order_fix(ks, vs)
+            vs = _from_host(vs, values_grid.dtype)
+        if reverse:
+            ks = ks[::-1]
+        elif descending:
+            ks = keyenc.decode_np(ks, True)
+        if req.packspec is not None:
+            ks = tuple(torch.from_numpy(c) for c in keyenc.unpack_np(ks, req.packspec))
+        else:
+            ks = _from_host(ks, keys_grid.dtype)
+        return _from_lanes(req, ks, vs)
+
+
+def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
+    tr = req.trace
+    with _span(tr, "encode"):
+        p = plan.n_procs
+        m = req.n
+        per = req.n_local or max(1, -(-m // p))
+        pad = p * per - m
+        enc, payload, descending, reverse = _prep_single(req)
+        # a keys-only float sort reads once whether its keys hold a NaN: only
+        # then do the searches follow repro's probes (payload sorts refuse NaN)
+        nan_keys = (payload is None and req.dtype.is_floating_point
+                    and bool((req.keys != req.keys).any()))
+    with _span(tr, "stage") as sp:
+        xk = _stage(enc, p, per, pad, plan.device)
+        xv = None if payload is None else _stage(payload, p, per, pad, plan.device)
+        sp.fence((xk, xv))  # charge the copy to the device to staging
+    if xv is None:
+        run = lambda cfg: sim.sample_sort_sim(xk, cfg, investigator=req.investigator,
+                                              nan_keys=nan_keys, trace=tr)
+    else:
+        run = lambda cfg: sim.sample_sort_sim_kv(xk, xv, cfg, investigator=req.investigator,
+                                                 trace=tr)
+    res, cfg_used, retries = run_with_capacity_retry(run, req.config, plan.limits.policy())
+
+    kg, vg = (res.values, None) if xv is None else (res.keys, res.values)
+    ks, vs = _grid_materialize(req, plan, kg, vg, res.counts, m, descending, reverse)
     return SortOutput(
         _meta(req, plan, cfg_used, retries),
         keys=ks,
@@ -523,17 +624,126 @@ def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
     )
 
 
+def _host_flip(x: torch.Tensor) -> torch.Tensor:
+    """``keyenc.flip`` of keys in the caller's dtype (through the lane for
+    uint16 / uint32): the host encode and decode of the legacy
+    ``decode="host"`` stream path."""
+    return keyenc.from_lane(keyenc.flip(keyenc.to_lane(x)), x.dtype)
+
+
+def _exec_stream(req: _Req, plan: SortPlan) -> SortOutput:
+    """The out-of-core backend (``repro_torch.stream``): runs, partition,
+    merge, with the output on the host as CPU tensors.
+
+    Under decode="device" the order flip is fused into the pipeline: each
+    chunk is flipped on the device after its copy there and each output
+    chunk before its copy back, so descending keys-only results stream
+    through ``chunks()``, and want="order" runs the tie fix on the device
+    per bucket, stitched across buckets on the host
+    (``_stitch_bucket_ties``). decode="host" keeps ``repro``'s legacy
+    paths: keys-only results are reversed whole, kv keys are flipped on
+    the host before and after, and the tie fix is one host pass."""
+    from repro_torch.stream import StreamConfig, sort_external_kv, sort_stream
+
+    if req.is_iterator and req.needs_payload:
+        raise ValueError(
+            "streamed argsort/kv over an iterator needs array inputs "
+            "(the index payload must chunk with the keys)"
+        )
+    scfg = StreamConfig(
+        chunk_elems=plan.chunk_elems, n_procs=plan.n_procs, sort=req.config,
+        max_doublings=plan.limits.max_doublings, growth=plan.limits.growth,
+    )
+    device_decode = plan.decode == "device"
+    tr = req.trace
+    descending = req.descending[0]
+    with _span(tr, "encode"):
+        enc, payload = req.keys, None
+        if req.needs_payload:
+            keyenc.check_payload_keys(req.keys, descending, packspec=req.packspec)
+            if descending and not device_decode:
+                enc = _host_flip(enc)
+            if req.want == "order":
+                keyenc.provenance_dtype(req.n)  # int32 indices, made per chunk
+                payload = range(req.n)
+            else:
+                payload = req.values.reshape(-1)
+        if not req.is_iterator:
+            enc = enc.reshape(-1)
+    stream_desc = device_decode and descending
+    reverse = descending and not device_decode and payload is None
+    meta = _meta(req, plan, req.config, 0)
+
+    # per-chunk ladder accounting: pass 1 fills stats["chunk_retries"] when
+    # it runs (at materialization, or at the first chunk), and the meta is
+    # updated in place
+    stats: dict = {}
+
+    def _account() -> None:
+        cr = stats.get("chunk_retries")
+        if cr is not None:
+            meta.chunk_retries = tuple(cr)
+            meta.retries, _ = ladder_totals(cr)
+
+    def _accounted(g):
+        for i, c in enumerate(g):
+            if i == 0:
+                _account()  # pass 1 has run once the first chunk arrives
+            yield c
+        _account()
+
+    if payload is None:
+        gen = _accounted(sort_stream(enc, scfg, investigator=req.investigator, stats=stats,
+                                     descending=stream_desc, trace=tr, device=plan.device))
+        if not reverse:
+            return SortOutput(meta, chunks=gen)
+        out = SortOutput(meta)
+
+        def materialize_reversed():
+            parts = list(gen)
+            out.counts = np.asarray([c.shape[0] for c in parts], np.int64)
+            ks = torch.cat(parts) if parts else torch.empty(0, dtype=req.dtype or torch.float32)
+            return keyenc.from_lane(keyenc.to_lane(ks).flip(0), ks.dtype), None  # no uint flip
+
+        out._materialize = materialize_reversed
+        return out
+
+    # want="order" under the device decode runs the tie fix on the device,
+    # per bucket; only equal-key runs split across buckets need the stitch
+    seg_stable = device_decode and req.want == "order"
+
+    def materialize():
+        ks, vs = sort_external_kv(enc, payload, scfg, investigator=req.investigator,
+                                  stats=stats, descending=stream_desc, trace=tr,
+                                  segment_stable=seg_stable, device=plan.device)
+        _account()
+        if req.want == "order":
+            if seg_stable:
+                vs = _stitch_bucket_ties(_host(ks), vs.numpy(), stats.get("bucket_sizes"),
+                                         descending=stream_desc)
+            else:
+                vs = _stable_order_fix(_host(ks), vs.numpy())
+            vs = torch.from_numpy(np.ascontiguousarray(vs))
+        if descending and not stream_desc:
+            ks = _host_flip(ks)
+        return ks, vs
+
+    return SortOutput(meta, materialize=materialize)
+
+
 def _meta(req: _Req, plan: SortPlan, cfg, retries: int) -> SortMeta:
     orders = tuple("desc" if d else "asc" for d in req.descending)
     return SortMeta(
-        backend=plan.backend, plan=plan, config=cfg, retries=retries, n=req.n,
+        backend=plan.backend, plan=plan, config=cfg, retries=retries, n=req.n or 0,
         want=req.want, order=orders[0] if len(orders) == 1 else orders,
         n_keys=len(req.keys) if req.multikey else 1, n_local=req.n_local,
         dtype=req.dtype, multikey=plan.multikey if req.multikey else None,
+        trace=req.trace,
     )
 
 
 register_backend("sim", _exec_sim, "virtual processors on one device")
+register_backend("stream", _exec_stream, "out-of-core runs/partition/merge")
 
 
 # ------------------------------------------------------------ multi-key
@@ -548,25 +758,55 @@ def _exec_packed_multikey(req: _Req, plan: SortPlan) -> SortOutput:
     with a payload runs as ``want="order"`` over the packed key: the tie
     fix makes the permutation exactly stable on packed ties (all-column
     ties), and values are gathered through it, so the result equals the
-    LSD passes' and ``np.lexsort``'s bit for bit."""
+    LSD passes' and ``np.lexsort``'s bit for bit.
+
+    On the stream backend the result is lazy: keys-only under the device
+    decode, ``chunks()`` yields column tuples (``keyenc.unpack_chunk``);
+    otherwise the packed keys unpack on the host when materialized."""
     spec = plan.packspec
-    packed = keyenc.pack_keys(req.keys, spec, ranks=req.pack_ranks)
+    with _span(req.trace, "encode", pack=spec.describe()):
+        packed = keyenc.pack_keys(req.keys, spec, ranks=req.pack_ranks)
     sub = _Req(
         keys=packed, values=None, want="order" if req.needs_payload else "values",
         descending=(False,), config=req.config, investigator=req.investigator, n=req.n,
-        n_local=None, dtype=keyenc.PACK_DTYPE, packspec=spec,
+        n_local=None, dtype=keyenc.PACK_DTYPE, packspec=spec, trace=req.trace,
     )
     out = BACKENDS[plan.backend].execute(sub, plan)
-    perm = out.values
-    values = None
-    if req.want == "order":
-        values = perm
-    elif req.values is not None:
-        values = keyenc.take(req.values.to(perm.device), perm)
-    return SortOutput(
-        _meta(req, plan, out.meta.config, out.meta.retries), keys=out.keys, values=values,
-        counts=out.counts, overflowed=out.overflowed, send_counts=out.send_counts, raw=out.raw,
-    )
+    out.meta.trace = None  # the wrapper's meta carries the trace
+    meta = _meta(req, plan, out.meta.config, out.meta.retries)
+    wrapper = SortOutput(meta, counts=out.counts, overflowed=out.overflowed,
+                         send_counts=out.send_counts, raw=out.raw)
+
+    def sync() -> None:  # the stream fills its counts and ladder steps lazily
+        wrapper.counts, wrapper.overflowed = out.counts, out.overflowed
+        meta.retries, meta.config = out.meta.retries, out.meta.config
+        meta.chunk_retries = out.meta.chunk_retries
+
+    if out._chunks is not None and plan.decode == "device":
+        def unpacked():
+            for c in out.chunks():
+                yield keyenc.unpack_chunk(c, spec, plan.device)
+            sync()
+
+        wrapper._chunks = unpacked()
+        return wrapper
+
+    def materialize():
+        ks, perm = out.keys, out.values
+        if not isinstance(ks, tuple):  # the stream's packed keys, on the host
+            ks = tuple(torch.from_numpy(c) for c in keyenc.unpack_np(ks.numpy(), spec))
+        sync()
+        if req.want == "order":
+            return ks, perm
+        if req.values is not None:
+            return ks, keyenc.take(req.values.to(perm.device), perm)
+        return ks, None
+
+    if out._keys is None:
+        wrapper._materialize = materialize
+    else:
+        wrapper._keys, wrapper._values = materialize()
+    return wrapper
 
 
 def _exec_multikey(req: _Req, plan: SortPlan) -> SortOutput:
@@ -576,8 +816,9 @@ def _exec_multikey(req: _Req, plan: SortPlan) -> SortOutput:
     LSD: perm = argsort(k_last); then for each earlier key,
     perm = perm[argsort(k[perm])]. Every pass is the backend's exactly
     stable argsort, so the composition is ``np.lexsort``'s. The gathers
-    run on the sort's device (on the CPU for decode="host", whose passes
-    return CPU tensors)."""
+    run where the passes' permutations are: on the sort's device, or on
+    the CPU for decode="host" and the stream backend, whose passes return
+    CPU tensors."""
     if plan.multikey == "packed":
         return _exec_packed_multikey(req, plan)
     backend = BACKENDS[plan.backend]
@@ -586,9 +827,11 @@ def _exec_multikey(req: _Req, plan: SortPlan) -> SortOutput:
         sub = _Req(
             keys=karr, values=None, want="order", descending=(descending,),
             config=req.config, investigator=req.investigator, n=int(karr.shape[0]),
-            n_local=None, dtype=karr.dtype,
+            n_local=None, dtype=karr.dtype, trace=req.trace,
         )
-        return backend.execute(sub, plan)
+        out = backend.execute(sub, plan)
+        out.meta.trace = None  # only the top-level output completes the trace
+        return out
 
     klist = req.keys
     perm = sub_sort(klist[-1], req.descending[-1]).values
@@ -612,28 +855,45 @@ def make_plan(keys, values=None, *, order="asc", want="values", where=None,
               limits=None, config=None, investigator=True, device=None) -> SortPlan:
     dev = _device.resolve(device)
     req = _normalize(keys, values, order=order, want=want, config=config,
-                     investigator=investigator, device=dev)
+                     investigator=investigator)
     return _make_plan(req, where, limits, dev)
 
 
 def execute(keys, values=None, *, order="asc", want="values", where=None,
             limits=None, config=None, investigator=True, device=None) -> SortOutput:
     dev = _device.resolve(device)
-    req = _normalize(keys, values, order=order, want=want, config=config,
-                     investigator=investigator, device=dev)
-    plan = _make_plan(req, where, limits, dev)
+    limits = limits or SortLimits()
+    # an ambient obs.trace() block wins; else SortLimits(trace=True) builds
+    # a per-sort trace that freezes when the output materializes
+    tr = obs_tracing.current_trace()
+    if tr is None and limits.trace and obs_tracing.enabled():
+        tr = obs_tracing.Trace()
+    with _span(tr, "plan"):
+        req = _normalize(keys, values, order=order, want=want, config=config,
+                         investigator=investigator)
+        plan = _make_plan(req, where, limits, dev)
+        _SORTS_TOTAL.labels(backend=plan.backend).inc()
+        if tr is not None:
+            tr.labels.setdefault("backend", plan.backend)
+            req.trace = tr
     if req.n == 0:
+        out_dev = dev if plan.backend == "sim" else torch.device("cpu")
         if req.multikey:
-            keys_out = tuple(torch.empty(0, dtype=k.dtype, device=dev) for k in req.keys)
+            keys_out = tuple(torch.empty(0, dtype=k.dtype, device=out_dev) for k in req.keys)
         else:
-            keys_out = torch.empty(0, dtype=req.dtype, device=dev)
-        return SortOutput(
+            keys_out = torch.empty(0, dtype=req.dtype, device=out_dev)
+        out = SortOutput(
             _meta(req, plan, req.config, 0),
             keys=keys_out,
-            values=(torch.empty(0, dtype=torch.int32, device=dev)
+            values=(torch.empty(0, dtype=torch.int32, device=out_dev)
                     if req.want == "order" else None),
             counts=np.zeros(0, np.int64),
+            chunks=iter(()),
         )
-    if req.multikey:
-        return _exec_multikey(req, plan)
-    return BACKENDS[plan.backend].execute(req, plan)
+    elif req.multikey:
+        out = _exec_multikey(req, plan)
+    else:
+        out = BACKENDS[plan.backend].execute(req, plan)
+    if tr is not None and out._keys is not None:
+        tr.materialized()  # the output is complete: nothing lazy is left
+    return out

@@ -1,15 +1,22 @@
 """``SortOutput``: the result type of ``repro_torch.sort``.
 
 Counterpart of ``repro/core/result.py``. The sorted keys and payload are
-tensors on the sort's device, in the caller's dtypes; the per-shard
+tensors in the caller's dtypes: on the sort's device for the sim backend,
+CPU tensors for the stream backend (whose output lives on the host, as
+``repro``'s numpy output does) and for ``decode="host"``. The per-shard
 diagnostics (``counts``, ``send_counts``) are small host numpy arrays, as
-in ``repro``. ``topk``, ``searchsorted``, ``provenance`` and ``chunks``
-are not ported yet.
+in ``repro``.
+
+The views materialize lazily where the backend is lazy: a stream result
+runs its passes when ``.keys`` / ``.values`` / ``.order()`` is first read,
+or yields its sorted chunks through ``chunks()`` in bounded memory.
+``topk``, ``searchsorted`` and ``provenance`` are not ported yet
+(ROADMAP.md §1, item 5).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -20,14 +27,24 @@ class SortMeta:
     """Backend and plan metadata recorded on every SortOutput.
 
     config: the SortConfig actually used, after any capacity retries.
-    retries: capacity-ladder steps taken by the overflow policy.
+    retries: capacity-ladder steps taken by the overflow policy. The
+      stream backend reports the sum of its per-chunk ladder steps here
+      (filled in when pass 1 has run) and the breakdown on
+      ``chunk_retries``.
+    chunk_retries: stream backend only: ladder steps per pass-1 chunk, in
+      chunk order (None elsewhere, and before the passes have run).
     order: "asc" | "desc", or a tuple with one flag per key.
     n_keys: key columns of the request (1 for a single key).
     n_local: per-processor row length when the input arrived in the
       (p, n_local) layout.
-    dtype: the key dtype (the first column's for a multi-key sort).
+    dtype: the key dtype (the first column's for a multi-key sort); None
+      only for iterator inputs, whose dtype is known once a chunk arrives.
     multikey: how a multi-key request ran, "packed" or "lsd"; None for a
       single key. ``plan.packspec`` holds a packed run's recipe.
+    trace: the ``obs.tracing.Trace`` of this sort's phase spans when
+      tracing was on (``SortLimits(trace=True)`` or an ambient
+      ``obs.trace()``); None otherwise. A per-sort trace freezes when the
+      output materializes.
     """
 
     backend: str
@@ -40,34 +57,120 @@ class SortMeta:
     n_keys: int = 1
     n_local: int | None = None
     dtype: Any = None
+    chunk_retries: tuple | None = None
     multikey: str | None = None
+    trace: Any = None
 
 
 class SortOutput:
-    """Sorted result.
+    """Sorted result, materialized on first read where the backend is lazy.
 
-    keys:        flat sorted keys (a tensor on the sort's device; CPU
-                 tensors under decode="host"), a tuple of them for a
+    keys:        flat sorted keys (a tensor), a tuple of them for a
                  multi-key sort.
     values:      payload in sorted-key order: the caller's values, or the
                  original flat indices when ``want="order"``; else None.
-    counts:      per-shard sizes (numpy), pads removed.
-    send_counts: (p, p) per (source, destination) bucket sizes (numpy).
+    counts:      per-shard (sim) or per-output-chunk (stream) sizes
+                 (numpy), pads removed.
+    send_counts: (p, p) per (source, destination) bucket sizes (numpy;
+                 sim only).
     overflowed:  True iff a bucket overflowed (only when the policy does
                  not raise).
-    raw:         the backend's padded global-view result.
+    raw:         the backend's padded global-view result (sim only).
     """
 
-    def __init__(self, meta: SortMeta, *, keys: torch.Tensor, values=None,
-                 counts=None, overflowed: bool = False, send_counts=None,
-                 raw: Any = None):
+    def __init__(self, meta: SortMeta, *, keys=None, values=None, counts=None,
+                 overflowed: bool = False, send_counts=None, raw: Any = None,
+                 materialize: Callable | None = None,
+                 chunks: Iterator | None = None):
         self.meta = meta
-        self.keys = keys
-        self.values = values
         self.counts = counts
         self.overflowed = overflowed
         self.send_counts = send_counts
         self.raw = raw
+        self._keys = keys
+        self._values = values
+        self._materialize = materialize
+        self._chunks = chunks
+        self._chunks_consumed = False
+
+    # ------------------------------------------------------ lazy views
+    def _force(self) -> None:
+        if self._materialize is not None:
+            self._keys, self._values = self._materialize()
+            self._materialize = None
+        elif self._chunks_consumed:
+            raise ValueError(
+                "the stream result was already consumed via chunks(); "
+                "keep the yielded chunks if you also need .keys"
+            )
+        elif self._chunks is not None:
+            parts = list(self.chunks())
+            if parts and isinstance(parts[0], tuple):
+                # packed multi-key stream: chunks are column tuples
+                self._keys = tuple(torch.cat(cols) for cols in zip(*parts))
+            elif parts:
+                self._keys = torch.cat(parts)
+            else:
+                # an iterator that never yielded a chunk has no dtype:
+                # float32, as in repro
+                self._keys = torch.empty(0, dtype=self.meta.dtype or torch.float32)
+        if not self.meta.n and self._keys is not None:
+            # iterator inputs have unknown n until materialization
+            first = self._keys[0] if isinstance(self._keys, tuple) else self._keys
+            self.meta.n = int(first.shape[0])
+        if self.meta.trace is not None:
+            # materialization completes the sort: publish the phase spans
+            # and (for per-sort traces) freeze
+            self.meta.trace.materialized()
+
+    @property
+    def keys(self):
+        """Flat sorted keys, materialized on first access."""
+        if self._keys is None:
+            self._force()
+        return self._keys
+
+    @property
+    def values(self):
+        """Payload in sorted order; None for keys-only sorts."""
+        if self._values is None and self._materialize is not None:
+            self._force()
+        return self._values
+
+    def chunks(self) -> Iterator[torch.Tensor]:
+        """Stream backend only: yield sorted chunks (CPU tensors) in
+        bounded memory; single use, and consuming it is the
+        materialization. Keys-only results stream in both orders; packed
+        multi-key results yield per-chunk column tuples
+        (``keyenc.unpack_chunk``)."""
+        if self._chunks is None:
+            if self._chunks_consumed:
+                raise ValueError("chunks() was already consumed (single use)")
+            if self.meta.backend == "stream":
+                raise ValueError(
+                    "this stream result does not stream: kv/argsort "
+                    "results materialize on host (the value gather is "
+                    "not bounded-memory), as do packed multi-key tuples "
+                    'and descending results under the legacy decode='
+                    '"host" plan — use .keys/.values'
+                )
+            raise ValueError(
+                f"chunks() is only available on the stream backend "
+                f"(this result came from {self.meta.backend!r})"
+            )
+        gen, self._chunks = self._chunks, None
+        self._chunks_consumed = True
+        sizes = []
+        for c in gen:
+            sizes.append(c[0].shape[0] if isinstance(c, tuple) else c.shape[0])
+            yield c
+        if self.counts is None:
+            self.counts = np.asarray(sizes, np.int64)
+        if not self.meta.n:
+            self.meta.n = int(sum(sizes))
+        if self.meta.trace is not None:
+            # consuming the chunk stream is the materialization
+            self.meta.trace.materialized()
 
     def order(self) -> torch.Tensor:
         """The sorting permutation (``want="order"`` results)."""
@@ -75,8 +178,11 @@ class SortOutput:
             raise ValueError('order() requires sort(..., want="order")')
         return self.values
 
+    # ------------------------------------------------------ diagnostics
     def imbalance(self) -> float:
-        """max/mean shard size; 1.0 is perfect balance (paper Table II)."""
+        """max/mean shard (or output-chunk) size; 1.0 is perfect balance
+        (paper Table II). NaN when the backend recorded no counts (stream
+        kv/argsort results materialize whole)."""
         if self.counts is None:
             return float("nan")
         counts = np.asarray(self.counts, np.float64)
@@ -88,9 +194,9 @@ class SortOutput:
         return self.meta.n
 
     def __repr__(self) -> str:
-        first = self.keys[0] if isinstance(self.keys, tuple) else self.keys
+        state = "materialized" if self._keys is not None else "lazy"
         return (
             f"SortOutput(n={self.meta.n}, backend={self.meta.backend!r}, "
             f"want={self.meta.want!r}, order={self.meta.order!r}, "
-            f"overflowed={self.overflowed}, device={first.device})"
+            f"overflowed={self.overflowed}, {state})"
         )

@@ -3,8 +3,15 @@
 Counterpart of ``repro/core/sim.py``. ``x`` has shape (p, n_local): axis
 0 is the processor axis, and the exchange is an explicit gather and
 transpose. On one GPU this grid is the shape of the whole sort. The six
-paper steps map 1:1 onto the code below. The traced (phased) and the
-serving (flat) variants are not ported yet.
+paper steps map 1:1 onto the code below.
+
+Given a ``trace`` (``obs.tracing.Trace``), each sort records the phase
+spans of ``repro``'s phased variants (``sample_sort_sim_phased[_kv]``):
+local_sort, splitter (with ``overflowed``), exchange and merge (with
+``per_proc`` and ``imbalance``), fencing at each boundary. The port runs
+eagerly, so the same step functions run either way and the output is the
+same bits; an untraced sort makes no extra host read or wait. The
+serving (flat) variant is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from repro_torch.core import merge as merge_lib
 from repro_torch.core import splitters as spl
 from repro_torch.core.local_sort import local_sort, local_sort_kv
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.tracing import maybe_span as _span
 
 
 class SortResult(NamedTuple):
@@ -24,7 +32,9 @@ class SortResult(NamedTuple):
     values:      (p, p2 * cap) sorted per processor, sentinel padded.
     counts:      (p,) int32 valid prefix length per processor.
     overflowed:  bool scalar, True iff a static bucket overflowed (the
-                 exchange then dropped data and the result is invalid).
+                 exchange then dropped data and the result is invalid);
+                 a Python bool in a traced sort, which reads it in its
+                 splitter span.
     send_counts: (p, p) int32 bucket sizes per (source, destination).
     """
 
@@ -77,38 +87,59 @@ def _gather_buckets(xs: torch.Tensor, bounds: torch.Tensor, cap: int) -> torch.T
     return seg.masked_fill_(pos >= count, fill)
 
 
+def _split_span(trace, xs, config, investigator, key_bytes, search=torch.searchsorted):
+    """Steps 2-4 as the ``splitter`` phase."""
+    with _span(trace, "splitter") as sp:
+        bounds, send_counts, overflowed = sp.fence(
+            _split(xs, config, investigator, key_bytes, search))
+        if trace is not None:
+            # a traced sort reads the flag here, and the ladder reads it from here
+            overflowed = bool(overflowed)
+            sp.set(overflowed=overflowed)
+    return bounds, send_counts, overflowed
+
+
 def sample_sort_sim(x: torch.Tensor, config: spl.SortConfig = spl.SortConfig(), *,
-                    investigator: bool = True, nan_keys: bool = False) -> SortResult:
+                    investigator: bool = True, nan_keys: bool = False,
+                    trace=None) -> SortResult:
     """PGX.D sample sort over virtual processors. x: (p, n_local).
 
     ``nan_keys``: the float keys hold a NaN (the front end's probe). The
     splitter search and the wide-row merges then follow ``repro``'s probes
     and its scatter's collision rule (``ops.rank_functions``), so that the
-    result equals ``repro``'s on such keys too, on either device."""
+    result equals ``repro``'s on such keys too, on either device.
+    ``trace``: record the four phase spans (see the module docstring)."""
     p, n = x.shape
     cap = config.capacity(p, n)
     search, wide_merge = kops.rank_functions(nan_keys)
 
     # (1) local sort: Fig. 2 tile sort + balanced merge tree, every shard
-    xs = local_sort(x, tile=config.tile, use_pallas=config.use_pallas, wide_merge=wide_merge)
+    with _span(trace, "local_sort") as sp:
+        xs = sp.fence(local_sort(x, tile=config.tile, use_pallas=config.use_pallas,
+                                 wide_merge=wide_merge))
+        sp.counts([n] * p)
 
     # (2) regular sampling; (3) splitters; (4) investigator bounds
-    bounds, send_counts, overflowed = _split(xs, config, investigator, x.element_size(),
-                                             search)
+    bounds, send_counts, overflowed = _split_span(trace, xs, config, investigator,
+                                                  x.element_size(), search)
 
     # (5) exchange: static-capacity buckets, transpose = all_to_all
-    recv = _gather_buckets(xs, bounds, cap).transpose(0, 1)  # (p_dst, p_src, cap)
-    counts = send_counts.sum(dim=0, dtype=torch.int32)  # (p_dst,)
+    with _span(trace, "exchange") as sp:
+        recv = _gather_buckets(xs, bounds, cap).transpose(0, 1)  # (p_dst, p_src, cap)
+        counts = sp.fence(send_counts.sum(dim=0, dtype=torch.int32))  # (p_dst,)
+        sp.counts(counts)
 
     # (6) balanced pairwise merge of the received runs
-    merged = merge_lib.merge_padded_runs(recv, use_pallas=config.use_pallas,
-                                         wide_merge=wide_merge)
+    with _span(trace, "merge") as sp:
+        merged = sp.fence(merge_lib.merge_padded_runs(recv, use_pallas=config.use_pallas,
+                                                      wide_merge=wide_merge))
+        sp.counts(counts)
     return SortResult(merged, counts, overflowed, send_counts)
 
 
 def sample_sort_sim_kv(keys: torch.Tensor, values: torch.Tensor,
                        config: spl.SortConfig = spl.SortConfig(), *,
-                       investigator: bool = True) -> SortKVResult:
+                       investigator: bool = True, trace=None) -> SortKVResult:
     """Key/value variant: values ride along (provenance, user payloads).
 
     Exactly stable when ``values`` are globally unique, processor-then-
@@ -116,12 +147,21 @@ def sample_sort_sim_kv(keys: torch.Tensor, values: torch.Tensor,
     p, n = keys.shape
     cap = config.capacity(p, n)
 
-    ks, vs = local_sort_kv(keys, values, tile=config.tile, use_pallas=config.use_pallas)
-    bounds, send_counts, overflowed = _split(ks, config, investigator, keys.element_size())
+    with _span(trace, "local_sort") as sp:
+        ks, vs = sp.fence(local_sort_kv(keys, values, tile=config.tile,
+                                        use_pallas=config.use_pallas))
+        sp.counts([n] * p)
+    bounds, send_counts, overflowed = _split_span(trace, ks, config, investigator,
+                                                  keys.element_size())
 
-    recv_k = _gather_buckets(ks, bounds, cap).transpose(0, 1)
-    recv_v = _gather_buckets(vs, bounds, cap).transpose(0, 1)
-    counts = send_counts.sum(dim=0, dtype=torch.int32)
+    with _span(trace, "exchange") as sp:
+        recv_k = _gather_buckets(ks, bounds, cap).transpose(0, 1)
+        recv_v = _gather_buckets(vs, bounds, cap).transpose(0, 1)
+        counts = sp.fence(send_counts.sum(dim=0, dtype=torch.int32))
+        sp.counts(counts)
 
-    mk, mv = merge_lib.merge_padded_runs_kv(recv_k, recv_v, use_pallas=config.use_pallas)
+    with _span(trace, "merge") as sp:
+        mk, mv = sp.fence(merge_lib.merge_padded_runs_kv(recv_k, recv_v,
+                                                         use_pallas=config.use_pallas))
+        sp.counts(counts)
     return SortKVResult(mk, mv, counts, overflowed, send_counts)

@@ -134,18 +134,20 @@ def test_64bit_dtypes_refused_at_the_door(dtype):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda k: repro_torch.sort((k, k), where="stream", device="cpu"), "item 7"),
-    (lambda k: repro_torch.sort(iter([k]), device="cpu"), "item 7"),
-    (lambda k: repro_torch.sort(k, where="stream", device="cpu"), "item 7"),
+    (lambda k: repro_torch.sort((k, k), where="mesh", device="cpu"), "item 9"),
+    (lambda k: repro_torch.sort(iter([k.astype(np.int64)]), device="cpu").keys, "item 2"),
+    (lambda k: repro_torch.sort(
+        k, where="stream", limits=repro_torch.SortLimits(x64=True), device="cpu"), "item 2"),
     (lambda k: repro_torch.sort(k, where="mesh", device="cpu"), "item 9"),
     (lambda k: repro_torch.sort(k, where=object(), device="cpu"), "item 9"),
     (lambda k: repro_torch.sort(
-        k, limits=repro_torch.SortLimits(stream_threshold=10), device="cpu"), "item 7"),
+        (k, k), limits=repro_torch.SortLimits(stream_threshold=10, x64=True), device="cpu"),
+     "item 2"),
     (lambda k: repro_torch.sort(
-        k, limits=repro_torch.SortLimits(trace=True), device="cpu"), "item 4"),
+        k, limits=repro_torch.SortLimits(trace=True, x64=True), device="cpu"), "item 2"),
     (lambda k: repro_torch.sort(
-        (k, k), limits=repro_torch.SortLimits(decode="host", trace=True), device="cpu"),
-     "item 4"),
+        (k, k), where=object(), limits=repro_torch.SortLimits(decode="host", trace=True),
+        device="cpu"), "item 9"),
     (lambda k: repro_torch.sort(
         k, limits=repro_torch.SortLimits(x64=True), device="cpu"), "item 2"),
 ])

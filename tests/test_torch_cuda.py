@@ -7,6 +7,8 @@ Needs an NVIDIA GPU with nvcc; skipped elsewhere. On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -229,6 +231,120 @@ def test_multikey_on_cuda_equals_cpu(gpu, multikey, decode, want):
     if got.values is not None:
         assert _same_bits(got.values, want_out.values)
     np.testing.assert_array_equal(got.counts, want_out.counts)
+
+
+STREAM = repro_torch.SortLimits(chunk_elems=1 << 12)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint32", "int16", "bfloat16",
+                                   "float32 5% NaN"])
+@pytest.mark.parametrize("kw", [{}, {"order": "desc"}, {"want": "order"},
+                                {"want": "order", "order": "desc"}, {"values": "float32"},
+                                {"order": "desc", "decode": "host"}])
+def test_stream_on_cuda_equals_stream_on_cpu(gpu, dtype, kw):
+    """The stream backend on the card (pinned staging, the copy stream, the
+    chunk sorts, the boundary searches and bucket merges on the device)
+    equals the same call with device="cpu", which tests/test_torch_stream.py
+    holds against repro; the output is CPU tensors either way. NaN keys
+    take repro's probes on every pass; with a payload both refuse them."""
+    kw = dict(kw)
+    rng = np.random.default_rng(2)
+    n = 50000
+    keys = rng.integers(-300, 300, n).astype(np.float32)
+    if dtype.endswith("NaN"):
+        keys[rng.random(n) < 0.05] = np.nan
+        dtype = "float32"
+    keys = (convert.to_tensor(rng.integers(1, 2**32 - 1, n).astype(np.uint32), "cpu")
+            if dtype == "uint32" else convert.to_tensor(keys, "cpu").to(getattr(torch, dtype)))
+    values = (convert.to_tensor(rng.random(n).astype(np.float32), "cpu")
+              if kw.pop("values", None) else None)
+    limits = dataclasses.replace(STREAM, decode=kw.pop("decode", "device"))
+    call = dict(where="stream", limits=limits, config=repro_torch.SortConfig(tile=512), **kw)
+    if bool(keys.isnan().any()) and (values is not None or "want" in kw):
+        with pytest.raises(ValueError) as want_err:
+            repro_torch.sort(keys, values, device="cpu", **call)
+        with pytest.raises(ValueError) as got_err:
+            repro_torch.sort(keys, values, device=gpu, **call)
+        assert str(got_err.value) == str(want_err.value)
+        return
+    got = repro_torch.sort(keys, values, device=gpu, **call)
+    want = repro_torch.sort(keys, values, device="cpu", **call)
+    assert got.keys.device.type == "cpu" and _same_bits(got.keys, want.keys)
+    assert (got.values is None) == (want.values is None)
+    if got.values is not None:
+        assert _same_bits(got.values, want.values)
+    assert got.meta.chunk_retries == want.meta.chunk_retries
+    np.testing.assert_array_equal(got.counts, want.counts)
+
+
+@pytest.mark.parametrize("payload", [None, "values", "order"])
+def test_stream_double_buffered_staging_equals_torch_sort(gpu, payload):
+    """64 chunks of 2^12 keys (and values) through both pinned staging
+    buffers and their device buffers: a buffer rewritten before its copy,
+    or its chunk's sort, had finished would show here as a wrong key."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand(64 << 12, generator=gen)
+    v = torch.rand(x.shape, generator=gen) if payload == "values" else None
+    before = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    out = repro_torch.sort(x, v, where="stream", limits=STREAM, device=gpu,
+                           want="order" if payload == "order" else "values")
+    assert torch.equal(out.keys, torch.sort(x).values)
+    assert len(out.meta.chunk_retries) == 64
+    if payload == "order":
+        assert torch.equal(out.order(), torch.sort(x, stable=True).indices.to(torch.int32))
+    if payload == "values":
+        by_key = torch.sort(x, stable=True).indices
+        assert torch.equal(torch.sort(out.values).values, torch.sort(v).values)
+        assert torch.equal(x[by_key], out.keys)
+    sort = bitonic.KERNELS[0 if payload is None else 1]  # one row sort a chunk sort
+    assert sort.launches - before[sort.__name__] == 64 + out.meta.retries
+
+
+def test_stream_iterator_and_tuple_on_cuda_equal_cpu(gpu):
+    """An iterator of ragged host pieces, and a packed tuple whose
+    chunks() unpack on the card (keyenc.unpack_chunk), as on the CPU."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.rand(100_000, generator=gen)
+    got = repro_torch.sort(iter(torch.split(x, 7_777)), limits=STREAM, device=gpu)
+    want = repro_torch.sort(iter(torch.split(x, 7_777)), limits=STREAM, device="cpu")
+    assert torch.equal(got.keys, want.keys) and torch.equal(got.keys, torch.sort(x).values)
+    pair = (torch.randint(0, 100, (50_000,), generator=gen, dtype=torch.int32),
+            torch.randint(0, 1 << 12, (50_000,), generator=gen, dtype=torch.int32))
+    outs = [repro_torch.sort(pair, where="stream", order=("asc", "desc"), limits=STREAM,
+                             device=d) for d in (gpu, "cpu")]
+    for g, w in zip(outs[0].chunks(), outs[1].chunks(), strict=True):
+        assert all(torch.equal(a, b) for a, b in zip(g, w, strict=True))
+
+
+def test_flip_and_splitters_keep_nan_bits_on_cuda(gpu):
+    """keyenc.flip and splitters.select_splitters give the CPU's bits on the
+    card for keys holding NaN of either sign: the card's -x and its
+    torch.sort treat such NaN otherwise (ROADMAP §3)."""
+    from repro_torch.core import keyenc
+    from repro_torch.core import splitters as spl
+
+    nan = float("nan")
+    x = torch.tensor([1.5, -0.0, 0.0, nan, -nan, float("inf"), -float("inf"), -2.0] * 700)
+    for dtype in (torch.float32, torch.float16):
+        y = x.to(dtype)
+        assert _same_bits(keyenc.flip(y.to(gpu)), keyenc.flip(y))
+        assert _same_bits(keyenc.flip(y.to(gpu)), -y)
+        assert _same_bits(spl.select_splitters(y.to(gpu), 64), spl.select_splitters(y, 64))
+
+
+def test_traced_sorts_on_cuda_cover_their_window(gpu):
+    """SortLimits(trace=True) on the card: a 2^22 sim sort's spans cover at
+    least 0.95 of its wall window (repro's gate), as do a stream sort's;
+    the traced outputs equal the untraced ones."""
+    x = torch.rand(1 << 22, generator=torch.Generator(device=gpu).manual_seed(6), device=gpu)
+    for where, keys in (("sim", x), ("stream", x[: 1 << 20].cpu())):
+        plain = repro_torch.sort(keys, where=where, device=gpu).keys
+        traced = repro_torch.sort(keys, where=where, device=gpu,
+                                  limits=repro_torch.SortLimits(trace=True))
+        assert torch.equal(plain, traced.keys)  # the stream's passes run at .keys
+        tr = traced.meta.trace
+        assert tr.frozen and tr.coverage() >= 0.95, (where, tr.coverage())
+        assert {"local_sort", "splitter", "merge"} <= set(tr.phase_totals())
 
 
 def test_merge_tree_views_go_to_the_kernel_without_a_copy(gpu, monkeypatch):
