@@ -58,12 +58,13 @@ def _bounds_all(xs, splitters, investigator: bool, search) -> torch.Tensor:
 
 
 def _split(xs, config: spl.SortConfig, investigator: bool, key_bytes: int,
-           search=torch.searchsorted):
+           nan_keys: bool = False):
     """Steps 2-4: samples, splitters, bounds, and the overflow flag."""
     p, n = xs.shape
+    search = kops.rank_functions(nan_keys)[0]
     s = config.num_samples(p, n, key_bytes=key_bytes)
     samples = spl.regular_sample(xs, s)  # "send to master"
-    splitters = spl.select_splitters(samples.reshape(-1), p)
+    splitters = spl.select_splitters(samples.reshape(-1), p, nan_keys)
     bounds = _bounds_all(xs, splitters, investigator, search)
     send_counts = bounds[:, 1:] - bounds[:, :-1]
     overflowed = (send_counts > config.capacity(p, n)).any()
@@ -87,11 +88,11 @@ def _gather_buckets(xs: torch.Tensor, bounds: torch.Tensor, cap: int) -> torch.T
     return seg.masked_fill_(pos >= count, fill)
 
 
-def _split_span(trace, xs, config, investigator, key_bytes, search=torch.searchsorted):
+def _split_span(trace, xs, config, investigator, key_bytes, nan_keys=False):
     """Steps 2-4 as the ``splitter`` phase."""
     with _span(trace, "splitter") as sp:
         bounds, send_counts, overflowed = sp.fence(
-            _split(xs, config, investigator, key_bytes, search))
+            _split(xs, config, investigator, key_bytes, nan_keys))
         if trace is not None:
             # a traced sort reads the flag here, and the ladder reads it from here
             overflowed = bool(overflowed)
@@ -111,7 +112,7 @@ def sample_sort_sim(x: torch.Tensor, config: spl.SortConfig = spl.SortConfig(), 
     ``trace``: record the four phase spans (see the module docstring)."""
     p, n = x.shape
     cap = config.capacity(p, n)
-    search, wide_merge = kops.rank_functions(nan_keys)
+    wide_merge = kops.rank_functions(nan_keys)[1]
 
     # (1) local sort: Fig. 2 tile sort + balanced merge tree, every shard
     with _span(trace, "local_sort") as sp:
@@ -121,7 +122,7 @@ def sample_sort_sim(x: torch.Tensor, config: spl.SortConfig = spl.SortConfig(), 
 
     # (2) regular sampling; (3) splitters; (4) investigator bounds
     bounds, send_counts, overflowed = _split_span(trace, xs, config, investigator,
-                                                  x.element_size(), search)
+                                                  x.element_size(), nan_keys)
 
     # (5) exchange: static-capacity buckets, transpose = all_to_all
     with _span(trace, "exchange") as sp:

@@ -61,16 +61,20 @@ def regular_sample(xs_sorted: torch.Tensor, s: int) -> torch.Tensor:
     return xs_sorted[..., idx]
 
 
-def select_splitters(all_samples: torch.Tensor, p: int) -> torch.Tensor:
+def select_splitters(all_samples: torch.Tensor, p: int, nan_keys: bool = False) -> torch.Tensor:
     """Replicated splitter selection (paper step 3): p-1 splitters at the
     regular ranks of the sorted (p*s,) sample set.
 
-    The samples sort in ``repro``'s order on either device: floats by
-    ``ops._total_order_key`` (every NaN after +inf whatever its sign bit,
-    -0.0 tied with +0.0), since the card's stable sort of a long float
-    vector orders a NaN with its sign bit set first, which the CPU's puts
-    last; a descending stream's flip makes such NaN."""
-    srt = all_samples[torch.sort(kops._total_order_key(all_samples), stable=True).indices]
+    ``nan_keys`` (the sort's NaN decision, ``ops.rank_functions``): the
+    samples sort by ``ops._total_order_key``, in ``repro``'s order on
+    either device (every NaN after +inf whatever its sign bit), since the
+    card's stable sort of a long float vector orders a NaN with its sign
+    bit set first, which the CPU's puts last; a descending stream's flip
+    makes such NaN. Without NaN the two orders are the same."""
+    if nan_keys:
+        srt = all_samples[torch.sort(kops._total_order_key(all_samples), stable=True).indices]
+    else:
+        srt = torch.sort(all_samples, stable=True).values
     m = srt.shape[0]
     idx = (torch.arange(1, p, dtype=torch.int32, device=srt.device) * m) // p
     return srt[idx]

@@ -2,10 +2,12 @@
 dataset scale).
 
 Counterpart of ``repro/stream/external_merge.py``. Each range bucket holds
-k sorted segments, one per contributing run. They are sentinel padded to
-a common power-of-two width, stacked (k, W) and merged on the device by
-the balanced pairwise merge tree (``merge_padded_runs``), so the device
-holds O(bucket) at a time. The widths and sentinels are ``repro``'s: the
+k sorted segments, one per contributing run. They are gathered out of the
+runs' host blocks, sentinel padded to a common power-of-two width, into a
+(k, W) stack (pinned on the card) and merged on the device by the balanced
+pairwise merge tree (``merge_padded_runs``), so the device holds
+O(bucket) at a time. ``merge_segments[_kv]`` run the same bucket merge on
+a list of segments, each its own block. The widths and sentinels are ``repro``'s: the
 tree's rounds, and with them the tie order of a key/value merge, depend on
 them. The merged bucket is decoded on the device (the inverse flip of a
 descending stream, the unsigned lanes) and copied to the host once; the
@@ -41,49 +43,61 @@ def _decode(x: torch.Tensor, descending: bool, dtype) -> torch.Tensor:
     return keyenc.from_lane(keyenc.flip(x) if descending else x, dtype or x.dtype)
 
 
-def _stack_padded(segments: list[torch.Tensor], fill) -> torch.Tensor:
-    """(k, W) stack of the segments, W the next power of two of the
-    longest, sentinel padded."""
-    width = _next_pow2(max(s.shape[0] for s in segments))
-    out = torch.full((len(segments), width), fill, dtype=segments[0].dtype)
-    for i, s in enumerate(segments):
-        out[i, : s.shape[0]] = s
-    return out
-
-
-def _gather_padded(flat: torch.Tensor, starts: np.ndarray, lens: np.ndarray, fill) -> torch.Tensor:
-    """``_stack_padded`` of the segments ``flat[starts[i]:starts[i] +
-    lens[i]]``, in one host gather."""
-    width = _next_pow2(int(lens.max()))
+def _gather_padded(blocks, which: np.ndarray, starts: np.ndarray, lens: np.ndarray, fill,
+                   pinned: bool) -> torch.Tensor:
+    """The (k, W) stack of the segments ``blocks[which[i]][starts[i]:
+    starts[i] + lens[i]]``, W the next power of two of the longest,
+    sentinel padded; one host gather for each run of consecutive segments
+    in one block, into pinned memory when ``pinned``."""
+    k, width = lens.size, _next_pow2(int(lens.max()))
+    out = torch.empty((k, width), dtype=blocks[which[0]].dtype, pin_memory=pinned)
     pos = torch.arange(width)
-    idx = (torch.from_numpy(starts)[:, None] + pos).clamp_(max=flat.shape[0] - 1)
-    return flat[idx].masked_fill_(pos >= torch.from_numpy(lens)[:, None], fill)
+    cuts = [0, *(np.flatnonzero(np.diff(which)) + 1).tolist(), k]
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        block = blocks[which[lo]]
+        if block.shape[0]:  # an empty segment's row is all padding
+            idx = (torch.from_numpy(starts[lo:hi])[:, None] + pos).clamp_(max=block.shape[0] - 1)
+            torch.index_select(block, 0, idx.view(-1), out=out[lo:hi].view(-1))
+    return out.masked_fill_(pos >= torch.from_numpy(lens)[:, None], fill)
 
 
-def _merge_stacked(stacked, total, *, use_pallas, descending, dtype, device, wide_merge):
-    merged = merge_lib.merge_padded_runs(stacked.to(device), use_pallas=use_pallas,
-                                         wide_merge=wide_merge)
-    return _decode(merged[:total], descending, dtype).cpu()  # device decode, one copy
+def _own_blocks(segments):
+    """(which, starts, lens) of a list of segments, each its own block."""
+    k = len(segments)
+    return (np.arange(k), np.zeros(k, np.int64),
+            np.array([s.shape[0] for s in segments], np.int64))
+
+
+def _merge_bucket(blocks, which, starts, lens, *, use_pallas, descending, dtype, device,
+                  wide_merge) -> torch.Tensor:
+    """One bucket's segments merged on ``device`` and decoded there before
+    one copy back; a single segment runs no merge and is decoded on the
+    host."""
+    if lens.size == 1:
+        s = int(starts[0])
+        return _decode(blocks[which[0]][s:s + int(lens[0])], descending, dtype)
+    fill = kops.sentinel_for(blocks[which[0]].dtype)
+    stacked = _gather_padded(blocks, which, starts, lens, fill, device.type == "cuda")
+    merged = merge_lib.merge_padded_runs(stacked.to(device, non_blocking=True),
+                                         use_pallas=use_pallas, wide_merge=wide_merge)
+    return _decode(merged[:int(lens.sum())], descending, dtype).cpu()
 
 
 def merge_segments(segments: list[torch.Tensor], *, use_pallas: bool = True,
                    descending: bool = False, dtype=None, device=None,
                    nan_keys: bool = False) -> torch.Tensor:
     """Merge k sorted (encoded) host segments into one sorted host tensor
-    in ``dtype`` (the caller's; None keeps the segments'), on ``device``.
+    in ``dtype`` (the caller's; None keeps the segments'), on ``device``:
+    pass 3's bucket merge.
 
     ``descending=True``: the segments are flip-encoded; the inverse flip
     runs on the device before the copy back (on the host for a single
     segment, which runs no merge)."""
     if not segments:
         return torch.empty(0)
-    if len(segments) == 1:
-        return _decode(segments[0], descending, dtype)
-    total = sum(s.shape[0] for s in segments)
-    stacked = _stack_padded(segments, kops.sentinel_for(segments[0].dtype))
-    return _merge_stacked(stacked, total, use_pallas=use_pallas, descending=descending,
-                          dtype=dtype, device=_device.resolve(device),
-                          wide_merge=kops.rank_functions(nan_keys)[1])
+    return _merge_bucket(segments, *_own_blocks(segments), use_pallas=use_pallas,
+                         descending=descending, dtype=dtype, device=_device.resolve(device),
+                         wide_merge=kops.rank_functions(nan_keys)[1])
 
 
 def _segment_stable_single(ks: torch.Tensor, vs: torch.Tensor, device) -> torch.Tensor:
@@ -98,15 +112,28 @@ def _segment_stable_single(ks: torch.Tensor, vs: torch.Tensor, device) -> torch.
     return segment_stable_kv(ks.to(device), vs.to(device)).cpu()
 
 
-def _merge_stacked_kv(ks, vs, total, *, use_pallas, descending, segment_stable, dtypes,
-                      device):
-    mk, mv = merge_lib.merge_padded_runs_kv(ks.to(device), vs.to(device),
-                                            use_pallas=use_pallas)
+def _merge_bucket_kv(blocks, value_blocks, which, starts, lens, *, use_pallas, descending,
+                     segment_stable, dtypes, device):
+    """Key/value twin of ``_merge_bucket``; the tie fix (``segment_stable``)
+    runs on the device after the merge and before the copy back."""
+    if lens.size == 1:
+        s, n = int(starts[0]), int(lens[0])
+        ks, vs = blocks[which[0]][s:s + n], value_blocks[which[0]][s:s + n]
+        if segment_stable:
+            vs = _segment_stable_single(ks, vs, device)
+        return _decode(ks, descending, dtypes[0]), keyenc.from_lane(vs, dtypes[1] or vs.dtype)
+    pinned = device.type == "cuda"
+    ks, vs = (_gather_padded(b, which, starts, lens, kops.sentinel_for(b[which[0]].dtype),
+                             pinned).to(device, non_blocking=True)
+              for b in (blocks, value_blocks))
+    mk, mv = merge_lib.merge_padded_runs_kv(ks, vs, use_pallas=use_pallas)
+    total = int(lens.sum())
     mk, mv = mk[:total], mv[:total]
     if segment_stable:
         # ties are flip-invariant: the tie fix runs on the encoded keys
         mv = segment_stable_kv(mk, mv)
-    return _decode(mk, descending, dtypes[0]).cpu(), keyenc.from_lane(mv, dtypes[1]).cpu()
+    return (_decode(mk, descending, dtypes[0]).cpu(),
+            keyenc.from_lane(mv, dtypes[1] or mv.dtype).cpu())
 
 
 def merge_segments_kv(key_segments, value_segments, *, use_pallas: bool = True,
@@ -119,18 +146,10 @@ def merge_segments_kv(key_segments, value_segments, *, use_pallas: bool = True,
     host stitch (``planner._stitch_bucket_ties``)."""
     if not key_segments:
         return torch.empty(0), torch.empty(0)
-    dev = _device.resolve(device)
-    if len(key_segments) == 1:
-        ks, vs = key_segments[0], value_segments[0]
-        if segment_stable:
-            vs = _segment_stable_single(ks, vs, dev)
-        return _decode(ks, descending, dtypes[0]), keyenc.from_lane(vs, dtypes[1] or vs.dtype)
-    total = sum(s.shape[0] for s in key_segments)
-    ks = _stack_padded(key_segments, kops.sentinel_for(key_segments[0].dtype))
-    vs = _stack_padded(value_segments, kops.sentinel_for(value_segments[0].dtype))
-    return _merge_stacked_kv(ks, vs, total, use_pallas=use_pallas, descending=descending,
-                             segment_stable=segment_stable,
-                             dtypes=(dtypes[0], dtypes[1] or vs.dtype), device=dev)
+    return _merge_bucket_kv(key_segments, value_segments, *_own_blocks(key_segments),
+                            use_pallas=use_pallas, descending=descending,
+                            segment_stable=segment_stable, dtypes=dtypes,
+                            device=_device.resolve(device))
 
 
 def _chunk_slices(n: int, out_chunk: int | None):
@@ -138,14 +157,6 @@ def _chunk_slices(n: int, out_chunk: int | None):
     step = out_chunk if out_chunk else n  # None/0 -> one whole-bucket chunk
     for lo in range(0, n, max(step, 1)):
         yield lo, min(lo + step, n)
-
-
-def _cut(flat: torch.Tensor, starts: np.ndarray, lens: np.ndarray) -> torch.Tensor:
-    """A bucket's segments of ``flat``: the one segment as it is, or the
-    (k, W) stack of several."""
-    if lens.size == 1:
-        return flat[int(starts[0]):int(starts[0] + lens[0])]
-    return _gather_padded(flat, starts, lens, kops.sentinel_for(flat.dtype))
 
 
 def external_merge(part: Partition, *, use_pallas: bool = True, out_chunk: int | None = None,
@@ -156,22 +167,18 @@ def external_merge(part: Partition, *, use_pallas: bool = True, out_chunk: int |
     bucket order is decoded-descending order, so the stream yields the
     descending output chunk by chunk. ``trace`` records one ``merge`` span
     per bucket (segment sizes as counts; the span includes the bucket's
-    cut from the runs, its device decode and copy back)."""
+    gather from the runs, its device decode and copy back)."""
     dev = _device.resolve(device)
     wide_merge = kops.rank_functions(part.nan_keys)[1]
     for b in range(part.n_buckets):
         with _span(trace, "merge", bucket=b) as sp:
-            starts, lens = part.bucket(b)
+            which, starts, lens = part.bucket(b)
             sp.counts(lens)
             if not lens.size:
                 continue
-            segs = _cut(part.keys, starts, lens)
-            if segs.dim() == 1:
-                merged = _decode(segs, descending, part.dtype)
-            else:
-                merged = _merge_stacked(segs, int(lens.sum()), use_pallas=use_pallas,
-                                        descending=descending, dtype=part.dtype, device=dev,
-                                        wide_merge=wide_merge)
+            merged = _merge_bucket(part.blocks, which, starts, lens, use_pallas=use_pallas,
+                                   descending=descending, dtype=part.dtype, device=dev,
+                                   wide_merge=wide_merge)
         for lo, hi in _chunk_slices(merged.shape[0], out_chunk):
             yield merged[lo:hi]
 
@@ -181,23 +188,17 @@ def external_merge_kv(part: Partition, *, use_pallas: bool = True,
                       segment_stable: bool = False, device=None):
     """Key/value twin of ``external_merge``: yields (keys, values) CPU
     tensor pairs."""
-    assert part.values is not None, "partition carries no values"
+    assert part.value_blocks is not None, "partition carries no values"
     dev = _device.resolve(device)
-    dtypes = (part.dtype, part.value_dtype)
     for b in range(part.n_buckets):
         with _span(trace, "merge", bucket=b) as sp:
-            starts, lens = part.bucket(b)
+            which, starts, lens = part.bucket(b)
             sp.counts(lens)
             if not lens.size:
                 continue
-            ks, vs = _cut(part.keys, starts, lens), _cut(part.values, starts, lens)
-            if ks.dim() == 1:
-                if segment_stable:
-                    vs = _segment_stable_single(ks, vs, dev)
-                mk, mv = _decode(ks, descending, dtypes[0]), keyenc.from_lane(vs, dtypes[1])
-            else:
-                mk, mv = _merge_stacked_kv(ks, vs, int(lens.sum()), use_pallas=use_pallas,
-                                           descending=descending, segment_stable=segment_stable,
-                                           dtypes=dtypes, device=dev)
+            mk, mv = _merge_bucket_kv(part.blocks, part.value_blocks, which, starts, lens,
+                                      use_pallas=use_pallas, descending=descending,
+                                      segment_stable=segment_stable,
+                                      dtypes=(part.dtype, part.value_dtype), device=dev)
         for lo, hi in _chunk_slices(mk.shape[0], out_chunk):
             yield mk[lo:hi], mv[lo:hi]

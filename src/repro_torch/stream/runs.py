@@ -39,6 +39,7 @@ and 3, whose searches and wide merges must then follow the same probes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Iterator
 
 import torch
@@ -87,7 +88,9 @@ class Run:
       a CPU tensor; ``values`` (in their lane, same order) is None for
       keys-only sorts. ``retries``: capacity-ladder steps of this chunk's
       sort. ``dtype`` / ``value_dtype``: the caller's dtypes, which pass 3
-      decodes to. ``nan_keys``: the chunk held a NaN key.
+      decodes to. ``nan_keys``: the chunk held a NaN key. ``home``: (keys
+      block, values block or None, offset), the host buffers ``keys`` and
+      ``values`` are slices of (None: they are their own).
     """
 
     keys: torch.Tensor
@@ -96,6 +99,7 @@ class Run:
     dtype: torch.dtype | None = None
     value_dtype: torch.dtype | None = None
     nan_keys: bool = False
+    home: tuple | None = None
 
     def __len__(self) -> int:
         return int(self.keys.shape[0])
@@ -180,14 +184,49 @@ class _Stager:
             slot[3].record(torch.cuda.current_stream(self.device))
 
 
-def _to_host(x: torch.Tensor) -> torch.Tensor:
-    """``x`` on the host: a CPU tensor as it is; a CUDA tensor copied into
-    pinned memory without a wait (valid once the sort stream reaches the
-    copy)."""
-    if not x.is_cuda:
-        return x
-    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    return out.copy_(x, non_blocking=True)
+_BLOCK_ELEMS = 1 << 26  # elements of a full host block of runs
+
+
+class _RunStore:
+    """Host memory for the runs of one pass 1: each run's keys (and
+    values) are copied into the next free slice of the current block,
+    pinned on the card, without a wait (valid once the sort stream reaches
+    the copy). A block holds ``_BLOCK_ELEMS`` elements, or what is left of
+    a known total if that is less; for an iterator, whose total is not
+    known, each block is twice the last, from one chunk up to
+    ``_BLOCK_ELEMS``. A run never straddles two blocks."""
+
+    def __init__(self, total: int | None, pinned: bool):
+        self.left, self.pinned = total, pinned
+        self.blocks: tuple = ()
+        self.used = 0
+
+    def put(self, keys: torch.Tensor, values: torch.Tensor | None):
+        """(keys slice, values slice or None, home) of the stored run."""
+        m = keys.shape[0]
+        if (not self.blocks or self.used + m > self.blocks[0].shape[0]
+                or self.blocks[0].dtype != keys.dtype):
+            grow = self.left if self.left is not None else 2 * (
+                self.blocks[0].shape[0] if self.blocks else 0)
+            cap = max(m, min(_BLOCK_ELEMS, grow))
+            self.blocks = tuple(None if x is None else
+                                torch.empty(cap, dtype=x.dtype, pin_memory=self.pinned)
+                                for x in (keys, values))
+            self.used = 0
+        off, self.used = self.used, self.used + m
+        if self.left is not None:
+            self.left -= m
+        kb, vb = self.blocks
+        return (kb[off:off + m].copy_(keys, non_blocking=True),
+                None if vb is None else vb[off:off + m].copy_(values, non_blocking=True),
+                (kb, vb, off))
+
+
+def _known_total(data) -> int | None:
+    """The element count of an array or ``range`` (None for an iterator)."""
+    if isinstance(data, range):
+        return len(data)
+    return math.prod(data.shape) if hasattr(data, "dtype") else None
 
 
 def _grid(x: torch.Tensor, p: int, per: int) -> torch.Tensor:
@@ -218,6 +257,7 @@ def generate_runs(data, cfg: StreamConfig = StreamConfig(), values=None, *,
     key_chunks = iter_chunks(data, p * per)
     val_chunks = iter_chunks(values, p * per) if values is not None else None
     stager = _Stager(dev, p * per)
+    store = _RunStore(_known_total(data), pinned=dev.type == "cuda")
     policy = overflow.OverflowPolicy(max_doublings=cfg.max_doublings, growth=cfg.growth)
 
     def dispatch(xk, xv, sort_cfg, nan):
@@ -232,12 +272,13 @@ def generate_runs(data, cfg: StreamConfig = StreamConfig(), values=None, *,
             res, _, retries = overflow.retry_overflowed(
                 lambda c: dispatch(xk, xv, c, nan), cfg.sort, policy, last=res)
         if xv is None:
-            run = Run(_to_host(keyenc.compact_rows(res.values, res.counts, m)),
-                      retries=retries, dtype=dtypes[0], nan_keys=nan)
+            keys, _, home = store.put(keyenc.compact_rows(res.values, res.counts, m), None)
+            run = Run(keys, retries=retries, dtype=dtypes[0], nan_keys=nan, home=home)
         else:
-            run = Run(_to_host(keyenc.compact_rows(res.keys, res.counts, m)),
-                      _to_host(keyenc.compact_rows(res.values, res.counts, m)),
-                      retries=retries, dtype=dtypes[0], value_dtype=dtypes[1])
+            keys, vals, home = store.put(keyenc.compact_rows(res.keys, res.counts, m),
+                                         keyenc.compact_rows(res.values, res.counts, m))
+            run = Run(keys, vals, retries=retries, dtype=dtypes[0], value_dtype=dtypes[1],
+                      home=home)
         stager.release(("keys", slot))
         stager.release(("values", slot))
         return run

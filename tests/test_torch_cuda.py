@@ -317,9 +317,10 @@ def test_stream_iterator_and_tuple_on_cuda_equal_cpu(gpu):
 
 
 def test_flip_and_splitters_keep_nan_bits_on_cuda(gpu):
-    """keyenc.flip and splitters.select_splitters give the CPU's bits on the
-    card for keys holding NaN of either sign: the card's -x and its
-    torch.sort treat such NaN otherwise (ROADMAP §3)."""
+    """keyenc.flip and splitters.select_splitters (with the sort's NaN
+    decision) give the CPU's bits on the card for keys holding NaN of
+    either sign: the card's -x and its torch.sort treat such NaN otherwise
+    (ROADMAP §3)."""
     from repro_torch.core import keyenc
     from repro_torch.core import splitters as spl
 
@@ -329,7 +330,11 @@ def test_flip_and_splitters_keep_nan_bits_on_cuda(gpu):
         y = x.to(dtype)
         assert _same_bits(keyenc.flip(y.to(gpu)), keyenc.flip(y))
         assert _same_bits(keyenc.flip(y.to(gpu)), -y)
-        assert _same_bits(spl.select_splitters(y.to(gpu), 64), spl.select_splitters(y, 64))
+        assert _same_bits(spl.select_splitters(y.to(gpu), 64, nan_keys=True),
+                          spl.select_splitters(y, 64, nan_keys=True))
+        z = y[~y.isnan()]  # without NaN both sorts of the samples agree
+        assert _same_bits(spl.select_splitters(z.to(gpu), 64),
+                          spl.select_splitters(z.to(gpu), 64, nan_keys=True))
 
 
 def test_traced_sorts_on_cuda_cover_their_window(gpu):

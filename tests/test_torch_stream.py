@@ -146,6 +146,27 @@ def test_flip_flips_the_sign_bit(dtype):
     assert_bits_equal(port_np(keyenc.flip(t))[keep], port_np(-t)[keep])
 
 
+@pytest.mark.parametrize("nan", [False, True])
+def test_select_splitters_orders_samples_as_repro(nan):
+    """select_splitters equals repro's: on keys with -0.0 and +0.0 (and,
+    with ``nan``, NaN of either sign), through the total-order sort that a
+    sort holding NaN takes (``nan_keys=True``), and without NaN through
+    the plain sort too, which every NaN-free sort keeps."""
+    import jax.numpy as jnp
+    from repro.core import splitters as rspl
+    from repro_torch.core import splitters as tspl
+
+    x = np.random.default_rng(4).normal(0, 1, 4096).astype(np.float32)
+    x[::7], x[3::7] = 0.0, -0.0
+    if nan:
+        x[5::11], x[6::13] = np.nan, -np.nan
+    want = np.asarray(rspl.select_splitters(jnp.asarray(x), 64))
+    t = torch.from_numpy(x)
+    assert_bits_equal(want, port_np(tspl.select_splitters(t, 64, nan_keys=True)))
+    if not nan:
+        assert_bits_equal(want, port_np(tspl.select_splitters(t, 64)))
+
+
 def test_stitch_bucket_ties_matches_repro():
     rng = np.random.default_rng(0)
     ks = np.sort(rng.integers(0, 5, 400)).astype(np.float32)
@@ -280,6 +301,36 @@ def test_partition_balanced_under_90pct_duplicates_as_repro():
     assert_bits_equal(rstream.sort_external(x, rcfg), port_np(got))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_partition_of_four_values_at_the_smoke_shape_matches_repro(seed):
+    """chip_smoke.py phase 6's Table II case on the host: 2^23 int32 keys
+    in [0, 4), in runs of 2^16 at the default StreamConfig (128 runs, 128
+    buckets). The port's bucket sizes and splitters equal repro's, with
+    and without the investigator, and the naive partition is more than 2x
+    worse. repro's own imbalance there is above the 1.05 that
+    tests/test_stream.py holds at 8 buckets (each value spans about 32
+    buckets, and the bucket at a value's edge takes the excess), so the
+    card is held to this partition and not to 1.05. A keys-only run is its
+    chunk sorted (the 90%-duplicates test above checks generate_runs)."""
+    x = np.random.default_rng(seed).integers(0, 4, 1 << 23).astype(np.int32)
+    chunks = np.sort(x.reshape(128, 1 << 16), axis=1)
+    rruns = [rstream.Run(c) for c in chunks]
+    truns = [tstream.Run(torch.from_numpy(c)) for c in chunks]
+    parts = {}
+    for inv in (True, False):
+        rp = rstream.partition_runs(rruns, rstream.StreamConfig(), investigator=inv)
+        tp = tstream.partition_runs(truns, tstream.StreamConfig(), investigator=inv,
+                                    device="cpu")
+        assert tp.n_buckets == rp.n_buckets == 128
+        np.testing.assert_array_equal(rp.bucket_sizes, tp.bucket_sizes)
+        assert_bits_equal(rp.splitters, port_np(tp.splitters))
+        assert tp.load_imbalance() == rp.load_imbalance()
+        parts[inv] = tp.load_imbalance()
+    print(f"seed {seed}: imbalance {parts[True]!r}, naive {parts[False]!r}")
+    assert 1.05 < parts[True] < 1.2
+    assert parts[False] > 2.0 * parts[True]
+
+
 @pytest.mark.parametrize("case", ["packed", "packed-order", "packed-values", "lsd-values",
                                   "packed-host"])
 def test_tuples_stream_as_repro(case):
@@ -369,3 +420,44 @@ def test_stream_functions_match_repro():
     assert_bits_equal(rk, port_np(tk))
     assert_bits_equal(rv, port_np(tv))
     assert rs == ts
+
+
+@pytest.mark.parametrize("block", [None, 1 << 11])
+@pytest.mark.parametrize("kind", ["array", "iterator"])
+def test_runs_lie_in_host_blocks_that_pass_3_gathers_from(kind, block, monkeypatch):
+    """Pass 1 writes the runs into a few host blocks (one for an array up
+    to the block size; for an iterator, blocks of one chunk, then twice the
+    last), the partition keeps those blocks without a copy, and pass 3's
+    gathers across block edges give repro's keys and values. ``block``:
+    a small block size, so an array's runs span several blocks too."""
+    from repro_torch.stream import runs as truns_mod
+
+    if block is not None:
+        monkeypatch.setattr(truns_mod, "_BLOCK_ELEMS", block)
+    x = _dup90(8)[:N]
+    v = np.arange(N, dtype=np.int32)
+    rcfg = rstream.StreamConfig(chunk_elems=1 << 10, n_procs=4, sort=CFG)
+    tcfg = tstream.StreamConfig(chunk_elems=1 << 10, n_procs=4, sort=port_config(CFG))
+
+    def data():
+        return x if kind == "array" else iter(np.array_split(x, 7))
+
+    runs = tstream.generate_runs(data(), tcfg, device="cpu")
+    part = tstream.partition_runs(runs, tcfg, device="cpu")
+    homes = list({id(r.home[0]): r.home[0] for r in runs}.values())
+    assert [b.data_ptr() for b in part.blocks] == [b.data_ptr() for b in homes]
+    sizes = [b.shape[0] for b in part.blocks]
+    want_sizes = {("array", None): [N], ("array", 1 << 11): [2048, 2048, N - 4096],
+                  ("iterator", None): [1024, 2048, 4096],
+                  ("iterator", 1 << 11): [1024, 2048, 2048, 2048]}[kind, block]
+    assert sizes == want_sizes
+    for r in runs:
+        kb, _, off = r.home
+        assert r.keys.data_ptr() == kb[off:].data_ptr()
+    assert_bits_equal(rstream.sort_external(x, rcfg),
+                      port_np(tstream.sort_external(data(), tcfg, device="cpu")))
+    vals = v if kind == "array" else iter(np.array_split(v, 7))
+    for want, got in zip(rstream.sort_external_kv(x, v, rcfg, segment_stable=True),
+                         tstream.sort_external_kv(data(), vals, tcfg, segment_stable=True,
+                                                  device="cpu"), strict=True):
+        assert_bits_equal(want, port_np(got))

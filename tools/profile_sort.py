@@ -3,6 +3,7 @@
 
     python3 tools/profile_sort.py [--n 4194304] [--want values|order]
                                   [--case float32|nan|packed|lsd|stream]
+                                  [--order asc|desc]
 
 Sorts n keys (made on the card from a seed) once to warm up: float32 keys
 (with 5% NaN for "nan"), or a multi-key pair as ``chip_smoke.py`` phase 3 sorts it ("packed": int32
@@ -136,6 +137,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--n", type=int, default=None)
     parser.add_argument("--want", default="values", choices=("values", "order"))
+    parser.add_argument("--order", default="asc", choices=("asc", "desc"),
+                        help="the order of a single-key case (float32, nan, stream)")
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--case", default="float32",
                         choices=("float32", "nan", "packed", "lsd", "stream"))
@@ -149,7 +152,7 @@ def main() -> int:
     args.n = args.n or (1 << 23 if args.case == "stream" else 1 << 22)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(args.n, generator=gen, device="cuda")
-    keys, values, kw = x, None, dict(want=args.want)
+    keys, values, kw = x, None, dict(want=args.want, order=args.order)
     if args.case == "nan":
         x[torch.rand(args.n, generator=gen, device="cuda") < 0.05] = float("nan")
     elif args.case == "packed":
@@ -183,11 +186,12 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        torch.sort(first, stable=args.want == "order")
+        torch.sort(first, stable=args.want == "order", descending=kw["order"] == "desc")
         end.record()
         end.synchronize()
         libs.append(start.elapsed_time(end))
-    print(f"n={args.n} want={args.want}: wall {statistics.median(walls):.3f} ms per sort "
+    print(f"n={args.n} want={args.want} order={kw['order']}: wall "
+          f"{statistics.median(walls):.3f} ms per sort "
           f"(runs {', '.join(f'{w:.3f}' for w in walls)}); one torch.sort "
           f"{statistics.median(libs):.3f} ms")
     device_profile("  under the profiler, per sort:", sort, 3, args.top,
