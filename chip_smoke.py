@@ -5,12 +5,13 @@
 
 Phases, one line or more each:
   1. the card (nvidia-smi) and the build of the CUDA kernels from the
-     sources in this checkout (bitonic.cu and flash.cu, one nvcc each,
-     started together), with its time and the ptxas report; it fails if
-     ptxas reports spills in the wgmma flash kernel, or says that it
-     ignored setmaxnreg or serialized the wgmma instructions, or if any of
-     the 195 instantiations of the row-sort kernel or of the merge kernel
-     is missing or has a stack frame or spills;
+     sources in this checkout (flash.cu, and bitonic.cu as 11 translation
+     units: one nvcc each, all started together), with its time and the
+     ptxas report; it fails if ptxas reports spills in the wgmma flash
+     kernel, or says that it ignored setmaxnreg or serialized the wgmma
+     instructions, or if any of the 520 instantiations of the row-sort
+     kernel or of the merge kernel (32- and 64-bit) is missing or has a
+     stack frame or spills;
   2. each of the four bitonic kernels against its plain PyTorch twin on the
      card, bit for bit: the two row sorts at every row length 2..8192
      (1, 3 and a number of rows that is not a multiple of a CTA's) and at
@@ -28,7 +29,11 @@ Phases, one line or more each:
      the tensors it is timed on; the merges at the main path's shapes two
      ways, straight through ``bitonic._launch`` into outputs allocated once
      and through the wrapper, both on the merge tree's strided views, the
-     kernel held to its twin on them;
+     kernel held to its twin on them. Then the same checks at 8 bytes: the
+     int64, float64 and uint64 (by its lane) keys with every value type
+     (int32, uint32, float32, int64, uint64, float64), every row length,
+     stable on and off, uniform and special keys, contiguous and strided;
+     and the times at a 2^22 int64 sort's shapes with int64 values;
   3. ``repro_torch.sort`` through its entry point (the sort's main path),
      checked against torch.sort on the card: n = 2^22 float32 keys at the
      default limits, n = 2^22 int32 keys with 4 distinct values (imbalance
@@ -84,8 +89,26 @@ Phases, one line or more each:
      (the traced output must equal the untraced one). Last, traced sim
      (2^22) and stream (2^23) sorts: the span names of tests/test_obs.py,
      coverage >= 0.95, output equal to the untraced call;
-  7. one JSON line {"kernels": [...]} with each kernel's numbers, the card's
-     name and power limit, and, last, {"ok": true, "device": {...}}.
+  7. x64 mode through ``repro_torch.sort`` with SortLimits(x64=True), the
+     launch counts set to 0 before it and read after it (each of the four
+     kernels must launch with 8-byte keys or values): 2^27 int64 keys in
+     core against torch.sort; at 2^22, float64 keys with +-0.0 and +-inf
+     ascending and descending, uint64 over the full range, int64 with 4
+     distinct values (imbalance below 1.01), want="order" on a (8, 2^19)
+     int64 grid, int64 keys with a float64 payload, a packed (int64 id,
+     int32 time) pair of 60 bits (one int64 sort) and a 96-bit pair (LSD),
+     each exact; 2^21 float64 keys with 5% NaN against the same call on the
+     CPU, bit for bit; 2^23 int64 keys streamed from the host; the views
+     (topk against torch.topk, searchsorted of 4096 queries against
+     np.searchsorted, provenance() against the numpy decode of order());
+     a 2^22 argsort with PROVENANCE_INT32_CAP lowered, so its index is
+     int64. Each case prints its wall time and launches.
+Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
+bitonic kernels' 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's
+shapes, ``launches_x64`` the 8-byte launches of phase 7), the card's name
+and power limit, and, last, {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --phases 2,7   # a development run: 1, 2 and 7 only
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -129,6 +152,8 @@ def max_abs_err(a, b) -> float:
         raise AssertionError(f"shape/dtype differ: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
     if torch.equal(a.view(torch.int32), b.view(torch.int32)):
         return 0.0
+    if a.dtype == torch.uint64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
     wide = torch.float64 if a.dtype.is_floating_point else torch.int64
     err = float((a.to(wide) - b.to(wide)).abs().nan_to_num(float("inf")).max())
     raise AssertionError(f"kernel and twin differ (max abs err {err})")
@@ -193,8 +218,8 @@ def ptxas_entries(report: str) -> dict:
 
 
 # sort_rows_kernel<LOG_N, HAS_V, TB, K, V> and merge_rows_kernel<LOG_N2, HAS_V,
-# TB, K, V>; i = int32, j = uint32, f = float
-ENTRY = r"{}_rows_kernelILi(\d+)ELb([01])ELb([01])E([ijf])([ijf])E"
+# TB, K, V>; i = int32, j = uint32, f = float, l = int64, m = uint64, d = double
+ENTRY = r"{}_rows_kernelILi(\d+)ELb([01])ELb([01])E([ijfld])([ijfldm])E"
 SORT_ENTRY = re.compile(ENTRY.format("sort"))
 MERGE_ENTRY = re.compile(ENTRY.format("merge"))
 
@@ -216,11 +241,13 @@ def check_sort_ptxas(report: str) -> None:
     """Phase 1's check of bitonic.cu's ptxas report: every instantiation of
     the row-sort and of the merge kernel is there and keeps its registers
     in registers (no stack frame, no spills: a register array indexed at
-    run time would show there). Logs the registers per row length."""
+    run time would show there). Logs the registers per row length, the
+    most over the 4-byte and over the 8-byte key types."""
     from repro_torch.kernels import bitonic
 
     log_max, types = bitonic.MAX_ROW.bit_length() - 1, len(bitonic._TYPE_CODES)
-    want = log_max * (types + types + types * types)  # log N x (keys, kv, kv stable) types
+    # log N x (keys, kv with the values' bits in 4 or 8 bytes, kv stable) types
+    want = log_max * (types + 2 * types + types * types)
     entries = ptxas_entries(report)
     for kernel, pattern in (("sort_rows_kernel", SORT_ENTRY), ("merge_rows_kernel", MERGE_ENTRY)):
         found = {tuple(m.groups()): e for name, e in entries.items()
@@ -231,69 +258,92 @@ def check_sort_ptxas(report: str) -> None:
             raise AssertionError(f"ptxas report of bitonic.cu: {len(found)} {kernel} "
                                  f"instantiations (want {want}); " + "; ".join(bad))
         for log_n in range(1, log_max + 1):
-            regs = {kind: max(e["registers"] for (ln, v, tb, _, _), e in found.items()
-                              if int(ln) == log_n and (v, tb) == flags)
+            regs = {f"{kind} {width}": max(e["registers"] for (ln, v, tb, k, _), e in found.items()
+                                           if int(ln) == log_n and (v, tb) == flags
+                                           and (k in "ld") == (width == "64"))
+                    for width in ("32", "64")
                     for kind, flags in (("keys", ("0", "0")), ("kv", ("1", "0")),
                                         ("kv stable", ("1", "1")))}
             log(f"phase 1: ptxas: {kernel} N={1 << log_n}: registers (most over the "
-                f"key/value types) {regs}, no stack frame, no spills")
+                f"key/value types, by key bits) {regs}, no stack frame, no spills")
 
 
 # ------------------------------------------------------------------ phase 2
 
 
+# unsigned dtype -> (its signed lane, the top bit), as keyenc.to_lane
+LANES = {"uint32": ("int32", -(1 << 31)), "uint64": ("int64", -(1 << 63))}
+
+
 def rows_of(gen, rows, n, dtype, kind, device):
-    """Seeded (rows, n) keys: "uniform" over 2^21 values, "dup" over 5
-    (with +-0.0 ties among floats), "special" over 7: heavy duplicates
-    with +-0.0, +-inf and NaN among floats, the type's extremes among
-    integers."""
+    """Seeded (rows, n) keys: "uniform" over 2^21 values (4-byte types) or
+    2^63 (8-byte types), "dup" over 5 (with +-0.0 ties among floats),
+    "special" over 7: heavy duplicates with +-0.0, +-inf and NaN among
+    floats, the type's extremes among integers. Unsigned types are drawn
+    as their signed lane."""
     import torch
 
+    name = str(dtype).removeprefix("torch.")
+    lane = getattr(torch, LANES[name][0]) if name in LANES else dtype
+    wide = dtype.itemsize == 8
     if kind == "special":
         x = torch.randint(-3, 4, (rows, n), generator=gen, device=device)
         coin = torch.rand(x.shape, generator=gen, device=device) < 0.5
-        if dtype == torch.float32:
-            f = x.to(torch.float32)
+        if dtype.is_floating_point:
+            f = x.to(dtype)
             f = torch.where((x == 0) & coin, torch.full_like(f, -0.0), f)
             f = torch.where(x == 3, torch.full_like(f, float("inf")), f)
             f = torch.where(x == -3, torch.full_like(f, float("-inf")), f)
             return torch.where((x == 2) & coin, torch.full_like(f, float("nan")), f)
-        x = x.to(torch.int32)
-        x = torch.where(x == 3, torch.full_like(x, (1 << 31) - 1), x)
-        x = torch.where(x == -3, torch.full_like(x, -(1 << 31)), x)
-        return (x ^ (-(1 << 31))).view(torch.uint32) if dtype == torch.uint32 else x
-    if kind == "dup":
-        x = torch.randint(0, 5, (rows, n), generator=gen, device=device)
+        x = x.to(lane)
+        x = torch.where(x == 3, torch.full_like(x, torch.iinfo(lane).max), x)
+        x = torch.where(x == -3, torch.full_like(x, torch.iinfo(lane).min), x)
     else:
-        x = torch.randint(-(1 << 20), 1 << 20, (rows, n), generator=gen, device=device)
-    if dtype == torch.float32:
-        x = x.to(torch.float32) / 7
         if kind == "dup":
-            x = torch.where(torch.rand(x.shape, generator=gen, device=device) < 0.5, x, -x)
-        return x  # duplicates include +0.0 and -0.0
-    if dtype == torch.uint32:
-        return (x.to(torch.int32) ^ (-(1 << 31))).view(torch.uint32)
-    return x.to(dtype)
+            x = torch.randint(0, 5, (rows, n), generator=gen, device=device)
+        else:
+            top = 1 << (62 if wide else 20)
+            x = torch.randint(-top, top, (rows, n), generator=gen, device=device)
+        if dtype.is_floating_point:
+            x = x.to(dtype) / 7
+            if kind == "dup":
+                x = torch.where(torch.rand(x.shape, generator=gen, device=device) < 0.5, x, -x)
+            return x  # duplicates include +0.0 and -0.0
+        x = x.to(lane)
+    return (x ^ LANES[name][1]).view(dtype) if name in LANES else x
 
 
-def check_sorts(gen, device, errs: dict) -> None:
+def type_matrix(x64: bool):
+    """(key types, value types) of phase 2: the 32-bit kernels' (3 x 3),
+    or the 8-byte keys (int64, float64, and uint64 by its lane) with every
+    value type."""
+    import torch
+
+    narrow = (torch.int32, torch.uint32, torch.float32)
+    if not x64:
+        return narrow, narrow
+    return (torch.int64, torch.float64, torch.uint64), (*narrow, torch.int64, torch.uint64,
+                                                        torch.float64)
+
+
+def check_sorts(gen, device, errs: dict, x64: bool = False) -> None:
     """Both row sorts equal their twin bit for bit at every row length
     (row counts 1, 3 and one that leaves the last CTA short) and at the
     main path's and the widest rows' shapes (4096, 1024), (64, 2048),
-    (32, 4096) and (16, 8192): every key/value type pair, stable on and
-    off, uniform and special keys."""
+    (32, 4096) and (16, 8192): every key/value type pair of
+    ``type_matrix(x64)``, stable on and off, uniform and special keys."""
     import torch
     from repro_torch.kernels import bitonic
 
-    types = (torch.int32, torch.uint32, torch.float32)
+    key_types, value_types = type_matrix(x64)
 
     def check(rows, n):
-        for kd in types:
+        for kd in key_types:
             for kind in ("uniform", "special"):
                 k = rows_of(gen, rows, n, kd, kind, device)
                 e = max_abs_err(bitonic.bitonic_sort_rows(k), bitonic.sort_rows_twin(k))
                 errs["bitonic_sort_rows"] = max(errs["bitonic_sort_rows"], e)
-                for vd in types:
+                for vd in value_types:
                     v = rows_of(gen, rows, n, vd, "special", device)
                     for stable in (True, False):
                         ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
@@ -301,7 +351,8 @@ def check_sorts(gen, device, errs: dict) -> None:
                         e = max(max_abs_err(ok, tk), max_abs_err(ov, tv))
                         errs["bitonic_sort_rows_kv"] = max(errs["bitonic_sort_rows_kv"], e)
 
-    what = "3 x 3 types, stable on/off, uniform and special"
+    what = (f"{len(key_types)} x {len(value_types)} types{' (8-byte keys)' if x64 else ''}, "
+            f"stable on/off, uniform and special")
     for log_n in range(1, bitonic.MAX_ROW.bit_length()):
         n = 1 << log_n
         per_cta = bitonic.sort_rows_per_cta(n)
@@ -317,29 +368,31 @@ def check_sorts(gen, device, errs: dict) -> None:
     torch.cuda.synchronize()
 
 
-def time_sorts(gen, rows: int, device) -> dict:
-    """Both row sorts on (rows, 1024) float32 keys (the kv sort with int32
-    provenance values, stable): each kernel's output against its twin's,
-    bit for bit, on the tensors it is timed on; kernel, twin and torch.sort
-    times and the bound."""
+def time_sorts(gen, rows: int, device, kd=None, vd=None) -> dict:
+    """Both row sorts on (rows, 1024) keys of ``kd`` (float32), the kv sort
+    with provenance values of ``vd`` (int32), stable: each kernel's output
+    against its twin's, bit for bit, on the tensors it is timed on;
+    kernel, twin and torch.sort times and the bound."""
     import torch
     from repro_torch.kernels import bitonic
 
-    keys = rows_of(gen, rows, 1024, torch.float32, "uniform", device)
-    vals = torch.arange(keys.numel(), dtype=torch.int32, device=device).reshape(keys.shape)
+    kd, vd = kd or torch.float32, vd or torch.int32
+    keys = rows_of(gen, rows, 1024, kd, "uniform", device)
+    vals = torch.arange(keys.numel(), dtype=vd, device=device).reshape(keys.shape)
     numbers = {}
     for name, kern, twin, lib, moved in (
             ("bitonic_sort_rows", lambda: bitonic.bitonic_sort_rows(keys),
-             lambda: bitonic.sort_rows_twin(keys), lambda: torch.sort(keys, dim=-1), 2),
+             lambda: bitonic.sort_rows_twin(keys), lambda: torch.sort(keys, dim=-1),
+             2 * kd.itemsize),
             ("bitonic_sort_rows_kv", lambda: bitonic.bitonic_sort_rows_kv(keys, vals),
              lambda: bitonic.sort_rows_twin(keys, vals),
-             lambda: torch.sort(keys, dim=-1, stable=True), 4)):
+             lambda: torch.sort(keys, dim=-1, stable=True), 2 * (kd.itemsize + vd.itemsize))):
         got, want = kern(), twin()
         if name == "bitonic_sort_rows":
             got, want = (got,), (want,)
         err = max(max_abs_err(g, w) for g, w in zip(got, want))
         del got, want
-        b_ms, b_by = bound(moved * keys.numel() * 4, network_ops(rows, 1024, merge=False))
+        b_ms, b_by = bound(moved * keys.numel(), network_ops(rows, 1024, merge=False))
         numbers[name] = dict(ms=time_ms(kern), plain_ms=time_ms(twin, reps=3, batch=1),
                              library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
                              max_abs_err=err, shapes=f"({rows}, 1024)")
@@ -363,24 +416,25 @@ def merge_operands(gen, rows, n, dtype, kind, device, strided: bool):
     return make(rows), make(rows)
 
 
-def check_merges(gen, device, errs: dict) -> None:
+def check_merges(gen, device, errs: dict, x64: bool = False) -> None:
     """Both merges equal their twin bit for bit into every row length 2n
     (row counts 1, 3 and one that leaves the last CTA short) and at the
-    main path's shapes: every key/value type pair, stable on and off,
-    uniform and special keys, contiguous operands and strided views."""
+    main path's shapes: every key/value type pair of ``type_matrix(x64)``,
+    stable on and off, uniform and special keys, contiguous operands and
+    strided views."""
     import torch
     from repro_torch.kernels import bitonic
 
-    types = (torch.int32, torch.uint32, torch.float32)
+    key_types, value_types = type_matrix(x64)
 
     def check(rows, n):
         for strided in (False, True):
-            for kd in types:
+            for kd in key_types:
                 for kind in ("uniform", "special"):
                     a, b = merge_operands(gen, rows, n, kd, kind, device, strided)
                     e = max_abs_err(bitonic.bitonic_merge_rows(a, b), bitonic.merge_rows_twin(a, b))
                     errs["bitonic_merge_rows"] = max(errs["bitonic_merge_rows"], e)
-                    for vd in types:
+                    for vd in value_types:
                         av, bv = merge_operands(gen, rows, n, vd, "values", device, strided)
                         for stable in (True, False):
                             ok, ov = bitonic.bitonic_merge_rows_kv(a, av, b, bv, stable=stable)
@@ -388,7 +442,8 @@ def check_merges(gen, device, errs: dict) -> None:
                             e = max(max_abs_err(ok, tk), max_abs_err(ov, tv))
                             errs["bitonic_merge_rows_kv"] = max(errs["bitonic_merge_rows_kv"], e)
 
-    what = "3 x 3 types, stable on/off, uniform and special, contiguous and strided"
+    what = (f"{len(key_types)} x {len(value_types)} types{' (8-byte keys)' if x64 else ''}, "
+            f"stable on/off, uniform and special, contiguous and strided")
     for log_n2 in range(1, bitonic.MAX_ROW.bit_length()):
         n2 = 1 << log_n2
         per_cta = bitonic.sort_rows_per_cta(n2)
@@ -409,37 +464,39 @@ def check_merges(gen, device, errs: dict) -> None:
 MERGE_SHAPES = ((2048, 1024), (1024, 2048), (512, 4096))
 
 
-def time_merges(gen, device) -> dict:
-    """Both merges at MERGE_SHAPES on float32 keys (the kv merge with int32
-    provenance values, stable), on the merge tree's strided views: the
-    kernel straight through ``bitonic._launch`` into outputs allocated
-    once, held to its twin bit for bit on the tensors it is timed on, and
-    the whole wrapper call; the twin, torch.sort on the same rows and the
-    bound. Sums over the three shapes."""
+def time_merges(gen, device, kd=None, vd=None) -> dict:
+    """Both merges at MERGE_SHAPES on keys of ``kd`` (float32), the kv merge
+    with provenance values of ``vd`` (int32), stable, on the merge tree's
+    strided views: the kernel straight through ``bitonic._launch`` into
+    outputs allocated once, held to its twin bit for bit on the tensors it
+    is timed on, and the whole wrapper call; the twin, torch.sort on the
+    same rows and the bound. Sums over the three shapes."""
     import torch
     from repro_torch.kernels import bitonic
 
+    kd, vd = kd or torch.float32, vd or torch.int32
+    kc, vc = bitonic._TYPE_CODES[kd], bitonic._TYPE_CODES[vd]
     numbers = {}
     for name, kv in (("bitonic_merge_rows", False), ("bitonic_merge_rows_kv", True)):
         tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         for rows, n in MERGE_SHAPES:
-            a, b = merge_operands(gen, rows, n, torch.float32, "uniform", device, True)
-            ids = torch.arange(2 * rows * n, dtype=torch.int32, device=device).view(2 * rows, n)
+            a, b = merge_operands(gen, rows, n, kd, "uniform", device, True)
+            ids = torch.arange(2 * rows * n, dtype=vd, device=device).view(2 * rows, n)
             av, bv = ids[0::2], ids[1::2]
-            ok = torch.empty((rows, 2 * n), device=device)
-            ov = torch.empty((rows, 2 * n), dtype=torch.int32, device=device)
+            ok = torch.empty((rows, 2 * n), dtype=kd, device=device)
+            ov = torch.empty((rows, 2 * n), dtype=vd, device=device)
             both = torch.cat([a, b], dim=-1)
             stream = bitonic._stream(a)
             if kv:
                 args = (a.data_ptr(), a.stride(0), av.data_ptr(), av.stride(0), b.data_ptr(),
                         b.stride(0), bv.data_ptr(), bv.stride(0), ok.data_ptr(), ov.data_ptr(),
-                        rows, n, 2, 0, 1, stream)
+                        rows, n, kc, vc, 1, stream)
                 wrapper = lambda: bitonic.bitonic_merge_rows_kv(a, av, b, bv)
                 twin = lambda: bitonic.merge_rows_twin(a, b, av, bv)
                 lib = lambda: torch.sort(both, dim=-1, stable=True)
             else:
                 args = (a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), ok.data_ptr(),
-                        rows, n, 2, stream)
+                        rows, n, kc, stream)
                 wrapper = lambda: bitonic.bitonic_merge_rows(a, b)
                 twin = lambda: bitonic.merge_rows_twin(a, b)
                 lib = lambda: torch.sort(both, dim=-1)
@@ -450,12 +507,13 @@ def time_merges(gen, device) -> dict:
             if kv:
                 err = max(err, max_abs_err(ov, want[1]))
             del want
-            moved = (4 if kv else 2) * both.numel() * 4
+            moved = 2 * both.numel() * (kd.itemsize + (vd.itemsize if kv else 0))
             b_ms, b_by = bound(moved, network_ops(rows, 2 * n, merge=True))
             t = dict(ms=time_ms(kern), wrapper_ms=time_ms(wrapper),
                      plain_ms=time_ms(twin, reps=3, batch=1), library_ms=time_ms(lib),
                      bound_ms=b_ms)
-            log(f"phase 2: {name} ({rows}, {n}) -> {2 * n}, strided views: kernel through "
+            log(f"phase 2: {name} {dtype_name(kd)} ({rows}, {n}) -> {2 * n}, strided views: "
+                f"kernel through "
                 f"_launch {t['ms']:.4f} ms, through the wrapper {t['wrapper_ms']:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}), twin {t['plain_ms']:.4f} ms, torch.sort "
                 f"{t['library_ms']:.4f} ms, max abs err {err}")
@@ -465,15 +523,25 @@ def time_merges(gen, device) -> dict:
     return numbers
 
 
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 def check_kernels(device) -> dict:
-    """Phase 2: every kernel equals its twin exactly; times at main-path
-    shapes. Returns per-kernel numbers for the final JSON line."""
+    """Phase 2: every kernel equals its twin exactly, the 32-bit and the
+    8-byte instantiations; times at main-path shapes, 32- and 64-bit.
+    Returns per-kernel numbers for the final JSON line (the 64-bit ones
+    under ``*_x64``)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(0)
     errs = {name: 0.0 for name in REPLACES}
     check_sorts(gen, device, errs)
     check_merges(gen, device, errs)
+    t0 = time.perf_counter()
+    check_sorts(gen, device, errs, x64=True)
+    check_merges(gen, device, errs, x64=True)
+    log(f"phase 2: the 8-byte instantiations checked in {time.perf_counter() - t0:.2f} s")
 
     # Timing at the shapes one sort of n = 2^22 float32 keys (p = 8,
     # tile = 1024) gives each kernel: one sort launch on (4096, 1024), and
@@ -486,13 +554,22 @@ def check_kernels(device) -> dict:
     numbers = time_sorts(gen, 4096, device)
     for name, num in time_merges(gen, device).items():
         numbers[name] = dict(num, max_abs_err=errs[name])
+    # the 8-byte instantiations at the shapes of a 2^22 int64 sort, with
+    # int64 values (the kv kernels' widest case)
+    wide = time_sorts(gen, 4096, device, torch.int64, torch.int64)
+    wide.update(time_merges(gen, device, torch.int64, torch.int64))
+    for name, num in wide.items():
+        numbers[name].update({f"{k}_x64": v for k, v in num.items()
+                              if k in ("ms", "plain_ms", "library_ms", "bound_ms", "wrapper_ms")})
     for name, num in numbers.items():
-        via = (f"through _launch {num['ms']:.4f} ms, through the wrapper "
-               f"{num['wrapper_ms']:.4f} ms" if "wrapper_ms" in num
-               else f"through the wrapper {num['ms']:.4f} ms")
-        log(f"phase 2: {name} {num['shapes']}: kernel {via}, bound {num['bound_ms']:.4f} ms "
-            f"({num['bound_by']}), twin {num['plain_ms']:.4f} ms, torch.sort "
-            f"{num['library_ms']:.4f} ms, max abs err {num['max_abs_err']}")
+        for sfx, what in (("", "float32 keys, int32 values"), ("_x64", "int64 keys and values")):
+            via = (f"through _launch {num['ms' + sfx]:.4f} ms, through the wrapper "
+                   f"{num['wrapper_ms' + sfx]:.4f} ms" if "wrapper_ms" in num
+                   else f"through the wrapper {num['ms' + sfx]:.4f} ms")
+            log(f"phase 2: {name} {num['shapes']} ({what}): kernel {via}, bound "
+                f"{num['bound_ms' + sfx]:.4f} ms ({num['bound_by']}), twin "
+                f"{num['plain_ms' + sfx]:.4f} ms, torch.sort {num['library_ms' + sfx]:.4f} ms, "
+                f"max abs err {num['max_abs_err']}")
     return numbers
 
 
@@ -1019,6 +1096,177 @@ def run_stream(device) -> dict:
     return total
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def run_x64(device) -> dict:
+    """Phase 7: x64 mode through ``repro_torch.sort`` with
+    ``SortLimits(x64=True)`` (p = 8, tile = 1024), and the result's views.
+    The launch counts are set to 0 before it and read after it: each of the
+    four bitonic kernels must have launched with 8-byte keys or values
+    (``wide_launches``). Returns those 8-byte launches per kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.core import keyenc
+    from repro_torch.kernels import bitonic
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    lim = repro_torch.SortLimits(x64=True)
+    n = 1 << 22
+    i64 = dict(dtype=torch.int64, generator=gen, device=device)
+
+    def timed(label, *args, **kwargs):
+        before = {fn.__name__: (fn.launches, fn.wide_launches) for fn in bitonic.KERNELS}
+        kwargs.setdefault("limits", lim)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = repro_torch.sort(*args, device=device, **kwargs)
+        out.keys  # a stream result materializes here
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {fn.__name__: (fn.launches - before[fn.__name__][0],
+                             fn.wide_launches - before[fn.__name__][1]) for fn in bitonic.KERNELS}
+        log(f"phase 7: {label}: {wall * 1e3:.3f} ms wall, backend {out.meta.backend}, "
+            f"imbalance {out.imbalance():.6f}, retries {out.meta.retries}, launches (all, 8-byte) "
+            f"{got}")
+        return out
+
+    def exact(label, ok):
+        if not ok:
+            raise AssertionError(f"phase 7: {label}: differs from torch.sort on the card")
+
+    def same_bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+    bitonic.reset_launches()
+
+    big = torch.randint(-(1 << 62), 1 << 62, (1 << 27,), **i64)
+    out = timed("n=2^27 int64 (1 GiB), stream_threshold=None", big,
+                limits=dataclasses.replace(lim, stream_threshold=None))
+    t0 = time.perf_counter()
+    ref = torch.sort(big).values
+    torch.cuda.synchronize()
+    log(f"phase 7: torch.sort of the same keys: {(time.perf_counter() - t0) * 1e3:.3f} ms wall")
+    exact("2^27 int64", out.meta.backend == "sim" and torch.equal(out.keys, ref))
+    del big, out, ref
+
+    f = torch.randn(n, dtype=torch.float64, generator=gen, device=device) * 1e100
+    f[::7], f[::11], f[::65537], f[::65539] = 0.0, -0.0, float("inf"), float("-inf")
+    ref = torch.sort(f).values
+    asc = timed("n=2^22 float64 with +-0.0 and +-inf, asc", f)
+    desc = timed("n=2^22 float64 with +-0.0 and +-inf, desc", f, order="desc")
+    exact("float64 asc", torch.equal(asc.keys, ref))
+    exact("float64 desc", torch.equal(desc.keys, ref.flip(0)))
+
+    lane = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), **i64)
+    u = (lane ^ (-(1 << 63))).view(torch.uint64)
+    out = timed("n=2^22 uint64 over the full range", u)
+    want = (torch.sort(lane).values ^ (-(1 << 63))).view(torch.uint64)
+    exact("uint64", out.keys.dtype == torch.uint64 and same_bits(out.keys, want))
+
+    dup = torch.randint(0, 4, (n,), **i64)
+    out = timed("n=2^22 int64, 4 distinct values", dup)
+    exact("int64 duplicates", torch.equal(out.keys, torch.sort(dup).values))
+    if not out.imbalance() < 1.01:
+        raise AssertionError(f"phase 7: imbalance {out.imbalance()} on 4 int64 values")
+
+    keys = torch.randint(-(1 << 62), 1 << 62, (n,), **i64)
+    grid = keys.view(8, n // 8)
+    order = timed('n=2^22 int64 want="order", a (8, 2^19) grid', grid, want="order")
+    perm = torch.sort(keys, stable=True).indices
+    exact("int64 order", torch.equal(order.order(), perm.to(torch.int32))
+          and torch.equal(order.keys, keys[perm]))
+
+    vals = torch.rand(n, dtype=torch.float64, generator=gen, device=device)
+    out = timed("n=2^22 int64 keys + float64 payload", keys, vals)
+    got_k, got_v = canon_pairs(out.keys, out.values)
+    want_k, want_v = canon_pairs(keys, vals)
+    exact("int64 + float64 payload", torch.equal(got_k, want_k) and torch.equal(got_v, want_v))
+    del vals, out
+
+    ids = torch.randint(0, 1 << 40, (n,), **i64)
+    times = torch.randint(0, 1 << 20, (n,), dtype=torch.int32, generator=gen, device=device)
+    for i in range(2):  # the first call of a shape loads its kernels
+        out = timed(f"packed (int64 ids in [0, 2^40) asc, int32 times desc), want=order, "
+                    f"run {i + 1}", (ids, times), order=("asc", "desc"), want="order")
+    spec = out.meta.plan.packspec
+    if out.meta.multikey != "packed" or spec.total_bits != 60 or spec.pack_dtype != torch.int64:
+        raise AssertionError(f"phase 7: the ids/times pair did not pack into one int64 sort: "
+                             f"{out.meta.plan.explain()}")
+    check_lex("x64 packed order", out, (ids, times), (False, True), want="order")
+    wide = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), **i64)
+    full = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32, generator=gen,
+                         device=device)
+    out = timed("LSD (int64 full range asc, int32 full range asc): 96 bits", (wide, full))
+    if out.meta.multikey != "lsd":
+        raise AssertionError("phase 7: a tuple over 63 bits did not take the LSD passes")
+    check_lex("x64 LSD", out, (wide, full), (False, False))
+    del ids, times, wide, full, out
+
+    nan = torch.randn(1 << 21, dtype=torch.float64, generator=gen, device=device)
+    nan[torch.rand(nan.shape, generator=gen, device=device) < 0.05] = float("nan")
+    got = timed("n=2^21 float64, 5% NaN, keys-only", nan)
+    t0 = time.perf_counter()
+    want = repro_torch.sort(nan.cpu(), device="cpu", limits=lim)
+    if not (same_bits(got.keys.cpu(), want.keys) and (got.counts == want.counts).all()):
+        raise AssertionError("phase 7: NaN keys: the card's float64 sort differs from the CPU's")
+    log(f"phase 7: NaN keys: card equals CPU bit for bit ({int(want.keys.isnan().sum())} NaN "
+        f"kept of {int(nan.isnan().sum())}; the CPU took {time.perf_counter() - t0:.3f} s)")
+
+    host = torch.randint(-(1 << 62), 1 << 62, (1 << 23,), **i64)
+    out = timed("n=2^23 int64 streamed from the host, default limits", host.cpu())
+    exact("2^23 int64 stream", out.meta.backend == "stream"
+          and torch.equal(out.keys, torch.sort(host).values.cpu()))
+    del host, out
+
+    # the views on the 2^22 results
+    topk = asc.topk(1000)
+    exact("topk", topk.device == f.device and torch.equal(topk, torch.topk(f, 1000).values))
+    exact("topk smallest", torch.equal(desc.topk(1000, largest=False),
+                                       torch.topk(f, 1000, largest=False).values))
+    q = f[torch.randint(0, n, (4096,), generator=gen, device=device)]
+    q[:6] = torch.tensor([0.0, -0.0, float("nan"), float("inf"), float("-inf"), 1e-300])
+    ka, kd, qn = asc.keys.cpu().numpy(), desc.keys.cpu().numpy(), q.cpu().numpy()
+    for side, other in (("left", "right"), ("right", "left")):
+        got_a, got_d = asc.searchsorted(q, side), desc.searchsorted(q, side)
+        want_a = np.searchsorted(ka, qn, side=side)
+        want_d = n - np.searchsorted(kd[::-1], qn, side=other)
+        if got_a.device != f.device or not (np.array_equal(got_a.cpu().numpy(), want_a)
+                                            and np.array_equal(got_d.cpu().numpy(), want_d)):
+            raise AssertionError(f"phase 7: searchsorted side={side} differs from numpy's")
+    proc, idx = order.provenance()
+    o = order.order().cpu().numpy()
+    if not (np.array_equal(proc.cpu().numpy(), o // (n // 8))
+            and np.array_equal(idx.cpu().numpy(), o % (n // 8))):
+        raise AssertionError("phase 7: provenance() differs from the numpy decode of order()")
+    log("phase 7: views: topk = torch.topk, searchsorted of 4096 queries (ties, +-0.0, NaN, "
+        "+-inf) = np.searchsorted in both orders and sides, provenance() of the (8, 2^19) "
+        "grid = the numpy decode of order(), all on the card")
+    del f, asc, desc, order
+
+    # past PROVENANCE_INT32_CAP the argsort's index is int64: the cap is
+    # lowered here to reach that on a 2^22 sort (the int64-value kv kernels)
+    cap = keyenc.PROVENANCE_INT32_CAP
+    keyenc.PROVENANCE_INT32_CAP = 1 << 20
+    try:
+        out = timed("n=2^22 int64 want=order, provenance cap lowered to 2^20", keys, want="order")
+    finally:
+        keyenc.PROVENANCE_INT32_CAP = cap
+    exact("int64 provenance", out.order().dtype == torch.int64 and torch.equal(out.order(), perm))
+
+    launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    wide = {fn.__name__: fn.wide_launches for fn in bitonic.KERNELS}
+    log(f"phase 7: launches over the x64 phase: {launches}; with 8-byte keys or values: {wide}")
+    missing = [k for k, v in wide.items() if v == 0]
+    if missing:
+        raise AssertionError(f"phase 7: kernels never launched at 8 bytes: {missing}")
+    return wide
+
+
+
 def check_traces(device, x) -> None:
     """Phase 6: SortLimits(trace=True) on a 2^22 sim sort and a 2^23 stream
     sort on the card: the spans of tests/test_obs.py, coverage >= 0.95
@@ -1044,9 +1292,21 @@ def check_traces(device, x) -> None:
             raise AssertionError(f"traced {label}: output differs from the untraced call")
 
 
+ALL_PHASES = frozenset(range(1, 8))
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
+    ap.add_argument("--phases", default="all",
+                    help="for a development run, a comma-separated subset of 1-7: phase 1 "
+                         "always runs, and phase 2 unless 1 alone is named; a partial run "
+                         "prints no result lines")
+    arg = ap.parse_args().phases
+    phases = ALL_PHASES if arg == "all" else frozenset({1, *map(int, arg.split(","))})
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1078,19 +1338,31 @@ def main() -> int:
             log("phase 1: ptxas:", line.strip())
     check_ptxas(reports["flash"])
     check_sort_ptxas(reports["bitonic"])
+    if phases == {1}:
+        return 0
 
     numbers = check_kernels(device)
+    if phases != ALL_PHASES:  # a partial run (development): no result lines
+        for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
+                           (6, run_stream), (7, run_x64)):
+            if phase in phases:
+                run(device)
+        return 0
     launches = run_main_path(device)
     flash_num = check_flash(device)
     serve = run_serve(device)
     torch.cuda.empty_cache()
     run_stream(device)
+    torch.cuda.empty_cache()
+    launches_x64 = run_x64(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
              launches=launches[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
-             library_ms=num["library_ms"])
+             library_ms=num["library_ms"], launches_x64=launches_x64[name],
+             ms_x64=num["ms_x64"], plain_ms_x64=num["plain_ms_x64"],
+             bound_ms_x64=num["bound_ms_x64"], library_ms_x64=num["library_ms_x64"])
         for name, num in numbers.items()
     ]
     kernels.append(dict(

@@ -11,10 +11,12 @@ A port of the JAX package ``repro``, module for module::
 The sort covers the sim backend and the out-of-core stream backend
 (``repro_torch.stream``: inputs above ``SortLimits.stream_threshold``,
 ``where="stream"`` and iterators of arrays, with CPU tensors out): flat or
-(p, n_local) keys of 8-32 bit ints and floats, ascending or descending,
-values or argsort, with the overflow ladder; tuples of key columns (packed
-into one int32 sort or as LSD passes); the device and the host decode;
-phase traces and metrics (``repro_torch.obs``). The model tier serves dense GQA decoders
+(p, n_local) keys of 8-32 bit ints and floats, and in x64 mode
+(``enable_x64``) of 64-bit ones, ascending or descending, values or
+argsort, with the overflow ladder; tuples of key columns (packed into one
+int32 or int64 sort, or as LSD passes); the device and the host decode;
+the result's views (``topk``, ``searchsorted``, ``provenance``); phase
+traces and metrics (``repro_torch.obs``). The model tier serves dense GQA decoders
 (``repro_torch.models.model.Model``, ``repro_torch.serve.engine``), with
 prefill attention on a CUDA flash kernel. What neither covers raises
 NotImplementedError naming the ROADMAP.md item that ports it.
@@ -31,6 +33,9 @@ _EXPORTS = {
     "register_backend": "core.planner",
     "SortMeta": "core.result", "SortOutput": "core.result",
     "SortConfig": "core.splitters",
+    "encode_provenance": "core.api", "decode_provenance": "core.api",
+    "load_imbalance": "core.api",
+    "enable_x64": "core.x64", "x64_enabled": "core.x64", "x64_mode": "core.x64",
 }
 
 __all__ = list(_EXPORTS)

@@ -43,10 +43,26 @@ Decode (``SortLimits.decode``): "device" (default) builds the output on
 the sort's device; "host" copies the result grid to the CPU and decodes
 it with numpy, as ``repro``'s legacy path does. Both give the same bits;
 the host decode returns CPU tensors.
+
+x64 mode (``core.x64``): int64, uint64 and float64 keys and values are
+refused at the door with ``repro``'s TypeError unless the mode is on
+(``enable_x64()``, ``REPRO_X64=1``, ``x64_mode()`` for a block, or
+``SortLimits(x64=True)`` for one request; ``SortLimits(x64=False)`` keeps
+a request at 32 bits). In the mode they sort through the 64-bit
+instantiations of the bitonic kernels; tuples pack into one int64 sort up
+to 63 bits; an argsort of more than 2^31 elements returns int64 indices.
+
+Views (``SortOutput.topk``, ``.searchsorted``, ``.provenance``) and
+``encode_provenance`` / ``decode_provenance`` / ``load_imbalance`` are
+``repro``'s, on tensors.
 """
 from __future__ import annotations
 
-from repro_torch.core import planner
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core import keyenc, planner
+from repro_torch.core import x64 as _x64
 from repro_torch.core.planner import SortLimits, SortPlan
 from repro_torch.core.result import SortOutput
 from repro_torch.core.splitters import SortConfig
@@ -75,3 +91,29 @@ def plan(keys, values=None, *, order="asc", want="values", where=None,
 def explain(keys, values=None, **kwargs) -> str:
     """Human-readable rendering of ``plan(...)``."""
     return plan(keys, values, **kwargs).explain()
+
+
+# ---------------------------------------------------------- provenance
+
+
+def encode_provenance(p: int, n_local: int, device=None) -> torch.Tensor:
+    """(p, n_local) index payload: global position = proc * n_local + local
+    index, unique and increasing, so a kv sort carrying it is exactly
+    stable and each element's (processor, location) can be recovered. int32
+    up to ``keyenc.PROVENANCE_INT32_CAP`` elements; past that int64, which
+    needs x64 mode (``keyenc.provenance_dtype`` raises otherwise)."""
+    dt = keyenc.provenance_dtype(p * n_local, x64=_x64.x64_enabled())
+    return torch.arange(p * n_local, dtype=dt, device=_device.resolve(device)).reshape(p, n_local)
+
+
+def decode_provenance(payload: torch.Tensor, n_local: int):
+    """(processor, local index) of each provenance value."""
+    return payload // n_local, payload % n_local
+
+
+def load_imbalance(counts) -> torch.Tensor:
+    """max/mean shard size; 1.0 is perfect balance (paper Table II). A
+    float32 scalar (float64 for 64-bit counts), as ``repro``'s."""
+    c = planner.as_tensor(counts)
+    wide = torch.float64 if c.dtype.itemsize == 8 else torch.float32
+    return c.max().to(wide) / torch.clamp(c.to(wide).mean(), min=1)

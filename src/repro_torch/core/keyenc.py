@@ -8,26 +8,31 @@ Counterpart of ``repro/core/keyenc.py``:
   * argsort    -> the payload is the flat global index (provenance); the
     kv sort is exactly stable for unique increasing payloads.
   * multi-key  -> ``plan_pack`` / ``pack_keys``: when the tuple's measured
-    (or declared, ``SortLimits.key_bits``) bit widths fit the 31-bit
-    budget, the columns fuse into ONE non-negative int32 key, each a bit
-    field holding its monotone unsigned rank (sign-xor for ints, the IEEE
-    total-order trick for float32, minus the measured minimum), reversed
-    in place for a descending key; else the planner runs LSD passes.
-    The rank arithmetic runs in int64 on the columns' device; the
-    measurement is one host read for all columns.
-  * lanes      -> ``to_lane`` / ``from_lane``: uint16 and uint32 keys and
-    values travel as int16 and int32 with the top bit flipped, a monotone
-    bijection that maps the dtype's maximum onto the lane's maximum (so the
-    padding sentinel stays the sentinel) and commutes with ``flip``.
-    PyTorch has no comparisons, ``where`` or ``searchsorted`` on those
-    unsigned dtypes. Every other admitted dtype is its own lane.
+    (or declared, ``SortLimits.key_bits``) bit widths fit the pack budget
+    (31 bits; 63 in x64 mode, ``core.x64``), the columns fuse into ONE
+    non-negative integer key (int32 up to 31 bits, int64 above:
+    ``PackSpec.pack_dtype``), each a bit field holding its monotone
+    unsigned rank (sign-xor for ints, the IEEE total-order trick for
+    floats, minus the measured minimum), reversed in place for a
+    descending key; else the planner runs LSD passes. The rank arithmetic
+    runs in int64 on the columns' device: a 4-byte column's rank is its
+    unsigned 32-bit rank; an 8-byte column's is ``repro``'s unsigned
+    64-bit rank minus 2^63 (PyTorch has no unsigned 64-bit arithmetic),
+    and the 63-bit budget keeps each field's ``rank - lo`` below 2^63.
+    The measurement is one host read for all columns.
+  * lanes      -> ``to_lane`` / ``from_lane``: uint16, uint32 and uint64
+    keys and values travel as int16, int32 and int64 with the top bit
+    flipped, a monotone bijection that maps the dtype's maximum onto the
+    lane's maximum (so the padding sentinel stays the sentinel) and
+    commutes with ``flip``. PyTorch has no comparisons, ``where`` or
+    ``searchsorted`` on those unsigned dtypes. Every other admitted dtype
+    is its own lane.
 
 ``decode_grid`` runs on the sort's device: the compaction of the padded
 (p, W) result grid, the argsort tie fix, the inverse flip and the unpack
 of packed keys (``unpack_fields``). ``flip_np`` / ``decode_np`` /
 ``unpack_np`` are the numpy twins of ``decode="host"``; ``unpack_chunk``
-unpacks one output chunk of the stream backend. 64-bit packs (x64 mode)
-are not ported.
+unpacks one output chunk of the stream backend.
 """
 from __future__ import annotations
 
@@ -38,15 +43,12 @@ import torch
 
 from repro_torch.core.local_sort import segment_stable_kv
 
-_LANES = {torch.uint16: (torch.int16, -(1 << 15)), torch.uint32: (torch.int32, -(1 << 31))}
+_LANES = {torch.uint16: (torch.int16, -(1 << 15)), torch.uint32: (torch.int32, -(1 << 31)),
+          torch.uint64: (torch.int64, -(1 << 63))}
 
 PROVENANCE_INT32_CAP = 1 << 31
-"""Largest element count an int32 provenance payload can index."""
-
-
-class X64NotPortedError(TypeError, NotImplementedError):
-    """A 64-bit dtype or index: ``repro`` refuses it at the door with a
-    TypeError unless its x64 mode is on, and that mode is not ported."""
+"""Largest element count an int32 provenance payload can index (read at
+each call, so a test can lower it instead of allocating 2^31 elements)."""
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -76,8 +78,8 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[idx]
 
 
-_SIGN_BITS = {torch.float32: (torch.int32, -(1 << 31)), torch.float16: (torch.int16, -(1 << 15)),
-              torch.bfloat16: (torch.int16, -(1 << 15))}
+_SIGN_BITS = {torch.float64: (torch.int64, -(1 << 63)), torch.float32: (torch.int32, -(1 << 31)),
+              torch.float16: (torch.int16, -(1 << 15)), torch.bfloat16: (torch.int16, -(1 << 15))}
 
 
 def flip(x: torch.Tensor) -> torch.Tensor:
@@ -105,41 +107,56 @@ def decode_np(keys: np.ndarray, descending: bool) -> np.ndarray:
     return flip_np(keys) if descending else keys
 
 
-def provenance_dtype(n: int) -> torch.dtype:
+def provenance_dtype(n: int, *, x64: bool = False) -> torch.dtype:
     """The index dtype of an n-element provenance payload: int32 up to
-    2^31 elements; past that it would need int64 (x64 mode)."""
+    ``PROVENANCE_INT32_CAP`` elements; past that int64, which only x64 mode
+    admits (``repro``'s TypeError otherwise: a wrapped int32 index would
+    corrupt every permutation past 2^31)."""
     if n <= PROVENANCE_INT32_CAP:
         return torch.int32
-    raise X64NotPortedError(
-        f"provenance payload for n={n} elements overflows int32 (more than "
-        f"2^31 global positions) and needs int64, which is x64 mode: not "
-        f"ported to repro_torch yet (ROADMAP.md §1, item 2)"
-    )
+    if not x64:
+        raise TypeError(
+            f"provenance payload for n={n} elements overflows int32 "
+            f"(more than 2^31 global positions): the index payload must "
+            f"be int64, which needs x64 mode. Opt in with "
+            f"repro_torch.enable_x64(), REPRO_X64=1, or SortLimits(x64=True)."
+        )
+    return torch.int64
 
 
 # ------------------------------------------------- multi-key bit packing
 
 PACK_BUDGET_BITS = 31
-"""The packed key is a non-negative int32: 31 usable bits. Wider tuples
-run as LSD passes. Staying non-negative keeps the packed space below the
-padding sentinel, except for the one saturated value of an exactly full
-pack (``check_payload_keys``)."""
+"""The packed key is a non-negative integer: 31 usable bits in an int32
+by default. Wider tuples run as LSD passes. Staying non-negative keeps the
+packed space below the padding sentinel, except for the one saturated
+value of an exactly full pack (``check_payload_keys``)."""
 
 PACK_BUDGET_BITS_X64 = 63
-"""``repro``'s budget under its x64 mode (a non-negative int64 pack),
-named only in the over-budget reason's hint: x64 mode is not ported
-(ROADMAP.md §1, item 2), so every pack here is an int32."""
-
-PACK_DTYPE = torch.int32
+"""The budget in x64 mode (``core.x64``): a non-negative int64 pack. A
+tuple that fits 31 bits still packs into an int32 (``PackSpec.pack_dtype``),
+so the 32-bit path is the same with the mode on or off."""
 
 _PACK_KINDS = {
-    "uint8": "uint", "uint16": "uint", "uint32": "uint",
-    "int8": "int", "int16": "int", "int32": "int",
-    "float32": "float",
+    "uint8": "uint", "uint16": "uint", "uint32": "uint", "uint64": "uint",
+    "int8": "int", "int16": "int", "int32": "int", "int64": "int",
+    "float32": "float", "float64": "float",
 }
 
 _SIGN32 = 1 << 31
 _MASK32 = (1 << 32) - 1
+_SIGN64 = 1 << 63
+_INT64_MAX = (1 << 63) - 1
+
+
+def pack_budget_bits(x64: bool) -> int:
+    """The pack budget of a request in x64 mode or not: 63 or 31 bits."""
+    return PACK_BUDGET_BITS_X64 if x64 else PACK_BUDGET_BITS
+
+
+def _rank_wide(dtype: str) -> bool:
+    """Does a column of this dtype rank in 64-bit space (8-byte dtypes)?"""
+    return np.dtype(dtype).itemsize == 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,16 +193,34 @@ class PackSpec:
     def total_bits(self) -> int:
         return sum(f.width for f in self.fields)
 
+    @property
+    def pack_bits(self) -> int:
+        """Usable bits of the pack word this spec occupies (31 or 63)."""
+        return PACK_BUDGET_BITS if self.total_bits <= PACK_BUDGET_BITS else PACK_BUDGET_BITS_X64
+
+    @property
+    def pack_dtype(self) -> torch.dtype:
+        """The packed key's dtype: int32, or int64 for a wide pack."""
+        return torch.int32 if self.pack_bits == PACK_BUDGET_BITS else torch.int64
+
     def describe(self) -> str:
         widths = "+".join(str(f.width) for f in self.fields)
-        return f"widths {widths}={self.total_bits}/{PACK_BUDGET_BITS} bits"
+        return f"widths {widths}={self.total_bits}/{self.pack_bits} bits"
 
 
 def _rank(col: torch.Tensor, kind: str) -> torch.Tensor:
-    """Monotone map of a column into unsigned 32-bit rank space, held in
-    int64 (``repro``'s ``_rank_np``): floats by the IEEE total-order trick
-    (flip every bit of a negative, the sign bit of a non-negative), ints by
-    adding 2^31, unsigned ints as they are."""
+    """Monotone map of a column into its rank space, held in int64
+    (``repro``'s ``_rank_np``). A 4-byte column: the unsigned 32-bit rank,
+    floats by the IEEE total-order trick (flip every bit of a negative,
+    the sign bit of a non-negative), ints plus 2^31, unsigned ints as they
+    are. An 8-byte column: ``repro``'s unsigned 64-bit rank minus 2^63,
+    which is the int64 itself, a float64's bits sign-folded, or a
+    uint64's lane."""
+    if col.element_size() == 8:
+        if kind == "float":
+            b = col.view(torch.int64)
+            return b ^ ((b >> 63) & _INT64_MAX)
+        return to_lane(col)
     if kind == "float":
         b = col.to(torch.float32).view(torch.int32).to(torch.int64) & _MASK32
         return b ^ torch.where(b >> 31 != 0, _MASK32, _SIGN32)
@@ -195,9 +230,19 @@ def _rank(col: torch.Tensor, kind: str) -> torch.Tensor:
     return lane - _LANES[col.dtype][1] if col.dtype in _LANES else lane
 
 
+def _lo_rank(f: KeyFieldSpec) -> int:
+    """A field's offset in ``_rank``'s space (``f.lo`` is ``repro``'s)."""
+    return f.lo - _SIGN64 if _rank_wide(f.dtype) else f.lo
+
+
 def _unrank(rank: torch.Tensor, f: KeyFieldSpec) -> torch.Tensor:
-    """Inverse of ``_rank`` on int64 ranks in [0, 2^32)."""
+    """Inverse of ``_rank`` on int64 ranks (in [0, 2^32) for a 4-byte
+    column)."""
     dtype = getattr(torch, f.dtype)
+    if _rank_wide(f.dtype):
+        if f.kind == "float":
+            return (rank ^ ((rank >> 63) & _INT64_MAX)).view(torch.float64)
+        return from_lane(rank, dtype)
     if f.kind == "float":
         b = rank ^ torch.where(rank >> 31 != 0, _SIGN32, _MASK32)
         b = torch.where(b >= _SIGN32, b - (1 << 32), b)  # the int32 lane, wrapped
@@ -211,6 +256,16 @@ def _unrank(rank: torch.Tensor, f: KeyFieldSpec) -> torch.Tensor:
 
 
 def _unrank_np(rank: np.ndarray, f: KeyFieldSpec) -> np.ndarray:
+    """Inverse of ``repro``'s unsigned rank (uint32, or uint64 for an
+    8-byte column) on the host."""
+    if _rank_wide(f.dtype):
+        if f.kind == "float":
+            mask = np.where(rank >> np.uint64(63), np.uint64(_SIGN64),
+                            np.uint64(0xFFFFFFFFFFFFFFFF))
+            return (rank ^ mask).view(np.float64)
+        if f.kind == "int":
+            return (rank ^ np.uint64(_SIGN64)).view(np.int64)
+        return rank.astype(f.dtype)
     if f.kind == "float":
         mask = np.where(rank >> np.uint32(31), np.uint32(0x80000000), np.uint32(0xFFFFFFFF))
         return (rank ^ mask).view(np.float32)
@@ -219,15 +274,16 @@ def _unrank_np(rank: np.ndarray, f: KeyFieldSpec) -> np.ndarray:
     return rank.astype(f.dtype)
 
 
-def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None):
+def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None,
+              budget: int = PACK_BUDGET_BITS):
     """Decide whether a key tuple can fuse into one packed integer sort.
 
     Measures each column's effective width (the bits of its rank range)
     unless ``key_bits`` declares it: a declared width ``w`` promises the
     column's values lie in ``[0, 2**w)`` (ints only) and is checked at
     pack time. Returns ``(PackSpec, reason)`` when the widths fit
-    ``PACK_BUDGET_BITS``, else ``(None, reason)``; the reasons are
-    ``repro``'s.
+    ``budget`` (31 bits, or 63 in x64 mode: ``pack_budget_bits``), else
+    ``(None, reason)``; the reasons are ``repro``'s.
 
     The columns are walked in order, as ``repro`` walks them; the minimum,
     maximum and NaN flag of every measured column come back in one host
@@ -280,7 +336,7 @@ def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None):
                     f"SortLimits.key_bits[{i}]={declared} out of range "
                     f"[0, {bits_max}]"
                 )
-            lo = _SIGN32 if kind == "int" else 0
+            lo = (_SIGN64 if bits_max == 64 else _SIGN32) if kind == "int" else 0
             fields.append(KeyFieldSpec(name, kind, lo, declared, bool(desc), declared=True))
             continue
         if i not in stats:  # an empty column
@@ -291,19 +347,21 @@ def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None):
             return None, f"key {i} contains NaN (unsupported keys)"
         if ranks is not None:
             ranks[i] = measured[i]
+        if _rank_wide(name):  # back to repro's unsigned 64-bit rank
+            lo, hi = lo + _SIGN64, hi + _SIGN64
         fields.append(KeyFieldSpec(name, kind, lo, (hi - lo).bit_length(), bool(desc)))
     spec = PackSpec(tuple(fields))
-    if spec.total_bits > PACK_BUDGET_BITS:
+    if spec.total_bits > budget:
         widths = "+".join(str(f.width) for f in spec.fields)
         hint = ""
-        if spec.total_bits <= PACK_BUDGET_BITS_X64:
+        if budget == PACK_BUDGET_BITS and spec.total_bits <= PACK_BUDGET_BITS_X64:
             hint = (
                 " (would fit the 63-bit x64 budget: opt in with "
                 "repro.enable_x64() / REPRO_X64=1 / SortLimits(x64=True))"
             )
         return None, (
             f"total width {widths}={spec.total_bits} bits exceeds the "
-            f"{PACK_BUDGET_BITS}-bit pack budget{hint}"
+            f"{budget}-bit pack budget{hint}"
             f"{_float_band_hint(klist, spec)}"
         )
     return spec, spec.describe()
@@ -351,13 +409,15 @@ def _np_scalar(col: torch.Tensor, j: int):
 
 
 def pack_keys(klist, spec: PackSpec, ranks: dict | None = None) -> torch.Tensor:
-    """Fuse the key tuple into the packed non-negative int32 key, on the
-    columns' device: per column the rank minus the spec's offset (wrapped
-    into 32 bits, as ``repro``'s uint32 rank space wraps), reversed within
-    its field for a descending key, shifted in MSB first, in int64.
-    Declared (``key_bits``) widths are checked here, all columns in one
-    host read: a value outside its promised range raises ``repro``'s
-    error. ``ranks``: rank tensors ``plan_pack`` already computed."""
+    """Fuse the key tuple into the packed non-negative key
+    (``spec.pack_dtype``), on the columns' device: per column the rank
+    minus the spec's offset, reversed within its field for a descending
+    key, shifted in MSB first, in int64. A 4-byte column's field wraps
+    into 32 bits, as ``repro``'s uint32 rank space wraps; an 8-byte
+    column's wraps in int64 as ``repro``'s uint64 does. Declared
+    (``key_bits``) widths are checked here, all columns in one host read:
+    a value outside its promised range raises ``repro``'s error.
+    ``ranks``: rank tensors ``plan_pack`` already computed."""
     n = klist[0].reshape(-1).shape[0]
     fields, over = [], {}
     for i, (col, f) in enumerate(zip(klist, spec.fields)):
@@ -365,9 +425,10 @@ def pack_keys(klist, spec: PackSpec, ranks: dict | None = None) -> torch.Tensor:
         r = ranks.get(i) if ranks is not None else None
         if r is None:
             r = _rank(col, f.kind)
-        field = (r - f.lo) & _MASK32
-        if f.declared and f.width < 32:
-            over[i] = (field >> f.width) != 0
+        wide = _rank_wide(f.dtype)
+        field = r - _lo_rank(f) if wide else (r - f.lo) & _MASK32
+        if f.declared and f.width < (64 if wide else 32):
+            over[i] = (field >> f.width) != 0  # a wrapped (negative) field is over too
         fields.append(field)
     if over:
         hit = torch.stack([o.any() for o in over.values()]).tolist()
@@ -386,13 +447,14 @@ def pack_keys(klist, spec: PackSpec, ranks: dict | None = None) -> torch.Tensor:
         if f.descending:
             field = ((1 << f.width) - 1) - field
         acc = (acc << f.width) | field
-    return acc.to(PACK_DTYPE)
+    return acc.to(spec.pack_dtype)
 
 
 def unpack_fields(packed: torch.Tensor, spec: PackSpec) -> tuple:
-    """Device unpack: the packed int32 key -> the original columns, in
-    their dtypes. Elementwise bit surgery in int64 (shift and mask, the
-    field reversal of a descending key, the inverse rank transform)."""
+    """Device unpack: the packed int32 or int64 key -> the original
+    columns, in their dtypes. Elementwise bit surgery in int64 (shift and
+    mask, the field reversal of a descending key, the inverse rank
+    transform)."""
     u = packed.to(torch.int64)
     cols = []
     shift = spec.total_bits
@@ -402,23 +464,25 @@ def unpack_fields(packed: torch.Tensor, spec: PackSpec) -> tuple:
         field = (u >> shift) & mask
         if f.descending:
             field = mask - field
-        cols.append(_unrank(field + f.lo, f))
+        cols.append(_unrank(field + _lo_rank(f), f))
     return tuple(cols)
 
 
 def unpack_np(packed: np.ndarray, spec: PackSpec) -> tuple:
-    """Host twin of ``unpack_fields`` (``repro``'s, on numpy): the host
-    decode's unpack, and the packed-sentinel error's source columns."""
+    """Host twin of ``unpack_fields`` (``repro``'s, on numpy, in its
+    unsigned rank spaces): the host decode's unpack, and the
+    packed-sentinel error's source columns."""
     u = np.asarray(packed).astype(np.uint64)
     cols = []
     shift = spec.total_bits
     for f in spec.fields:
         shift -= f.width
         mask = (1 << f.width) - 1
-        field = ((u >> np.uint64(shift)) & np.uint64(mask)).astype(np.uint32)
+        rt = np.uint64 if _rank_wide(f.dtype) else np.uint32
+        field = ((u >> np.uint64(shift)) & np.uint64(mask)).astype(rt)
         if f.descending:
-            field = np.uint32(mask) - field
-        cols.append(_unrank_np(field + np.uint32(f.lo), f))
+            field = rt(mask) - field
+        cols.append(_unrank_np(field + rt(f.lo), f))
     return tuple(cols)
 
 
@@ -441,18 +505,19 @@ def check_payload_keys(keys: torch.Tensor, descending: bool, *, packspec=None) -
     Keys-only sorts are exempt.
 
     ``packspec``: ``keys`` are PACKED multi-key keys. Only an exactly full
-    31-bit pack can reach the int32 sentinel; the error then names the
-    packed value and the source column values it decodes to.
+    pack (31 bits into int32, or 63 into int64) can reach its word's
+    sentinel; the error then names the packed value and the source column
+    values it decodes to.
     """
     if packspec is not None:
-        if packspec.total_bits < PACK_BUDGET_BITS:
+        if packspec.total_bits < packspec.pack_bits:
             return  # the packed space tops out below the sentinel
-        bad = torch.iinfo(PACK_DTYPE).max
+        bad = torch.iinfo(packspec.pack_dtype).max
         hits = keys == bad
         if not bool(hits.any()):
             return
         row = int(torch.argmax(hits.to(torch.int8)))
-        word = dtype_name(PACK_DTYPE)
+        word = dtype_name(packspec.pack_dtype)
         src = unpack_np(np.asarray([bad], word), packspec)
         cols = ", ".join(
             f"key {i} ({f.dtype})={c[0]!r}"
@@ -483,6 +548,9 @@ def check_payload_keys(keys: torch.Tensor, descending: bool, *, packspec=None) -
         info = np.iinfo(dt_s)
         bad = np.dtype(dt_s).type(info.min if descending else info.max)
     target = bad.item() if isinstance(bad, np.generic) else bad
+    if keys.dtype in _LANES:  # compare in the signed lane: CUDA has no unsigned ==
+        lane, top = _LANES[keys.dtype]
+        keys, target = to_lane(keys), target + top
     if bool((keys == target).any()):
         direction = "descending" if descending else "ascending"
         cause = (

@@ -10,14 +10,20 @@ The mesh backend, and every other request the port does not cover yet,
 raises ``NotImplementedError`` naming the ROADMAP.md item that will port
 it. There is no cost model: placement is the static size rule.
 
+64-bit keys and values (int64, uint64, float64) need x64 mode
+(``core.x64``: ``enable_x64()``, ``REPRO_X64=1`` or
+``SortLimits(x64=True)``), resolved once per request and threaded to the
+door checks, the pack budget, the provenance dtype and the stream.
+
 A streamed request's keys stay where the caller put them; only chunks
 move to the sort's device, and the output comes back as CPU tensors.
 ``SortLimits(trace=True)`` (or an ambient ``obs.trace()``) records the
 phase spans of ``repro``'s traces on ``SortOutput.meta.trace``.
 
 A tuple of key columns is a lexicographic multi-key sort
-(``_decide_multikey``): one packed int32 sort when the columns' widths fit
-31 bits (``keyenc.plan_pack``), else LSD passes of stable argsorts.
+(``_decide_multikey``): one packed sort when the columns' widths fit the
+pack budget (``keyenc.plan_pack``: an int32 up to 31 bits; an int64 up to
+63 in x64 mode), else LSD passes of stable argsorts.
 ``SortLimits(decode="host")`` decodes the result grid with numpy
 (``_grid_materialize``).
 """
@@ -31,6 +37,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import keyenc, sim
+from repro_torch.core import x64 as _x64
 from repro_torch.core.overflow import OverflowPolicy, ladder_totals, run_with_capacity_retry
 from repro_torch.core.result import SortMeta, SortOutput
 from repro_torch.core.splitters import SortConfig
@@ -50,11 +57,12 @@ ADMITTED_DTYPES = (
     torch.int8, torch.int16, torch.int32, torch.uint8, torch.uint16, torch.uint32,
     torch.float16, torch.bfloat16, torch.float32,
 )
+# admitted in x64 mode only
+WIDE_DTYPES = (torch.int64, torch.uint64, torch.float64)
 # the cast remedy named in the 64-bit rejection, per offending dtype
 _NEAREST_NARROW = {"int64": "int32", "uint64": "uint32", "float64": "float32"}
 # ROADMAP.md §1 items that port what the port still raises on
 _LATER = {
-    "x64": "item 2 (x64 mode)",
     "mesh": "item 9 (mesh backend)",
 }
 
@@ -78,22 +86,25 @@ def as_tensor(x) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def check_key_dtype(dt: torch.dtype, what: str = "keys") -> None:
-    """Refuse at the door what the slice cannot sort. 64-bit dtypes raise
-    ``X64NotPortedError``, a TypeError as in ``repro`` (whose x64 mode is
-    off by default) and a NotImplementedError naming the x64 item."""
+def check_key_dtype(dt: torch.dtype, what: str = "keys", *, x64: bool | None = None) -> None:
+    """Refuse at the door what the sort cannot take: 64-bit dtypes unless
+    x64 mode admits them (``x64``: the request's resolved mode; None reads
+    the ambient switch), with ``repro``'s TypeError naming the remedy: the
+    opt-in or a cast to the nearest 32-bit dtype."""
     if dt in ADMITTED_DTYPES:
         return
     name = keyenc.dtype_name(dt)
-    if dt.itemsize > 4:
-        narrow = _NEAREST_NARROW.get(name, "a 32-bit dtype")
-        raise keyenc.X64NotPortedError(
-            f"64-bit {what} ({name}) need x64 mode, which is not ported to "
-            f"repro_torch yet (ROADMAP.md §1, {_LATER['x64']}): cast to "
-            f"{narrow} first (note np defaults Python ints to int64)."
+    if dt in WIDE_DTYPES:
+        if _x64.x64_enabled() if x64 is None else x64:
+            return
+        narrow = _NEAREST_NARROW[name]
+        raise TypeError(
+            f"64-bit {what} ({name}) need x64 mode, which is off. Opt in with "
+            f"repro_torch.enable_x64(), REPRO_X64=1, or SortLimits(x64=True) — "
+            f"or cast to {narrow} first (note np defaults Python ints to int64)."
         )
     raise TypeError(f"{what} of dtype {name} cannot be sorted; admitted: "
-                    f"{[keyenc.dtype_name(d) for d in ADMITTED_DTYPES]}")
+                    f"{[keyenc.dtype_name(d) for d in ADMITTED_DTYPES + WIDE_DTYPES]}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +128,10 @@ class SortLimits:
       tie fix, unpack), for differential testing: its outputs equal the
       device decode's bit for bit and come back as CPU tensors.
     multikey: strategy of a tuple sort. "auto" packs the tuple into one
-      int32 sort when its widths fit ``keyenc.PACK_BUDGET_BITS`` (31),
-      else runs LSD passes; "packed" requires packing (raises with the
-      reason when the tuple cannot pack); "lsd" always runs the passes.
+      sort when its widths fit the pack budget (31 bits, an int32; 63 in
+      x64 mode, an int64 above 31), else runs LSD passes; "packed"
+      requires packing (raises with the reason when the tuple cannot
+      pack); "lsd" always runs the passes.
     key_bits: per-key declared bit widths for the packer, e.g.
       ``(4, None, 10)``: entry i promises key i's values lie in
       ``[0, 2**bits)`` (checked at pack time; ints only; None measures).
@@ -131,7 +143,10 @@ class SortLimits:
       fences each phase, so a span holds its device time. Default False:
       the untraced path is unchanged. An ambient ``obs.trace()`` block
       traces regardless of this flag.
-    x64: None or False; True raises.
+    x64: this request's x64 mode (``core.x64``). None follows the ambient
+      switch (``enable_x64()`` / ``REPRO_X64=1``); True admits 64-bit keys
+      and values for this request; False keeps it at 32 bits even when
+      the ambient mode is on.
     """
 
     n_procs: int = 8
@@ -166,9 +181,11 @@ class SortPlan:
     device: torch.device
     reasons: tuple = ()
     decode: str = "device"
-    key_width: int = 32
+    key_width: int = 32  # bits of the widest key column; for an iterator
+    #                      the widest the mode admits (64 or 32)
     multikey: str | None = None  # "packed" | "lsd"; None for single-key
     packspec: keyenc.PackSpec | None = None  # when multikey == "packed"
+    x64: bool = False  # the request's resolved x64 mode
 
     def explain(self) -> str:
         lines = [f"repro_torch.sort plan: backend={self.backend!r}"]
@@ -178,7 +195,8 @@ class SortPlan:
             lines.append(f"  multikey={self.multikey}{detail}")
         lines.append(
             f"  n_procs={self.n_procs} chunk_elems={self.chunk_elems} "
-            f"decode={self.decode} key_width={self.key_width} "
+            f"decode={self.decode} "
+            f"key_width={self.key_width}{' (x64 mode)' if self.x64 else ''} "
             f"device={self.device} "
             f"overflow: up to {self.limits.max_doublings} capacity bumps "
             f"(x{self.limits.growth})"
@@ -231,7 +249,7 @@ class _Req:
         return self.want == "order" or self.values is not None
 
 
-def _normalize(keys, values, *, order, want, config, investigator) -> _Req:
+def _normalize(keys, values, *, order, want, config, investigator, x64: bool) -> _Req:
     if want not in ("values", "order"):
         raise ValueError(f"want must be 'values' or 'order', got {want!r}")
     if want == "order" and values is not None:
@@ -261,7 +279,7 @@ def _normalize(keys, values, *, order, want, config, investigator) -> _Req:
 
     if values is not None:
         values = as_tensor(values)
-        check_key_dtype(values.dtype, what="values payload")
+        check_key_dtype(values.dtype, what="values payload", x64=x64)
 
     # a list is an iterable of chunks (stream input), as in repro; a bare
     # list of Python scalars is one flat array
@@ -278,12 +296,12 @@ def _normalize(keys, values, *, order, want, config, investigator) -> _Req:
         if any(k.shape[0] != n for k in klist):
             raise ValueError("multi-key arrays must have equal lengths")
         for k in klist:
-            check_key_dtype(k.dtype)
+            check_key_dtype(k.dtype, x64=x64)
         keys = klist
         dtype = klist[0].dtype
     elif not is_iterator:
         keys = as_tensor(keys)
-        check_key_dtype(keys.dtype)
+        check_key_dtype(keys.dtype, x64=x64)
         if keys.dim() not in (1, 2):
             raise ValueError("keys must be flat, (p, n_local), or an iterator")
         n = keys.numel()
@@ -298,14 +316,16 @@ def _normalize(keys, values, *, order, want, config, investigator) -> _Req:
     )
 
 
-def _make_plan(req: _Req, where, limits: SortLimits | None, device) -> SortPlan:
+def _dtype_width(dt: torch.dtype) -> int:
+    return 8 * dt.itemsize
+
+
+def _make_plan(req: _Req, where, limits: SortLimits | None, device, x64: bool) -> SortPlan:
     limits = limits or SortLimits()
     if limits.decode not in ("device", "host"):
         raise ValueError(
             f'SortLimits.decode must be "device" or "host", got {limits.decode!r}'
         )
-    if limits.x64:
-        raise _not_ported("SortLimits(x64=True)", "x64")
 
     reasons: list[str] = []
     if where is not None:
@@ -338,7 +358,7 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device) -> SortPlan:
         req.keys = [k.to(device) for k in req.keys]
     if any(req.descending):
         reasons.append("descending: order-flip key encoding (keyenc.flip)")
-    multikey, packspec = (_decide_multikey(req, limits, reasons) if req.multikey
+    multikey, packspec = (_decide_multikey(req, limits, reasons, x64) if req.multikey
                           else (None, None))
     if req.want == "order":
         reasons.append("argsort: provenance-index payload over the kv sort")
@@ -351,22 +371,33 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device) -> SortPlan:
             'decode="host": legacy numpy materialization (differential-'
             "testing / baseline path)"
         )
-    # an iterator's chunk dtypes are unknown until staging: the widest the
-    # port admits (each chunk is checked at the door as it is staged)
-    columns = [] if req.is_iterator else req.keys if req.multikey else [req.keys]
+    if req.is_iterator:
+        # chunk dtypes are unknown until staging: the widest the mode
+        # admits (each chunk is checked at the door as it is staged)
+        key_width = 64 if x64 else 32
+    elif req.multikey:
+        key_width = max(_dtype_width(k.dtype) for k in req.keys)
+    else:
+        key_width = _dtype_width(req.dtype)
+    if x64 and key_width > 32:
+        reasons.append(
+            f"x64 mode: {key_width}-bit key lane admitted "
+            f"(sentinels/staging widen per dtype)"
+        )
     return SortPlan(
         backend=choice, n_procs=n_procs, chunk_elems=limits.chunk_elems,
         limits=limits, device=device, reasons=tuple(reasons),
-        decode=limits.decode, key_width=max((8 * k.element_size() for k in columns), default=32),
-        multikey=multikey, packspec=packspec,
+        decode=limits.decode, key_width=key_width,
+        multikey=multikey, packspec=packspec, x64=x64,
     )
 
 
-def _decide_multikey(req: _Req, limits: SortLimits, reasons: list):
+def _decide_multikey(req: _Req, limits: SortLimits, reasons: list, x64: bool):
     """Pack or LSD for a multi-key request, with its reason (``repro``'s
     words). "auto" packs whenever the tuple's measured or declared widths
-    fit the 31-bit budget; anything unpackable (wide tuples, unpackable
-    dtypes, NaN floats) records why and falls back to the LSD passes."""
+    fit the mode's budget (31 bits; 63 in x64 mode); anything unpackable
+    (wide tuples, unpackable dtypes, NaN floats) records why and falls
+    back to the LSD passes."""
     k = len(req.keys)
     if limits.multikey not in ("auto", "packed", "lsd"):
         raise ValueError(
@@ -380,12 +411,13 @@ def _decide_multikey(req: _Req, limits: SortLimits, reasons: list):
         )
         return "lsd", None
     ranks: dict = {}
-    spec, why = keyenc.plan_pack(req.keys, req.descending, limits.key_bits, ranks=ranks)
+    spec, why = keyenc.plan_pack(req.keys, req.descending, limits.key_bits, ranks=ranks,
+                                 budget=keyenc.pack_budget_bits(x64))
     if spec is not None:
         req.pack_ranks = ranks
         reasons.append(
             f"{k}-key lexicographic: packed into ONE "
-            f"{keyenc.dtype_name(keyenc.PACK_DTYPE)} sort ({why})"
+            f"{keyenc.dtype_name(spec.pack_dtype)} sort ({why})"
         )
         return "packed", spec
     if limits.multikey == "packed":
@@ -430,9 +462,11 @@ def _trim_pad_counts(counts: np.ndarray, pad: int) -> np.ndarray:
     return counts
 
 
-def _prep_single(req: _Req):
+def _prep_single(req: _Req, x64: bool):
     """Encode the keys into their lane (and flip them for a descending
-    payload sort) and build the payload.
+    payload sort) and build the payload (``x64``: the request's mode,
+    which an argsort of more than 2^31 elements needs for its int64
+    index).
 
     Returns (encoded keys, payload or None, descending, keys_only_reverse):
     keys-only descending sorts run ascending and are reversed at the end,
@@ -446,7 +480,7 @@ def _prep_single(req: _Req):
     # (for packed multi-key keys the packspec names the saturated tuple)
     keyenc.check_payload_keys(req.keys, descending, packspec=req.packspec)
     if req.want == "order":
-        payload = torch.arange(req.n, dtype=keyenc.provenance_dtype(req.n),
+        payload = torch.arange(req.n, dtype=keyenc.provenance_dtype(req.n, x64=x64),
                                device=keys.device).reshape(keys.shape)
     else:
         payload = keyenc.to_lane(req.values).reshape(keys.shape)
@@ -594,7 +628,7 @@ def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
         m = req.n
         per = req.n_local or max(1, -(-m // p))
         pad = p * per - m
-        enc, payload, descending, reverse = _prep_single(req)
+        enc, payload, descending, reverse = _prep_single(req, plan.x64)
         # a keys-only float sort reads once whether its keys hold a NaN: only
         # then do the searches follow repro's probes (payload sorts refuse NaN)
         nan_keys = (payload is None and req.dtype.is_floating_point
@@ -652,7 +686,7 @@ def _exec_stream(req: _Req, plan: SortPlan) -> SortOutput:
         )
     scfg = StreamConfig(
         chunk_elems=plan.chunk_elems, n_procs=plan.n_procs, sort=req.config,
-        max_doublings=plan.limits.max_doublings, growth=plan.limits.growth,
+        max_doublings=plan.limits.max_doublings, growth=plan.limits.growth, x64=plan.x64,
     )
     device_decode = plan.decode == "device"
     tr = req.trace
@@ -664,8 +698,10 @@ def _exec_stream(req: _Req, plan: SortPlan) -> SortOutput:
             if descending and not device_decode:
                 enc = _host_flip(enc)
             if req.want == "order":
-                keyenc.provenance_dtype(req.n)  # int32 indices, made per chunk
-                payload = range(req.n)
+                if keyenc.provenance_dtype(req.n, x64=plan.x64) == torch.int32:
+                    payload = range(req.n)  # int32 indices, made per chunk on the device
+                else:  # past 2^31 elements: int64 indices, from the host as repro's
+                    payload = torch.arange(req.n, dtype=torch.int64)
             else:
                 payload = req.values.reshape(-1)
         if not req.is_iterator:
@@ -752,7 +788,7 @@ register_backend("stream", _exec_stream, "out-of-core runs/partition/merge")
 def _exec_packed_multikey(req: _Req, plan: SortPlan) -> SortOutput:
     """A lexicographic sort as ONE packed single-key sort.
 
-    The tuple fuses into one non-negative int32 key (``keyenc.pack_keys``:
+    The tuple fuses into one non-negative int32 or int64 key (``keyenc.pack_keys``:
     the per-key orders and rank transforms live in the bit fields), the
     backend sorts it ascending, and the decode unpacks the columns. A sort
     with a payload runs as ``want="order"`` over the packed key: the tie
@@ -769,7 +805,7 @@ def _exec_packed_multikey(req: _Req, plan: SortPlan) -> SortOutput:
     sub = _Req(
         keys=packed, values=None, want="order" if req.needs_payload else "values",
         descending=(False,), config=req.config, investigator=req.investigator, n=req.n,
-        n_local=None, dtype=keyenc.PACK_DTYPE, packspec=spec, trace=req.trace,
+        n_local=None, dtype=spec.pack_dtype, packspec=spec, trace=req.trace,
     )
     out = BACKENDS[plan.backend].execute(sub, plan)
     out.meta.trace = None  # the wrapper's meta carries the trace
@@ -854,9 +890,10 @@ def _exec_multikey(req: _Req, plan: SortPlan) -> SortOutput:
 def make_plan(keys, values=None, *, order="asc", want="values", where=None,
               limits=None, config=None, investigator=True, device=None) -> SortPlan:
     dev = _device.resolve(device)
+    x64 = _x64.effective(limits)
     req = _normalize(keys, values, order=order, want=want, config=config,
-                     investigator=investigator)
-    return _make_plan(req, where, limits, dev)
+                     investigator=investigator, x64=x64)
+    return _make_plan(req, where, limits, dev, x64)
 
 
 def execute(keys, values=None, *, order="asc", want="values", where=None,
@@ -869,9 +906,10 @@ def execute(keys, values=None, *, order="asc", want="values", where=None,
     if tr is None and limits.trace and obs_tracing.enabled():
         tr = obs_tracing.Trace()
     with _span(tr, "plan"):
+        x64 = _x64.effective(limits)  # the request's mode, resolved once
         req = _normalize(keys, values, order=order, want=want, config=config,
-                         investigator=investigator)
-        plan = _make_plan(req, where, limits, dev)
+                         investigator=investigator, x64=x64)
+        plan = _make_plan(req, where, limits, dev, x64)
         _SORTS_TOTAL.labels(backend=plan.backend).inc()
         if tr is not None:
             tr.labels.setdefault("backend", plan.backend)

@@ -10,8 +10,9 @@ in ``repro``.
 The views materialize lazily where the backend is lazy: a stream result
 runs its passes when ``.keys`` / ``.values`` / ``.order()`` is first read,
 or yields its sorted chunks through ``chunks()`` in bounded memory.
-``topk``, ``searchsorted`` and ``provenance`` are not ported yet
-(ROADMAP.md §1, item 5).
+``provenance()``, ``searchsorted()`` and ``topk()`` answer as ``repro``'s
+do (``core.topk``), with tensors on the keys' device: the sort's device,
+or the CPU for the stream and for ``decode="host"``.
 """
 from __future__ import annotations
 
@@ -189,6 +190,37 @@ class SortOutput:
         if counts.size == 0 or counts.sum() == 0:
             return 1.0
         return float(counts.max() / max(counts.mean(), 1e-12))
+
+    def provenance(self):
+        """Where each sorted element came from: with the (p, n_local)
+        input layout, (processor, local index) tensors, the paper's
+        provenance view; for flat inputs the flat origin index."""
+        idx = self.order()
+        if self.meta.n_local:
+            n = self.meta.n_local
+            return idx // n, idx % n
+        return idx
+
+    def searchsorted(self, queries, side: str = "left") -> torch.Tensor:
+        """Global insertion ranks of ``queries`` (``np.searchsorted``'s,
+        aware of descending results): ``core.topk.searchsorted_sorted``."""
+        keys = self.keys
+        if isinstance(keys, tuple):
+            raise ValueError("searchsorted is single-key only")
+        from repro_torch.core.topk import searchsorted_sorted
+
+        return searchsorted_sorted(keys, queries, side=side,
+                                   descending=self.meta.order == "desc")
+
+    def topk(self, k: int, largest: bool = True) -> torch.Tensor:
+        """Top-k keys, best first, off the sorted result
+        (``core.topk.topk_sorted``)."""
+        keys = self.keys
+        if isinstance(keys, tuple):
+            raise ValueError("topk is single-key only")
+        from repro_torch.core.topk import topk_sorted
+
+        return topk_sorted(keys, k, largest=largest, descending=self.meta.order == "desc")
 
     def __len__(self) -> int:
         return self.meta.n

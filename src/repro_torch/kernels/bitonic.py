@@ -10,12 +10,17 @@ CPU tests hold it against ``repro`` and ``chip_smoke.py`` holds each
 kernel against it on the card, both with exact equality.
 
 Every wrapper counts its launches in ``<wrapper>.launches``: one is added
-where the kernel is launched and nowhere else.
+where the kernel is launched and nowhere else; ``<wrapper>.wide_launches``
+counts, at the same place, the launches whose keys or values are 8 bytes
+(the 64-bit instantiations).
 
 Rows have a power-of-two length of at most 8192 (``ops`` pads). Keys and
-values are int32, uint32 or float32 inside the kernel; int8, int16,
-uint8, uint16, float16 and bfloat16 widen before it and narrow after it,
-which is exact because widening preserves every comparison.
+values are int32, uint32, float32, int64 or float64 inside the kernel;
+int8, int16, uint8, uint16, float16 and bfloat16 widen before it and
+narrow after it, which is exact because widening preserves every
+comparison, and uint64 goes through its int64 lane (the top bit flipped,
+a monotone bijection). Without a tie-break the kernel carries values by
+their bits, 4 or 8 bytes.
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ SORT_ELEMS = 8
 SORT_MIN_THREADS = 128
 SORT_MAX_THREADS = 512
 
-_TYPE_CODES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
+_TYPE_CODES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2, torch.int64: 3,
+               torch.float64: 4}
 _WIDEN = {
     torch.int8: torch.int32, torch.int16: torch.int32,
     torch.uint8: torch.int32, torch.uint16: torch.int32,
@@ -115,18 +121,29 @@ def _merge_network(keys, payloads, tiebreak: int):
     return keys, payloads
 
 
+# unsigned dtype -> (its signed lane, the top bit)
+_LANES = {torch.uint32: (torch.int32, -(1 << 31)), torch.uint64: (torch.int64, -(1 << 63))}
+
+
 def _signed(x: torch.Tensor) -> torch.Tensor:
-    """uint32 -> int32 by flipping the top bit: a monotone bijection, for
-    the twin only (PyTorch has no comparisons on uint32 tensors)."""
-    return x.view(torch.int32) ^ (-(1 << 31)) if x.dtype == torch.uint32 else x
+    """uint32 / uint64 -> int32 / int64 by flipping the top bit: a
+    monotone bijection (PyTorch has no comparisons on those unsigned
+    dtypes)."""
+    if x.dtype in _LANES:
+        lane, top = _LANES[x.dtype]
+        return x.view(lane) ^ top
+    return x
 
 
 def _unsigned(x: torch.Tensor, dtype) -> torch.Tensor:
-    return (x ^ (-(1 << 31))).view(torch.uint32) if dtype == torch.uint32 else x
+    if dtype in _LANES:
+        return (x ^ _LANES[dtype][1]).view(dtype)
+    return x
 
 
 def sort_rows_twin(keys, values=None, *, stable: bool = True):
-    """Plain version of the (kv) sort kernel, on int32/uint32/float32 rows."""
+    """Plain version of the (kv) sort kernel, on rows of the kernel's
+    types (and uint64, by its lane)."""
     if values is None:
         out, _ = _sort_network(_signed(keys), (), tiebreak=-1)
         return _unsigned(out, keys.dtype)
@@ -190,27 +207,38 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _widen(x: torch.Tensor) -> torch.Tensor:
+    """A type the kernel takes: narrow types widened, uint64 as its lane."""
+    if x.dtype == torch.uint64:
+        return _signed(x)
     return x.to(_WIDEN.get(x.dtype, x.dtype))
 
 
+def _narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``_widen``."""
+    if dtype == torch.uint64:
+        return _unsigned(x, dtype)
+    return x.to(dtype)
+
+
 def _wide(x: torch.Tensor) -> torch.Tensor:
-    """32-bit, contiguous, and 16-byte aligned: the row-sort kernel moves
-    its elements with 16-byte accesses and refuses an unaligned pointer."""
+    """A kernel type, contiguous, and 16-byte aligned: the row-sort kernel
+    moves its elements with 16-byte accesses and refuses an unaligned
+    pointer."""
     x = _widen(x).contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _merge_operand(x: torch.Tensor) -> torch.Tensor:
-    """A merge operand (R, n) as the kernel reads it: 32-bit rows of unit
-    stride at any row stride, so the merge tree's views of every other run
-    go in as they are; where a thread's elements are one 16-byte piece of
-    a row (n a multiple of ``sort_elems(2n)``), the start and the row stride
-    must keep every piece 16-byte aligned. A copy (``_wide``) otherwise."""
+    """A merge operand (R, n) as the kernel reads it: rows of unit stride
+    at any row stride, so the merge tree's views of every other run go in
+    as they are; where a thread's elements are one 16-byte piece of a row
+    (n a multiple of ``sort_elems(2n)``), the start and the row stride must
+    keep every piece 16-byte aligned. A copy (``_wide``) otherwise."""
     x = _widen(x)
     n = x.shape[1]
     unit = x.stride(1) == 1 or n == 1
     if n % sort_elems(2 * n) == 0:
-        unit = unit and x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
+        unit = unit and x.data_ptr() % 16 == 0 and x.stride(0) * x.element_size() % 16 == 0
     return x if unit else _wide(x)
 
 
@@ -225,7 +253,8 @@ def _check(name: str, *tensors: torch.Tensor, n_max: int = MAX_ROW) -> str:
     for t in tensors:
         if t.shape != first.shape or t.device != first.device:
             raise ValueError(f"{name}: operands differ in shape or device")
-        if _WIDEN.get(t.dtype, t.dtype) not in _TYPE_CODES:
+        wide = torch.int64 if t.dtype == torch.uint64 else _WIDEN.get(t.dtype, t.dtype)
+        if wide not in _TYPE_CODES:
             raise TypeError(f"{name}: unsupported dtype {t.dtype}")
     if first.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: tensors on {first.device} (want cuda or cpu)")
@@ -238,13 +267,14 @@ def bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
     k = _wide(keys)
     if on == "cpu" or k.shape[1] == 1 or k.shape[0] == 0:
         out = k if k.shape[1] == 1 or k.shape[0] == 0 else sort_rows_twin(k)
-        return out.to(keys.dtype)
+        return _narrow(out, keys.dtype)
     out = torch.empty_like(k)
     with torch.cuda.device(k.device):
         _launch("bitonic_sort_rows", k.data_ptr(), out.data_ptr(), k.shape[0],
                 k.shape[1], _TYPE_CODES[k.dtype], _stream(k))
     bitonic_sort_rows.launches += 1
-    return out.to(keys.dtype)
+    bitonic_sort_rows.wide_launches += k.element_size() == 8
+    return _narrow(out, keys.dtype)
 
 
 def bitonic_sort_rows_kv(keys: torch.Tensor, values: torch.Tensor, *,
@@ -256,14 +286,15 @@ def bitonic_sort_rows_kv(keys: torch.Tensor, values: torch.Tensor, *,
     if on == "cpu" or k.shape[1] == 1 or k.shape[0] == 0:
         if k.shape[1] > 1 and k.shape[0] > 0:
             k, v = sort_rows_twin(k, v, stable=stable)
-        return k.to(keys.dtype), v.to(values.dtype)
+        return _narrow(k, keys.dtype), _narrow(v, values.dtype)
     ok, ov = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(k.device):
         _launch("bitonic_sort_rows_kv", k.data_ptr(), v.data_ptr(), ok.data_ptr(),
                 ov.data_ptr(), k.shape[0], k.shape[1], _TYPE_CODES[k.dtype],
                 _TYPE_CODES[v.dtype], int(stable), _stream(k))
     bitonic_sort_rows_kv.launches += 1
-    return ok.to(keys.dtype), ov.to(values.dtype)
+    bitonic_sort_rows_kv.wide_launches += 8 in (k.element_size(), v.element_size())
+    return _narrow(ok, keys.dtype), _narrow(ov, values.dtype)
 
 
 def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -271,7 +302,7 @@ def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a and b may be views with any row stride (``_merge_operand``)."""
     on = _check("bitonic_merge_rows", a, b, n_max=MAX_ROW // 2)
     if on == "cpu" or a.shape[0] == 0:
-        return merge_rows_twin(_widen(a), _widen(b)).to(a.dtype)
+        return _narrow(merge_rows_twin(_widen(a), _widen(b)), a.dtype)
     wa, wb = _merge_operand(a), _merge_operand(b)
     rows, n = wa.shape
     out = torch.empty((rows, 2 * n), dtype=wa.dtype, device=wa.device)
@@ -279,7 +310,8 @@ def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _launch("bitonic_merge_rows", wa.data_ptr(), wa.stride(0), wb.data_ptr(), wb.stride(0),
                 out.data_ptr(), rows, n, _TYPE_CODES[wa.dtype], _stream(wa))
     bitonic_merge_rows.launches += 1
-    return out.to(a.dtype)
+    bitonic_merge_rows.wide_launches += wa.element_size() == 8
+    return _narrow(out, a.dtype)
 
 
 def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
@@ -287,7 +319,7 @@ def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
     on = _check("bitonic_merge_rows_kv", ak, av, bk, bv, n_max=MAX_ROW // 2)
     if on == "cpu" or ak.shape[0] == 0:
         ok, ov = merge_rows_twin(_widen(ak), _widen(bk), _widen(av), _widen(bv), stable=stable)
-        return ok.to(ak.dtype), ov.to(av.dtype)
+        return _narrow(ok, ak.dtype), _narrow(ov, av.dtype)
     wak, wav, wbk, wbv = map(_merge_operand, (ak, av, bk, bv))
     rows, n = wak.shape
     ok = torch.empty((rows, 2 * n), dtype=wak.dtype, device=wak.device)
@@ -298,15 +330,17 @@ def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
                 ok.data_ptr(), ov.data_ptr(), rows, n, _TYPE_CODES[wak.dtype],
                 _TYPE_CODES[wav.dtype], int(stable), _stream(wak))
     bitonic_merge_rows_kv.launches += 1
-    return ok.to(ak.dtype), ov.to(av.dtype)
+    bitonic_merge_rows_kv.wide_launches += 8 in (wak.element_size(), wav.element_size())
+    return _narrow(ok, ak.dtype), _narrow(ov, av.dtype)
 
 
 KERNELS = (bitonic_sort_rows, bitonic_sort_rows_kv, bitonic_merge_rows, bitonic_merge_rows_kv)
-for _fn in KERNELS:
-    _fn.launches = 0
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch counts to 0."""
     for fn in KERNELS:
-        fn.launches = 0
+        fn.launches = fn.wide_launches = 0
+
+
+reset_launches()

@@ -5,6 +5,11 @@ compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
 root, at first use, and loaded with ``ctypes``. The library's file name
 carries a hash of its source and flags, so an edited source builds anew
 and an unchanged one is reused.
+
+A source listed in ``UNITS`` is compiled once per unit (each with its own
+``-D`` flag, all at once, one ``nvcc`` each) and the objects are linked
+into one library: ``bitonic.cu`` instantiates about a thousand kernels,
+which one compiler process would take many minutes over.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -21,6 +27,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# csrc/bitonic.cu: units 0-9 instantiate the row sorts and the merges of
+# one key type each, unit 10 holds the entry points (see its header)
+UNITS = {"bitonic": tuple(f"-DBITONIC_UNIT={u}" for u in range(11))}
 
 
 def nvcc_path() -> str:
@@ -38,26 +47,46 @@ def nvcc_path() -> str:
 def library_path(name: str) -> pathlib.Path:
     """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join((*NVCC_FLAGS, *UNITS.get(name, ()))).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _run(cmd: list) -> tuple[int, str]:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc.returncode, " ".join(cmd) + "\n" + proc.stdout + proc.stderr
 
 
 def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library as ``<library>.log``."""
+    spills; every unit's, in turn) is kept beside the library as
+    ``<library>.log``."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {name}.cu:\n{proc.stderr}")
+    src = str(CSRC / f"{name}.cu")
+    units = UNITS.get(name)
+    if units is None:
+        steps = [_run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), src])]
+    else:
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objs = [out.with_suffix(f".{os.getpid()}.{u}.o") for u in range(len(units))]
+        with ThreadPoolExecutor(len(units)) as pool:  # one nvcc per unit, started together
+            steps = list(pool.map(_run, [[nvcc_path(), *flags, d, "-c", "-o", str(o), src]
+                                         for d, o in zip(units, objs)]))
+        if all(rc == 0 for rc, _ in steps):
+            steps.append(_run([nvcc_path(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)]))
+        for o in objs:
+            o.unlink(missing_ok=True)
+    log = "".join(text for _, text in steps)
+    out.with_suffix(".log").write_text(log)
+    if any(rc != 0 for rc, _ in steps):
+        raise RuntimeError(f"nvcc failed building {name}.cu:\n"
+                           + "".join(text for rc, text in steps if rc != 0))
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
 

@@ -47,6 +47,12 @@
 //     value flag and the tie-break), so every register index is a
 //     constant and nothing goes to local memory.
 //
+// Rows of 4096 and 8192 with 8-byte keys or values are sorted in shared
+// memory instead (sort_in_smem): a stage at a time, each thread taking
+// pairs, a barrier between stages. A thread would hold 128 or 256 bytes
+// of them in the register layout, and ptxas spills there. These rows are
+// off the main path (its tiles are 1024 wide); their speed is not tuned.
+//
 // Merge (merge_rows_kernel): the half-cleaner that merges two sorted rows
 // of n (distances n .. 1 under one ascending span of 2n) is the row sort's
 // last phase on rows of 2n, so the merge runs that phase alone in the same
@@ -58,18 +64,35 @@
 // operand, so the merge tree's views of every other run are read in
 // place, without a copy.
 //
-// Types: keys and values are int32 (code 0), uint32 (code 1) or float32
-// (code 2). Narrower types are widened by the Python wrapper. Without a
-// tie-break values only move, so they are carried as uint32 by their bits
-// (3 key types x (keys, kv, kv with each of 3 value types) = 15 kernels a
-// row length, for the row sort and for the merge). Every entry
-// point returns the cudaError_t of its launch (0 = success) and never
-// synchronises.
+// Types: keys and values are int32 (code 0), uint32 (1), float32 (2),
+// int64 (3) or float64 (4); uint64 travels as its int64 lane and the
+// narrower types widen, both in the Python wrapper. Without a tie-break
+// values only move, so they are carried by their bits as uint32 or
+// uint64 (5 key types x (keys, kv with each of 2 value widths, kv with
+// each of 5 value types) = 40 kernels a row length, for the row sort and
+// for the merge). The 8-byte types run the same network in the same
+// layout; a 16-byte piece is two of them. Every entry point returns the
+// cudaError_t of its launch (0 = success) and never synchronises.
+//
+// Units: the library is built from this file as 11 translation units,
+// compiled in parallel and linked into one shared library
+// (repro_torch/kernels/build.py). With -DBITONIC_UNIT=u, unit
+// u = 2 * key code + (0: row sorts, 1: merges) instantiates the kernels
+// of one key type, and unit kEntryUnit holds the entry points. Without
+// the macro one translation unit holds everything.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+
+#ifndef BITONIC_UNIT
+#define BITONIC_UNIT -1
+#endif
+// a unit instantiates a part of what follows, and leaves the rest unused
+#pragma nv_diag_suppress 177
+#define BITONIC_ENTRY_UNIT 10
+#define BITONIC_HAS(u) (BITONIC_UNIT < 0 || BITONIC_UNIT == (u))
 
 namespace {
 
@@ -85,7 +108,7 @@ constexpr int kWarp = 32;
 constexpr int kLogWarp = 5;
 constexpr int kMinThreads = 128;  // a CTA's threads when rows are short
 static_assert(1 << kLogElems == kElems && 1 << kLogWarp == kWarp && kElems % 4 == 0,
-              "elements a thread in 16-byte pieces");
+              "elements a thread in 16-byte pieces of 4- and 8-byte types");
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -157,41 +180,57 @@ __device__ __forceinline__ float flip_if(float x, bool on) {
 }
 __device__ __forceinline__ int32_t flip_if(int32_t x, bool on) { return x ^ -static_cast<int32_t>(on); }
 __device__ __forceinline__ uint32_t flip_if(uint32_t x, bool on) { return x ^ (0u - on); }
+__device__ __forceinline__ double flip_if(double x, bool on) {
+  const unsigned long long b = static_cast<unsigned long long>(__double_as_longlong(x));
+  return __longlong_as_double(static_cast<long long>(b ^ (static_cast<unsigned long long>(on) << 63)));
+}
+__device__ __forceinline__ int64_t flip_if(int64_t x, bool on) { return x ^ -static_cast<int64_t>(on); }
 
-// The word in shared memory of CTA-flat index a: bits 2-4 XORed with a
-// linear function of bits 5-7, so that at kElems a thread the 16-byte
-// pieces of a thread's own elements and every group's butterflies (below)
-// are free of bank conflicts (at 16, two group shapes are 2-way). Linear
-// over XOR: swz(a ^ b) == swz(a) ^ swz(b).
+// The slot in shared memory of CTA-flat index a: bits 2-4 XORed with a
+// linear function of bits 5-7, so that at kElems 4-byte elements a thread
+// the 16-byte pieces of a thread's own elements and every group's
+// butterflies (below) are free of bank conflicts (at 16, two group shapes
+// are 2-way; 8-byte elements are not tuned). Bits 0-1 stay, so a piece
+// stays whole and aligned. Linear over XOR: swz(a ^ b) == swz(a) ^ swz(b).
 __host__ __device__ constexpr int swz(int a) {
   const int x = (a >> 5) & 7;
   return a ^ (((x ^ (x << 1)) & 7) << 2);
 }
 
-template <typename T> struct Vec4;
-template <> struct Vec4<int32_t> { using type = int4; };
-template <> struct Vec4<uint32_t> { using type = uint4; };
-template <> struct Vec4<float> { using type = float4; };
+// A 16-byte piece: kPiece<T> consecutive elements (4 of 4 bytes, 2 of 8),
+// moved with one vector access.
+template <typename T> struct Piece;
+template <> struct Piece<int32_t> { using type = int4; };
+template <> struct Piece<uint32_t> { using type = uint4; };
+template <> struct Piece<float> { using type = float4; };
+template <> struct Piece<int64_t> { using type = longlong2; };
+template <> struct Piece<uint64_t> { using type = ulonglong2; };
+template <> struct Piece<double> { using type = double2; };
+template <typename T> constexpr int kPiece = 16 / static_cast<int>(sizeof(T));
 
-// Four consecutive elements between memory (16-byte aligned) and x[at..at+3].
+// One piece between memory (16-byte aligned) and x[at .. at + kPiece<T> - 1].
 template <typename T, int E>
-__device__ __forceinline__ void load4(T (&x)[E], int at, const T* p) {
-  using W = typename Vec4<T>::type;
+__device__ __forceinline__ void load_piece(T (&x)[E], int at, const T* p) {
+  using W = typename Piece<T>::type;
   const W w = *reinterpret_cast<const W*>(p);
   x[at] = w.x;
   x[at + 1] = w.y;
-  x[at + 2] = w.z;
-  x[at + 3] = w.w;
+  if constexpr (kPiece<T> == 4) {
+    x[at + 2] = w.z;
+    x[at + 3] = w.w;
+  }
 }
 
 template <typename T, int E>
-__device__ __forceinline__ void store4(T* p, const T (&x)[E], int at) {
-  using W = typename Vec4<T>::type;
+__device__ __forceinline__ void store_piece(T* p, const T (&x)[E], int at) {
+  using W = typename Piece<T>::type;
   W w;
   w.x = x[at];
   w.y = x[at + 1];
-  w.z = x[at + 2];
-  w.w = x[at + 3];
+  if constexpr (kPiece<T> == 4) {
+    w.z = x[at + 2];
+    w.w = x[at + 3];
+  }
   *reinterpret_cast<W*>(p) = w;
 }
 
@@ -203,7 +242,7 @@ __device__ __forceinline__ void load_part(T (&x)[E], const T* src, long long g0,
                                           long long total) {
   if (g0 + E <= total) {
 #pragma unroll
-    for (int i = 0; i < E; i += 4) load4(x, i, src + g0 + i);
+    for (int i = 0; i < E; i += kPiece<T>) load_piece(x, i, src + g0 + i);
   } else {
 #pragma unroll
     for (int r = 0; r < E; ++r) x[r] = g0 + r < total ? src[g0 + r] : T(0);
@@ -215,7 +254,7 @@ __device__ __forceinline__ void store_part(T* dst, const T (&x)[E], long long g0
                                            long long total) {
   if (g0 + E <= total) {
 #pragma unroll
-    for (int i = 0; i < E; i += 4) store4(dst + g0 + i, x, i);
+    for (int i = 0; i < E; i += kPiece<T>) store_piece(dst + g0 + i, x, i);
   } else {
 #pragma unroll
     for (int r = 0; r < E; ++r)
@@ -227,13 +266,13 @@ __device__ __forceinline__ void store_part(T* dst, const T (&x)[E], long long g0
 template <typename T, int E>
 __device__ __forceinline__ void store_own(T* s, const T (&x)[E], int f0) {
 #pragma unroll
-  for (int i = 0; i < E; i += 4) store4(s + swz(f0 + i), x, i);
+  for (int i = 0; i < E; i += kPiece<T>) store_piece(s + swz(f0 + i), x, i);
 }
 
 template <typename T, int E>
 __device__ __forceinline__ void load_own(T (&x)[E], const T* s, int f0) {
 #pragma unroll
-  for (int i = 0; i < E; i += 4) load4(x, i, s + swz(f0 + i));
+  for (int i = 0; i < E; i += kPiece<T>) load_piece(x, i, s + swz(f0 + i));
 }
 
 template <bool CTA>
@@ -327,6 +366,64 @@ __device__ __forceinline__ void sort_phases(K (&k)[E], V (&v)[E], K* sk, V* sv, 
   }
 }
 
+// Does the row sort of rows of 2^LOG_N run in shared memory
+// (sort_in_smem below)? Rows of 4096 and 8192 holding 8-byte keys or
+// values: in the register layout a thread holds 8 or 16 of them, and
+// ptxas spills there at 128 registers a thread (the merges, one phase,
+// fit).
+template <int LOG_N, bool HAS_V, typename K, typename V>
+__host__ __device__ constexpr bool sort_in_smem() {
+  return LOG_N >= 12 && (sizeof(K) == 8 || (HAS_V && sizeof(V) == 8));
+}
+
+// The same network with the CTA's elements in shared memory: each stage
+// one compare-exchange of two shared-memory slots per pair, the pairs
+// spread over the threads, a barrier between stages. Elements past the
+// last row read as 0 and are never stored.
+template <int LOG_N, bool HAS_V, bool TB, typename K, typename V>
+__device__ __forceinline__ void sort_in_smem(const K* kin, const V* vin, K* kout, V* vout,
+                                             K* sk, V* sv, long long total) {
+  constexpr int T = sort_threads(LOG_N);
+  constexpr int B = T << log_elems(LOG_N);
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) * B;
+  for (int i = t; i < B; i += T) {
+    sk[i] = base + i < total ? kin[base + i] : K(0);
+    if constexpr (HAS_V) sv[i] = base + i < total ? vin[base + i] : V(0);
+  }
+  __syncthreads();
+  for (int s = 0; s < LOG_N; ++s) {
+    for (int j = s; j >= 0; --j) {
+      for (int q = t; q < B / 2; q += T) {
+        const int lo = ((q >> j) << (j + 1)) | (q & ((1 << j) - 1));
+        const int hi = lo + (1 << j);
+        const bool asc = s == LOG_N - 1 || (lo & (2 << s)) == 0;
+        const K a = sk[lo], b = sk[hi];
+        V va{}, vb{};
+        if constexpr (HAS_V) {
+          va = sv[lo];
+          vb = sv[hi];
+        }
+        if (out_of_order<TB>(asc, a, b, va, vb)) {
+          sk[lo] = b;
+          sk[hi] = a;
+          if constexpr (HAS_V) {
+            sv[lo] = vb;
+            sv[hi] = va;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = t; i < B; i += T) {
+    if (base + i < total) {
+      kout[base + i] = sk[i];
+      if constexpr (HAS_V) vout[base + i] = sv[i];
+    }
+  }
+}
+
 // Full bitonic sort network, ascending: for s in 0..k-1, span 2^(s+1),
 // distances 2^s down to 1 (repro/kernels/bitonic.py::_sort_network), over
 // rows of N = 2^LOG_N; total = rows * N.
@@ -339,16 +436,20 @@ sort_rows_kernel(const K* __restrict__ kin, const V* __restrict__ vin,
   extern __shared__ __align__(16) unsigned char smem[];
   K* sk = reinterpret_cast<K*>(smem);
   V* sv = reinterpret_cast<V*>(smem + B * sizeof(K));
-  const int t = threadIdx.x;
-  const long long g0 = static_cast<long long>(blockIdx.x) * B + t * E;
-  K k[E];
-  V v[E];
-  load_part(k, kin, g0, total);
-  if constexpr (HAS_V) load_part(v, vin, g0, total);
-  bool flip = false;  // the last phase leaves every element unflipped
-  sort_phases<LOG_N, 0, HAS_V, TB>(k, v, sk, sv, t, flip);
-  store_part(kout, k, g0, total);
-  if constexpr (HAS_V) store_part(vout, v, g0, total);
+  if constexpr (sort_in_smem<LOG_N, HAS_V, K, V>()) {
+    sort_in_smem<LOG_N, HAS_V, TB>(kin, vin, kout, vout, sk, sv, total);
+  } else {
+    const int t = threadIdx.x;
+    const long long g0 = static_cast<long long>(blockIdx.x) * B + t * E;
+    K k[E];
+    V v[E];
+    load_part(k, kin, g0, total);
+    if constexpr (HAS_V) load_part(v, vin, g0, total);
+    bool flip = false;  // the last phase leaves every element unflipped
+    sort_phases<LOG_N, 0, HAS_V, TB>(k, v, sk, sv, t, flip);
+    store_part(kout, k, g0, total);
+    if constexpr (HAS_V) store_part(vout, v, g0, total);
+  }
 }
 
 // A thread's elements of a ++ reverse(b), for rows of 2n = 2^LOG_N2
@@ -370,7 +471,7 @@ __device__ __forceinline__ void load_merge(T (&x)[E], const T* a, long long sa,
       const T* src = from_b ? b + row * sb + (2 * N - E - p) : a + row * sa + p;
       T y[E];
 #pragma unroll
-      for (int i = 0; i < E; i += 4) load4(y, i, src + i);
+      for (int i = 0; i < E; i += kPiece<T>) load_piece(y, i, src + i);
 #pragma unroll
       for (int r = 0; r < E; ++r) x[r] = from_b ? y[E - 1 - r] : y[r];
     } else {
@@ -415,28 +516,9 @@ merge_rows_kernel(const K* __restrict__ ak, long long sak, const V* __restrict__
   if constexpr (HAS_V) store_part(vout, v, g0, total);
 }
 
-int ilog2(int n) {
-  int k = 0;
-  while ((1 << k) < n) ++k;
-  return k;
-}
-
-bool bad_shape(long long rows, int n) {
-  return rows <= 0 || rows > 0x7fffffffLL || n < 2 || n > kMaxRow ||
-         (n & (n - 1)) != 0;
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// An operand of a merge: rows of n at a row stride of `stride` elements.
-// Where a thread's elements are one piece of it (E divides n), the piece
-// is read 16 bytes at a time, so its start and its stride must keep every
-// piece 16-byte aligned.
-bool bad_operand(const void* p, long long stride, int n) {
-  const bool pieces = n % (1 << log_elems(ilog2(2 * n))) == 0;
-  return stride < 0 || (pieces && (!aligned16(p) || stride % 4 != 0));
+// Bytes of an element of type code `code` (see DISPATCH_TYPE), 0 if none.
+inline int type_bytes(int code) {
+  return code >= 0 && code <= 2 ? 4 : code >= 3 && code <= 4 ? 8 : 0;
 }
 
 constexpr int kMaxDevices = 64;
@@ -482,31 +564,23 @@ unsigned ctas(long long rows) {
   return static_cast<unsigned>((rows + per_cta - 1) / per_cta);
 }
 
-template <int LOG_N, bool HAS_V, bool TB, typename K, typename V>
-cudaError_t launch_sort_n(const void* k, const void* v, void* ok, void* ov,
-                          long long rows, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<LOG_N, HAS_V, K, V>();
-  auto kern = sort_rows_kernel<LOG_N, HAS_V, TB, K, V>;
-  static SmemCap cap;
-  const cudaError_t err = allow_smem(cap, kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<ctas<LOG_N>(rows), sort_threads(LOG_N), smem, stream>>>(
-      static_cast<const K*>(k), static_cast<const V*>(v), static_cast<K*>(ok),
-      static_cast<V*>(ov), rows << LOG_N);
-  return cudaGetLastError();
-}
+}  // namespace
 
-template <bool HAS_V, bool TB, typename K, typename V, int LOG_N = 1>
-cudaError_t launch_sort(const void* k, const void* v, void* ok, void* ov,
-                        long long rows, int log_n, cudaStream_t stream) {
-  if constexpr (LOG_N > kLogMaxRow) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (log_n == LOG_N)
-      return launch_sort_n<LOG_N, HAS_V, TB, K, V>(k, v, ok, ov, rows, stream);
-    return launch_sort<HAS_V, TB, K, V, LOG_N + 1>(k, v, ok, ov, rows, log_n, stream);
-  }
-}
+namespace bitonic_units {
+
+// The operands of a row-sort launch.
+struct SortArgs {
+  const void* k;
+  const void* v;
+  void* ok;
+  void* ov;
+  long long rows;
+  int log_n;
+  bool has_v;
+  bool stable;
+  int value_type;
+  cudaStream_t stream;
+};
 
 // The operands of a merge launch: a's and b's keys and values, each with
 // its row stride in elements, and the contiguous outputs.
@@ -521,41 +595,179 @@ struct MergeArgs {
   long long sbv;
   void* ok;
   void* ov;
+  long long rows;
+  int log_n2;
+  bool has_v;
+  bool stable;
+  int value_type;
+  cudaStream_t stream;
 };
 
+// Every launch of one key type: defined in that type's unit.
+template <typename K> cudaError_t sort_rows(const SortArgs& a);
+template <typename K> cudaError_t merge_rows(const MergeArgs& m);
+template <> cudaError_t sort_rows<int32_t>(const SortArgs& a);
+template <> cudaError_t sort_rows<uint32_t>(const SortArgs& a);
+template <> cudaError_t sort_rows<float>(const SortArgs& a);
+template <> cudaError_t sort_rows<int64_t>(const SortArgs& a);
+template <> cudaError_t sort_rows<double>(const SortArgs& a);
+template <> cudaError_t merge_rows<int32_t>(const MergeArgs& m);
+template <> cudaError_t merge_rows<uint32_t>(const MergeArgs& m);
+template <> cudaError_t merge_rows<float>(const MergeArgs& m);
+template <> cudaError_t merge_rows<int64_t>(const MergeArgs& m);
+template <> cudaError_t merge_rows<double>(const MergeArgs& m);
+
+}  // namespace bitonic_units
+
+namespace {
+
+using bitonic_units::MergeArgs;
+using bitonic_units::SortArgs;
+
+template <int LOG_N, bool HAS_V, bool TB, typename K, typename V>
+cudaError_t launch_sort_n(const SortArgs& a) {
+  constexpr size_t smem = smem_bytes<LOG_N, HAS_V, K, V>();
+  auto kern = sort_rows_kernel<LOG_N, HAS_V, TB, K, V>;
+  static SmemCap cap;
+  const cudaError_t err = allow_smem(cap, kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<ctas<LOG_N>(a.rows), sort_threads(LOG_N), smem, a.stream>>>(
+      static_cast<const K*>(a.k), static_cast<const V*>(a.v), static_cast<K*>(a.ok),
+      static_cast<V*>(a.ov), a.rows << LOG_N);
+  return cudaGetLastError();
+}
+
+template <bool HAS_V, bool TB, typename K, typename V, int LOG_N = 1>
+cudaError_t launch_sort(const SortArgs& a) {
+  if constexpr (LOG_N > kLogMaxRow) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (a.log_n == LOG_N) return launch_sort_n<LOG_N, HAS_V, TB, K, V>(a);
+    return launch_sort<HAS_V, TB, K, V, LOG_N + 1>(a);
+  }
+}
+
 template <int LOG_N2, bool HAS_V, bool TB, typename K, typename V>
-cudaError_t launch_merge_n(const MergeArgs& m, long long rows, cudaStream_t stream) {
+cudaError_t launch_merge_n(const MergeArgs& m) {
   constexpr size_t smem = smem_bytes<LOG_N2, HAS_V, K, V>();
   auto kern = merge_rows_kernel<LOG_N2, HAS_V, TB, K, V>;
   static SmemCap cap;
   const cudaError_t err = allow_smem(cap, kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<ctas<LOG_N2>(rows), sort_threads(LOG_N2), smem, stream>>>(
+  kern<<<ctas<LOG_N2>(m.rows), sort_threads(LOG_N2), smem, m.stream>>>(
       static_cast<const K*>(m.ak), m.sak, static_cast<const V*>(m.av), m.sav,
       static_cast<const K*>(m.bk), m.sbk, static_cast<const V*>(m.bv), m.sbv,
-      static_cast<K*>(m.ok), static_cast<V*>(m.ov), rows << LOG_N2);
+      static_cast<K*>(m.ok), static_cast<V*>(m.ov), m.rows << LOG_N2);
   return cudaGetLastError();
 }
 
 template <bool HAS_V, bool TB, typename K, typename V, int LOG_N = 1>
-cudaError_t launch_merge(const MergeArgs& m, long long rows, int log_n2,
-                         cudaStream_t stream) {
+cudaError_t launch_merge(const MergeArgs& m) {
   if constexpr (LOG_N > kLogMaxRow) {
     return cudaErrorInvalidValue;
   } else {
-    if (log_n2 == LOG_N) return launch_merge_n<LOG_N, HAS_V, TB, K, V>(m, rows, stream);
-    return launch_merge<HAS_V, TB, K, V, LOG_N + 1>(m, rows, log_n2, stream);
+    if (m.log_n2 == LOG_N) return launch_merge_n<LOG_N, HAS_V, TB, K, V>(m);
+    return launch_merge<HAS_V, TB, K, V, LOG_N + 1>(m);
   }
 }
 
 // Type codes shared with repro_torch/kernels/bitonic.py::_TYPE_CODES.
-#define DISPATCH_TYPE(code, T, ...)         \
-  switch (code) {                           \
-    case 0: { using T = int32_t; __VA_ARGS__ } \
+#define DISPATCH_TYPE(code, T, ...)            \
+  switch (code) {                              \
+    case 0: { using T = int32_t; __VA_ARGS__ }  \
     case 1: { using T = uint32_t; __VA_ARGS__ } \
-    case 2: { using T = float; __VA_ARGS__ }   \
-    default: return cudaErrorInvalidValue;  \
+    case 2: { using T = float; __VA_ARGS__ }    \
+    case 3: { using T = int64_t; __VA_ARGS__ }  \
+    case 4: { using T = double; __VA_ARGS__ }   \
+    default: return cudaErrorInvalidValue;     \
   }
+
+// Every variant of one key type: keys only; values that only move (by
+// their bits, 4 or 8 bytes); values that break ties (each value type).
+template <template <bool, bool, typename, typename> class L, typename K, typename A>
+cudaError_t variants(const A& a) {
+  if (!a.has_v) return L<false, false, K, uint32_t>::run(a);
+  if (!a.stable) {
+    if (type_bytes(a.value_type) == 8) return L<true, false, K, uint64_t>::run(a);
+    return L<true, false, K, uint32_t>::run(a);
+  }
+  DISPATCH_TYPE(a.value_type, V, return L<true, true, K, V>::run(a);)
+}
+
+template <bool HAS_V, bool TB, typename K, typename V>
+struct SortLaunch {
+  static cudaError_t run(const SortArgs& a) { return launch_sort<HAS_V, TB, K, V>(a); }
+};
+
+template <bool HAS_V, bool TB, typename K, typename V>
+struct MergeLaunch {
+  static cudaError_t run(const MergeArgs& m) { return launch_merge<HAS_V, TB, K, V>(m); }
+};
+
+}  // namespace
+
+namespace bitonic_units {
+
+#if BITONIC_HAS(0)
+template <> cudaError_t sort_rows<int32_t>(const SortArgs& a) { return variants<SortLaunch, int32_t>(a); }
+#endif
+#if BITONIC_HAS(1)
+template <> cudaError_t merge_rows<int32_t>(const MergeArgs& m) { return variants<MergeLaunch, int32_t>(m); }
+#endif
+#if BITONIC_HAS(2)
+template <> cudaError_t sort_rows<uint32_t>(const SortArgs& a) { return variants<SortLaunch, uint32_t>(a); }
+#endif
+#if BITONIC_HAS(3)
+template <> cudaError_t merge_rows<uint32_t>(const MergeArgs& m) { return variants<MergeLaunch, uint32_t>(m); }
+#endif
+#if BITONIC_HAS(4)
+template <> cudaError_t sort_rows<float>(const SortArgs& a) { return variants<SortLaunch, float>(a); }
+#endif
+#if BITONIC_HAS(5)
+template <> cudaError_t merge_rows<float>(const MergeArgs& m) { return variants<MergeLaunch, float>(m); }
+#endif
+#if BITONIC_HAS(6)
+template <> cudaError_t sort_rows<int64_t>(const SortArgs& a) { return variants<SortLaunch, int64_t>(a); }
+#endif
+#if BITONIC_HAS(7)
+template <> cudaError_t merge_rows<int64_t>(const MergeArgs& m) { return variants<MergeLaunch, int64_t>(m); }
+#endif
+#if BITONIC_HAS(8)
+template <> cudaError_t sort_rows<double>(const SortArgs& a) { return variants<SortLaunch, double>(a); }
+#endif
+#if BITONIC_HAS(9)
+template <> cudaError_t merge_rows<double>(const MergeArgs& m) { return variants<MergeLaunch, double>(m); }
+#endif
+
+}  // namespace bitonic_units
+
+#if BITONIC_HAS(BITONIC_ENTRY_UNIT)
+
+namespace {
+
+int ilog2(int n) {
+  int k = 0;
+  while ((1 << k) < n) ++k;
+  return k;
+}
+
+bool bad_shape(long long rows, int n) {
+  return rows <= 0 || rows > 0x7fffffffLL || n < 2 || n > kMaxRow ||
+         (n & (n - 1)) != 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// An operand of a merge: rows of n elements of `bytes` bytes at a row
+// stride of `stride` elements. Where a thread's elements are one piece of
+// it (E divides n), the piece is read 16 bytes at a time, so its start
+// and its stride must keep every piece 16-byte aligned.
+bool bad_operand(const void* p, long long stride, int n, int bytes) {
+  const bool pieces = n % (1 << log_elems(ilog2(2 * n))) == 0;
+  return stride < 0 || (pieces && (!aligned16(p) || (stride * bytes) % 16 != 0));
+}
 
 }  // namespace
 
@@ -565,29 +777,21 @@ int bitonic_sort_rows(const void* keys, void* out, long long rows, int n,
                       int key_type, void* stream) {
   if (bad_shape(rows, n) || !aligned16(keys) || !aligned16(out))
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_TYPE(key_type, K,
-    return launch_sort<false, false, K, uint32_t>(keys, nullptr, out, nullptr,
-                                                  rows, ilog2(n), s);)
+  const SortArgs a{keys, nullptr, out, nullptr, rows, ilog2(n), false, false, 0,
+                   static_cast<cudaStream_t>(stream)};
+  DISPATCH_TYPE(key_type, K, return bitonic_units::sort_rows<K>(a);)
 }
 
 int bitonic_sort_rows_kv(const void* keys, const void* values, void* out_keys,
                          void* out_values, long long rows, int n, int key_type,
                          int value_type, int stable, void* stream) {
   if (bad_shape(rows, n) || !aligned16(keys) || !aligned16(values) ||
-      !aligned16(out_keys) || !aligned16(out_values) || value_type < 0 ||
-      value_type > 2)
+      !aligned16(out_keys) || !aligned16(out_values) || !type_bytes(value_type))
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!stable) {  // values only move: their type does not matter, their bits do
-    DISPATCH_TYPE(key_type, K,
-      return launch_sort<true, false, K, uint32_t>(keys, values, out_keys,
-                                                   out_values, rows, ilog2(n), s);)
-  }
-  DISPATCH_TYPE(key_type, K,
-    DISPATCH_TYPE(value_type, V,
-      return launch_sort<true, true, K, V>(keys, values, out_keys, out_values,
-                                           rows, ilog2(n), s);))
+  // without a tie-break values only move: their type does not matter, their bits do
+  const SortArgs a{keys, values, out_keys, out_values, rows, ilog2(n), true, stable != 0,
+                   value_type, static_cast<cudaStream_t>(stream)};
+  DISPATCH_TYPE(key_type, K, return bitonic_units::sort_rows<K>(a);)
 }
 
 // a and b: rows of n at row strides a_stride and b_stride (elements; the
@@ -595,13 +799,13 @@ int bitonic_sort_rows_kv(const void* keys, const void* values, void* out_keys,
 int bitonic_merge_rows(const void* a, long long a_stride, const void* b,
                        long long b_stride, void* out, long long rows, int n,
                        int key_type, void* stream) {
-  if (n < 1 || n > kMaxRow / 2 || bad_shape(rows, 2 * n) || bad_operand(a, a_stride, n) ||
-      bad_operand(b, b_stride, n) || !aligned16(out))
+  const int kb = type_bytes(key_type);
+  if (!kb || n < 1 || n > kMaxRow / 2 || bad_shape(rows, 2 * n) ||
+      bad_operand(a, a_stride, n, kb) || bad_operand(b, b_stride, n, kb) || !aligned16(out))
     return cudaErrorInvalidValue;
-  const MergeArgs m{a, a_stride, nullptr, 0, b, b_stride, nullptr, 0, out, nullptr};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_TYPE(key_type, K,
-    return launch_merge<false, false, K, uint32_t>(m, rows, ilog2(2 * n), s);)
+  const MergeArgs m{a, a_stride, nullptr, 0, b, b_stride, nullptr, 0, out, nullptr,
+                    rows, ilog2(2 * n), false, false, 0, static_cast<cudaStream_t>(stream)};
+  DISPATCH_TYPE(key_type, K, return bitonic_units::merge_rows<K>(m);)
 }
 
 int bitonic_merge_rows_kv(const void* ak, long long ak_stride, const void* av,
@@ -609,21 +813,16 @@ int bitonic_merge_rows_kv(const void* ak, long long ak_stride, const void* av,
                           const void* bv, long long bv_stride, void* out_keys,
                           void* out_values, long long rows, int n, int key_type,
                           int value_type, int stable, void* stream) {
-  if (n < 1 || n > kMaxRow / 2 || bad_shape(rows, 2 * n) || bad_operand(ak, ak_stride, n) ||
-      bad_operand(av, av_stride, n) || bad_operand(bk, bk_stride, n) ||
-      bad_operand(bv, bv_stride, n) || !aligned16(out_keys) || !aligned16(out_values) ||
-      value_type < 0 || value_type > 2)
+  const int kb = type_bytes(key_type), vb = type_bytes(value_type);
+  if (!kb || !vb || n < 1 || n > kMaxRow / 2 || bad_shape(rows, 2 * n) ||
+      bad_operand(ak, ak_stride, n, kb) || bad_operand(av, av_stride, n, vb) ||
+      bad_operand(bk, bk_stride, n, kb) || bad_operand(bv, bv_stride, n, vb) ||
+      !aligned16(out_keys) || !aligned16(out_values))
     return cudaErrorInvalidValue;
   const MergeArgs m{ak, ak_stride, av, av_stride, bk, bk_stride, bv, bv_stride,
-                    out_keys, out_values};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!stable) {  // values only move: their type does not matter, their bits do
-    DISPATCH_TYPE(key_type, K,
-      return launch_merge<true, false, K, uint32_t>(m, rows, ilog2(2 * n), s);)
-  }
-  DISPATCH_TYPE(key_type, K,
-    DISPATCH_TYPE(value_type, V,
-      return launch_merge<true, true, K, V>(m, rows, ilog2(2 * n), s);))
+                    out_keys, out_values, rows, ilog2(2 * n), true, stable != 0, value_type,
+                    static_cast<cudaStream_t>(stream)};
+  DISPATCH_TYPE(key_type, K, return bitonic_units::merge_rows<K>(m);)
 }
 
 const char* bitonic_error_string(int code) {
@@ -631,3 +830,5 @@ const char* bitonic_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // BITONIC_HAS(BITONIC_ENTRY_UNIT)

@@ -16,9 +16,10 @@ Counterpart of ``repro/kernels/ops.py``:
     where ``repro`` used ``vmap``: one kernel launch sorts the tiles of
     every row, and one launch runs each merge round for every row.
 
-Unsigned 16- and 32-bit keys never reach this module: PyTorch has no
-comparisons, ``where`` or ``searchsorted`` on those dtypes, so
+Unsigned 16-, 32- and 64-bit keys never reach this module: PyTorch has
+no comparisons, ``where`` or ``searchsorted`` on those dtypes, so
 ``core.keyenc.to_lane`` maps them onto signed lanes of the same width.
+The rank merge takes int64 and float64 rows as it takes 32-bit ones.
 """
 from __future__ import annotations
 
@@ -119,17 +120,18 @@ def _total_order_key(x: torch.Tensor) -> torch.Tensor:
     """Keys that compare as ``repro``'s searches compare ``x``: integers as
     they are; floats in jax's sort order (``lax._sort_lt_comparator`` after
     ``_canonicalize_float_for_sort``), where -0.0 equals +0.0, every NaN
-    equals every other and lies above +inf. The float becomes the int32
-    bits of its float32 value, sign-folded so that signed comparison is
-    the float order, with -0.0 mapped onto +0.0 and each NaN onto the
-    positive quiet NaN."""
+    equals every other and lies above +inf. The float becomes the bits of
+    its float32 value (int32; a float64 keeps its own bits, in int64),
+    sign-folded so that signed comparison is the float order, with -0.0
+    mapped onto +0.0 and each NaN onto the positive quiet NaN."""
     if not x.dtype.is_floating_point:
         return x
-    f = x.to(torch.float32)
+    f = x if x.dtype == torch.float64 else x.to(torch.float32)
     f = torch.where(f == 0, torch.zeros_like(f), f)
     f = torch.where(f != f, torch.full_like(f, float("nan")), f)
-    b = f.view(torch.int32)
-    return b ^ ((b >> 31) & 0x7FFFFFFF)
+    lane, top = (torch.int64, 63) if f.dtype == torch.float64 else (torch.int32, 31)
+    b = f.view(lane)
+    return b ^ ((b >> top) & ((1 << top) - 1))
 
 
 def jax_searchsorted(sorted_rows: torch.Tensor, queries: torch.Tensor, side: str) -> torch.Tensor:

@@ -66,8 +66,9 @@ class StreamConfig:
     n_buckets: range buckets of pass 2; None = ceil(total / chunk_elems).
     out_chunk_elems: granularity of the sorted output stream; None =
       chunk_elems.
-    x64: ``repro``'s x64 switch for chunk dtypes; only None or False
-      (x64 mode is not ported: 64-bit chunks raise at staging).
+    x64: the request's x64 mode (``SortPlan.x64``), against which every
+      chunk's dtype is checked at staging, the first point an iterator's
+      dtype is known; None reads the ambient switch (``core.x64``).
     """
 
     chunk_elems: int = 1 << 16
@@ -184,17 +185,18 @@ class _Stager:
             slot[3].record(torch.cuda.current_stream(self.device))
 
 
-_BLOCK_ELEMS = 1 << 26  # elements of a full host block of runs
+_BLOCK_ELEMS = 1 << 26  # 4-byte elements of a full host block of runs (256 MiB)
 
 
 class _RunStore:
     """Host memory for the runs of one pass 1: each run's keys (and
     values) are copied into the next free slice of the current block,
     pinned on the card, without a wait (valid once the sort stream reaches
-    the copy). A block holds ``_BLOCK_ELEMS`` elements, or what is left of
-    a known total if that is less; for an iterator, whose total is not
-    known, each block is twice the last, from one chunk up to
-    ``_BLOCK_ELEMS``. A run never straddles two blocks."""
+    the copy). A block holds ``_BLOCK_ELEMS`` elements (half as many of
+    8-byte keys or values, so that a pinned block stays at 256 MiB), or
+    what is left of a known total if that is less; for an iterator, whose
+    total is not known, each block is twice the last, from one chunk up to
+    that size. A run never straddles two blocks."""
 
     def __init__(self, total: int | None, pinned: bool):
         self.left, self.pinned = total, pinned
@@ -208,7 +210,8 @@ class _RunStore:
                 or self.blocks[0].dtype != keys.dtype):
             grow = self.left if self.left is not None else 2 * (
                 self.blocks[0].shape[0] if self.blocks else 0)
-            cap = max(m, min(_BLOCK_ELEMS, grow))
+            widest = max(x.element_size() for x in (keys, values) if x is not None)
+            cap = max(m, min(_BLOCK_ELEMS * 4 // max(4, widest), grow))
             self.blocks = tuple(None if x is None else
                                 torch.empty(cap, dtype=x.dtype, pin_memory=self.pinned)
                                 for x in (keys, values))
@@ -248,11 +251,6 @@ def generate_runs(data, cfg: StreamConfig = StreamConfig(), values=None, *,
     ``descending=True`` flips each chunk on the device after its copy, so
     the runs are flip-encoded ascending (pass 3 decodes them)."""
     dev = _device.resolve(device)
-    if cfg.x64:
-        raise keyenc.X64NotPortedError(
-            f"StreamConfig(x64=True): x64 mode is not ported to repro_torch yet "
-            f"(ROADMAP.md §1, {planner._LATER['x64']})"
-        )
     p, per = cfg.n_procs, -(-cfg.chunk_elems // cfg.n_procs)
     key_chunks = iter_chunks(data, p * per)
     val_chunks = iter_chunks(values, p * per) if values is not None else None
@@ -287,7 +285,7 @@ def generate_runs(data, cfg: StreamConfig = StreamConfig(), values=None, *,
     inflight = None
     for i, chunk in enumerate(key_chunks):
         m = int(chunk.shape[0])
-        planner.check_key_dtype(chunk.dtype, what="stream chunk keys")
+        planner.check_key_dtype(chunk.dtype, what="stream chunk keys", x64=cfg.x64)
         nan = (values is None and chunk.dtype.is_floating_point
                and bool(chunk.isnan().any()))
         slot = i % 2
@@ -301,7 +299,8 @@ def generate_runs(data, cfg: StreamConfig = StreamConfig(), values=None, *,
                 if vchunk is None or len(vchunk) != m:
                     raise ValueError("values must chunk identically to keys")
                 if not isinstance(vchunk, range):
-                    planner.check_key_dtype(vchunk.dtype, what="stream chunk values")
+                    planner.check_key_dtype(vchunk.dtype, what="stream chunk values",
+                                            x64=cfg.x64)
                 xv = keyenc.to_lane(stager.stage(vchunk, ("values", slot)))
                 xv = _grid(xv, p, per)
                 dtypes = (chunk.dtype, xv.dtype if isinstance(vchunk, range) else vchunk.dtype)

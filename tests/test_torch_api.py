@@ -19,7 +19,7 @@ import repro
 import repro_torch
 from repro_torch import convert
 from torch_parity import (assert_sort_equal, make_keys, np_dtype, port_config, port_limits,
-                          sort_both)
+                          port_np, sort_both)
 
 RNG = np.random.default_rng(3)
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -124,13 +124,22 @@ def test_errors_match_repro(keys, kw):
 
 @pytest.mark.parametrize("dtype", ["int64", "float64", "uint64"])
 def test_64bit_dtypes_refused_at_the_door(dtype):
-    keys = np.arange(4).astype(dtype)
-    want, got = _errors_of(lambda: repro.sort(keys, where="sim"),
-                           lambda: repro_torch.sort(keys, device="cpu"))
-    assert isinstance(want, TypeError) and isinstance(got, TypeError)
-    assert isinstance(got, NotImplementedError) and "x64" in str(got)
-    with pytest.raises(TypeError):
-        repro_torch.sort(np.arange(4, dtype=np.float32), np.arange(4), device="cpu")
+    """With x64 mode off (the default of both packages) both refuse 64-bit
+    keys and values with a TypeError naming the opt-in; with it on the
+    port sorts them (tests/test_torch_x64.py holds those sorts to
+    repro's)."""
+    keys = np.arange(4).astype(dtype)[::-1].copy()
+    with repro_torch.x64_mode(False):
+        want, got = _errors_of(lambda: repro.sort(keys, where="sim"),
+                               lambda: repro_torch.sort(keys, device="cpu"))
+        assert type(want) is type(got) is TypeError
+        assert "REPRO_X64=1" in str(got) and "SortLimits(x64=True)" in str(got)
+        with pytest.raises(TypeError, match="x64 mode"):
+            repro_torch.sort(np.arange(4, dtype=np.float32), np.arange(4), device="cpu")
+    with repro_torch.x64_mode():
+        out = repro_torch.sort(keys, device="cpu")
+    assert out.keys.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(port_np(out.keys), np.sort(keys))
 
 
 @pytest.mark.parametrize("call,item", [
@@ -152,8 +161,27 @@ def test_64bit_dtypes_refused_at_the_door(dtype):
         k, limits=repro_torch.SortLimits(x64=True), device="cpu"), "item 2"),
 ])
 def test_not_ported_raises_naming_the_roadmap_item(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, {item} "):
-        call(np.arange(100, dtype=np.int32))
+    """What the port does not cover raises NotImplementedError naming its
+    ROADMAP item. The "item 2" cases are x64 mode, which is ported now:
+    each sorts, with the mode on or pinned by SortLimits(x64=True); with
+    the mode off a 64-bit stream chunk raises repro's TypeError."""
+    k = np.arange(100, dtype=np.int32)
+    if item != "item 2":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, {item} "):
+            call(k)
+        return
+    outs = []
+    with repro_torch.x64_mode(False):
+        try:
+            outs.append(call(k))
+        except TypeError as e:
+            assert "64-bit stream chunk keys (int64) need x64 mode" in str(e)
+    with repro_torch.x64_mode():
+        outs.append(call(k))
+    for out in outs:
+        keys = getattr(out, "keys", out)
+        for col in keys if isinstance(keys, tuple) else (keys,):
+            np.testing.assert_array_equal(port_np(col), k)
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 import repro_torch
+import torch_x64_cases
 from repro_torch import convert
+from repro_torch.core import keyenc
 from repro_torch.kernels import bitonic
 
 pytestmark = pytest.mark.cuda
@@ -162,6 +164,95 @@ def test_sort_on_cuda_equals_sort_on_cpu(gpu, dtype, kw):
             assert g[name] is None
         else:
             np.testing.assert_array_equal(g[name], w[name])
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(1, 14)])
+@pytest.mark.parametrize("kdtype", ["int64", "float64", "uint64"])
+def test_kernels_equal_twins_at_8_bytes(gpu, n, kdtype):
+    """The 64-bit instantiations, bit for bit against the twins: keys of
+    the whole range with their extremes (+-inf for float64) and
+    duplicates, every value type, stable on and off, 1, 3 and a number of
+    rows that leaves the last CTA short; the merges from contiguous
+    operands and the merge tree's strided views."""
+    def rows_of(rows, width, dtype, seed, sort=False):
+        x = convert.to_tensor(torch_x64_cases.column(dtype, rows * width, seed, payload_safe=False)
+                              .reshape(rows, width), gpu) if dtype in torch_x64_cases.WIDE else \
+            _rows(torch.Generator(device=gpu).manual_seed(seed), rows, width,
+                  getattr(torch, dtype), 7, gpu)
+        return bitonic.bitonic_sort_rows(x) if sort else x
+
+    per_cta = bitonic.sort_rows_per_cta(n)
+    vtypes = ("int32", "uint32", "float32", "int64", "uint64", "float64")
+    for rows in (1, 3, 2 * per_cta + 1 if per_cta > 1 else 5):
+        k = rows_of(rows, n, kdtype, n + rows)
+        before = bitonic.bitonic_sort_rows.wide_launches
+        assert _same_bits(bitonic.bitonic_sort_rows(k), bitonic.bitonic_sort_rows(k.cpu()))
+        assert bitonic.bitonic_sort_rows.wide_launches == before + 1
+        for i, vd in enumerate(vtypes):
+            v = rows_of(rows, n, vd, 7 * n + i)
+            for stable in (True, False):
+                ok, ov = bitonic.bitonic_sort_rows_kv(k, v, stable=stable)
+                tk, tv = bitonic.bitonic_sort_rows_kv(k.cpu(), v.cpu(), stable=stable)
+                assert _same_bits(ok, tk) and _same_bits(ov, tv)
+        for strided in (False, True):
+            both = rows_of(2 * rows, n // 2, kdtype, 3 * n + rows, sort=True)
+            a, b = (both[0::2], both[1::2]) if strided else (both[:rows], both[rows:])
+            assert _same_bits(bitonic.bitonic_merge_rows(a, b),
+                              bitonic.bitonic_merge_rows(a.cpu(), b.cpu()))
+            for i, vd in enumerate(vtypes):
+                vals = rows_of(2 * rows, n // 2, vd, 11 * n + i)
+                av, bv = (vals[0::2], vals[1::2]) if strided else (vals[:rows], vals[rows:])
+                for stable in (True, False):
+                    ok, ov = bitonic.bitonic_merge_rows_kv(a, av, b, bv, stable=stable)
+                    tk, tv = bitonic.bitonic_merge_rows_kv(a.cpu(), av.cpu(), b.cpu(), bv.cpu(),
+                                                           stable=stable)
+                    assert _same_bits(ok, tk) and _same_bits(ov, tv)
+
+
+@pytest.mark.parametrize("name", list(torch_x64_cases.cases()))
+def test_x64_sort_on_cuda_equals_cpu(gpu, monkeypatch, name):
+    """The x64 cases of tests/test_torch_x64.py (held there to repro's) on
+    the card against the same call on the CPU: outputs bit for bit, or the
+    same error."""
+    case = torch_x64_cases.cases()[name]
+    if case["cap"] is not None:
+        monkeypatch.setattr(keyenc, "PROVENANCE_INT32_CAP", case["cap"])
+    limits = repro_torch.SortLimits(**case["limits"])
+    config = repro_torch.SortConfig(**case["config"])
+    outs = []
+    with repro_torch.x64_mode():
+        for dev in (gpu, "cpu"):
+            try:
+                out = repro_torch.sort(case["keys"], case["values"], limits=limits,
+                                       config=config, device=dev, **case["kw"])
+                keys = out.keys if isinstance(out.keys, tuple) else (out.keys,)
+                outs.append([*keys, out.values, torch.as_tensor(out.counts)])
+            except Exception as e:  # noqa: BLE001 - both devices raise the same
+                outs.append(f"{type(e).__name__}: {e}")
+    got, want = outs
+    if isinstance(want, str):
+        assert got == want
+        return
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        assert w is None or (g.dtype == w.dtype and _same_bits(g, w))
+
+
+def test_views_on_cuda_equal_cpu(gpu):
+    """topk, searchsorted and provenance of a card sort: tensors on the
+    card, equal to the CPU's."""
+    x = torch_x64_cases.column("float64", 20000, 1).reshape(4, 5000)
+    q = np.concatenate([x.reshape(-1)[:300], [0.0, -0.0, np.nan, np.inf, -np.inf]])
+    with repro_torch.x64_mode():
+        outs = [repro_torch.sort(x, want="order", order=o, device=d)
+                for d in (gpu, "cpu") for o in ("asc", "desc")]
+    for got, want in zip(outs[:2], outs[2:]):
+        assert got.topk(50).device.type == "cuda"
+        for view in (lambda o: o.topk(50), lambda o: o.topk(7, largest=False),
+                     lambda o: o.searchsorted(q), lambda o: o.searchsorted(q, "right"),
+                     lambda o: o.provenance()[0], lambda o: o.provenance()[1]):
+            assert _same_bits(view(got), view(want))
 
 
 def test_jax_order_search_and_writer_rule_equal_cpu(gpu):
@@ -404,7 +495,7 @@ def test_merge_copies_unaligned_views_and_refuses_unaligned_pointers(gpu):
 
 def test_wrapper_raises_on_cuda_instead_of_falling_back(gpu):
     with pytest.raises(TypeError, match="unsupported dtype"):
-        bitonic.bitonic_sort_rows(torch.zeros((2, 8), dtype=torch.float64, device=gpu))
+        bitonic.bitonic_sort_rows(torch.zeros((2, 8), dtype=torch.complex64, device=gpu))
     with pytest.raises(ValueError, match="power of two"):
         bitonic.bitonic_merge_rows(torch.zeros((2, 8192), device=gpu),
                                    torch.zeros((2, 8192), device=gpu))

@@ -186,7 +186,7 @@ def test_wrapper_refuses_other_devices_and_bad_rows():
     with pytest.raises(ValueError, match="want cuda or cpu"):
         bitonic.bitonic_sort_rows(torch.zeros((2, 8), device="meta"))
     with pytest.raises(TypeError, match="unsupported dtype"):
-        bitonic.bitonic_sort_rows(torch.zeros((2, 8), dtype=torch.float64))
+        bitonic.bitonic_sort_rows(torch.zeros((2, 8), dtype=torch.complex64))
 
 
 def test_cpu_twins_count_no_launches():

@@ -9,8 +9,10 @@ one std::thread per CUDA thread, ``__syncthreads()`` is a barrier over
 them, ``__syncwarp()`` a barrier over the warp, and a launch a loop over
 the CTAs. ``bitonic_sort_rows`` and ``bitonic_sort_rows_kv`` then sort
 every row length 2 .. 2^max-log-n, 1, 3 and a number of rows that
-leaves the last CTA short, with five key/value type pairs, stable on and
-off, on keys with heavy duplicates, +-0.0, +-inf and NaN; each output
+leaves the last CTA short, with 4- and 8-byte key/value type pairs
+(int32, uint32, float32, int64, float64), stable on and off, on keys
+with heavy duplicates, +-0.0, +-inf and NaN (the integer types'
+extremes among integers); each output
 must equal, bit for bit, the network of
 repro/kernels/bitonic.py::_sort_network run serially on the same row.
 ``bitonic_merge_rows`` and ``bitonic_merge_rows_kv`` then merge rows of
@@ -20,9 +22,12 @@ array), each held to a serial run of ``_merge_network`` on a ++
 reverse(b). It also checks that a bad row length, a row stride that
 breaks the 16-byte pieces and an unaligned pointer are refused.
 
-This checks the kernels' logic (layout, directions, barriers) without a
-card: not their speed, nor what only nvcc would refuse. Builds in
-build/cpu_check/; about a minute in all at --max-log-n 13. Needs g++.
+The source is built as the library is (``kernels/build.py``): one object
+per unit of ``build.UNITS["bitonic"]``, compiled together, linked into
+one program. This checks the kernels' logic (layout, directions,
+barriers) and how the units link without a card: not their speed, nor
+what only nvcc would refuse. Builds in build/cpu_check/; a few minutes in
+all at --max-log-n 13. Needs g++.
 """
 from __future__ import annotations
 
@@ -33,6 +38,9 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.kernels import build as kbuild  # noqa: E402
+
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "bitonic.cu"
 OUT = ROOT / "build" / "cpu_check"
 
@@ -57,26 +65,31 @@ PRELUDE = r"""
 struct int4 { int x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
+struct longlong2 { long long x, y; };
+struct ulonglong2 { unsigned long long x, y; };
+struct double2 { double x, y; };
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
-thread_local dim3 threadIdx;
+static thread_local dim3 threadIdx;
 static dim3 blockIdx, blockDim;
 static std::barrier<>* g_cta;
 static std::vector<std::unique_ptr<std::barrier<>>> g_warps;
-inline void __syncthreads() { g_cta->arrive_and_wait(); }
-inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
-inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
-inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
+static inline void __syncthreads() { g_cta->arrive_and_wait(); }
+static inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
+static inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+static inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
+static inline long long __double_as_longlong(double x) { long long u; std::memcpy(&u, &x, 8); return u; }
+static inline double __longlong_as_double(long long u) { double x; std::memcpy(&x, &u, 8); return x; }
 alignas(16) static unsigned char g_smem[1 << 17];
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef void* cudaStream_t;
-template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+template <class F> static cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+static inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+static inline cudaError_t cudaGetLastError() { return 0; }
+static inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 template <class F, class... A>
-void emul_launch(F kern, unsigned grid, int threads, size_t smem, cudaStream_t, A... args) {
+static void emul_launch(F kern, unsigned grid, int threads, size_t smem, cudaStream_t, A... args) {
   if (smem > sizeof(g_smem) || threads % 32) std::abort();
   blockDim.x = threads;
   for (unsigned b = 0; b < grid; ++b) {
@@ -134,20 +147,23 @@ void merge_network(K* k, V* v, int n, bool has_v, bool tb) {
 static std::mt19937 rng(1);
 template <class T> T special() {
   const int x = int(rng() % 7) - 3;
-  if constexpr (std::is_same_v<T, float>) {
-    if (x == 0) return (rng() & 1) ? 0.0f : -0.0f;
-    if (x == 3) return INFINITY;
-    if (x == -3) return -INFINITY;
-    if (x == 2 && (rng() & 1)) return NAN;
-    return float(x);
+  if constexpr (std::is_floating_point_v<T>) {
+    if (x == 0) return (rng() & 1) ? T(0.0) : T(-0.0);
+    if (x == 3) return T(INFINITY);
+    if (x == -3) return T(-INFINITY);
+    if (x == 2 && (rng() & 1)) return T(NAN);
+    return T(x);
   } else {
     if (x == 3) return std::numeric_limits<T>::max();
     if (x == -3) return std::numeric_limits<T>::min();
     return T(x);
   }
 }
+// The entry points' type codes; an 8-byte integer value that only moves
+// goes as int64 (its bits are what count).
 template <class T> int code() {
-  return std::is_same_v<T, int32_t> ? 0 : std::is_same_v<T, uint32_t> ? 1 : 2;
+  return std::is_same_v<T, int32_t> ? 0 : std::is_same_v<T, uint32_t> ? 1
+       : std::is_same_v<T, float> ? 2 : std::is_same_v<T, double> ? 4 : 3;
 }
 
 // mode 0: keys only; 1: kv, stable=False; 2: kv, stable=True
@@ -164,8 +180,8 @@ template <class K, class V> int check(long long rows, int n, int mode) {
       ? bitonic_sort_rows(k.data(), ko.data(), rows, n, code<K>(), nullptr)
       : bitonic_sort_rows_kv(k.data(), v.data(), ko.data(), vo.data(), rows, n, code<K>(),
                              code<V>(), mode == 2, nullptr);
-  const bool same = err == 0 && std::memcmp(ko.data(), kw.data(), total * 4) == 0 &&
-                    (mode == 0 || std::memcmp(vo.data(), vw.data(), total * 4) == 0);
+  const bool same = err == 0 && std::memcmp(ko.data(), kw.data(), total * sizeof(K)) == 0 &&
+                    (mode == 0 || std::memcmp(vo.data(), vw.data(), total * sizeof(V)) == 0);
   if (!same)
     std::printf("MISMATCH rows=%lld n=%d mode=%d key type %d value type %d (launch %d)\n",
                 rows, n, mode, code<K>(), code<V>(), err);
@@ -204,8 +220,8 @@ template <class K, class V> int check_merge(long long rows, int n2, int mode, bo
       ? bitonic_merge_rows(ak, stride, bk, stride, ko.data(), rows, n, code<K>(), nullptr)
       : bitonic_merge_rows_kv(ak, stride, av, stride, bk, stride, bv, stride, ko.data(),
                               vo.data(), rows, n, code<K>(), code<V>(), mode == 2, nullptr);
-  const bool same = err == 0 && std::memcmp(ko.data(), kw.data(), total * 4) == 0 &&
-                    (mode == 0 || std::memcmp(vo.data(), vw.data(), total * 4) == 0);
+  const bool same = err == 0 && std::memcmp(ko.data(), kw.data(), total * sizeof(K)) == 0 &&
+                    (mode == 0 || std::memcmp(vo.data(), vw.data(), total * sizeof(V)) == 0);
   if (!same)
     std::printf("MERGE MISMATCH rows=%lld 2n=%d mode=%d strided=%d key type %d value type %d "
                 "(launch %d)\n", rows, n2, mode, strided, code<K>(), code<V>(), err);
@@ -223,6 +239,12 @@ int main(int argc, char** argv) {
              check<uint32_t, uint32_t>(rows, n, 0) + check<float, int32_t>(rows, n, 1) +
              check<float, int32_t>(rows, n, 2) + check<float, float>(rows, n, 2) +
              check<uint32_t, int32_t>(rows, n, 2) + check<int32_t, float>(rows, n, 2);
+      bad += check<int64_t, uint32_t>(rows, n, 0) + check<double, uint32_t>(rows, n, 0) +
+             check<int64_t, int64_t>(rows, n, 1) + check<double, int32_t>(rows, n, 1) +
+             check<float, int64_t>(rows, n, 1) + check<int64_t, int64_t>(rows, n, 2) +
+             check<double, double>(rows, n, 2) + check<int64_t, float>(rows, n, 2) +
+             check<double, uint32_t>(rows, n, 2) + check<float, double>(rows, n, 2) +
+             check<uint32_t, int64_t>(rows, n, 2);
     }
     std::printf("N=%d: %s\n", n, bad ? "MISMATCH" : "equal to the serial network");
     std::fflush(stdout);
@@ -239,7 +261,18 @@ int main(int argc, char** argv) {
                check_merge<float, int32_t>(rows, n2, 2, strided) +
                check_merge<float, float>(rows, n2, 2, strided) +
                check_merge<uint32_t, int32_t>(rows, n2, 2, strided) +
-               check_merge<int32_t, float>(rows, n2, 2, strided);
+               check_merge<int32_t, float>(rows, n2, 2, strided) +
+               check_merge<int64_t, uint32_t>(rows, n2, 0, strided) +
+               check_merge<double, uint32_t>(rows, n2, 0, strided) +
+               check_merge<int64_t, int64_t>(rows, n2, 1, strided) +
+               check_merge<double, int32_t>(rows, n2, 1, strided) +
+               check_merge<float, int64_t>(rows, n2, 1, strided) +
+               check_merge<int64_t, int64_t>(rows, n2, 2, strided) +
+               check_merge<double, double>(rows, n2, 2, strided) +
+               check_merge<int64_t, float>(rows, n2, 2, strided) +
+               check_merge<double, uint32_t>(rows, n2, 2, strided) +
+               check_merge<float, double>(rows, n2, 2, strided) +
+               check_merge<uint32_t, int64_t>(rows, n2, 2, strided);
     std::printf("merge to 2n=%d: %s\n", n2, bad ? "MISMATCH" : "equal to the serial network");
     std::fflush(stdout);
   }
@@ -255,6 +288,18 @@ int main(int argc, char** argv) {
   }
   if (bitonic_merge_rows(x + 1, 5, x + 3, 5, out, 2, 2, 2, nullptr) != 0) {
     std::printf("a merge of rows of 2 read element by element was refused\n");
+    ++bad;
+  }
+  // 8-byte pieces: a row stride of 10 doubles keeps them 16-byte aligned
+  // (10 floats would not), 9 does not; type codes past 4 are refused
+  alignas(16) double xd[64] = {}, outd[64];
+  if (bitonic_merge_rows(xd, 10, xd, 8, outd, 2, 8, 4, nullptr) != 0 ||
+      bitonic_merge_rows(xd, 9, xd, 8, outd, 2, 8, 4, nullptr) == 0 ||
+      bitonic_merge_rows(xd + 1, 8, xd, 8, outd, 1, 8, 4, nullptr) == 0 ||
+      bitonic_sort_rows(xd, outd, 1, 8, 5, nullptr) == 0 ||
+      bitonic_sort_rows_kv(xd, xd, outd, outd, 1, 8, 4, 5, 1, nullptr) == 0) {
+    std::printf("an 8-byte merge stride, an unaligned 8-byte piece or a bad type code "
+                "was judged wrongly\n");
     ++bad;
   }
   return bad != 0;
@@ -275,10 +320,20 @@ def main() -> int:
     ap.add_argument("--max-log-n", type=int, default=13)
     args = ap.parse_args()
     OUT.mkdir(parents=True, exist_ok=True)
-    cpp, exe = OUT / "bitonic_cpu.cpp", OUT / "bitonic_cpu"
-    cpp.write_text(translate(SOURCE.read_text()) + HARNESS)
-    subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-Wno-unknown-pragmas",
-                    "-o", str(exe), str(cpp)], check=True)
+    # the library's translation units, as kernels/build.py compiles them
+    # (the last holds the entry points, and the harness joins it)
+    unit, main_cpp, exe = OUT / "bitonic_unit.cpp", OUT / "bitonic_main.cpp", OUT / "bitonic_cpu"
+    src = translate(SOURCE.read_text())
+    unit.write_text(src)
+    main_cpp.write_text(src + HARNESS)
+    gxx = ["g++", "-std=c++20", "-O1", "-pthread", "-Wno-unknown-pragmas", "-c"]
+    flags = kbuild.UNITS["bitonic"]
+    objs = [OUT / f"unit{u}.o" for u in range(len(flags))]
+    procs = [subprocess.Popen([*gxx, d, "-o", str(o), str(main_cpp if u == len(flags) - 1 else unit)])
+             for u, (d, o) in enumerate(zip(flags, objs))]
+    if any(p.wait() for p in procs):
+        return 1
+    subprocess.run(["g++", "-pthread", "-o", str(exe), *map(str, objs)], check=True)
     return subprocess.run([str(exe), str(args.max_log_n)]).returncode
 
 

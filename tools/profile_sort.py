@@ -2,11 +2,13 @@
 """Where the time of one ``repro_torch.sort`` goes on the GPU.
 
     python3 tools/profile_sort.py [--n 4194304] [--want values|order]
-                                  [--case float32|nan|packed|lsd|stream]
+                                  [--case float32|int64|float64|nan|packed|lsd|stream]
                                   [--order asc|desc]
 
 Sorts n keys (made on the card from a seed) once to warm up: float32 keys
-(with 5% NaN for "nan"), or a multi-key pair as ``chip_smoke.py`` phase 3 sorts it ("packed": int32
+(with 5% NaN for "nan"), int64 keys in [-2^62, 2^62) or float64 keys
+(normal, times 1e100) in x64 mode (``SortLimits(x64=True)``), or a
+multi-key pair as ``chip_smoke.py`` phase 3 sorts it ("packed": int32
 ids in [0, 1000) ascending and int32 times in [0, 2^20) descending, one
 packed int32 sort; "lsd": float32 and full-range int32 keys, two LSD
 passes, with a float32 payload), all in-core (stream_threshold=None);
@@ -138,10 +140,12 @@ def main() -> int:
     parser.add_argument("--n", type=int, default=None)
     parser.add_argument("--want", default="values", choices=("values", "order"))
     parser.add_argument("--order", default="asc", choices=("asc", "desc"),
-                        help="the order of a single-key case (float32, nan, stream)")
+                        help="the order of a single-key case (float32, int64, float64, nan, "
+                             "stream)")
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--case", default="float32",
-                        choices=("float32", "nan", "packed", "lsd", "stream"))
+                        choices=("float32", "int64", "float64", "nan", "packed", "lsd",
+                                 "stream"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_sort: no CUDA device", file=sys.stderr)
@@ -155,6 +159,10 @@ def main() -> int:
     keys, values, kw = x, None, dict(want=args.want, order=args.order)
     if args.case == "nan":
         x[torch.rand(args.n, generator=gen, device="cuda") < 0.05] = float("nan")
+    elif args.case == "int64":
+        keys = torch.randint(-(1 << 62), 1 << 62, (args.n,), generator=gen, device="cuda")
+    elif args.case == "float64":
+        keys = torch.randn(args.n, dtype=torch.float64, generator=gen, device="cuda") * 1e100
     elif args.case == "packed":
         keys = (torch.randint(0, 1000, (args.n,), generator=gen, device="cuda", dtype=torch.int32),
                 torch.randint(0, 1 << 20, (args.n,), generator=gen, device="cuda",
@@ -166,7 +174,7 @@ def main() -> int:
         values = torch.rand(args.n, generator=gen, device="cuda") if args.want == "values" else None
         kw["order"] = ("asc", "desc")
     first = keys[0] if isinstance(keys, tuple) else keys
-    limits = repro_torch.SortLimits(stream_threshold=None)
+    limits = repro_torch.SortLimits(stream_threshold=None, x64=args.case in ("int64", "float64"))
     if args.case == "stream":
         keys, limits = x.cpu(), repro_torch.SortLimits()
 
