@@ -102,13 +102,42 @@ Phases, one line or more each:
      (topk against torch.topk, searchsorted of 4096 queries against
      np.searchsorted, provenance() against the numpy decode of order());
      a 2^22 argsort with PROVENANCE_INT32_CAP lowered, so its index is
-     int64. Each case prints its wall time and launches.
+     int64. Each case prints its wall time and launches;
+  8. the serve tier (``repro_torch.serve.sortd``, ``stream.service``,
+     ``tune``, ``obs.flight``), its launch counts summed over the phase
+     (each of the four kernels must launch): ``SortService.sort_many`` at
+     one bucket (float32, p = 8, per = 2^13) with B = 1, 4 and 16 host
+     requests of 2^16 keys, each flush launching every kernel as often as
+     the others (counts read and set to 0 around each flush), each result
+     equal to torch.sort; ``SortServer(max_batch=16, max_delay_ms=2)``
+     with two tenants (one at 4x the other's rate) and four submitting
+     threads: 256 requests of keys-only float32 (log-uniform 2^10-2^16,
+     25% descending), packed (int32, int32) pairs with declared widths,
+     argsorts, float32 payloads, one 2^23 host stream request and 16 each
+     of topk / searchsorted / percentile, every answer exact (torch.sort,
+     stable passes, torch.topk, np.searchsorted, np.percentile), stats()
+     and both tenants' p50 / p99 printed, every flush record linked to its
+     requests; 16 x 2^14 float32 as one flush and as 16 sort calls (wall
+     and device time under torch.profiler, launches); a cold tune store
+     warmed by the card's own sim (2^14-2^22) and stream (2^20-2^23)
+     sorts until both predictions at 2^23 clear the confidence bar, whose
+     plan of 2^23 must read cost_source "model", then run; the chunk size
+     the model picks after streams at three chunk sizes; the store saved,
+     loaded back and held to tests/tune_schema.json's shape; 2^22 int32
+     keys of 4 values at capacity_factor 0.25: at least 2 ladder retries
+     without a tuner, exactly 1 with one, both exact; a QueueFullError
+     burst through a one-slot queue, whose incident snapshot must be in
+     tests/flight_schema.json's shape and read by ``python -m
+     repro_torch.obsctl`` (slow, export) with rc 0.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
-bitonic kernels' 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's
-shapes, ``launches_x64`` the 8-byte launches of phase 7), the card's name
-and power limit, and, last, {"ok": true, "device": {...}}.
+bitonic kernels' ``launches`` are phase 3's plus phase 8's, phase 8's
+alone as ``launches_serve``; their 64-bit ones as ``*_x64``: times at a
+2^22 int64 sort's shapes, ``launches_x64`` the 8-byte launches of phase
+7), the card's name and power limit, and, last, {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py --phases 2,7   # a development run: 1, 2 and 7 only
+    python3 chip_smoke.py --phases 8     # phases 1, 2 and 8
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -1266,6 +1295,390 @@ def run_x64(device) -> dict:
     return wide
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+def device_ms(fn) -> tuple[float, float]:
+    """(wall ms, device ms) of one ``fn()`` under ``torch.profiler``: the
+    wall on the host clock, synchronised; device time the sum of the
+    device-side events (kernels and copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e) -> float:  # renamed from self_cuda_time_total in newer torch
+        v = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if v is None else v
+
+    dev = sum(dev_us(e) for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0) / 1e3
+    if dev == 0:
+        raise AssertionError("the profiler recorded no device time")
+    return wall, dev
+
+
+def schema_shape_ok(label: str, got: dict, path: pathlib.Path) -> None:
+    """``got`` (a shape description, as the repo's schema checkers build
+    it) equals the pinned file's."""
+    want = json.loads(path.read_text())
+    bad = {k: (want.get(k), got.get(k)) for k in set(want) | set(got) if want.get(k) != got.get(k)}
+    if bad:
+        raise AssertionError(f"phase 8: {label} drifted from {path.name}: {bad}")
+
+
+def run_serving(device) -> dict:
+    """Phase 8: the serve tier on the card. The launch counts are summed
+    over the phase (read and set to 0 around each flush of the invariance
+    check); each of the four bitonic kernels must launch. Returns those
+    launches per kernel."""
+    import contextlib
+    import os
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import tune
+    from repro_torch.kernels import bitonic
+    from repro_torch.obs import flight, slo
+    from repro_torch.serve import sortd
+    from repro_torch.stream.service import SortService
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    total = {fn.__name__: 0 for fn in bitonic.KERNELS}
+
+    def take() -> dict:
+        """The counts since the last take, added to the phase's total."""
+        got = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+        bitonic.reset_launches()
+        for k, v in got.items():
+            total[k] += v
+        return got
+
+    bitonic.reset_launches()
+    t_phase = time.perf_counter()
+    scratch = ROOT / "build" / "phase8"  # files of this phase, removed at its end
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+
+    # launch invariance: one bucket (float32, p = 8, per = 2^13), B = 1, 4, 16
+    svc = SortService(n_procs=8, device=device)
+    per_b = {}
+    for b in (1, 4, 16):
+        xs = [torch.rand(1 << 16, generator=gen, device=device).cpu() for _ in range(b)]
+        take()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = svc.sort_many(xs)
+        wall = (time.perf_counter() - t0) * 1e3
+        per_b[b] = take()
+        for x, out in zip(xs, outs):
+            if not torch.equal(out, torch.sort(x.to(device)).values.cpu()):
+                raise AssertionError(f"phase 8: a flush of B={b} differs from torch.sort")
+        log(f"phase 8: SortService flush of B={b} x 2^16 float32 (p=8, per=2^13): "
+            f"{wall:.3f} ms wall, launches {per_b[b]}")
+    if len({tuple(v.values()) for v in per_b.values()}) != 1:
+        raise AssertionError(f"phase 8: launches grow with the batch: {per_b}")
+    if not (per_b[1]["bitonic_sort_rows"] and per_b[1]["bitonic_merge_rows"]):
+        raise AssertionError(f"phase 8: a flush launched no bitonic kernel: {per_b[1]}")
+    log(f"phase 8: program cache {svc.stats}")
+
+    # mixed traffic through SortServer: two tenants (one floods at 4x),
+    # four submitting threads, keys-only (25% descending), packed pairs,
+    # argsorts and payloads, one 2^23 host stream request, 16 each of
+    # topk / searchsorted / percentile
+    flight.RECORDER.reset()
+    rng = np.random.default_rng(8)
+    specs = []
+    for i in range(256 - 48 - 1 - 32 - 16):
+        n = int(2 ** rng.uniform(10, 16))
+        specs.append(("keys", n, "desc" if rng.random() < 0.25 else "asc"))
+    specs += [("pair", int(2 ** rng.uniform(10, 16)), None) for _ in range(16)]
+    specs += [("order", int(2 ** rng.uniform(10, 16)), None) for _ in range(16)]
+    specs += [("payload", int(2 ** rng.uniform(10, 16)), None) for _ in range(16)]
+    specs += [(kind, int(2 ** rng.uniform(10, 16)), None)
+              for kind in ("topk", "searchsorted", "percentile") for _ in range(16)]
+    specs.append(("stream", 1 << 23, None))
+    rng.shuffle(specs)
+    pair_limits = repro_torch.SortLimits(key_bits=(10, 20))
+    queries = np.array([-1.0, 0.0, 0.25, 0.5, 0.75, 1.0, 2.0], np.float32)
+    pct = np.array([0.0, 1.0, 50.0, 99.0, 100.0])
+    lat = {"flood": [], "light": []}
+    errors, lock = [], threading.Lock()
+
+    def check(kind, n, order, inputs, out):
+        x = inputs[0]
+        xd = torch.from_numpy(x).to(device) if isinstance(x, np.ndarray) else None
+        if kind in ("keys", "stream"):
+            want = torch.sort(xd).values
+            want = want.flip(0) if order == "desc" else want
+            return torch.equal(out.keys.cpu(), want.cpu())
+        if kind == "pair":
+            cols = [torch.from_numpy(c).to(device) for c in x]
+            perm = lex_order(cols, (False, True))
+            return all(torch.equal(g.cpu(), c[perm].cpu()) for g, c in zip(out.keys, cols))
+        if kind == "order":
+            want = torch.sort(xd, stable=True).indices.to(torch.int32)
+            return torch.equal(out.order().cpu(), want.cpu())
+        if kind == "payload":
+            gk, gv = canon_pairs(out.keys.to(device), out.values.to(device))
+            wk, wv = canon_pairs(xd, torch.from_numpy(inputs[1]).to(device))
+            return torch.equal(gk, wk) and torch.equal(gv, wv)
+        srt = np.sort(x)
+        if kind == "topk":
+            return torch.equal(out.keys.cpu(), torch.topk(xd, 9).values.cpu())
+        if kind == "searchsorted":
+            return np.array_equal(out.keys.cpu().numpy(), np.searchsorted(srt, queries))
+        return np.array_equal(out.keys.cpu().numpy(), np.percentile(srt, pct))
+
+    def client(part):
+        local = np.random.default_rng(100 + part)
+        for kind, n, order in part_specs[part]:
+            tenant = "flood" if local.random() < 0.8 else "light"
+            if kind == "pair":
+                x = (local.integers(0, 1 << 10, n).astype(np.int32),
+                     local.integers(0, 1 << 20, n).astype(np.int32))
+            else:
+                x = local.random(n, dtype=np.float32)
+            inputs = (x, local.integers(-1000, 1000, n).astype(np.int32))
+            t_sub = time.perf_counter()
+            if kind in ("keys", "stream"):
+                fut = srv.submit(x, order=order or "asc", tenant=tenant)
+            elif kind == "pair":
+                fut = srv.submit(x, order=("asc", "desc"), limits=pair_limits, tenant=tenant)
+            elif kind == "order":
+                fut = srv.submit(x, want="order", tenant=tenant)
+            elif kind == "payload":
+                fut = srv.submit(x, inputs[1], tenant=tenant)
+            elif kind == "topk":
+                fut = srv.submit_topk(x, 9, tenant=tenant)
+            elif kind == "searchsorted":
+                fut = srv.submit_searchsorted(x, queries, tenant=tenant)
+            else:
+                fut = srv.submit_percentile(x, pct, tenant=tenant)
+            fut.add_done_callback(
+                lambda _f, t=tenant, t0=t_sub: lat[t].append((time.perf_counter() - t0) * 1e3))
+            pending.append((kind, n, order, inputs, fut, tenant))
+
+    part_specs = [specs[i::4] for i in range(4)]
+    pending = []
+    slo_cfg = slo.SLOConfig(name="phase8", threshold_ms=50.0)
+    t0 = time.perf_counter()
+    with sortd.SortServer(max_batch=16, max_delay_ms=2, device=device, slo=slo_cfg,
+                          tenants={"flood": 1.0, "light": 1.0}) as srv:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+            if th.is_alive():
+                raise AssertionError("phase 8: a submitting thread did not finish")
+        for kind, n, order, inputs, fut, tenant in pending:
+            try:
+                out = fut.result(timeout=300)
+            except Exception as e:  # noqa: BLE001 — every failed future fails the run
+                errors.append(f"{kind} n={n}: {e!r}")
+                continue
+            if not check(kind, n, order, inputs, out):
+                errors.append(f"{kind} n={n} order={order}: differs from its reference")
+        stats = srv.stats()
+    wall = (time.perf_counter() - t0) * 1e3
+    if errors:
+        raise AssertionError(f"phase 8: {len(errors)} of {len(pending)} requests failed: "
+                             f"{errors[:5]}")
+    served = {}
+    for kind, *_ in pending:
+        served[kind] = served.get(kind, 0) + 1
+    log(f"phase 8: SortServer, {len(pending)} requests from 4 threads ({served}), all exact, "
+        f"{wall:.3f} ms wall (answers checked in it), launches {take()}")
+    log("phase 8: stats: " + ", ".join(
+        f"{k} {stats[k]}" for k in ("latency_ms_p50", "latency_ms_p99", "occupancy_mean",
+                                    "flushes", "flushed_requests", "direct_dispatches",
+                                    "programs", "hits", "retries")))
+    log(f"phase 8: slo {stats['slo']}")
+    for ten, ms in lat.items():  # submit to resolve, seen by the clients; printed only
+        log(f"phase 8: tenant {ten}: {len(ms)} requests, p50 {float(np.percentile(ms, 50)):.3f}"
+            f" ms, p99 {float(np.percentile(ms, 99)):.3f} ms")
+    snap = flight.RECORDER.snapshot()
+    ids = {q["trace_id"] for q in snap["requests"]}
+    for f in snap["flushes"]:
+        if not f["requests"] or not set(f["requests"]) <= ids:
+            raise AssertionError(f"phase 8: flush {f['flush_id']} links to unrecorded requests")
+    log(f"phase 8: flight recorder: {len(snap['flushes'])} flushes, each linked to its "
+        f"{sum(len(f['requests']) for f in snap['flushes'])} requests")
+
+    # coalescing against single calls: 16 x 2^14 float32
+    xs = [torch.rand(1 << 14, generator=gen, device=device).cpu() for _ in range(16)]
+    svc.sort_many(xs)
+    for x in xs[:2]:
+        repro_torch.sort(x, device=device).keys
+    take()
+    f_wall, f_dev = device_ms(lambda: svc.sort_many(xs))
+    f_launch = take()
+    s_wall, s_dev = device_ms(lambda: [repro_torch.sort(x, device=device).keys for x in xs])
+    s_launch = take()
+    log(f"phase 8: 16 x 2^14 float32 as one flush: {f_wall:.3f} ms wall, {f_dev:.3f} ms device, "
+        f"launches {f_launch}; as 16 sort calls: {s_wall:.3f} ms wall, {s_dev:.3f} ms device, "
+        f"launches {s_launch}")
+    # what the power-of-two batch padding costs: 9 requests run as 16
+    n_wall, n_dev = device_ms(lambda: svc.sort_many(xs[:9]))
+    e_wall, e_dev = device_ms(lambda: svc.sort_many(xs[:8]))
+    take()
+    log(f"phase 8: batch padding: 9 x 2^14 (padded to 16): {n_wall:.3f} ms wall, {n_dev:.3f} ms "
+        f"device; 8 x 2^14 (no padding): {e_wall:.3f} ms wall, {e_dev:.3f} ms device")
+
+    # the cost model, warmed on the card (a cold store; no BENCH_*.json)
+    t0 = time.perf_counter()
+    with tune.active(tune.TuneStore()) as tuner:
+        def warm_round():
+            for e in range(14, 23, 2):
+                x = torch.rand(1 << e, generator=gen, device=device)
+                repro_torch.sort(x, where="sim", device=device).keys
+            for e in range(20, 24):
+                x = torch.rand(1 << e, generator=gen, device=device).cpu()
+                repro_torch.sort(x, where="stream", device=device).keys
+
+        big = torch.rand(1 << 23, generator=gen, device=device).cpu()
+        for rounds in range(1, 6):
+            warm_round()
+            _, preds = tuner.model.choose("sort", ("sim", "stream"), "float32", 1 << 23)
+            if all(p is not None and p.confidence >= tuner.min_confidence
+                   for p in preds.values()):
+                break
+        plan = repro_torch.plan(big, device=device)
+        log(f"phase 8: tune: {tuner.store.total_count} observations in {rounds} rounds "
+            f"({(time.perf_counter() - t0) * 1e3:.3f} ms wall, launches {take()}); plan "
+            f"of 2^23 float32: backend {plan.backend}, cost_source {plan.cost_source}, "
+            + ", ".join(f"{b} predicted {d['us']:.1f} us (confidence {d['confidence']:.2f})"
+                        for b, d in sorted((plan.cost_predicted or {}).items())))
+        if plan.cost_source != "model":
+            raise AssertionError(f"phase 8: the warmed plan's cost_source is "
+                                 f"{plan.cost_source!r}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = repro_torch.sort(big, device=device)
+        out.keys
+        torch.cuda.synchronize()
+        log(f"phase 8: tune: the 2^23 sort ran on {out.meta.backend} in "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms wall, launches {take()}")
+        if not torch.equal(out.keys.cpu(), torch.sort(big.to(device)).values.cpu()):
+            raise AssertionError("phase 8: the tuned 2^23 sort is not exact")
+        x = torch.rand(1 << 20, generator=gen, device=device).cpu()
+        t0 = time.perf_counter()
+        for chunk in (1 << 15, 1 << 16, 1 << 17):
+            for _ in range(3):
+                repro_torch.sort(x, where="stream", device=device,
+                                 limits=repro_torch.SortLimits(chunk_elems=chunk)).keys
+        splan = repro_torch.plan(big, where="stream", device=device)
+        log(f"phase 8: tune: 9 streams of 2^20 at 3 chunk sizes, "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms wall, launches {take()}; "
+            f"_pick_chunk_elems after chunk-sort observations: "
+            f"{splan.chunk_elems} ({[r for r in splan.reasons if 'chunk' in r] or 'static'})")
+        path = tuner.save(str(scratch / "tune.json"))
+        back = tune.TuneStore.load(path)
+        if back.to_json() != tuner.store.to_json():
+            raise AssertionError("phase 8: the saved tune store does not load back equal")
+        one = tune.TuneStore()
+        one.observe("sort", "sim", "float32", 4096, 100.0)
+        doc = one.to_json()
+        (key, bins), = doc["keys"].items()
+        (_, fields), = bins.items()
+        schema_shape_ok("the tune store", {
+            "schema_version": doc["schema"], "cost_model_version": tune.COST_MODEL_VERSION,
+            "top_level_fields": sorted(doc), "key_separator": "|",
+            "key_parts": ["op", "backend", "dtype"], "canonical_key": key,
+            "bin_fields": sorted(fields), "bins_per_octave": tune.store.BINS_PER_OCTAVE,
+        }, ROOT / "tests" / "tune_schema.json")
+        if sorted(back.to_json()) != sorted(doc) or any(
+                sorted(c) != sorted(fields) for b in back.keys.values() for c in b.values()):
+            raise AssertionError("phase 8: the card's store is not in the pinned shape")
+        log(f"phase 8: tune: store saved, loaded back equal, in tests/tune_schema.json's shape "
+            f"({len(back)} bins)")
+
+    # the measured ladder start: 4 distinct int32 values, capacity_factor 0.25
+    dup = torch.randint(0, 4, (1 << 22,), generator=gen, device=device, dtype=torch.int32)
+    cfg = repro_torch.SortConfig(capacity_factor=0.25)
+    ref = torch.sort(dup).values
+    walls = []
+    for tuner in (None, tune.TuneStore()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tune.active(tuner) if tuner is not None else contextlib.nullcontext():
+            out = repro_torch.sort(dup, config=cfg, device=device)
+        torch.cuda.synchronize()
+        walls.append(((time.perf_counter() - t0) * 1e3, take(), out))
+    (p_ms, p_launch, plain), (t_ms, t_launch, tuned) = walls
+    if not (torch.equal(plain.keys, ref) and torch.equal(tuned.keys, ref)):
+        raise AssertionError("phase 8: a laddered sort is not exact")
+    log(f"phase 8: ladder at capacity_factor 0.25: {plain.meta.retries} retries without a "
+        f"tuner (to {plain.meta.config.capacity_factor}; {p_ms:.3f} ms wall, launches "
+        f"{p_launch}), {tuned.meta.retries} with one (to "
+        f"{tuned.meta.config.capacity_factor:.6f}; {t_ms:.3f} ms wall, launches {t_launch})")
+    if plain.meta.retries < 2 or tuned.meta.retries != 1:
+        raise AssertionError("phase 8: the measured ladder start did not take 1 retry")
+
+    # a QueueFullError burst: the incident snapshot, its schema, obsctl
+    d = str(scratch / "flight")
+    t0 = time.perf_counter()
+    os.environ["REPRO_FLIGHT_DIR"] = d
+    try:
+        flight.RECORDER.reset()
+        x = np.random.default_rng(9).random(1024, dtype=np.float32)
+        with sortd.SortServer(max_queue=1, max_batch=10_000, max_delay_ms=600_000,
+                              device=device) as srv:
+            for kw in ({}, {}, {"want": "order"}):  # fill the rings first
+                fut = srv.submit(x, **kw)
+                srv.flush(timeout=60)
+                fut.result(0)
+            srv.submit(x)
+            rejected = 0
+            for _ in range(flight.RECORDER.burst_threshold):
+                try:
+                    srv.submit(x)
+                except sortd.QueueFullError:
+                    rejected += 1
+            srv.flush(timeout=60)
+    finally:
+        del os.environ["REPRO_FLIGHT_DIR"]
+    files = sorted(pathlib.Path(d).glob("incident_queue_full_burst_*.json"))
+    if rejected != flight.RECORDER.burst_threshold or not files:
+        raise AssertionError(f"phase 8: {rejected} rejections, incident files {files}")
+    snap = json.loads(files[-1].read_text())
+    filled = {k for k in ("requests", "flushes", "traces", "predictions") if snap[k]}
+    want = json.loads((ROOT / "tests" / "flight_schema.json").read_text())
+    if (sorted(snap) != want["top_level_fields"] or snap["kind"] not in want["anomaly_kinds"]
+            or any(sorted(q) != want["request_fields"] for q in snap["requests"])
+            or any(sorted(f) != want["flush_fields"] for f in snap["flushes"])
+            or snap["schema"] != want["schema_version"]):
+        raise AssertionError("phase 8: the incident snapshot is not in the pinned shape")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for cmd in (["slow", d], ["export", str(files[-1]), "--out",
+                              os.path.join(d, "trace.json")]):
+        rc = subprocess.run([sys.executable, "-m", "repro_torch.obsctl", *cmd], env=env,
+                            capture_output=True, text=True, timeout=120)
+        if rc.returncode != 0:
+            raise AssertionError(f"phase 8: obsctl {cmd[0]} failed: {rc.stderr[-2000:]}")
+    log(f"phase 8: QueueFullError burst ({(time.perf_counter() - t0) * 1e3:.3f} ms wall, "
+        f"launches {take()}): {rejected} rejections, incident "
+        f"{files[-1].name} ({sorted(filled)} filled) in tests/flight_schema.json's shape; "
+        f"obsctl slow and export read it with rc 0")
+
+    shutil.rmtree(scratch, ignore_errors=True)
+    take()
+    log(f"phase 8: launches over the serving phase: {total}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    missing = [k for k, v in total.items() if v == 0]
+    if missing:
+        raise AssertionError(f"phase 8: kernels never launched on the serving path: {missing}")
+    return total
+
 
 def check_traces(device, x) -> None:
     """Phase 6: SortLimits(trace=True) on a 2^22 sim sort and a 2^23 stream
@@ -1292,7 +1705,7 @@ def check_traces(device, x) -> None:
             raise AssertionError(f"traced {label}: output differs from the untraced call")
 
 
-ALL_PHASES = frozenset(range(1, 8))
+ALL_PHASES = frozenset(range(1, 9))
 
 
 def main() -> int:
@@ -1302,7 +1715,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-7: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-8: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     arg = ap.parse_args().phases
@@ -1344,7 +1757,7 @@ def main() -> int:
     numbers = check_kernels(device)
     if phases != ALL_PHASES:  # a partial run (development): no result lines
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
-                           (6, run_stream), (7, run_x64)):
+                           (6, run_stream), (7, run_x64), (8, run_serving)):
             if phase in phases:
                 run(device)
         return 0
@@ -1355,10 +1768,13 @@ def main() -> int:
     run_stream(device)
     torch.cuda.empty_cache()
     launches_x64 = run_x64(device)
+    torch.cuda.empty_cache()
+    launches_serve = run_serving(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=launches[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
+             launches=launches[name] + launches_serve[name],
+             launches_serve=launches_serve[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
              ms_x64=num["ms_x64"], plain_ms_x64=num["plain_ms_x64"],

@@ -16,7 +16,12 @@ The sort covers the sim backend and the out-of-core stream backend
 argsort, with the overflow ladder; tuples of key columns (packed into one
 int32 or int64 sort, or as LSD passes); the device and the host decode;
 the result's views (``topk``, ``searchsorted``, ``provenance``); phase
-traces and metrics (``repro_torch.obs``). The model tier serves dense GQA decoders
+traces and metrics (``repro_torch.obs``). For serving traffic,
+``repro_torch.serve.SortServer`` is the asynchronous front end
+(``submit() -> SortFuture``, batched flushes on the card, tenants,
+admission control, the flight recorder and SLOs), and
+``repro_torch.tune`` the opt-in cost model that the planner and the
+server consult (static behaviour until it is warmed). The model tier serves dense GQA decoders
 (``repro_torch.models.model.Model``, ``repro_torch.serve.engine``), with
 prefill attention on a CUDA flash kernel. What neither covers raises
 NotImplementedError naming the ROADMAP.md item that ports it.
@@ -32,16 +37,18 @@ _EXPORTS = {
     "SortLimits": "core.planner", "SortPlan": "core.planner",
     "register_backend": "core.planner",
     "SortMeta": "core.result", "SortOutput": "core.result",
-    "SortConfig": "core.splitters",
+    "SortConfig": "core.splitters", "SortLibrary": "core.api",
     "encode_provenance": "core.api", "decode_provenance": "core.api",
     "load_imbalance": "core.api",
     "enable_x64": "core.x64", "x64_enabled": "core.x64", "x64_mode": "core.x64",
 }
 
-__all__ = list(_EXPORTS)
+__all__ = [*_EXPORTS, "tune"]
 
 
 def __getattr__(name: str):
+    if name == "tune":
+        return importlib.import_module("repro_torch.tune")
     if name not in _EXPORTS:
         raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
     return getattr(importlib.import_module(f"repro_torch.{_EXPORTS[name]}"), name)

@@ -17,7 +17,8 @@ values: optional payload that rides the sort.
 order:  "asc" | "desc", or a tuple with one flag per key.
 want:   "values" (sorted keys [+ payload]) | "order" (the stable sorting
         permutation).
-where:  backend override: "sim" or "stream" (the mesh is not ported).
+where:  backend override: "sim" or "stream" (the mesh backend is
+        ROADMAP.md §1 item 9).
 limits: ``SortLimits``; config: ``SortConfig`` (the paper's defaults).
 device: None means "cuda", which must exist; "cpu" on request only.
 
@@ -55,13 +56,22 @@ to 63 bits; an argsort of more than 2^31 elements returns int64 indices.
 Views (``SortOutput.topk``, ``.searchsorted``, ``.provenance``) and
 ``encode_provenance`` / ``decode_provenance`` / ``load_imbalance`` are
 ``repro``'s, on tensors.
+
+``SortLibrary`` is ``repro``'s deprecated facade, kept for seed-era
+callers: each method routes through ``sort`` with a pinned backend and
+warns once per process; its ``sort_many`` runs same-shape grids as one
+batched sort through the serve tier's ``ProgramCache``.
 """
 from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Sequence
 
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core import keyenc, planner
+from repro_torch.core import keyenc, planner, sim, topk
 from repro_torch.core import x64 as _x64
 from repro_torch.core.planner import SortLimits, SortPlan
 from repro_torch.core.result import SortOutput
@@ -117,3 +127,145 @@ def load_imbalance(counts) -> torch.Tensor:
     c = planner.as_tensor(counts)
     wide = torch.float64 if c.dtype.itemsize == 8 else torch.float32
     return c.max().to(wide) / torch.clamp(c.to(wide).mean(), min=1)
+
+
+# ------------------------------------------------------ legacy facade
+
+
+_DEPRECATION_SEEN: set[str] = set()
+
+
+def _warn_deprecated(name: str, instead: str) -> None:
+    if name in _DEPRECATION_SEEN:
+        return
+    _DEPRECATION_SEEN.add(name)
+    warnings.warn(f"SortLibrary.{name} is deprecated; use {instead}",
+                  DeprecationWarning, stacklevel=3)
+
+
+def _reset_deprecation_registry() -> None:
+    """Test hook: make every shim warn again."""
+    _DEPRECATION_SEEN.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class SortLibrary:
+    """Deprecated facade over ``sort`` (``repro``'s, kept so seed-era
+    callers run unchanged). Every method pins a backend and returns the
+    legacy result type (``SortOutput.raw`` for the sim); each warns once
+    per process. ``device``: None means "cuda" (raises without a card)."""
+
+    config: SortConfig = SortConfig()
+    investigator: bool = True
+    device: Any = None
+
+    def __post_init__(self):
+        _device.resolve(self.device)  # the port's device rule, at construction
+
+    def _sort(self, x, values=None, **kw) -> SortOutput:
+        return sort(x, values, config=self.config, investigator=self.investigator,
+                    device=self.device, **kw)
+
+    _NO_RETRY = SortLimits(max_doublings=0, raise_on_overflow=False)
+
+    # ---- virtual-processor (single device) paths ----
+    def sort(self, x) -> sim.SortResult:
+        """x: (p, n_local): sort across virtual processors."""
+        _warn_deprecated("sort", "repro.sort(x)")
+        return self._sort(x, where="sim", limits=self._NO_RETRY).raw
+
+    def sort_with_provenance(self, x) -> sim.SortKVResult:
+        _warn_deprecated("sort_with_provenance", 'repro.sort(x, want="order")')
+        return self._sort(x, want="order", where="sim", limits=self._NO_RETRY).raw
+
+    def sort_kv(self, keys, values) -> sim.SortKVResult:
+        _warn_deprecated("sort_kv", "repro.sort(keys, values)")
+        return self._sort(keys, values, where="sim", limits=self._NO_RETRY).raw
+
+    def sort_many(self, arrays: Sequence):
+        """Sort several independent (p, n_local) datasets at once (paper
+        §IV end): same-shape arrays run as ONE batched sort, through the
+        program cache shared with the serve tier."""
+        _warn_deprecated("sort_many", "repro.sort per array")
+        return _sort_many_batched(arrays, self.config, self.investigator,
+                                  _device.resolve(self.device))
+
+    def sort_with_retry(self, x, max_doublings: int = 3):
+        """On (detected, never silent) bucket overflow, retry with the
+        capacity ladder."""
+        _warn_deprecated("sort_with_retry", "repro.sort(x) (retries by default)")
+        out = self._sort(x, where="sim", limits=SortLimits(max_doublings=max_doublings))
+        return out.raw, out.meta.config
+
+    def searchsorted(self, result: sim.SortResult, queries):
+        _warn_deprecated("searchsorted", "SortOutput.searchsorted(queries)")
+        return topk.searchsorted_in_result(result.values, result.counts, queries)
+
+    # ---- out-of-core paths (repro_torch.stream) ----
+    def sort_external(self, data, *, chunk_elems: int = 1 << 16, n_procs: int = 8):
+        """Sort a host-side dataset larger than one device program."""
+        _warn_deprecated("sort_external", 'repro.sort(data, where="stream").keys')
+        return self._sort(data, where="stream", limits=SortLimits(
+            chunk_elems=chunk_elems, n_procs=n_procs)).keys
+
+    def sort_external_kv(self, keys, values, *, chunk_elems: int = 1 << 16,
+                         n_procs: int = 8):
+        """Out-of-core key/value sort; the payload rides every pass."""
+        _warn_deprecated("sort_external_kv", 'repro.sort(keys, values, where="stream")')
+        out = self._sort(keys, values, where="stream", limits=SortLimits(
+            chunk_elems=chunk_elems, n_procs=n_procs))
+        return out.keys, out.values
+
+    def sort_stream(self, data, *, chunk_elems: int = 1 << 16, n_procs: int = 8):
+        """Like ``sort_external`` but yields sorted chunks in bounded memory."""
+        _warn_deprecated("sort_stream", 'repro.sort(data, where="stream").chunks()')
+        return self._sort(data, where="stream", limits=SortLimits(
+            chunk_elems=chunk_elems, n_procs=n_procs)).chunks()
+
+    # ---- real-mesh paths: the mesh backend (ROADMAP.md §1, item 9) ----
+    def distributed_sort(self, x, mesh, axis_name="data"):
+        _warn_deprecated("distributed_sort", "repro.sort(x, where=mesh)")
+        return self._sort(x, where=(mesh, axis_name), limits=self._NO_RETRY).raw
+
+    def distributed_sort_kv(self, keys, values, mesh, axis_name="data"):
+        _warn_deprecated("distributed_sort_kv", "repro.sort(keys, values, where=mesh)")
+        return self._sort(keys, values, where=(mesh, axis_name), limits=self._NO_RETRY).raw
+
+
+# ------------------------------------------------- batched sort_many
+
+
+_SORT_MANY_CACHE = None
+
+
+def sort_many_cache():
+    """The program cache behind ``SortLibrary.sort_many`` (the serve tier's
+    ``ProgramCache`` class)."""
+    global _SORT_MANY_CACHE
+    if _SORT_MANY_CACHE is None:
+        from repro_torch.stream.service import ProgramCache
+
+        _SORT_MANY_CACHE = ProgramCache()
+    return _SORT_MANY_CACHE
+
+
+def _sort_many_batched(arrays, config: SortConfig, investigator: bool, dev: torch.device):
+    """Group same-(shape, dtype) grids, stack each group and sort it as one
+    batched sort; one ``sim.SortResult`` per array, in its dtype."""
+    cache = sort_many_cache()
+    arrays = [planner.as_tensor(a) for a in arrays]
+    groups: dict[tuple, list[int]] = {}
+    for i, a in enumerate(arrays):
+        groups.setdefault((tuple(a.shape), a.dtype), []).append(i)
+    results: list = [None] * len(arrays)
+    for (shape, dtype), idxs in groups.items():
+        planner.check_key_dtype(dtype)
+        stacked = torch.stack([keyenc.to_lane(arrays[i].to(dev)) for i in idxs])
+        fn = cache.get(len(idxs), shape[0], shape[1], dtype, config, investigator)
+        nan_keys = stacked.dtype.is_floating_point and bool(stacked.isnan().any())
+        res = fn(stacked, nan_keys=nan_keys)
+        for slot, i in enumerate(idxs):
+            results[i] = sim.SortResult(keyenc.from_lane(res.values[slot], dtype),
+                                        res.counts[slot], res.overflowed[slot],
+                                        res.send_counts[slot])
+    return results

@@ -568,7 +568,8 @@ def check_payload_keys(keys: torch.Tensor, descending: bool, *, packspec=None) -
 
 def compact_rows(grid: torch.Tensor, counts: torch.Tensor, m: int) -> torch.Tensor:
     """Front-compact a sorted, sentinel-padded (p, W) grid into its first
-    ``m`` global elements.
+    ``m`` global elements; a batch (..., p, W) with counts (..., p) gives
+    (..., m), each grid compacted alone.
 
     ``repro`` writes row r of the grid at offset starts[r] = counts[:r].sum()
     into a zeroed buffer of m + W, row after row, with
@@ -578,14 +579,15 @@ def compact_rows(grid: torch.Tensor, counts: torch.Tensor, m: int) -> torch.Tens
     row whose clamped start is <= i wrote there, or 0 when that row's W
     elements end before i. (A scatter that clipped its indices into
     [0, m) instead would write those rows' pads over the real output.)"""
-    p, w = grid.shape
-    counts = counts.to(torch.int64).reshape(-1)
-    starts = (torch.cumsum(counts, 0) - counts).clamp(0, m)
-    pos = torch.arange(m, device=grid.device)
+    *lead, p, w = grid.shape
+    rows = grid.reshape(-1, p * w)
+    counts = counts.to(torch.int64).reshape(-1, p)
+    starts = (torch.cumsum(counts, -1) - counts).clamp(0, m)
+    pos = torch.arange(m, device=grid.device).expand(rows.shape[0], m).contiguous()
     row = torch.searchsorted(starts, pos, right=True) - 1
-    off = pos - starts[row]
-    out = grid[row, off.clamp(max=w - 1)]
-    return out.masked_fill_(off >= w, 0)
+    off = pos - torch.gather(starts, 1, row)
+    out = torch.gather(rows, 1, row * w + off.clamp(max=w - 1))
+    return out.masked_fill_(off >= w, 0).reshape(*lead, m)
 
 
 def decode_grid(keys_grid, counts, values_grid=None, *, m: int,

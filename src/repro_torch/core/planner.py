@@ -6,9 +6,17 @@ Counterpart of ``repro/core/planner.py``. Placement rules, in order:
   3. Inputs above ``limits.stream_threshold`` elements stream.
   4. Everything else runs on the virtual-processor simulator.
 
-The mesh backend, and every other request the port does not cover yet,
-raises ``NotImplementedError`` naming the ROADMAP.md item that will port
-it. There is no cost model: placement is the static size rule.
+The mesh backend raises ``NotImplementedError`` naming the ROADMAP.md
+item that will port it. With an ambient ``repro_torch.tune`` tuner whose
+model predicts both the sim and the stream confidently, the model may
+override rule 3 (``_consult_cost_model``), size the stream's chunks
+(``_pick_chunk_elems``) and start the overflow ladder where the
+overflowed result's own counts say (``_measured_hook``); without one,
+every decision is the static rule's, unchanged.
+
+``execute_request`` runs an already-planned request: ``sort`` plans and
+dispatches in one call, and the sort server plans at admission
+(``serve_profile``) and dispatches later.
 
 64-bit keys and values (int64, uint64, float64) need x64 mode
 (``core.x64``: ``enable_x64()``, ``REPRO_X64=1`` or
@@ -30,16 +38,23 @@ pack budget (``keyenc.plan_pack``: an int32 up to 31 bits; an int64 up to
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import tune as _tune
 from repro_torch.core import keyenc, sim
 from repro_torch.core import x64 as _x64
-from repro_torch.core.overflow import OverflowPolicy, ladder_totals, run_with_capacity_retry
-from repro_torch.core.result import SortMeta, SortOutput
+from repro_torch.core.overflow import (
+    OverflowPolicy,
+    ladder_totals,
+    measured_capacity_need,
+    run_with_capacity_retry,
+)
+from repro_torch.core.result import SortMeta, SortOutput, record_tune
 from repro_torch.core.splitters import SortConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import metrics as obs_metrics
@@ -121,7 +136,8 @@ class SortLimits:
       ``overflow.OverflowPolicy``). The stream backend honours
       max_doublings and growth but always raises when a chunk's ladder is
       exhausted: a partially exchanged run cannot be returned.
-    max_request_elems: read by the serve tier, not ported yet; ignored.
+    max_request_elems: the sort server's per-request size cap
+      (``RequestTooLargeError`` at admission); None admits any size.
     decode: "device" (default) decodes the result grid on the sort's
       device (``keyenc.decode_grid``). "host" copies the grid to the CPU
       and decodes it with numpy (``repro``'s legacy path: unpad, flip,
@@ -186,10 +202,22 @@ class SortPlan:
     multikey: str | None = None  # "packed" | "lsd"; None for single-key
     packspec: keyenc.PackSpec | None = None  # when multikey == "packed"
     x64: bool = False  # the request's resolved x64 mode
+    cost_source: str = "static"  # "model" when an ambient tuner's cost model
+    #                              (confidently) made the placement
+    cost_predicted: Any = None  # {backend: {"us", "confidence"}}: the model's
+    #                             predictions, kept even below the bar
 
     def explain(self) -> str:
         lines = [f"repro_torch.sort plan: backend={self.backend!r}"]
         lines += [f"  - {r}" for r in self.reasons]
+        if self.cost_predicted:
+            lines.append(f"  cost: source={self.cost_source}")
+            for b in sorted(self.cost_predicted):
+                d = self.cost_predicted[b]
+                chosen = ("  <- chosen" if self.cost_source == "model"
+                          and b == self.backend else "")
+                lines.append(f"    {b}: predicted {d['us']:.0f}us "
+                             f"(confidence {d['confidence']:.2f}){chosen}")
         if self.multikey is not None:
             detail = f" ({self.packspec.describe()})" if self.packspec is not None else ""
             lines.append(f"  multikey={self.multikey}{detail}")
@@ -328,21 +356,21 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device, x64: bool) -
         )
 
     reasons: list[str] = []
+    cost_source, cost_predicted = "static", None
     if where is not None:
         choice = where if isinstance(where, str) else "mesh"
         reasons.append(f"caller pinned backend {choice!r}")
     elif req.is_iterator:
         choice = "stream"
         reasons.append("iterator input: size unknown, not host-resident")
-    elif limits.stream_threshold is not None and req.n > limits.stream_threshold:
-        choice = "stream"
-        reasons.append(f"n={req.n} exceeds stream_threshold={limits.stream_threshold}")
     else:
-        choice = "sim"
-        reasons.append(
-            f"n={req.n} fits one device program "
-            f"(stream_threshold={limits.stream_threshold})"
-        )
+        # the size rule: the one placement the cost model may override
+        if limits.stream_threshold is not None and req.n > limits.stream_threshold:
+            static = ("stream", f"n={req.n} exceeds stream_threshold={limits.stream_threshold}")
+        else:
+            static = ("sim", f"n={req.n} fits one device program "
+                             f"(stream_threshold={limits.stream_threshold})")
+        choice, cost_source, cost_predicted = _consult_cost_model(req, *static, reasons)
     if choice not in BACKENDS:
         if choice == "mesh":
             raise _not_ported("the mesh backend", "mesh")
@@ -379,17 +407,76 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device, x64: bool) -
         key_width = max(_dtype_width(k.dtype) for k in req.keys)
     else:
         key_width = _dtype_width(req.dtype)
+    chunk_elems = limits.chunk_elems
+    if choice == "stream":
+        chunk_elems = _pick_chunk_elems(req, chunk_elems, reasons)
     if x64 and key_width > 32:
         reasons.append(
             f"x64 mode: {key_width}-bit key lane admitted "
             f"(sentinels/staging widen per dtype)"
         )
     return SortPlan(
-        backend=choice, n_procs=n_procs, chunk_elems=limits.chunk_elems,
+        backend=choice, n_procs=n_procs, chunk_elems=chunk_elems,
         limits=limits, device=device, reasons=tuple(reasons),
         decode=limits.decode, key_width=key_width,
         multikey=multikey, packspec=packspec, x64=x64,
+        cost_source=cost_source, cost_predicted=cost_predicted,
     )
+
+
+# the placements the size rule arbitrates between: the mesh needs the
+# caller's topology and is never chosen on cost alone
+_COST_CANDIDATES = ("sim", "stream")
+
+
+def _consult_cost_model(req: _Req, static_choice: str, static_reason: str, reasons: list):
+    """Size-rule placement, possibly overridden by the ambient cost model.
+
+    Returns ``(choice, cost_source, cost_predicted)``. With no tuner, or a
+    cold or low-confidence store, the static choice and its reason come
+    back untouched."""
+    tuner = _tune.current()
+    if tuner is None:
+        reasons.append(static_reason)
+        return static_choice, "static", None
+    winner, preds = tuner.model.choose("sort", _COST_CANDIDATES, req.dtype, req.n,
+                                       min_confidence=tuner.min_confidence)
+    predicted = {b: {"us": p.us, "confidence": p.confidence}
+                 for b, p in preds.items() if p is not None} or None
+    if winner is None:
+        _tune.note_plan("static")
+        reasons.append(static_reason)
+        return static_choice, "static", predicted
+    _tune.note_plan("model")
+    costs = " ".join(f"{b}~{preds[b].us:.0f}us" for b in sorted(preds))
+    if winner == static_choice:
+        reasons.append(f"cost model confirms the static rule ({static_reason}): {costs}")
+    else:
+        reasons.append(f"cost model overrides the static rule ({static_reason}): "
+                       f"{costs} -> {winner} predicted fastest")
+    return winner, "model", predicted
+
+
+def _pick_chunk_elems(req: _Req, base: int, reasons: list) -> int:
+    """Stream chunk size from the measured per-chunk sort cost: halving,
+    keeping or doubling the configured chunk (clamped to [2^12, 2^22]),
+    whichever has the best predicted chunk-sort throughput; the static
+    size unless every candidate is predicted confidently."""
+    tuner = _tune.current()
+    if tuner is None:
+        return base
+    dtype = req.dtype if req.dtype is not None else "float32"
+    scored = []
+    for cand in sorted({max(1 << 12, base // 2), base, min(1 << 22, base * 2)}):
+        pred = tuner.model.predict("chunk_sort", "stream", dtype, cand)
+        if pred is None or pred.confidence < tuner.min_confidence:
+            return base
+        scored.append((cand / pred.us, cand))
+    best = max(scored)[1]
+    if best != base:
+        reasons.append(f"cost model: chunk_elems {base} -> {best} "
+                       f"(best predicted chunk-sort throughput)")
+    return best
 
 
 def _decide_multikey(req: _Req, limits: SortLimits, reasons: list, x64: bool):
@@ -515,17 +602,6 @@ def _stable_order_fix(ks: np.ndarray, idx: np.ndarray) -> np.ndarray:
     return idx[np.lexsort((idx, seg))]
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A result grid as a host numpy array; bfloat16, which numpy lacks,
-    as float32 (exact, and it compares as bfloat16 does)."""
-    t = t.cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-
-def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
-
-
 def _stitch_bucket_ties(ks: np.ndarray, vs: np.ndarray, bucket_sizes,
                         descending: bool = False) -> np.ndarray:
     """Boundary stitch of the stream backend's device tie fix.
@@ -621,6 +697,15 @@ def _grid_materialize(req: _Req, plan: SortPlan, keys_grid, values_grid, counts,
         return _from_lanes(req, ks, vs)
 
 
+def _measured_hook(p: int, n_local: int):
+    """The measured ladder start (``overflow.measured_capacity_need``),
+    only while a tuner is ambient: the cold ladder walks the geometric
+    steps as before."""
+    if _tune.current() is None:
+        return None
+    return measured_capacity_need(p, n_local)
+
+
 def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
     tr = req.trace
     with _span(tr, "encode"):
@@ -643,7 +728,8 @@ def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
     else:
         run = lambda cfg: sim.sample_sort_sim_kv(xk, xv, cfg, investigator=req.investigator,
                                                  trace=tr)
-    res, cfg_used, retries = run_with_capacity_retry(run, req.config, plan.limits.policy())
+    res, cfg_used, retries = run_with_capacity_retry(run, req.config, plan.limits.policy(),
+                                                     measured=_measured_hook(p, per))
 
     kg, vg = (res.values, None) if xv is None else (res.keys, res.values)
     ks, vs = _grid_materialize(req, plan, kg, vg, res.counts, m, descending, reverse)
@@ -896,6 +982,82 @@ def make_plan(keys, values=None, *, order="asc", want="values", where=None,
     return _make_plan(req, where, limits, dev, x64)
 
 
+def execute_request(req: _Req, plan: SortPlan, ctx=None) -> SortOutput:
+    """Execute an already-normalized request on an already-made plan.
+
+    ``sort`` plans and dispatches in one call; the sort server
+    (``repro_torch.serve.sortd``) plans every request at admission
+    (``serve_profile``) and dispatches it later, and both run through
+    here. ``ctx`` is the request's ``obs.flight.RequestContext`` when the
+    serve tier minted one: the backend is stamped on it and its
+    ``trace_id`` lands on the result's meta.
+
+    With a tuner ambient, the sort's wall time is recorded with it: at
+    once for a complete (eager) result, after fencing its device; at
+    materialization for a lazy one (``meta.t_start``)."""
+    _SORTS_TOTAL.labels(backend=plan.backend).inc()
+    if ctx is not None:
+        ctx.backend = plan.backend
+    if req.n == 0:
+        out_dev = plan.device if plan.backend == "sim" else torch.device("cpu")
+        if req.multikey:
+            keys_out = tuple(torch.empty(0, dtype=k.dtype, device=out_dev) for k in req.keys)
+        else:
+            keys_out = torch.empty(0, dtype=req.dtype, device=out_dev)
+        out = SortOutput(
+            _meta(req, plan, req.config, 0),
+            keys=keys_out,
+            values=(torch.empty(0, dtype=torch.int32, device=out_dev)
+                    if req.want == "order" else None),
+            counts=np.zeros(0, np.int64),
+            chunks=iter(()),
+        )
+        if ctx is not None:
+            out.meta.trace_id = ctx.trace_id
+        return out
+    t0 = time.perf_counter() if _tune.current() is not None else None
+    if req.multikey:
+        out = _exec_multikey(req, plan)
+    else:
+        out = BACKENDS[plan.backend].execute(req, plan)
+    if ctx is not None:
+        out.meta.trace_id = ctx.trace_id
+    if t0 is not None:
+        if out._keys is not None:
+            record_tune(out.meta, t0)
+        else:
+            out.meta.t_start = t0
+    return out
+
+
+def serve_profile(keys, values=None, *, order="asc", want="values", where=None,
+                  limits=None, config=None, investigator=True, device=None):
+    """Normalize and plan one serving request, and decide whether it may
+    be coalesced.
+
+    Returns ``(req, plan, batchable)``. ``batchable``: a keys-only request
+    the planner routed to the sim, single-key (either order: the flip is
+    part of the batched flush, ``sim.sample_sort_sim_flat``) or a packed
+    tuple (the flush unpacks the columns; such requests bucket per
+    ``PackSpec``, so declare ``SortLimits.key_bits`` to keep the bucket
+    stable). Anything else (payloads, argsort, LSD tuples, (p, n_local)
+    grids, streamed requests) runs alone through ``execute_request``."""
+    dev = _device.resolve(device)
+    x64 = _x64.effective(limits)
+    req = _normalize(keys, values, order=order, want=want, config=config,
+                     investigator=investigator, x64=x64)
+    plan = _make_plan(req, where, limits, dev, x64)
+    batchable = (
+        plan.backend == "sim"
+        and (not req.multikey or plan.multikey == "packed")
+        and not req.needs_payload
+        and req.n_local is None
+        and not req.is_iterator
+        and req.n > 0
+    )
+    return req, plan, batchable
+
+
 def execute(keys, values=None, *, order="asc", want="values", where=None,
             limits=None, config=None, investigator=True, device=None) -> SortOutput:
     dev = _device.resolve(device)
@@ -910,28 +1072,10 @@ def execute(keys, values=None, *, order="asc", want="values", where=None,
         req = _normalize(keys, values, order=order, want=want, config=config,
                          investigator=investigator, x64=x64)
         plan = _make_plan(req, where, limits, dev, x64)
-        _SORTS_TOTAL.labels(backend=plan.backend).inc()
         if tr is not None:
             tr.labels.setdefault("backend", plan.backend)
             req.trace = tr
-    if req.n == 0:
-        out_dev = dev if plan.backend == "sim" else torch.device("cpu")
-        if req.multikey:
-            keys_out = tuple(torch.empty(0, dtype=k.dtype, device=out_dev) for k in req.keys)
-        else:
-            keys_out = torch.empty(0, dtype=req.dtype, device=out_dev)
-        out = SortOutput(
-            _meta(req, plan, req.config, 0),
-            keys=keys_out,
-            values=(torch.empty(0, dtype=torch.int32, device=out_dev)
-                    if req.want == "order" else None),
-            counts=np.zeros(0, np.int64),
-            chunks=iter(()),
-        )
-    elif req.multikey:
-        out = _exec_multikey(req, plan)
-    else:
-        out = BACKENDS[plan.backend].execute(req, plan)
+    out = execute_request(req, plan)
     if tr is not None and out._keys is not None:
         tr.materialized()  # the output is complete: nothing lazy is left
     return out

@@ -17,6 +17,7 @@ or the CPU for the stream and for ``decode="host"``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Iterator
 
 import numpy as np
@@ -46,6 +47,14 @@ class SortMeta:
       tracing was on (``SortLimits(trace=True)`` or an ambient
       ``obs.trace()``); None otherwise. A per-sort trace freezes when the
       output materializes.
+    coalesced: set by the sort server (``repro_torch.serve.sortd``) on
+      results that ran in a batched flush: how many requests shared it.
+      None for ordinary sorts.
+    trace_id / flush_id: the serve tier's request identity
+      (``obs.flight``) and the flush that served it.
+    t_start: the ``time.perf_counter()`` at dispatch of a lazy result
+      while a tuner was ambient; the wall time is recorded
+      (``record_tune``) when the output materializes.
     """
 
     backend: str
@@ -61,6 +70,23 @@ class SortMeta:
     chunk_retries: tuple | None = None
     multikey: str | None = None
     trace: Any = None
+    coalesced: int | None = None
+    trace_id: str | None = None
+    flush_id: str | None = None
+    t_start: float | None = None
+
+
+def record_tune(meta: SortMeta, t0: float) -> None:
+    """Feed a completed sort's wall time since ``t0`` to the ambient
+    tuner. The sort's CUDA device is fenced first: a sim result is device
+    tensors whose work may still be queued, and the model must learn the
+    time to run the sort, not to enqueue it."""
+    dev = getattr(meta.plan, "device", None)
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    from repro_torch import tune
+
+    tune.record_sort(meta, time.perf_counter() - t0)
 
 
 class SortOutput:
@@ -123,6 +149,15 @@ class SortOutput:
             # materialization completes the sort: publish the phase spans
             # and (for per-sort traces) freeze
             self.meta.trace.materialized()
+        self._record_tune()
+
+    def _record_tune(self) -> None:
+        """Record the completed sort's wall time (dispatch to
+        materialized) with the tuner; at most once per output, and only
+        when ``execute_request`` stamped a start (a tuner was ambient)."""
+        if self.meta.t_start is not None:
+            t0, self.meta.t_start = self.meta.t_start, None
+            record_tune(self.meta, t0)
 
     @property
     def keys(self):
@@ -172,6 +207,7 @@ class SortOutput:
         if self.meta.trace is not None:
             # consuming the chunk stream is the materialization
             self.meta.trace.materialized()
+        self._record_tune()
 
     def order(self) -> torch.Tensor:
         """The sorting permutation (``want="order"`` results)."""

@@ -1,8 +1,11 @@
 """Sampling, splitter selection and the paper's investigator (§IV, Fig. 3).
 
-Counterpart of ``repro/core/splitters.py``. The functions take a batch
-of sorted shards (p, n) at once where ``repro`` mapped one shard with
-``vmap``; the arithmetic is the same, bounds are int32.
+Counterpart of ``repro/core/splitters.py``. The functions take the sorted
+shards (p, n) of a sort at once where ``repro`` mapped one shard with
+``vmap``, and the shards of a batch of sorts (..., p, n) where ``repro``'s
+serving flush mapped its whole sort with ``vmap``: every sort of the batch
+has its own samples, splitters and bounds. The arithmetic is the same,
+bounds are int32.
 """
 from __future__ import annotations
 
@@ -63,7 +66,8 @@ def regular_sample(xs_sorted: torch.Tensor, s: int) -> torch.Tensor:
 
 def select_splitters(all_samples: torch.Tensor, p: int, nan_keys: bool = False) -> torch.Tensor:
     """Replicated splitter selection (paper step 3): p-1 splitters at the
-    regular ranks of the sorted (p*s,) sample set.
+    regular ranks of the sorted (p*s,) sample set; a batch (..., p*s) of
+    sample sets gives (..., p-1), one sort along the last axis.
 
     ``nan_keys`` (the sort's NaN decision, ``ops.rank_functions``): the
     samples sort by ``ops._total_order_key``, in ``repro``'s order on
@@ -72,25 +76,31 @@ def select_splitters(all_samples: torch.Tensor, p: int, nan_keys: bool = False) 
     bit set first, which the CPU's puts last; a descending stream's flip
     makes such NaN. Without NaN the two orders are the same."""
     if nan_keys:
-        srt = all_samples[torch.sort(kops._total_order_key(all_samples), stable=True).indices]
+        order = torch.sort(kops._total_order_key(all_samples), dim=-1, stable=True).indices
+        srt = torch.gather(all_samples, -1, order)
     else:
-        srt = torch.sort(all_samples, stable=True).values
-    m = srt.shape[0]
+        srt = torch.sort(all_samples, dim=-1, stable=True).values
+    m = srt.shape[-1]
     idx = (torch.arange(1, p, dtype=torch.int32, device=srt.device) * m) // p
-    return srt[idx]
+    return srt[..., idx]
 
 
 def _search(xs_sorted: torch.Tensor, splitters: torch.Tensor, side: str,
             search) -> torch.Tensor:
-    queries = splitters.expand(xs_sorted.shape[0], -1).contiguous()
-    return search(xs_sorted.contiguous(), queries, side=side).to(torch.int32)
+    """Every shard of (..., p, n) searched for its own sort's (..., p-1)
+    splitters, as one (rows, p-1) search over all rows."""
+    n = xs_sorted.shape[-1]
+    queries = splitters.unsqueeze(-2).expand(*xs_sorted.shape[:-1], -1)
+    out = search(xs_sorted.reshape(-1, n).contiguous(),
+                 queries.reshape(-1, queries.shape[-1]).contiguous(), side=side)
+    return out.to(torch.int32).reshape(queries.shape)
 
 
 def _with_ends(bound: torch.Tensor, n: int) -> torch.Tensor:
-    p = bound.shape[0]
-    zero = torch.zeros((p, 1), dtype=torch.int32, device=bound.device)
-    full = torch.full((p, 1), n, dtype=torch.int32, device=bound.device)
-    return torch.cat([zero, bound, full], dim=1)
+    edge = (*bound.shape[:-1], 1)
+    zero = torch.zeros(edge, dtype=torch.int32, device=bound.device)
+    full = torch.full(edge, n, dtype=torch.int32, device=bound.device)
+    return torch.cat([zero, bound, full], dim=-1)
 
 
 def investigator_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor,
@@ -103,13 +113,13 @@ def investigator_bounds(xs_sorted: torch.Tensor, splitters: torch.Tensor,
     binary search on distinct data and the paper's equal division of a
     tied run that spans several splitters. Exact int32 arithmetic.
 
-    xs_sorted: (p, n) sorted shards. ``search``: ``torch.searchsorted``,
-    or another with its signature (``ops.rank_functions``). Returns
-    (p, p+1) int32 bounds:
+    xs_sorted: (..., p, n) sorted shards, splitters (..., p-1).
+    ``search``: ``torch.searchsorted``, or another with its signature
+    (``ops.rank_functions``). Returns (..., p, p+1) int32 bounds:
     bounds[i, j]..bounds[i, j+1] is the slice of shard i bound for j.
     """
     n = xs_sorted.shape[-1]
-    p = splitters.shape[0] + 1
+    p = splitters.shape[-1] + 1
     left = _search(xs_sorted, splitters, "left", search)
     right = _search(xs_sorted, splitters, "right", search)
     j = torch.arange(1, p, dtype=torch.int32, device=xs_sorted.device)

@@ -12,7 +12,8 @@ kernel against it on the card, both with exact equality.
 Every wrapper counts its launches in ``<wrapper>.launches``: one is added
 where the kernel is launched and nowhere else; ``<wrapper>.wide_launches``
 counts, at the same place, the launches whose keys or values are 8 bytes
-(the 64-bit instantiations).
+(the 64-bit instantiations). The counts are updated under a lock, since
+the sort server launches from several threads.
 
 Rows have a power-of-two length of at most 8192 (``ops`` pads). Keys and
 values are int32, uint32, float32, int64 or float64 inside the kernel;
@@ -27,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -261,6 +263,16 @@ def _check(name: str, *tensors: torch.Tensor, n_max: int = MAX_ROW) -> str:
     return first.device.type
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper, wide: bool) -> None:
+    """One launch of ``wrapper``'s kernel (``wide``: at 8 bytes)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.wide_launches += wide
+
+
 def bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
     """Sort each row of ``keys`` (R, N) ascending. N must be a power of 2."""
     on = _check("bitonic_sort_rows", keys)
@@ -272,8 +284,7 @@ def bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(k.device):
         _launch("bitonic_sort_rows", k.data_ptr(), out.data_ptr(), k.shape[0],
                 k.shape[1], _TYPE_CODES[k.dtype], _stream(k))
-    bitonic_sort_rows.launches += 1
-    bitonic_sort_rows.wide_launches += k.element_size() == 8
+    _count(bitonic_sort_rows, k.element_size() == 8)
     return _narrow(out, keys.dtype)
 
 
@@ -292,8 +303,7 @@ def bitonic_sort_rows_kv(keys: torch.Tensor, values: torch.Tensor, *,
         _launch("bitonic_sort_rows_kv", k.data_ptr(), v.data_ptr(), ok.data_ptr(),
                 ov.data_ptr(), k.shape[0], k.shape[1], _TYPE_CODES[k.dtype],
                 _TYPE_CODES[v.dtype], int(stable), _stream(k))
-    bitonic_sort_rows_kv.launches += 1
-    bitonic_sort_rows_kv.wide_launches += 8 in (k.element_size(), v.element_size())
+    _count(bitonic_sort_rows_kv, 8 in (k.element_size(), v.element_size()))
     return _narrow(ok, keys.dtype), _narrow(ov, values.dtype)
 
 
@@ -309,8 +319,7 @@ def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(wa.device):
         _launch("bitonic_merge_rows", wa.data_ptr(), wa.stride(0), wb.data_ptr(), wb.stride(0),
                 out.data_ptr(), rows, n, _TYPE_CODES[wa.dtype], _stream(wa))
-    bitonic_merge_rows.launches += 1
-    bitonic_merge_rows.wide_launches += wa.element_size() == 8
+    _count(bitonic_merge_rows, wa.element_size() == 8)
     return _narrow(out, a.dtype)
 
 
@@ -329,8 +338,7 @@ def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
                 wav.stride(0), wbk.data_ptr(), wbk.stride(0), wbv.data_ptr(), wbv.stride(0),
                 ok.data_ptr(), ov.data_ptr(), rows, n, _TYPE_CODES[wak.dtype],
                 _TYPE_CODES[wav.dtype], int(stable), _stream(wak))
-    bitonic_merge_rows_kv.launches += 1
-    bitonic_merge_rows_kv.wide_launches += 8 in (wak.element_size(), wav.element_size())
+    _count(bitonic_merge_rows_kv, 8 in (wak.element_size(), wav.element_size()))
     return _narrow(ok, ak.dtype), _narrow(ov, av.dtype)
 
 
@@ -339,8 +347,9 @@ KERNELS = (bitonic_sort_rows, bitonic_sort_rows_kv, bitonic_merge_rows, bitonic_
 
 def reset_launches() -> None:
     """Set every wrapper's launch counts to 0."""
-    for fn in KERNELS:
-        fn.launches = fn.wide_launches = 0
+    with _COUNT_LOCK:
+        for fn in KERNELS:
+            fn.launches = fn.wide_launches = 0
 
 
 reset_launches()

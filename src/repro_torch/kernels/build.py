@@ -19,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -30,6 +31,16 @@ NVCC_FLAGS = (
 # csrc/bitonic.cu: units 0-9 instantiate the row sorts and the merges of
 # one key type each, unit 10 holds the entry points (see its header)
 UNITS = {"bitonic": tuple(f"-DBITONIC_UNIT={u}" for u in range(11))}
+
+# one lock per source: threads of one process that need the same library
+# at once (the sort server's flush loop and its workers) build it once
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+def _lock(name: str) -> threading.Lock:
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(name, threading.Lock())
 
 
 def nvcc_path() -> str:
@@ -61,19 +72,26 @@ def build(name: str) -> pathlib.Path:
 
     The compiler's report (``-Xptxas -v``: registers, shared memory,
     spills; every unit's, in turn) is kept beside the library as
-    ``<library>.log``."""
+    ``<library>.log``. Concurrent calls in one process build once (a lock
+    per source); the temporary files are named by process and thread."""
+    with _lock(name):
+        return _build(name)
+
+
+def _build(name: str) -> pathlib.Path:
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{os.getpid()}-{threading.get_ident()}"
+    tmp = out.with_suffix(f".{tag}.tmp")
     src = str(CSRC / f"{name}.cu")
     units = UNITS.get(name)
     if units is None:
         steps = [_run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), src])]
     else:
         flags = [f for f in NVCC_FLAGS if f != "-shared"]
-        objs = [out.with_suffix(f".{os.getpid()}.{u}.o") for u in range(len(units))]
+        objs = [out.with_suffix(f".{tag}.{u}.o") for u in range(len(units))]
         with ThreadPoolExecutor(len(units)) as pool:  # one nvcc per unit, started together
             steps = list(pool.map(_run, [[nvcc_path(), *flags, d, "-c", "-o", str(o), src]
                                          for d, o in zip(units, objs)]))

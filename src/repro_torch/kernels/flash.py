@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -212,8 +213,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         msg = lib.flash_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} ({msg})")
-    flash_attention.launches += 1
+    with _COUNT_LOCK:  # launches may come from several threads
+        flash_attention.launches += 1
     return out
 
 
+_COUNT_LOCK = threading.Lock()
 flash_attention.launches = 0

@@ -1,2 +1,26 @@
-"""Serving of the port's models: prefill, decode and generation
-(``repro_torch.serve.engine``)."""
+"""Serving: sort serving (``sortd``) and model serving (``engine``).
+
+``sortd`` is the asynchronous, latency-targeted sort front end:
+``SortServer.submit -> SortFuture`` with planner-driven dispatch, and
+keys-only requests coalesced into one batched flush per shape bucket on
+the card. ``engine`` serves the port's models (prefill, decode,
+generation).
+
+Both load on first use: importing ``repro_torch.serve.engine`` loads no
+sort module, and importing the package loads neither.
+"""
+import importlib
+
+_SORTD = ("SortServer", "SortFuture", "QueueFullError", "RequestTooLargeError")
+
+__all__ = list(_SORTD)
+
+
+def __getattr__(name: str):
+    if name in _SORTD:
+        return getattr(importlib.import_module("repro_torch.serve.sortd"), name)
+    if name in ("ContinuousBatcher", "Request", "Completion"):
+        from repro_torch.models import not_ported
+
+        raise not_ported(f"serve.{name}", "batching")
+    raise AttributeError(f"module 'repro_torch.serve' has no attribute {name!r}")

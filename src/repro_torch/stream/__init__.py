@@ -19,8 +19,9 @@ runs:
                                  tree, streamed out as sorted chunks.
 
 ``driver.py`` glues the passes into ``sort_external`` / ``sort_stream``.
-Outputs are CPU tensors. ``repro``'s ``service.py`` (``SortService``,
-``FlushEngine``) belongs with the serve tier (ROADMAP.md §1, item 8).
+Outputs are CPU tensors. ``service.py`` is the serving front end's flush
+core (``SortService``, ``FlushEngine``, ``ProgramCache``): shape-bucketed
+requests sorted as one batched sort each.
 """
 from repro_torch.stream.runs import Run, StreamConfig, generate_runs, iter_chunks
 from repro_torch.stream.partition import Partition, partition_runs, select_stream_splitters
@@ -31,10 +32,12 @@ from repro_torch.stream.external_merge import (
     merge_segments_kv,
 )
 from repro_torch.stream.driver import sort_external, sort_external_kv, sort_stream
+from repro_torch.stream.service import FlushEngine, SortRequest, SortService, SortServiceError
 
 __all__ = [
     "Run", "StreamConfig", "generate_runs", "iter_chunks",
     "Partition", "partition_runs", "select_stream_splitters",
     "external_merge", "external_merge_kv", "merge_segments", "merge_segments_kv",
     "sort_external", "sort_external_kv", "sort_stream",
+    "FlushEngine", "SortRequest", "SortService", "SortServiceError",
 ]

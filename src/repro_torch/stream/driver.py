@@ -8,15 +8,18 @@ caller's dtype.
 
 ``descending=True`` flips every chunk on the device at staging (pass 1)
 and flips every output chunk back on the device (pass 3), so a descending
-keys-only sort streams. The tuner's per-chunk cost observations are not
-ported (ROADMAP.md §1, item 6).
+keys-only sort streams. With a tuner ambient, pass 1's cost per chunk
+feeds the cost model (``chunk_sort`` on ``stream``), which sizes later
+streams' chunks (``planner._pick_chunk_elems``).
 """
 from __future__ import annotations
 
+import time
 from typing import Iterator
 
 import torch
 
+from repro_torch import tune as _tune
 from repro_torch.core.planner import as_tensor
 from repro_torch.obs.tracing import maybe_span as _span
 from repro_torch.stream.external_merge import external_merge, external_merge_kv
@@ -37,10 +40,18 @@ def _pipeline(data, cfg: StreamConfig, values=None, *, investigator: bool = True
     pass 2 (per-bucket sizes); pass 3's ``merge`` spans are recorded per
     bucket by ``external_merge``."""
     with _span(trace, "local_sort") as sp:
+        t0 = time.perf_counter()
         runs = generate_runs(data, cfg, values, investigator=investigator,
                              descending=descending, device=device)
+        dt = time.perf_counter() - t0  # pass 1 ends with a wait on the device
         sp.counts([len(r) for r in runs])
         sp.set(chunk_retries=sum(r.retries for r in runs))
+    tuner = _tune.current()
+    if tuner is not None and runs:
+        # the cost of one chunk (staging and the in-core sort, amortized
+        # over the pass)
+        tuner.observe("chunk_sort", "stream", runs[0].dtype, cfg.chunk_elems,
+                      dt / len(runs) * 1e6)
     if stats is not None:
         stats["chunk_retries"] = [r.retries for r in runs]
     if not runs:

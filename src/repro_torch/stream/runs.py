@@ -45,6 +45,7 @@ from typing import Iterator
 import torch
 
 from repro_torch import device as _device
+from repro_torch import tune as _tune
 from repro_torch.core import keyenc, overflow, planner, sim
 from repro_torch.core.splitters import SortConfig
 from repro_torch.kernels import ops as kops
@@ -267,8 +268,13 @@ def generate_runs(data, cfg: StreamConfig = StreamConfig(), values=None, *,
         xk, xv, res, m, slot, dtypes, nan = state
         retries = 0
         if bool(res.overflowed):  # the chunk's one host read
+            # with a tuner ambient the ladder starts at the capacity the
+            # chunk's own send_counts ask for; the cold ladder is unchanged
+            measured = (overflow.measured_capacity_need(p, per)
+                        if _tune.current() is not None else None)
             res, _, retries = overflow.retry_overflowed(
-                lambda c: dispatch(xk, xv, c, nan), cfg.sort, policy, last=res)
+                lambda c: dispatch(xk, xv, c, nan), cfg.sort, policy, last=res,
+                measured=measured)
         if xv is None:
             keys, _, home = store.put(keyenc.compact_rows(res.values, res.counts, m), None)
             run = Run(keys, retries=retries, dtype=dtypes[0], nan_keys=nan, home=home)

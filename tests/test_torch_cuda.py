@@ -591,3 +591,94 @@ def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol):
         got = engine.generate(m_gpu, {"tokens": toks[:, :64].to(gpu)}, 4)
         want = engine.generate(m_cpu, {"tokens": toks[:, :64]}, 4)
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ------------------------------------------------------------ serve tier
+
+
+def _flush_case(case, rng):
+    """(datas, run_group kwargs) of one bucket of 4096 at p = 8."""
+    from repro_torch.core import planner
+
+    sizes = [3000, 4096, 2500, 4000, 3500]
+    if case == "packed":
+        lim = planner.SortLimits(key_bits=(10, 12))
+        datas, spec = [], None
+        for n in sizes:
+            cols = (rng.integers(0, 1 << 10, n).astype(np.int32),
+                    rng.integers(0, 1 << 12, n).astype(np.int32))
+            req, plan, ok = planner.serve_profile(cols, order=("asc", "desc"), limits=lim,
+                                                  device="cpu")
+            assert ok
+            spec = plan.packspec
+            datas.append(keyenc.pack_keys(req.keys, spec, ranks=req.pack_ranks))
+        return datas, {"packspec": spec}
+    datas = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)) for n in sizes]
+    if case == "nan":  # one member with NaN and +-0.0
+        x = datas[1]
+        x[::7] = 0.0
+        x[::11] = -0.0
+        x[::13] = float("nan")
+    return datas, {"descending": case in ("descending", "nan")}
+
+
+@pytest.mark.parametrize("case", ["plain", "descending", "nan", "packed", "on_device"])
+def test_flush_on_cuda_equals_flush_on_cpu(gpu, case):
+    """The batched flush (bitonic kernels on the card) gives the CPU's
+    bits (twins), ladder steps and stats; requests already on the card
+    are staged there."""
+    from repro_torch.stream.service import FlushEngine
+
+    datas, kw = _flush_case(case, np.random.default_rng(len(case)))
+    cpu = FlushEngine(n_procs=8, max_batch=4, device="cpu")
+    card = FlushEngine(n_procs=8, max_batch=4, device="cuda")
+    want = cpu.run_group(datas, **kw)
+    got = card.run_group([d.to(gpu) for d in datas] if case == "on_device" else datas, **kw)
+    for (w, ws), (g, gs) in zip(want, got):
+        assert gs == ws
+        for a, b in zip(w if isinstance(w, tuple) else (w,), g if isinstance(g, tuple) else (g,)):
+            assert b.device.type == "cpu" and _same_bits(b, a)
+    assert card.stats == cpu.stats
+
+
+def test_flush_launches_do_not_grow_with_the_batch(gpu):
+    """One bucket (float32, p = 8, per = 2^13): B = 1, 4 and 16 requests
+    launch each bitonic kernel the same number of times, and the results
+    equal torch.sort bit for bit."""
+    from repro_torch.stream.service import FlushEngine
+
+    eng = FlushEngine(n_procs=8, device="cuda")
+    gen = torch.Generator(device=gpu).manual_seed(0)
+    counts = {}
+    for b in (1, 4, 16):
+        datas = [torch.rand(1 << 16, generator=gen, device=gpu) for _ in range(b)]
+        bitonic.reset_launches()
+        out = eng.run_group(datas)
+        counts[b] = tuple(fn.launches for fn in bitonic.KERNELS)
+        for d, (res, steps) in zip(datas, out):
+            assert steps == 0 and torch.equal(res, torch.sort(d).values.cpu())
+    assert len(set(counts.values())) == 1, counts
+    assert counts[1][0] > 0 and counts[1][2] > 0, counts
+
+
+def test_sort_server_on_cuda_equals_cpu(gpu):
+    """Coalesced and direct requests through SortServer on the card give
+    the CPU server's bits."""
+    from repro_torch.serve.sortd import SortServer
+
+    rng = np.random.default_rng(3)
+    reqs = [(rng.standard_normal(n).astype(np.float32), kw)
+            for n, kw in ((1000, {}), (900, {"order": "desc"}), (1024, {}),
+                          (700, {"want": "order"}), (3000, {}))]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        with SortServer(max_batch=100, max_delay_ms=600_000, device=dev) as srv:
+            futs = [srv.submit(x, **kw) for x, kw in reqs]
+            srv.flush(timeout=120)
+            outs.append([f.result(60) for f in futs])
+    for a, b in zip(*outs):
+        assert _same_bits(b.keys, a.keys)
+        assert (a.values is None) == (b.values is None)
+        if a.values is not None:
+            assert _same_bits(b.values, a.values)
+        assert b.meta.coalesced == a.meta.coalesced

@@ -112,14 +112,17 @@ def test_metric_mutation_thread_safety():
 
 
 def test_port_metrics_follow_the_schema():
-    """Every metric the port registers has repro's name, type and labels
-    (tests/metrics_schema.json, which pins repro's registry)."""
+    """Every metric family the port registers, the serve tier's ``sortd_*``
+    ones included, has repro's name, type and labels
+    (tests/metrics_schema.json, which pins repro's registry), and once the
+    serve tier is imported the port registers all of them."""
     from repro_torch.core import planner  # noqa: F401  (registers the sort's metrics)
+    from repro_torch.serve import sortd  # noqa: F401  (the serve tier, tune and flight)
 
     schema = {d["name"]: d for d in json.loads(SCHEMA.read_text())}
-    port = [d for d in obs_metrics.REGISTRY.describe() if d["name"].startswith("repro_")]
-    assert {d["name"] for d in port} >= {"repro_sorts_total", "repro_sort_phase_seconds",
-                                         "repro_overflow_ladder_retries_total"}
+    port = obs_metrics.REGISTRY.describe()
+    assert len(schema) == 28
+    assert {d["name"] for d in port} == set(schema)
     for d in port:
         assert schema[d["name"]] == d, d
 
