@@ -104,8 +104,10 @@ Phases, one line or more each:
      a 2^22 argsort with PROVENANCE_INT32_CAP lowered, so its index is
      int64. Each case prints its wall time and launches;
   8. the serve tier (``repro_torch.serve.sortd``, ``stream.service``,
-     ``tune``, ``obs.flight``), its launch counts summed over the phase
-     (each of the four kernels must launch): ``SortService.sort_many`` at
+     ``tune``, ``obs.flight``); every run's launch counts are set to 0
+     just before it and read just after, and each of the four kernels
+     must launch in the serving runs (the invariance flushes and the two
+     server bursts, summed): ``SortService.sort_many`` at
      one bucket (float32, p = 8, per = 2^13) with B = 1, 4 and 16 host
      requests of 2^16 keys, each flush launching every kernel as often as
      the others (counts read and set to 0 around each flush), each result
@@ -118,7 +120,10 @@ Phases, one line or more each:
      stable passes, torch.topk, np.searchsorted, np.percentile), stats()
      and both tenants' p50 / p99 printed, every flush record linked to its
      requests; 16 x 2^14 float32 as one flush and as 16 sort calls (wall
-     and device time under torch.profiler, launches); a cold tune store
+     and device time under torch.profiler, launches), and as one flush
+     in which one member holds a NaN (the NaN-safe searches for all 16,
+     each equal to the same flush on the CPU bit for bit, the NaN-free
+     ones to torch.sort too); a cold tune store
      warmed by the card's own sim (2^14-2^22) and stream (2^20-2^23)
      sorts until both predictions at 2^23 clear the confidence bar, whose
      plan of 2^23 must read cost_source "model", then run; the chunk size
@@ -130,8 +135,8 @@ Phases, one line or more each:
      tests/flight_schema.json's shape and read by ``python -m
      repro_torch.obsctl`` (slow, export) with rc 0.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
-bitonic kernels' ``launches`` are phase 3's plus phase 8's, phase 8's
-alone as ``launches_serve``; their 64-bit ones as ``*_x64``: times at a
+bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
+as ``launches_serve``; their 64-bit ones as ``*_x64``: times at a
 2^22 int64 sort's shapes, ``launches_x64`` the 8-byte launches of phase
 7), the card's name and power limit, and, last, {"ok": true, "device":
 {...}}.
@@ -1333,10 +1338,13 @@ def schema_shape_ok(label: str, got: dict, path: pathlib.Path) -> None:
 
 
 def run_serving(device) -> dict:
-    """Phase 8: the serve tier on the card. The launch counts are summed
-    over the phase (read and set to 0 around each flush of the invariance
-    check); each of the four bitonic kernels must launch. Returns those
-    launches per kernel."""
+    """Phase 8: the serve tier on the card. The launch counts are set to 0
+    just before each run and read just after it. The serving runs (the
+    invariance flushes, the ``SortServer`` burst, the ``QueueFullError``
+    burst) are summed, and each of the four bitonic kernels must launch in
+    them; the other runs (single calls, the NaN flush, tune, the ladder)
+    print theirs on their own lines. Returns the serving runs' launches
+    per kernel."""
     import contextlib
     import os
     import shutil
@@ -1352,17 +1360,18 @@ def run_serving(device) -> dict:
     from repro_torch.stream.service import SortService
 
     gen = torch.Generator(device=device).manual_seed(8)
-    total = {fn.__name__: 0 for fn in bitonic.KERNELS}
+    serving = {fn.__name__: 0 for fn in bitonic.KERNELS}  # the serving runs' sum
 
-    def take() -> dict:
-        """The counts since the last take, added to the phase's total."""
+    def take(serve: bool = False) -> dict:
+        """The counts since the last reset, set to 0 again; a serving run's
+        are added to ``serving``."""
         got = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
         bitonic.reset_launches()
-        for k, v in got.items():
-            total[k] += v
+        if serve:
+            for k, v in got.items():
+                serving[k] += v
         return got
 
-    bitonic.reset_launches()
     t_phase = time.perf_counter()
     scratch = ROOT / "build" / "phase8"  # files of this phase, removed at its end
     shutil.rmtree(scratch, ignore_errors=True)
@@ -1373,12 +1382,12 @@ def run_serving(device) -> dict:
     per_b = {}
     for b in (1, 4, 16):
         xs = [torch.rand(1 << 16, generator=gen, device=device).cpu() for _ in range(b)]
-        take()
         torch.cuda.synchronize()
+        bitonic.reset_launches()
         t0 = time.perf_counter()
         outs = svc.sort_many(xs)
         wall = (time.perf_counter() - t0) * 1e3
-        per_b[b] = take()
+        per_b[b] = take(serve=True)
         for x, out in zip(xs, outs):
             if not torch.equal(out, torch.sort(x.to(device)).values.cpu()):
                 raise AssertionError(f"phase 8: a flush of B={b} differs from torch.sort")
@@ -1470,6 +1479,8 @@ def run_serving(device) -> dict:
     part_specs = [specs[i::4] for i in range(4)]
     pending = []
     slo_cfg = slo.SLOConfig(name="phase8", threshold_ms=50.0)
+    outs = []
+    bitonic.reset_launches()
     t0 = time.perf_counter()
     with sortd.SortServer(max_batch=16, max_delay_ms=2, device=device, slo=slo_cfg,
                           tenants={"flood": 1.0, "light": 1.0}) as srv:
@@ -1482,14 +1493,16 @@ def run_serving(device) -> dict:
                 raise AssertionError("phase 8: a submitting thread did not finish")
         for kind, n, order, inputs, fut, tenant in pending:
             try:
-                out = fut.result(timeout=300)
+                outs.append(fut.result(timeout=300))
             except Exception as e:  # noqa: BLE001 — every failed future fails the run
+                outs.append(None)
                 errors.append(f"{kind} n={n}: {e!r}")
-                continue
-            if not check(kind, n, order, inputs, out):
-                errors.append(f"{kind} n={n} order={order}: differs from its reference")
         stats = srv.stats()
     wall = (time.perf_counter() - t0) * 1e3
+    srv_launch = take(serve=True)
+    for (kind, n, order, inputs, _fut, _ten), out in zip(pending, outs):
+        if out is not None and not check(kind, n, order, inputs, out):
+            errors.append(f"{kind} n={n} order={order}: differs from its reference")
     if errors:
         raise AssertionError(f"phase 8: {len(errors)} of {len(pending)} requests failed: "
                              f"{errors[:5]}")
@@ -1497,7 +1510,7 @@ def run_serving(device) -> dict:
     for kind, *_ in pending:
         served[kind] = served.get(kind, 0) + 1
     log(f"phase 8: SortServer, {len(pending)} requests from 4 threads ({served}), all exact, "
-        f"{wall:.3f} ms wall (answers checked in it), launches {take()}")
+        f"{wall:.3f} ms wall (submit to close), launches {srv_launch}")
     log("phase 8: stats: " + ", ".join(
         f"{k} {stats[k]}" for k in ("latency_ms_p50", "latency_ms_p99", "occupancy_mean",
                                     "flushes", "flushed_requests", "direct_dispatches",
@@ -1519,7 +1532,7 @@ def run_serving(device) -> dict:
     svc.sort_many(xs)
     for x in xs[:2]:
         repro_torch.sort(x, device=device).keys
-    take()
+    bitonic.reset_launches()
     f_wall, f_dev = device_ms(lambda: svc.sort_many(xs))
     f_launch = take()
     s_wall, s_dev = device_ms(lambda: [repro_torch.sort(x, device=device).keys for x in xs])
@@ -1527,14 +1540,33 @@ def run_serving(device) -> dict:
     log(f"phase 8: 16 x 2^14 float32 as one flush: {f_wall:.3f} ms wall, {f_dev:.3f} ms device, "
         f"launches {f_launch}; as 16 sort calls: {s_wall:.3f} ms wall, {s_dev:.3f} ms device, "
         f"launches {s_launch}")
+    # what one NaN costs the requests coalesced with it: the whole flush
+    # takes the NaN-safe searches
+    xs_nan = [x.clone() for x in xs]
+    xs_nan[0][123] = float("nan")
+    bitonic.reset_launches()
+    nan_outs = []
+    q_wall, q_dev = device_ms(lambda: nan_outs.extend(svc.sort_many(xs_nan)))
+    q_launch = take()
+    # NaN keys take repro's bits, which torch.sort does not give: the NaN
+    # member is held to the same flush on the CPU, bit for bit, as phase 7
+    # holds NaN sorts; the others to torch.sort as well
+    on_cpu = SortService(n_procs=8, device="cpu").sort_many(xs_nan)
+    for i, (x, out, ref) in enumerate(zip(xs_nan, nan_outs, on_cpu)):
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)) or (
+                i > 0 and not torch.equal(out, torch.sort(x.to(device)).values.cpu())):
+            raise AssertionError(f"phase 8: member {i} of the NaN flush is not exact")
+    log(f"phase 8: 16 x 2^14 float32 as one flush, one member with one NaN: {q_wall:.3f} ms "
+        f"wall, {q_dev:.3f} ms device, launches {q_launch} (all 16 equal the flush on the "
+        f"CPU, the 15 NaN-free also torch.sort)")
     # what the power-of-two batch padding costs: 9 requests run as 16
     n_wall, n_dev = device_ms(lambda: svc.sort_many(xs[:9]))
     e_wall, e_dev = device_ms(lambda: svc.sort_many(xs[:8]))
-    take()
     log(f"phase 8: batch padding: 9 x 2^14 (padded to 16): {n_wall:.3f} ms wall, {n_dev:.3f} ms "
         f"device; 8 x 2^14 (no padding): {e_wall:.3f} ms wall, {e_dev:.3f} ms device")
 
     # the cost model, warmed on the card (a cold store; no BENCH_*.json)
+    bitonic.reset_launches()
     t0 = time.perf_counter()
     with tune.active(tune.TuneStore()) as tuner:
         def warm_round():
@@ -1562,6 +1594,7 @@ def run_serving(device) -> dict:
             raise AssertionError(f"phase 8: the warmed plan's cost_source is "
                                  f"{plan.cost_source!r}")
         torch.cuda.synchronize()
+        bitonic.reset_launches()
         t0 = time.perf_counter()
         out = repro_torch.sort(big, device=device)
         out.keys
@@ -1571,6 +1604,7 @@ def run_serving(device) -> dict:
         if not torch.equal(out.keys.cpu(), torch.sort(big.to(device)).values.cpu()):
             raise AssertionError("phase 8: the tuned 2^23 sort is not exact")
         x = torch.rand(1 << 20, generator=gen, device=device).cpu()
+        bitonic.reset_launches()
         t0 = time.perf_counter()
         for chunk in (1 << 15, 1 << 16, 1 << 17):
             for _ in range(3):
@@ -1609,6 +1643,7 @@ def run_serving(device) -> dict:
     walls = []
     for tuner in (None, tune.TuneStore()):
         torch.cuda.synchronize()
+        bitonic.reset_launches()
         t0 = time.perf_counter()
         with tune.active(tuner) if tuner is not None else contextlib.nullcontext():
             out = repro_torch.sort(dup, config=cfg, device=device)
@@ -1631,6 +1666,7 @@ def run_serving(device) -> dict:
     try:
         flight.RECORDER.reset()
         x = np.random.default_rng(9).random(1024, dtype=np.float32)
+        bitonic.reset_launches()
         with sortd.SortServer(max_queue=1, max_batch=10_000, max_delay_ms=600_000,
                               device=device) as srv:
             for kw in ({}, {}, {"want": "order"}):  # fill the rings first
@@ -1645,6 +1681,7 @@ def run_serving(device) -> dict:
                 except sortd.QueueFullError:
                     rejected += 1
             srv.flush(timeout=60)
+        burst_launch = take(serve=True)
     finally:
         del os.environ["REPRO_FLIGHT_DIR"]
     files = sorted(pathlib.Path(d).glob("incident_queue_full_burst_*.json"))
@@ -1666,18 +1703,17 @@ def run_serving(device) -> dict:
         if rc.returncode != 0:
             raise AssertionError(f"phase 8: obsctl {cmd[0]} failed: {rc.stderr[-2000:]}")
     log(f"phase 8: QueueFullError burst ({(time.perf_counter() - t0) * 1e3:.3f} ms wall, "
-        f"launches {take()}): {rejected} rejections, incident "
+        f"launches {burst_launch}): {rejected} rejections, incident "
         f"{files[-1].name} ({sorted(filled)} filled) in tests/flight_schema.json's shape; "
         f"obsctl slow and export read it with rc 0")
 
     shutil.rmtree(scratch, ignore_errors=True)
-    take()
-    log(f"phase 8: launches over the serving phase: {total}; "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    missing = [k for k, v in total.items() if v == 0]
+    log(f"phase 8: launches over the serving runs (invariance flushes, SortServer burst, "
+        f"QueueFullError burst): {serving}; {time.perf_counter() - t_phase:.1f} s")
+    missing = [k for k, v in serving.items() if v == 0]
     if missing:
         raise AssertionError(f"phase 8: kernels never launched on the serving path: {missing}")
-    return total
+    return serving
 
 
 def check_traces(device, x) -> None:
@@ -1773,8 +1809,7 @@ def main() -> int:
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=launches[name] + launches_serve[name],
-             launches_serve=launches_serve[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
+             launches=launches[name], launches_serve=launches_serve[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
              ms_x64=num["ms_x64"], plain_ms_x64=num["plain_ms_x64"],

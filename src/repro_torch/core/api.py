@@ -239,8 +239,9 @@ _SORT_MANY_CACHE = None
 
 
 def sort_many_cache():
-    """The program cache behind ``SortLibrary.sort_many`` (the serve tier's
-    ``ProgramCache`` class)."""
+    """The ``ProgramCache`` behind ``SortLibrary.sort_many``, as ``repro``
+    has it: it counts the (batch, shape, dtype) keys ``sort_many`` has run
+    and compiles nothing."""
     global _SORT_MANY_CACHE
     if _SORT_MANY_CACHE is None:
         from repro_torch.stream.service import ProgramCache

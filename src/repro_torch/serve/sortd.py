@@ -105,7 +105,7 @@ _M_FLUSHES = obs_metrics.counter(
 )
 _M_COALESCED = obs_metrics.counter(
     "sortd_coalesced_requests_total",
-    "Requests that shared a vmapped coalesced flush.",
+    "Requests that shared a batched coalesced flush.",
 )
 _M_FLUSH_TRIGGER = obs_metrics.counter(
     "sortd_flush_trigger_total",
@@ -520,9 +520,9 @@ class SortServer:
                 ten.depth += 1
                 if batchable:
                     # descending requests bucket separately (same shapes,
-                    # different fused program: in-program flip decode),
-                    # and packed multi-key requests bucket per PackSpec
-                    # (the fused unpack is compiled per spec)
+                    # a flush that flips in its decode), and packed
+                    # multi-key requests bucket per PackSpec (the flush's
+                    # unpack follows the spec)
                     desc = bool(req.descending[0]) and not req.multikey
                     pspec = plan.packspec if req.multikey else None
                     key = (("batch", desc, pspec)

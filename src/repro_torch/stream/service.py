@@ -9,8 +9,8 @@ buckets all run on the device before the one copy of the decoded (B,
 p*per) output to the host. Where ``repro`` vmapped a jitted program, the
 port folds the batch into the rows of its kernels, so a flush of B
 requests launches each bitonic kernel as often as one sort does. The
-``ProgramCache`` keeps ``repro``'s key and accounting; its values are the
-batched callables.
+``ProgramCache`` keeps ``repro``'s key and accounting, but compiles
+nothing: its values are the batched sim functions with their options bound.
 
 Staging: the batch size is padded to a power of two (part of the bucket
 key, and of the flight record's ``padded_batch``); every request's
@@ -55,15 +55,16 @@ from repro_torch.obs.profiling import annotate as _annotate
 
 _M_CACHE_BUILDS = obs_metrics.counter(
     "repro_program_cache_builds_total",
-    "Vmapped sort programs compiled into a ProgramCache (cache misses).",
+    "ProgramCache misses: a new program key (the port binds a batched sim "
+    "function there and compiles nothing).",
 )
 _M_CACHE_HITS = obs_metrics.counter(
     "repro_program_cache_hits_total",
-    "ProgramCache lookups served by an already-compiled program.",
+    "ProgramCache lookups served by a key seen before.",
 )
 _M_COALESCE_SIZE = obs_metrics.histogram(
     "repro_flush_coalesce_size",
-    "Requests coalesced into one vmapped flush program, by program kind.",
+    "Requests coalesced into one batched flush, by program kind.",
     labels=("kind",),  # plain|descending|packed
     buckets=(1, 2, 4, 8, 16, 32, 64, 128, float("inf")),
 )
@@ -74,9 +75,13 @@ class ProgramCache:
     per, dtype, key width, config, investigator, flat, descending,
     packspec). A flat program is ``sim.sample_sort_sim_flat`` (the decode
     fused in), else ``sim.sample_sort_sim``; each takes the (batch, p,
-    per) grid and ``nan_keys``. Shared by ``FlushEngine`` and
-    ``SortLibrary.sort_many``; ``stats`` counts ``programs`` (misses)
-    and ``hits`` as ``repro``'s does."""
+    per) grid and ``nan_keys``. Where ``repro`` compiles a program per
+    key, the port compiles nothing (it runs eagerly and launches its
+    kernels directly): a value is a ``functools.partial``. The class stays
+    for ``repro``'s accounting, which the flight records and the
+    ``repro_program_cache_*`` metrics carry: ``stats`` counts
+    ``programs`` (new keys) and ``hits`` as ``repro``'s does. Used by
+    ``FlushEngine`` and ``SortLibrary.sort_many``."""
 
     def __init__(self, stats: dict | None = None):
         self.programs: dict = {}
