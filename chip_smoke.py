@@ -133,16 +133,33 @@ Phases, one line or more each:
      without a tuner, exactly 1 with one, both exact; a QueueFullError
      burst through a one-slot queue, whose incident snapshot must be in
      tests/flight_schema.json's shape and read by ``python -m
-     repro_torch.obsctl`` (slow, export) with rc 0.
+     repro_torch.obsctl`` (slow, export) with rc 0;
+  9. the mesh backend (``repro_torch.sort(x_local, where=(mesh, axis))``),
+     every launch count set to 0 just before each run and read just after,
+     summed over the phase's ranks (each of the four kernels must launch):
+     a one-rank NCCL group in this process sorting 2^24 float32 keys,
+     keys-only and want="order", each equal to the sim (n_procs=1) and to
+     stable torch.sort; then four ranks, four processes of this script
+     (``--mesh-rank``) sharing cuda:0 through gloo, which stages the
+     collectives through the host, each sorting its pad_grid slice of
+     2^24 seeded keys (2^22 a rank): float32 uniform, int32 of 4 values
+     (imbalance below 1.01), want="order" descending, a float32 payload
+     descending, keys-only descending, 2^21 float32 with 5% NaN, int64 of
+     4 values in x64 mode, and a traced keys-only sort (coverage at least
+     0.95); the ranks' blocks, counts and send counts equal the sim
+     (n_procs=4) over the same global grid on the card (NaN: on the CPU)
+     and torch.sort. Each case prints rank 0's wall between barriers, the
+     exchange span's share and the launches per rank.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
-as ``launches_serve``; their 64-bit ones as ``*_x64``: times at a
-2^22 int64 sort's shapes, ``launches_x64`` the 8-byte launches of phase
-7), the card's name and power limit, and, last, {"ok": true, "device":
-{...}}.
+as ``launches_serve``, phase 9's ranks' as ``launches_mesh``; their
+64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
+``launches_x64`` the 8-byte launches of phase 7), the card's name and
+power limit, and, last, {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --phases 2,7   # a development run: 1, 2 and 7 only
     python3 chip_smoke.py --phases 8     # phases 1, 2 and 8
+    python3 chip_smoke.py --phases 9     # phases 1, 2 and 9
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -151,6 +168,7 @@ result. It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -1741,7 +1759,249 @@ def check_traces(device, x) -> None:
             raise AssertionError(f"traced {label}: output differs from the untraced call")
 
 
-ALL_PHASES = frozenset(range(1, 9))
+# ------------------------------------------------------------------ phase 9
+
+MESH_WORLD = 4
+MESH_PER_RANK = 1 << 22
+MESH_DUPLICATES = ("int32, 4 distinct values", "int64, 4 values, x64")  # imbalance < 1.01
+
+
+def mesh_cases(gen, device, n: int = MESH_WORLD * MESH_PER_RANK) -> dict:
+    """Phase 9's four-rank cases: the global keys (and payload) made on the
+    card from ``gen``, which every rank and the parent seed alike, and the
+    call's keywords."""
+    import torch
+    import repro_torch
+
+    x = torch.rand(n, generator=gen, device=device)
+    four = torch.randint(0, 4, (n,), generator=gen, device=device, dtype=torch.int32)
+    vals = torch.rand(n, generator=gen, device=device)
+    nan = torch.rand(1 << 21, generator=gen, device=device) * 2 - 1
+    nan[torch.rand(1 << 21, generator=gen, device=device) < 0.05] = float("nan")
+    wide = torch.randint(0, 4, (n,), generator=gen, device=device, dtype=torch.int64) << 40
+    return {
+        "float32 uniform": (x, None, {}),
+        "int32, 4 distinct values": (four, None, {}),
+        'want="order" descending': (x, None, {"want": "order", "order": "desc"}),
+        "float32 payload descending": (x, vals, {"order": "desc"}),
+        "keys-only descending": (x, None, {"order": "desc"}),
+        "2^21 float32, 5% NaN": (nan, None, {}),
+        "int64, 4 values, x64": (wide, None, {"limits": repro_torch.SortLimits(x64=True)}),
+        "traced keys-only": (x, None, {"limits": repro_torch.SortLimits(trace=True)}),
+    }
+
+
+def shard_of(x, p: int, r: int):
+    """Row r of ``planner.pad_grid``'s split of ``x`` over p rows."""
+    base, extra = divmod(x.shape[0], p)
+    start = r * base + min(r, extra)
+    return x[start:start + base + (1 if r < extra else 0)]
+
+
+def exchange_share(trace) -> float | None:
+    """The exchange span's share of a traced sort's wall window."""
+    tot = trace.phase_totals()
+    return tot["exchange"] / trace.duration() if "exchange" in tot else None
+
+
+def mesh_rank(rank: int, world: int, out_dir: str) -> None:
+    """One of phase 9's ranks (``--mesh-rank``): a gloo group through a
+    file store, every tensor on cuda:0, each case sorted through
+    ``repro_torch.sort(x_local, where=(mesh, "data"))``; its block, the
+    global counts, its launches and rank 0's wall between barriers go to
+    ``rank<r>.pt``."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+    from repro_torch.kernels import bitonic
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+    gen = torch.Generator(device=device).manual_seed(9)
+    results = {}
+    for label, (x, vals, kw) in mesh_cases(gen, device).items():
+        keys = shard_of(x, world, rank)
+        values = None if vals is None else shard_of(vals, world, rank)
+        repro_torch.sort(keys, values, where=(mesh, "data"), **kw)  # warm
+        torch.cuda.synchronize()
+        dist.barrier()
+        bitonic.reset_launches()
+        t0 = time.perf_counter()
+        out = repro_torch.sort(keys, values, where=(mesh, "data"), **kw)
+        torch.cuda.synchronize()
+        dist.barrier()
+        wall = time.perf_counter() - t0
+        tr = out.meta.trace
+        results[label] = dict(
+            keys=out.keys.cpu(), values=None if out.values is None else out.values.cpu(),
+            counts=out.counts, send_counts=out.send_counts, block=tuple(out.block),
+            retries=out.meta.retries, wall_ms=wall * 1e3, imbalance=out.imbalance(),
+            launches={fn.__name__: fn.launches for fn in bitonic.KERNELS},
+            coverage=None if tr is None else tr.coverage(),
+            exchange=None if tr is None else exchange_share(tr),
+            reasons=out.meta.plan.reasons)
+        if tr is None and "want" not in kw and vals is None:
+            # the same call traced, for the exchange span's share
+            limits = dataclasses.replace(kw.get("limits", repro_torch.SortLimits()), trace=True)
+            traced = repro_torch.sort(keys, where=(mesh, "data"), **{**kw, "limits": limits})
+            results[label]["exchange"] = exchange_share(traced.meta.trace)
+    torch.save(results, pathlib.Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def run_mesh(device) -> dict:
+    """Phase 9: the mesh backend. A one-rank NCCL group in this process,
+    then four ranks in four processes sharing the card through gloo; each
+    result held to the port's sim over the same global grid on the card
+    and to torch.sort (NaN: the sim on the CPU). Returns the launches of
+    every kernel summed over the phase's ranks."""
+    import datetime
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    import repro_torch
+    from repro_torch.kernels import bitonic
+
+    t_phase = time.perf_counter()
+    scratch = ROOT / "build" / "phase9"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    total = {fn.__name__: 0 for fn in bitonic.KERNELS}
+
+    def add(launches) -> None:
+        for k, v in launches.items():
+            total[k] += v
+
+    # one rank: an NCCL group of one process, 2^24 keys
+    dist.init_process_group("nccl", init_method=f"file://{scratch}/nccl_store", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+        gen = torch.Generator(device=device).manual_seed(8)
+        x = torch.rand(1 << 24, generator=gen, device=device)
+        sim1 = repro_torch.SortLimits(n_procs=1, stream_threshold=None)
+        for label, kw in (("2^24 float32", {}), ('2^24 float32 want="order"', {"want": "order"})):
+            repro_torch.sort(x, where=mesh, **kw)  # warm
+            torch.cuda.synchronize()
+            bitonic.reset_launches()
+            t0 = time.perf_counter()
+            out = repro_torch.sort(x, where=mesh, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+            add(launches)
+            sim = repro_torch.sort(x, where="sim", limits=sim1, **kw)
+            ref = torch.sort(x, stable=True)
+            if not (torch.equal(out.keys, sim.keys) and torch.equal(out.keys, ref.values)
+                    and (out.counts == sim.counts).all()
+                    and (out.send_counts == sim.send_counts).all()):
+                raise AssertionError(f"phase 9: one-rank NCCL {label} differs from the sim")
+            if "want" in kw and not (torch.equal(out.order(), sim.order()) and torch.equal(
+                    out.order(), ref.indices.to(torch.int32))):
+                raise AssertionError(f"phase 9: one-rank NCCL {label}: order differs")
+            traced = repro_torch.sort(x, where=mesh, **kw,
+                                      limits=repro_torch.SortLimits(trace=True))
+            share = exchange_share(traced.meta.trace)
+            log(f"phase 9: one-rank NCCL mesh, {label}: {wall:.3f} ms wall, exchange share "
+                + (f"{share:.4f}" if share is not None else "- (kv: one fused sort span)")
+                + f", launches {launches}; equals the sim (n_procs=1) and torch.sort")
+    finally:
+        dist.destroy_process_group()
+
+    # four ranks on the one card: gloo, the tensors on cuda:0
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = [open(scratch / f"rank{r}.log", "w") for r in range(MESH_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                               str(r), "--mesh-dir", str(scratch)], env=env, stdout=f,
+                              stderr=subprocess.STDOUT) for r, f in enumerate(logs)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError("phase 9: mesh ranks failed:\n" + "\n".join(
+            (scratch / f"rank{r}.log").read_text()[-3000:] for r in bad))
+    ranks = [torch.load(scratch / f"rank{r}.pt", weights_only=False) for r in range(MESH_WORLD)]
+    staged = [r for r in ranks[0]["float32 uniform"]["reasons"] if "staged" in r]
+    if not staged:
+        raise AssertionError("phase 9: gloo on the card did not stage through the host")
+    log(f"phase 9: {MESH_WORLD} ranks on one card through gloo ({staged[0]}): the exchange "
+        f"times below are gloo's, staged through the host, not NCCL's")
+    gen = torch.Generator(device=device).manual_seed(9)
+    sim4 = repro_torch.SortLimits(n_procs=MESH_WORLD, stream_threshold=None)
+    for label, (x, vals, kw) in mesh_cases(gen, device).items():
+        kw = dict(kw)
+        limits = kw.pop("limits", repro_torch.SortLimits())
+        on_cpu = "NaN" in label
+        want = repro_torch.sort(x.cpu() if on_cpu else x, None if vals is None else vals,
+                                where="sim", device="cpu" if on_cpu else device, **kw,
+                                limits=repro_torch.SortLimits(n_procs=MESH_WORLD,
+                                                              stream_threshold=None,
+                                                              x64=limits.x64))
+        got = [rk[label] for rk in ranks]
+        keys = torch.cat([g["keys"] for g in got])
+        if not torch.equal(keys.view(torch.uint8), want.keys.cpu().view(torch.uint8)):
+            raise AssertionError(f"phase 9: {label}: the blocks differ from the sim")
+        if not on_cpu:
+            ref = torch.sort(x, stable=True, descending=kw.get("order") == "desc").values
+            if not torch.equal(keys, ref.cpu()):
+                raise AssertionError(f"phase 9: {label}: the keys differ from torch.sort")
+        if want.values is not None and not torch.equal(torch.cat([g["values"] for g in got]),
+                                                       want.values.cpu()):
+            raise AssertionError(f"phase 9: {label}: the payload differs from the sim")
+        for g in got:
+            if not ((g["counts"] == want.counts).all()
+                    and (g["send_counts"] == want.send_counts).all()):
+                raise AssertionError(f"phase 9: {label}: counts differ from the sim")
+        for g in got:
+            add(g["launches"])
+        extra = ""
+        if label in MESH_DUPLICATES:
+            extra = f", imbalance {got[0]['imbalance']:.6f}"
+            if got[0]["imbalance"] >= 1.01:
+                raise AssertionError(f"phase 9: {label}: imbalance {got[0]['imbalance']}")
+        if got[0]["coverage"] is not None:
+            extra += f", coverage {got[0]['coverage']:.4f}"
+            if not got[0]["coverage"] >= 0.95:
+                raise AssertionError(f"phase 9: {label}: coverage {got[0]['coverage']}")
+        share = got[0]["exchange"]
+        log(f"phase 9: 4 ranks, {label} ({x.shape[0]} keys): {got[0]['wall_ms']:.3f} ms wall "
+            f"on rank 0, exchange share "
+            + (f"{share:.4f}" if share is not None else "- (kv: one fused sort span)")
+            + f", retries {got[0]['retries']}{extra}, launches per rank "
+            + str([tuple(g["launches"].values()) for g in got])
+            + ("; equals the sim on the CPU" if on_cpu else "; equals the sim and torch.sort"))
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 9: launches over the phase's ranks: {total}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    missing = [k for k, v in total.items() if v == 0]
+    if missing:
+        raise AssertionError(f"phase 9: kernels never launched on the mesh: {missing}")
+    return total
+
+
+ALL_PHASES = frozenset(range(1, 10))
 
 
 def main() -> int:
@@ -1751,10 +2011,16 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-8: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-9: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
-    arg = ap.parse_args().phases
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.mesh_rank is not None:  # one of phase 9's ranks
+        mesh_rank(args.mesh_rank, MESH_WORLD, args.mesh_dir)
+        return 0
+    arg = args.phases
     phases = ALL_PHASES if arg == "all" else frozenset({1, *map(int, arg.split(","))})
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1793,7 +2059,7 @@ def main() -> int:
     numbers = check_kernels(device)
     if phases != ALL_PHASES:  # a partial run (development): no result lines
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
-                           (6, run_stream), (7, run_x64), (8, run_serving)):
+                           (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh)):
             if phase in phases:
                 run(device)
         return 0
@@ -1806,10 +2072,13 @@ def main() -> int:
     launches_x64 = run_x64(device)
     torch.cuda.empty_cache()
     launches_serve = run_serving(device)
+    torch.cuda.empty_cache()
+    launches_mesh = run_mesh(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=launches[name], launches_serve=launches_serve[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
+             launches=launches[name], launches_serve=launches_serve[name],
+             launches_mesh=launches_mesh[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
              ms_x64=num["ms_x64"], plain_ms_x64=num["plain_ms_x64"],

@@ -8,7 +8,9 @@ A port of the JAX package ``repro``, module for module::
     repro_torch.sort(keys, device="cpu")           # only when asked
     repro_torch.plan(keys, device="cpu").backend   # which backend, and why
 
-The sort covers the sim backend and the out-of-core stream backend
+The sort covers the sim backend, the mesh backend (SPMD over a
+``torch.distributed`` ``DeviceMesh``: ``sort(x_local, where=(mesh,
+axis))`` on every rank) and the out-of-core stream backend
 (``repro_torch.stream``: inputs above ``SortLimits.stream_threshold``,
 ``where="stream"`` and iterators of arrays, with CPU tensors out): flat or
 (p, n_local) keys of 8-32 bit ints and floats, and in x64 mode
@@ -41,6 +43,8 @@ _EXPORTS = {
     "encode_provenance": "core.api", "decode_provenance": "core.api",
     "load_imbalance": "core.api",
     "enable_x64": "core.x64", "x64_enabled": "core.x64", "x64_mode": "core.x64",
+    "distributed_sort": "core.sample_sort", "distributed_sort_kv": "core.sample_sort",
+    "sample_sort_shard": "core.sample_sort", "sample_sort_shard_kv": "core.sample_sort",
 }
 
 __all__ = [*_EXPORTS, "tune"]

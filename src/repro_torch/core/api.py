@@ -17,8 +17,9 @@ values: optional payload that rides the sort.
 order:  "asc" | "desc", or a tuple with one flag per key.
 want:   "values" (sorted keys [+ payload]) | "order" (the stable sorting
         permutation).
-where:  backend override: "sim" or "stream" (the mesh backend is
-        ROADMAP.md §1 item 9).
+where:  backend override: "sim", "stream", or a
+        ``torch.distributed`` ``DeviceMesh`` / ``(mesh, axis)`` for the mesh
+        backend (SPMD: see below).
 limits: ``SortLimits``; config: ``SortConfig`` (the paper's defaults).
 device: None means "cuda", which must exist; "cpu" on request only.
 
@@ -44,6 +45,19 @@ Decode (``SortLimits.decode``): "device" (default) builds the output on
 the sort's device; "host" copies the result grid to the CPU and decodes
 it with numpy, as ``repro``'s legacy path does. Both give the same bits;
 the host decode returns CPU tensors.
+
+Mesh (``where=mesh`` or ``(mesh, axis)``; ``axis`` a mesh dimension name
+or a tuple of them, default "data"): every rank of the axis group calls
+``sort(x_local, where=(mesh, axis))`` with its own shard (ranks that share
+the group's coordinates pass the same shard) and gets back block r of the
+global result (``out.block``), r its coordinate; ``counts``,
+``send_counts``, ``overflowed`` and ``meta.retries`` are global. The
+sort runs on the mesh's device type: ``device=None`` is this rank's
+current CUDA device, ``device="cpu"`` a CPU (gloo) mesh::
+
+    mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+    out = repro_torch.sort(x_local, where=(mesh, "data"))
+    out.keys   # block out.block.index of the sorted concatenation of the shards
 
 x64 mode (``core.x64``): int64, uint64 and float64 keys and values are
 refused at the door with ``repro``'s TypeError unless the mode is on
@@ -222,13 +236,33 @@ class SortLibrary:
         return self._sort(data, where="stream", limits=SortLimits(
             chunk_elems=chunk_elems, n_procs=n_procs)).chunks()
 
-    # ---- real-mesh paths: the mesh backend (ROADMAP.md §1, item 9) ----
+    # ---- real-mesh paths (SPMD: each rank passes its shard) ----
+    @staticmethod
+    def _check_divisible(x, mesh, axis_name) -> None:
+        """``repro``'s legacy contract: the facade never pads, so uneven
+        inputs keep failing loudly (``sort`` pads and unpads, but ``.raw``
+        counts would include the sentinels). Here: every rank's shard has
+        the same length, or every rank raises the same ValueError."""
+        from repro_torch.sharding import spec
+
+        ag = spec.as_axis_group((mesh, axis_name))
+        lengths = ag.all_gather(torch.tensor(planner.as_tensor(x).numel())).tolist()
+        if len(set(lengths)) > 1:
+            raise ValueError(
+                f"input length {sum(lengths)} does not divide the {ag.size}-way sort axis "
+                f"(shard lengths {lengths}); use repro_torch.sort(x_local, where=mesh) "
+                f"for automatic padding")
+
     def distributed_sort(self, x, mesh, axis_name="data"):
+        """This rank's row (``sample_sort.ShardSortResult``) of the mesh sort
+        of the ranks' equal shards, with no ladder retry."""
         _warn_deprecated("distributed_sort", "repro.sort(x, where=mesh)")
+        self._check_divisible(x, mesh, axis_name)
         return self._sort(x, where=(mesh, axis_name), limits=self._NO_RETRY).raw
 
     def distributed_sort_kv(self, keys, values, mesh, axis_name="data"):
         _warn_deprecated("distributed_sort_kv", "repro.sort(keys, values, where=mesh)")
+        self._check_divisible(keys, mesh, axis_name)
         return self._sort(keys, values, where=(mesh, axis_name), limits=self._NO_RETRY).raw
 
 

@@ -8,6 +8,12 @@ passes through ``retry_overflowed`` and counts on ``LADDER_RETRIES``.
 With a tuner ambient, the callers pass ``measured_capacity_need``'s hook,
 and the first retry jumps to the capacity the overflowed result's own
 ``send_counts`` ask for.
+
+On the mesh (``core/sample_sort.py``) every rank runs its own ladder, in
+lockstep: the overflow flag is reduced over the axis group before any
+rank reads it, and the measured hook reduces the largest bucket over the
+group (``group``), so every rank takes the same step at the same time. A
+rank that retried alone would wait forever in the next collective.
 """
 from __future__ import annotations
 
@@ -59,7 +65,7 @@ def bump_capacity(config, policy: OverflowPolicy):
     )
 
 
-def measured_capacity_need(p: int, n_local: int) -> Callable:
+def measured_capacity_need(p: int, n_local: int, group=None) -> Callable:
     """The ``measured=`` hook of ``retry_overflowed``: the static bucket
     formula inverted against the overflowed result's own ``send_counts``.
 
@@ -68,13 +74,18 @@ def measured_capacity_need(p: int, n_local: int) -> Callable:
     on the splitters and the data, not on the capacity, so a re-run's
     traffic is the same and the smallest ``f`` whose buckets hold the
     measured maximum is exactly enough: one retry where blind growth pays
-    one per step. Reads the counts once (one host read)."""
+    one per step. Reads the counts once (one host read). ``group``: a mesh
+    sort's ``AxisGroup``, whose ranks each hold their own row of the
+    counts: the maximum is reduced over it, so every rank asks for the
+    same capacity."""
 
     def need(result, config) -> float | None:
         sc = result.send_counts
         if sc.numel() == 0:
             return None
         max_send = int(sc.max())
+        if group is not None:
+            (max_send,) = group.all_max([max_send])
         ideal = max(1, -(-int(n_local) // int(p)))
         return max(0.0, (max_send - 31)) / ideal
 

@@ -1,13 +1,20 @@
-"""Execution planner and backend registry (the sim and stream backends).
+"""Execution planner and backend registry (the sim, stream and mesh backends).
 
 Counterpart of ``repro/core/planner.py``. Placement rules, in order:
-  1. ``where`` names a backend (a mesh object means the mesh backend).
+  1. ``where`` names a backend; a ``DeviceMesh`` or ``(mesh, axis)`` means
+     the mesh backend.
   2. Iterator inputs stream (size unknown, not host-resident).
   3. Inputs above ``limits.stream_threshold`` elements stream.
   4. Everything else runs on the virtual-processor simulator.
 
-The mesh backend raises ``NotImplementedError`` naming the ROADMAP.md
-item that will port it. With an ambient ``repro_torch.tune`` tuner whose
+The mesh backend (``_exec_mesh``, ``core/sample_sort.py``) is SPMD: every
+rank of the axis group calls ``sort(x_local, where=(mesh, axis))`` with
+its own shard and gets back block r of the global result, r its
+coordinate along the axis (``SortOutput.block``); counts, send counts,
+the overflow flag and the ladder's retries are global and the same on
+every rank (see ``_exec_mesh``). Multi-key sorts over the mesh raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
+With an ambient ``repro_torch.tune`` tuner whose
 model predicts both the sim and the stream confidently, the model may
 override rule 3 (``_consult_cost_model``), size the stream's chunks
 (``_pick_chunk_elems``) and start the overflow ladder where the
@@ -39,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from typing import Any, Callable
 
 import numpy as np
@@ -54,7 +62,7 @@ from repro_torch.core.overflow import (
     measured_capacity_need,
     run_with_capacity_retry,
 )
-from repro_torch.core.result import SortMeta, SortOutput, record_tune
+from repro_torch.core.result import Block, SortMeta, SortOutput, record_tune
 from repro_torch.core.splitters import SortConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import metrics as obs_metrics
@@ -78,7 +86,7 @@ WIDE_DTYPES = (torch.int64, torch.uint64, torch.float64)
 _NEAREST_NARROW = {"int64": "int32", "uint64": "uint32", "float64": "float32"}
 # ROADMAP.md §1 items that port what the port still raises on
 _LATER = {
-    "mesh": "item 9 (mesh backend)",
+    "mesh_multikey": "item 9.1 (multi-key sorts over the mesh)",
 }
 
 
@@ -206,6 +214,9 @@ class SortPlan:
     #                              (confidently) made the placement
     cost_predicted: Any = None  # {backend: {"us", "confidence"}}: the model's
     #                             predictions, kept even below the bar
+    mesh: Any = None  # the DeviceMesh of a mesh sort
+    axis_name: Any = "data"  # its sort axis: a name or a tuple of names
+    group: Any = None  # this rank's sharding.spec.AxisGroup along the axis
 
     def explain(self) -> str:
         lines = [f"repro_torch.sort plan: backend={self.backend!r}"]
@@ -357,9 +368,14 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device, x64: bool) -
 
     reasons: list[str] = []
     cost_source, cost_predicted = "static", None
-    if where is not None:
-        choice = where if isinstance(where, str) else "mesh"
-        reasons.append(f"caller pinned backend {choice!r}")
+    mesh, axis_name = None, "data"
+    if isinstance(where, str):
+        choice = where
+        reasons.append(f"caller pinned backend {where!r}")
+    elif where is not None:
+        choice, mesh, axis_name = "mesh", *_mesh_of(where)
+        reasons.append("caller provided (mesh, axis)" if isinstance(where, (tuple, list))
+                       else "caller provided a device mesh")
     elif req.is_iterator:
         choice = "stream"
         reasons.append("iterator input: size unknown, not host-resident")
@@ -372,14 +388,18 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device, x64: bool) -
                              f"(stream_threshold={limits.stream_threshold})")
         choice, cost_source, cost_predicted = _consult_cost_model(req, *static, reasons)
     if choice not in BACKENDS:
-        if choice == "mesh":
-            raise _not_ported("the mesh backend", "mesh")
         raise KeyError(f"unknown backend {choice!r}; have {sorted(BACKENDS)}")
+    if choice == "mesh" and mesh is None:
+        raise ValueError('backend "mesh" needs where=<Mesh> or (mesh, axis)')
     if req.is_iterator and choice != "stream":
         raise ValueError(
             f"iterator inputs can only run on the stream backend, "
             f"not {choice!r} (sim/mesh need the whole array resident)"
         )
+    if choice == "mesh" and req.multikey:
+        # SPMD packing needs the pack's ranges reduced over the ranks, and
+        # the LSD passes a gather of the permutation across them
+        raise _not_ported("a multi-key sort over the mesh", "mesh_multikey")
     if req.multikey and choice != "stream":
         # the pack's rank arithmetic and the LSD gathers run on the sort's
         # device; a streamed tuple stays where it is and moves by chunks
@@ -391,9 +411,20 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device, x64: bool) -
     if req.want == "order":
         reasons.append("argsort: provenance-index payload over the kv sort")
     n_procs = limits.n_procs
+    group = None
     if req.n_local is not None and choice == "sim":
         n_procs = int(req.keys.shape[0])
         reasons.append(f"(p={n_procs}, n_local) input: rows are the shards")
+    elif choice == "mesh":
+        from repro_torch.sharding import spec
+
+        group = spec.axis_group(mesh, axis_name)
+        n_procs = group.size
+        reasons.append(f"mesh sort axis spans {n_procs} rank(s); this rank is "
+                       f"coordinate {group.index} ({group.backend})")
+        if group.host_staged(device):
+            reasons.append(f"{group.backend} has no CUDA transport: the collectives "
+                           f"are staged through the host")
     if limits.decode == "host":
         reasons.append(
             'decode="host": legacy numpy materialization (differential-'
@@ -421,7 +452,39 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device, x64: bool) -
         decode=limits.decode, key_width=key_width,
         multikey=multikey, packspec=packspec, x64=x64,
         cost_source=cost_source, cost_predicted=cost_predicted,
+        mesh=mesh, axis_name=axis_name, group=group,
     )
+
+
+def _mesh_of(where) -> tuple:
+    """(mesh, axis) of a ``where`` that is not a backend name."""
+    from repro_torch.sharding import spec
+
+    mesh, axis = (where if isinstance(where, (tuple, list)) and len(where) == 2
+                  else (where, "data"))
+    if not spec.is_device_mesh(mesh):
+        raise TypeError(
+            f"where must be a backend name, a torch.distributed DeviceMesh or "
+            f"(DeviceMesh, axis), not {type(where).__name__}")
+    return mesh, axis
+
+
+def _resolve_device(where, device) -> torch.device:
+    """The sort's device (``device.resolve``). A mesh sort runs on its
+    mesh's device type: None means this rank's current CUDA device, and a
+    device of the other type raises ValueError."""
+    if where is None or isinstance(where, str):
+        return _device.resolve(device)
+    mesh, _ = _mesh_of(where)
+    kind = "cuda" if device is None else torch.device(device).type
+    if kind != mesh.device_type:
+        raise ValueError(
+            f"the mesh holds {mesh.device_type!r} devices but the sort would run on "
+            f"{kind!r} (device={device!r}); pass device={mesh.device_type!r}")
+    dev = _device.resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 # the placements the size rule arbitrates between: the mesh needs the
@@ -549,11 +612,14 @@ def _trim_pad_counts(counts: np.ndarray, pad: int) -> np.ndarray:
     return counts
 
 
-def _prep_single(req: _Req, x64: bool):
+def _prep_single(req: _Req, x64: bool, *, n_total: int | None = None, offset: int = 0,
+                 check: bool = True):
     """Encode the keys into their lane (and flip them for a descending
     payload sort) and build the payload (``x64``: the request's mode,
     which an argsort of more than 2^31 elements needs for its int64
-    index).
+    index). A mesh rank's argsort indexes the global array: its shard
+    starts at ``offset`` of ``n_total`` elements; its keys were checked
+    against the sentinel already (``check=False``).
 
     Returns (encoded keys, payload or None, descending, keys_only_reverse):
     keys-only descending sorts run ascending and are reversed at the end,
@@ -565,9 +631,12 @@ def _prep_single(req: _Req, x64: bool):
     # a key colliding with the (encoded) padding sentinel would leak pad
     # payload into the output through the exchange's pads: refuse loudly
     # (for packed multi-key keys the packspec names the saturated tuple)
-    keyenc.check_payload_keys(req.keys, descending, packspec=req.packspec)
+    if check:
+        keyenc.check_payload_keys(req.keys, descending, packspec=req.packspec)
     if req.want == "order":
-        payload = torch.arange(req.n, dtype=keyenc.provenance_dtype(req.n, x64=x64),
+        n_total = req.n if n_total is None else n_total
+        payload = torch.arange(offset, offset + req.n,
+                               dtype=keyenc.provenance_dtype(n_total, x64=x64),
                                device=keys.device).reshape(keys.shape)
     else:
         payload = keyenc.to_lane(req.values).reshape(keys.shape)
@@ -657,9 +726,16 @@ def _from_lanes(req: _Req, ks, vs):
 
 
 def _grid_materialize(req: _Req, plan: SortPlan, keys_grid, values_grid, counts,
-                      m: int, descending: bool, reverse: bool):
+                      m, descending: bool, reverse: bool, finish=None):
     """The first ``m`` keys (a tuple of columns for a packed sort) and
     payload of the result grid, in the caller's dtypes.
+
+    A mesh rank passes ``m`` as a callable, which gathers the global
+    counts and returns its block's length, called first in the ``decode``
+    span; and ``finish``, its last step, ``(keys, values) -> (keys,
+    values)`` on the decoded lanes (the descending swap, the tie stitch
+    across blocks), inside the ``d2h`` span, or ``decode`` for the host
+    decode.
 
     decode="device": ``keyenc.decode_grid`` on the sort's device (the
     ``decode`` span), then the output's views (``d2h``: the keys-only
@@ -671,12 +747,17 @@ def _grid_materialize(req: _Req, plan: SortPlan, keys_grid, values_grid, counts,
     tr = req.trace
     if plan.decode == "device":
         with _span(tr, "decode") as sp:
+            m = m() if callable(m) else m
             ks, vs = sp.fence(keyenc.decode_grid(
                 keys_grid, counts, values_grid, m=m, descending=descending and not reverse,
                 want_order=want_order, packspec=req.packspec))
         with _span(tr, "d2h") as sp:
-            return sp.fence(_from_lanes(req, ks.flip(0) if reverse else ks, vs))
+            ks = ks.flip(0) if reverse else ks
+            if finish is not None:
+                ks, vs = finish(ks, vs)
+            return sp.fence(_from_lanes(req, ks, vs))
     with _span(tr, "decode", path="host"):
+        m = m() if callable(m) else m
         counts = counts.cpu().numpy()
         ks = unpad_grid(_host(keys_grid), counts, m)
         vs = None
@@ -694,16 +775,18 @@ def _grid_materialize(req: _Req, plan: SortPlan, keys_grid, values_grid, counts,
             ks = tuple(torch.from_numpy(c) for c in keyenc.unpack_np(ks, req.packspec))
         else:
             ks = _from_host(ks, keys_grid.dtype)
+        if finish is not None:
+            ks, vs = finish(ks, vs)
         return _from_lanes(req, ks, vs)
 
 
-def _measured_hook(p: int, n_local: int):
+def _measured_hook(p: int, n_local: int, group=None):
     """The measured ladder start (``overflow.measured_capacity_need``),
     only while a tuner is ambient: the cold ladder walks the geometric
-    steps as before."""
+    steps as before. ``group``: a mesh sort's axis group."""
     if _tune.current() is None:
         return None
-    return measured_capacity_need(p, n_local)
+    return measured_capacity_need(p, n_local, group)
 
 
 def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
@@ -741,6 +824,185 @@ def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
         overflowed=bool(res.overflowed),
         send_counts=res.send_counts.cpu().numpy(),
         raw=res,
+    )
+
+
+def _request_code(req: _Req) -> int:
+    """A digest of what every rank of a mesh sort must agree on."""
+    vals = None if req.values is None else str(req.values.dtype)
+    return zlib.crc32(repr((str(req.dtype), req.want, req.descending, vals)).encode())
+
+
+def _mesh_preflight(req: _Req, ag, payload_error: Exception | None) -> np.ndarray:
+    """One all_gather of each rank's (length, NaN, bad key, request code):
+    the (p, 4) table. Every rank raises the same ValueError when the ranks
+    disagree on the request or some rank's payload keys are refused, so no
+    rank goes on alone into a collective that the others never reach."""
+    keys = req.keys
+    nan = (not req.needs_payload and req.dtype.is_floating_point
+           and bool((keys != keys).any()))
+    mine = torch.tensor([req.n, nan, payload_error is not None, _request_code(req)],
+                        dtype=torch.int64)
+    table = ag.all_gather(mine).numpy()
+    if (table[:, 3] != table[0, 3]).any():
+        raise ValueError("the ranks of a mesh sort disagree on the request (key dtype, "
+                         "want, order, payload dtype): every rank of the axis group must "
+                         "make the same call with its own shard")
+    bad = np.flatnonzero(table[:, 2]).tolist()
+    if bad:
+        raise ValueError(f"the payload sort's keys are refused on rank(s) {bad} of the axis "
+                         f"group: {payload_error or 'see that rank'}") from payload_error
+    return table
+
+
+def _mesh_reverse(ag, ks: torch.Tensor, sizes: np.ndarray) -> torch.Tensor:
+    """Block r of a descending keys-only result: bucket p-1-r reversed,
+    fetched from coordinate p-1-r (``sizes``: the trimmed bucket sizes)."""
+    partner = ag.size - 1 - ag.index
+    return ag.swap(ks, partner, int(sizes[partner])).flip(0)
+
+
+def _run_length(ks: torch.Tensor) -> int:
+    """Length of the leading run of keys equal to ``ks[0]``."""
+    return int(torch.cumprod((ks == ks[0]).to(torch.int32), 0).sum())
+
+
+def _stitch_mesh_ties(ag, ks: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
+    """The argsort tie fix across blocks (``_stable_order_fix`` of the
+    global result). The decode made each block's payload ascending within
+    its runs of equal keys; a run that crosses a block boundary (the
+    investigator splits tied ranges across destinations) needs its payload
+    sorted as a whole and handed back in block order. One all_gather of
+    each block's edges finds such runs; only then a second gathers their
+    segments."""
+    m = ks.shape[0]
+    edges = ks[[0, -1]] if m else torch.zeros(2, dtype=ks.dtype, device=ks.device)
+    info = torch.tensor([m, _run_length(ks) if m else 0, _run_length(ks.flip(0)) if m else 0])
+    all_edges, all_info = ag.all_gather(edges).cpu(), ag.all_gather(info).tolist()
+    # runs: lists of (block, lo, hi) segments, in global order
+    runs, cur, prev = [], None, None
+    for b in (i for i in range(ag.size) if all_info[i][0]):
+        n_b, head, tail = all_info[b]
+        if cur is not None and bool(all_edges[prev, 1] == all_edges[b, 0]):
+            cur.append((b, 0, head))
+            if head == n_b:  # the whole block is in the run: it goes on
+                prev = b
+                continue
+        if cur is not None and len(cur) > 1:
+            runs.append(cur)
+        cur, prev = [(b, n_b - tail, n_b)], b
+    if cur is not None and len(cur) > 1:
+        runs.append(cur)
+    if not runs:
+        return vs
+    # every block's run segments, head first, in one gather of equal rows
+    segs = [[(lo, hi) for run in runs for blk, lo, hi in run if blk == b]
+            for b in range(ag.size)]
+    width = max(sum(hi - lo for lo, hi in s) for s in segs)
+    mine = [vs[lo:hi] for lo, hi in segs[ag.index]]
+    row = torch.cat([*mine, vs.new_zeros(width - sum(t.shape[0] for t in mine))])
+    rows = ag.all_gather(row)
+    vs = vs.clone()
+    for run in runs:
+        if all(blk != ag.index for blk, _, _ in run):
+            continue
+        parts, at = [], 0
+        for blk, lo, hi in run:
+            start = sum(h - l for l, h in segs[blk][:segs[blk].index((lo, hi))])
+            parts.append(rows[blk, start:start + hi - lo])
+        merged = torch.sort(torch.cat(parts)).values
+        for blk, lo, hi in run:
+            if blk == ag.index:
+                vs[lo:hi] = merged[at:at + hi - lo]
+            at += hi - lo
+    return vs
+
+
+def _exec_mesh(req: _Req, plan: SortPlan) -> SortOutput:
+    """The mesh backend: this rank's shard through ``core/sample_sort.py``.
+
+    SPMD: every rank of the axis group (``plan.group``) calls with its own
+    shard, any length. The ranks all_gather their lengths and pad each
+    shard with the sentinel to the longest (``per``), so that every rank
+    computes the same capacities and sample counts; when the shards are
+    ``pad_grid``'s split of a global array this is ``repro``'s padding.
+    Each rank returns block r of the global result (``SortOutput.block``):
+    the ranks' blocks concatenated in coordinate order equal ``repro``'s
+    ``sort(x, where=(mesh, axis))`` of the concatenated shards. An
+    argsort's indices are global (the shard's offset is the sum of the
+    lengths before it), and its tie fix is stitched across blocks
+    (``_stitch_mesh_ties``). A keys-only descending sort runs ascending;
+    block r is then bucket p-1-r reversed, swapped between the two ranks
+    (``_mesh_reverse``); the counts stay the ascending buckets'.
+
+    ``counts`` (pads removed), ``send_counts`` (p, p), ``overflowed`` and
+    ``meta.retries`` are global, gathered once; ``raw`` is this rank's row
+    (``ShardSortResult`` / ``ShardSortKVResult``). A keys-only float sort
+    takes ``repro``'s NaN probes on every rank if any rank holds a NaN."""
+    from repro_torch.core import sample_sort
+
+    ag, tr = plan.group, req.trace
+    p, r = ag.size, ag.index
+    with _span(tr, "encode"):
+        err = None
+        if req.needs_payload:
+            try:
+                keyenc.check_payload_keys(req.keys, req.descending[0], packspec=req.packspec)
+            except ValueError as e:
+                err = e
+        facts = _mesh_preflight(req, ag, err)
+        lengths = facts[:, 0]
+        n_total = int(lengths.sum())
+        per = max(1, int(lengths.max()))
+        pad = p * per - n_total
+        nan_keys = bool(facts[:, 1].any())
+        enc, payload, descending, reverse = _prep_single(
+            req, plan.x64, n_total=n_total, offset=int(lengths[:r].sum()), check=False)
+    with _span(tr, "stage") as sp:  # this rank's row, sentinel padded to per
+        xk = _stage(enc.reshape(-1), 1, per, per - req.n, plan.device)[0]
+        xv = (None if payload is None
+              else _stage(payload.reshape(-1), 1, per, per - req.n, plan.device)[0])
+        sp.fence((xk, xv))
+    if xv is None:
+        run = lambda cfg: sample_sort.sample_sort_shard(  # noqa: E731
+            xk, ag, cfg, investigator=req.investigator, nan_keys=nan_keys, trace=tr)
+    else:
+        def run(cfg):
+            # kv mesh sorts keep one fused span, as repro's
+            with _span(tr, "sort", phases="local_sort+splitter+exchange+merge") as sp:
+                res = sp.fence(sample_sort.sample_sort_shard_kv(
+                    xk, xv, ag, cfg, investigator=req.investigator))
+                if tr is not None:
+                    sp.counts(ag.all_gather(res.count))
+            return res
+    res, cfg_used, retries = run_with_capacity_retry(run, req.config, plan.limits.policy(),
+                                                     measured=_measured_hook(p, per, ag))
+
+    table = {}
+
+    def block_length() -> int:
+        """The global counts and send counts, one gather; this rank's share."""
+        rows = ag.all_gather(torch.cat([res.count.reshape(1), res.send_counts]).cpu()).numpy()
+        table.update(counts=_trim_pad_counts(rows[:, 0], pad), send_counts=rows[:, 1:])
+        return int(table["counts"][r])
+
+    finish = None
+    if reverse:
+        finish = lambda ks, vs: (_mesh_reverse(ag, ks, table["counts"]), vs)  # noqa: E731
+    elif req.want == "order":
+        finish = lambda ks, vs: (ks, _stitch_mesh_ties(ag, ks, vs))  # noqa: E731
+    kg, vg = (res.values, None) if xv is None else (res.keys, res.values)
+    ks, vs = _grid_materialize(req, plan, kg[None], None if vg is None else vg[None],
+                               res.count.reshape(1), block_length,
+                               descending and not reverse, False, finish=finish)
+    meta = _meta(req, plan, cfg_used, retries)
+    meta.n = n_total
+    sizes = table["counts"][::-1] if reverse else table["counts"]
+    start = int(sizes[:r].sum())
+    return SortOutput(
+        meta, keys=ks, values=vs, counts=table["counts"], overflowed=bool(res.overflowed),
+        send_counts=table["send_counts"], raw=res,
+        block=Block(index=r, size=p, start=start, stop=start + int(sizes[r])),
     )
 
 
@@ -866,6 +1128,7 @@ def _meta(req: _Req, plan: SortPlan, cfg, retries: int) -> SortMeta:
 
 register_backend("sim", _exec_sim, "virtual processors on one device")
 register_backend("stream", _exec_stream, "out-of-core runs/partition/merge")
+register_backend("mesh", _exec_mesh, "SPMD sample sort over a DeviceMesh axis")
 
 
 # ------------------------------------------------------------ multi-key
@@ -975,7 +1238,7 @@ def _exec_multikey(req: _Req, plan: SortPlan) -> SortOutput:
 
 def make_plan(keys, values=None, *, order="asc", want="values", where=None,
               limits=None, config=None, investigator=True, device=None) -> SortPlan:
-    dev = _device.resolve(device)
+    dev = _resolve_device(where, device)
     x64 = _x64.effective(limits)
     req = _normalize(keys, values, order=order, want=want, config=config,
                      investigator=investigator, x64=x64)
@@ -998,7 +1261,7 @@ def execute_request(req: _Req, plan: SortPlan, ctx=None) -> SortOutput:
     _SORTS_TOTAL.labels(backend=plan.backend).inc()
     if ctx is not None:
         ctx.backend = plan.backend
-    if req.n == 0:
+    if req.n == 0 and plan.backend != "mesh":  # a mesh rank's empty shard takes part
         out_dev = plan.device if plan.backend == "sim" else torch.device("cpu")
         if req.multikey:
             keys_out = tuple(torch.empty(0, dtype=k.dtype, device=out_dev) for k in req.keys)
@@ -1042,7 +1305,7 @@ def serve_profile(keys, values=None, *, order="asc", want="values", where=None,
     ``PackSpec``, so declare ``SortLimits.key_bits`` to keep the bucket
     stable). Anything else (payloads, argsort, LSD tuples, (p, n_local)
     grids, streamed requests) runs alone through ``execute_request``."""
-    dev = _device.resolve(device)
+    dev = _resolve_device(where, device)
     x64 = _x64.effective(limits)
     req = _normalize(keys, values, order=order, want=want, config=config,
                      investigator=investigator, x64=x64)
@@ -1060,7 +1323,7 @@ def serve_profile(keys, values=None, *, order="asc", want="values", where=None,
 
 def execute(keys, values=None, *, order="asc", want="values", where=None,
             limits=None, config=None, investigator=True, device=None) -> SortOutput:
-    dev = _device.resolve(device)
+    dev = _resolve_device(where, device)
     limits = limits or SortLimits()
     # an ambient obs.trace() block wins; else SortLimits(trace=True) builds
     # a per-sort trace that freezes when the output materializes

@@ -13,12 +13,18 @@ or yields its sorted chunks through ``chunks()`` in bounded memory.
 ``provenance()``, ``searchsorted()`` and ``topk()`` answer as ``repro``'s
 do (``core.topk``), with tensors on the keys' device: the sort's device,
 or the CPU for the stream and for ``decode="host"``.
+
+A mesh sort is SPMD (``planner._exec_mesh``): each rank's output holds
+one ``Block`` of the global result in ``keys`` / ``values``, with the
+global ``counts``, ``send_counts``, ``overflowed`` and ``meta.retries``
+(the same on every rank) and ``meta.n`` the global length. The views
+that need the whole result (``topk``, ``searchsorted``) refuse a block.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -89,6 +95,17 @@ def record_tune(meta: SortMeta, t0: float) -> None:
     tune.record_sort(meta, time.perf_counter() - t0)
 
 
+class Block(NamedTuple):
+    """Where a mesh rank's output sits in the global result: coordinate
+    ``index`` of ``size`` along the sort axis, holding elements
+    ``[start, stop)`` of the globally sorted keys (and payload)."""
+
+    index: int
+    size: int
+    start: int
+    stop: int
+
+
 class SortOutput:
     """Sorted result, materialized on first read where the backend is lazy.
 
@@ -102,18 +119,22 @@ class SortOutput:
                  sim only).
     overflowed:  True iff a bucket overflowed (only when the policy does
                  not raise).
-    raw:         the backend's padded global-view result (sim only).
+    raw:         the backend's padded global-view result (sim); a mesh
+                 rank's own row (``sample_sort.ShardSortResult``).
+    block:       a mesh rank's ``Block`` of the global result; None for
+                 the other backends, whose output is the whole result.
     """
 
     def __init__(self, meta: SortMeta, *, keys=None, values=None, counts=None,
                  overflowed: bool = False, send_counts=None, raw: Any = None,
                  materialize: Callable | None = None,
-                 chunks: Iterator | None = None):
+                 chunks: Iterator | None = None, block: Block | None = None):
         self.meta = meta
         self.counts = counts
         self.overflowed = overflowed
         self.send_counts = send_counts
         self.raw = raw
+        self.block = block
         self._keys = keys
         self._values = values
         self._materialize = materialize
@@ -237,9 +258,17 @@ class SortOutput:
             return idx // n, idx % n
         return idx
 
+    def _whole(self, view: str) -> None:
+        if self.block is not None:
+            raise ValueError(
+                f"{view} needs the whole sorted result, and this mesh rank holds block "
+                f"{self.block.index} of {self.block.size}; use core.topk.topk_shard for "
+                f"a global top-k over the mesh")
+
     def searchsorted(self, queries, side: str = "left") -> torch.Tensor:
         """Global insertion ranks of ``queries`` (``np.searchsorted``'s,
         aware of descending results): ``core.topk.searchsorted_sorted``."""
+        self._whole("searchsorted")
         keys = self.keys
         if isinstance(keys, tuple):
             raise ValueError("searchsorted is single-key only")
@@ -251,6 +280,7 @@ class SortOutput:
     def topk(self, k: int, largest: bool = True) -> torch.Tensor:
         """Top-k keys, best first, off the sorted result
         (``core.topk.topk_sorted``)."""
+        self._whole("topk")
         keys = self.keys
         if isinstance(keys, tuple):
             raise ValueError("topk is single-key only")

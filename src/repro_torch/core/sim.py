@@ -86,10 +86,11 @@ def _gather_buckets(xs: torch.Tensor, bounds: torch.Tensor, cap: int) -> torch.T
 
     Bucket (i, j) is ``xs[..., i, bounds[..., i, j] + arange(cap)]`` with
     positions at or past its count set to the sentinel: (..., p_src,
-    p_dst, cap). A kept position never passes the end of its shard
-    (start + count <= n), so clamping the index only touches positions
-    that are masked anyway."""
-    p, n = xs.shape[-2:]
+    p_dst, cap); p_dst is read off ``bounds`` (..., p_src, p_dst + 1), so a
+    mesh rank cuts its one shard (1, n) into its p buckets. A kept
+    position never passes the end of its shard (start + count <= n), so
+    clamping the index only touches positions that are masked anyway."""
+    n, p = xs.shape[-1], bounds.shape[-1] - 1
     fill = kops.sentinel_for(xs.dtype)
     start = bounds[..., :-1].to(torch.int64)
     count = (bounds[..., 1:] - bounds[..., :-1])[..., None]

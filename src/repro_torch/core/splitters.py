@@ -90,9 +90,10 @@ def _search(xs_sorted: torch.Tensor, splitters: torch.Tensor, side: str,
     """Every shard of (..., p, n) searched for its own sort's (..., p-1)
     splitters, as one (rows, p-1) search over all rows."""
     n = xs_sorted.shape[-1]
+    rows = xs_sorted.numel() // n
     queries = splitters.unsqueeze(-2).expand(*xs_sorted.shape[:-1], -1)
-    out = search(xs_sorted.reshape(-1, n).contiguous(),
-                 queries.reshape(-1, queries.shape[-1]).contiguous(), side=side)
+    out = search(xs_sorted.reshape(rows, n).contiguous(),
+                 queries.reshape(rows, queries.shape[-1]).contiguous(), side=side)
     return out.to(torch.int32).reshape(queries.shape)
 
 

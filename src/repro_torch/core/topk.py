@@ -11,8 +11,14 @@ by numpy's linear interpolation in float64, bit for bit. uint16, uint32
 and uint64 keys and queries compare through their signed lanes
 (``keyenc.to_lane``).
 
-``topk_shard`` (the global top-k inside ``shard_map``) belongs to the mesh
-backend and is not ported yet (ROADMAP.md §1, item 9).
+``topk_shard`` is the global top-k over a mesh axis (``repro`` runs it
+inside ``shard_map``): every rank of the axis group calls it with its
+shard; the local top-k, an all_gather of the candidates and their local
+indices, and the same final selection on every rank. It selects as
+``jax.lax.top_k`` does, by a stable sort: floats in their total order
+(+0.0 above -0.0, a NaN above +inf or, with its sign bit, below -inf),
+ties to the lower index, and ``largest=False`` as ``repro``'s top-k of
+``-x`` (so the int minimum, whose negation wraps, counts as the largest).
 """
 from __future__ import annotations
 
@@ -33,6 +39,50 @@ def local_topk(x: torch.Tensor, k: int, largest: bool = True):
     """Top-k of a flat local shard: (values, indices), ``torch.topk``."""
     v, i = torch.topk(keyenc.to_lane(x), k, largest=largest)
     return keyenc.from_lane(v, x.dtype), i
+
+
+_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _top_order(x: torch.Tensor, largest: bool) -> torch.Tensor:
+    """Indices of flat ``x`` best first, as ``jax.lax.top_k`` ranks ``x``
+    (``largest``) or ``-x``: the bits of each element as a signed integer
+    that orders as jax compares, then a stable sort (ties keep the lower
+    index)."""
+    lane = _INT_OF_WIDTH[x.element_size()]
+    sign = torch.iinfo(lane).min
+    bits = x.view(lane) if x.dtype != lane else x
+    if x.dtype.is_floating_point:
+        if not largest:
+            bits = bits ^ sign  # -x flips the sign bit
+        key = torch.where(bits < 0, bits ^ torch.iinfo(lane).max, bits)
+    else:
+        key = bits if largest else -bits  # wraps, as jax's -x
+        if x.dtype in keyenc._LANES or x.dtype == torch.uint8:
+            key = key ^ sign  # unsigned order as signed
+    return torch.sort(~key.to(torch.int64), stable=True).indices
+
+
+def _top(x: torch.Tensor, k: int, largest: bool):
+    if k > x.shape[0]:
+        raise ValueError(f"k={k} is larger than the {x.shape[0]} candidates")
+    idx = _top_order(x, largest)[:k]
+    return keyenc.take(x, idx), idx.to(torch.int32)
+
+
+def topk_shard(x_local: torch.Tensor, k: int, axis, largest: bool = True):
+    """Global top-k over a mesh axis: (values, local indices), best first,
+    the same on every rank. ``axis``: ``(mesh, axis)``, a mesh (axis
+    "data") or a ``sharding.spec.AxisGroup``; every rank of the group calls
+    it. O(p * k) gathered elements, no full sort."""
+    from repro_torch.sharding import spec
+
+    ag = spec.as_axis_group(axis)
+    x = x_local.reshape(-1)
+    v, i = _top(x, min(k, x.shape[0]), largest)
+    allv, alli = ag.all_gather(v).reshape(-1), ag.all_gather(i).reshape(-1)
+    fv, pos = _top(allv, k, largest)
+    return fv, alli[pos.long()]
 
 
 def _search_keys(keys: torch.Tensor, queries: torch.Tensor):

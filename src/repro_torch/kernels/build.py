@@ -10,10 +10,17 @@ A source listed in ``UNITS`` is compiled once per unit (each with its own
 ``-D`` flag, all at once, one ``nvcc`` each) and the objects are linked
 into one library: ``bitonic.cu`` instantiates about a thousand kernels,
 which one compiler process would take many minutes over.
+
+Calls that build one library take turns: threads of a process through a lock
+per source, processes through an ``fcntl.flock`` on
+``build/lib<name>.lock`` taken inside it. A process that waited finds the
+library built and loads it, so ranks started together (a mesh sort's
+processes) run ``nvcc`` once.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -72,10 +79,16 @@ def build(name: str) -> pathlib.Path:
 
     The compiler's report (``-Xptxas -v``: registers, shared memory,
     spills; every unit's, in turn) is kept beside the library as
-    ``<library>.log``. Concurrent calls in one process build once (a lock
-    per source); the temporary files are named by process and thread."""
+    ``<library>.log``. Concurrent calls build once, in one process (a lock
+    per source) or in several (a file lock per source, ``lib<name>.lock``);
+    the temporary files are named by process and thread."""
     with _lock(name):
-        return _build(name)
+        if library_path(name).exists():
+            return library_path(name)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / f"lib{name}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            return _build(name)
 
 
 def _build(name: str) -> pathlib.Path:

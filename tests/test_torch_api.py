@@ -19,7 +19,7 @@ import repro
 import repro_torch
 from repro_torch import convert
 from torch_parity import (assert_sort_equal, make_keys, np_dtype, port_config, port_limits,
-                          port_np, sort_both)
+                          port_np, sort_both, world_mesh)
 
 RNG = np.random.default_rng(3)
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -143,26 +143,30 @@ def test_64bit_dtypes_refused_at_the_door(dtype):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda k: repro_torch.sort((k, k), where="mesh", device="cpu"), "item 9"),
+    (lambda k: repro_torch.sort((k, k), where=(world_mesh(), "data"), device="cpu"),
+     "item 9.1"),
     (lambda k: repro_torch.sort(iter([k.astype(np.int64)]), device="cpu").keys, "item 2"),
     (lambda k: repro_torch.sort(
         k, where="stream", limits=repro_torch.SortLimits(x64=True), device="cpu"), "item 2"),
-    (lambda k: repro_torch.sort(k, where="mesh", device="cpu"), "item 9"),
-    (lambda k: repro_torch.sort(k, where=object(), device="cpu"), "item 9"),
+    (lambda k: repro_torch.sort((k, k), where=world_mesh(), device="cpu"), "item 9.1"),
+    (lambda k: repro_torch.sort((k, k), where=(world_mesh(), ("data",)), order=("asc", "desc"),
+                                device="cpu"), "item 9.1"),
     (lambda k: repro_torch.sort(
         (k, k), limits=repro_torch.SortLimits(stream_threshold=10, x64=True), device="cpu"),
      "item 2"),
     (lambda k: repro_torch.sort(
         k, limits=repro_torch.SortLimits(trace=True, x64=True), device="cpu"), "item 2"),
     (lambda k: repro_torch.sort(
-        (k, k), where=object(), limits=repro_torch.SortLimits(decode="host", trace=True),
-        device="cpu"), "item 9"),
+        (k, k), where=world_mesh(), limits=repro_torch.SortLimits(decode="host", trace=True),
+        device="cpu"), "item 9.1"),
     (lambda k: repro_torch.sort(
         k, limits=repro_torch.SortLimits(x64=True), device="cpu"), "item 2"),
 ])
 def test_not_ported_raises_naming_the_roadmap_item(call, item):
     """What the port does not cover raises NotImplementedError naming its
-    ROADMAP item. The "item 2" cases are x64 mode, which is ported now:
+    ROADMAP item: multi-key sorts over the mesh (item 9.1; the mesh backend
+    is item 9's, ported, tests/test_torch_mesh.py). The "item 2" cases are
+    x64 mode, which is ported now:
     each sorts, with the mode on or pinned by SortLimits(x64=True); with
     the mode off a 64-bit stream chunk raises repro's TypeError."""
     k = np.arange(100, dtype=np.int32)

@@ -682,3 +682,55 @@ def test_sort_server_on_cuda_equals_cpu(gpu):
         if a.values is not None:
             assert _same_bits(b.values, a.values)
         assert b.meta.coalesced == a.meta.coalesced
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_mesh_sort_on_cuda_equals_the_sim(gpu, tmp_path, backend, world):
+    """A one-rank NCCL group, and two gloo ranks sharing cuda:0 (the
+    collectives staged through the host), each rank sorting its shard on
+    the card (tests/torch_mesh_card.py): the blocks equal the sim with
+    n_procs = world on the card, and the counts and send counts too."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    import time
+
+    import torch_mesh_card
+
+    here = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(here.parent / "src"),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    logs = [open(tmp_path / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(here / "torch_mesh_card.py"), str(r),
+                               str(world), backend, str(tmp_path / "store"), str(tmp_path)],
+                              env=env, stdout=f, stderr=subprocess.STDOUT)
+             for r, f in enumerate(logs)]
+    deadline = time.monotonic() + 300
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    assert [p.returncode for p in procs] == [0] * world, [
+        (tmp_path / f"rank{r}.log").read_text()[-3000:] for r in range(world)]
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    x = torch.from_numpy(torch_mesh_card.keys()).to(gpu)
+    for name, kw in torch_mesh_card.CALLS.items():
+        want = repro_torch.sort(x, where="sim", limits=repro_torch.SortLimits(n_procs=world),
+                                **kw)
+        got = np.concatenate([g[f"{name}/keys"] for g in ranks])
+        np.testing.assert_array_equal(got, want.keys.cpu().numpy())
+        if "want" in kw:
+            np.testing.assert_array_equal(np.concatenate([g[f"{name}/values"] for g in ranks]),
+                                          want.values.cpu().numpy())
+        for g in ranks:
+            np.testing.assert_array_equal(g[f"{name}/counts"], want.counts)
+            np.testing.assert_array_equal(g[f"{name}/send_counts"], want.send_counts)
+            staged = "staged through the host" in str(g[f"{name}/reasons"])
+            assert staged == (backend == "gloo")

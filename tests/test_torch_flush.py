@@ -295,5 +295,5 @@ def test_sort_library_facade_routes_through_sort():
     with pytest.warns(DeprecationWarning):
         ext = tlib.sort_external(flat, chunk_elems=1 << 11, n_procs=4)
     np.testing.assert_array_equal(port_np(ext), np.sort(flat))
-    with pytest.raises(NotImplementedError, match="item 9"), pytest.warns(DeprecationWarning):
+    with pytest.raises(TypeError, match="DeviceMesh"), pytest.warns(DeprecationWarning):
         tlib.distributed_sort(x.reshape(-1), mesh=object())

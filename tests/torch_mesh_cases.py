@@ -1,0 +1,126 @@
+"""The seeded cases of tests/test_torch_mesh.py, shared by ``repro``'s side
+(tests/torch_mesh_reference.py) and the port's ranks
+(tests/torch_mesh_worker.py). numpy only: each side imports this and its
+own package.
+
+The mesh is (4, 2) with axes ("data", "model"), as in
+tests/test_distributed.py. A case names its global keys, payload, sort
+axis, ``SortConfig`` and ``SortLimits`` fields and keyword arguments; the
+port's rank at coordinate r of the axis takes ``shard(x, p, r)``, the
+slice ``planner.pad_grid`` gives row r.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+MESH_SHAPE = (4, 2)
+MESH_AXES = ("data", "model")
+WORLD = MESH_SHAPE[0] * MESH_SHAPE[1]
+
+TOPK_K = 7
+
+
+def axis_size(axis) -> int:
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    return int(np.prod([MESH_SHAPE[MESH_AXES.index(a)] for a in axes]))
+
+
+def axis_coord(rank: int, axis) -> int:
+    """The coordinate along ``axis`` of global rank ``rank`` (mesh ranks
+    laid out row-major, as ``DeviceMesh(torch.arange(8).reshape(4, 2))``)."""
+    coord = np.unravel_index(rank, MESH_SHAPE)
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    idx = 0
+    for a in axes:
+        d = MESH_AXES.index(a)
+        idx = idx * MESH_SHAPE[d] + int(coord[d])
+    return idx
+
+
+def shard(x: np.ndarray, p: int, r: int) -> np.ndarray:
+    """Row r of ``pad_grid``'s split of ``x`` over p rows, unpadded."""
+    base, extra = divmod(x.shape[0], p)
+    start = r * base + min(r, extra)
+    return x[start:start + base + (1 if r < extra else 0)]
+
+
+def _case(keys, axis="data", values=None, config=None, limits=None, **kw):
+    return dict(keys=keys, values=values, axis=axis, config=config or {},
+                limits=limits or {}, kw=kw)
+
+
+def cases() -> dict:
+    rng = np.random.default_rng(21)
+    n = 8192
+    paper = dict(tile=256, capacity_factor=1.5)  # tests/test_distributed.py's config
+    fast = dict(paper, use_pallas=False)
+    uniform = rng.uniform(0, 1, n).astype(np.float32)
+    four = rng.integers(0, 4, n).astype(np.int32)
+    nan = rng.uniform(-1, 1, n).astype(np.float32)
+    nan[rng.random(n) < 0.05] = np.nan
+    return {
+        # tests/test_distributed.py:27-47, through the kernels' twins
+        "uniform": _case(uniform, config=paper),
+        "dup3": _case(rng.integers(0, 3, n).astype(np.int32), config=fast),
+        # tests/test_distributed.py:49-69: a payload over the axis tuple
+        "kv10_pod": _case(rng.integers(0, 10, n).astype(np.int32), ("data", "model"),
+                          values=np.arange(n, dtype=np.int32), config=dict(capacity_factor=1.5)),
+        # paper Table II: 4 distinct values over both axes
+        "table2": _case(four, ("data", "model"), config=dict(tile=256)),
+        # an argsort whose tied runs cross blocks (the tie stitch)
+        "order_asc": _case(rng.integers(0, 50, n).astype(np.int32), want="order",
+                           config=fast),
+        "payload_desc": _case(np.round(rng.uniform(-4, 4, n), 1).astype(np.float32),
+                              ("data", "model"), values=rng.uniform(size=n).astype(np.float32),
+                              order="desc", config=fast),
+        "keys_desc": _case(rng.normal(size=n).astype(np.float32), ("data", "model"),
+                           order="desc", config=fast),
+        "keys_desc_data": _case(rng.integers(-5, 5, n).astype(np.int16), order="desc",
+                                config=fast),
+        # 8003 = 4 * 2000 + 3: pad_grid's split, sentinel pads, trimmed counts
+        "pad8003": _case(rng.uniform(0, 1, 8003).astype(np.float32), config=fast),
+        "pad8003_order_desc": _case(rng.integers(0, 40, 8003).astype(np.int32), want="order",
+                                    order="desc", config=fast),
+        "nan": _case(nan, config=fast),
+        # the ladder: 4 values at capacity_factor 0.25 retry in lockstep
+        "ladder": _case(four, config=dict(fast, capacity_factor=0.25)),
+        # only coordinate 0 overflows on its own: it holds the lowest quarter
+        # of the keys, all bound for destination 0, while the others spread
+        # theirs over destinations 1-3 within the capacity
+        "lockstep": _case(np.concatenate([rng.permutation(2048),
+                                          rng.permutation(np.arange(2048, n))]).astype(np.int32),
+                          config=dict(fast, capacity_factor=1.5)),
+    }
+
+
+def library_cases() -> dict:
+    """``SortLibrary().distributed_sort[_kv]`` (no retry): one overflows."""
+    rng = np.random.default_rng(22)
+    four = rng.integers(0, 4, 8192).astype(np.int32)
+    return {
+        "lib_overflow": dict(keys=four, values=None, axis="data",
+                             config=dict(capacity_factor=0.25, use_pallas=False)),
+        "lib_kv": dict(keys=rng.uniform(size=8192).astype(np.float32),
+                       values=np.arange(8192, dtype=np.int32), axis=("data", "model"),
+                       config=dict(tile=256, use_pallas=False)),
+    }
+
+
+def traced_case() -> dict:
+    rng = np.random.default_rng(23)
+    return _case(rng.uniform(0, 1, 8192).astype(np.float32), config=dict(tile=256,
+                 use_pallas=False))
+
+
+def topk_inputs() -> dict:
+    """Per-case global arrays for ``topk_shard`` over "data": ties, +-0.0,
+    NaN and the int32 minimum, whose negation wraps under largest=False."""
+    rng = np.random.default_rng(24)
+    f = rng.integers(-3, 4, 64).astype(np.float32)
+    f[rng.random(64) < 0.2] = -0.0
+    f[[5, 40]] = np.nan
+    f[[9]] = -np.nan
+    i = rng.integers(-3, 4, 64).astype(np.int32)
+    i[[3, 30, 50]] = np.iinfo(np.int32).min
+    i[[7]] = np.iinfo(np.int32).max
+    return {"float32": f, "int32": i}

@@ -9,6 +9,7 @@ made on bit views.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -149,3 +150,28 @@ def assert_multikey_equal(r, t) -> None:
     for name in ("multikey", "n_keys", "order", "want", "n"):
         assert getattr(r.meta, name) == getattr(t.meta, name), name
     assert r.imbalance() == t.imbalance() or (np.isnan(r.imbalance()) and np.isnan(t.imbalance()))
+
+
+_WORLD_MESH = None
+
+
+def world_mesh():
+    """A one-rank CPU ``DeviceMesh`` with the axis "data" over this process
+    (a gloo group through a file store), made once per process and kept:
+    the mesh backend's in-process tests share it."""
+    global _WORLD_MESH
+    if _WORLD_MESH is None:
+        import atexit
+        import datetime
+        import tempfile
+
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not dist.is_initialized():
+            store = pathlib.Path(tempfile.mkdtemp()) / "store"
+            dist.init_process_group("gloo", init_method=f"file://{store}", rank=0,
+                                    world_size=1, timeout=datetime.timedelta(seconds=60))
+            atexit.register(dist.destroy_process_group)
+        _WORLD_MESH = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("data",))
+    return _WORLD_MESH
