@@ -149,10 +149,34 @@ Phases, one line or more each:
      0.95); the ranks' blocks, counts and send counts equal the sim
      (n_procs=4) over the same global grid on the card (NaN: on the CPU)
      and torch.sort. Each case prints rank 0's wall between barriers, the
-     exchange span's share and the launches per rank.
+     exchange span's share and the launches per rank;
+ 10. MoE (``repro_torch.models.moe``): deepseek-moe-16b at full width and
+     depth (28 layers, 27 of them MoE with 64 routed experts of 1408, 2
+     shared, top-6; about 16.4B parameters) in bf16 with
+     flash_attention=True and seeded weights answers 2 prompts of 8192
+     seeded tokens (flash serves prompts of 8192 and more) with 16 new
+     tokens each through ``engine.generate``; every launch count set to 0
+     just before it and read just after, which must equal those derived
+     from the config and shapes (per MoE layer one kv row sort and three
+     kv merges of ``stable_argsort``; flash once per layer); then prefill
+     and decode timed, and one decode step under torch.profiler (device
+     time by kernel, idle share). The first MoE layer's expert ids from
+     the prefill: ``stable_argsort`` on the card (kernels) equal to the
+     twin on the CPU and to torch.sort bit for bit, ``moe_forward`` with
+     both sort paths the same bits, and its time split into the sort, the
+     expert GEMMs and the router, and by kernel under torch.profiler. One
+     full-width layer in float32 (TF32 off) at capacity factor 8: 256
+     tokens within 1e-4 x max|ref| of ``moe_ref``; a one-rank NCCL group's
+     exchange equal to the identity bit for bit; four gloo ranks on a
+     (data, model) = (2, 2) mesh (processes of this script sharing the
+     card), 2 x 2048 tokens, experts over "model", over ("data", "model")
+     and that exchange factored: the blocks within 1e-4 x max|out| of one
+     rank's output, the per-expert and send counts equal, each rank's
+     launches as derived, and the exchange's share of the layer's wall.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
-as ``launches_serve``, phase 9's ranks' as ``launches_mesh``; their
+as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
+served run's as ``launches_moe``, flash's too; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -160,6 +184,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 2,7   # a development run: 1, 2 and 7 only
     python3 chip_smoke.py --phases 8     # phases 1, 2 and 8
     python3 chip_smoke.py --phases 9     # phases 1, 2 and 9
+    python3 chip_smoke.py --phases 10    # phases 1, 2 and 10
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -1325,6 +1350,13 @@ def device_ms(fn) -> tuple[float, float]:
     """(wall ms, device ms) of one ``fn()`` under ``torch.profiler``: the
     wall on the host clock, synchronised; device time the sum of the
     device-side events (kernels and copies)."""
+    wall, dev, _ = device_breakdown(fn)
+    return wall, dev
+
+
+def device_breakdown(fn) -> tuple[float, float, list]:
+    """``device_ms`` and the device-side events by name, largest first:
+    [(name, ms), ...]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1339,11 +1371,13 @@ def device_ms(fn) -> tuple[float, float]:
         v = getattr(e, "self_device_time_total", None)
         return e.self_cuda_time_total if v is None else v
 
-    dev = sum(dev_us(e) for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0) / 1e3
+    events = sorted(((e.key, dev_us(e) / 1e3) for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
+                    key=lambda kv: -kv[1])
+    dev = sum(ms for _, ms in events)
     if dev == 0:
         raise AssertionError("the profiler recorded no device time")
-    return wall, dev
+    return wall, dev, events
 
 
 def schema_shape_ok(label: str, got: dict, path: pathlib.Path) -> None:
@@ -1858,6 +1892,38 @@ def mesh_rank(rank: int, world: int, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
+def run_ranks(scratch: pathlib.Path, phase: int) -> list:
+    """Start MESH_WORLD processes of this script (``--mesh-rank r``), one
+    rank each of a gloo group through a file store in ``scratch``, wait for
+    them (killed past 600 s), and return each rank's ``rank<r>.pt``."""
+    import torch
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = [open(scratch / f"rank{r}.log", "w") for r in range(MESH_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                               str(r), "--mesh-dir", str(scratch), "--mesh-phase", str(phase)],
+                              env=env, stdout=f, stderr=subprocess.STDOUT)
+             for r, f in enumerate(logs)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"phase {phase}: mesh ranks failed:\n" + "\n".join(
+            (scratch / f"rank{r}.log").read_text()[-3000:] for r in bad))
+    return [torch.load(scratch / f"rank{r}.pt", weights_only=False) for r in range(MESH_WORLD)]
+
+
 def run_mesh(device) -> dict:
     """Phase 9: the mesh backend. A one-rank NCCL group in this process,
     then four ranks in four processes sharing the card through gloo; each
@@ -1920,29 +1986,7 @@ def run_mesh(device) -> dict:
         dist.destroy_process_group()
 
     # four ranks on the one card: gloo, the tensors on cuda:0
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    logs = [open(scratch / f"rank{r}.log", "w") for r in range(MESH_WORLD)]
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
-                               str(r), "--mesh-dir", str(scratch)], env=env, stdout=f,
-                              stderr=subprocess.STDOUT) for r, f in enumerate(logs)]
-    t0 = time.perf_counter()
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        raise AssertionError("phase 9: mesh ranks failed:\n" + "\n".join(
-            (scratch / f"rank{r}.log").read_text()[-3000:] for r in bad))
-    ranks = [torch.load(scratch / f"rank{r}.pt", weights_only=False) for r in range(MESH_WORLD)]
+    ranks = run_ranks(scratch, 9)
     staged = [r for r in ranks[0]["float32 uniform"]["reasons"] if "staged" in r]
     if not staged:
         raise AssertionError("phase 9: gloo on the card did not stage through the host")
@@ -2001,7 +2045,376 @@ def run_mesh(device) -> dict:
     return total
 
 
-ALL_PHASES = frozenset(range(1, 10))
+# ------------------------------------------------------------------ phase 10
+
+MOE_B, MOE_S, MOE_NEW = 2, 8192, 16  # prompts of 8192: flash serves S >= 8192
+MOE_EP_B, MOE_EP_S = 2, 2048
+MOE_EP_MESH = (2, 2)
+MOE_EP_CASES = {"experts over model": (False, False),
+                "experts over (data, model)": (True, False),
+                "experts over (data, model), hierarchical": (True, True)}
+MAX_KERNEL_ROW = 8192  # kernels.ops.MAX_PALLAS_ROW
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def moe_dispatch_launches(T: int, K: int, n_shards: int, C: int, tile: int = 1024) -> dict:
+    """The bitonic launches of one MoE dispatch of T tokens: the kv tile
+    sort of ``stable_argsort`` over T * K assignments (one launch), its
+    merge rounds into rows of at most 8192 (one launch each; wider rounds
+    are rank merges), and the merge tree over the n_shards received
+    buckets of C (one launch per round into at most 8192)."""
+    np2 = _pow2(T * K)
+    width, merges = min(tile, np2), 0
+    while width < np2:
+        merges += int(2 * width <= MAX_KERNEL_ROW)
+        width *= 2
+    runs, width = _pow2(n_shards), C
+    while runs > 1:
+        merges += int(2 * _pow2(width) <= MAX_KERNEL_ROW)
+        runs, width = runs // 2, 2 * width
+    return {"bitonic_sort_rows": 0, "bitonic_sort_rows_kv": 1, "bitonic_merge_rows": 0,
+            "bitonic_merge_rows_kv": merges}
+
+
+def moe_capacity(A: int, n_shards: int, cf: float) -> int:
+    """The bucket capacity C of ``moe._dispatch_body``."""
+    return max(1, int((A + n_shards - 1) // n_shards * cf) + 1)
+
+
+def moe_ep_layer(device):
+    """Phase 10's expert-parallel cell: (float32 config at capacity factor
+    8, one full-width MoE layer, the global (2, 2048, d) tokens), the same
+    on every rank and the parent (seeded generators on the card)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), dtype="float32",
+                              moe_capacity_factor=8.0)
+    layer = moe.init_moe(cfg, torch.Generator(device=device).manual_seed(12), device)
+    x = torch.randn(MOE_EP_B, MOE_EP_S, cfg.d_model, device=device,
+                    generator=torch.Generator(device=device).manual_seed(13))
+    return cfg, layer, x
+
+
+def moe_rank(rank: int, world: int, out_dir: str, device) -> None:
+    """One of phase 10's ranks (``--mesh-rank r --mesh-phase 10``): a gloo
+    group through a file store, a (data, model) = (2, 2) ``DeviceMesh``;
+    for each case of MOE_EP_CASES ``moe_forward`` on this rank's block of
+    the tokens and its slice of the 64 experts (warmed once, then timed
+    between barriers with its launches), and once more through
+    ``_dispatch_body`` with each exchange timed; its output, block, send
+    counts, routed counts, launches and times go to ``rank<r>.pt``."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import bitonic
+    from repro_torch.models import moe
+    from repro_torch.sharding import spec
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    mesh = DeviceMesh(device.type, torch.arange(world).reshape(MOE_EP_MESH),
+                      mesh_dim_names=("data", "model"))
+    cfg, layer, x = moe_ep_layer(device)
+    B, S, d = x.shape
+    pos = torch.arange(B * S).reshape(B, S, 1)
+    results = {}
+    for label, (expert_2d, hierarchical) in MOE_EP_CASES.items():
+        c = dataclasses.replace(cfg, hierarchical_a2a=hierarchical)
+        axes = spec.from_mesh(mesh, expert_2d=expert_2d)
+        xl, local = moe.local_tokens(x, axes), moe.shard_params(layer, axes)
+        moe.moe_forward(xl, local, c, axes)  # warm
+        sync()
+        dist.barrier()
+        bitonic.reset_launches()
+        t0 = time.perf_counter()
+        out, aux = moe.moe_forward(xl, local, c, axes)
+        sync()
+        dist.barrier()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+
+        group = spec.axis_group(mesh, axes.expert)
+        a2a, spent = moe._make_a2a(mesh, axes.expert, hierarchical), []
+
+        def timed(t, a2a=a2a, spent=spent):
+            sync()
+            t1 = time.perf_counter()
+            r = a2a(t)
+            sync()
+            spent.append(time.perf_counter() - t1)
+            return r
+
+        dist.barrier()
+        t0 = time.perf_counter()
+        again, _, send = moe._dispatch_body(xl.reshape(-1, d), local, c, n_shards=group.size,
+                                            shard_id=group.index, a2a=timed)
+        sync()
+        body_wall = time.perf_counter() - t0
+        _, ids, _ = moe._router(xl.reshape(-1, d), layer.router, c)
+        results[label] = dict(
+            out=out.cpu(), aux=float(aux), pos=moe.local_tokens(pos, axes).reshape(-1),
+            same=torch.equal(again.reshape(out.shape), out), send=send.cpu(),
+            routed=torch.bincount(ids.reshape(-1).long(), minlength=cfg.n_experts).cpu(),
+            launches=launches, wall_ms=wall * 1e3, n_shards=group.size,
+            tokens=xl.shape[0] * xl.shape[1], exchange_share=sum(spent) / body_wall,
+            exchanges=len(spent))
+    torch.save(results, pathlib.Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def run_moe(device) -> dict:
+    """Phase 10: deepseek-moe-16b served on the card at full width and
+    depth, the dispatch's kernels against their twins, the dense oracle,
+    and expert parallelism over four gloo ranks and a one-rank NCCL group.
+    Returns the launches of every kernel over the served run."""
+    import dataclasses
+    import datetime
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import keyenc
+    from repro_torch.kernels import bitonic, flash
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+    from repro_torch.sharding import spec
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), flash_attention=True,
+                              dtype="bfloat16")
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_list())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 10: deepseek-moe-16b built on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{cfg.n_layers} layers ({n_moe} MoE: {cfg.n_experts} experts of {cfg.d_expert} + "
+        f"{cfg.n_shared_experts} shared, top-{cfg.moe_topk}), {n_params} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    if n_params != cfg.param_count():
+        raise AssertionError(f"phase 10: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    B, S, n_new, vocab, K = MOE_B, MOE_S, MOE_NEW, cfg.vocab, cfg.moe_topk
+    gen = torch.Generator(device=device).manual_seed(14)
+    batch = {"tokens": torch.randint(0, vocab, (B, S), generator=gen, device=device,
+                                     dtype=torch.int32)}
+
+    # the main path: generate, counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    bitonic.reset_launches()
+    flash.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate(model, batch, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    launches["flash_attention"] = flash.flash_attention.launches
+    per_layer = moe_dispatch_launches(B * S, K, 1, moe_capacity(B * S * K, 1,
+                                                                cfg.moe_capacity_factor))
+    want = {k: v * n_moe for k, v in per_layer.items()}
+    want["flash_attention"] = cfg.n_layers
+    log(f"phase 10: generate {B} x {S} prompt tokens + {n_new} new: {gen_s * 1e3:.3f} ms wall "
+        f"(first call), launches {launches} (derived {want}: per MoE layer {per_layer}, "
+        f"{B * S * K} assignments padded to {_pow2(B * S * K)}, "
+        f"{max(0, (_pow2(B * S * K) // MAX_KERNEL_ROW).bit_length() - 1)} rank-merge rounds), "
+        f"tokens {out.tolist()}")
+    if launches != want:
+        raise AssertionError(f"phase 10: launches {launches}, derived {want}")
+    if out.shape != (B, n_new) or not bool(((out >= 0) & (out < vocab)).all()):
+        raise AssertionError(f"phase 10: tokens out of [0, {vocab}) or of shape {out.shape}")
+
+    # prefill and decode timed; the first MoE layer's router input captured
+    captured = []
+    router = moe._router
+
+    def capture(xf, w, c):
+        r = router(xf, w, c)
+        if not captured:
+            captured.append((xf, r[1]))
+        return r
+
+    prefill, step = engine.make_prefill(model), engine.make_serve_step(model)
+    moe._router = capture
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe._router = router
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    steps, step_ms = [tok], []
+    for i in range(n_new - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = step(caches, tok, S + i)
+        tok = lg[..., :vocab].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(tok)
+    if not torch.equal(torch.cat(steps, dim=1), out):
+        raise AssertionError("phase 10: the timed prefill and steps gave other tokens")
+    wall, dev, events = device_breakdown(lambda: step(caches, tok, S + n_new - 1))
+    log(f"phase 10: one decode step under torch.profiler: {wall:.3f} ms wall, {dev:.3f} ms "
+        f"device (idle {1 - dev / wall:.3f}); largest device events: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms ({ms / dev:.3f})" for name, ms in events[:8]))
+    del caches, logits
+    decode_ms = statistics.median(step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 10: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms a step (median of "
+        f"{len(step_ms)}), {B / decode_ms * 1e3:.3f} tokens/s, peak {peak_gb:.3f} GB")
+
+    # the dispatch's kernels against their twins, on the first MoE layer's ids
+    xf, ids = captured[0]
+    keys = ids.reshape(-1)
+    card = keyenc.stable_argsort(keys, use_pallas=True)
+    twin = keyenc.stable_argsort(keys.cpu(), use_pallas=True)
+    plain = keyenc.stable_argsort(keys, use_pallas=False)
+    for got in (card, plain):
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, twin)):
+            raise AssertionError("phase 10: stable_argsort on the card differs from its twin")
+    layer = next(b for b, s in zip(model.layers, cfg.layer_list()) if s.ffn == "moe")
+    h = xf.reshape(B, S, -1)
+    a = moe.moe_forward(h, layer.moe, cfg, use_pallas=True)
+    b = moe.moe_forward(h, layer.moe, cfg, use_pallas=False)
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise AssertionError("phase 10: moe_forward's two sort paths differ on the card")
+    counts = torch.bincount(keys.long(), minlength=cfg.n_experts)
+    log(f"phase 10: first MoE layer, {keys.numel()} assignments: stable_argsort (kernels) "
+        f"equals its twin on the CPU and torch.sort bit for bit; moe_forward with "
+        f"use_pallas True and False give the same bits; tokens per expert min "
+        f"{int(counts.min())} / max {int(counts.max())} (mean {keys.numel() / cfg.n_experts:.1f})")
+
+    # where a MoE layer's time goes: the sort against the expert GEMMs
+    C_e = max(1, int(B * S * K // cfg.n_experts * cfg.moe_capacity_factor) + 1)
+    xe = torch.randn(cfg.n_experts, C_e, cfg.d_model, device=device, dtype=torch.bfloat16)
+    layer_ms = time_ms(lambda: moe.moe_forward(h, layer.moe, cfg), reps=5, batch=2)
+    sort_ms = time_ms(lambda: keyenc.stable_argsort(keys, use_pallas=True), reps=10, batch=5)
+    plain_sort_ms = time_ms(lambda: keyenc.stable_argsort(keys, use_pallas=False), reps=10,
+                            batch=5)
+    ffn_ms = time_ms(lambda: moe._expert_ffn(xe, layer.moe, cfg), reps=5, batch=2)
+    router_ms = time_ms(lambda: router(xf, layer.moe.router, cfg), reps=10, batch=5)
+    wall, dev, events = device_breakdown(lambda: moe.moe_forward(h, layer.moe, cfg))
+    log(f"phase 10: one MoE layer under torch.profiler: {wall:.3f} ms wall, {dev:.3f} ms "
+        f"device (idle {1 - dev / wall:.3f}); largest device events: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms ({ms / dev:.3f})" for name, ms in events[:10]))
+    log(f"phase 10: one MoE layer of {B * S} tokens: {layer_ms:.4f} ms; its sort "
+        f"(stable_argsort: tile sort, 3 kernel merges, rank merges) {sort_ms:.4f} ms "
+        f"({sort_ms / layer_ms:.4f} of the layer; torch.sort path {plain_sort_ms:.4f} ms), "
+        f"expert GEMMs ({cfg.n_experts} x {C_e} rows) {ffn_ms:.4f} ms "
+        f"({ffn_ms / layer_ms:.4f}), router {router_ms:.4f} ms ({router_ms / layer_ms:.4f})")
+    del model, layer, h, xf, xe, a, b, out, batch, captured
+    torch.cuda.empty_cache()
+
+    # the dense oracle: one full-width layer in float32, TF32 off, 256 tokens
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg32, layer32, x = moe_ep_layer(device)
+        got, aux = moe.moe_forward(x[:1, :256], layer32, cfg32)
+        ref, aux_ref = moe.moe_ref(x[:1, :256], layer32, cfg32)
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        log(f"phase 10: dense oracle, 256 tokens in float32: max abs err {err:.3e} against "
+            f"max |ref| {scale:.4f}; aux {float(aux):.6f} / {float(aux_ref):.6f}")
+        if not (err <= 1e-4 * scale and abs(float(aux) - float(aux_ref)) <= 1e-5):
+            raise AssertionError("phase 10: moe_forward is off the dense oracle")
+
+        # one rank on the whole batch: the reference of the expert-parallel runs
+        one, aux_one = moe.moe_forward(x, layer32, cfg32)
+        _, ids, _ = moe._router(x.reshape(-1, cfg32.d_model), layer32.router, cfg32)
+        routed = torch.bincount(ids.reshape(-1).long(), minlength=cfg32.n_experts).cpu()
+
+        # a one-rank NCCL group: the exchange through NCCL's all_to_all
+        scratch = ROOT / "build" / "phase10"
+        shutil.rmtree(scratch, ignore_errors=True)
+        scratch.mkdir(parents=True)
+        dist.init_process_group("nccl", init_method=f"file://{scratch}/nccl_store", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                              mesh_dim_names=("data", "model"))
+            group = spec.axis_group(mesh, "model")
+            via, aux_via, send = moe._dispatch_body(
+                x.reshape(-1, cfg32.d_model), layer32, cfg32, n_shards=1, shard_id=0,
+                a2a=group.all_to_all)
+            mean = spec.axis_group(mesh, ("data", "model")).all_mean(aux_via)
+        finally:
+            dist.destroy_process_group()
+        if not (torch.equal(via.reshape(one.shape), one) and torch.equal(mean, aux_one)):
+            raise AssertionError("phase 10: the one-rank NCCL exchange changed the output")
+        log(f"phase 10: one-rank NCCL group: the dispatch through NCCL's all_to_all and mean "
+            f"equals the identity exchange bit for bit (send counts {send.tolist()})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # four gloo ranks on the card, (data, model) = (2, 2)
+    ranks = run_ranks(scratch, 10)
+    flat = one.reshape(-1, cfg32.d_model).cpu()
+    scale = float(flat.abs().max())
+    for label, (expert_2d, _) in MOE_EP_CASES.items():
+        got = [rk[label] for rk in ranks]
+        whole = torch.zeros_like(flat)
+        seen = torch.zeros(flat.shape[0], dtype=torch.bool)
+        for g in got:
+            whole[g["pos"]] = g["out"].reshape(-1, cfg32.d_model)
+            seen[g["pos"]] = True
+        err = float((whole - flat).abs().max())
+        n_shards = got[0]["n_shards"]
+        if not (seen.all() and err <= 1e-4 * scale and all(g["same"] for g in got)):
+            raise AssertionError(f"phase 10: {label}: the ranks' blocks are off the one-rank "
+                                 f"output (max abs err {err})")
+        # aux: the mean over the ranks of each block's own aux loss
+        blocks = x.reshape(-1, cfg32.d_model)
+        aux_mean = statistics.fmean(float(moe._router(blocks[g["pos"].to(device)],
+                                                      layer32.router, cfg32)[2]) for g in got)
+        if not all(abs(g["aux"] - aux_mean) <= 1e-5 for g in got):
+            raise AssertionError(f"phase 10: {label}: aux {[g['aux'] for g in got]}, the "
+                                 f"blocks' mean {aux_mean}")
+        if not torch.equal(sum(g["routed"] for g in got), routed):
+            raise AssertionError(f"phase 10: {label}: per-expert counts differ from one rank's")
+        sent = sum(g["send"].long() for g in got)
+        if not torch.equal(sent, routed.reshape(n_shards, -1).sum(1)):
+            raise AssertionError(f"phase 10: {label}: send counts differ from one rank's")
+        T = got[0]["tokens"]
+        want_rank = moe_dispatch_launches(T, K, n_shards, moe_capacity(T * K, n_shards, 8.0))
+        if any(g["launches"] != want_rank for g in got):
+            raise AssertionError(f"phase 10: {label}: launches {[g['launches'] for g in got]}, "
+                                 f"derived {want_rank}")
+        log(f"phase 10: 4 gloo ranks, {label} ({n_shards} shards, {T} tokens a rank): "
+            f"{got[0]['wall_ms']:.3f} ms wall on rank 0, exchange share "
+            f"{statistics.median(g['exchange_share'] for g in got):.4f} (median over ranks, "
+            f"{got[0]['exchanges']} exchanges staged through the host), max abs err {err:.3e} "
+            f"against one rank (max |out| {scale:.4f}), per-expert and send counts equal, "
+            f"launches per rank {tuple(got[0]['launches'].values())}")
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+ALL_PHASES = frozenset(range(1, 11))
 
 
 def main() -> int:
@@ -2011,14 +2424,19 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-9: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-10: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-phase", type=int, default=9, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.mesh_rank is not None:  # one of phase 9's ranks
-        mesh_rank(args.mesh_rank, MESH_WORLD, args.mesh_dir)
+    if args.mesh_rank is not None:  # one of phase 9's or phase 10's ranks
+        if args.mesh_phase == 10:
+            torch.cuda.set_device(0)
+            moe_rank(args.mesh_rank, MESH_WORLD, args.mesh_dir, torch.device("cuda", 0))
+        else:
+            mesh_rank(args.mesh_rank, MESH_WORLD, args.mesh_dir)
         return 0
     arg = args.phases
     phases = ALL_PHASES if arg == "all" else frozenset({1, *map(int, arg.split(","))})
@@ -2059,7 +2477,8 @@ def main() -> int:
     numbers = check_kernels(device)
     if phases != ALL_PHASES:  # a partial run (development): no result lines
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
-                           (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh)):
+                           (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
+                           (10, run_moe)):
             if phase in phases:
                 run(device)
         return 0
@@ -2074,11 +2493,14 @@ def main() -> int:
     launches_serve = run_serving(device)
     torch.cuda.empty_cache()
     launches_mesh = run_mesh(device)
+    torch.cuda.empty_cache()
+    launches_moe = run_moe(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
              launches=launches[name], launches_serve=launches_serve[name],
-             launches_mesh=launches_mesh[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
+             launches_mesh=launches_mesh[name], launches_moe=launches_moe[name],
+             max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
              ms_x64=num["ms_x64"], plain_ms_x64=num["plain_ms_x64"],
@@ -2087,7 +2509,8 @@ def main() -> int:
     ]
     kernels.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES,
-        launches=serve["flash_launches"], max_abs_err=flash_num["max_abs_err"],
+        launches=serve["flash_launches"], launches_moe=launches_moe["flash_attention"],
+        max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"]))
     assert {k["name"] for k in kernels} == {f.__name__ for f in (*bitonic.KERNELS,

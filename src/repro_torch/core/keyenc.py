@@ -28,6 +28,9 @@ Counterpart of ``repro/core/keyenc.py``:
     ``searchsorted`` on those unsigned dtypes. Every other admitted dtype
     is its own lane.
 
+``stable_argsort`` is the local argsort under the MoE dispatch (an int32
+iota payload over ``local_sort.local_sort_kv``).
+
 ``decode_grid`` runs on the sort's device: the compaction of the padded
 (p, W) result grid, the argsort tie fix, the inverse flip and the unpack
 of packed keys (``unpack_fields``). ``flip_np`` / ``decode_np`` /
@@ -41,7 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.local_sort import segment_stable_kv
+from repro_torch.core.local_sort import local_sort_kv, segment_stable_kv
 
 _LANES = {torch.uint16: (torch.int16, -(1 << 15)), torch.uint32: (torch.int32, -(1 << 31)),
           torch.uint64: (torch.int64, -(1 << 63))}
@@ -564,6 +567,20 @@ def check_payload_keys(keys: torch.Tensor, descending: bool, *, packspec=None) -
             f"Shift or drop those keys first, or sort them keys-only "
             f"(no restriction without values/want='order')."
         )
+
+
+def stable_argsort(keys: torch.Tensor, *, tile: int = 1024, use_pallas: bool = False):
+    """Stable local argsort of a flat shard: (sorted_keys, order).
+
+    The primitive under the MoE sorted dispatch (expert ids are the keys,
+    slots the payload). The payload is an int32 iota, unique and
+    increasing, so the kv sort is exactly stable and both paths give the
+    same bits: ``use_pallas=True`` runs ``kernels.ops.tile_sort_kv`` (on a
+    CUDA tensor the ``sort_rows_kv`` and ``merge_rows_kv`` kernels, on a
+    CPU tensor their twins), ``False`` a stable ``torch.sort``.
+    """
+    slots = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    return local_sort_kv(keys, slots, tile=tile, use_pallas=use_pallas)
 
 
 def compact_rows(grid: torch.Tensor, counts: torch.Tensor, m: int) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The model tier of the port: dense GQA decoders, prefill and decode.
+"""The model tier of the port: GQA decoders with dense or MoE FFNs, prefill
+and decode.
 
 What the slice does not run raises NotImplementedError naming the
 ROADMAP.md §1 sub-item of item 10 that ports it.
@@ -10,7 +11,7 @@ _LATER = {
     "window": "item 10.2 (sliding-window attention and its ring caches)",
     "cross": "item 10.3 (cross-attention, encoder and vision memory)",
     "mla": "item 10.4 (MLA attention)",
-    "moe": "item 10.5 (MoE blocks)",
+    "moe_ep": "item 10.4.1 (EP x TP MoE decode: cfg.decode_moe_ep, tp_axis)",
     "recurrent": "item 10.6 (recurrent and SSM mixers)",
 }
 

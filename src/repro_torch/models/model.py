@@ -1,10 +1,11 @@
 """Config -> model: parameters, the forward pass for prefill and decode.
 
 The port of ``repro/models/model.py`` for decoder-only configs whose
-blocks this slice runs (dense GQA). ``repro``'s ``Model`` is a frozen
-description plus a parameter pytree; here it is an ``nn.Module`` that
-holds its parameters, drawn from a seeded ``torch.Generator`` on its
-device, or loaded from ``repro``'s with ``convert.params_from_jax``.
+blocks this slice runs (GQA with dense or MoE FFNs). ``repro``'s
+``Model`` is a frozen description plus a parameter pytree; here it is an
+``nn.Module`` that holds its parameters, drawn from a seeded
+``torch.Generator`` on its device, or loaded from ``repro``'s with
+``convert.params_from_jax``.
 
 Batch dict keys: ``tokens`` (B, S) integer token ids. Encoder frames and
 vision embeddings (whisper, the VLM) raise NotImplementedError naming

@@ -1,11 +1,20 @@
 """Residual block assembly and the layer loop.
 
 The port of ``repro/models/transformer.py`` for the blocks this slice
-runs: mixer ``"attn"`` with a dense FFN or none. A block is norm -> mixer
--> norm -> FFN with residual adds. ``repro`` runs each config segment as
-one ``lax.scan`` over stacked parameters; here the layers are a list of
-per-layer modules in the order ``cfg.layer_list()`` gives, and the scan
-is a Python loop over them.
+runs: mixer ``"attn"`` with a dense FFN, an MoE FFN (plus its shared
+experts) or none. A block is norm -> mixer -> norm -> FFN with residual
+adds. ``repro`` runs each config segment as one ``lax.scan`` over stacked
+parameters; here the layers are a list of per-layer modules in the order
+``cfg.layer_list()`` gives, and the scan is a Python loop over them.
+
+An MoE block runs the sorted dispatch (``moe.moe_forward``) at prefill
+and the per-token expert gather (``moe.moe_forward_decode``) at decode.
+``use_pallas_moe`` picks the dispatch sort's path; its default here is
+True, so that on the card the model's dispatch launches the bitonic
+kernels, where ``repro``'s is False (``lax.sort``); both give the same
+bits. ``repro``'s EP x TP decode branch (``cfg.decode_moe_ep`` on a 2-D
+expert mesh) raises NotImplementedError naming its ROADMAP.md item: the
+port's model runs on one device.
 """
 from __future__ import annotations
 
@@ -13,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import not_ported
 from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm
 
@@ -26,12 +36,12 @@ def check_spec(spec) -> None:
         raise not_ported(f"the {spec.mixer!r} mixer", _MIXER_ITEMS[spec.mixer])
     if spec.cross:
         raise not_ported("cross-attention blocks", "cross")
-    if spec.ffn == "moe":
-        raise not_ported("MoE blocks", "moe")
 
 
 class Block(nn.Module):
-    """``init_block``: ``ln1``, ``mix``, and ``ln2``/``mlp`` for a dense FFN."""
+    """``init_block``: ``ln1``, ``mix``, and ``ln2`` with ``mlp`` for a dense
+    FFN or with ``moe`` (and ``shared``, an MLP of width d_expert x
+    n_shared_experts, when cfg.n_shared_experts) for an MoE FFN."""
 
     def __init__(self, spec, cfg, gen, device=None):
         super().__init__()
@@ -42,6 +52,11 @@ class Block(nn.Module):
         if spec.ffn == "dense":
             self.ln2 = Norm(cfg, d, device)
             self.mlp = MLP(cfg, d, cfg.d_ff, gen, device)
+        elif spec.ffn == "moe":
+            self.ln2 = Norm(cfg, d, device)
+            self.moe = moe_lib.init_moe(cfg, gen, device)
+            self.shared = (MLP(cfg, d, cfg.d_expert * cfg.n_shared_experts, gen, device)
+                           if cfg.n_shared_experts else None)
 
 
 def init_block_cache(spec, cfg, B: int, S_max: int, device=None) -> dict:
@@ -49,7 +64,8 @@ def init_block_cache(spec, cfg, B: int, S_max: int, device=None) -> dict:
     return {"mix": attn.init_gqa_cache(cfg, B, S_max, device=device)}
 
 
-def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False):
+def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False,
+                use_pallas_moe: bool = True):
     """Returns (x, new_cache, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
@@ -66,6 +82,18 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False):
 
     if spec.ffn == "dense":
         x = x + apply_mlp(apply_norm(x, p.ln2, cfg), p.mlp, cfg)
+    elif spec.ffn == "moe":
+        h = apply_norm(x, p.ln2, cfg)
+        if decode:
+            if cfg.decode_moe_ep:
+                raise not_ported("EP x TP MoE decode (decode_moe_ep)", "moe_ep")
+            mo, a = moe_lib.moe_forward_decode(h, p.moe, cfg)
+        else:
+            mo, a = moe_lib.moe_forward(h, p.moe, cfg, use_pallas=use_pallas_moe)
+        aux = aux + a
+        if p.shared is not None:
+            mo = mo + apply_mlp(h, p.shared, cfg)
+        x = x + mo
     return x, new_cache, aux
 
 

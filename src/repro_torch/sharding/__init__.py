@@ -1,1 +1,1 @@
-"""Sharding helpers of the port (single device for now)."""
+"""Sharding of the port: mesh axes and axis groups (``spec``), rules (``rules``)."""

@@ -21,9 +21,13 @@ takes CUDA tensors, so a CPU tensor on an NCCL group goes through the
 rank's current CUDA device. The choice is made from the group's backend
 name.
 
-``Axes`` (the fields ``vocab_pad`` reads) and ``vocab_pad`` are
-``repro``'s, with ``from_mesh`` reading a ``DeviceMesh``; the head and
-expert helpers wait for a sharded model tier (ROADMAP.md §1 item 11).
+``Axes`` (the fields ``vocab_pad`` and the MoE dispatch read) and
+``vocab_pad`` are ``repro``'s, with ``from_mesh`` reading a ``DeviceMesh``;
+the head helpers wait for a sharded model tier (ROADMAP.md §1 item 11).
+The MoE dispatch's shard index over the expert axes, data-major as
+``repro``'s ``_shard_index`` computes it, is ``axis_group(mesh,
+axes.expert).index``, and its aux loss's ``lax.pmean`` over every mesh
+axis is ``AxisGroup.all_mean``.
 ``constrain`` (a sharding annotation inside a jitted program) has no
 counterpart in eager PyTorch.
 """
@@ -169,6 +173,14 @@ class AxisGroup:
         dist.all_reduce(wire, op=dist.ReduceOp.MAX, group=self.group)
         return wire.tolist()
 
+    def all_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the group of a float tensor (``lax.pmean``: the
+        sum, then divided by p), on ``t``'s device."""
+        dist = _dist()
+        wire = self._on_backend(t).reshape(1).clone()
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.group)
+        return (wire / self.size).reshape(t.shape).to(t.device)
+
 
 _GROUPS: dict = {}
 
@@ -217,7 +229,8 @@ def as_axis_group(where) -> AxisGroup:
 @dataclasses.dataclass(frozen=True)
 class Axes:
     """``repro``'s axis roles: batch over ("pod", "data"), heads, MLP and
-    vocabulary over "model"; ``mesh_shape`` maps axis name to size."""
+    vocabulary over "model", MoE experts over "model" or ("data", "model");
+    ``mesh_shape`` maps axis name to size."""
 
     batch: tuple[str, ...] = ("data",)
     model: str = "model"
@@ -228,6 +241,12 @@ class Axes:
     @property
     def model_size(self) -> int:
         return self.mesh_shape[self.model] if self.mesh_shape else 1
+
+    @property
+    def expert_size(self) -> int:
+        if not self.mesh_shape:
+            return 1
+        return math.prod(self.mesh_shape[a] for a in self.expert)
 
 
 def from_mesh(mesh, expert_2d: bool = False) -> Axes | None:

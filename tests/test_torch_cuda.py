@@ -593,6 +593,49 @@ def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+def test_moe_on_cuda_equals_cpu(gpu):
+    """The deepseek-moe-16b smoke config in float32: the prefill's MoE
+    dispatch on the card launches the kv row sort and kv merge kernels
+    (``stable_argsort``), and the logits, the aux loss and the generated
+    tokens equal the same weights on the CPU (kernels' twins)."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(smoke_config("deepseek-moe-16b"), dtype="float32")
+    m_gpu = Model(cfg, device=gpu, seed=5)
+    m_cpu = Model(cfg, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (2, 1024), generator=torch.Generator().manual_seed(1))
+    bitonic.reset_launches()
+    lg_gpu, aux_gpu = m_gpu({"tokens": toks.to(gpu)})[::2]
+    launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    # 2048 x 2 assignments: one tile sort, merges into 2048 and 4096
+    assert launches == {"bitonic_sort_rows": 0, "bitonic_sort_rows_kv": 1,
+                        "bitonic_merge_rows": 0, "bitonic_merge_rows_kv": 2}, launches
+    lg_cpu, aux_cpu = m_cpu({"tokens": toks})[::2]
+    scale = max(float(lg_cpu.abs().max()), 1.0)
+    assert float((lg_gpu.cpu() - lg_cpu).abs().max()) <= 1e-4 * scale
+    assert abs(float(aux_gpu) - float(aux_cpu)) <= 1e-5
+    got = engine.generate(m_gpu, {"tokens": toks[:, :64].to(gpu)}, 4)
+    want = engine.generate(m_cpu, {"tokens": toks[:, :64]}, 4)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+    ids = torch.randint(0, 64, (24_576,), generator=torch.Generator().manual_seed(2),
+                        dtype=torch.int32)
+    for path in (True, False):
+        k, o = keyenc.stable_argsort(ids.to(gpu), use_pallas=path)
+        wk, wo = keyenc.stable_argsort(ids, use_pallas=True)
+        assert torch.equal(k.cpu(), wk) and torch.equal(o.cpu(), wo)
+    layer = m_gpu.layers[1]
+    x = torch.randn(2, 300, cfg.d_model, device=gpu)
+    a = moe.moe_forward(x, layer.moe, cfg, use_pallas=True)
+    b = moe.moe_forward(x, layer.moe, cfg, use_pallas=False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 # ------------------------------------------------------------ serve tier
 
 

@@ -19,12 +19,6 @@ int64 sorts in x64 mode are held to the port's own sim on the same grid
 (tests/test_torch_x64.py holds that sim to ``repro``). The error paths run
 in this process on a one-rank mesh.
 """
-import os
-import pathlib
-import subprocess
-import sys
-import time
-
 import numpy as np
 import pytest
 import torch
@@ -32,57 +26,18 @@ import torch
 import repro_torch
 from repro_torch.core import sim
 from repro_torch.sharding import spec
-from torch_parity import assert_bits_equal, world_mesh
+from torch_parity import assert_bits_equal, run_mesh_sides, world_mesh
 import torch_mesh_cases as C
 
-HERE = pathlib.Path(__file__).resolve().parent
-SRC = str(HERE.parent / "src")
 CASES = C.cases()
 LIBRARY = C.library_cases()
 DECODES = ("device", "host")
-TIMEOUT_S = 240  # for all of them together; a rank's collectives time out at 120 s
-
-
-def _spawn(cmd, env, log):
-    return subprocess.Popen([sys.executable, *map(str, cmd)], env=env, stdout=log,
-                            stderr=subprocess.STDOUT)
 
 
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
     """(repro's npz, the port's npz per global rank)."""
-    d = tmp_path_factory.mktemp("mesh")
-    path = os.pathsep.join([SRC, os.environ.get("PYTHONPATH", "")])
-    ref_env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=path,
-                   XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    port_env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1")
-    runs = [([HERE / "torch_mesh_reference.py", d / "ref.npz"], ref_env, d / "ref.log")]
-    runs += [([HERE / "torch_mesh_worker.py", r, C.WORLD, d / "store", d], port_env,
-              d / f"rank{r}.log") for r in range(C.WORLD)]
-    logs = [open(log, "w") for _, _, log in runs]
-    procs = [_spawn(cmd, env, f) for (cmd, env, _), f in zip(runs, logs)]
-    deadline = time.monotonic() + TIMEOUT_S
-    try:
-        for p in procs:
-            p.wait(timeout=max(0.1, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    failed = [log for p, (_, _, log) in zip(procs, runs) if p.returncode != 0]
-    assert not failed, "\n".join(f"{log.name}: {log.read_text()[-3000:]}" for log in failed)
-    with np.load(d / "ref.npz") as z:
-        ref = {k: z[k] for k in z.files}
-    ranks = []
-    for r in range(C.WORLD):
-        with np.load(d / f"rank{r}.npz") as z:
-            ranks.append({k: z[k] for k in z.files})
-    return ref, ranks
+    return run_mesh_sides(tmp_path_factory.mktemp("mesh"), C.WORLD)
 
 
 def group(axis, column: int = 0) -> list:

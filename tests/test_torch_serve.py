@@ -17,6 +17,7 @@ from repro_torch.configs.registry import smoke_config
 from repro_torch.kernels import flash
 from repro_torch.models.model import Model
 from repro_torch.serve import engine
+from torch_parity import BF16_TIE, router_margins
 
 RNG = np.random.default_rng(3)
 DENSE = ["qwen3-4b", "qwen2.5-32b", "starcoder2-7b"]
@@ -128,6 +129,66 @@ def test_flash_prefill_at_8192_matches_repro(monkeypatch):
     close(lg.numpy(), jlg, 1e-4)
     got = convert.caches_to_numpy(tm.cfg, caches)
     close(got[0][0]["mix"]["v"], jcaches[0][0]["mix"]["v"], 1e-4)
+
+
+def test_moe_decode_equals_forward():
+    """deepseek-moe-16b's smoke config: decode's per-token expert gather
+    against the prefill's sorted dispatch (nothing drops at its capacity
+    factor of 4)."""
+    tm = Model(dataclasses.replace(smoke_config("deepseek-moe-16b"), dtype="float32"),
+               device="cpu", seed=2)
+    T = 20
+    toks = torch.from_numpy(tokens(tm.cfg, 2, T))
+    full, _, _ = tm({"tokens": toks})
+    _, caches = engine.make_prefill(tm)({"tokens": toks[:, : T - 3]})
+    caches = engine.extend_caches(tm, caches, T - 3, T)
+    step = engine.make_serve_step(tm)
+    for i in range(3):
+        pos = T - 3 + i
+        lg, caches = step(caches, toks[:, pos:pos + 1], pos)
+        close(lg[:, 0].numpy(), full[:, pos].numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_prefill_extend_and_step_match_repro(dtype, monkeypatch):
+    """In bfloat16, rows whose token's top-k margin is within bf16's
+    precision (``torch_parity.BF16_TIE``) may route elsewhere in ``repro``
+    and are left out of the logits' comparison (the caches are compared
+    whole: they do not depend on the routing of this two-layer model)."""
+    jm, params, tm = both("deepseek-moe-16b", dtype)
+    T = 17
+    toks = np.random.default_rng(13).integers(0, jm.cfg.vocab, (2, T)).astype(np.int32)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    margins = router_margins(monkeypatch)
+
+    def rows(margin):
+        return np.ones(2, bool) if dtype == "float32" else (margin >= BF16_TIE).numpy()
+
+    jlg, jcaches = jengine.make_prefill(jm)(params, {"tokens": jnp.asarray(toks[:, :-1])})
+    lg, caches = engine.make_prefill(tm)({"tokens": torch.from_numpy(toks[:, :-1])})
+    keep = rows(margins[-1].reshape(2, T - 1)[:, -1])
+    close(convert.to_numpy(lg)[keep], np.asarray(jlg)[keep], tol)
+    jcaches = jengine.extend_caches(jm, jcaches, T - 1, T + 4)
+    caches = engine.extend_caches(tm, caches, T - 1, T + 4)
+    jlg, jcaches = jengine.make_serve_step(jm)(params, jcaches, jnp.asarray(toks[:, -1:]),
+                                               jnp.int32(T - 1))
+    lg, caches = engine.make_serve_step(tm)(caches, torch.from_numpy(toks[:, -1:]), T - 1)
+    keep = rows(margins[-1])
+    close(convert.to_numpy(lg)[keep], np.asarray(jlg)[keep], tol)
+    got = convert.caches_to_numpy(tm.cfg, caches)
+    for g_seg, r_seg in zip(got, jcaches, strict=True):
+        for g, r in zip(g_seg, r_seg, strict=True):
+            for name in ("k", "v"):
+                close(g["mix"][name], r["mix"][name], tol)
+
+
+def test_moe_generate_matches_repro_tokens():
+    jm, params, tm = both("deepseek-moe-16b", seed=0)
+    toks = tokens(jm.cfg, 4, 8)
+    want = jengine.generate(jm, params, {"tokens": jnp.asarray(toks)}, 6)
+    got = engine.generate(tm, {"tokens": torch.from_numpy(toks)}, 6)
+    assert got.dtype == torch.int32 and got.shape == (4, 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_sample_logits_topk_and_vocab_mask():

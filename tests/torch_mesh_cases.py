@@ -8,6 +8,11 @@ tests/test_distributed.py. A case names its global keys, payload, sort
 axis, ``SortConfig`` and ``SortLimits`` fields and keyword arguments; the
 port's rank at coordinate r of the axis takes ``shard(x, p, r)``, the
 slice ``planner.pad_grid`` gives row r.
+
+The MoE cases (tests/test_torch_moe_mesh.py) run on a (2, 4) mesh, as
+tests/test_distributed.py's MoE test does: ``moe_inputs()`` gives the
+weights of one MoE layer at the smoke deepseek-moe-16b widths and the
+global tokens, ``moe_cases()`` the expert axes and config fields.
 """
 from __future__ import annotations
 
@@ -124,3 +129,39 @@ def topk_inputs() -> dict:
     i[[3, 30, 50]] = np.iinfo(np.int32).min
     i[[7]] = np.iinfo(np.int32).max
     return {"float32": f, "int32": i}
+
+
+# ------------------------------------------------------------------- MoE
+
+MOE_MESH_SHAPE = (2, 4)
+# the smoke deepseek-moe-16b widths (repro's smoke_config): d_model,
+# n_experts, d_expert
+MOE_D, MOE_E, MOE_DE = 64, 8, 32
+
+
+def moe_inputs() -> tuple[dict, np.ndarray]:
+    """(router, wi, wg, wo as float32, drawn as ``init_moe`` scales them;
+    the global (4, 16, d) tokens)."""
+    rng = np.random.default_rng(31)
+
+    def draw(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    weights = {"router": draw((MOE_D, MOE_E), MOE_D ** -0.5),
+               "wi": draw((MOE_E, MOE_D, MOE_DE), MOE_D ** -0.5),
+               "wg": draw((MOE_E, MOE_D, MOE_DE), MOE_D ** -0.5),
+               "wo": draw((MOE_E, MOE_DE, MOE_D), MOE_DE ** -0.5)}
+    return weights, rng.standard_normal((4, 16, MOE_D)).astype(np.float32)
+
+
+def moe_cases() -> dict:
+    """name -> expert_2d, the ``ModelConfig`` fields over the smoke config
+    at capacity factor 8 in float32, and the sequence length used (S = 1:
+    the tokens are replicated over "model")."""
+    return {
+        "ep1d": dict(expert_2d=False, cfg={}, S=16),
+        "ep2d": dict(expert_2d=True, cfg={}, S=16),
+        "ep2d_hierarchical": dict(expert_2d=True, cfg={"hierarchical_a2a": True}, S=16),
+        "ep1d_capacity_1.25": dict(expert_2d=False, cfg={"moe_capacity_factor": 1.25}, S=16),
+        "ep2d_s1": dict(expert_2d=True, cfg={}, S=1),
+    }

@@ -2,7 +2,7 @@
 and save what comes out, for tests/test_torch_mesh.py.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \\
-        python tests/torch_mesh_reference.py OUT.npz
+        python tests/torch_mesh_reference.py OUT.npz [moe]
 
 The mesh is ``jax.make_mesh((4, 2), ("data", "model"))`` on 8 virtual
 host devices, so this runs in a process of its own. Every sorted output
@@ -14,6 +14,11 @@ npz holds ``<name>/keys``, ``/values``, ``/counts``, ``/send_counts``,
 ``/raw_keys`` for kv, ``/raw_count``, ``/raw_send_counts``); the
 ``SortLibrary`` cases their raw grids; the traced sort its span names and
 per-device counts; ``topk_shard``'s answers; ``vocab_pad``'s.
+
+With ``moe`` it runs the MoE cases instead (tests/test_torch_moe_mesh.py):
+``repro``'s ``moe_forward`` on ``jax.make_mesh((2, 4), ("data",
+"model"))``, as tests/test_distributed.py runs it, writing each case's
+global output and aux loss as ``<name>/out`` and ``<name>/aux``.
 """
 from __future__ import annotations
 
@@ -43,6 +48,29 @@ def _raw(out: dict, name: str, raw) -> None:
     out[f"{name}/raw_count"] = np.asarray(raw.count)
     out[f"{name}/raw_send_counts"] = np.asarray(raw.send_counts)
     out[f"{name}/raw_overflowed"] = np.asarray(raw.overflowed)
+
+
+def moe_main(path: str) -> None:
+    import dataclasses
+
+    from repro.configs.registry import smoke_config
+    from repro.models import moe
+
+    mesh = jax.make_mesh(C.MOE_MESH_SHAPE, C.MESH_AXES)
+    weights, x = C.moe_inputs()
+    p = {k: jnp.asarray(v) for k, v in weights.items()}
+    out: dict = {}
+    for name, case in C.moe_cases().items():
+        cfg = dataclasses.replace(smoke_config("deepseek-moe-16b"), **{
+            "moe_capacity_factor": 8.0, "dtype": "float32", **case["cfg"]})
+        assert (cfg.d_model, cfg.n_experts, cfg.d_expert) == (C.MOE_D, C.MOE_E, C.MOE_DE)
+        axes = rspec.from_mesh(mesh, expert_2d=case["expert_2d"])
+        with rspec.set_mesh_compat(mesh):
+            o, aux = jax.jit(lambda x, p, cfg=cfg, axes=axes: moe.moe_forward(x, p, cfg, axes))(
+                jnp.asarray(x[:, :case["S"]]), p)
+        out[f"{name}/out"] = np.asarray(o)
+        out[f"{name}/aux"] = np.asarray(aux)
+    np.savez(path, **out)
 
 
 def main(path: str) -> None:
@@ -103,4 +131,4 @@ def main(path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    (moe_main if sys.argv[2:] == ["moe"] else main)(sys.argv[1])

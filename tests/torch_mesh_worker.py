@@ -1,6 +1,6 @@
 """One rank of the port's side of tests/test_torch_mesh.py.
 
-    python tests/torch_mesh_worker.py RANK WORLD STORE_FILE OUT_DIR
+    python tests/torch_mesh_worker.py RANK WORLD STORE_FILE OUT_DIR [moe]
 
 Joins a gloo group of WORLD (8) processes through a file store, builds a
 ``DeviceMesh("cpu", (4, 2), ("data", "model"))`` and runs every case of
@@ -12,6 +12,13 @@ cases and the unequal-shard ValueError; the traced sort's spans; the
 first attempt's local and reduced overflow flags of the lockstep case;
 ``topk_shard``; ``vocab_pad``; and int64 sorts in x64 mode. It imports
 nothing of JAX.
+
+With ``moe`` it runs the MoE cases instead (tests/test_torch_moe_mesh.py)
+on a ``DeviceMesh("cpu", (2, 4))``: each case's ``moe_forward`` on this
+rank's block of the tokens (``moe.local_tokens``) and experts
+(``moe.shard_params``), with both sort paths, writing ``<name>/out/<0|1>``
+(``use_pallas``), ``<name>/aux/<0|1>`` and ``<name>/pos``, the global
+indices b * S + s of the block's tokens.
 """
 from __future__ import annotations
 
@@ -66,12 +73,48 @@ def local_input(case: dict, rank: int):
     return C.shard(case["keys"], p, r), values
 
 
-def main(rank: int, world: int, store: str, out_dir: str) -> None:
+def join(rank: int, world: int, store: str) -> None:
     torch.set_num_threads(1)
     warnings.simplefilter("ignore", DeprecationWarning)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                         world_size=world,
+                                         timeout=datetime.timedelta(seconds=120))
+
+
+def moe_main(rank: int, world: int, store: str, out_dir: str) -> None:
+    import dataclasses
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import moe
+
+    join(rank, world, store)
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(C.MOE_MESH_SHAPE),
+                      mesh_dim_names=C.MESH_AXES)
+    weights, x = C.moe_inputs()
+    full = moe.MoE(*(torch.from_numpy(weights[n]) for n in ("router", "wi", "wg", "wo")))
+    out: dict = {}
+    for name, case in C.moe_cases().items():
+        cfg = dataclasses.replace(smoke_config("deepseek-moe-16b"), **{
+            "moe_capacity_factor": 8.0, "dtype": "float32", **case["cfg"]})
+        axes = spec.from_mesh(mesh, expert_2d=case["expert_2d"])
+        xg = torch.from_numpy(x[:, :case["S"]])
+        B, S, _ = xg.shape
+        out[f"{name}/pos"] = _np(moe.local_tokens(torch.arange(B * S).reshape(B, S, 1), axes))
+        local = moe.shard_params(full, axes)
+        for use_pallas in (0, 1):
+            o, aux = moe.moe_forward(moe.local_tokens(xg, axes), local, cfg, axes,
+                                     use_pallas=bool(use_pallas))
+            out[f"{name}/out/{use_pallas}"] = _np(o)
+            out[f"{name}/aux/{use_pallas}"] = _np(aux)
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+    torch.distributed.destroy_process_group()
+
+
+def main(rank: int, world: int, store: str, out_dir: str) -> None:
+    join(rank, world, store)
     dist = torch.distributed
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=120))
     from torch.distributed.device_mesh import DeviceMesh
 
     mesh = DeviceMesh("cpu", torch.arange(world).reshape(C.MESH_SHAPE),
@@ -163,4 +206,5 @@ def main(rank: int, world: int, store: str, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    (moe_main if sys.argv[5:] == ["moe"] else main)(int(sys.argv[1]), int(sys.argv[2]),
+                                                     sys.argv[3], sys.argv[4])

@@ -9,7 +9,11 @@ made on bit views.
 from __future__ import annotations
 
 import dataclasses
+import os
 import pathlib
+import subprocess
+import sys
+import time
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -152,6 +156,30 @@ def assert_multikey_equal(r, t) -> None:
     assert r.imbalance() == t.imbalance() or (np.isnan(r.imbalance()) and np.isnan(t.imbalance()))
 
 
+BF16_TIE = 2.0 ** -9
+"""bfloat16's relative precision: a token whose K-th and (K+1)-th expert
+probabilities lie closer than this may be routed to the other expert after
+a one-ulp difference in its bfloat16 hidden state."""
+
+
+def router_margins(monkeypatch) -> list:
+    """Record every call of the port's MoE router: per token, the margin
+    between its K-th and (K+1)-th expert probability, a float32 tensor per
+    call, appended to the returned list. A bfloat16 comparison of whole
+    models leaves out the tokens whose margin is below ``BF16_TIE``."""
+    from repro_torch.models import moe
+
+    margins, router = [], moe._router
+
+    def record(xf, w, cfg):
+        p = torch.softmax(xf.float() @ w, dim=-1).sort(dim=-1, descending=True).values
+        margins.append(p[:, cfg.moe_topk - 1] - p[:, cfg.moe_topk])
+        return router(xf, w, cfg)
+
+    monkeypatch.setattr(moe, "_router", record)
+    return margins
+
+
 _WORLD_MESH = None
 
 
@@ -175,3 +203,49 @@ def world_mesh():
             atexit.register(dist.destroy_process_group)
         _WORLD_MESH = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("data",))
     return _WORLD_MESH
+
+
+HERE = pathlib.Path(__file__).resolve().parent
+MESH_TIMEOUT_S = 240  # for all processes together; a rank's collectives time out at 120 s
+
+
+def run_mesh_sides(d: pathlib.Path, world: int, *mode: str) -> tuple[dict, list]:
+    """Run ``repro``'s side (tests/torch_mesh_reference.py, 8 virtual host
+    devices) and ``world`` gloo ranks of the port (tests/torch_mesh_worker.py)
+    at the same time, rendezvousing through files in ``d`` (no port is
+    taken); ``mode`` goes to both (``"moe"``: the MoE cases). Processes
+    still running after MESH_TIMEOUT_S are killed; a failed one's log
+    (``d / "rank<r>.log"``, ``d / "ref.log"``) is shown. Returns (repro's
+    npz, the port's npz per global rank) as dicts."""
+    src = str(HERE.parent / "src")
+    path = os.pathsep.join([src, os.environ.get("PYTHONPATH", "")])
+    ref_env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=path,
+                   XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    port_env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1")
+    runs = [([HERE / "torch_mesh_reference.py", d / "ref.npz", *mode], ref_env, d / "ref.log")]
+    runs += [([HERE / "torch_mesh_worker.py", r, world, d / "store", d, *mode], port_env,
+              d / f"rank{r}.log") for r in range(world)]
+    logs = [open(log, "w") for _, _, log in runs]
+    procs = [subprocess.Popen([sys.executable, *map(str, cmd)], env=env, stdout=f,
+                              stderr=subprocess.STDOUT) for (cmd, env, _), f in zip(runs, logs)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    failed = [log for p, (_, _, log) in zip(procs, runs) if p.returncode != 0]
+    assert not failed, "\n".join(f"{log.name}: {log.read_text()[-3000:]}" for log in failed)
+
+    def load(path):
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+
+    return load(d / "ref.npz"), [load(d / f"rank{r}.npz") for r in range(world)]
