@@ -160,7 +160,13 @@ Phases, one line or more each:
      from the config and shapes (per MoE layer one kv row sort and three
      kv merges of ``stable_argsort``; flash once per layer); then prefill
      and decode timed, and one decode step under torch.profiler (device
-     time by kernel, idle share). The first MoE layer's expert ids from
+     time by kernel, idle share); the prefill's last-position logits
+     against the same weights with flash_attention=False, which must
+     launch no flash kernel: the flash prefill with the plain one's
+     routing replayed layer by layer within 5e-2 x max|logit| (a MoE
+     layer's top-6 is a discrete choice that bf16 rounding can flip), the
+     logits as routed on their own and the share of tokens routed to
+     other experts printed beside it. The first MoE layer's expert ids from
      the prefill: ``stable_argsort`` on the card (kernels) equal to the
      twin on the CPU and to torch.sort bit for bit, ``moe_forward`` with
      both sort paths the same bits, and its time split into the sort, the
@@ -172,7 +178,11 @@ Phases, one line or more each:
      card), 2 x 2048 tokens, experts over "model", over ("data", "model")
      and that exchange factored: the blocks within 1e-4 x max|out| of one
      rank's output, the per-expert and send counts equal, each rank's
-     launches as derived, and the exchange's share of the layer's wall.
+     launches as derived, and the exchange's share of the layer's wall;
+     then over ("data", "model") at the config's capacity factor 1.25,
+     where tokens drop and the received buckets (C = 1921) merge on the
+     kernels: counts and launches as before, and each rank's output equal
+     to its own use_pallas=False run bit for bit (every case holds that).
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
@@ -652,8 +662,10 @@ def check_kernels(device) -> dict:
 
 # ------------------------------------------------------------------ phase 4
 
+# the last two: qwen3-4b's prefill (GQA 32 / 8) and deepseek-moe-16b's (MHA 16)
 FLASH_SHAPES = [(1, 256, 4, 2, 16), (2, 1000, 4, 1, 64), (2, 1000, 8, 2, 128),
-                (1, 77, 8, 8, 128), (1, 8192, 32, 8, 128), (2, 8192, 32, 8, 128)]
+                (1, 77, 8, 8, 128), (1, 8192, 32, 8, 128), (2, 8192, 32, 8, 128),
+                (2, 8192, 16, 16, 128)]
 # max abs err against flash_attention_twin; bf16: tests/test_flash_kernel.py's
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
@@ -2050,9 +2062,13 @@ def run_mesh(device) -> dict:
 MOE_B, MOE_S, MOE_NEW = 2, 8192, 16  # prompts of 8192: flash serves S >= 8192
 MOE_EP_B, MOE_EP_S = 2, 2048
 MOE_EP_MESH = (2, 2)
-MOE_EP_CASES = {"experts over model": (False, False),
-                "experts over (data, model)": (True, False),
-                "experts over (data, model), hierarchical": (True, True)}
+# label: (expert_2d, hierarchical_a2a, capacity factor); at 8 nothing drops,
+# so the ranks must equal one rank; at the config's 1.25 tokens drop and the
+# received buckets (C = 1921, padded to 2048) merge on the kernels
+MOE_EP_CASES = {"experts over model": (False, False, 8.0),
+                "experts over (data, model)": (True, False, 8.0),
+                "experts over (data, model), hierarchical": (True, True, 8.0),
+                "experts over (data, model), capacity 1.25": (True, False, 1.25)}
 MAX_KERNEL_ROW = 8192  # kernels.ops.MAX_PALLAS_ROW
 
 
@@ -2107,9 +2123,10 @@ def moe_rank(rank: int, world: int, out_dir: str, device) -> None:
     group through a file store, a (data, model) = (2, 2) ``DeviceMesh``;
     for each case of MOE_EP_CASES ``moe_forward`` on this rank's block of
     the tokens and its slice of the 64 experts (warmed once, then timed
-    between barriers with its launches), and once more through
-    ``_dispatch_body`` with each exchange timed; its output, block, send
-    counts, routed counts, launches and times go to ``rank<r>.pt``."""
+    between barriers with its launches), once with use_pallas=False, and
+    once more through ``_dispatch_body`` with each exchange timed; its
+    output, block, send counts, routed counts, launches and times go to
+    ``rank<r>.pt``."""
     import dataclasses
     import datetime
 
@@ -2134,8 +2151,8 @@ def moe_rank(rank: int, world: int, out_dir: str, device) -> None:
     B, S, d = x.shape
     pos = torch.arange(B * S).reshape(B, S, 1)
     results = {}
-    for label, (expert_2d, hierarchical) in MOE_EP_CASES.items():
-        c = dataclasses.replace(cfg, hierarchical_a2a=hierarchical)
+    for label, (expert_2d, hierarchical, cf) in MOE_EP_CASES.items():
+        c = dataclasses.replace(cfg, hierarchical_a2a=hierarchical, moe_capacity_factor=cf)
         axes = spec.from_mesh(mesh, expert_2d=expert_2d)
         xl, local = moe.local_tokens(x, axes), moe.shard_params(layer, axes)
         moe.moe_forward(xl, local, c, axes)  # warm
@@ -2148,6 +2165,7 @@ def moe_rank(rank: int, world: int, out_dir: str, device) -> None:
         dist.barrier()
         wall = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+        plain, plain_aux = moe.moe_forward(xl, local, c, axes, use_pallas=False)
 
         group = spec.axis_group(mesh, axes.expert)
         a2a, spent = moe._make_a2a(mesh, axes.expert, hierarchical), []
@@ -2169,7 +2187,8 @@ def moe_rank(rank: int, world: int, out_dir: str, device) -> None:
         _, ids, _ = moe._router(xl.reshape(-1, d), layer.router, c)
         results[label] = dict(
             out=out.cpu(), aux=float(aux), pos=moe.local_tokens(pos, axes).reshape(-1),
-            same=torch.equal(again.reshape(out.shape), out), send=send.cpu(),
+            same=torch.equal(again.reshape(out.shape), out),
+            same_plain=torch.equal(plain, out) and torch.equal(plain_aux, aux), send=send.cpu(),
             routed=torch.bincount(ids.reshape(-1).long(), minlength=cfg.n_experts).cpu(),
             launches=launches, wall_ms=wall * 1e3, n_shards=group.size,
             tokens=xl.shape[0] * xl.shape[1], exchange_share=sum(spent) / body_wall,
@@ -2183,6 +2202,7 @@ def run_moe(device) -> dict:
     depth, the dispatch's kernels against their twins, the dense oracle,
     and expert parallelism over four gloo ranks and a one-rank NCCL group.
     Returns the launches of every kernel over the served run."""
+    import copy
     import dataclasses
     import datetime
     import shutil
@@ -2244,14 +2264,16 @@ def run_moe(device) -> dict:
     if out.shape != (B, n_new) or not bool(((out >= 0) & (out < vocab)).all()):
         raise AssertionError(f"phase 10: tokens out of [0, {vocab}) or of shape {out.shape}")
 
-    # prefill and decode timed; the first MoE layer's router input captured
-    captured = []
+    # prefill and decode timed; the first MoE layer's router input captured,
+    # and every MoE layer's expert ids
+    captured, flash_ids = [], []
     router = moe._router
 
     def capture(xf, w, c):
         r = router(xf, w, c)
         if not captured:
             captured.append((xf, r[1]))
+        flash_ids.append(r[1])
         return r
 
     prefill, step = engine.make_prefill(model), engine.make_serve_step(model)
@@ -2281,11 +2303,61 @@ def run_moe(device) -> dict:
     log(f"phase 10: one decode step under torch.profiler: {wall:.3f} ms wall, {dev:.3f} ms "
         f"device (idle {1 - dev / wall:.3f}); largest device events: " + "; ".join(
             f"{name[:60]} {ms:.3f} ms ({ms / dev:.3f})" for name, ms in events[:8]))
-    del caches, logits
+    del caches
     decode_ms = statistics.median(step_ms)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"phase 10: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms a step (median of "
         f"{len(step_ms)}), {B / decode_ms * 1e3:.3f} tokens/s, peak {peak_gb:.3f} GB")
+
+    # the prefill against the same weights read with flash_attention=False.
+    # Each MoE layer's top-6 of 64 is a discrete choice that the attention's
+    # bf16 rounding can flip, and a flip moves which tokens the capacity
+    # drops; so the flash prefill runs once more with the plain prefill's
+    # routing (ids, weights, aux) replayed layer by layer, and that run is
+    # held to the plain one
+    plain = copy.copy(model)
+    plain.cfg = dataclasses.replace(cfg, flash_attention=False)
+    routes = []
+
+    def record(xf, w, c):
+        routes.append(router(xf, w, c))
+        return routes[-1]
+
+    before = flash.flash_attention.launches
+    moe._router = record
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, _ = engine.make_prefill(plain)(batch)
+        torch.cuda.synchronize()
+        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe._router = router
+    if flash.flash_attention.launches != before:
+        raise AssertionError("phase 10: the flash_attention=False prefill launched flash")
+    replay = iter(routes)
+    moe._router = lambda xf, w, c: next(replay)
+    try:
+        pinned, _ = prefill(batch)
+    finally:
+        moe._router = router
+    if flash.flash_attention.launches != before + cfg.n_layers or next(replay, None):
+        raise AssertionError("phase 10: the replayed flash prefill ran another path")
+    moved = [float((a.sort(-1).values != r[1].sort(-1).values).any(-1).float().mean())
+             for a, r in zip(flash_ids, routes, strict=True)]
+    got, pinned, ref = logits.float(), pinned.float(), ref.float()
+    diff, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    pin_diff = float((pinned - ref).abs().max())
+    same_first = torch.equal(got[..., :vocab].argmax(-1), ref[..., :vocab].argmax(-1))
+    log(f"phase 10: prefill logits vs flash_attention=False ({plain_prefill_ms:.3f} ms), max "
+        f"|logit| {scale:.4f}: with the plain prefill's routing replayed max abs diff "
+        f"{pin_diff:.4f}; routed on its own max abs diff {diff:.4f} (same greedy first token "
+        f"{same_first}; share of tokens routed to another set of experts: first MoE layer "
+        f"{moved[0]:.5f}, last {moved[-1]:.5f}, max {max(moved):.5f})")
+    if not (torch.isfinite(got).all() and torch.isfinite(pinned).all()
+            and pin_diff <= 5e-2 * scale):
+        raise AssertionError("phase 10: the flash prefill disagrees with the plain prefill")
+    del plain, logits, ref, got, pinned, routes, flash_ids
 
     # the dispatch's kernels against their twins, on the first MoE layer's ids
     xf, ids = captured[0]
@@ -2374,7 +2446,7 @@ def run_moe(device) -> dict:
     ranks = run_ranks(scratch, 10)
     flat = one.reshape(-1, cfg32.d_model).cpu()
     scale = float(flat.abs().max())
-    for label, (expert_2d, _) in MOE_EP_CASES.items():
+    for label, (_, _, cf) in MOE_EP_CASES.items():
         got = [rk[label] for rk in ranks]
         whole = torch.zeros_like(flat)
         seen = torch.zeros(flat.shape[0], dtype=torch.bool)
@@ -2383,9 +2455,20 @@ def run_moe(device) -> dict:
             seen[g["pos"]] = True
         err = float((whole - flat).abs().max())
         n_shards = got[0]["n_shards"]
-        if not (seen.all() and err <= 1e-4 * scale and all(g["same"] for g in got)):
+        if not (seen.all() and all(g["same"] and g["same_plain"] for g in got)):
+            raise AssertionError(f"phase 10: {label}: a rank's output differs from its own "
+                                 f"use_pallas=False or _dispatch_body run")
+        # assignments past an expert's capacity or a bucket's drop; where none
+        # does (always at capacity factor 8) the ranks must equal one rank
+        T = got[0]["tokens"]
+        C = moe_capacity(T * K, n_shards, cf)
+        cap_e = max(1, int(T * K * n_shards // cfg32.n_experts * cf) + 1)
+        over = int((routed - cap_e).clamp(min=0).sum()) + sum(
+            int((g["send"].long() - C).clamp(min=0).sum()) for g in got)
+        if (over == 0 or cf == cfg32.moe_capacity_factor) and not err <= 1e-4 * scale:
             raise AssertionError(f"phase 10: {label}: the ranks' blocks are off the one-rank "
-                                 f"output (max abs err {err})")
+                                 f"output (max abs err {err}, {over} assignments over a "
+                                 f"capacity)")
         # aux: the mean over the ranks of each block's own aux loss
         blocks = x.reshape(-1, cfg32.d_model)
         aux_mean = statistics.fmean(float(moe._router(blocks[g["pos"].to(device)],
@@ -2398,17 +2481,18 @@ def run_moe(device) -> dict:
         sent = sum(g["send"].long() for g in got)
         if not torch.equal(sent, routed.reshape(n_shards, -1).sum(1)):
             raise AssertionError(f"phase 10: {label}: send counts differ from one rank's")
-        T = got[0]["tokens"]
-        want_rank = moe_dispatch_launches(T, K, n_shards, moe_capacity(T * K, n_shards, 8.0))
+        want_rank = moe_dispatch_launches(T, K, n_shards, C)
         if any(g["launches"] != want_rank for g in got):
             raise AssertionError(f"phase 10: {label}: launches {[g['launches'] for g in got]}, "
                                  f"derived {want_rank}")
         log(f"phase 10: 4 gloo ranks, {label} ({n_shards} shards, {T} tokens a rank): "
             f"{got[0]['wall_ms']:.3f} ms wall on rank 0, exchange share "
             f"{statistics.median(g['exchange_share'] for g in got):.4f} (median over ranks, "
-            f"{got[0]['exchanges']} exchanges staged through the host), max abs err {err:.3e} "
-            f"against one rank (max |out| {scale:.4f}), per-expert and send counts equal, "
-            f"launches per rank {tuple(got[0]['launches'].values())}")
+            f"{got[0]['exchanges']} exchanges staged through the host), capacity factor {cf} "
+            f"(C {C}, {cap_e} an expert; {over} assignments over a capacity), max abs err "
+            f"{err:.3e} against one rank at capacity factor 8 (max |out| {scale:.4f}), "
+            f"per-expert and send counts equal, each rank's output equal to its "
+            f"use_pallas=False run, launches per rank {tuple(got[0]['launches'].values())}")
     shutil.rmtree(scratch, ignore_errors=True)
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
     return launches

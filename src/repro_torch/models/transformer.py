@@ -9,10 +9,11 @@ parameters; here the layers are a list of per-layer modules in the order
 
 An MoE block runs the sorted dispatch (``moe.moe_forward``) at prefill
 and the per-token expert gather (``moe.moe_forward_decode``) at decode.
-``use_pallas_moe`` picks the dispatch sort's path; its default here is
-True, so that on the card the model's dispatch launches the bitonic
-kernels, where ``repro``'s is False (``lax.sort``); both give the same
-bits. ``repro``'s EP x TP decode branch (``cfg.decode_moe_ep`` on a 2-D
+``apply_block``'s ``use_pallas_moe`` picks the dispatch sort's path; it
+mirrors ``repro``'s signature, and nothing in the port's model passes it
+(``run_segments`` takes the default). Its default here is True, so that
+on the card the model's dispatch launches the bitonic kernels, where
+``repro``'s is False (``lax.sort``); both give the same bits. ``repro``'s EP x TP decode branch (``cfg.decode_moe_ep`` on a 2-D
 expert mesh) raises NotImplementedError naming its ROADMAP.md item: the
 port's model runs on one device.
 """

@@ -510,14 +510,14 @@ def test_wrapper_raises_on_cuda_instead_of_falling_back(gpu):
                                    (1, 77, 8, 8, 128)])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_matches_twin(gpu, shape, dtype, tol, causal):
+def test_flash_kernel_matches_twin(gpu, shape, dtype, tol, causal, monkeypatch):
     """Max abs err within ``tol`` of the Pallas-faithful twin; in bf16 also
     within ``bf16_error``'s limit of the twin that rounds where the kernel
     does (one bf16 ulp of each output plus 2^-6 of its row's rms, mean
     err <= 1e-3 rms)."""
     from repro_torch.kernels import flash
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     B, S, H, KV, dh = shape
     gen = torch.Generator(device=gpu).manual_seed(S)
     q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=gpu).to(dtype)
@@ -563,7 +563,7 @@ def test_flash_tma_encode_failure_raises(gpu, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
-def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol):
+def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol, monkeypatch):
     """The qwen3-4b smoke config at S = 8192 with flash_attention=True:
     on the card the prefill launches the kernel once per layer; on the CPU
     the same weights run the twin (which the CPU tests hold against repro)."""
@@ -574,7 +574,7 @@ def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol):
     from repro_torch.models.model import Model
     from repro_torch.serve import engine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = dataclasses.replace(smoke_config("qwen3-4b"), dtype=dtype, flash_attention=True)
     m_gpu = Model(cfg, device=gpu, seed=4)
     m_cpu = Model(cfg, device="cpu")
@@ -593,7 +593,7 @@ def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
-def test_moe_on_cuda_equals_cpu(gpu):
+def test_moe_on_cuda_equals_cpu(gpu, monkeypatch):
     """The deepseek-moe-16b smoke config in float32: the prefill's MoE
     dispatch on the card launches the kv row sort and kv merge kernels
     (``stable_argsort``), and the logits, the aux loss and the generated
@@ -603,7 +603,7 @@ def test_moe_on_cuda_equals_cpu(gpu):
     from repro_torch.models.model import Model
     from repro_torch.serve import engine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = dataclasses.replace(smoke_config("deepseek-moe-16b"), dtype="float32")
     m_gpu = Model(cfg, device=gpu, seed=5)
     m_cpu = Model(cfg, device="cpu")

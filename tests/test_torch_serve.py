@@ -153,20 +153,23 @@ def test_moe_decode_equals_forward():
 def test_moe_prefill_extend_and_step_match_repro(dtype, monkeypatch):
     """In bfloat16, rows whose token's top-k margin is within bf16's
     precision (``torch_parity.BF16_TIE``) may route elsewhere in ``repro``
-    and are left out of the logits' comparison (the caches are compared
-    whole: they do not depend on the routing of this two-layer model)."""
+    and are left out of the logits' comparison, at most one in four (the
+    caches are compared whole: they do not depend on the routing of this
+    two-layer model)."""
     jm, params, tm = both("deepseek-moe-16b", dtype)
-    T = 17
-    toks = np.random.default_rng(13).integers(0, jm.cfg.vocab, (2, T)).astype(np.int32)
+    B, T = 8, 17
+    toks = np.random.default_rng(13).integers(0, jm.cfg.vocab, (B, T)).astype(np.int32)
     tol = 1e-4 if dtype == "float32" else 5e-2
     margins = router_margins(monkeypatch)
 
     def rows(margin):
-        return np.ones(2, bool) if dtype == "float32" else (margin >= BF16_TIE).numpy()
+        keep = np.ones(B, bool) if dtype == "float32" else (margin >= BF16_TIE).numpy()
+        assert keep.mean() >= 0.75, keep
+        return keep
 
     jlg, jcaches = jengine.make_prefill(jm)(params, {"tokens": jnp.asarray(toks[:, :-1])})
     lg, caches = engine.make_prefill(tm)({"tokens": torch.from_numpy(toks[:, :-1])})
-    keep = rows(margins[-1].reshape(2, T - 1)[:, -1])
+    keep = rows(margins[-1].reshape(B, T - 1)[:, -1])
     close(convert.to_numpy(lg)[keep], np.asarray(jlg)[keep], tol)
     jcaches = jengine.extend_caches(jm, jcaches, T - 1, T + 4)
     caches = engine.extend_caches(tm, caches, T - 1, T + 4)
