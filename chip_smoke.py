@@ -182,11 +182,40 @@ Phases, one line or more each:
      then over ("data", "model") at the config's capacity factor 1.25,
      where tokens drop and the received buckets (C = 1921) merge on the
      kernels: counts and launches as before, and each rank's output equal
-     to its own use_pallas=False run bit for bit (every case holds that).
+     to its own use_pallas=False run bit for bit (every case holds that);
+ 11. training (``repro_torch.train``, ``optim``, ``data``, ``checkpoint``,
+     ``ft``, the launcher's pieces): deepseek-moe-16b at full width (d_model
+     2048, 16 MHA heads of 128, 64 routed experts of 1408 and 2 shared,
+     top-6, capacity factor 1.25, vocabulary 102,400, bf16) cut to one
+     dense and three MoE layers, remat on, AdamW (peak lr 3e-4, warmup 2,
+     8 steps) with float32 states, trains 4 steps on one batch of 2 x 4096
+     tokens at grad_accum 2 made by ``PackedLoader`` on the card, through
+     ``RestartManager.run``, the launch counts set to 0 just before and
+     read just after. Checks: (1) the first loss finite and within 0.5 of
+     ln V + 1/2 (unit-variance logits), and lower after three updates on
+     the same batch; (2) the data round's launches (one kv row sort, three
+     kv merges) and each step's (per MoE layer and micro-step one
+     dispatch, ``moe_dispatch_launches``, twice with remat; the keys-only
+     kernels and flash 0) as derived; (3) one full-width MoE layer's
+     forward and backward in float32 on 4096 tokens with the kernel sort
+     and with ``torch.sort``: routing and output equal bit for bit,
+     gradients within 1e-5 x max; (4) two train steps of the smoke config
+     in float32 on the card and on the CPU: metrics, m and v within 1e-5
+     x max, parameters within 1e-5 x max + 1% of the summed lr; (5)
+     ``bucket_by_length`` on the card equal to the CPU and to the stable
+     argsort for 4096 lengths (sim) and 2^20 (stream), both timed; (6)
+     ``save_async``, a step, ``wait``: the checkpoint holds the state from
+     before the step and restores into a fresh model bit for bit, and a
+     ``RestartManager`` whose step raises once recovers (the smoke config
+     on the card). Prints the step wall (median after the first), tokens/s,
+     peak memory, one step under torch.profiler (idle share, top kernels),
+     the optimizer update's time and the dispatch sort's share of one MoE
+     layer's forward.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
-served run's as ``launches_moe``, flash's too; their
+served run's as ``launches_moe``, phase 11's training run's as
+``launches_train``, flash's too; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -195,6 +224,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 8     # phases 1, 2 and 8
     python3 chip_smoke.py --phases 9     # phases 1, 2 and 9
     python3 chip_smoke.py --phases 10    # phases 1, 2 and 10
+    python3 chip_smoke.py --phases 11    # phases 1, 2 and 11
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -1366,9 +1396,11 @@ def device_ms(fn) -> tuple[float, float]:
     return wall, dev
 
 
-def device_breakdown(fn) -> tuple[float, float, list]:
+def device_breakdown(fn, nodes: bool = False) -> tuple:
     """``device_ms`` and the device-side events by name, largest first:
-    [(name, ms), ...]."""
+    [(name, ms), ...]. With ``nodes``, a fourth item: the backward's
+    autograd nodes by the device time of the kernels they launched,
+    largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1389,7 +1421,17 @@ def device_breakdown(fn) -> tuple[float, float, list]:
     dev = sum(ms for _, ms in events)
     if dev == 0:
         raise AssertionError("the profiler recorded no device time")
-    return wall, dev, events
+    if not nodes:
+        return wall, dev, events
+
+    def total_us(e) -> float:  # renamed from cuda_time_total in newer torch
+        v = getattr(e, "device_time_total", None)
+        return e.cuda_time_total if v is None else v
+
+    node = "autograd::engine::evaluate_function: "
+    backward = sorted(((e.key[len(node):], total_us(e) / 1e3) for e in prof.key_averages()
+                       if e.key.startswith(node) and total_us(e) > 0), key=lambda kv: -kv[1])
+    return wall, dev, events, backward
 
 
 def schema_shape_ok(label: str, got: dict, path: pathlib.Path) -> None:
@@ -2498,7 +2540,354 @@ def run_moe(device) -> dict:
     return launches
 
 
-ALL_PHASES = frozenset(range(1, 11))
+# ----------------------------------------------------------------- phase 11
+TRAIN_S, TRAIN_B, TRAIN_ACCUM = 4096, 2, 2  # 16,384 tokens a step
+TRAIN_STEPS = 4  # on one repeated batch
+
+
+def train_config():
+    """Phase 11's cut of deepseek-moe-16b: full width, one dense layer and
+    three MoE layers (``repro``'s example intends "1 dense + 3 MoE"; its
+    ``--layers`` flag would give dense layers only), bf16, remat on."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    full = get_config("deepseek-moe-16b")
+    (dense, _), (moe_period, _) = full.segments
+    return dataclasses.replace(full, segments=((dense, 1), (moe_period, 3)), n_layers=4,
+                               dtype="bfloat16")
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import bitonic, flash
+
+    out = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    out["flash_attention"] = flash.flash_attention.launches
+    return out
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import bitonic, flash
+
+    bitonic.reset_launches()
+    flash.flash_attention.launches = 0
+
+
+def counts_minus(a: dict, b: dict) -> dict:
+    return {k: a[k] - b[k] for k in a}
+
+
+def run_train(device) -> dict:
+    """Phase 11, with autograd on (``main`` turns it off for the others)."""
+    import torch
+
+    with torch.enable_grad():
+        return train_phase(device)
+
+
+def train_phase(device) -> dict:
+    """Phase 11: deepseek-moe-16b trained at full width (1 dense + 3 MoE
+    layers) through the launcher's pieces, and its six checks. Returns the
+    launches of every kernel over the training run."""
+    import argparse
+    import dataclasses
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager, _flatten
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core import keyenc
+    from repro_torch.data import pipeline
+    from repro_torch.ft.manager import RestartManager
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import (
+        TrainConfig, init_train_state, make_loss_fn, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_list())
+    args = argparse.Namespace(seq_len=TRAIN_S, global_batch=TRAIN_B, grad_accum=TRAIN_ACCUM)
+    tcfg = TrainConfig(opt=adamw.OptConfig(name=cfg.optimizer, peak_lr=3e-4, warmup_steps=2,
+                                           total_steps=8, state_dtype=cfg.opt_state_dtype))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    params, ost = init_train_state(model, tcfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"phase 11: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    log(f"phase 11: deepseek-moe-16b cut to {cfg.n_layers} layers (1 dense, {n_moe} MoE: "
+        f"{cfg.n_experts} experts of {cfg.d_expert} + {cfg.n_shared_experts} shared, "
+        f"top-{cfg.moe_topk}, capacity factor {cfg.moe_capacity_factor}), d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}, remat {cfg.remat}: param_count "
+        f"{n_params}, built with AdamW states in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    step_fn = make_train_step(model, tcfg)
+    loader = pipeline.PackedLoader(launcher.data_config(cfg, args), cfg, device=device)
+    it = iter(loader)
+
+    # the derived launches: the data round's argsort of bucket_docs lengths on
+    # the sim (a payload sort: one kv row sort, three kv merges) and, per MoE
+    # layer and micro-step, one dispatch, twice with remat
+    T, K = TRAIN_B * TRAIN_S, cfg.moe_topk
+    per_layer = moe_dispatch_launches(T, K, 1, moe_capacity(T * K, 1, cfg.moe_capacity_factor))
+    want_step = {k: v * n_moe * TRAIN_ACCUM * (2 if cfg.remat else 1)
+                 for k, v in per_layer.items()}
+    want_step["flash_attention"] = 0
+    want_data = dict(zip(per_layer, KEY_VALUE), flash_attention=0)
+
+    # the main path: RestartManager.run over TRAIN_STEPS steps on one batch
+    # that the loader makes at the first step; counts set to 0 just before
+    batches, data_launches, step_launches, step_ms, losses = [], [], [], [], []
+
+    def make_batch(step):
+        if not batches:
+            before = launch_counts()
+            batches.append(next(it))
+            data_launches.append(counts_minus(launch_counts(), before))
+        return batches[0]
+
+    def wrapped_step(state, step, batch):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p, o, metrics = step_fn(*state, step, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_launches.append(counts_minus(launch_counts(), before))
+        losses.append({k: float(v) for k, v in metrics.items()})
+        return (p, o), metrics
+
+    scratch = ROOT / "build" / "phase11"
+    shutil.rmtree(scratch, ignore_errors=True)
+    mgr = RestartManager(CheckpointManager(str(scratch / "run"), keep=1),
+                         save_every=10 ** 9)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    (params, ost), final = mgr.run((params, ost), 0, TRAIN_STEPS, wrapped_step, make_batch)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_B * TRAIN_S * TRAIN_ACCUM
+    med = statistics.median(step_ms[1:])
+    log(f"phase 11: {final} steps through RestartManager.run in {run_s:.3f} s: step wall ms "
+        + ", ".join(f"{t:.3f}" for t in step_ms) + f"; median after the first {med:.3f} ms, "
+        f"{tokens / med * 1e3:.1f} tokens/s ({tokens} tokens a step: {TRAIN_B} x {TRAIN_S} x "
+        f"accum {TRAIN_ACCUM}), peak {peak_gb:.3f} GB")
+    for i, m in enumerate(losses):
+        log(f"phase 11: step {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in m.items()))
+
+    # check 1: the loss. Unit-variance logits (the final rmsnorm's rms-1
+    # states against the head's N(0, 1/d) weights) give nll = ln V + 1/2.
+    # lr(0) == 0, so step 1 sees the first loss again; the first updates of
+    # AdamW move every parameter by about lr (m / sqrt(v) is the gradient's
+    # sign), so on one repeated batch the loss falls and may overshoot
+    # after: the check is that the run goes below the first loss
+    with torch.no_grad():
+        after = float(make_loss_fn(model, tcfg)({k: torch.as_tensor(v[0], device=device)
+                                                 for k, v in batches[0].items()})[0])
+    expect = math.log(cfg.vocab) + 0.5
+    first, lowest = losses[0]["loss"], min(m["loss"] for m in losses[1:])
+    log(f"phase 11: check 1: first loss {first:.6f} (ln V {math.log(cfg.vocab):.6f}, "
+        f"ln V + 1/2 {expect:.6f}); on the same batch, at steps 1-{TRAIN_STEPS - 1} "
+        + ", ".join(f"{m['loss']:.6f}" for m in losses[1:]) + f" (lowest {lowest:.6f}); "
+        f"micro-batch 0 after the {TRAIN_STEPS} steps {after:.6f}")
+    if not (math.isfinite(first) and abs(first - expect) <= 0.5 and lowest < first):
+        raise AssertionError("phase 11: check 1: the loss is off")
+
+    # check 2: the launches of the data round and of every step, as derived
+    log(f"phase 11: check 2: launches over the run {launches}; the data round "
+        f"{data_launches[0]} (derived {want_data}); each step {step_launches[0]} (derived "
+        f"{want_step}: per MoE layer and micro-step {per_layer}, {T * K} assignments, x "
+        f"{n_moe} layers x {TRAIN_ACCUM} micro-steps x 2 for remat)")
+    if data_launches != [want_data] or any(s != want_step for s in step_launches):
+        raise AssertionError("phase 11: check 2: launches differ from the derived ones")
+    total = {k: want_data[k] + TRAIN_STEPS * want_step[k] for k in want_step}
+    if launches != total:
+        raise AssertionError(f"phase 11: check 2: run launches {launches}, derived {total}")
+
+    # where a step's device time goes
+    batch = batches[0]
+    wall, dev, events, nodes = device_breakdown(
+        lambda: step_fn(params, ost, TRAIN_STEPS, batch), nodes=True)
+    log(f"phase 11: one step under torch.profiler: {wall:.3f} ms wall, {dev:.3f} ms device "
+        f"(idle {1 - dev / wall:.3f}); largest device events: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms ({ms / dev:.3f})" for name, ms in events[:10]))
+    log("phase 11: the backward's autograd nodes by the device time they launched: " + "; ".join(
+        f"{name[:40]} {ms:.3f} ms ({ms / dev:.3f})" for name, ms in nodes[:10]))
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
+             for k, p in params.items()}
+    groups = adamw.segment_groups(cfg, params)
+    opt_ms = time_ms(lambda: adamw.apply_updates(params, grads, ost, TRAIN_STEPS + 1, tcfg.opt,
+                                                 groups), reps=3, batch=1)
+    log(f"phase 11: the optimizer update (clip + AdamW over {len(params)} leaves, "
+        f"{n_params} parameters): {opt_ms:.3f} ms ({opt_ms / med:.4f} of a step)")
+    del grads
+
+    # the dispatch sort's share of one MoE layer's forward (bf16, 8192 tokens)
+    layer = next(b for b, s in zip(model.layers, cfg.layer_list()) if s.ffn == "moe")
+    h = torch.randn(TRAIN_B, TRAIN_S, cfg.d_model, device=device, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=device).manual_seed(21))
+    with torch.no_grad():
+        _, ids, _ = moe._router(h.reshape(-1, cfg.d_model), layer.moe.router, cfg)
+        layer_ms = time_ms(lambda: moe.moe_forward(h, layer.moe, cfg), reps=5, batch=2)
+    sort_ms = time_ms(lambda: keyenc.stable_argsort(ids.reshape(-1), use_pallas=True), reps=10,
+                      batch=5)
+    log(f"phase 11: one MoE layer's forward on {T} tokens: {layer_ms:.4f} ms; its dispatch "
+        f"sort (stable_argsort of {T * K} expert ids) {sort_ms:.4f} ms ({sort_ms / layer_ms:.4f}"
+        f" of the layer)")
+    del model, params, ost, step_fn, layer, h, ids, batches, mgr
+    torch.cuda.empty_cache()
+
+    # check 3: one full-width MoE layer, forward and backward in float32,
+    # kernels against the plain sort
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        layer = moe.init_moe(c32, torch.Generator(device=device).manual_seed(22), device)
+        x = torch.randn(1, 4096, c32.d_model, device=device,
+                        generator=torch.Generator(device=device).manual_seed(23))
+        runs = []
+        for path in (True, False):
+            xg = x.clone().requires_grad_(True)
+            _, ids, _ = moe._router(x.reshape(-1, c32.d_model), layer.router, c32)
+            o, aux = moe.moe_forward(xg, layer, c32, use_pallas=path)
+            g = torch.autograd.grad((o.float() ** 2).mean() + 0.01 * aux,
+                                    [xg, *layer.parameters()])
+            runs.append((ids, o.detach(), aux.detach(), g))
+        (i1, o1, a1, g1), (i2, o2, a2, g2) = runs
+        errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(g1, g2)]
+        log(f"phase 11: check 3: a full-width MoE layer on 4096 tokens in float32: routing "
+            f"and output equal bit for bit across the two sort paths "
+            f"{torch.equal(i1, i2) and torch.equal(o1, o2) and torch.equal(a1, a2)}; gradient "
+            f"errors of x, router, wi, wg, wo over their max: "
+            + ", ".join(f"{e:.3e}" for e in errs))
+        if not (torch.equal(i1, i2) and torch.equal(o1, o2) and torch.equal(a1, a2)
+                and max(errs) <= 1e-5):
+            raise AssertionError("phase 11: check 3: the kernel sort path differs")
+        del layer, x, runs, g1, g2
+
+        # check 4: the train step on the smoke config, card against CPU
+        small = dataclasses.replace(smoke_config("deepseek-moe-16b"), dtype="float32",
+                                    remat=True)
+        stcfg = TrainConfig(opt=adamw.OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10))
+        sdata = pipeline.DataConfig(seq_len=128, global_batch=2, grad_accum=2,
+                                    vocab=small.vocab, bucket_docs=256)
+        sb = [b for _, b in zip(range(2), pipeline.PackedLoader(sdata, device=device))]
+        sides = []
+        for dev in (device, torch.device("cpu")):
+            m = Model(small, device=dev, seed=6)
+            if sides:
+                m.load_state_dict({k: v.cpu() for k, v in sides[0][0].items()})
+            sp, so = init_train_state(m, stcfg)
+            start = {k: v.detach().clone() for k, v in sp.items()}
+            sstep = make_train_step(m, stcfg)
+            sm = [sstep(sp, so, i, b)[2] for i, b in zip((1, 2), sb)]
+            sides.append((start, sp, so, sm))
+        (_, gp, gs, gm), (_, cp, cs, cm) = sides
+        lr_sum = sum(float(m["lr"]) for m in cm)
+        m_err = max(abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])), 1e-7)
+                    for a, b in zip(gm, cm) for k in b)
+        top = max(float(t.detach().abs().max()) for t in cp.values())
+        p_err = max(float((gp[k].detach().cpu() - cp[k].detach()).abs().max()) for k in cp)
+        s_err = {kind: max(float((gs[kind][k].cpu() - cs[kind][k]).abs().max()) for k in cp)
+                 / max(float(t.abs().max()) for t in cs[kind].values()) for kind in ("m", "v")}
+        log(f"phase 11: check 4: two train steps of the deepseek-moe-16b smoke config in "
+            f"float32, card against CPU: metrics max relative error {m_err:.3e}; parameters "
+            f"max abs error {p_err:.3e} (limit 1e-5 x {top:.4f} + 1e-2 x summed lr "
+            f"{lr_sum:.2e}); m {s_err['m']:.3e}, v {s_err['v']:.3e} of their max")
+        if not (m_err <= 1e-5 and p_err <= 1e-5 * top + 1e-2 * lr_sum
+                and max(s_err.values()) <= 1e-5):
+            raise AssertionError("phase 11: check 4: the card's train step is off the CPU's")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # check 5: the data pipeline's length sort, card against CPU
+    dcfg = pipeline.DataConfig(seq_len=TRAIN_S)
+    rng = np.random.default_rng(24)
+    for label, lens in (("4096 documents (sim)", pipeline.doc_lengths(rng, 4096, dcfg)),
+                        ("2^20 lengths (stream)", pipeline.doc_lengths(rng, 1 << 20, dcfg))):
+        got, times = [], []
+        for dev in (device, "cpu"):
+            pipeline.bucket_by_length(lens, dcfg.bucket_procs,
+                                      external_threshold=dcfg.bucket_external_docs, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got.append(pipeline.bucket_by_length(
+                lens, dcfg.bucket_procs, external_threshold=dcfg.bucket_external_docs,
+                device=dev))
+            times.append((time.perf_counter() - t1) * 1e3)
+        same = (np.array_equal(got[0], got[1])
+                and np.array_equal(got[1], np.argsort(lens, kind="stable")))
+        log(f"phase 11: check 5: bucket_by_length of {label}, {len(np.unique(lens))} distinct: "
+            f"card {times[0]:.3f} ms, CPU {times[1]:.3f} ms wall (second call each); card "
+            f"equals CPU and the stable argsort bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"phase 11: check 5: {label}: the card's order differs")
+
+    # check 6: checkpoint and restart on the card (the smoke config in bf16)
+    small = smoke_config("deepseek-moe-16b")
+    sdata = pipeline.DataConfig(seq_len=128, global_batch=2, grad_accum=2, vocab=small.vocab,
+                                bucket_docs=256)
+    sb = [b for _, b in zip(range(4), pipeline.PackedLoader(sdata, device=device))]
+
+    def small_state(seed):
+        m = Model(small, device=device, seed=seed)
+        return m, *init_train_state(m, stcfg)
+
+    def bits(state):
+        return {n: t.detach().clone() for n, t in _flatten(state)}
+
+    m, sp, so = small_state(0)
+    sstep = make_train_step(m, stcfg)
+    sstep(sp, so, 1, sb[0])
+    ck = CheckpointManager(str(scratch / "ckpt"), keep=2)
+    before = bits((sp, so))
+    ck.save_async(2, (sp, so))
+    sstep(sp, so, 2, sb[1])
+    ck.wait()
+    moved = any(not torch.equal(before[n], t) for n, t in bits((sp, so)).items())
+    _, fp, fo = small_state(9)
+    (rp, ro), s = ck.restore_latest((fp, fo))
+    back = bits((rp, ro))
+    same = s == 2 and all(torch.equal(before[n], back[n]) for n in before)
+    fails = []
+
+    def flaky(state, step, batch):
+        if step == 3 and not fails:
+            fails.append(step)
+            raise RuntimeError("simulated device error")
+        p, o, metrics = sstep(*state, step, batch)
+        return (p, o), metrics
+
+    rm = RestartManager(CheckpointManager(str(scratch / "restart"), keep=2), save_every=2)
+    _, end = rm.run((sp, so), 0, 5, flaky, lambda s: sb[s % 4])
+    log(f"phase 11: check 6: save_async, a step ({'moved' if moved else 'did not move'} the "
+        f"state), wait: the checkpoint equals the state before the step and restores into a "
+        f"fresh model bit for bit: {same}; RestartManager with one failing step: ended at "
+        f"step {end}, recoveries {rm.recoveries}")
+    if not (moved and same and end == 5 and rm.recoveries == 1):
+        raise AssertionError("phase 11: check 6: checkpoint or restart failed")
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+ALL_PHASES = frozenset(range(1, 12))
 
 
 def main() -> int:
@@ -2508,13 +2897,16 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-10: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-11: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-phase", type=int, default=9, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    # the sort, serving and MoE phases run forward passes only (parameters
+    # require grad since the port trains); phase 11 turns grad on
+    torch.set_grad_enabled(False)
     if args.mesh_rank is not None:  # one of phase 9's or phase 10's ranks
         if args.mesh_phase == 10:
             torch.cuda.set_device(0)
@@ -2562,7 +2954,7 @@ def main() -> int:
     if phases != ALL_PHASES:  # a partial run (development): no result lines
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
-                           (10, run_moe)):
+                           (10, run_moe), (11, run_train)):
             if phase in phases:
                 run(device)
         return 0
@@ -2579,11 +2971,14 @@ def main() -> int:
     launches_mesh = run_mesh(device)
     torch.cuda.empty_cache()
     launches_moe = run_moe(device)
+    torch.cuda.empty_cache()
+    launches_train = run_train(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
              launches=launches[name], launches_serve=launches_serve[name],
              launches_mesh=launches_mesh[name], launches_moe=launches_moe[name],
+             launches_train=launches_train[name],
              max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
@@ -2594,6 +2989,7 @@ def main() -> int:
     kernels.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES,
         launches=serve["flash_launches"], launches_moe=launches_moe["flash_attention"],
+        launches_train=launches_train["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"]))

@@ -3,9 +3,10 @@
 For a sort, what crosses between the two packages is the configuration
 (``SortConfig`` / ``SortLimits``, given as the plain dicts of
 ``dataclasses.asdict``), the input arrays, and the output. For a model it
-is also the weights (``params_from_jax``) and the caches
-(``caches_to_numpy``). The tests use these to feed both packages the same
-thing and compare the results as numpy arrays.
+is also the weights (``params_from_jax``), the optimizer states
+(``opt_state_from_jax``) and the caches (``caches_to_numpy``). The tests
+use these to feed both packages the same thing and compare the results as
+numpy arrays.
 """
 from __future__ import annotations
 
@@ -83,6 +84,21 @@ def params_from_jax(cfg, params: dict) -> dict[str, torch.Tensor]:
                     out[f"layers.{layer}.{name}"] = as_tensor(a[c])
                 layer += 1
     return out
+
+
+def opt_state_from_jax(cfg, opt_state: dict) -> dict:
+    """``repro``'s optimizer state as the port's (``optim/adamw.py``), split
+    per layer as ``params_from_jax`` splits parameters: AdamW's ``{"m":
+    tree, "v": tree}`` as ``{"m": {name: tensor}, "v": {...}}``, Adafactor's
+    ``{"v": tree of {"vr", "vc"} | {"v"}}`` as ``{"v": {name: {"vr",
+    "vc"} | {"v"}}}``."""
+    if "m" in opt_state:
+        return {k: params_from_jax(cfg, opt_state[k]) for k in ("m", "v")}
+    out: dict = {}
+    for name, t in params_from_jax(cfg, opt_state["v"]).items():
+        leaf, kind = name.rsplit(".", 1)
+        out.setdefault(leaf, {})[kind] = t
+    return {"v": out}
 
 
 def caches_to_numpy(cfg, caches: list) -> list:

@@ -1,5 +1,5 @@
-"""The model tier of the port: GQA decoders with dense or MoE FFNs, prefill
-and decode.
+"""The model tier of the port: GQA decoders with dense or MoE FFNs, prefill,
+decode and training.
 
 What the slice does not run raises NotImplementedError naming the
 ROADMAP.md §1 sub-item of item 10 that ports it.
@@ -13,6 +13,8 @@ _LATER = {
     "mla": "item 10.4 (MLA attention)",
     "moe_ep": "item 10.4.1 (EP x TP MoE decode: cfg.decode_moe_ep, tp_axis)",
     "recurrent": "item 10.6 (recurrent and SSM mixers)",
+    "sharded_train": "item 11 (sharded parameters and optimizer states through "
+                     "sharding/rules.py)",
 }
 
 

@@ -156,8 +156,9 @@ def _finalize(acc, l, dtype):
 
 
 def _flash_attn_train(q, k, v, *, causal, scale):
-    """Outer-q / inner-k online softmax over all key chunks: the forward
-    of ``repro``'s differentiable flash path (the port does not train)."""
+    """Outer-q / inner-k online softmax over all key chunks: ``repro``'s
+    differentiable flash path, in plain PyTorch (autograd takes its
+    backward through the tiles, as ``jax.grad`` does through ``repro``'s)."""
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     dv = v.shape[-1]

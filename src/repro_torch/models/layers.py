@@ -8,7 +8,8 @@ the other by name. The ``apply_*`` functions take such a module where the
 JAX ones take a dict. Weights are drawn as ``_init`` draws them, a normal
 times a scale, then cast: the same distribution, not the same bits.
 Compute dtype is cfg.dtype; norm statistics are taken in float32.
-Parameters never require gradients: the port serves, it does not train.
+Parameters are trainable (``requires_grad``); serving runs under
+``torch.no_grad()`` (``serve/engine.py``), so it records no graph.
 """
 from __future__ import annotations
 
@@ -23,12 +24,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def _init(gen, shape, scale, dtype, device) -> nn.Parameter:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+    return nn.Parameter(w.to(dtype))
 
 
 def _const(value: float, shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
 
 
 # ------------------------------------------------------------------ norms

@@ -40,6 +40,9 @@ parallelism, which ``cfg.hierarchical_a2a`` factors into an exchange over
 clamp. Here each scatter writes its dropped rows into one extra row that
 is cut off after it, and each gather clamps its index before the mask.
 The capacities are ``repro``'s formulas, so the same tokens drop.
+The dispatch is differentiable as ``repro``'s: the sort's keys and slots
+are integers, and gradients flow through the router's gate weights, the
+gathers, the scatters and the combine.
 ``moe_forward_decode`` gathers each token's top-k expert slices;
 ``moe_ref`` is the dense one-hot oracle.
 """
@@ -61,8 +64,7 @@ class MoE(nn.Module):
 
     def __init__(self, router, wi, wg, wo):
         super().__init__()
-        self.router, self.wi, self.wg, self.wo = (
-            nn.Parameter(t, requires_grad=False) for t in (router, wi, wg, wo))
+        self.router, self.wi, self.wg, self.wo = (nn.Parameter(t) for t in (router, wi, wg, wo))
 
 
 def init_moe(cfg, gen, device=None) -> MoE:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -101,14 +102,25 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False,
 def run_segments(x, blocks, segments, cfg, *, positions, caches=None, decode=False):
     """Run every layer. ``blocks`` and ``caches`` (or None) hold one entry
     per layer, in segment order: for each (period, count), count copies
-    of the period. Returns (x, new_caches, aux_total)."""
+    of the period. Returns (x, new_caches, aux_total).
+
+    With cfg.remat, outside decode and while autograd records, each block
+    is rematerialized (``torch.utils.checkpoint``, non-reentrant): its
+    activations are dropped after the forward and the backward runs the
+    block again, MoE dispatch and sort included, as ``repro`` wraps each
+    segment period in ``jax.checkpoint``."""
     specs = [spec for period, count in segments for _ in range(count) for spec in period]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
+    remat = cfg.remat and not decode and torch.is_grad_enabled()
     for i, (spec, p) in enumerate(zip(specs, blocks, strict=True)):
-        x, nc, aux = apply_block(x, p, spec, cfg, positions=positions,
-                                 cache=caches[i] if caches is not None else None,
-                                 decode=decode)
+        cache = caches[i] if caches is not None else None
+        if remat:
+            x, nc, aux = checkpoint(apply_block, x, p, spec, cfg, positions=positions,
+                                    cache=cache, use_reentrant=False)
+        else:
+            x, nc, aux = apply_block(x, p, spec, cfg, positions=positions, cache=cache,
+                                     decode=decode)
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)

@@ -11,7 +11,8 @@ axis names is their flattened product, the first name major, as
 ``P(("data", "model"))`` flattens them. ``axis_size`` is
 ``axis_size_compat``; ``AxisGroup.index`` is ``lax.axis_index``.
 
-The collectives of the sort (``core/sample_sort.py``) are methods of
+The collectives of the sort (``core/sample_sort.py``) and of the
+gradient compression (``optim/compress.py``) are methods of
 ``AxisGroup``. They move any dtype (as bytes) and put their rows in
 coordinate order, whatever the process group's own rank order. A backend
 that cannot take a tensor where it lives gets a copy: gloo takes CPU
@@ -150,6 +151,13 @@ class AxisGroup:
         dist.all_to_all_single(recv, send, group=self.group)
         recv = self._rows(recv, to_group=False)
         return recv.view(t.dtype).reshape(t.shape).to(t.device)
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (p * n, ...) summed over the group, block i to coordinate
+        i (``lax.psum_scatter(scatter_dimension=0, tiled=True)``): an
+        all-to-all of the blocks, then their sum in coordinate order."""
+        blocks = self.all_to_all(t.reshape(self.size, -1, *t.shape[1:]))
+        return blocks.sum(0)
 
     def swap(self, t: torch.Tensor, partner: int, n_recv: int) -> torch.Tensor:
         """Send all of ``t`` (flat) to coordinate ``partner`` and return the

@@ -636,6 +636,81 @@ def test_moe_on_cuda_equals_cpu(gpu, monkeypatch):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def test_train_step_on_cuda_equals_cpu(gpu, monkeypatch):
+    """The deepseek-moe-16b smoke config in float32 (TF32 off): two train
+    steps at grad_accum 2 from the same weights and batches on the card
+    (kernels) and on the CPU (twins), batches from ``PackedLoader`` on the
+    card: metrics, parameters and AdamW's m and v within 1e-5 x their
+    largest |value| (parameters: plus 1% of the summed learning rates, as
+    tests/test_torch_train.py holds the CPU to ``repro``)."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import DataConfig, PackedLoader
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(smoke_config("deepseek-moe-16b"), dtype="float32", remat=True)
+    tcfg = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10))
+    data = DataConfig(seq_len=128, global_batch=2, grad_accum=2, vocab=cfg.vocab,
+                      bucket_docs=256)
+    batches = [b for _, b in zip(range(2), PackedLoader(data, device=gpu))]
+    cpu_batches = [b for _, b in zip(range(2), PackedLoader(data, device="cpu"))]
+    for a, b in zip(batches, cpu_batches):
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    runs = []
+    for dev in (gpu, torch.device("cpu")):
+        m = Model(cfg, device=dev, seed=6)
+        if runs:
+            m.load_state_dict({k: v.cpu() for k, v in runs[0][0].items()})
+        params, ost = init_train_state(m, tcfg)
+        start = {k: v.detach().clone() for k, v in params.items()}
+        step = make_train_step(m, tcfg)
+        metrics = [step(params, ost, s, b)[2] for s, b in zip((1, 2), batches)]
+        runs.append((start, params, ost, metrics))
+    (_, gp, gs, gm), (_, cp, cs, cm) = runs
+    for a, b in zip(gm, cm):
+        for k in b:
+            assert float(a[k]) == pytest.approx(float(b[k]), rel=1e-5, abs=1e-7), k
+    lr_sum = sum(float(m["lr"]) for m in cm)
+    top = max(float(t.abs().max()) for t in cp.values())
+    for k in cp:
+        assert float((gp[k].detach().cpu() - cp[k].detach()).abs().max()) <= (
+            1e-5 * top + 1e-2 * lr_sum), k
+    for kind in ("m", "v"):
+        top = max(float(t.abs().max()) for t in cs[kind].values())
+        for k in cs[kind]:
+            assert float((gs[kind][k].cpu() - cs[kind][k]).abs().max()) <= 1e-5 * top, k
+
+
+def test_moe_gradients_kernel_sort_equal_plain_sort_on_cuda(gpu, monkeypatch):
+    """One MoE layer's forward and backward in float32 on the card with the
+    dispatch sort through the kernels and through ``torch.sort``: the same
+    routing bit for bit, the input and parameter gradients within 1e-5 x
+    max|grad| (scatter-adds on the card may sum in another order)."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import moe
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(smoke_config("deepseek-moe-16b"), dtype="float32",
+                              moe_capacity_factor=1.25)
+    layer = moe.init_moe(cfg, torch.Generator(device=gpu).manual_seed(3), gpu)
+    x = torch.randn(2, 512, cfg.d_model, device=gpu)
+    outs = []
+    for path in (True, False):
+        xg = x.clone().requires_grad_(True)
+        bitonic.reset_launches()
+        o, aux = moe.moe_forward(xg, layer, cfg, use_pallas=path)
+        grads = torch.autograd.grad((o ** 2).mean() + 0.01 * aux, [xg, *layer.parameters()])
+        launched = sum(fn.launches for fn in bitonic.KERNELS)
+        outs.append((o.detach(), aux.detach(), grads, launched))
+    (o1, a1, g1, n1), (o2, a2, g2, n2) = outs
+    assert n1 > 0 and n2 == 0
+    assert torch.equal(o1, o2) and torch.equal(a1, a2)
+    for a, b in zip(g1, g2):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
 # ------------------------------------------------------------ serve tier
 
 

@@ -1,0 +1,82 @@
+"""The port's training launcher (``python -m repro_torch.launch.train``) and
+mesh helpers on the CPU: it trains, saves, resumes and prints ``repro``'s
+lines; ``--layers`` builds ``repro``'s config (dense-only for
+deepseek-moe-16b); more than one rank raises NotImplementedError naming
+ROADMAP.md item 11; without ``--device`` and without a card it raises
+the device rule's RuntimeError."""
+import re
+
+import pytest
+import torch
+
+from repro.configs.registry import smoke_config as jsmoke
+from repro.launch import mesh as jmesh
+from repro_torch.launch import mesh, train
+from torch_parity import world_mesh
+
+STEP_LINE = re.compile(r"^\[train\] step \d+: loss=\d+\.\d{4} acc=\d\.\d{3} gnorm=\d+\.\d{2} "
+                       r"\(\d+ tok/s\)$")
+
+
+def run(capsys, *argv) -> list[str]:
+    train.main(list(argv))
+    return capsys.readouterr().out.splitlines()
+
+
+def test_trains_saves_and_resumes_on_the_cpu(tmp_path, capsys):
+    base = ["--device", "cpu", "--arch", "qwen3-4b", "--steps", "4", "--seq-len", "64",
+            "--global-batch", "2", "--save-every", "2", "--log-every", "1",
+            "--ckpt-dir", str(tmp_path)]
+    out = run(capsys, *base)
+    assert re.fullmatch(r"\[train\] qwen3-4b: [\d,]+ params on 1 device\(s\)", out[0]), out[0]
+    assert [STEP_LINE.match(line) is not None for line in out[1:5]] == [True] * 4, out
+    assert out[-1] == "[train] done at step 4; recoveries=0 stragglers=0"
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_000000002", "step_000000004"]
+    out = run(capsys, *base, "--resume")
+    assert out[1] == "[train] resumed from step 4"
+    assert out[2].startswith("[train] step 4: ")
+    assert out[-1].startswith("[train] done at step 8; recoveries=0")
+
+
+def test_layers_flag_builds_repros_dense_only_config(tmp_path, capsys):
+    """``--layers 2`` on deepseek-moe-16b: n copies of the first period,
+    which is the dense layer, so no MoE layer (as ``repro``'s launcher)."""
+    args = train.parse_args(["--arch", "deepseek-moe-16b", "--layers", "2"])
+    cfg = train.model_config(args)
+    period = jsmoke("deepseek-moe-16b").segments[0][0]
+    assert [s.ffn for s in period] == ["dense"]
+    assert cfg.segments == ((cfg.segments[0][0], 2),) and cfg.n_layers == 2
+    assert all(s.ffn == "dense" for s in cfg.layer_list())
+    out = run(capsys, "--device", "cpu", "--arch", "deepseek-moe-16b", "--layers", "2",
+              "--steps", "1", "--seq-len", "32", "--global-batch", "2", "--ckpt-dir",
+              str(tmp_path))
+    assert out[0] == f"[train] deepseek-moe-16b: {cfg.param_count():,} params on 1 device(s)"
+    assert out[-1].startswith("[train] done at step 1;")
+
+
+def test_more_than_one_rank_is_item_11(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match=r"item 11 \(sharded parameters"):
+        train.main(["--device", "cpu"])
+
+
+def test_the_card_is_the_default_device(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
+
+
+@pytest.mark.parametrize("n", [1, 2, 6, 12, 16, 24, 256, 512])
+def test_mesh_shape_is_repros(n):
+    model = jmesh._largest_pow2_leq(min(16, n))
+    while n % model:
+        model //= 2
+    assert mesh.mesh_shape_for(n) == (n // model, model)
+    assert mesh._largest_pow2_leq(n) == jmesh._largest_pow2_leq(n)
+
+
+def test_make_mesh_for_one_rank():
+    world_mesh()  # the one-rank gloo group of this process
+    m = mesh.make_mesh_for(device="cpu")
+    assert m.mesh_dim_names == ("data", "model") and tuple(m.mesh.shape) == (1, 1)

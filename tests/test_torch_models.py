@@ -24,6 +24,15 @@ from repro_torch.models import attention, layers
 from repro_torch.models.model import Model
 from torch_parity import BF16_TIE, router_margins
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """Parameters require grad (the port trains): every case here compares
+    forward passes, so it runs under ``torch.no_grad()``, as serving does."""
+    with torch.no_grad():
+        yield
+
+
 RNG = np.random.default_rng(11)
 DENSE = ["qwen3-4b", "qwen2.5-32b", "starcoder2-7b"]
 

@@ -23,6 +23,15 @@ from repro_torch.configs.registry import smoke_config
 from repro_torch.core import keyenc
 from repro_torch.models import moe
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """Parameters require grad (the port trains): every case here compares
+    forward passes, so it runs under ``torch.no_grad()``, as serving does."""
+    with torch.no_grad():
+        yield
+
+
 NAMES = ("router", "wi", "wg", "wo")
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -1,6 +1,6 @@
 """One rank of the port's side of tests/test_torch_mesh.py.
 
-    python tests/torch_mesh_worker.py RANK WORLD STORE_FILE OUT_DIR [moe]
+    python tests/torch_mesh_worker.py RANK WORLD STORE_FILE OUT_DIR [moe|compress]
 
 Joins a gloo group of WORLD (8) processes through a file store, builds a
 ``DeviceMesh("cpu", (4, 2), ("data", "model"))`` and runs every case of
@@ -12,6 +12,10 @@ cases and the unequal-shard ValueError; the traced sort's spans; the
 first attempt's local and reduced overflow flags of the lockstep case;
 ``topk_shard``; ``vocab_pad``; and int64 sorts in x64 mode. It imports
 nothing of JAX.
+
+With ``compress`` it runs ``optim.compress.compressed_psum_mean`` over a
+``DeviceMesh("cpu", (WORLD,), ("data",))`` on a seeded x per rank, writing
+``x`` and ``mean`` (tests/test_torch_optim.py).
 
 With ``moe`` it runs the MoE cases instead (tests/test_torch_moe_mesh.py)
 on a ``DeviceMesh("cpu", (2, 4))``: each case's ``moe_forward`` on this
@@ -42,7 +46,7 @@ PHASES = ("local_sort", "splitter", "exchange", "merge")
 
 
 def _np(t) -> np.ndarray:
-    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def save_output(out: dict, name: str, o) -> None:
@@ -205,6 +209,23 @@ def main(rank: int, world: int, store: str, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
+def compress_main(rank: int, world: int, store: str, out_dir: str) -> None:
+    """``optim.compress.compressed_psum_mean`` over all ranks on "data":
+    writes this rank's seeded x and the mean it received."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.optim import compress
+
+    join(rank, world, store)
+    mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("data",))
+    x = np.random.default_rng((31, rank)).standard_normal(
+        compress.CHUNK * world * 4).astype(np.float32)
+    mean = compress.compressed_psum_mean(torch.from_numpy(x), (mesh, "data"))
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", x=x, mean=_np(mean))
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
-    (moe_main if sys.argv[5:] == ["moe"] else main)(int(sys.argv[1]), int(sys.argv[2]),
-                                                     sys.argv[3], sys.argv[4])
+    entry = {"moe": moe_main, "compress": compress_main}.get(sys.argv[5] if sys.argv[5:] else "",
+                                                              main)
+    entry(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
