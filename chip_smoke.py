@@ -149,7 +149,15 @@ Phases, one line or more each:
      0.95); the ranks' blocks, counts and send counts equal the sim
      (n_procs=4) over the same global grid on the card (NaN: on the CPU)
      and torch.sort. Each case prints rank 0's wall between barriers, the
-     exchange span's share and the launches per rank;
+     exchange span's share and the launches per rank. Then tuples over
+     the mesh: the one NCCL rank sorts a packed pair (4 values x 2^16) of
+     2^24 rows, and the four gloo ranks (2^22 rows a rank) a packed pair
+     keys-only and want="order", an LSD pair (4 int32 values asc, float32
+     normals desc) with a float32 payload, and an int64 pair packed into
+     63 bits in x64 mode; the blocks concatenated equal np.lexsort of the
+     global columns bit for bit, the imbalance is at most 1.01, each of
+     the four kernels launches under them, and each prints the indexed
+     exchanges per sort (``SortOutput.meta.exchanges``);
  10. MoE (``repro_torch.models.moe``): deepseek-moe-16b at full width and
      depth (28 layers, 27 of them MoE with 64 routed experts of 1408, 2
      shared, top-6; about 16.4B parameters) in bf16 with
@@ -211,12 +219,31 @@ Phases, one line or more each:
      wall (median after the first), tokens/s, peak memory, one step under
      torch.profiler (idle share, top kernels, the backward's autograd
      nodes), the optimizer update's time and the dispatch sort's share of
-     one MoE layer's forward.
+     one MoE layer's forward;
+ 12. continuous batching (``repro_torch.serve.batching``): qwen3-4b at full
+     width and depth (bf16, flash_attention=True, seeded weights) through
+     ``ContinuousBatcher(n_slots=4, s_max=8256)``: 8 requests, 2 prompts of
+     8192 tokens (flash, 36 launches each) and 6 of 512-4096, 8-32 new
+     tokens each, so slots are re-used; every launch count set to 0 just
+     before the run and read just after. Each request is then held to
+     itself alone (``make_prefill`` + ``make_serve_step``, teacher-forced
+     with the batcher's tokens): the first-token logits equal bit for bit,
+     each decode step's logits within 5e-2 x max |logit|, the tokens equal
+     wherever the top-2 margin exceeds that (the others counted). A float32
+     cut (2 layers, TF32 off) through 2 slots gives ``generate``'s tokens
+     per request. deepseek-moe-16b at full width and depth through 2 slots,
+     4 requests of 512-2048 tokens and 8 new: its kv sort and merge
+     launches as derived per prefill, each request held to itself alone
+     with the batcher's routing replayed at each decode step. Prints
+     requests/s, tokens/s, decode ms a step, peak memory and one decode
+     step's idle share under torch.profiler, with the card's name and
+     power limit.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
 served run's as ``launches_moe``, phase 11's training run's as
-``launches_train``, flash's too; their
+``launches_train``, phase 12's two batcher runs' as ``launches_batch``,
+flash's too; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -226,6 +253,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 9     # phases 1, 2 and 9
     python3 chip_smoke.py --phases 10    # phases 1, 2 and 10
     python3 chip_smoke.py --phases 11    # phases 1, 2 and 11
+    python3 chip_smoke.py --phases 9,12  # phases 1, 2, 9 and 12
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -1880,6 +1908,64 @@ def mesh_cases(gen, device, n: int = MESH_WORLD * MESH_PER_RANK) -> dict:
     }
 
 
+# phase 9's tuple cases (imbalance < 1.01 for each)
+MESH_MK = ("packed pair (4 values x 2^16), keys-only", 'packed pair, want="order"',
+           "LSD pair (4 values asc, float32 desc) + float32 payload",
+           "int64 pair in 63 bits, x64")
+
+
+def mesh_mk_cases(gen, device, n: int = MESH_WORLD * MESH_PER_RANK) -> dict:
+    """Phase 9's four-rank tuple cases: label -> (global key columns, payload
+    or None, the call's keywords), made on the card from ``gen``."""
+    import torch
+    import repro_torch
+
+    four = torch.randint(0, 4, (n,), generator=gen, device=device, dtype=torch.int32)
+    low = torch.randint(0, 1 << 16, (n,), generator=gen, device=device, dtype=torch.int32)
+    f = torch.randn(n, generator=gen, device=device)
+    vals = torch.rand(n, generator=gen, device=device)
+    ids = torch.randint(0, 1 << 40, (n,), generator=gen, device=device, dtype=torch.int64)
+    times = torch.randint(0, 1 << 16, (n,), generator=gen, device=device, dtype=torch.int64)
+    return {
+        MESH_MK[0]: ((four, low), None, {}),
+        MESH_MK[1]: ((four, low), None, {"want": "order"}),
+        MESH_MK[2]: ((four, f), vals, {"order": ("asc", "desc")}),
+        MESH_MK[3]: ((ids, times), None, {"order": ("desc", "asc"),
+                                          "limits": repro_torch.SortLimits(x64=True)}),
+    }
+
+
+def np_lex_order(cols, descending):
+    """``np.lexsort`` of key columns (CPU tensors of ints or NaN-free
+    floats), primary key first, with per-key orders: the CPU's stable
+    lexicographic permutation."""
+    import numpy as np
+
+    keys = [c.numpy() for c in cols]
+    keys = [(-k if k.dtype.kind == "f" else ~k) if d else k for k, d in zip(keys, descending)]
+    return np.lexsort(keys[::-1])
+
+
+def check_mesh_tuple(label, blocks, cols, values, kw) -> None:
+    """A tuple sort over the mesh, its blocks concatenated (``blocks``: the
+    key columns, and the order or payload or None), against the CPU's
+    lexsort of the global columns, bit for bit."""
+    import torch
+
+    orders = kw.get("order", "asc")
+    orders = orders if isinstance(orders, tuple) else (orders,) * len(cols)
+    cpu = [c.cpu() for c in cols]
+    perm = torch.from_numpy(np_lex_order(cpu, [o == "desc" for o in orders]))
+    keys, vals = blocks
+    for j, (got, col) in enumerate(zip(keys, cpu, strict=True)):
+        if not torch.equal(got, col[perm]):
+            raise AssertionError(f"phase 9: {label}: key column {j} differs from np.lexsort")
+    if kw.get("want") == "order" and not torch.equal(vals.long(), perm):
+        raise AssertionError(f"phase 9: {label}: the order differs from np.lexsort")
+    if values is not None and not torch.equal(vals, values.cpu()[perm]):
+        raise AssertionError(f"phase 9: {label}: the payload differs from np.lexsort's")
+
+
 def shard_of(x, p: int, r: int):
     """Row r of ``planner.pad_grid``'s split of ``x`` over p rows."""
     base, extra = divmod(x.shape[0], p)
@@ -1943,6 +2029,32 @@ def mesh_rank(rank: int, world: int, out_dir: str) -> None:
             limits = dataclasses.replace(kw.get("limits", repro_torch.SortLimits()), trace=True)
             traced = repro_torch.sort(keys, where=(mesh, "data"), **{**kw, "limits": limits})
             results[label]["exchange"] = exchange_share(traced.meta.trace)
+    # the tuples: packed (keys-only, argsort, 63 bits) and LSD with a payload
+    gen = torch.Generator(device=device).manual_seed(10)
+    tuples = {}
+    for label, (cols, vals, kw) in mesh_mk_cases(gen, device).items():
+        keys = tuple(shard_of(c, world, rank) for c in cols)
+        values = None if vals is None else shard_of(vals, world, rank)
+        repro_torch.sort(keys, values, where=(mesh, "data"), **kw)  # warm
+        torch.cuda.synchronize()
+        dist.barrier()
+        bitonic.reset_launches()
+        t0 = time.perf_counter()
+        out = repro_torch.sort(keys, values, where=(mesh, "data"), **kw)
+        torch.cuda.synchronize()
+        dist.barrier()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+        exchanges = out.meta.exchanges
+        limits = dataclasses.replace(kw.get("limits", repro_torch.SortLimits()), trace=True)
+        traced = repro_torch.sort(keys, values, where=(mesh, "data"), **{**kw, "limits": limits})
+        tuples[label] = dict(
+            keys=[c.cpu() for c in out.keys],
+            values=None if out.values is None else out.values.cpu(), counts=out.counts,
+            block=tuple(out.block), retries=out.meta.retries, wall_ms=wall * 1e3,
+            imbalance=out.imbalance(), launches=launches, exchanges=exchanges,
+            multikey=out.meta.multikey, exchange=exchange_share(traced.meta.trace))
+    results["tuples"] = tuples
     torch.save(results, pathlib.Path(out_dir) / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -1999,6 +2111,7 @@ def run_mesh(device) -> dict:
     shutil.rmtree(scratch, ignore_errors=True)
     scratch.mkdir(parents=True)
     total = {fn.__name__: 0 for fn in bitonic.KERNELS}
+    mk_total = dict(total)  # the tuple sorts' share
 
     def add(launches) -> None:
         for k, v in launches.items():
@@ -2037,6 +2150,33 @@ def run_mesh(device) -> dict:
             log(f"phase 9: one-rank NCCL mesh, {label}: {wall:.3f} ms wall, exchange share "
                 + (f"{share:.4f}" if share is not None else "- (kv: one fused sort span)")
                 + f", launches {launches}; equals the sim (n_procs=1) and torch.sort")
+        # a packed pair (4 values x 2^16) at 2^24
+        pair = (torch.randint(0, 4, (1 << 24,), generator=gen, device=device,
+                              dtype=torch.int32),
+                torch.randint(0, 1 << 16, (1 << 24,), generator=gen, device=device,
+                              dtype=torch.int32))
+        label = "2^24 packed pair (4 values x 2^16)"
+        repro_torch.sort(pair, where=mesh)  # warm
+        torch.cuda.synchronize()
+        bitonic.reset_launches()
+        t0 = time.perf_counter()
+        out = repro_torch.sort(pair, where=mesh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+        add(launches)
+        mk_total.update({k: mk_total[k] + v for k, v in launches.items()})
+        if out.meta.multikey != "packed" or not out.imbalance() <= 1.01:
+            raise AssertionError(f"phase 9: one-rank NCCL {label}: {out.meta.multikey}, "
+                                 f"imbalance {out.imbalance()}")
+        check_mesh_tuple(f"one-rank NCCL {label}", ([c.cpu() for c in out.keys], None), pair,
+                         None, {})
+        share = exchange_share(repro_torch.sort(
+            pair, where=mesh, limits=repro_torch.SortLimits(trace=True)).meta.trace)
+        log(f"phase 9: one-rank NCCL mesh, {label}: {wall:.3f} ms wall, exchange share "
+            + (f"{share:.4f}" if share is not None else "-")
+            + f", indexed exchanges {out.meta.exchanges}, imbalance {out.imbalance():.6f}, "
+            f"launches {launches}; equals np.lexsort")
     finally:
         dist.destroy_process_group()
 
@@ -2091,9 +2231,34 @@ def run_mesh(device) -> dict:
             + f", retries {got[0]['retries']}{extra}, launches per rank "
             + str([tuple(g["launches"].values()) for g in got])
             + ("; equals the sim on the CPU" if on_cpu else "; equals the sim and torch.sort"))
+    gen = torch.Generator(device=device).manual_seed(10)
+    for label, (cols, vals, kw) in mesh_mk_cases(gen, device).items():
+        got = [rk["tuples"][label] for rk in ranks]
+        keys = [torch.cat([g["keys"][j] for g in got]) for j in range(len(cols))]
+        blocks = None if got[0]["values"] is None else torch.cat([g["values"] for g in got])
+        check_mesh_tuple(label, (keys, blocks), cols, vals, kw)
+        for g in got:
+            if not (g["counts"] == got[0]["counts"]).all():
+                raise AssertionError(f"phase 9: {label}: the ranks' counts differ")
+            add(g["launches"])
+            mk_total.update({k: mk_total[k] + v for k, v in g["launches"].items()})
+        route = "lsd" if label == MESH_MK[2] else "packed"
+        if {g["multikey"] for g in got} != {route} or not got[0]["imbalance"] <= 1.01:
+            raise AssertionError(f"phase 9: {label}: {[g['multikey'] for g in got]}, "
+                                 f"imbalance {got[0]['imbalance']}")
+        share = got[0]["exchange"]
+        log(f"phase 9: 4 ranks, {label} ({cols[0].shape[0]} rows): {got[0]['wall_ms']:.3f} ms "
+            f"wall on rank 0, {route}, exchange share (the sort's all-to-alls where traced "
+            f"apart, and the indexed exchanges) "
+            + (f"{share:.4f}" if share is not None else "-")
+            + f", indexed exchanges per sort {got[0]['exchanges']}, retries "
+            f"{got[0]['retries']}, imbalance {got[0]['imbalance']:.6f}, launches per rank "
+            + str([tuple(g["launches"].values()) for g in got]) + "; equals np.lexsort")
     shutil.rmtree(scratch, ignore_errors=True)
-    log(f"phase 9: launches over the phase's ranks: {total}; "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"phase 9: launches over the phase's ranks: {total} (of them the tuple sorts' "
+        f"{mk_total}); {time.perf_counter() - t_phase:.1f} s")
+    if any(v == 0 for v in mk_total.values()):
+        raise AssertionError(f"phase 9: the tuple sorts left kernels unlaunched: {mk_total}")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"phase 9: kernels never launched on the mesh: {missing}")
@@ -2891,7 +3056,265 @@ def train_phase(device) -> dict:
     return launches
 
 
-ALL_PHASES = frozenset(range(1, 12))
+# ------------------------------------------------------------------ phase 12
+
+BATCH_SLOTS, BATCH_SMAX = 4, 8192 + 64
+# (prompt tokens, new tokens): 2 prompts of 8192 (flash serves them) and 6
+# of 512-4096; 148 new tokens over 4 slots, so slots are re-used. A prompt
+# past 512 tokens is a multiple of 512 (the chunked prefill's query chunk,
+# attention.Q_CHUNK, as in repro)
+BATCH_REQS = ((8192, 24), (1024, 8), (512, 32), (4096, 16), (8192, 12), (2048, 20),
+              (1536, 8), (3072, 28))
+BATCH_F32 = ((300, 12), (1024, 9), (128, 16), (512, 10))  # the float32 cut, 2 slots
+BATCH_MOE = ((512, 8), (2048, 8), (1024, 8), (1536, 8))  # deepseek-moe-16b, 2 slots
+BATCH_TOL = 5e-2  # of max |logit|
+
+
+def batch_requests(gen, vocab: int, spec, device, first_rid: int = 0) -> list:
+    """Seeded ``serve.batching.Request``s, one per (prompt, new) of ``spec``,
+    numbered from ``first_rid``."""
+    import torch
+    from repro_torch.serve.batching import Request
+
+    return [Request(first_rid + i, torch.randint(0, vocab, (L,), generator=gen, device=device,
+                                     dtype=torch.int32).cpu().numpy(), n)
+            for i, (L, n) in enumerate(spec)]
+
+
+class BatchRecorder:
+    """Wraps a ``ContinuousBatcher``'s prefill and decode step: each
+    request's first-token logits (prefills run in submission order), each
+    decode step's logits row of every slot that takes a token, by request,
+    the step's wall (synchronised), and with ``routes`` every MoE layer's
+    routing of each step (``moe._router``'s outputs), for the replay."""
+
+    def __init__(self, b, routes: bool = False):
+        import torch
+        from repro_torch.models import moe
+
+        self.first, self.rows, self.step_ms, self.steps = [], {}, [], []
+        vocab, prefill, step = b.model.cfg.vocab, b._prefill, b._step
+
+        def rec_prefill(batch):
+            logits, caches = prefill(batch)
+            self.first.append(logits[0, 0, :vocab].float().cpu())
+            return logits, caches
+
+        def rec_step(caches, tokens, pos):
+            takes = [(int(b.rids[s]), s) for s in range(b.n_slots)
+                     if b.positions[s] >= 0 and b.budget[s] > 0]
+            router, layers = moe._router, []
+            if routes:
+                moe._router = lambda xf, w, c: layers.append(router(xf, w, c)) or layers[-1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                logits, caches = step(caches, tokens, pos)
+                torch.cuda.synchronize()
+            finally:
+                moe._router = router
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.steps.append(layers)
+            for rid, slot in takes:
+                self.rows.setdefault(rid, []).append(
+                    (logits[slot, 0, :vocab].float().cpu(), len(self.steps) - 1, slot))
+            return logits, caches
+
+        b._prefill, b._step = rec_prefill, rec_step
+
+
+def hold_batch(label, model, reqs, got, rec, replay: bool = False) -> dict:
+    """Each request alone through ``make_prefill`` + ``make_serve_step``,
+    teacher-forced with the batcher's tokens: its first-token logits equal
+    the batcher's bit for bit (the same (1, L) prefill); each decode
+    step's logits within BATCH_TOL x max |logit| of the batcher's row; its
+    token the batcher's wherever the top-2 margin exceeds that tolerance
+    (the others counted). ``replay``: each decode step runs the MoE
+    routing the batcher's step gave that slot (bf16 rounding in a batch of
+    4 can flip a top-6 choice)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serve import engine
+
+    prefill, step = engine.make_prefill(model), engine.make_serve_step(model)
+    vocab, dev = model.cfg.vocab, model.device
+    worst, flips, compared = 0.0, 0, 0
+    router = moe._router
+    for k, req in enumerate(reqs):
+        toks, L = got[req.rid], len(req.prompt)
+        if len(toks) != req.max_new_tokens or len(rec.rows.get(req.rid, [])) != len(toks) - 1:
+            raise AssertionError(f"{label}: request {req.rid}: {len(toks)} tokens")
+        logits, caches = prefill({"tokens": torch.as_tensor(req.prompt[None], device=dev)})
+        if not torch.equal(logits[0, 0, :vocab].float().cpu(), rec.first[k]):
+            raise AssertionError(f"{label}: request {req.rid}: first-token logits differ from "
+                                 f"the same prefill alone")
+        if int(rec.first[k].argmax()) != toks[0]:
+            raise AssertionError(f"{label}: request {req.rid}: first token")
+        caches = engine.extend_caches(model, caches, L, L + len(toks))
+        for j, (row, s_idx, slot) in enumerate(rec.rows[req.rid]):
+            if replay:
+                layers = iter(rec.steps[s_idx])
+                moe._router = lambda xf, w, c, it=layers, sl=slot: tuple(
+                    t[sl:sl + 1] if t.dim() else t for t in next(it))
+            try:
+                lg, caches = step(caches, torch.tensor([[toks[j]]], dtype=torch.int32,
+                                                       device=dev), L + j)
+            finally:
+                moe._router = router
+            ref = lg[0, 0, :vocab].float().cpu()
+            tol = BATCH_TOL * float(ref.abs().max())
+            err = float((row - ref).abs().max())
+            worst = max(worst, err / float(ref.abs().max()))
+            if not (torch.isfinite(row).all() and err <= tol):
+                raise AssertionError(f"{label}: request {req.rid} token {j + 1}: max abs diff "
+                                     f"{err} > {tol}")
+            top2 = ref.topk(2).values
+            compared += 1
+            if int(ref.argmax()) != toks[j + 1]:
+                if float(top2[0] - top2[1]) > tol:
+                    raise AssertionError(f"{label}: request {req.rid} token {j + 1} differs "
+                                         f"past the tolerance")
+                flips += 1
+        del caches
+    return dict(worst=worst, flips=flips, compared=compared)
+
+
+def run_batch(device) -> dict:
+    """Phase 12: continuous batching (``repro_torch.serve.batching``) on the
+    card. qwen3-4b at full width and depth (bf16, flash) and
+    deepseek-moe-16b (bf16) through ``ContinuousBatcher``, each run with
+    every launch count set to 0 just before and read just after, each
+    request held to itself alone (``hold_batch``); a float32 cut (2 layers,
+    TF32 off) whose token streams must equal ``generate``'s. Returns the
+    launches of every kernel summed over the two batcher runs."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import bitonic, flash
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+    from repro_torch.serve.batching import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    total = {fn.__name__: 0 for fn in (*bitonic.KERNELS, flash.flash_attention)}
+
+    def batcher_run(label, model, reqs, n_slots, s_max, routes=False):
+        """The main path: counts set to 0 just before, read just after."""
+        b = ContinuousBatcher(model, n_slots=n_slots, s_max=s_max)
+        rec = BatchRecorder(b, routes=routes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bitonic.reset_launches()
+        flash.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        got = b.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+        launches["flash_attention"] = flash.flash_attention.launches
+        for k, v in launches.items():
+            total[k] += v
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_tok = sum(len(t) for t in got.values())
+        step_ms = statistics.median(rec.step_ms)
+        log(f"phase 12: {label}: {len(reqs)} requests ({sum(len(r.prompt) for r in reqs)} "
+            f"prompt tokens, {n_tok} new) through {n_slots} slots of {s_max} in "
+            f"{wall * 1e3:.3f} ms: {len(reqs) / wall:.4f} requests/s, {n_tok / wall:.2f} "
+            f"tokens/s; {len(rec.step_ms)} decode steps, median {step_ms:.3f} ms "
+            f"({n_slots / step_ms * 1e3:.2f} tokens/s at {n_slots} slots); peak "
+            f"{peak:.3f} GB; launches {launches}")
+        if sorted(got) != [r.rid for r in reqs]:
+            raise AssertionError(f"phase 12: {label}: finished {sorted(got)}")
+        return b, rec, got, launches
+
+    def idle_share(label, b, vocab, gen):
+        """One decode step of 4 busy slots under torch.profiler."""
+        for r in batch_requests(gen, vocab, ((64, 8),) * b.n_slots, device, first_rid=1000):
+            b.submit(r)
+        b.step()  # admits them, one step
+        wall, dev, events = device_breakdown(b.step)
+        log(f"phase 12: {label}: one decode step of {b.n_slots} slots under torch.profiler: "
+            f"{wall:.3f} ms wall, {dev:.3f} ms device (idle {1 - dev / wall:.3f}); largest "
+            "device events: " + "; ".join(f"{n[:50]} {ms:.3f} ms" for n, ms in events[:5]))
+
+    # qwen3-4b at full width and depth
+    cfg = dataclasses.replace(get_config("qwen3-4b"), flash_attention=True, dtype="bfloat16")
+    torch.cuda.empty_cache()
+    model = Model(cfg, device=device, seed=0)
+    gen = torch.Generator(device=device).manual_seed(12)
+    reqs = batch_requests(gen, cfg.vocab, BATCH_REQS, device)
+    b, rec, got, launches = batcher_run("qwen3-4b, bf16", model, reqs, BATCH_SLOTS, BATCH_SMAX)
+    n_flash = cfg.n_layers * sum(len(r.prompt) >= attention.FLASH_MIN_SEQ for r in reqs)
+    if launches["flash_attention"] != n_flash or n_flash < 2:
+        raise AssertionError(f"phase 12: flash launches {launches['flash_attention']}, "
+                             f"want {n_flash}")
+    idle_share("qwen3-4b", b, cfg.vocab, gen)
+    del b
+    held = hold_batch("phase 12: qwen3-4b", model, reqs, got, rec)
+    log(f"phase 12: qwen3-4b: each request alone, teacher-forced: first-token logits equal "
+        f"bit for bit; decode logits within {held['worst']:.5f} x max |logit| (limit "
+        f"{BATCH_TOL}); {held['flips']} of {held['compared']} tokens differ from the "
+        f"single request's argmax within the tolerance, none beyond it")
+    del model, rec
+    torch.cuda.empty_cache()
+
+    # the float32 cut: 2 layers at full width, TF32 off, tokens exact
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut = dataclasses.replace(cfg, dtype="float32", n_layers=2,
+                                  segments=((cfg.segments[0][0], 2),))
+        model = Model(cut, device=device, seed=1)
+        reqs = batch_requests(gen, cut.vocab, BATCH_F32, device)
+        got = ContinuousBatcher(model, n_slots=2, s_max=1024 + 64).run(reqs)
+        for r in reqs:
+            alone = engine.generate(model, {"tokens": torch.as_tensor(r.prompt[None],
+                                                                      device=device)},
+                                    r.max_new_tokens)[0].tolist()
+            if got[r.rid] != alone:
+                raise AssertionError(f"phase 12: float32 cut, request {r.rid}: "
+                                     f"{got[r.rid]} against generate's {alone}")
+        log(f"phase 12: qwen3-4b cut to 2 layers in float32 (TF32 off), {len(reqs)} requests "
+            f"through 2 slots: every token stream equals generate's")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del model
+    torch.cuda.empty_cache()
+
+    # deepseek-moe-16b at full width and depth
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), flash_attention=True,
+                              dtype="bfloat16")
+    model = Model(cfg, device=device, seed=0)
+    reqs = batch_requests(gen, cfg.vocab, BATCH_MOE, device)
+    b, rec, got, launches = batcher_run("deepseek-moe-16b, bf16", model, reqs, 2,
+                                        max(L for L, _ in BATCH_MOE) + 16, routes=True)
+    n_moe = sum(sp.ffn == "moe" for sp in cfg.layer_list())
+    want = {k: 0 for k in launches}
+    for r in reqs:  # one sorted dispatch per MoE layer and prefill; decode gathers
+        T = len(r.prompt)
+        per = moe_dispatch_launches(T, cfg.moe_topk, 1, moe_capacity(
+            T * cfg.moe_topk, 1, cfg.moe_capacity_factor))
+        for k, v in per.items():
+            want[k] += v * n_moe
+    if launches != want or not launches["bitonic_sort_rows_kv"] > 0:
+        raise AssertionError(f"phase 12: deepseek-moe-16b launches {launches}, derived {want}")
+    idle_share("deepseek-moe-16b", b, cfg.vocab, gen)
+    del b
+    held = hold_batch("phase 12: deepseek-moe-16b", model, reqs, got, rec, replay=True)
+    log(f"phase 12: deepseek-moe-16b: launches as derived ({n_moe} MoE layers a prefill); "
+        f"each request alone with the batcher's routing replayed: first-token logits equal "
+        f"bit for bit; decode logits within {held['worst']:.5f} x max |logit|; "
+        f"{held['flips']} of {held['compared']} tokens differ within the tolerance")
+    del model, rec
+    torch.cuda.empty_cache()
+    log(f"phase 12: launches over the two batcher runs: {total}; "
+        f"{time.perf_counter() - t_phase:.1f} s; card {card_line()}")
+    return total
+
+
+ALL_PHASES = frozenset(range(1, 13))
 
 
 def main() -> int:
@@ -2901,7 +3324,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-11: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-12: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -2958,7 +3381,7 @@ def main() -> int:
     if phases != ALL_PHASES:  # a partial run (development): no result lines
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
-                           (10, run_moe), (11, run_train)):
+                           (10, run_moe), (11, run_train), (12, run_batch)):
             if phase in phases:
                 run(device)
         return 0
@@ -2977,12 +3400,14 @@ def main() -> int:
     launches_moe = run_moe(device)
     torch.cuda.empty_cache()
     launches_train = run_train(device)
+    torch.cuda.empty_cache()
+    launches_batch = run_batch(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
              launches=launches[name], launches_serve=launches_serve[name],
              launches_mesh=launches_mesh[name], launches_moe=launches_moe[name],
-             launches_train=launches_train[name],
+             launches_train=launches_train[name], launches_batch=launches_batch[name],
              max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
@@ -2994,6 +3419,7 @@ def main() -> int:
         name="flash_attention", route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES,
         launches=serve["flash_launches"], launches_moe=launches_moe["flash_attention"],
         launches_train=launches_train["flash_attention"],
+        launches_batch=launches_batch["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"]))

@@ -150,6 +150,7 @@ _SIGN32 = 1 << 31
 _MASK32 = (1 << 32) - 1
 _SIGN64 = 1 << 63
 _INT64_MAX = (1 << 63) - 1
+_INT64_MIN = -(1 << 63)
 
 
 def pack_budget_bits(x64: bool) -> int:
@@ -278,7 +279,7 @@ def _unrank_np(rank: np.ndarray, f: KeyFieldSpec) -> np.ndarray:
 
 
 def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None,
-              budget: int = PACK_BUDGET_BITS):
+              budget: int = PACK_BUDGET_BITS, reduce=None):
     """Decide whether a key tuple can fuse into one packed integer sort.
 
     Measures each column's effective width (the bits of its rank range)
@@ -292,6 +293,14 @@ def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None,
     maximum and NaN flag of every measured column come back in one host
     read. ``ranks``: a dict that receives each measured column's rank
     tensor, for ``pack_keys`` to reuse.
+
+    ``reduce``: a mesh sort's element-wise maximum over its axis group
+    (``AxisGroup.all_max``), which every rank calls once with the same
+    number of entries: the columns are then the rank's shards, and the
+    statistics (minima as their bitwise complement, maxima, NaN flags) are
+    the global array's, so every rank gets the same spec and reason. An
+    empty shard adds the neutral elements; a column is empty only when
+    every shard is.
     """
     if key_bits is not None:
         if not isinstance(key_bits, tuple):
@@ -306,17 +315,29 @@ def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None,
             )
     kinds = [_PACK_KINDS.get(dtype_name(col.dtype)) for col in klist]
     stop = kinds.index(None) if None in kinds else len(klist)
-    measured = {i: _rank(klist[i], kinds[i]) for i in range(stop)
-                if (key_bits is None or key_bits[i] is None) and klist[i].numel()}
+    measure = [i for i in range(stop) if (key_bits is None or key_bits[i] is None)
+               and (reduce is not None or klist[i].numel())]
+    measured = {i: _rank(klist[i], kinds[i]) for i in measure if klist[i].numel()}
     stats = {}
-    if measured:
+    if measure:
         rows = []
-        for i, r in measured.items():
+        for i in measure:
             col = klist[i]
+            if i not in measured:  # an empty shard: the neutral elements of the max
+                rows.append(torch.tensor([_INT64_MIN, _INT64_MIN, 0, 0], device=col.device))
+                continue
+            r = measured[i]
             nan = (col != col).any() if kinds[i] == "float" else torch.zeros((), dtype=torch.bool,
                                                                               device=col.device)
-            rows.append(torch.stack([r.min(), r.max(), nan.to(torch.int64)]))
-        stats = dict(zip(measured, torch.stack(rows).tolist()))
+            rows.append(torch.stack([~r.min(), r.max(), nan.to(torch.int64),
+                                     torch.ones((), dtype=torch.int64, device=col.device)]))
+        flat = torch.stack(rows).reshape(-1).tolist()
+        if reduce is not None:
+            flat = reduce(flat)
+        for j, i in enumerate(measure):
+            not_lo, hi, nan, present = flat[4 * j:4 * j + 4]
+            if present:
+                stats[i] = (~not_lo, hi, nan)
     fields = []
     for i, (col, desc) in enumerate(zip(klist, descending)):
         name = dtype_name(col.dtype)
@@ -342,13 +363,13 @@ def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None,
             lo = (_SIGN64 if bits_max == 64 else _SIGN32) if kind == "int" else 0
             fields.append(KeyFieldSpec(name, kind, lo, declared, bool(desc), declared=True))
             continue
-        if i not in stats:  # an empty column
+        if i not in stats:  # an empty column (on every rank of a mesh sort)
             fields.append(KeyFieldSpec(name, kind, 0, 0, bool(desc)))
             continue
         lo, hi, nan = stats[i]
         if nan:
             return None, f"key {i} contains NaN (unsupported keys)"
-        if ranks is not None:
+        if ranks is not None and i in measured:
             ranks[i] = measured[i]
         if _rank_wide(name):  # back to repro's unsigned 64-bit rank
             lo, hi = lo + _SIGN64, hi + _SIGN64
@@ -365,30 +386,39 @@ def plan_pack(klist, descending, key_bits=None, ranks: dict | None = None,
         return None, (
             f"total width {widths}={spec.total_bits} bits exceeds the "
             f"{budget}-bit pack budget{hint}"
-            f"{_float_band_hint(klist, spec)}"
+            f"{_float_band_hint(klist, spec, reduce)}"
         )
     return spec, spec.describe()
 
 
-def _float_band_hint(klist, spec: PackSpec) -> str:
+def _float_band_hint(klist, spec: PackSpec, reduce=None) -> str:
     """Why a float column measured wide: the exponent band of its finite
-    non-zero values, and whether they cross zero (one host read)."""
+    non-zero values, and whether they cross zero (one host read; over a
+    mesh, ``reduce`` takes the band and the signs across the ranks)."""
     idx = [i for i, f in enumerate(spec.fields) if f.kind == "float" and f.width]
     if not idx:
         return ""
     rows = []
     for i in idx:
         col = klist[i].reshape(-1).to(torch.float64)
+        if not col.numel():  # an empty shard: the neutral elements of the max
+            rows.append(torch.tensor([0, _INT64_MIN, _INT64_MIN, 0, 0], device=col.device))
+            continue
         keep = torch.isfinite(col) & (col != 0.0)
         _, exp = torch.frexp(col.abs())
         exp = exp.to(torch.int64)
         rows.append(torch.stack([
             keep.any().to(torch.int64),
-            torch.where(keep, exp, 1 << 20).min(), torch.where(keep, exp, -(1 << 20)).max(),
-            ((col > 0).any() & (col < 0).any()).to(torch.int64),
+            ~torch.where(keep, exp, 1 << 20).min(), torch.where(keep, exp, -(1 << 20)).max(),
+            (col > 0).any().to(torch.int64), (col < 0).any().to(torch.int64),
         ]))
+    flat = torch.stack(rows).reshape(-1).tolist()
+    if reduce is not None:
+        flat = reduce(flat)
+    table = [(a, ~not_lo, hi, pos & neg) for a, not_lo, hi, pos, neg
+             in (flat[5 * j:5 * j + 5] for j in range(len(idx)))]
     notes = []
-    for i, (any_finite, lo, hi, crosses) in zip(idx, torch.stack(rows).tolist()):
+    for i, (any_finite, lo, hi, crosses) in zip(idx, table):
         if not any_finite:
             continue
         f = spec.fields[i]
@@ -411,7 +441,44 @@ def _np_scalar(col: torch.Tensor, j: int):
     return col[j:j + 1].cpu().numpy()[0]
 
 
-def pack_keys(klist, spec: PackSpec, ranks: dict | None = None) -> torch.Tensor:
+def _from_lane_bits(v: int, dtype: torch.dtype) -> torch.Tensor:
+    lane = _LANES[dtype][0] if dtype in _LANES else dtype
+    return from_lane(torch.tensor([v], dtype=lane), dtype)
+
+
+def _check_declared(klist, spec: PackSpec, over: dict, group=None) -> None:
+    """Raise ``repro``'s ValueError for the first declared column, in
+    order, holding a value outside its ``key_bits`` range, naming that
+    column's first such value: one host read of a (column, [hit, value])
+    table. Over a mesh every rank gathers the table in one all_gather and
+    names the first value in the global order, so every rank raises the
+    same error or none does."""
+    rows = []
+    for i, o in over.items():
+        hit = o.any()
+        col = klist[i].reshape(-1)
+        if o.numel():
+            j = torch.argmax(o.to(torch.int8)).reshape(1)
+            value = to_lane(take(col, j)).to(torch.int64)[0]
+        else:
+            value = torch.zeros((), dtype=torch.int64, device=col.device)
+        rows.append(torch.stack([hit.to(torch.int64), value]))
+    table = torch.stack(rows)
+    table = (table[None] if group is None else group.all_gather(table)).tolist()
+    for c, i in enumerate(over):
+        hits = [row[c][1] for row in table if row[c][0]]
+        if hits:
+            w = spec.fields[i].width
+            value = _np_scalar(_from_lane_bits(hits[0], klist[i].dtype), 0)
+            raise ValueError(
+                f"key {i} value {value!r} does not fit "
+                f"the declared SortLimits.key_bits[{i}]={w} bits (declared "
+                f"keys must lie in [0, {2 ** w})); widen the "
+                f"declaration or pass None to measure this key"
+            )
+
+
+def pack_keys(klist, spec: PackSpec, ranks: dict | None = None, group=None) -> torch.Tensor:
     """Fuse the key tuple into the packed non-negative key
     (``spec.pack_dtype``), on the columns' device: per column the rank
     minus the spec's offset, reversed within its field for a descending
@@ -420,7 +487,9 @@ def pack_keys(klist, spec: PackSpec, ranks: dict | None = None) -> torch.Tensor:
     column's wraps in int64 as ``repro``'s uint64 does. Declared
     (``key_bits``) widths are checked here, all columns in one host read:
     a value outside its promised range raises ``repro``'s error.
-    ``ranks``: rank tensors ``plan_pack`` already computed."""
+    ``ranks``: rank tensors ``plan_pack`` already computed. ``group``: a
+    mesh sort's ``AxisGroup``; the columns are then the rank's shards and
+    the check is the global array's (``_check_declared``)."""
     n = klist[0].reshape(-1).shape[0]
     fields, over = [], {}
     for i, (col, f) in enumerate(zip(klist, spec.fields)):
@@ -434,17 +503,7 @@ def pack_keys(klist, spec: PackSpec, ranks: dict | None = None) -> torch.Tensor:
             over[i] = (field >> f.width) != 0  # a wrapped (negative) field is over too
         fields.append(field)
     if over:
-        hit = torch.stack([o.any() for o in over.values()]).tolist()
-        for (i, o), bad in zip(over.items(), hit):
-            if bad:
-                j = int(torch.argmax(o.to(torch.int8)))
-                w = spec.fields[i].width
-                raise ValueError(
-                    f"key {i} value {_np_scalar(klist[i].reshape(-1), j)!r} does not fit "
-                    f"the declared SortLimits.key_bits[{i}]={w} bits (declared "
-                    f"keys must lie in [0, {2 ** w})); widen the "
-                    f"declaration or pass None to measure this key"
-                )
+        _check_declared(klist, spec, over, group)
     acc = torch.zeros(n, dtype=torch.int64, device=klist[0].device)
     for field, f in zip(fields, spec.fields):
         if f.descending:

@@ -12,10 +12,11 @@ rank of the axis group calls ``sort(x_local, where=(mesh, axis))`` with
 its own shard and gets back block r of the global result, r its
 coordinate along the axis (``SortOutput.block``); counts, send counts,
 the overflow flag and the ladder's retries are global and the same on
-every rank (see ``_exec_mesh``). Multi-key sorts over the mesh raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
-With an ambient ``repro_torch.tune`` tuner whose
-model predicts both the sim and the stream confidently, the model may
+every rank (see ``_exec_mesh``). A tuple of keys over the mesh packs with
+ranges reduced over the ranks, or runs LSD passes whose gathers through
+the permutation are indexed exchanges between the ranks
+(``_exec_mesh_lsd``, ``_mesh_take``). With an ambient
+``repro_torch.tune`` tuner whose model predicts both the sim and the stream confidently, the model may
 override rule 3 (``_consult_cost_model``), size the stream's chunks
 (``_pick_chunk_elems``) and start the overflow ladder where the
 overflowed result's own counts say (``_measured_hook``); without one,
@@ -84,18 +85,6 @@ ADMITTED_DTYPES = (
 WIDE_DTYPES = (torch.int64, torch.uint64, torch.float64)
 # the cast remedy named in the 64-bit rejection, per offending dtype
 _NEAREST_NARROW = {"int64": "int32", "uint64": "uint32", "float64": "float32"}
-# ROADMAP.md §1 items that port what the port still raises on
-_LATER = {
-    "mesh_multikey": "item 9.1 (multi-key sorts over the mesh)",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md §1, {_LATER[item]})"
-    )
-
-
 def as_tensor(x) -> torch.Tensor:
     """A tensor view of ``x``: tensors pass through, numpy arrays and
     Python lists are wrapped on the CPU (numpy bfloat16 by its bits)."""
@@ -282,6 +271,10 @@ class _Req:
     #                                 reused by keyenc.pack_keys
     trace: Any = None  # obs.tracing.Trace of a traced sort (sub-requests
     #                    inherit it)
+    mesh_lengths: np.ndarray | None = None  # a mesh tuple sort's shard length
+    #                                         per coordinate (the preflight's)
+    exchanges: dict = dataclasses.field(default_factory=dict)  # its indexed
+    #                                         exchanges so far, by kind
 
     @property
     def needs_payload(self) -> bool:
@@ -396,29 +389,29 @@ def _make_plan(req: _Req, where, limits: SortLimits | None, device, x64: bool) -
             f"iterator inputs can only run on the stream backend, "
             f"not {choice!r} (sim/mesh need the whole array resident)"
         )
-    if choice == "mesh" and req.multikey:
-        # SPMD packing needs the pack's ranges reduced over the ranks, and
-        # the LSD passes a gather of the permutation across them
-        raise _not_ported("a multi-key sort over the mesh", "mesh_multikey")
     if req.multikey and choice != "stream":
         # the pack's rank arithmetic and the LSD gathers run on the sort's
         # device; a streamed tuple stays where it is and moves by chunks
         req.keys = [k.to(device) for k in req.keys]
     if any(req.descending):
         reasons.append("descending: order-flip key encoding (keyenc.flip)")
-    multikey, packspec = (_decide_multikey(req, limits, reasons, x64) if req.multikey
+    group = None
+    if choice == "mesh":
+        from repro_torch.sharding import spec
+
+        group = spec.axis_group(mesh, axis_name)
+        if req.multikey:
+            # every rank agrees on the tuple before the pack plan's reduction
+            req.mesh_lengths = _mesh_preflight(req, group, None, limits, x64)[:, 0]
+    multikey, packspec = (_decide_multikey(req, limits, reasons, x64, group) if req.multikey
                           else (None, None))
     if req.want == "order":
         reasons.append("argsort: provenance-index payload over the kv sort")
     n_procs = limits.n_procs
-    group = None
     if req.n_local is not None and choice == "sim":
         n_procs = int(req.keys.shape[0])
         reasons.append(f"(p={n_procs}, n_local) input: rows are the shards")
     elif choice == "mesh":
-        from repro_torch.sharding import spec
-
-        group = spec.axis_group(mesh, axis_name)
         n_procs = group.size
         reasons.append(f"mesh sort axis spans {n_procs} rank(s); this rank is "
                        f"coordinate {group.index} ({group.backend})")
@@ -542,12 +535,14 @@ def _pick_chunk_elems(req: _Req, base: int, reasons: list) -> int:
     return best
 
 
-def _decide_multikey(req: _Req, limits: SortLimits, reasons: list, x64: bool):
+def _decide_multikey(req: _Req, limits: SortLimits, reasons: list, x64: bool, group=None):
     """Pack or LSD for a multi-key request, with its reason (``repro``'s
     words). "auto" packs whenever the tuple's measured or declared widths
     fit the mode's budget (31 bits; 63 in x64 mode); anything unpackable
     (wide tuples, unpackable dtypes, NaN floats) records why and falls
-    back to the LSD passes."""
+    back to the LSD passes. ``group``: a mesh sort's axis group, over
+    which the pack plan's ranges are reduced, so that every rank decides
+    alike."""
     k = len(req.keys)
     if limits.multikey not in ("auto", "packed", "lsd"):
         raise ValueError(
@@ -562,7 +557,8 @@ def _decide_multikey(req: _Req, limits: SortLimits, reasons: list, x64: bool):
         return "lsd", None
     ranks: dict = {}
     spec, why = keyenc.plan_pack(req.keys, req.descending, limits.key_bits, ranks=ranks,
-                                 budget=keyenc.pack_budget_bits(x64))
+                                 budget=keyenc.pack_budget_bits(x64),
+                                 reduce=None if group is None else group.all_max)
     if spec is not None:
         req.pack_ranks = ranks
         reasons.append(
@@ -589,6 +585,8 @@ def pad_grid(flat: torch.Tensor, p: int, per: int, fill) -> torch.Tensor:
     leave trailing rows all sentinel, a degenerate shard that makes the
     investigator funnel the tied pad range at one destination."""
     n = flat.shape[0]
+    if n == 0:  # a mesh rank's empty shard: all padding
+        return torch.full((p, per), fill, dtype=flat.dtype, device=flat.device)
     base, extra = divmod(n, p)
     r = torch.arange(p, device=flat.device)
     start = r * base + r.clamp(max=extra)
@@ -745,16 +743,21 @@ def _grid_materialize(req: _Req, plan: SortPlan, keys_grid, values_grid, counts,
     the unpack), one ``decode`` span; CPU tensors come back."""
     want_order = req.want == "order"
     tr = req.trace
+    # a mesh rank's last step sees packed keys (the tie stitch compares
+    # them): the unpack then comes after it
+    unpack_late = finish is not None and req.packspec is not None
     if plan.decode == "device":
         with _span(tr, "decode") as sp:
             m = m() if callable(m) else m
             ks, vs = sp.fence(keyenc.decode_grid(
                 keys_grid, counts, values_grid, m=m, descending=descending and not reverse,
-                want_order=want_order, packspec=req.packspec))
+                want_order=want_order, packspec=None if unpack_late else req.packspec))
         with _span(tr, "d2h") as sp:
             ks = ks.flip(0) if reverse else ks
             if finish is not None:
                 ks, vs = finish(ks, vs)
+            if unpack_late:
+                ks = keyenc.unpack_fields(ks, req.packspec)
             return sp.fence(_from_lanes(req, ks, vs))
     with _span(tr, "decode", path="host"):
         m = m() if callable(m) else m
@@ -771,12 +774,14 @@ def _grid_materialize(req: _Req, plan: SortPlan, keys_grid, values_grid, counts,
             ks = ks[::-1]
         elif descending:
             ks = keyenc.decode_np(ks, True)
-        if req.packspec is not None:
+        if req.packspec is not None and not unpack_late:
             ks = tuple(torch.from_numpy(c) for c in keyenc.unpack_np(ks, req.packspec))
         else:
             ks = _from_host(ks, keys_grid.dtype)
         if finish is not None:
             ks, vs = finish(ks, vs)
+        if unpack_late:
+            ks = tuple(torch.from_numpy(c) for c in keyenc.unpack_np(ks.numpy(), req.packspec))
         return _from_lanes(req, ks, vs)
 
 
@@ -827,31 +832,44 @@ def _exec_sim(req: _Req, plan: SortPlan) -> SortOutput:
     )
 
 
-def _request_code(req: _Req) -> int:
-    """A digest of what every rank of a mesh sort must agree on."""
+def _request_code(req: _Req, limits: SortLimits | None = None, x64: bool = False) -> int:
+    """A digest of what every rank of a mesh sort must agree on; for a
+    tuple also the number of keys, each column's dtype, the strategy, the
+    declared widths and the pack budget."""
     vals = None if req.values is None else str(req.values.dtype)
-    return zlib.crc32(repr((str(req.dtype), req.want, req.descending, vals)).encode())
+    facts = (str(req.dtype), req.want, req.descending, vals)
+    if req.multikey:
+        facts += (tuple(str(k.dtype) for k in req.keys), limits.multikey, limits.key_bits,
+                  keyenc.pack_budget_bits(x64))
+    return zlib.crc32(repr(facts).encode())
 
 
-def _mesh_preflight(req: _Req, ag, payload_error: Exception | None) -> np.ndarray:
+def _mesh_preflight(req: _Req, ag, payload_error: Exception | None,
+                    limits: SortLimits | None = None, x64: bool = False) -> np.ndarray:
     """One all_gather of each rank's (length, NaN, bad key, request code):
     the (p, 4) table. Every rank raises the same ValueError when the ranks
     disagree on the request or some rank's payload keys are refused, so no
-    rank goes on alone into a collective that the others never reach."""
+    rank goes on alone into a collective that the others never reach. A
+    tuple's request (``limits``, ``x64``: its strategy, widths and budget)
+    is agreed at planning, before the pack plan's reduction; its columns
+    are not probed for NaN here (each pass or the packed sort is)."""
     keys = req.keys
-    nan = (not req.needs_payload and req.dtype.is_floating_point
+    nan = (not req.multikey and not req.needs_payload and req.dtype.is_floating_point
            and bool((keys != keys).any()))
-    mine = torch.tensor([req.n, nan, payload_error is not None, _request_code(req)],
-                        dtype=torch.int64)
+    mine = torch.tensor([req.n, nan, payload_error is not None,
+                         _request_code(req, limits, x64)], dtype=torch.int64)
     table = ag.all_gather(mine).numpy()
     if (table[:, 3] != table[0, 3]).any():
-        raise ValueError("the ranks of a mesh sort disagree on the request (key dtype, "
-                         "want, order, payload dtype): every rank of the axis group must "
-                         "make the same call with its own shard")
+        raise ValueError("the ranks of a mesh sort disagree on the request (key dtypes, "
+                         "want, orders, payload dtype; for a tuple the strategy, key_bits "
+                         "and x64 mode): every rank of the axis group must make the same "
+                         "call with its own shard")
     bad = np.flatnonzero(table[:, 2]).tolist()
     if bad:
+        # the same text on every rank; the refusing ranks chain their cause
         raise ValueError(f"the payload sort's keys are refused on rank(s) {bad} of the axis "
-                         f"group: {payload_error or 'see that rank'}") from payload_error
+                         f"group: a key there is NaN or collides with the padding sentinel "
+                         f"(the cause is chained on those ranks)") from payload_error
     return table
 
 
@@ -916,6 +934,76 @@ def _stitch_mesh_ties(ag, ks: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
                 vs[lo:hi] = merged[at:at + hi - lo]
             at += hi - lo
     return vs
+
+
+def _starts(sizes) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(np.asarray(sizes, np.int64))])
+
+
+def _even_sizes(n: int, p: int) -> np.ndarray:
+    """``pad_grid``'s row lengths: the layout of ``repro``'s mesh sort of a
+    flat array of n elements over p rows."""
+    base, extra = divmod(n, p)
+    return base + (np.arange(p) < extra).astype(np.int64)
+
+
+def _as_rows(t: torch.Tensor) -> torch.Tensor:
+    """A flat tensor as (n, itemsize) bytes."""
+    return t.contiguous().view(torch.uint8).reshape(t.shape[0], t.element_size())
+
+
+def _tally(req: _Req, kind: str) -> None:
+    req.exchanges[kind] = req.exchanges.get(kind, 0) + 1
+
+
+def _mesh_take(ag, req: _Req, cols: list, sizes, idx: torch.Tensor) -> list:
+    """``[c[idx] for c in cols]`` where each ``cols[j]`` is this rank's
+    shard of a global array laid out by ``sizes`` (the shard length of
+    each coordinate, in order) and ``idx`` holds global indices: a request
+    / response exchange. Each index goes to the rank that owns it (one
+    all-to-all of the counts, one of the indices), the owner gathers its
+    values locally and sends them back (one all-to-all of every column's
+    bytes together). Nothing is gathered whole. The results lie on
+    ``idx``'s device. Counted on ``req.exchanges`` as a "take"."""
+    _tally(req, "take")
+    with _span(req.trace, "exchange", indexed="take"):
+        dev, p = cols[0].device, ag.size
+        starts = _starts(sizes)
+        i = idx.to(dev).long().reshape(-1)
+        owner = torch.searchsorted(torch.from_numpy(starts[1:]).to(dev), i, right=True)
+        order = torch.argsort(owner, stable=True)
+        local = (i - torch.from_numpy(starts[:-1]).to(dev)[owner])[order]
+        send = torch.bincount(owner, minlength=p)
+        recv = ag.all_to_all(send.reshape(p, 1)).reshape(p)
+        send, recv = send.tolist(), recv.tolist()
+        asked = ag.all_to_all_v(local, send, recv)
+        rows = torch.cat([_as_rows(keyenc.take(c, asked)) for c in cols], dim=1)
+        back = ag.all_to_all_v(rows, recv, send)
+        got = torch.empty_like(back)
+        got[order] = back
+        out, at = [], 0
+        for c in cols:
+            w = c.element_size()
+            out.append(got[:, at:at + w].contiguous().view(c.dtype).reshape(-1).to(idx.device))
+            at += w
+        return out
+
+
+def _mesh_reblock(ag, req: _Req, t: torch.Tensor, sizes, to_sizes) -> torch.Tensor:
+    """This rank's shard of a global array laid out by ``sizes``, moved to
+    the layout ``to_sizes``: each rank sends every other rank the overlap
+    of its range with that rank's new range (one all-to-all). Counted on
+    ``req.exchanges`` as a "reblock"."""
+    _tally(req, "reblock")
+    with _span(req.trace, "exchange", indexed="reblock"):
+        a, b = _starts(sizes).tolist(), _starts(to_sizes).tolist()
+        r = ag.index
+
+        def overlap(src: int, dst: int) -> int:  # src's old range within dst's new one
+            return max(0, min(a[src + 1], b[dst + 1]) - max(a[src], b[dst]))
+
+        return ag.all_to_all_v(t, [overlap(r, q) for q in range(ag.size)],
+                               [overlap(q, r) for q in range(ag.size)])
 
 
 def _exec_mesh(req: _Req, plan: SortPlan) -> SortOutput:
@@ -1147,10 +1235,18 @@ def _exec_packed_multikey(req: _Req, plan: SortPlan) -> SortOutput:
 
     On the stream backend the result is lazy: keys-only under the device
     decode, ``chunks()`` yields column tuples (``keyenc.unpack_chunk``);
-    otherwise the packed keys unpack on the host when materialized."""
+    otherwise the packed keys unpack on the host when materialized.
+
+    Over the mesh every rank packs its shards with the spec reduced over
+    the ranks (``_decide_multikey``) and the packed column is one mesh
+    sort: block r of the packed keys and of the global permutation. The
+    values of block r are gathered through it from the ranks that own
+    them (``_mesh_take``)."""
     spec = plan.packspec
+    mesh = plan.backend == "mesh"
     with _span(req.trace, "encode", pack=spec.describe()):
-        packed = keyenc.pack_keys(req.keys, spec, ranks=req.pack_ranks)
+        packed = keyenc.pack_keys(req.keys, spec, ranks=req.pack_ranks,
+                                  group=plan.group if mesh else None)
     sub = _Req(
         keys=packed, values=None, want="order" if req.needs_payload else "values",
         descending=(False,), config=req.config, investigator=req.investigator, n=req.n,
@@ -1159,8 +1255,11 @@ def _exec_packed_multikey(req: _Req, plan: SortPlan) -> SortOutput:
     out = BACKENDS[plan.backend].execute(sub, plan)
     out.meta.trace = None  # the wrapper's meta carries the trace
     meta = _meta(req, plan, out.meta.config, out.meta.retries)
+    meta.n = out.meta.n  # a mesh sort's is the global length
+    if mesh:
+        meta.exchanges = req.exchanges  # the payload's take adds one
     wrapper = SortOutput(meta, counts=out.counts, overflowed=out.overflowed,
-                         send_counts=out.send_counts, raw=out.raw)
+                         send_counts=out.send_counts, raw=out.raw, block=out.block)
 
     def sync() -> None:  # the stream fills its counts and ladder steps lazily
         wrapper.counts, wrapper.overflowed = out.counts, out.overflowed
@@ -1183,6 +1282,9 @@ def _exec_packed_multikey(req: _Req, plan: SortPlan) -> SortOutput:
         sync()
         if req.want == "order":
             return ks, perm
+        if req.values is not None and mesh:
+            return ks, _mesh_take(plan.group, req, [req.values.to(plan.device)],
+                                  req.mesh_lengths, perm)[0]
         if req.values is not None:
             return ks, keyenc.take(req.values.to(perm.device), perm)
         return ks, None
@@ -1192,6 +1294,18 @@ def _exec_packed_multikey(req: _Req, plan: SortPlan) -> SortOutput:
     else:
         wrapper._keys, wrapper._values = materialize()
     return wrapper
+
+
+def _lsd_pass(req: _Req, plan: SortPlan, karr: torch.Tensor, descending: bool) -> SortOutput:
+    """One LSD pass: the backend's exactly stable argsort of ``karr``."""
+    sub = _Req(
+        keys=karr, values=None, want="order", descending=(descending,),
+        config=req.config, investigator=req.investigator, n=int(karr.shape[0]),
+        n_local=None, dtype=karr.dtype, trace=req.trace,
+    )
+    out = BACKENDS[plan.backend].execute(sub, plan)
+    out.meta.trace = None  # only the top-level output completes the trace
+    return out
 
 
 def _exec_multikey(req: _Req, plan: SortPlan) -> SortOutput:
@@ -1206,23 +1320,13 @@ def _exec_multikey(req: _Req, plan: SortPlan) -> SortOutput:
     CPU tensors."""
     if plan.multikey == "packed":
         return _exec_packed_multikey(req, plan)
-    backend = BACKENDS[plan.backend]
-
-    def sub_sort(karr: torch.Tensor, descending: bool) -> SortOutput:
-        sub = _Req(
-            keys=karr, values=None, want="order", descending=(descending,),
-            config=req.config, investigator=req.investigator, n=int(karr.shape[0]),
-            n_local=None, dtype=karr.dtype, trace=req.trace,
-        )
-        out = backend.execute(sub, plan)
-        out.meta.trace = None  # only the top-level output completes the trace
-        return out
-
+    if plan.backend == "mesh":
+        return _exec_mesh_lsd(req, plan)
     klist = req.keys
-    perm = sub_sort(klist[-1], req.descending[-1]).values
+    perm = _lsd_pass(req, plan, klist[-1], req.descending[-1]).values
     last = None
     for karr, desc in zip(klist[-2::-1], req.descending[-2::-1]):
-        last = sub_sort(keyenc.take(karr, perm.to(karr.device)), desc)
+        last = _lsd_pass(req, plan, keyenc.take(karr, perm.to(karr.device)), desc)
         perm = keyenc.take(perm, last.values)
     sorted_keys = tuple(keyenc.take(k, perm.to(k.device)).to(perm.device) for k in klist)
     if req.want == "order":
@@ -1231,6 +1335,38 @@ def _exec_multikey(req: _Req, plan: SortPlan) -> SortOutput:
         values = None if req.values is None else keyenc.take(req.values.to(perm.device), perm)
     return SortOutput(_meta(req, plan, req.config, last.meta.retries), keys=sorted_keys,
                       values=values, counts=last.counts)
+
+
+def _exec_mesh_lsd(req: _Req, plan: SortPlan) -> SortOutput:
+    """LSD passes over the mesh, SPMD: ``repro``'s composition on the
+    global arrays, with every gather through the permutation an indexed
+    exchange between the ranks.
+
+    The first pass sorts each rank's own shard of the last key. A pass's
+    output is block r of the global permutation, sized by that pass's
+    counts. The next pass's input is ``k[perm]`` in ``pad_grid``'s even
+    layout, as ``repro`` shards the array it builds: the permutation moves
+    to that layout (``_mesh_reblock``), the key's values are fetched from
+    the ranks that own them (``_mesh_take``), and the pass's order indexes
+    that layout, so ``perm[order]`` is one more take. The keys and values
+    of the last permutation are fetched in one take. ``counts``,
+    ``retries`` and the block are the last pass's, as ``repro`` reports
+    the last pass's counts and retries."""
+    ag, lengths, klist = plan.group, req.mesh_lengths, req.keys
+    even = _even_sizes(int(lengths.sum()), ag.size)
+    last = _lsd_pass(req, plan, klist[-1], req.descending[-1])
+    perm = last.values
+    for karr, desc in zip(klist[-2::-1], req.descending[-2::-1]):
+        perm_even = _mesh_reblock(ag, req, perm, last.counts, even)
+        last = _lsd_pass(req, plan, _mesh_take(ag, req, [karr], lengths, perm_even)[0], desc)
+        perm = _mesh_take(ag, req, [perm_even], even, last.values)[0]
+    cols = [*klist, *([] if req.values is None else [req.values.to(plan.device)])]
+    got = _mesh_take(ag, req, cols, lengths, perm)
+    values = perm if req.want == "order" else (got[-1] if req.values is not None else None)
+    meta = _meta(req, plan, req.config, last.meta.retries)
+    meta.n, meta.exchanges = last.meta.n, req.exchanges
+    return SortOutput(meta, keys=tuple(got[:len(klist)]), values=values, counts=last.counts,
+                      block=last.block)
 
 
 # --------------------------------------------------------------- public

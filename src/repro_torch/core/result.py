@@ -61,6 +61,9 @@ class SortMeta:
     t_start: the ``time.perf_counter()`` at dispatch of a lazy result
       while a tuner was ambient; the wall time is recorded
       (``record_tune``) when the output materializes.
+    exchanges: a mesh tuple sort's indexed exchanges between the ranks,
+      by kind (``{"take": n, "reblock": n}``: ``planner._mesh_take`` and
+      ``_mesh_reblock``); None for every other sort.
     """
 
     backend: str
@@ -80,6 +83,7 @@ class SortMeta:
     trace_id: str | None = None
     flush_id: str | None = None
     t_start: float | None = None
+    exchanges: dict | None = None
 
 
 def record_tune(meta: SortMeta, t0: float) -> None:

@@ -7,7 +7,6 @@ ROADMAP.md §1 sub-item of item 10 that ports it.
 from __future__ import annotations
 
 _LATER = {
-    "batching": "item 10.1 (serve/batching.py: per-slot decode positions)",
     "window": "item 10.2 (sliding-window attention and its ring caches)",
     "cross": "item 10.3 (cross-attention, encoder and vision memory)",
     "mla": "item 10.4 (MLA attention)",

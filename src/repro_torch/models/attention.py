@@ -19,7 +19,10 @@ writes the new entry into them in place (``repro`` returns updated
 copies): the cache of a long prompt is gigabytes, and the old buffers are
 never read again.
 
-Cross-attention, sliding windows, per-slot decode positions and MLA raise
+Decode takes one position for the whole batch, or one per row (a (B,)
+tensor with B > 1: continuous batching, ``serve/batching.py``), as
+``repro``'s per-slot path: its own rope angles, its own cache position,
+its own causal mask. Cross-attention, sliding windows and MLA raise
 NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -201,7 +204,8 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     """Returns (out, new_cache). Prefill (``cache`` given, ``decode``
     False) returns the prompt's k/v as the cache; decode (S == 1) writes
     the new k/v at the one position in ``positions`` in place and attends
-    over the cache up to it."""
+    over the cache up to it, or, with ``positions`` of shape (B,) and
+    B > 1, each row at its own position (``_write_slots``)."""
     if memory is not None or (cache is not None and "ck" in cache):
         raise not_ported("cross-attention", "cross")
     if window:
@@ -222,22 +226,29 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
 
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    if decode and positions.dim() == 1 and positions.shape[0] == B and B > 1:
-        raise not_ported("per-slot decode positions", "batching")
+    # per-slot positions (continuous batching): one decode position a row
+    per_slot = decode and positions.dim() == 1 and positions.shape[0] == B and B > 1
 
     if rope:
         cos, sin = rope_table(positions, dh, cfg.rope_theta)
+        if per_slot:  # (B, half) -> (B, 1, half)
+            cos, sin = cos[:, None, :], sin[:, None, :]
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
     if decode:
         if cache is None or S != 1:
             raise ValueError("decode takes one token (S == 1) and a cache")
-        pos = positions.reshape(1).long()
-        ck = cache["k"].index_copy_(1, pos, k)
-        cv = cache["v"].index_copy_(1, pos, v)
-        t = torch.arange(ck.shape[1], device=x.device)
-        mask = (t <= pos)[None, None, None, None, :]
+        if per_slot:
+            ck, cv = _write_slots(cache["k"], k, positions), _write_slots(cache["v"], v, positions)
+            t = torch.arange(ck.shape[1], device=x.device)
+            mask = (t[None, :] <= positions.long()[:, None])[:, None, None, None, :]
+        else:
+            pos = positions.reshape(1).long()
+            ck = cache["k"].index_copy_(1, pos, k)
+            cv = cache["v"].index_copy_(1, pos, v)
+            t = torch.arange(ck.shape[1], device=x.device)
+            mask = (t <= pos)[None, None, None, None, :]
         ctx = _grouped_attn(q, ck, cv, mask, scale)
         return ctx.reshape(B, S, H * dh) @ p.wo, {"k": ck, "v": cv}
 
@@ -251,6 +262,23 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
                             k_positions=positions, scale=scale)
     out = ctx.reshape(B, S, H * dh) @ p.wo
     return out, ({"k": k, "v": v} if cache is not None else None)
+
+
+def _write_slots(cache, new, positions):
+    """Row b of ``new`` (B, 1, KV, dh) into ``cache`` (B, S_max, KV, dh) at
+    position ``positions[b]``, in place: ``repro``'s ``.at[bidx,
+    pos].set(..., mode="drop")``, a negative position counted from the end
+    as jax indexes, and a position outside the cache dropped (its row
+    keeps its old entry) by masking, with no host read."""
+    S_max = cache.shape[1]
+    pos = positions.long()
+    pos = torch.where(pos < 0, pos + S_max, pos)
+    keep = (pos >= 0) & (pos < S_max)
+    at = pos.clamp(0, S_max - 1)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    old = cache[rows, at]
+    cache[rows, at] = torch.where(keep[:, None, None], new[:, 0], old)
+    return cache
 
 
 def init_gqa_cache(cfg, B: int, S_max: int, window: int = 0, device=None):

@@ -89,14 +89,20 @@ class Model(nn.Module):
 
     def forward(self, batch, caches=None, decode: bool = False, pos=None):
         """Returns (logits, new_caches, aux). ``pos``: the decode position
-        (S == 1), one int or 0-d tensor for the whole batch; otherwise the
-        positions are 0..S-1."""
+        (S == 1), one int or 0-d tensor for the whole batch, or a (B,)
+        tensor with one position per row (continuous batching:
+        ``serve/batching.py``); otherwise the positions are 0..S-1."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         if decode:
-            if pos is None or torch.as_tensor(pos).dim() != 0:
-                raise not_ported("per-slot decode positions", "batching")
-            positions = torch.as_tensor(pos, dtype=torch.long, device=tokens.device).reshape(1)
+            if pos is None:
+                raise ValueError("decode needs the position pos")
+            positions = torch.as_tensor(pos, dtype=torch.long, device=tokens.device)
+            if positions.dim() == 0:
+                positions = positions.reshape(1)
+            elif positions.shape != (B,):
+                raise ValueError(f"decode positions of shape {tuple(positions.shape)}: "
+                                 f"one for the batch, or ({B},), one a row")
         else:
             positions = torch.arange(S, device=tokens.device)
         x = self._embed_in(batch, positions)

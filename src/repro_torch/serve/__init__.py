@@ -4,7 +4,8 @@
 ``SortServer.submit -> SortFuture`` with planner-driven dispatch, and
 keys-only requests coalesced into one batched flush per shape bucket on
 the card. ``engine`` serves the port's models (prefill, decode,
-generation).
+generation); ``batching`` is its continuous batcher (slots, admission
+between decode steps).
 
 Both load on first use: importing ``repro_torch.serve.engine`` loads no
 sort module, and importing the package loads neither.
@@ -12,15 +13,14 @@ sort module, and importing the package loads neither.
 import importlib
 
 _SORTD = ("SortServer", "SortFuture", "QueueFullError", "RequestTooLargeError")
+_BATCHING = ("ContinuousBatcher", "Request", "Completion")
 
-__all__ = list(_SORTD)
+__all__ = [*_SORTD, *_BATCHING]
 
 
 def __getattr__(name: str):
     if name in _SORTD:
         return getattr(importlib.import_module("repro_torch.serve.sortd"), name)
-    if name in ("ContinuousBatcher", "Request", "Completion"):
-        from repro_torch.models import not_ported
-
-        raise not_ported(f"serve.{name}", "batching")
+    if name in _BATCHING:
+        return getattr(importlib.import_module("repro_torch.serve.batching"), name)
     raise AttributeError(f"module 'repro_torch.serve' has no attribute {name!r}")

@@ -173,6 +173,27 @@ class AxisGroup:
         dist.all_to_all_single(recv, wire, recv_sizes, send_sizes, group=self.group)
         return recv.view(t.dtype).to(t.device)
 
+    def all_to_all_v(self, t: torch.Tensor, send_sizes, recv_sizes) -> torch.Tensor:
+        """Rows of ``t`` by destination: its first ``send_sizes[0]`` rows go
+        to coordinate 0, the next ``send_sizes[1]`` to coordinate 1, and so
+        on; returns the ``sum(recv_sizes)`` rows received, coordinate 0's
+        first (``recv_sizes[i]``: how many coordinate i sends here)."""
+        dist = _dist()
+        row = math.prod(t.shape[1:]) * t.element_size()
+        order = self._coord  # coordinate of each group rank
+        send = [int(send_sizes[c]) * row for c in order]
+        recv = [int(recv_sizes[c]) * row for c in order]
+        wire = self._wire(t)
+        if not self._identity:
+            pieces = wire.split([int(s) * row for s in send_sizes])
+            wire = torch.cat([pieces[c] for c in order])
+        out = torch.empty(sum(recv), dtype=torch.uint8, device=wire.device)
+        dist.all_to_all_single(out, wire, recv, send, group=self.group)
+        if not self._identity:
+            pieces = out.split(recv)
+            out = torch.cat([pieces[g] for g in self._grank])
+        return out.view(t.dtype).reshape(-1, *t.shape[1:]).to(t.device)
+
     def all_max(self, values) -> list:
         """The element-wise maximum over the group of a few host integers
         (``lax.pmax``), as a list."""

@@ -163,17 +163,14 @@ def test_64bit_dtypes_refused_at_the_door(dtype):
         k, limits=repro_torch.SortLimits(x64=True), device="cpu"), "item 2"),
 ])
 def test_not_ported_raises_naming_the_roadmap_item(call, item):
-    """What the port does not cover raises NotImplementedError naming its
-    ROADMAP item: multi-key sorts over the mesh (item 9.1; the mesh backend
-    is item 9's, ported, tests/test_torch_mesh.py). The "item 2" cases are
-    x64 mode, which is ported now:
-    each sorts, with the mode on or pinned by SortLimits(x64=True); with
-    the mode off a 64-bit stream chunk raises repro's TypeError."""
+    """What the port once refused, naming its ROADMAP item, now sorts. The
+    "item 9.1" cases are multi-key sorts over the mesh (a one-rank mesh
+    here; 8 ranks against ``repro`` in tests/test_torch_mesh.py), with the
+    mode on or off. The "item 2" cases are x64 mode: each sorts, with the
+    mode on or pinned by SortLimits(x64=True); with the mode off a 64-bit
+    stream chunk raises repro's TypeError."""
     k = np.arange(100, dtype=np.int32)
-    if item != "item 2":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, {item} "):
-            call(k)
-        return
+    assert item in ("item 2", "item 9.1")
     outs = []
     with repro_torch.x64_mode(False):
         try:

@@ -802,19 +802,14 @@ def test_sort_server_on_cuda_equals_cpu(gpu):
         assert b.meta.coalesced == a.meta.coalesced
 
 
-@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
-def test_mesh_sort_on_cuda_equals_the_sim(gpu, tmp_path, backend, world):
-    """A one-rank NCCL group, and two gloo ranks sharing cuda:0 (the
-    collectives staged through the host), each rank sorting its shard on
-    the card (tests/torch_mesh_card.py): the blocks equal the sim with
-    n_procs = world on the card, and the counts and send counts too."""
+def _card_ranks(tmp_path, backend, world) -> list:
+    """Run ``world`` ranks of tests/torch_mesh_card.py on cuda:0 and return
+    each rank's npz as a dict."""
     import os
     import pathlib
     import subprocess
     import sys
     import time
-
-    import torch_mesh_card
 
     here = pathlib.Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(here.parent / "src"),
@@ -837,7 +832,18 @@ def test_mesh_sort_on_cuda_equals_the_sim(gpu, tmp_path, backend, world):
             f.close()
     assert [p.returncode for p in procs] == [0] * world, [
         (tmp_path / f"rank{r}.log").read_text()[-3000:] for r in range(world)]
-    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_mesh_sort_on_cuda_equals_the_sim(gpu, tmp_path, backend, world):
+    """A one-rank NCCL group, and two gloo ranks sharing cuda:0 (the
+    collectives staged through the host), each rank sorting its shard on
+    the card (tests/torch_mesh_card.py): the blocks equal the sim with
+    n_procs = world on the card, and the counts and send counts too."""
+    import torch_mesh_card
+
+    ranks = _card_ranks(tmp_path, backend, world)
     x = torch.from_numpy(torch_mesh_card.keys()).to(gpu)
     for name, kw in torch_mesh_card.CALLS.items():
         want = repro_torch.sort(x, where="sim", limits=repro_torch.SortLimits(n_procs=world),
@@ -852,3 +858,51 @@ def test_mesh_sort_on_cuda_equals_the_sim(gpu, tmp_path, backend, world):
             np.testing.assert_array_equal(g[f"{name}/send_counts"], want.send_counts)
             staged = "staged through the host" in str(g[f"{name}/reasons"])
             assert staged == (backend == "gloo")
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_multikey_mesh_sort_on_cuda_equals_cpu(gpu, tmp_path, backend, world):
+    """Tuples over the mesh on the card (tests/torch_mesh_card.py's
+    ``MK_CALLS``): a packed pair keys-only and argsorted, an LSD pair with a
+    payload; the blocks and counts equal the same sort over a one-rank CPU
+    mesh's sim layout (the sim with n_procs = world on the CPU), bit for
+    bit."""
+    import torch_mesh_card
+
+    ranks = _card_ranks(tmp_path, backend, world)
+    for name, kw in torch_mesh_card.MK_CALLS.items():
+        cols, values = torch_mesh_card.tuple_inputs(name)
+        kw = {k: v for k, v in kw.items() if k != "values"}
+        want = repro_torch.sort(cols, values, where="sim", device="cpu",
+                                limits=repro_torch.SortLimits(n_procs=world), **kw)
+        assert {str(g[f"{name}/multikey"]) for g in ranks} == {want.meta.multikey}
+        assert want.meta.multikey == ("lsd" if name == "mk_lsd" else "packed")
+        for j, col in enumerate(want.keys):
+            got = np.concatenate([g[f"{name}/keys/{j}"] for g in ranks])
+            np.testing.assert_array_equal(got.view(np.uint8), col.numpy().view(np.uint8))
+        if want.values is not None:
+            got = np.concatenate([g[f"{name}/values"] for g in ranks])
+            np.testing.assert_array_equal(got.view(np.uint8), want.values.numpy().view(np.uint8))
+        for g in ranks:
+            np.testing.assert_array_equal(g[f"{name}/counts"], want.counts)
+
+
+def test_batcher_on_cuda_equals_cpu(gpu, monkeypatch):
+    """The qwen3-4b smoke config in float32 (TF32 off) through
+    ``ContinuousBatcher`` (2 slots, 3 requests, so one slot is re-used): the
+    same tokens on the card as on the CPU with the same weights."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(smoke_config("qwen3-4b"), dtype="float32")
+    m_gpu = Model(cfg, device=gpu, seed=6)
+    m_cpu = Model(cfg, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    rng = np.random.default_rng(6)
+    reqs = [(i, rng.integers(0, cfg.vocab, L).astype(np.int32), n)
+            for i, (L, n) in enumerate([(40, 6), (130, 9), (17, 5)])]
+    got = ContinuousBatcher(m_gpu, n_slots=2, s_max=160).run([Request(*r) for r in reqs])
+    want = ContinuousBatcher(m_cpu, n_slots=2, s_max=160).run([Request(*r) for r in reqs])
+    assert got == want and sorted(got) == [0, 1, 2]

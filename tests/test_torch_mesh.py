@@ -15,9 +15,12 @@ Each rank's block, concatenated in coordinate order, must equal
 flag and the ladder's retries must equal ``repro``'s on every rank; each
 rank's raw row must equal its row of ``repro``'s grid; ranks that share
 the group's coordinates (the other "model" column) must return the same.
-int64 sorts in x64 mode are held to the port's own sim on the same grid
-(tests/test_torch_x64.py holds that sim to ``repro``). The error paths run
-in this process on a one-rank mesh.
+Tuples (the ``mk_*`` cases) are held the same way, for both of the port's
+decodes; a shard that makes the sort refuse a tuple makes every rank
+raise. int64 sorts in x64 mode, and an int64 pair packed into 63 bits, are
+held to the port's own sim on the same grid (tests/test_torch_x64.py holds
+that sim to ``repro``). The error paths and a tuple over a one-rank mesh
+run in this process.
 """
 import numpy as np
 import pytest
@@ -51,16 +54,29 @@ def group(axis, column: int = 0) -> list:
     return sorted(members, key=lambda r: C.axis_coord(r, axis))
 
 
+def key_columns(d: dict, key: str) -> list:
+    """The key columns saved under ``key``: one array, or a tuple's."""
+    if f"{key}/keys" in d:
+        return [d[f"{key}/keys"]]
+    return [d[f"{key}/keys/{j}"] for j in range(len(d)) if f"{key}/keys/{j}" in d]
+
+
 @pytest.mark.parametrize("decode", DECODES)
 @pytest.mark.parametrize("name", list(CASES))
 def test_blocks_equal_repro(both, name, decode):
+    """Single keys and tuples (``mk_*``: packed and LSD, ``repro`` under
+    its host decode) alike."""
     ref, ranks = both
     axis = CASES[name]["axis"]
     key = f"{name}/{decode}"
+    n = C.n_of(CASES[name])
+    want_cols = key_columns(ref, name)
+    assert len(want_cols) == (len(CASES[name]["keys"]) if name.startswith("mk_") else 1)
     for column in (0, 1):
         members = group(axis, column)
-        keys = np.concatenate([ranks[r][f"{key}/keys"] for r in members])
-        assert_bits_equal(keys, ref[f"{name}/keys"])
+        for j, want in enumerate(want_cols):
+            keys = np.concatenate([key_columns(ranks[r], key)[j] for r in members])
+            assert_bits_equal(keys, want)
         if f"{name}/values" in ref:
             vals = np.concatenate([ranks[r][f"{key}/values"] for r in members])
             assert_bits_equal(vals, ref[f"{name}/values"])
@@ -69,12 +85,15 @@ def test_blocks_equal_repro(both, name, decode):
             got = ranks[r]
             index, size, b0, b1 = got[f"{key}/block"]
             assert (index, size, b0) == (i, len(members), start)
-            assert b1 - b0 == got[f"{key}/keys"].shape[0]
+            assert all(b1 - b0 == c.shape[0] for c in key_columns(got, key))
             start = b1
             for field in ("counts", "send_counts", "retries", "overflowed"):
-                np.testing.assert_array_equal(got[f"{key}/{field}"], ref[f"{name}/{field}"])
-            assert got[f"{key}/n"] == CASES[name]["keys"].shape[0]
-        assert start == CASES[name]["keys"].shape[0]
+                assert (f"{key}/{field}" in got) == (f"{name}/{field}" in ref), field
+                if f"{name}/{field}" in ref:
+                    np.testing.assert_array_equal(got[f"{key}/{field}"],
+                                                  ref[f"{name}/{field}"])
+            assert got[f"{key}/n"] == n
+        assert start == n
 
 
 @pytest.mark.parametrize("name", [*CASES, *LIBRARY])
@@ -225,12 +244,79 @@ def test_cpu_mesh_refuses_a_cuda_sort(device):
                          device=device)
 
 
+@pytest.mark.parametrize("kw", [{}, {"want": "order"}, {"values": True}])
 @pytest.mark.parametrize("limits", [{}, {"multikey": "lsd"}, {"decode": "host"}])
-def test_multikey_over_the_mesh_names_item_9_1(limits):
-    k = np.arange(100, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1, item 9\.1 "):
-        repro_torch.sort((k, k[::-1].copy()), where=(world_mesh(), "data"), device="cpu",
-                         limits=repro_torch.SortLimits(**limits))
+def test_multikey_on_one_rank_mesh_equals_the_sim(limits, kw):
+    """A tuple over a one-rank mesh: packed (or LSD) on the one rank, its
+    blocks, counts and retries the sim's (n_procs=1)."""
+    rng = np.random.default_rng(30)
+    k = (rng.integers(0, 4, 3000).astype(np.int32), rng.integers(0, 90, 3000).astype(np.int16))
+    kw = dict(kw)
+    if kw.pop("values", False):
+        kw["values"] = rng.uniform(size=3000).astype(np.float32)
+    got = repro_torch.sort(k, where=(world_mesh(), "data"), device="cpu", order=("desc", "asc"),
+                           limits=repro_torch.SortLimits(**limits), **kw)
+    want = repro_torch.sort(k, where="sim", device="cpu", order=("desc", "asc"),
+                            limits=repro_torch.SortLimits(n_procs=1, **limits), **kw)
+    expect = "lsd" if limits.get("multikey") == "lsd" else "packed"
+    assert got.meta.multikey == want.meta.multikey == expect
+    # indexed exchanges: LSD re-blocks once and takes the key, the
+    # permutation and the results; a packed sort takes only a payload
+    assert got.meta.exchanges == ({"reblock": 1, "take": 3} if expect == "lsd"
+                                  else {"take": 1} if "values" in kw else {})
+    assert want.meta.exchanges is None
+    assert got.block == (0, 1, 0, 3000)
+    for a, b in zip(got.keys, want.keys, strict=True):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    if want.values is not None:
+        np.testing.assert_array_equal(got.values.numpy(), want.values.numpy())
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.meta.retries == want.meta.retries
+
+
+def test_key_bits_violation_on_one_rank_raises_on_every_rank(both):
+    """Coordinate 2's shard holds a value past its declared width: every
+    rank raises ``repro``'s ValueError, naming that value."""
+    ref, ranks = both
+    assert "value np.int32(21) does not fit" in str(ref["error/key_bits"])
+    assert [str(g.get("error/key_bits")) for g in ranks] == [str(ref["error/key_bits"])] * C.WORLD
+
+
+def test_nan_in_one_shard_of_an_lsd_pass_raises_on_every_rank(both):
+    """A NaN in coordinate 1's shard of a float column that runs LSD: the
+    pass's payload sort refuses it on every rank with the same text, as
+    ``repro`` refuses the global array."""
+    ref, ranks = both
+    assert "cannot contain NaN keys" in str(ref["error/nan"])
+    errors = {str(g.get("error/nan")) for g in ranks}
+    assert len(errors) == 1 and "refused on rank(s) [1] of the axis group" in errors.pop()
+
+
+@pytest.mark.parametrize("want", ["values", "order"])
+def test_x64_pair_blocks_equal_the_sim(both, want):
+    """An int64 pair over 63 bits in x64 mode: one int64 packed sort over
+    the mesh, its blocks, counts and send counts the port's sim's over the
+    same (4, 2048) grid."""
+    _, ranks = both
+    pair = C.x64_pair()
+    with repro_torch.x64_mode():
+        want_out = repro_torch.sort(pair, want=want, order=("desc", "asc"), device="cpu",
+                                    where="sim", config=repro_torch.SortConfig(tile=256),
+                                    limits=repro_torch.SortLimits(n_procs=4))
+    assert want_out.meta.plan.packspec.pack_dtype == torch.int64
+    members = group("data", 0)
+    for j, col in enumerate(want_out.keys):
+        keys = np.concatenate([ranks[r][f"x64_pair/{want}/keys/{j}"] for r in members])
+        np.testing.assert_array_equal(keys, col.numpy())
+    if want == "order":
+        np.testing.assert_array_equal(
+            np.concatenate([ranks[r][f"x64_pair/{want}/values"] for r in members]),
+            want_out.values.numpy())
+    for r in members:
+        assert str(ranks[r][f"x64_pair/{want}/multikey"]) == "packed"
+        np.testing.assert_array_equal(ranks[r][f"x64_pair/{want}/counts"], want_out.counts)
+        np.testing.assert_array_equal(ranks[r][f"x64_pair/{want}/send_counts"],
+                                      want_out.send_counts)
 
 
 def test_axis_group_of_a_tuple_follows_the_mesh_order():

@@ -302,17 +302,20 @@ def test_unported_attention_branches_raise_naming_their_item():
         attention.gqa_forward(x, p, tc, window=32)
     with pytest.raises(NotImplementedError, match="item 10.3"):
         attention.gqa_forward(x, p, tc, memory=x)
-    with pytest.raises(NotImplementedError, match="item 10.1"):
-        attention.gqa_forward(x[:, :1], p, tc, decode=True, positions=torch.tensor([3, 4]),
-                              cache=attention.init_gqa_cache(tc, 2, 8))
+    # per-slot decode positions (item 10.1) are ported: they run
+    out, cache = attention.gqa_forward(x[:, :1], p, tc, decode=True,
+                                       positions=torch.tensor([3, 4]),
+                                       cache=attention.init_gqa_cache(tc, 2, 8))
+    assert out.shape == (2, 1, tc.d_model) and bool(torch.isfinite(out).all())
+    assert cache["k"][0, 3].abs().sum() > 0 and cache["k"][1, 4].abs().sum() > 0
     with pytest.raises(NotImplementedError, match="item 10.4"):
         attention.mla_forward(x, p, tc)
     with pytest.raises(NotImplementedError, match="item 10.2"):
         attention.init_gqa_cache(tc, 2, 8, window=4)
     tm = Model(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10.1"):
-        tm({"tokens": torch.zeros((2, 1), dtype=torch.int32)}, caches=tm.init_caches(2, 4),
-           decode=True, pos=torch.tensor([1, 2]))
+    logits, _, _ = tm({"tokens": torch.zeros((2, 1), dtype=torch.int32)},
+                      caches=tm.init_caches(2, 4), decode=True, pos=torch.tensor([1, 2]))
+    assert logits.shape == (2, 1, tm.vocab_padded)
 
 
 def test_model_follows_the_device_rule():

@@ -1,7 +1,8 @@
 """The seeded cases of tests/test_torch_mesh.py, shared by ``repro``'s side
 (tests/torch_mesh_reference.py) and the port's ranks
 (tests/torch_mesh_worker.py). numpy only: each side imports this and its
-own package.
+own package. A case's keys are one array or a tuple of key columns (a
+lexicographic sort); each column is sharded alike.
 
 The mesh is (4, 2) with axes ("data", "model"), as in
 tests/test_distributed.py. A case names its global keys, payload, sort
@@ -95,7 +96,84 @@ def cases() -> dict:
         "lockstep": _case(np.concatenate([rng.permutation(2048),
                                           rng.permutation(np.arange(2048, n))]).astype(np.int32),
                           config=dict(fast, capacity_factor=1.5)),
+        **multikey_cases(),
     }
+
+
+def n_of(case: dict) -> int:
+    keys = case["keys"]
+    return (keys[0] if isinstance(keys, tuple) else keys).shape[0]
+
+
+def multikey_cases() -> dict:
+    """Tuple sorts over the mesh (``repro`` runs them under the host
+    decode): packed and LSD, both wants, mixed orders, payloads, declared
+    widths, a float column, one empty rank (7 keys over 8 ranks)."""
+    rng = np.random.default_rng(27)
+    n = 8192
+    fast = dict(tile=256, capacity_factor=1.5, use_pallas=False)
+    four = rng.integers(0, 4, n).astype(np.int32)
+    forty = rng.integers(0, 40, n).astype(np.int32)
+    return {
+        # paper Table II as tuples: 4 values x 2^16
+        "mk_packed": _case((four, rng.integers(0, 1 << 16, n).astype(np.int32)),
+                           order=("desc", "asc"), config=fast),
+        # packed ties across blocks: the tie stitch on packed keys
+        "mk_packed_order": _case((four, forty), ("data", "model"), want="order", config=fast),
+        "mk_packed_payload": _case((rng.integers(-3, 3, n).astype(np.int16),
+                                    rng.integers(0, 200, n).astype(np.uint8)),
+                                   ("data", "model"), values=rng.uniform(size=n).astype(np.float32),
+                                   order=("desc", "desc"), config=fast),
+        # 2 + 32 bits: LSD passes, with a payload
+        "mk_lsd": _case((four, rng.normal(size=n).astype(np.float32)),
+                        values=rng.uniform(size=n).astype(np.float32), order=("asc", "desc"),
+                        config=fast),
+        "mk_lsd_order": _case((rng.integers(0, 3, n).astype(np.int32),
+                               rng.integers(-5, 5, n).astype(np.int16),
+                               rng.integers(0, 1 << 32, n, dtype=np.uint32)),
+                              ("data", "model"), want="order", order=("desc", "asc", "desc"),
+                              config=fast),
+        "mk_lsd_forced_pad8003": _case((four[:8003], forty[:8003]), order=("asc", "desc"),
+                                       limits=dict(multikey="lsd"), config=fast),
+        "mk_key_bits": _case((rng.integers(0, 16, n).astype(np.int32),
+                              rng.integers(0, 1000, n).astype(np.int32)),
+                             want="order", limits=dict(key_bits=(4, None)), config=fast),
+        # a float column that packs: [1, 2) in steps of 0.01, 23 + 6 bits
+        "mk_float": _case((np.round(rng.uniform(1, 2, n), 2).astype(np.float32),
+                           rng.integers(0, 64, n).astype(np.int32)),
+                          values=np.arange(n, dtype=np.int32), config=fast),
+        # 7 keys over 8 ranks: the last shard is empty
+        "mk_empty_rank": _case((np.array([3, 1, 3, 0, 1, 2, 3], np.int32),
+                                np.array([5, 9, 2, 7, 7, 1, 0], np.int32)), ("data", "model"),
+                               values=np.arange(7, dtype=np.float32), order=("asc", "desc"),
+                               config=fast),
+    }
+
+
+def multikey_error_cases() -> dict:
+    """Tuple requests that one rank's shard makes ``repro`` refuse: a value
+    past its declared width in coordinate 2's shard, and a NaN in
+    coordinate 1's shard of a float column that must run LSD."""
+    rng = np.random.default_rng(28)
+    n = 8192
+    bits = rng.integers(0, 16, n).astype(np.int32)
+    bits[5000] = 21  # coordinate 2 of 4 holds [4096, 6144)
+    nan = rng.normal(size=n).astype(np.float32)
+    nan[3000] = np.nan  # coordinate 1
+    return {
+        "key_bits": _case((bits, rng.integers(0, 9, n).astype(np.int32)),
+                          limits=dict(key_bits=(4, None)), config=dict(use_pallas=False)),
+        "nan": _case((rng.integers(0, 4, n).astype(np.int32), nan),
+                     config=dict(use_pallas=False)),
+    }
+
+
+def x64_pair() -> tuple:
+    """An int64 pair that packs into 63 bits only in x64 mode: ids over 2^40
+    (41 bits measured) and times over 2^16."""
+    rng = np.random.default_rng(29)
+    return (rng.integers(0, 1 << 40, 8192) >> 30 << 30,
+            rng.integers(0, 1 << 16, 8192).astype(np.int64))
 
 
 def library_cases() -> dict:

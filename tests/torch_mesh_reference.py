@@ -9,10 +9,11 @@ host devices, so this runs in a process of its own. Every sorted output
 is read through ``np.asarray`` and ``repro``'s host decode: its device
 decode raises ShardingTypeError on a sharded grid (jax 0.9), and so does
 ``SortLibrary.distributed_sort[_kv]``, which reads through it. Per case the
-npz holds ``<name>/keys``, ``/values``, ``/counts``, ``/send_counts``,
+npz holds ``<name>/keys`` (a tuple's columns as ``<name>/keys/<j>``), ``/values``, ``/counts``, ``/send_counts``,
 ``/retries``, ``/overflowed`` and the raw grid (``/raw_values``,
 ``/raw_keys`` for kv, ``/raw_count``, ``/raw_send_counts``); the
-``SortLibrary`` cases their raw grids; the traced sort its span names and
+``SortLibrary`` cases their raw grids; the tuple requests it refuses
+their ValueError texts (``error/<name>``); the traced sort its span names and
 per-device counts; ``topk_shard``'s answers; ``vocab_pad``'s.
 
 With ``moe`` it runs the MoE cases instead (tests/test_torch_moe_mesh.py):
@@ -76,18 +77,31 @@ def moe_main(path: str) -> None:
 def main(path: str) -> None:
     mesh = jax.make_mesh(C.MESH_SHAPE, C.MESH_AXES)
     out: dict = {}
-    host = repro.SortLimits(decode="host")
     for name, case in C.cases().items():
         r = repro.sort(case["keys"], case["values"], where=(mesh, case["axis"]),
-                       config=repro.SortConfig(**case["config"]), limits=host, **case["kw"])
-        out[f"{name}/keys"] = np.asarray(r.keys)
+                       config=repro.SortConfig(**case["config"]),
+                       limits=repro.SortLimits(decode="host", **case["limits"]), **case["kw"])
+        if isinstance(r.keys, tuple):
+            for j, col in enumerate(r.keys):
+                out[f"{name}/keys/{j}"] = np.asarray(col)
+        else:
+            out[f"{name}/keys"] = np.asarray(r.keys)
         if r.values is not None:
             out[f"{name}/values"] = np.asarray(r.values)
         out[f"{name}/counts"] = np.asarray(r.counts)
-        out[f"{name}/send_counts"] = np.asarray(r.send_counts)
+        if r.send_counts is not None:  # None after LSD passes
+            out[f"{name}/send_counts"] = np.asarray(r.send_counts)
         out[f"{name}/retries"] = np.asarray(r.meta.retries)
         out[f"{name}/overflowed"] = np.asarray(r.overflowed)
-        _raw(out, name, r.raw)
+        if r.raw is not None:
+            _raw(out, name, r.raw)
+    for name, case in C.multikey_error_cases().items():
+        try:
+            repro.sort(case["keys"], where=(mesh, case["axis"]),
+                       config=repro.SortConfig(**case["config"]),
+                       limits=repro.SortLimits(decode="host", **case["limits"]))
+        except ValueError as e:
+            out[f"error/{name}"] = np.asarray(str(e))
 
     # SortLibrary.distributed_sort[_kv] is this sort with no retry, read
     # through the device decode, which raises on jax 0.9: its raw grid

@@ -6,11 +6,14 @@ Joins a gloo group of WORLD (8) processes through a file store, builds a
 ``DeviceMesh("cpu", (4, 2), ("data", "model"))`` and runs every case of
 tests/torch_mesh_cases.py on its own shard with ``device="cpu"``, both
 decodes, writing ``OUT_DIR/rank<RANK>.npz``: each output's block, counts,
-send counts, retries, overflow flag and raw row; the raw rows of
+send counts, retries, overflow flag and raw row (a tuple's key columns as
+``<name>/keys/<j>``); the ValueError each rank raises on the tuple requests
+that one shard makes the sort refuse; the raw rows of
 ``distributed_sort[_kv]`` and ``distributed_sort_phased``; the ``SortLibrary``
 cases and the unequal-shard ValueError; the traced sort's spans; the
 first attempt's local and reduced overflow flags of the lockstep case;
-``topk_shard``; ``vocab_pad``; and int64 sorts in x64 mode. It imports
+``topk_shard``; ``vocab_pad``; and int64 sorts and an int64 pair packed
+into 63 bits in x64 mode. It imports
 nothing of JAX.
 
 With ``compress`` it runs ``optim.compress.compressed_psum_mean`` over a
@@ -50,16 +53,22 @@ def _np(t) -> np.ndarray:
 
 
 def save_output(out: dict, name: str, o) -> None:
-    out[f"{name}/keys"] = _np(o.keys)
+    if isinstance(o.keys, tuple):
+        for j, col in enumerate(o.keys):
+            out[f"{name}/keys/{j}"] = _np(col)
+    else:
+        out[f"{name}/keys"] = _np(o.keys)
     if o.values is not None:
         out[f"{name}/values"] = _np(o.values)
     out[f"{name}/counts"] = np.asarray(o.counts)
-    out[f"{name}/send_counts"] = np.asarray(o.send_counts)
+    if o.send_counts is not None:  # None after LSD passes, as in repro
+        out[f"{name}/send_counts"] = np.asarray(o.send_counts)
     out[f"{name}/retries"] = np.asarray(o.meta.retries)
     out[f"{name}/overflowed"] = np.asarray(o.overflowed)
     out[f"{name}/block"] = np.asarray(o.block)
     out[f"{name}/n"] = np.asarray(o.meta.n)
-    save_raw(out, name, o.raw)
+    if o.raw is not None:
+        save_raw(out, name, o.raw)
 
 
 def save_raw(out: dict, name: str, raw) -> None:
@@ -74,7 +83,10 @@ def save_raw(out: dict, name: str, raw) -> None:
 def local_input(case: dict, rank: int):
     p, r = C.axis_size(case["axis"]), C.axis_coord(rank, case["axis"])
     values = None if case["values"] is None else C.shard(case["values"], p, r)
-    return C.shard(case["keys"], p, r), values
+    keys = case["keys"]
+    if isinstance(keys, tuple):
+        return tuple(C.shard(k, p, r) for k in keys), values
+    return C.shard(keys, p, r), values
 
 
 def join(rank: int, world: int, store: str) -> None:
@@ -129,8 +141,19 @@ def main(rank: int, world: int, store: str, out_dir: str) -> None:
         for decode in ("device", "host"):
             o = repro_torch.sort(keys, values, where=(mesh, case["axis"]), device="cpu",
                                  config=repro_torch.SortConfig(**case["config"]),
-                                 limits=repro_torch.SortLimits(decode=decode), **case["kw"])
+                                 limits=repro_torch.SortLimits(decode=decode, **case["limits"]),
+                                 **case["kw"])
             save_output(out, f"{name}/{decode}", o)
+
+    # tuples that one rank's shard makes the sort refuse: every rank raises
+    for name, case in C.multikey_error_cases().items():
+        keys, _ = local_input(case, rank)
+        try:
+            repro_torch.sort(keys, where=(mesh, case["axis"]), device="cpu",
+                             config=repro_torch.SortConfig(**case["config"]),
+                             limits=repro_torch.SortLimits(**case["limits"]))
+        except ValueError as e:
+            out[f"error/{name}"] = np.asarray(str(e))
 
     # the entry points under the planner, on divisible shards
     for name, entry in (("uniform", sample_sort.distributed_sort),
@@ -200,11 +223,17 @@ def main(rank: int, world: int, store: str, out_dir: str) -> None:
 
     # x64 mode: int64 keys (8 values) keys-only and argsorted, over "data"
     x64 = np.random.default_rng(25).integers(-(1 << 40), 1 << 40, 8192) >> 38
+    pair = C.x64_pair()
     with repro_torch.x64_mode():
         for want in ("values", "order"):
             o = repro_torch.sort(C.shard(x64, 4, r), where=(mesh, "data"), want=want,
                                  device="cpu", config=repro_torch.SortConfig(tile=256))
             save_output(out, f"x64/{want}", o)
+            o = repro_torch.sort(tuple(C.shard(k, 4, r) for k in pair), where=(mesh, "data"),
+                                 want=want, order=("desc", "asc"), device="cpu",
+                                 config=repro_torch.SortConfig(tile=256))
+            save_output(out, f"x64_pair/{want}", o)
+            out[f"x64_pair/{want}/multikey"] = np.asarray(o.meta.multikey)
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
 
