@@ -9,9 +9,10 @@ Phases, one line or more each:
      units: one nvcc each, all started together), with its time and the
      ptxas report; it fails if ptxas reports spills in the wgmma flash
      kernel, or says that it ignored setmaxnreg or serialized the wgmma
-     instructions, or if any of the 520 instantiations of the row-sort
-     kernel or of the merge kernel (32- and 64-bit) is missing or has a
-     stack frame or spills;
+     instructions, or if the flash kernels at MLA's (192, 128) (wgmma and
+     FMA) are missing or have a stack frame or spills, or if any of the
+     520 instantiations of the row-sort kernel or of the merge kernel
+     (32- and 64-bit) is missing or has a stack frame or spills;
   2. each of the four bitonic kernels against its plain PyTorch twin on the
      card, bit for bit: the two row sorts at every row length 2..8192
      (1, 3 and a number of rows that is not a multiple of a CTA's) and at
@@ -55,14 +56,17 @@ Phases, one line or more each:
      full, bf16 and float32, at (B, S, H, KV, dh) = (1, 256, 4, 2, 16),
      (2, 1000, 4, 1, 64), (2, 1000, 8, 2, 128), (1, 77, 8, 8, 128),
      (1, 8192, 32, 8, 128) and the qwen3-4b prefill shape
-     (2, 8192, 32, 8, 128), each line naming the route it took (wgmma,
+     (2, 8192, 32, 8, 128), and at MLA's (dqk, dv) = (192, 128) with
+     (B, S, H = KV) = (1, 300, 2), (2, 1000, 4), (1, 77, 8) and
+     deepseek-v3's (1, 8192, 128), each line naming the route it took (wgmma,
      mma.sync or fma): max abs err <= 2e-2 (bf16) and <= 1e-4
      (float32) against the Pallas-faithful twin, and in bf16 within
      ``flash.bf16_error``'s limit (one bf16 ulp of each output plus 2^-6
      of its row's rms, mean error <= 1e-3 rms) of the twin that rounds
      where the kernel does; its median time at the prefill shape in bf16, causal,
      beside its bound, that twin's time and one
-     scaled_dot_product_attention call on the same tensors;
+     scaled_dot_product_attention call on the same tensors; the same four
+     numbers at deepseek-v3's MLA prefill (1, 8192, 128, 192/128);
   5. serving (the model tier's main path): qwen3-4b at full width with
      seeded random bf16 weights answers 2 prompts of 8192 seeded tokens
      with 16 new tokens each through ``engine.generate``; the flash launch
@@ -238,12 +242,35 @@ Phases, one line or more each:
      requests/s, tokens/s, decode ms a step, peak memory and one decode
      step's idle share under torch.profiler, with the card's name and
      power limit.
+ 13. MLA: deepseek-v3-671b (``configs/deepseek_v3_671b.py``, bf16, seeded,
+     flash) cut in depth to its 3 dense MLA layers and 1 MLA + MoE layer,
+     every width as published (15,111,101,440 parameters, equal to the
+     config's count on the meta device), answers 2 prompts of 8192 tokens
+     with 16 new through ``engine.generate``: every launch count set to 0
+     just before and read just after; flash at (192, 128) once per layer,
+     the dispatch's kv sort and merges (2 x 8192 x 8 expert ids over 256
+     keys) as ``moe_dispatch_launches`` derives. Then prefill and decode
+     (absorbed products over the compressed caches) timed, one decode
+     step under torch.profiler, peak memory, flash's time at (1, 8192,
+     128, 192/128) beside its bound and one scaled_dot_product_attention
+     call, and checks: (1) one MLA layer
+     in float32 at full width, S = 8192, card (flash's FMA route) against
+     CPU within 1e-5 x max; (2) the prefill's logits against
+     flash_attention=False (no flash launch) with the routing replayed,
+     within 5e-2 x max |logit|; (3) each decode step's logits against
+     the teacher-forced forward (its last, MoE, layer gathering the
+     compared positions' experts as decode does, the routing replayed),
+     within the same, and the served prefill's capacity drops counted;
+     (4) is phase 4's; (5) 4 requests of 512-2048 tokens and 8 new
+     through ``ContinuousBatcher(n_slots=2)``, launches as derived, each
+     request held to itself alone (``hold_batch``, routing replayed);
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
 served run's as ``launches_moe``, phase 11's training run's as
 ``launches_train``, phase 12's two batcher runs' as ``launches_batch``,
-flash's too; their
+phase 13's served run's as ``launches_mla``, flash's too, with flash's
+numbers at MLA's shape as ``*_mla``; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -254,6 +281,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 10    # phases 1, 2 and 10
     python3 chip_smoke.py --phases 11    # phases 1, 2 and 11
     python3 chip_smoke.py --phases 9,12  # phases 1, 2, 9 and 12
+    python3 chip_smoke.py --phases 13    # phases 1, 2 and 13
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -373,12 +401,20 @@ MERGE_ENTRY = re.compile(ENTRY.format("merge"))
 def check_ptxas(report: str) -> None:
     """Phase 1's check of flash.cu's ptxas report: the wgmma kernel spills
     nothing, and ptxas neither ignored setmaxnreg (C7508) nor serialized
-    the wgmma instructions (either would cost the kernel its design)."""
+    the wgmma instructions (either would cost the kernel its design); both
+    instantiations at MLA's (192, 128), wgmma and FMA, are there with no
+    stack frame and no spills."""
     bad = [line.strip() for line in report.splitlines()
            if "setmaxnreg" in line or ("wgmma" in line and "serialized" in line)]
-    for name, e in ptxas_entries(report).items():
+    entries = ptxas_entries(report)
+    for name, e in entries.items():
         if "flash_fwd_wgmma" in name and e.get("spills"):
             bad.append(f"{name}: {e['spills']} bytes spilled")
+        if "ILi192ELi128E" in name and (e.get("spills") or e.get("stack")):
+            bad.append(f"{name}: {e.get('stack')} bytes stack, {e.get('spills')} spilled")
+    for kernel in ("flash_fwd_wgmma", "flash_fwd_f32"):
+        if not any(f"{kernel}ILi192ELi128E" in name for name in entries):
+            bad.append(f"{kernel} at (192, 128) is missing")
     if bad:
         raise AssertionError("ptxas report of flash.cu: " + "; ".join(bad))
 
@@ -725,30 +761,40 @@ def check_kernels(device) -> dict:
 FLASH_SHAPES = [(1, 256, 4, 2, 16), (2, 1000, 4, 1, 64), (2, 1000, 8, 2, 128),
                 (1, 77, 8, 8, 128), (1, 8192, 32, 8, 128), (2, 8192, 32, 8, 128),
                 (2, 8192, 16, 16, 128)]
+# MLA's (dqk, dv) = (192, 128), heads not grouped (H = KV); the last one is
+# deepseek-v3's prefill at B = 1 (phase 13 serves it at B = 2)
+FLASH_MLA_SHAPES = [(1, 300, 2, 2, 192, 128), (2, 1000, 4, 4, 192, 128),
+                    (1, 77, 8, 8, 192, 128), (1, 8192, 128, 128, 192, 128)]
 # max abs err against flash_attention_twin; bf16: tests/test_flash_kernel.py's
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
-def flash_inputs(gen, B, S, H, KV, dh, dtype, device):
+def flash_inputs(gen, B, S, H, KV, dh, dtype, device, dv=None):
+    """q (B, S, H, dh), k (B, S, KV, dh), v (B, S, KV, dv), dv = dh unless
+    given."""
     import torch
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
 
-    return randn(B, S, H, dh), randn(B, S, KV, dh), randn(B, S, KV, dh)
+    return randn(B, S, H, dh), randn(B, S, KV, dh), randn(B, S, KV, dh if dv is None else dv)
 
 
-def flash_work(B, S, H, KV, dh, causal: bool, itemsize: int) -> tuple[int, int]:
+def flash_work(B, S, H, KV, dh, causal: bool, itemsize: int, dv=None) -> tuple[int, int]:
     """Bytes (q, k, v read once, o written once) and the useful products'
-    operations: 4 * dh per (query, key) pair that the mask keeps."""
+    operations: 2 * (dqk + dv) per (query, key) pair that the mask keeps
+    (dv = dh unless given)."""
+    dv = dh if dv is None else dv
     pairs = S * (S + 1) // 2 if causal else S * S
-    return (2 * B * S * H + 2 * B * S * KV) * dh * itemsize, 4 * B * H * dh * pairs
+    moved = (B * S * H * (dh + dv) + B * S * KV * (dh + dv)) * itemsize
+    return moved, 2 * B * H * (dh + dv) * pairs
 
 
 def check_flash(device) -> dict:
     """Phase 4: the flash kernel against its twins on the card (causal and
-    full, bf16 and f32, the ragged S = 1000 and the prefill shape
-    included); times at the qwen3-4b prefill shape."""
+    full, bf16 and f32, the ragged S = 1000 and the prefill shapes
+    included, MLA's (192, 128) widths among them); times at the qwen3-4b
+    prefill shape and at deepseek-v3's MLA prefill (``*_mla``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash
@@ -756,17 +802,19 @@ def check_flash(device) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False  # the twin's f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=device).manual_seed(2)
-    worst = 0.0
-    for B, S, H, KV, dh in FLASH_SHAPES:
+    worst, worst_mla = 0.0, 0.0
+    shapes = [(*shape, shape[-1]) for shape in FLASH_SHAPES] + FLASH_MLA_SHAPES
+    for B, S, H, KV, dh, dv in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
-                q, k, v = flash_inputs(gen, B, S, H, KV, dh, dtype, device)
+                q, k, v = flash_inputs(gen, B, S, H, KV, dh, dtype, device, dv)
                 got = flash.flash_attention(q, k, v, causal=causal)
                 want = flash.flash_attention_twin(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 name = str(dtype).removeprefix("torch.")
-                route = flash.ROUTES[(dtype, dh)]
-                label = f"flash {(B, S, H, KV, dh)} {name} causal={causal} route={route}"
+                route = flash.ROUTES[(dtype, dh, dv)]
+                dims = (B, S, H, KV, dh) if dh == dv else (B, S, H, KV, f"{dh}/{dv}")
+                label = f"flash {dims} {name} causal={causal} route={route}"
                 err = float((got.float() - want.float()).abs().max())
                 if not (err <= FLASH_TOL[name]) or got.shape != want.shape:
                     raise AssertionError(f"{label}: max abs err {err} > {FLASH_TOL[name]}")
@@ -779,7 +827,10 @@ def check_flash(device) -> dict:
                              f"{tight['mean_rel']:.3e} (limit {flash.BF16_MEAN_REL})")
                     if not tight["ok"]:
                         raise AssertionError(f"{label}: outside bf16_error's limit: {tight}")
-                    worst = max(worst, tight["max_abs"])
+                    if dh == dv:
+                        worst = max(worst, tight["max_abs"])
+                    else:
+                        worst_mla = max(worst_mla, tight["max_abs"])
                 log(f"phase 4: {label}: {line}")
                 del q, k, v, got, want
 
@@ -798,6 +849,41 @@ def check_flash(device) -> dict:
         f"({ops / num['ms'] / 1e9:.1f} TFLOP/s useful), bound {b_ms:.4f} ms ({b_by}), "
         f"kernel_twin {num['plain_ms']:.4f} ms, scaled_dot_product_attention "
         f"{num['library_ms']:.4f} ms")
+    del q, k, v, qt, kt, vt
+
+    num.update(mla_flash_times("phase 4", gen, device, plain=True), max_abs_err_mla=worst_mla)
+    return num
+
+
+def mla_flash_times(label: str, gen, device, plain: bool = False) -> dict:
+    """Flash at deepseek-v3's MLA prefill of one sequence, (1, 8192, 128,
+    192/128), bf16, causal: the kernel's time, its bound, one
+    scaled_dot_product_attention call's time on the same tensors, and with
+    ``plain`` ``kernel_twin``'s; logged with the card. Keys end in ``_mla``
+    (the kernels line's)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash
+
+    B, S, H, KV, dh, dv = FLASH_MLA_SHAPES[-1]
+    q, k, v = flash_inputs(gen, B, S, H, KV, dh, torch.bfloat16, device, dv)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    moved, ops = flash_work(B, S, H, KV, dh, True, 2, dv)
+    b_ms, b_by = bound(moved, ops, BF16_OPS_PER_S)
+    num = dict(
+        ms_mla=time_ms(lambda: flash.flash_attention(q, k, v, causal=True)),
+        library_ms_mla=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=dh ** -0.5)),
+        bound_ms_mla=b_ms, bound_by_mla=b_by)
+    twin = ""
+    if plain:
+        num["plain_ms_mla"] = time_ms(lambda: flash.kernel_twin(q, k, v, causal=True), reps=3,
+                                      batch=1)
+        twin = f"kernel_twin {num['plain_ms_mla']:.4f} ms, "
+    log(f"{label}: flash_attention {(B, S, H, KV, f'{dh}/{dv}')} bf16 causal (MLA): kernel "
+        f"{num['ms_mla']:.4f} ms ({ops / num['ms_mla'] / 1e9:.1f} TFLOP/s useful), bound "
+        f"{b_ms:.4f} ms ({b_by}), {twin}scaled_dot_product_attention "
+        f"{num['library_ms_mla']:.4f} ms; card {card_line()}")
     return num
 
 
@@ -3314,7 +3400,344 @@ def run_batch(device) -> dict:
     return total
 
 
-ALL_PHASES = frozenset(range(1, 13))
+
+# ----------------------------------------------------------------- phase 13
+
+MLA_B, MLA_S, MLA_NEW = 2, 8192, 16  # prompts of 8192: flash serves S >= 8192
+MLA_PARAMS = 15_111_101_440  # the 3 dense + 1 MoE cut (repro's param_count())
+MLA_BATCH = ((512, 8), (2048, 8), (1024, 8), (1536, 8))  # 4 requests, 2 slots
+MLA_LAYER_TOL = 1e-5  # check 1: card against CPU, of max |out|
+MLA_TOL = 5e-2  # checks 2 and 3: of max |logit|, as phases 5, 10 and 12
+
+
+def mla_config(dtype: str = "bfloat16"):
+    """deepseek-v3-671b (``configs/deepseek_v3_671b.py``) cut in depth to
+    its 3 dense MLA layers and 1 MLA + MoE layer, every width as published,
+    flash on."""
+    import dataclasses
+
+    from repro_torch.configs.base import MLA_DENSE, MLA_MOE
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config("deepseek-v3-671b"), dtype=dtype,
+                               flash_attention=True, n_layers=4,
+                               segments=(((MLA_DENSE,), 3), ((MLA_MOE,), 1)))
+
+
+def mla_layer_on_both(device) -> None:
+    """Phase 13's check 1: one MLA layer at full width in float32 (TF32
+    off), a prefill of S = 8192 on the card (the FMA route of the flash
+    kernel at (192, 128)) against the same layer and input on the CPU (the
+    kernel's twin): the output and c_kv within MLA_LAYER_TOL x max |want|.
+    k_pe is rope'd: the two devices' float32 rope tables (a ``pow`` and a
+    ``cos`` / ``sin`` of angles up to 8191 rad) differ by up to ``rope``,
+    which moves each rotated value by at most 2 x rope x max |k_pe before
+    rope|; k_pe is held to MLA_LAYER_TOL x max plus that."""
+    import torch
+    from repro_torch.kernels import flash
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rope_table
+
+    cfg = mla_config("float32")
+    gen = torch.Generator(device=device).manual_seed(31)
+    layer = attention.MLA(cfg, gen, device)
+    x = torch.randn((1, MLA_S, cfg.d_model), generator=gen, device=device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = flash.flash_attention.launches
+        t0 = time.perf_counter()
+        out, cache = attention.mla_forward(x, layer, cfg, cache={})
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        if flash.flash_attention.launches != before + 1:
+            raise AssertionError("phase 13: check 1: the float32 layer did not launch flash once")
+        layer_cpu = attention.MLA(cfg, None, "meta").to_empty(device="cpu")
+        layer_cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+        t0 = time.perf_counter()
+        want, want_cache = attention.mla_forward(x.cpu(), layer_cpu, cfg, cache={})
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    pos = torch.arange(MLA_S)
+    rope = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        rope_table(pos.to(device), cfg.qk_rope_dim, cfg.rope_theta),
+        rope_table(pos, cfg.qk_rope_dim, cfg.rope_theta)))
+    raw = float((x.cpu() @ layer_cpu.wkv_a)[..., cfg.kv_lora_rank:].abs().max())
+    errs = {"out": (out, want), "c_kv": (cache["c_kv"], want_cache["c_kv"]),
+            "k_pe": (cache["k_pe"], want_cache["k_pe"])}
+    scales = {k: float(b.abs().max()) for k, (a, b) in errs.items()}
+    errs = {k: float((a.cpu() - b).abs().max()) for k, (a, b) in errs.items()}
+    limits = {k: MLA_LAYER_TOL * v for k, v in scales.items()}
+    limits["k_pe"] += 2 * rope * raw
+    log(f"phase 13: check 1: one MLA layer in float32 at full width, S = {MLA_S}: card "
+        f"{card_ms:.3f} ms (flash's FMA route at (192, 128)), CPU {cpu_ms:.3f} ms; max abs "
+        "diff (limit): " + ", ".join(f"{k} {errs[k]:.3e} ({limits[k]:.3e}; max |want| "
+                                     f"{scales[k]:.3f})" for k in errs)
+        + f"; the rope tables differ by up to {rope:.3e}, k_pe before rope up to {raw:.3f}")
+    if not all(errs[k] <= limits[k] for k in errs):
+        raise AssertionError(f"phase 13: check 1: the card's float32 MLA layer is off the "
+                             f"CPU's: {errs}, limits {limits}")
+
+
+def run_mla(device) -> dict:
+    """Phase 13: deepseek-v3-671b served on the card, cut to 3 dense MLA
+    layers and 1 MLA + MoE layer at full width (bf16, seeded, flash):
+    ``engine.generate`` of 2 prompts of 8192 tokens and 16 new is the main
+    path (every count set to 0 just before, read just after; flash at
+    (192, 128) once per layer, the dispatch's kv kernels as derived), then
+    timed prefill and decode steps, and checks 1-5: a float32 layer card
+    against CPU; the prefill against flash_attention=False with the routing
+    replayed; each decode step against the teacher-forced forward, whose
+    MoE layer takes the compared positions as decode does; (check 4, flash
+    at MLA's shape against
+    ``kernel_twin``, is phase 4's); the continuous batcher, each request
+    held to itself alone. Returns the launches of every kernel over the
+    main path."""
+    import copy
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.kernels import bitonic, flash
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+    from repro_torch.serve.batching import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    cfg = mla_config()
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_list())
+    counted = Model(cfg, device="meta")  # the config's count, no allocation
+    meta_params = sum(p.numel() for p in counted.parameters())
+    del counted
+    # phase 12's batchers and their recorders hold each other's closures:
+    # a cycle, which keeps its model on the card until the collector runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 13: deepseek-v3-671b cut to {cfg.n_layers} layers (3 dense MLA, {n_moe} MLA + "
+        f"MoE: {cfg.n_experts} experts of {cfg.d_expert} + {cfg.n_shared_experts} shared, "
+        f"top-{cfg.moe_topk}; d_model {cfg.d_model}, {cfg.n_heads} heads, q/kv LoRA ranks "
+        f"{cfg.q_lora_rank}/{cfg.kv_lora_rank}, vocab {cfg.vocab}) built on the card in "
+        f"{time.perf_counter() - t0:.2f} s: {n_params} parameters (the config counts "
+        f"{meta_params} on the meta device), {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    if not n_params == meta_params == cfg.param_count() == MLA_PARAMS:
+        raise AssertionError(f"phase 13: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}, want {MLA_PARAMS}")
+    B, S, n_new, vocab, K = MLA_B, MLA_S, MLA_NEW, cfg.vocab, cfg.moe_topk
+    gen = torch.Generator(device=device).manual_seed(15)
+    batch = {"tokens": torch.randint(0, vocab, (B, S), generator=gen, device=device,
+                                     dtype=torch.int32)}
+
+    # the main path: generate, counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    bitonic.reset_launches()
+    flash.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate(model, batch, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    launches["flash_attention"] = flash.flash_attention.launches
+    per_layer = moe_dispatch_launches(B * S, K, 1, moe_capacity(B * S * K, 1,
+                                                                cfg.moe_capacity_factor))
+    want = {k: v * n_moe for k, v in per_layer.items()}
+    want["flash_attention"] = cfg.n_layers
+    log(f"phase 13: generate {B} x {S} prompt tokens + {n_new} new: {gen_s * 1e3:.3f} ms wall "
+        f"(first call), launches {launches} (derived {want}: flash at (192, 128) once per "
+        f"layer; per MoE layer {per_layer}, {B * S * K} assignments over {cfg.n_experts} "
+        f"keys padded to {_pow2(B * S * K)}), tokens {out.tolist()}")
+    if launches != want:
+        raise AssertionError(f"phase 13: launches {launches}, derived {want}")
+    if out.shape != (B, n_new) or not bool(((out >= 0) & (out < vocab)).all()):
+        raise AssertionError(f"phase 13: tokens out of [0, {vocab}) or of shape {out.shape}")
+
+    # prefill and decode timed; the prefill's and each decode step's
+    # routing recorded (check 3)
+    prefill, step = engine.make_prefill(model), engine.make_serve_step(model)
+    router, pre_routes = moe._router, []
+    moe._router = lambda xf, w, c: pre_routes.append(router(xf, w, c)) or pre_routes[-1]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe._router = router
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    if caches[0]["mix"]["c_kv"].shape != (B, S + n_new, cfg.kv_lora_rank):
+        raise AssertionError("phase 13: the compressed caches were not extended")
+    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    steps, step_ms, step_logits, step_routes = [tok], [], [], []
+    for i in range(n_new - 1):
+        routes = []
+        moe._router = lambda xf, w, c, rs=routes: rs.append(router(xf, w, c)) or rs[-1]
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = step(caches, tok, S + i)
+            tok = lg[..., :vocab].argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+        finally:
+            moe._router = router
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(tok)
+        step_logits.append(lg[:, 0, :vocab].float())
+        step_routes.append(routes)
+    if not torch.equal(torch.cat(steps, dim=1), out):
+        raise AssertionError("phase 13: the timed prefill and steps gave other tokens")
+    wall, dev, events = device_breakdown(lambda: step(caches, tok, S + n_new - 1))
+    log(f"phase 13: one decode step under torch.profiler: {wall:.3f} ms wall, {dev:.3f} ms "
+        f"device (idle {1 - dev / wall:.3f}); largest device events: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms ({ms / dev:.3f})" for name, ms in events[:8]))
+    del caches
+    decode_ms = statistics.median(step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 13: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms a step (median of "
+        f"{len(step_ms)}), {B / decode_ms * 1e3:.3f} tokens/s, peak {peak_gb:.3f} GB; card "
+        f"{card_line()}")
+    mla_flash_times("phase 13", gen, device)
+
+    # check 2: the prefill against the same weights read with
+    # flash_attention=False (the chunked path, no flash), the plain
+    # prefill's routing replayed into the flash prefill (phase 10's way)
+    plain = copy.copy(model)
+    plain.cfg = dataclasses.replace(cfg, flash_attention=False)
+    routes = []
+    before = flash.flash_attention.launches
+    moe._router = lambda xf, w, c: routes.append(router(xf, w, c)) or routes[-1]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, _ = engine.make_prefill(plain)(batch)
+        torch.cuda.synchronize()
+        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe._router = router
+    if flash.flash_attention.launches != before:
+        raise AssertionError("phase 13: check 2: the flash_attention=False prefill launched "
+                             "flash")
+    replay = iter(routes)
+    moe._router = lambda xf, w, c: next(replay)
+    try:
+        pinned, _ = prefill(batch)
+    finally:
+        moe._router = router
+    if flash.flash_attention.launches != before + cfg.n_layers or next(replay, None):
+        raise AssertionError("phase 13: check 2: the replayed flash prefill ran another path")
+    got, pinned, ref = logits.float(), pinned.float(), ref.float()
+    scale = float(ref.abs().max())
+    diff, pin_diff = float((got - ref).abs().max()), float((pinned - ref).abs().max())
+    log(f"phase 13: check 2: prefill logits vs flash_attention=False ({plain_prefill_ms:.3f} "
+        f"ms), max |logit| {scale:.4f}: with the plain prefill's routing replayed max abs diff "
+        f"{pin_diff:.4f} ({pin_diff / scale:.5f} of it, limit {MLA_TOL}); routed on its own "
+        f"{diff:.4f}")
+    if not (torch.isfinite(got).all() and torch.isfinite(pinned).all()
+            and pin_diff <= MLA_TOL * scale):
+        raise AssertionError("phase 13: check 2: the flash prefill disagrees with the plain one")
+    del plain, ref, pinned, routes
+
+    # check 3: each decode step against the teacher-forced forward of the
+    # prompt and the generated tokens (a prefill of S + n_new - 1). The MoE
+    # layer is the last one, so a position's expert output reaches only its
+    # own logits; at the compared positions it is taken as decode takes it
+    # (``moe_forward_decode``, each token's top-k experts gathered, with
+    # the decode step's routing replayed) on the forward's own hidden
+    # states. The sorted dispatch would drop what passes an expert's
+    # capacity, and the batch's last tokens are the first it drops; decode
+    # drops nothing. The served prefill's drops at the config's capacity
+    # factor are counted
+    full = torch.cat([batch["tokens"], out[:, :-1]], dim=1)
+    Sf = full.shape[1]
+    (_, pi, _), = pre_routes  # one MoE layer
+    cap = int(B * S * K // cfg.n_experts * cfg.moe_capacity_factor) + 1  # cap_e, one rank
+    load = torch.bincount(pi.reshape(-1).long(), minlength=cfg.n_experts)
+    dropped = int((load - cap).clamp_min(0).sum())
+    dispatch = moe.moe_forward
+
+    def decode_rows(h, layer, c, **kw):
+        mo, aux = dispatch(h, layer, c, **kw)
+        for i, routes in enumerate(step_routes):
+            (route,) = routes  # one MoE layer
+            moe._router = lambda xf, w, cc, r=route: r
+            try:
+                mo[:, S + i:S + i + 1] = moe.moe_forward_decode(h[:, S + i:S + i + 1], layer, c)[0]
+            finally:
+                moe._router = router
+        return mo, aux
+
+    moe.moe_forward = decode_rows
+    try:
+        tf, _, _ = model({"tokens": full}, caches=model.init_caches(B, Sf))
+    finally:
+        moe.moe_forward = dispatch
+    worst = 0.0
+    for i, lg in enumerate(step_logits):
+        ref = tf[:, S + i, :vocab].float()
+        err = float((lg - ref).abs().max()) / float(ref.abs().max())
+        worst = max(worst, err)
+        if not (torch.isfinite(lg).all() and err <= MLA_TOL):
+            raise AssertionError(f"phase 13: check 3: decode step {i} is {err} x max |logit| "
+                                 f"off the teacher-forced forward")
+    log(f"phase 13: check 3: {len(step_logits)} decode steps (absorbed products over the "
+        f"compressed caches) against the teacher-forced forward of {Sf} tokens (expanded k "
+        f"and v, flash; the compared positions' experts gathered as decode gathers them, "
+        f"routing replayed): within {worst:.5f} x max |logit| (limit {MLA_TOL}). The served "
+        f"prefill at capacity factor {cfg.moe_capacity_factor}: busiest expert "
+        f"{int(load.max())} assignments (mean {B * S * K / cfg.n_experts:.0f}) against a "
+        f"capacity of {cap}; {dropped} of {B * S * K} assignments dropped")
+    del tf, logits, got, step_logits, step_routes, pre_routes
+    torch.cuda.empty_cache()
+
+    mla_layer_on_both(device)  # check 1
+    torch.cuda.empty_cache()
+
+    # check 5: continuous batching, each request held to itself alone with
+    # the batcher's routing replayed
+    reqs = batch_requests(gen, vocab, MLA_BATCH, device, first_rid=0)
+    b = ContinuousBatcher(model, n_slots=2, s_max=max(L for L, _ in MLA_BATCH) + 16)
+    rec = BatchRecorder(b, routes=True)
+    torch.cuda.synchronize()
+    bitonic.reset_launches()
+    flash.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    got = b.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    batch_launches = {fn.__name__: fn.launches for fn in bitonic.KERNELS}
+    batch_launches["flash_attention"] = flash.flash_attention.launches
+    want = {k: 0 for k in batch_launches}
+    for r in reqs:  # one sorted dispatch per MoE layer and prefill; no flash below 8192
+        T = len(r.prompt)
+        per = moe_dispatch_launches(T, K, 1, moe_capacity(T * K, 1, cfg.moe_capacity_factor))
+        for k, v in per.items():
+            want[k] += v * n_moe
+    if sorted(got) != [r.rid for r in reqs] or batch_launches != want:
+        raise AssertionError(f"phase 13: check 5: finished {sorted(got)}, launches "
+                             f"{batch_launches}, derived {want}")
+    del b
+    held = hold_batch("phase 13: check 5", model, reqs, got, rec, replay=True)
+    n_tok = sum(len(t) for t in got.values())
+    log(f"phase 13: check 5: {len(reqs)} requests ({sum(len(r.prompt) for r in reqs)} prompt "
+        f"tokens, {n_tok} new) through ContinuousBatcher(n_slots=2) in {wall * 1e3:.3f} ms "
+        f"({len(reqs) / wall:.4f} requests/s, median decode step "
+        f"{statistics.median(rec.step_ms):.3f} ms), launches as derived {batch_launches}; "
+        f"each request alone with the batcher's routing replayed: first-token logits equal "
+        f"bit for bit, decode logits within {held['worst']:.5f} x max |logit|, "
+        f"{held['flips']} of {held['compared']} tokens differ within the tolerance")
+    del model, rec
+    torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+ALL_PHASES = frozenset(range(1, 14))
 
 
 def main() -> int:
@@ -3324,7 +3747,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-12: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-13: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -3381,7 +3804,7 @@ def main() -> int:
     if phases != ALL_PHASES:  # a partial run (development): no result lines
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
-                           (10, run_moe), (11, run_train), (12, run_batch)):
+                           (10, run_moe), (11, run_train), (12, run_batch), (13, run_mla)):
             if phase in phases:
                 run(device)
         return 0
@@ -3402,13 +3825,15 @@ def main() -> int:
     launches_train = run_train(device)
     torch.cuda.empty_cache()
     launches_batch = run_batch(device)
+    torch.cuda.empty_cache()
+    launches_mla = run_mla(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
              launches=launches[name], launches_serve=launches_serve[name],
              launches_mesh=launches_mesh[name], launches_moe=launches_moe[name],
              launches_train=launches_train[name], launches_batch=launches_batch[name],
-             max_abs_err=num["max_abs_err"], ms=num["ms"],
+             launches_mla=launches_mla[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
              ms_x64=num["ms_x64"], plain_ms_x64=num["plain_ms_x64"],
@@ -3420,9 +3845,13 @@ def main() -> int:
         launches=serve["flash_launches"], launches_moe=launches_moe["flash_attention"],
         launches_train=launches_train["flash_attention"],
         launches_batch=launches_batch["flash_attention"],
+        launches_mla=launches_mla["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
-        bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"]))
+        bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"],
+        max_abs_err_mla=flash_num["max_abs_err_mla"], ms_mla=flash_num["ms_mla"],
+        plain_ms_mla=flash_num["plain_ms_mla"], bound_ms_mla=flash_num["bound_ms_mla"],
+        bound_by_mla=flash_num["bound_by_mla"], library_ms_mla=flash_num["library_ms_mla"]))
     assert {k["name"] for k in kernels} == {f.__name__ for f in (*bitonic.KERNELS,
                                                                   flash.flash_attention)}
     print(json.dumps({"kernels": kernels}), flush=True)

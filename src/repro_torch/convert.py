@@ -104,7 +104,9 @@ def opt_state_from_jax(cfg, opt_state: dict) -> dict:
 def caches_to_numpy(cfg, caches: list) -> list:
     """The port's per-layer caches in ``repro``'s layout: per segment, a
     tuple per period position of dicts whose arrays are stacked over the
-    segment's count, ``(count, B, S, KV, dh)`` (bfloat16 as uint16 bits)."""
+    segment's count, ``(count, B, S, KV, dh)`` for GQA's k and v, ``(count,
+    B, S, kv_lora_rank)`` and ``(count, B, S, qk_rope_dim)`` for MLA's c_kv
+    and k_pe (bfloat16 as uint16 bits)."""
 
     def stack(trees):
         if isinstance(trees[0], dict):

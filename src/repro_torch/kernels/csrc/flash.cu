@@ -2,11 +2,15 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash.py::_flash_kernel
 // (reached through flash_attention, flash.py:90). It computes what that
-// kernel computes: causal or full GQA attention, q (B, S, H, dh) against
-// k/v (B, T, KV, dh) with H % KV == 0, an online softmax whose state
-// (running max m, denominator l, accumulator acc) stays in f32, masked
-// scores set to -1e30, fully masked causal key tiles skipped, and the
-// output acc / max(l, 1e-30) in the input dtype, laid out (B, S, H, dh).
+// kernel computes: causal or full GQA attention, q (B, S, H, dqk) against
+// k (B, T, KV, dqk) and v (B, T, KV, dv) with H % KV == 0, an online
+// softmax whose state (running max m, denominator l, accumulator acc) stays
+// in f32, masked scores set to -1e30, fully masked causal key tiles
+// skipped, and the output acc / max(l, 1e-30) in the input dtype, laid out
+// (B, S, H, dv). dv = dqk except for MLA (deepseek-v3): q and k 192 wide
+// (128 nope + 64 rope), v 128 wide, H = KV = 128, which repro computes off
+// the TPU through _flash_attn_pairs (models/attention.py), whose value
+// width is v's own.
 //
 // Grid: one CTA per (q tile, h, b), the longest causal rows first. The
 // TPU's sequential ki grid axis is a loop inside the CTA over the key tiles
@@ -19,13 +23,18 @@
 // H 32, KV 8, dh 128, bf16, causal) the useful products are
 // 4 * B * H * S^2 * dh / 2 = 1.10e12 operations, 1.11 ms at 989 TFLOP/s
 // of dense bf16; the bytes (q, k, v read once, o written once: 0.17 GB)
-// take 0.05 ms at 3.35 TB/s. So the tensor cores are the bound, and every
-// route keeps every product on them (or, in f32, on the FMA units) and
-// every intermediate on chip. Three routes, chosen by dtype and dh:
-//   * bf16, dh 64 and 128 (every served model): wgmma. Three warpgroups:
+// take 0.05 ms at 3.35 TB/s. At MLA's prefill (B 1, S = T = 8192, H 128,
+// dqk 192, dv 128) the products are 2 * H * S^2 / 2 * (dqk + dv) = 2.75e12
+// operations, 2.78 ms at 989 TFLOP/s. So the tensor cores are the bound,
+// and every route keeps every product on them (or, in f32, on the FMA
+// units) and every intermediate on chip. Three routes, chosen by dtype and
+// the widths (dqk, dv):
+//   * bf16, (64, 64), (128, 128) and MLA's (192, 128) (every served model):
+//     wgmma. Three warpgroups:
 //     warpgroup 0 is the producer, one thread of which issues TMA loads
 //     (Q once; K and V through a ring of kStages tiles of kWgBk keys, each
-//     slot with a "full" and an "empty" mbarrier); warpgroups 1 and 2 each
+//     slot with a "full" and an "empty" mbarrier; at (192, 128) the ring
+//     holds two tiles, ring_stages); warpgroups 1 and 2 each
 //     own 64 rows of the 128-row query tile. S = Q K^T is wgmma m64nBk k16
 //     with both operands in 128-byte-swizzled shared memory (K-major);
 //     O += P V is the register-A form, P packed to bf16 straight from the
@@ -35,11 +44,12 @@
 //     consumers take turns (two named barriers) to issue tile kt's Q K^T
 //     and tile kt - 1's P V together, and tile kt's mask and row max run
 //     under that P V, so the tensor cores wait less on the softmax.
-//   * bf16, dh 16 and 32 (test shapes only): mma.sync m16n8k16, 4 warps
+//   * bf16, (16, 16) and (32, 32) (test shapes only): mma.sync m16n8k16, 4 warps
 //     over a 64-row tile, 64-key tiles double-buffered with cp.async,
 //     B fragments by ldmatrix (.trans for V).
-//   * float32 (accepted so that tests can compare at a tight tolerance):
-//     32x32 tiles, f32 FMA from shared memory.
+//   * float32, every pair above (accepted so that tests and the card's
+//     checks can compare at a tight tolerance): 32x32 tiles, f32 FMA from
+//     shared memory.
 // In every bf16 route p is rounded to bf16 as the A operand of PV, l sums
 // the unrounded p, m and l stay per row in registers, and the mask is
 // applied only on tiles that cross the diagonal or the ragged end.
@@ -333,6 +343,15 @@ constexpr int kStages = 3;       // K/V tiles in the ring: two in use, one loadi
 constexpr int kWgThreads = 384;  // warpgroup 0 produces, 1 and 2 consume
 constexpr int kSwz = 64;         // bf16 in a 128-byte swizzled row: one TMA box's width
 constexpr int kTmaEncodeFailed = 100000;  // + CUresult: a tensor map was refused
+constexpr int kSmemMax = 232448;  // shared memory a block may have
+
+// The ring's depth for Q of q_bytes and K + V tiles of kv_bytes: kStages
+// where they fit in a block's shared memory, else two. (64, 64) and
+// (128, 128) keep three; MLA's (192, 128) tiles (Q 48 KB, K 48 KB, V 32 KB)
+// would need 288 KB at three and take 208 KB at two.
+constexpr int ring_stages(int q_bytes, int kv_bytes) {
+  return 1024 + q_bytes + kStages * kv_bytes + 8 * (1 + 2 * kStages) <= kSmemMax ? kStages : 2;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -483,17 +502,22 @@ struct Wgmma<128> {
 };
 
 // Shared memory: Q (kWgBq rows), then kStages K tiles, kStages V tiles,
-// each as DH / 64 boxes of rows x 128 bytes; then the mbarriers.
-template <int DH>
+// each as DQK / 64 (K) or DV / 64 (V) boxes of rows x 128 bytes; then the
+// mbarriers. kStages is ring_stages of the widths.
+template <int DQK, int DV>
 struct WgSmem {
   static constexpr int kQBox = kWgBq * kSwz * 2;   // bytes of one 64-wide box of Q
   static constexpr int kKVBox = kWgBk * kSwz * 2;  // ... of K or V
-  static constexpr int kQ = kQBox * (DH / kSwz);
-  static constexpr int kKV = kKVBox * (DH / kSwz);  // one K or V tile
-  static constexpr int kBars = kQ + 2 * kStages * kKV;
+  static constexpr int kQ = kQBox * (DQK / kSwz);
+  static constexpr int kK = kKVBox * (DQK / kSwz);  // one K tile
+  static constexpr int kV = kKVBox * (DV / kSwz);   // one V tile
+  static constexpr int kStages = ring_stages(kQ, kK + kV);
+  static constexpr int kBars = kQ + kStages * (kK + kV);
   // 1024 bytes of room to align the start, and 1 + 2 * kStages mbarriers
   static constexpr int kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
-  static_assert(kBytes <= 232448, "more shared memory than a block may have");
+  static_assert(kBytes <= kSmemMax, "more shared memory than a block may have");
+  static_assert(DQK % kSwz == 0 && DV % kSwz == 0 && DV <= DQK,
+                "widths in whole 64-wide boxes, v no wider than q and k");
 };
 
 // Accumulator layout of wgmma m64nNk16 (f32), lane = 4 * g + t of warp w
@@ -501,21 +525,22 @@ struct WgSmem {
 // 8j + 2t + 1; d[4j + 2..3] the same columns of row 16w + g + 8. Packed to
 // bf16 pairs, d[8kk .. 8kk + 7] of S are the A fragment of k16 step kk of
 // P V, so P never leaves the registers.
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
                 __nv_bfloat16* __restrict__ o, int S, int T, int H, int KV,
                 float scale_log2, int causal) {
-  using L = WgSmem<DH>;
+  using L = WgSmem<DQK, DV>;
+  constexpr int kRing = L::kStages;
   extern __shared__ unsigned char wg_smem[];
   const uint32_t sQ = (smem_u32(wg_smem) + 1023) & ~1023u;  // the swizzle's alignment
   const uint32_t sK = sQ + L::kQ;
-  const uint32_t sV = sK + kStages * L::kKV;
+  const uint32_t sV = sK + kRing * L::kK;
   const uint32_t q_full = sQ + L::kBars;
   const uint32_t full0 = q_full + 8;               // full[s] = full0 + 8 s
-  const uint32_t empty0 = full0 + 8 * kStages;     // empty[s] = empty0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kRing;       // empty[s] = empty0 + 8 s
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBq;  // longest causal rows first
   const int h = blockIdx.y;
@@ -525,7 +550,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kRing; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
     }
@@ -539,16 +564,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 0) {
       const int kvh = h / (H / KV);
       mbar_expect_tx(q_full, L::kQ);
-      for (int x = 0; x < DH / kSwz; ++x)
+      for (int x = 0; x < DQK / kSwz; ++x)
         tma_load(sQ + x * L::kQBox, &q_map, q_full, x * kSwz, h, q0, b);
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages;
-        mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);  // the first round passes
-        mbar_expect_tx(full0 + 8 * s, 2 * L::kKV);
-        for (int x = 0; x < DH / kSwz; ++x) {
-          const uint32_t off = s * L::kKV + x * L::kKVBox;
-          tma_load(sK + off, &k_map, full0 + 8 * s, x * kSwz, kvh, kt * kWgBk, b);
-          tma_load(sV + off, &v_map, full0 + 8 * s, x * kSwz, kvh, kt * kWgBk, b);
+        const int s = kt % kRing;
+        mbar_wait(empty0 + 8 * s, ((kt / kRing) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(full0 + 8 * s, L::kK + L::kV);
+        for (int x = 0; x < DQK / kSwz; ++x) {  // V's DV / 64 boxes beside K's first ones
+          tma_load(sK + s * L::kK + x * L::kKVBox, &k_map, full0 + 8 * s, x * kSwz, kvh,
+                   kt * kWgBk, b);
+          if (x < DV / kSwz)
+            tma_load(sV + s * L::kV + x * L::kKVBox, &v_map, full0 + 8 * s, x * kSwz, kvh,
+                     kt * kWgBk, b);
         }
       }
     }
@@ -562,20 +589,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     const int row0 = wq0 + 16 * warp + g, row1 = row0 + 8;
     const uint64_t q_desc = smem_desc(sQ + 64 * (wg - 1) * 128, 16, 1024);
 
-    float acc[DH / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     float sc[kWgBk / 2];         // S of one tile, then its p
     uint32_t pa[kWgBk / 16][4];  // p in bf16: the A fragments of P V
 
-    // S = Q K^T of the tile in slot s, issued: step kk of dh is in box
+    // S = Q K^T of the tile in slot s, issued: step kk of dqk is in box
     // kk / 4, 32 bytes per step within it
     auto issue_qk = [&](int s) {
-      const uint64_t k_desc = smem_desc(sK + s * L::kKV, 16, 1024);
+      const uint64_t k_desc = smem_desc(sK + s * L::kK, 16, 1024);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t qo = ((kk / 4) * L::kQBox + (kk % 4) * 32) >> 4;
         const uint32_t ko = ((kk / 4) * L::kKVBox + (kk % 4) * 32) >> 4;
         Wgmma<kWgBk>::ss(sc, q_desc + qo, k_desc + ko, kk > 0);
@@ -585,12 +612,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     // O += P V of the tile in slot s, issued: step kk takes keys 16 kk ..
     // 16 kk + 15, 16 rows of V further
     auto issue_pv = [&](int s) {
-      const uint64_t v_desc = smem_desc(sV + s * L::kKV, L::kKVBox, 1024);
+      const uint64_t v_desc = smem_desc(sV + s * L::kV, L::kKVBox, 1024);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWgBk / 16; ++kk)
-        Wgmma<DH>::rs(acc, pa[kk], v_desc + ((kk * 16 * 128) >> 4));
+        Wgmma<DV>::rs(acc, pa[kk], v_desc + ((kk * 16 * 128) >> 4));
       wgmma_commit();
     };
     // The online softmax of tile kt on sc: the mask (on edge tiles only),
@@ -649,7 +676,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     // acc to the new running max: between the products that write it
     auto rescale = [&](float2 corr) {
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         acc[4 * j + 0] *= corr.x;
         acc[4 * j + 1] *= corr.x;
         acc[4 * j + 2] *= corr.y;
@@ -693,8 +720,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     float2 corr = softmax(0);
     pack();
     for (int kt = 1; kt < n_kt; ++kt) {
-      const int s = kt % kStages, prev = (kt - 1) % kStages;
-      mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
+      const int s = kt % kRing, prev = (kt - 1) % kRing;
+      mbar_wait(full0 + 8 * s, (kt / kRing) & 1);
       my_turn();
       issue_qk(s);
       rescale(corr);
@@ -711,27 +738,27 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     my_turn();
     rescale(corr);
-    issue_pv((n_kt - 1) % kStages);
+    issue_pv((n_kt - 1) % kRing);
     if (me == 0) their_turn();  // each warpgroup has as many turns as it is given
     wgmma_wait<0>();
     fence_regs(acc);
-    release((n_kt - 1) % kStages);
+    release((n_kt - 1) % kRing);
 
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    const long long q_stride = static_cast<long long>(H) * DH;
-    __nv_bfloat16* ob = o + (static_cast<long long>(b) * S * H + h) * DH;
+    const long long o_stride = static_cast<long long>(H) * DV;
+    __nv_bfloat16* ob = o + (static_cast<long long>(b) * S * H + h) * DV;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int col = 8 * j + 2 * t;
       if (row0 < S)
-        *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + col) =
+        *reinterpret_cast<uint32_t*>(ob + row0 * o_stride + col) =
             pack_bf16(acc[4 * j + 0] / d0, acc[4 * j + 1] / d0);
       if (row1 < S)
-        *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + col) =
+        *reinterpret_cast<uint32_t*>(ob + row1 * o_stride + col) =
             pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
     }
   }
@@ -742,19 +769,24 @@ constexpr int kFq = 32;  // query rows per CTA
 constexpr int kFk = 32;  // keys per tile (= warp width: one lane per key)
 constexpr int kFThreads = 256;
 
-template <int DH>
-__global__ void __launch_bounds__(kFThreads)
+// Blocks of the f32 kernel an SM must hold, which caps its registers at
+// 65536 / (256 x blocks): ptxas takes 8 (32 registers) when it is not told;
+// at MLA's (192, 128) that spills, so that pair asks for 4 (64 registers).
+constexpr int f32_min_blocks(int dqk, int dv) { return dqk == dv ? 8 : 4; }
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kFThreads, f32_min_blocks(DQK, DV))
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int S, int T,
               int H, int KV, float scale_log2, int causal) {
-  constexpr int QS = DH + 1;   // padded: lanes reading one column hit distinct banks
+  constexpr int QS = DQK + 1;  // padded: lanes reading one column hit distinct banks
   constexpr int PS = kFk + 1;
-  constexpr int PER = DH / 8;  // output columns per thread
+  constexpr int PER = DV / 8;  // output columns per thread
   extern __shared__ float fsm[];
   float* Qs = fsm;               // [kFq][QS]
   float* Ks = Qs + kFq * QS;     // [kFk][QS]
-  float* Vs = Ks + kFk * QS;     // [kFk][DH]
-  float* Ps = Vs + kFk * DH;     // [kFq][PS]: scores, then probabilities
+  float* Vs = Ks + kFk * QS;     // [kFk][DV]
+  float* Ps = Vs + kFk * DV;     // [kFq][PS]: scores, then probabilities
   float* ms = Ps + kFq * PS;     // running max per row
   float* ls = ms + kFq;          // running denominator per row
   float* cs = ls + kFq;          // this tile's correction per row
@@ -766,14 +798,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
-  const long long q_stride = static_cast<long long>(H) * DH;
-  const long long kv_stride = static_cast<long long>(KV) * DH;
-  const float* qb = q + (static_cast<long long>(b) * S * H + h) * DH;
-  const float* kb = k + (static_cast<long long>(b) * T * KV + kvh) * DH;
-  const float* vb = v + (static_cast<long long>(b) * T * KV + kvh) * DH;
+  const long long q_stride = static_cast<long long>(H) * DQK;
+  const long long k_stride = static_cast<long long>(KV) * DQK;
+  const long long v_stride = static_cast<long long>(KV) * DV;
+  const float* qb = q + (static_cast<long long>(b) * S * H + h) * DQK;
+  const float* kb = k + (static_cast<long long>(b) * T * KV + kvh) * DQK;
+  const float* vb = v + (static_cast<long long>(b) * T * KV + kvh) * DV;
 
-  for (int i = tid; i < kFq * DH; i += blockDim.x) {
-    const int r = i / DH, d = i % DH;
+  for (int i = tid; i < kFq * DQK; i += blockDim.x) {
+    const int r = i / DQK, d = i % DQK;
     Qs[r * QS + d] = q0 + r < S ? qb[(q0 + r) * q_stride + d] : 0.f;
   }
   if (tid < kFq) {
@@ -789,11 +822,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kFk;
     __syncthreads();
-    for (int i = tid; i < kFk * DH; i += blockDim.x) {
-      const int r = i / DH, d = i % DH;
+    for (int i = tid; i < kFk * DQK; i += blockDim.x) {  // DV <= DQK
+      const int r = i / DQK, d = i % DQK;
       const bool in = k0 + r < T;
-      Ks[r * QS + d] = in ? kb[(k0 + r) * kv_stride + d] : 0.f;
-      Vs[r * DH + d] = in ? vb[(k0 + r) * kv_stride + d] : 0.f;
+      Ks[r * QS + d] = in ? kb[(k0 + r) * k_stride + d] : 0.f;
+      if (DV == DQK || d < DV) Vs[r * DV + d] = in ? vb[(k0 + r) * v_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -801,7 +834,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int r = i / kFk, c = i % kFk;
       float dot = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < DH; ++d) dot = fmaf(Qs[r * QS + d], Ks[c * QS + d], dot);
+      for (int d = 0; d < DQK; ++d) dot = fmaf(Qs[r * QS + d], Ks[c * QS + d], dot);
       float x = dot * scale_log2;
       if (k0 + c >= T || (causal && k0 + c > q0 + r)) x = kNegInf;
       Ps[r * PS + c] = x;
@@ -837,22 +870,24 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int kc = 0; kc < kFk; ++kc) {
       const float p = Ps[pr * PS + kc];
 #pragma unroll
-      for (int j = 0; j < PER; ++j) acc[j] = fmaf(p, Vs[kc * DH + pd + 8 * j], acc[j]);
+      for (int j = 0; j < PER; ++j) acc[j] = fmaf(p, Vs[kc * DV + pd + 8 * j], acc[j]);
     }
   }
   __syncthreads();
   if (q0 + pr < S) {
     const float den = fmaxf(ls[pr], 1e-30f);
-    float* orow = o + (static_cast<long long>(b) * S * H + h) * DH + (q0 + pr) * q_stride;
+    const long long o_stride = static_cast<long long>(H) * DV;
+    float* orow = o + (static_cast<long long>(b) * S * H + h) * DV + (q0 + pr) * o_stride;
 #pragma unroll
     for (int j = 0; j < PER; ++j) orow[pd + 8 * j] = acc[j] / den;
   }
 }
 
-template <int DH>
+template <int DH, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int T, int H, int KV, float scale_log2,
                         int causal, cudaStream_t stream) {
+  static_assert(DH == DV, "the mma.sync kernel takes one width for q, k and v");
   // Q, and two stages of K and V
   const size_t smem = static_cast<size_t>(kBq + 4 * kBk) * (DH + kPad) *
                       sizeof(__nv_bfloat16);
@@ -868,15 +903,15 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int T, int H, int KV, float scale_log2,
                        int causal, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(kFq + kFk) * (DH + 1) +
-                       static_cast<size_t>(kFk) * DH +
+  const size_t smem = (static_cast<size_t>(kFq + kFk) * (DQK + 1) +
+                       static_cast<size_t>(kFk) * DV +
                        static_cast<size_t>(kFq) * (kFk + 1) + 3 * kFq) *
                       sizeof(float);
-  auto kern = flash_fwd_f32<DH>;
+  auto kern = flash_fwd_f32<DQK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -930,18 +965,18 @@ int tensor_map(EncodeTiled encode, CUtensorMap* map, const void* x, int dh, int 
   return r == CUDA_SUCCESS ? 0 : kTmaEncodeFailed + static_cast<int>(r);
 }
 
-template <int DH>
+template <int DQK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int T,
                  int H, int KV, float scale_log2, int causal, cudaStream_t stream) {
   EncodeTiled encode;
   int err = encode_tiled(&encode);
   if (err != 0) return err;
   CUtensorMap q_map, k_map, v_map;
-  if ((err = tensor_map(encode, &q_map, q, DH, H, S, B, kWgBq)) != 0) return err;
-  if ((err = tensor_map(encode, &k_map, k, DH, KV, T, B, kWgBk)) != 0) return err;
-  if ((err = tensor_map(encode, &v_map, v, DH, KV, T, B, kWgBk)) != 0) return err;
-  constexpr int smem = WgSmem<DH>::kBytes;
-  auto kern = flash_fwd_wgmma<DH>;
+  if ((err = tensor_map(encode, &q_map, q, DQK, H, S, B, kWgBq)) != 0) return err;
+  if ((err = tensor_map(encode, &k_map, k, DQK, KV, T, B, kWgBk)) != 0) return err;
+  if ((err = tensor_map(encode, &v_map, v, DV, KV, T, B, kWgBk)) != 0) return err;
+  constexpr int smem = WgSmem<DQK, DV>::kBytes;
+  auto kern = flash_fwd_wgmma<DQK, DV>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kWgBq - 1) / kWgBq, H, B);
@@ -951,46 +986,40 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   return cudaGetLastError();
 }
 
-#define DISPATCH_DH(dh, D, ...)            \
-  switch (dh) {                            \
-    case 16: { constexpr int D = 16; __VA_ARGS__ } \
-    case 32: { constexpr int D = 32; __VA_ARGS__ } \
-    case 64: { constexpr int D = 64; __VA_ARGS__ } \
-    case 128: { constexpr int D = 128; __VA_ARGS__ } \
-    default: return cudaErrorInvalidValue; \
-  }
-
 }  // namespace
 
 extern "C" {
 
-// q (B, S, H, dh), k/v (B, T, KV, dh), o (B, S, H, dh), all contiguous and
-// 16-byte aligned. dtype: 0 = bfloat16, 1 = float32 (shared by all four).
-// dh in {16, 32, 64, 128}. scale multiplies the scores (dh ** -0.5 by
-// default, chosen by the caller). The route is chosen by shape: bf16 at
-// dh 64 and 128 runs the wgmma kernel, bf16 at dh 16 and 32 the mma.sync
-// kernel, float32 the FMA kernel.
+// q (B, S, H, dqk), k (B, T, KV, dqk), v (B, T, KV, dv), o (B, S, H, dv),
+// all contiguous and 16-byte aligned. dtype: 0 = bfloat16, 1 = float32
+// (shared by all four). scale multiplies the scores (dqk ** -0.5 by
+// default, chosen by the caller). The route is chosen by dtype and
+// (dqk, dv), one ROUTE line each: bf16 at (64, 64), (128, 128) and
+// (192, 128) runs the wgmma kernel, bf16 at (16, 16) and (32, 32) the
+// mma.sync kernel, float32 the FMA kernel. Any other pair is refused with
+// cudaErrorInvalidValue.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int T, int H, int KV, int dh, int dtype,
+                        int B, int S, int T, int H, int KV, int dqk, int dv, int dtype,
                         float scale, int causal, void* stream) {
   if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV != 0 || B > 65535 ||
       H > 65535)
     return cudaErrorInvalidValue;
   const float scale_log2 = scale * kLog2e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (dh) {
-      case 16: return launch_bf16<16>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
-      case 32: return launch_bf16<32>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
-      case 64: return launch_wgmma<64>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
-      case 128: return launch_wgmma<128>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == 1) {
-    DISPATCH_DH(dh, D, return launch_f32<D>(q, k, v, o, B, S, T, H, KV,
-                                            scale_log2, causal, st);)
-  }
+#define ROUTE(DTYPE, DQK, DV, launch)                                            \
+  if (dtype == DTYPE && dqk == DQK && dv == DV)                                  \
+    return launch<DQK, DV>(q, k, v, o, B, S, T, H, KV, scale_log2, causal, st);
+  ROUTE(0, 16, 16, launch_bf16)
+  ROUTE(0, 32, 32, launch_bf16)
+  ROUTE(0, 64, 64, launch_wgmma)
+  ROUTE(0, 128, 128, launch_wgmma)
+  ROUTE(0, 192, 128, launch_wgmma)
+  ROUTE(1, 16, 16, launch_f32)
+  ROUTE(1, 32, 32, launch_f32)
+  ROUTE(1, 64, 64, launch_f32)
+  ROUTE(1, 128, 128, launch_f32)
+  ROUTE(1, 192, 128, launch_f32)
+#undef ROUTE
   return cudaErrorInvalidValue;
 }
 

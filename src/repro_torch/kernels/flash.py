@@ -22,13 +22,17 @@ output, and against the Pallas-faithful twin with the looser 2e-2 of
 ``flash_attention.launches`` counts the kernel's launches: one is added
 where the kernel is launched and nowhere else.
 
-The layout is JAX's: q (B, S, H, dh), k and v (B, T, KV, dh) with
-H % KV == 0, output (B, S, H, dh) in v's dtype. S and T need not be
-multiples of a tile (the Pallas kernel asserts it; neither the twin nor
-the kernel needs it). dtypes: bfloat16 (the serving path's) and float32;
-head_dim 16, 32, 64 or 128. ``ROUTES`` names the kernel each (dtype, dh)
-reaches in ``csrc/flash.cu``: bf16 at dh 64 and 128 (every served model)
-the Hopper kernel (wgmma, TMA, a producer warpgroup), bf16 at dh 16 and 32
+The layout is JAX's: q (B, S, H, dqk), k (B, T, KV, dqk) and v (B, T,
+KV, dv) with H % KV == 0, output (B, S, H, dv) in v's dtype. S and T need
+not be multiples of a tile (the Pallas kernel asserts it; neither the twin
+nor the kernel needs it). dtypes: bfloat16 (the serving path's) and
+float32; the widths (dqk, dv) one of ``HEAD_DIMS``: (dh, dh) for dh 16,
+32, 64 or 128, and MLA's (192, 128) (deepseek-v3: q and k are 128 nope +
+64 rope wide, v 128; ``repro`` computes that shape off the TPU through
+``_flash_attn_pairs``, whose value width is v's own). ``ROUTES`` names
+the kernel each (dtype, dqk, dv) reaches in ``csrc/flash.cu``: bf16 at
+(64, 64), (128, 128) and (192, 128) (every served model) the Hopper
+kernel (wgmma, TMA, a producer warpgroup), bf16 at (16, 16) and (32, 32)
 the mma.sync kernel, float32 the FMA kernel.
 """
 from __future__ import annotations
@@ -43,13 +47,15 @@ from repro_torch.kernels import build
 
 DEFAULT_BQ = 256  # the Pallas kernel's default tiles, which the twin uses
 DEFAULT_BK = 512
-HEAD_DIMS = (16, 32, 64, 128)
-# flash.cu's route for each (dtype, dh) (its dispatch in flash_attention_fwd)
-# and each route's key tile width (kWgBk, kBk, kFk). The width sets the
-# running max and so where each p is rounded: kernel_twin follows it.
-ROUTES = {**{(torch.bfloat16, dh): "wgmma" for dh in (64, 128)},
-          **{(torch.bfloat16, dh): "mma.sync" for dh in (16, 32)},
-          **{(torch.float32, dh): "fma" for dh in HEAD_DIMS}}
+# the (dqk, dv) pairs the kernel takes: one width for q, k and v, or MLA's
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+# flash.cu's route for each (dtype, dqk, dv) (its ROUTE lines in
+# flash_attention_fwd) and each route's key tile width (kWgBk, kBk, kFk).
+# The width sets the running max and so where each p is rounded:
+# kernel_twin follows it.
+ROUTES = {**{(torch.bfloat16, *dims): "wgmma" for dims in ((64, 64), (128, 128), (192, 128))},
+          **{(torch.bfloat16, *dims): "mma.sync" for dims in ((16, 16), (32, 32))},
+          **{(torch.float32, *dims): "fma" for dims in HEAD_DIMS}}
 ROUTE_BK = {"wgmma": 128, "mma.sync": 64, "fma": 32}
 KERNEL_BK = {key: ROUTE_BK[route] for key, route in ROUTES.items()}
 # bf16_error's limits, as fractions of the output's scale (see there)
@@ -65,26 +71,27 @@ _I = ctypes.c_int
 def flash_attention_twin(q, k, v, *, causal: bool = True, scale: float | None = None,
                          bq: int = DEFAULT_BQ, bk: int = DEFAULT_BK,
                          p_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Plain version of the kernel, tile by tile as ``_flash_kernel``.
+    """Plain version of the kernel, tile by tile as ``_flash_kernel``;
+    v may be narrower than q and k (MLA), the output is v's width.
 
     ``p_dtype`` rounds the probabilities to that dtype before PV (the
     denominator still sums them unrounded), as the bf16 kernel does; the
     default keeps them in float32, as ``_flash_kernel`` does."""
-    B, S, H, dh = q.shape
-    T, KV = k.shape[1], k.shape[2]
+    B, S, H, dqk = q.shape
+    T, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
     rep = H // KV
-    scale = dh ** -0.5 if scale is None else scale
+    scale = dqk ** -0.5 if scale is None else scale
     bq, bk = min(bq, S), min(bk, T)
-    qf = q.float().reshape(B, S, KV, rep, dh)
+    qf = q.float().reshape(B, S, KV, rep, dqk)
     kf, vf = k.float(), v.float()
-    out = torch.empty((B, S, H, dh), dtype=v.dtype, device=q.device)
+    out = torch.empty((B, S, H, dv), dtype=v.dtype, device=q.device)
     for q_start in range(0, S, bq):
         qc = qf[:, q_start:q_start + bq]
         cq = qc.shape[1]
         qpos = torch.arange(q_start, q_start + cq, device=q.device)
         m = torch.full((B, KV, rep, cq), NEG_INF, device=q.device)
         l = torch.zeros((B, KV, rep, cq), device=q.device)
-        acc = torch.zeros((B, KV, rep, cq, dh), device=q.device)
+        acc = torch.zeros((B, KV, rep, cq, dv), device=q.device)
         k_end = min(T, q_start + bq) if causal else T  # block-level causal skip
         for k_start in range(0, k_end, bk):
             kc, vc = kf[:, k_start:k_start + bk], vf[:, k_start:k_start + bk]
@@ -100,7 +107,7 @@ def flash_attention_twin(q, k, v, *, causal: bool = True, scale: float | None = 
             acc = acc * corr[..., None] + torch.einsum("bkrqt,btkd->bkrqd", pv, vc)
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
-        out[:, q_start:q_start + cq] = o.permute(0, 3, 1, 2, 4).reshape(B, cq, H, dh).to(v.dtype)
+        out[:, q_start:q_start + cq] = o.permute(0, 3, 1, 2, 4).reshape(B, cq, H, dv).to(v.dtype)
     return out
 
 
@@ -112,7 +119,7 @@ def kernel_twin(q, k, v, *, causal: bool = True, scale: float | None = None) -> 
     tile adds exact zeros)."""
     bf16 = q.dtype == torch.bfloat16
     return flash_attention_twin(q, k, v, causal=causal, scale=scale,
-                                bk=KERNEL_BK[(q.dtype, q.shape[-1])],
+                                bk=KERNEL_BK[(q.dtype, q.shape[-1], v.shape[-1])],
                                 p_dtype=torch.bfloat16 if bf16 else None)
 
 
@@ -128,7 +135,7 @@ def bf16_error(got: torch.Tensor, want: torch.Tensor) -> dict:
     p / l no larger than the row's weights' norm and |v| within twice its
     rms, that is 2^-6 of the row's output rms. So, element by element,
     |got - want| <= 2^-7 |want| + 2^-6 rms_row(want), where rms_row is
-    over the head_dim outputs of the element's (batch, position, head);
+    over the dv outputs of the element's (batch, position, head);
     and on average mean |got - want| <= 1e-3 rms(want).
 
     Returns ``max_abs``, ``limit_use`` (the largest |got - want| over its
@@ -156,7 +163,7 @@ def _lib() -> ctypes.CDLL:
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a library built from ``csrc/flash.cu``."""
-    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                         ctypes.c_float, _I, _P]
     lib.flash_attention_fwd.restype = _I
     lib.flash_error_string.argtypes = [_I]
@@ -166,15 +173,17 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _check(q, k, v) -> str:
     """Validate shapes, dtypes and devices; return the device type that runs."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: want q (B, S, H, dh) and k, v (B, T, KV, dh), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, H, dh = q.shape
-    if k.shape[0] != B or k.shape[3] != dh or k.shape[1] < 1 or H % k.shape[2]:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention: want q (B, S, H, dqk), k (B, T, KV, dqk) and "
+                         f"v (B, T, KV, dv), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, dqk = q.shape
+    if k.shape[0] != B or k.shape[3] != dqk or k.shape[1] < 1 or H % k.shape[2]:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
-                         "(same B and dh, T >= 1, H a multiple of KV)")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {dh} not in {HEAD_DIMS}")
+                         "(same B and dqk, T >= 1, H a multiple of KV)")
+    if (dqk, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {dqk} with value width {v.shape[3]}: "
+                         f"(dqk, dv) not in {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype of "
                         f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -192,22 +201,23 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None) -> torch.Tensor:
-    """Attention of q (B, S, H, dh) over k/v (B, T, KV, dh), H % KV == 0.
-    Returns (B, S, H, dh) in v's dtype. ``scale`` defaults to dh ** -0.5."""
+    """Attention of q (B, S, H, dqk) over k (B, T, KV, dqk) and v (B, T, KV,
+    dv), H % KV == 0. Returns (B, S, H, dv) in v's dtype. ``scale``
+    defaults to dqk ** -0.5."""
     on = _check(q, k, v)
-    B, S, H, dh = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    scale = dh ** -0.5 if scale is None else scale
+    B, S, H, dqk = q.shape
+    T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    scale = dqk ** -0.5 if scale is None else scale
     if on == "cpu":
         return flash_attention_twin(q, k, v, causal=causal, scale=scale)
-    out = torch.empty((B, S, H, dh), dtype=v.dtype, device=q.device)
+    out = torch.empty((B, S, H, dv), dtype=v.dtype, device=q.device)
     if B * S == 0:
         return out
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, KV, dh,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, KV, dqk, dv,
             _DTYPE_CODES[q.dtype], float(scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

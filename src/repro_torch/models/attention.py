@@ -1,9 +1,10 @@
-"""GQA attention with chunked prefill, flash prefill and cached decode.
+"""GQA and MLA attention with chunked prefill, flash prefill and cached
+decode.
 
-The port of the GQA part of ``repro/models/attention.py`` (QKV bias,
-qk-norm, rope). Each branch keeps the rounding points of its JAX
-counterpart, so that a bfloat16 comparison with ``repro`` differs only by
-the order of accumulation:
+The port of ``repro/models/attention.py``'s GQA mixer (QKV bias, qk-norm,
+rope) and MLA mixer (deepseek-v3). Each branch keeps the rounding points
+of its JAX counterpart, so that a bfloat16 comparison with ``repro``
+differs only by the order of accumulation:
 
   * ``_grouped_attn`` forms the scores in the input dtype, then softmaxes
     in float32 and casts the probabilities back to v's dtype before PV;
@@ -19,10 +20,19 @@ writes the new entry into them in place (``repro`` returns updated
 copies): the cache of a long prompt is gigabytes, and the old buffers are
 never read again.
 
+MLA (``mla_forward``) projects q through a LoRA pair (``wq_a``, ``q_ln``,
+``wq_b``) and the keys and values through one compressed latent c_kv
+(``wkv_a``, ``kv_ln``) plus one rope key k_pe shared by every head. Prefill
+expands c_kv through ``wk_b`` and ``wv_b`` per position, so q and k are
+qk_nope_dim + qk_rope_dim wide and v v_head_dim wide: at deepseek-v3's
+widths flash takes (dqk, dv) = (192, 128). Decode keeps the compressed
+(c_kv, k_pe) cache and folds ``wk_b`` into q and ``wv_b`` into the output
+(the absorbed products), so it never expands the cache.
+
 Decode takes one position for the whole batch, or one per row (a (B,)
 tensor with B > 1: continuous batching, ``serve/batching.py``), as
 ``repro``'s per-slot path: its own rope angles, its own cache position,
-its own causal mask. Cross-attention, sliding windows and MLA raise
+its own causal mask. Cross-attention and sliding windows raise
 NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -69,12 +79,27 @@ class Attention(nn.Module):
         self.k_norm = _const(1.0, (dh,), torch.float32, device) if norm else None
 
 
-def init_mla(*args, **kwargs):
-    raise not_ported("MLA attention (init_mla)", "mla")
+class MLA(nn.Module):
+    """``init_mla``: ``wq_a`` (d, q_lora_rank), float32 ``q_ln`` (ones),
+    ``wq_b`` (q_lora_rank, H*(qk_nope_dim + qk_rope_dim)), ``wkv_a`` (d,
+    kv_lora_rank + qk_rope_dim), float32 ``kv_ln`` (ones), ``wk_b``
+    (kv_lora_rank, H*qk_nope_dim), ``wv_b`` (kv_lora_rank, H*v_head_dim),
+    ``wo`` (H*v_head_dim, d), each at ``repro``'s scale."""
 
-
-def mla_forward(*args, **kwargs):
-    raise not_ported("MLA attention (mla_forward)", "mla")
+    def __init__(self, cfg, gen, device=None):
+        super().__init__()
+        dtype = torch_dtype(cfg.dtype)
+        d, H = cfg.d_model, cfg.n_heads
+        qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        qa, r = cfg.q_lora_rank, cfg.kv_lora_rank
+        self.wq_a = _init(gen, (d, qa), d ** -0.5, dtype, device)
+        self.q_ln = _const(1.0, (qa,), torch.float32, device)
+        self.wq_b = _init(gen, (qa, H * (qn + qr)), qa ** -0.5, dtype, device)
+        self.wkv_a = _init(gen, (d, r + qr), d ** -0.5, dtype, device)
+        self.kv_ln = _const(1.0, (r,), torch.float32, device)
+        self.wk_b = _init(gen, (r, H * qn), r ** -0.5, dtype, device)
+        self.wv_b = _init(gen, (r, H * vd), r ** -0.5, dtype, device)
+        self.wo = _init(gen, (H * vd, d), (H * vd) ** -0.5, dtype, device)
 
 
 # ------------------------------------------------------------ core einsum
@@ -265,7 +290,7 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
 
 
 def _write_slots(cache, new, positions):
-    """Row b of ``new`` (B, 1, KV, dh) into ``cache`` (B, S_max, KV, dh) at
+    """Row b of ``new`` (B, 1, ...) into ``cache`` (B, S_max, ...) at
     position ``positions[b]``, in place: ``repro``'s ``.at[bidx,
     pos].set(..., mode="drop")``, a negative position counted from the end
     as jax indexes, and a position outside the cache dropped (its row
@@ -277,7 +302,8 @@ def _write_slots(cache, new, positions):
     at = pos.clamp(0, S_max - 1)
     rows = torch.arange(cache.shape[0], device=cache.device)
     old = cache[rows, at]
-    cache[rows, at] = torch.where(keep[:, None, None], new[:, 0], old)
+    keep = keep.reshape((-1,) + (1,) * (old.dim() - 1))
+    cache[rows, at] = torch.where(keep, new[:, 0], old)
     return cache
 
 
@@ -288,3 +314,89 @@ def init_gqa_cache(cfg, B: int, S_max: int, window: int = 0, device=None):
     shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ------------------------------------------------------------- MLA mixer
+
+
+def _mla_qkv(x, p: MLA, cfg, H):
+    """Shared q / compressed-kv computation. Returns q_nope (B,S,H,qn),
+    q_pe (B,S,H,qr), c_kv (B,S,r), k_pe (B,S,qr)."""
+    B, S, _ = x.shape
+    qn, qr, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    q = rms_norm_simple(x @ p.wq_a, p.q_ln, cfg.norm_eps) @ p.wq_b
+    q = q.reshape(B, S, H, qn + qr)
+    kv = x @ p.wkv_a
+    c_kv = rms_norm_simple(kv[..., :r], p.kv_ln, cfg.norm_eps)
+    return q[..., :qn], q[..., qn:], c_kv, kv[..., r:]
+
+
+def mla_forward(x, p: MLA, cfg, *, positions=None, cache=None, decode: bool = False):
+    """MLA attention; returns (out, new_cache). Prefill and training expand
+    k and v per position (flash at S >= FLASH_MIN_SEQ with
+    cfg.flash_attention, q and k qk_nope_dim + qk_rope_dim wide, v
+    v_head_dim wide); prefill returns the compressed (c_kv, k_pe) as the
+    cache. Decode (S == 1) writes the new entry into the cache in place, at
+    the one position of ``positions`` or, with a (B,) tensor and B > 1, each
+    row at its own (``_write_slots``), and attends through the absorbed
+    products: scores in the input dtype, softmax in float32, probabilities
+    cast back before the context, as ``repro``."""
+    B, S, _ = x.shape
+    qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    H = p.wq_b.shape[-1] // (qn + qr)
+    scale = (qn + qr) ** -0.5
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    per_slot = decode and positions.dim() == 1 and positions.shape[0] == B and B > 1
+
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(x, p, cfg, H)
+    cos, sin = rope_table(positions, qr, cfg.rope_theta)
+    if per_slot:  # (B, half) -> (B, 1, half)
+        cos, sin = cos[:, None, :], sin[:, None, :]
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe[:, :, None, :], cos, sin)[:, :, 0, :]  # one head, shared
+
+    if decode:
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token (S == 1) and a cache")
+        t = torch.arange(cache["c_kv"].shape[1], device=x.device)
+        if per_slot:
+            ckv = _write_slots(cache["c_kv"], c_kv, positions)
+            ckpe = _write_slots(cache["k_pe"], k_pe, positions)
+            tmask = (t[None, :] <= positions.long()[:, None])[:, None, None, :]
+        else:
+            pos = positions.reshape(1).long()
+            ckv = cache["c_kv"].index_copy_(1, pos, c_kv)
+            ckpe = cache["k_pe"].index_copy_(1, pos, k_pe)
+            tmask = (t <= pos)[None, None, None, :]
+        # absorbed: q folded through W_UK scores against the compressed cache
+        q_eff = torch.einsum("bshn,rhn->bshr", q_nope, p.wk_b.reshape(r, H, qn))
+        scores = (torch.einsum("bshr,btr->bhst", q_eff, ckv)
+                  + torch.einsum("bshn,btn->bhst", q_pe, ckpe)).float() * scale
+        scores = torch.where(tmask, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx_c = torch.einsum("bhst,btr->bshr", probs, ckv)  # (B, 1, H, r)
+        ctx = torch.einsum("bshr,rhv->bshv", ctx_c, p.wv_b.reshape(r, H, vd))
+        return ctx.reshape(B, S, H * vd) @ p.wo, {"c_kv": ckv, "k_pe": ckpe}
+
+    # train / prefill: expand per position
+    k_nope = (c_kv @ p.wk_b).reshape(B, S, H, qn)
+    v = (c_kv @ p.wv_b).reshape(B, S, H, vd)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, qr)], dim=-1)
+    if cfg.flash_attention and S >= FLASH_MIN_SEQ:
+        ctx = _flash_attn(q, k, v, causal=True, scale=scale, inference=cache is not None)
+    else:
+        ctx = _chunked_attn(q, k, v, causal=True, q_positions=positions,
+                            k_positions=positions, scale=scale)
+    out = ctx.reshape(B, S, H * vd) @ p.wo
+    return out, ({"c_kv": c_kv, "k_pe": k_pe} if cache is not None else None)
+
+
+def init_mla_cache(cfg, B: int, S_max: int, device=None):
+    """The compressed cache: ``c_kv`` (B, S_max, kv_lora_rank) and ``k_pe``
+    (B, S_max, qk_rope_dim), zeroed."""
+    dtype = torch_dtype(cfg.dtype)
+    return {"c_kv": torch.zeros((B, S_max, cfg.kv_lora_rank), dtype=dtype, device=device),
+            "k_pe": torch.zeros((B, S_max, cfg.qk_rope_dim), dtype=dtype, device=device)}

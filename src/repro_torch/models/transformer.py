@@ -1,8 +1,9 @@
 """Residual block assembly and the layer loop.
 
 The port of ``repro/models/transformer.py`` for the blocks this slice
-runs: mixer ``"attn"`` with a dense FFN, an MoE FFN (plus its shared
-experts) or none. A block is norm -> mixer -> norm -> FFN with residual
+runs: mixer ``"attn"`` (GQA) or ``"mla"`` (deepseek-v3's latent
+attention) with a dense FFN, an MoE FFN (plus its shared experts) or
+none. A block is norm -> mixer -> norm -> FFN with residual
 adds. ``repro`` runs each config segment as one ``lax.scan`` over stacked
 parameters; here the layers are a list of per-layer modules in the order
 ``cfg.layer_list()`` gives, and the scan is a Python loop over them.
@@ -28,29 +29,31 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import not_ported
 from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm
 
-_MIXER_ITEMS = {"local_attn": "window", "mla": "mla", "rglru": "recurrent",
-                "mamba": "recurrent", "none": "recurrent"}
+_MIXER_ITEMS = {"local_attn": "window", "rglru": "recurrent", "mamba": "recurrent",
+                "none": "recurrent"}
 
 
 def check_spec(spec) -> None:
     """Raise NotImplementedError for a block this slice does not run."""
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mla"):
         raise not_ported(f"the {spec.mixer!r} mixer", _MIXER_ITEMS[spec.mixer])
     if spec.cross:
         raise not_ported("cross-attention blocks", "cross")
 
 
 class Block(nn.Module):
-    """``init_block``: ``ln1``, ``mix``, and ``ln2`` with ``mlp`` for a dense
-    FFN or with ``moe`` (and ``shared``, an MLP of width d_expert x
-    n_shared_experts, when cfg.n_shared_experts) for an MoE FFN."""
+    """``init_block``: ``ln1``, ``mix`` (``attn.Attention`` or ``attn.MLA``),
+    and ``ln2`` with ``mlp`` for a dense FFN or with ``moe`` (and
+    ``shared``, an MLP of width d_expert x n_shared_experts, when
+    cfg.n_shared_experts) for an MoE FFN."""
 
     def __init__(self, spec, cfg, gen, device=None):
         super().__init__()
         check_spec(spec)
         d = cfg.d_model
         self.ln1 = Norm(cfg, d, device)
-        self.mix = attn.Attention(cfg, gen, device)
+        self.mix = (attn.MLA(cfg, gen, device) if spec.mixer == "mla"
+                    else attn.Attention(cfg, gen, device))
         if spec.ffn == "dense":
             self.ln2 = Norm(cfg, d, device)
             self.mlp = MLP(cfg, d, cfg.d_ff, gen, device)
@@ -63,6 +66,8 @@ class Block(nn.Module):
 
 def init_block_cache(spec, cfg, B: int, S_max: int, device=None) -> dict:
     check_spec(spec)
+    if spec.mixer == "mla":
+        return {"mix": attn.init_mla_cache(cfg, B, S_max, device=device)}
     return {"mix": attn.init_gqa_cache(cfg, B, S_max, device=device)}
 
 
@@ -73,11 +78,15 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False,
     new_cache = dict(cache) if cache is not None else None
 
     h = apply_norm(x, p.ln1, cfg)
-    out, mc = attn.gqa_forward(
-        h, p.mix, cfg, causal=spec.causal, positions=positions,
-        rope=cfg.pos_embedding == "rope", cache=cache.get("mix") if cache else None,
-        decode=decode,
-    )
+    mix_cache = cache.get("mix") if cache else None
+    if spec.mixer == "mla":
+        out, mc = attn.mla_forward(h, p.mix, cfg, positions=positions, cache=mix_cache,
+                                   decode=decode)
+    else:
+        out, mc = attn.gqa_forward(
+            h, p.mix, cfg, causal=spec.causal, positions=positions,
+            rope=cfg.pos_embedding == "rope", cache=mix_cache, decode=decode,
+        )
     x = x + out
     if new_cache is not None and mc is not None:
         new_cache["mix"] = mc

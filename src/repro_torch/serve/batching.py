@@ -13,10 +13,9 @@ decodes at position 0, writing into its own row only; a sequence ends at
 its token budget or at position ``s_max - 1``.
 
 It serves what ``repro``'s serves, rope-positioned models without
-windowed caches (dense GQA and MoE), and refuses the rest with
-``repro``'s AssertionError. ``repro``'s also serves MLA models; the port
-raises NotImplementedError for them, naming the ROADMAP.md item that
-ports MLA.
+windowed caches (GQA and MLA, dense and MoE: ``_splice`` walks the
+compressed MLA caches as any other), and refuses the rest with
+``repro``'s AssertionError.
 """
 from __future__ import annotations
 
@@ -26,7 +25,6 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.models import not_ported
 from repro_torch.serve.engine import make_prefill, make_serve_step
 
 
@@ -79,8 +77,6 @@ class ContinuousBatcher:
         if any(s.mixer in ("rglru", "mamba") for s in cfg.layer_list()):
             raise AssertionError("continuous batching supports no recurrent mixers "
                                  "(rglru, mamba); use serve.engine for them")
-        if any(s.mixer == "mla" for s in cfg.layer_list()):
-            raise not_ported("continuous batching of MLA models (the compressed cache)", "mla")
         self.model = model
         self.n_slots = n_slots
         self.s_max = s_max

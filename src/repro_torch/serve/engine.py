@@ -45,21 +45,20 @@ def make_prefill(model: Model):
 
 @torch.no_grad()
 def extend_caches(model: Model, caches, prefill_len: int, S_max: int):
-    """Grow full-attention caches from prefill length to the decode budget
-    by zero-padding their sequence axis (axis 1 of each layer's (B, S, KV,
-    dh) buffers; ``repro`` pads axis 2 of its stacked ones). Sliding-window
-    ring caches, the only ones that need ``prefill_len``, and MLA caches
-    raise NotImplementedError."""
+    """Grow the caches from prefill length to the decode budget by
+    zero-padding their sequence axis: axis 1 of each layer's full-attention
+    (B, S, KV, dh) buffers and of its MLA (B, S, kv_lora_rank) and (B, S,
+    qk_rope_dim) compressed ones (``repro`` pads axis 2 of its stacked
+    ones). Sliding-window ring caches, the only ones that need
+    ``prefill_len``, raise NotImplementedError."""
     out = []
     for c in caches:
         mix = c["mix"]
         if "pos" in mix:
             raise not_ported("sliding-window ring caches", "window")
-        if "c_kv" in mix:
-            raise not_ported("MLA caches", "mla")
-        pad = S_max - mix["k"].shape[1]
-        if pad > 0:
-            mix = {name: F.pad(mix[name], (0, 0, 0, 0, 0, pad)) for name in ("k", "v")}
+        pad = S_max - next(iter(mix.values())).shape[1]
+        if pad > 0:  # pad the sequence axis (1) only
+            mix = {name: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for name, t in mix.items()}
         out.append({**c, "mix": mix})
     return out
 

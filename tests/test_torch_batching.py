@@ -123,16 +123,6 @@ def test_moe_smoke_config_equals_repro():
         assert got[i] == want[i] == generated(tm, p, n_new), i
 
 
-def test_mla_raises_naming_item_10_4():
-    """``repro``'s batcher serves deepseek-v3 (MLA); the port defers MLA to
-    item 10.4: its model and its batcher raise naming it."""
-    cfg = smoke_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="item 10.4"):
-        Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1, item 10\.4 "):
-        ContinuousBatcher(types.SimpleNamespace(cfg=cfg), 2, 16)
-
-
 def test_gqa_per_slot_decode_matches_repro():
     """Three slots decoding at positions 4, -3 (counted from the end, as
     jax indexes) and 16 (past the cache: dropped), against ``repro``'s

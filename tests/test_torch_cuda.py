@@ -534,6 +534,33 @@ def test_flash_kernel_matches_twin(gpu, shape, dtype, tol, causal, monkeypatch):
         assert err["ok"], err
 
 
+@pytest.mark.parametrize("shape", [(1, 8192, 128), (2, 1000, 4), (1, 77, 8)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_at_mla_widths_matches_twin(gpu, shape, dtype, tol, causal, monkeypatch):
+    """MLA's (dqk, dv) = (192, 128), H = KV (deepseek-v3's 128 heads at
+    S = 8192 first): bf16 takes the wgmma kernel with a two-tile ring,
+    float32 the FMA kernel. The same limits as the equal-width shapes."""
+    from repro_torch.kernels import flash
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    B, S, H = shape
+    gen = torch.Generator(device=gpu).manual_seed(S + H)
+    q, k = (torch.randn((B, S, H, 192), generator=gen, device=gpu).to(dtype) for _ in range(2))
+    v = torch.randn((B, S, H, 128), generator=gen, device=gpu).to(dtype)
+    assert flash.ROUTES[(dtype, 192, 128)] == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    before = flash.flash_attention.launches
+    got = flash.flash_attention(q, k, v, causal=causal)
+    assert flash.flash_attention.launches == before + 1
+    want = flash.flash_attention_twin(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, 128)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if dtype == torch.bfloat16:
+        err = flash.bf16_error(got, flash.kernel_twin(q, k, v, causal=causal))
+        assert err["ok"], err
+
+
 def test_flash_wrapper_raises_on_cuda_instead_of_falling_back(gpu):
     from repro_torch.kernels import flash
 
@@ -591,6 +618,41 @@ def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol, monkeypatch):
         got = engine.generate(m_gpu, {"tokens": toks[:, :64].to(gpu)}, 4)
         want = engine.generate(m_cpu, {"tokens": toks[:, :64]}, 4)
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_mla_model_on_cuda_matches_model_on_cpu(gpu, monkeypatch):
+    """The deepseek-v3 smoke config at MLA's published head widths (192,
+    128) in float32 (TF32 off), S = 8192 with flash_attention=True: the
+    prefill launches the kernel once per layer, and its logits and
+    compressed caches, and then the generated tokens, equal the same
+    weights on the CPU within 1e-4 x max."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels import flash
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(smoke_config("deepseek-v3-671b"), dtype="float32",
+                              flash_attention=True, qk_nope_dim=128, qk_rope_dim=64,
+                              v_head_dim=128)
+    m_gpu = Model(cfg, device=gpu, seed=7)
+    m_cpu = Model(cfg, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (1, 8192), generator=torch.Generator().manual_seed(7))
+    before = flash.flash_attention.launches
+    lg_gpu, c_gpu = engine.make_prefill(m_gpu)({"tokens": toks.to(gpu)})
+    assert flash.flash_attention.launches == before + cfg.n_layers
+    lg_cpu, c_cpu = engine.make_prefill(m_cpu)({"tokens": toks})
+    scale = max(float(lg_cpu.abs().max()), 1.0)
+    assert float((lg_gpu.cpu() - lg_cpu).abs().max()) <= 1e-4 * scale
+    for g, c in zip(c_gpu, c_cpu, strict=True):
+        for name in ("c_kv", "k_pe"):
+            want = c["mix"][name]
+            assert float((g["mix"][name].cpu() - want).abs().max()) <= 1e-4 * float(
+                want.abs().max())
+    got = engine.generate(m_gpu, {"tokens": toks[:, :64].to(gpu)}, 4)
+    want = engine.generate(m_cpu, {"tokens": toks[:, :64]}, 4)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
 def test_moe_on_cuda_equals_cpu(gpu, monkeypatch):

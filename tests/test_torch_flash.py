@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash import flash_attention as pallas_flash
+from repro.models import attention as jattn
 from repro_torch.kernels import build, flash, ref
 
 RNG = np.random.default_rng(7)
@@ -55,6 +56,30 @@ def test_twin_matches_pallas_kernel_bf16():
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 3e-5), (ml_dtypes.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H", [(1, 1024, 4), (2, 512, 2)])
+def test_twin_at_mla_widths_matches_repro_pairs(B, S, H, dtype, tol, causal):
+    """MLA's (dqk, dv) = (192, 128), heads not grouped (H = KV): the
+    wrapper on the CPU (the twin) against ``repro``'s ``_flash_attn_pairs``,
+    what ``repro``'s MLA prefill runs off the TPU (its Pallas kernel takes
+    one width). In bf16 ``repro`` rounds p to bf16 and the twin keeps it in
+    float32: 2e-2, the bf16 test's tolerance above."""
+    rng = np.random.default_rng(192 + S)
+    q, k = (rng.standard_normal((B, S, H, 192)).astype(dtype) for _ in range(2))
+    v = rng.standard_normal((B, S, H, 128)).astype(dtype)
+    scale = 192 ** -0.5
+    want = jattn._flash_attn_pairs(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   causal=causal, scale=scale)
+    got = flash.flash_attention(_t(q), _t(k), _t(v), causal=causal, scale=scale)
+    assert got.shape == (B, S, H, 128) and got.dtype == _t(v).dtype
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    kt = flash.kernel_twin(_t(q), _t(k), _t(v), causal=causal, scale=scale)
+    assert kt.shape == got.shape
+    np.testing.assert_allclose(kt.float().numpy(), got.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,bq,bk", [(1000, 256, 512), (333, 64, 128), (7, 256, 512)])
 def test_twin_at_ragged_lengths_matches_oracle(S, bq, bk, causal):
     """S not a multiple of the tiles: the twin (and the kernel) need no
@@ -74,7 +99,7 @@ def test_kernel_twin_rounds_p_where_the_kernel_does(causal):
     a generator of their own, so the later tests draw what they drew before."""
     for dh, rng in ((32, RNG), (128, np.random.default_rng(128))):
         q, k, v = (_t(a) for a in _mk(1, 300, 4, 2, dh, ml_dtypes.bfloat16, rng=rng))
-        bk = flash.KERNEL_BK[(torch.bfloat16, dh)]
+        bk = flash.KERNEL_BK[(torch.bfloat16, dh, dh)]
         got = flash.kernel_twin(q, k, v, causal=causal)
         assert torch.equal(got, flash.flash_attention_twin(
             q, k, v, causal=causal, bq=64, bk=bk, p_dtype=torch.bfloat16))
@@ -98,16 +123,14 @@ def test_kernel_bk_follows_flash_cu():
     assert "key_tiles(q0, kWgBq, S, T, kWgBk, causal)" in src
     assert "key_tiles(q0, kBq, S, T, kBk, causal)" in src
     assert "key_tiles(q0, kFq, S, T, kFk, causal)" in src
-    routes = {"launch_wgmma": ("wgmma", const["kWgBk"]), "launch_bf16": ("mma.sync", const["kBk"])}
-    bf16 = {int(dh): fn for dh, fn in re.findall(r"case (\d+): return (launch_\w+)<", src)}
-    assert sorted(bf16) == list(flash.HEAD_DIMS)
-    for dh, fn in bf16.items():
-        assert (flash.ROUTES[(torch.bfloat16, dh)], flash.KERNEL_BK[(torch.bfloat16, dh)]) \
-            == routes[fn], dh
-    assert "DISPATCH_DH(dh, D, return launch_f32<D>" in src  # float32: every dh
-    for dh in flash.HEAD_DIMS:
-        assert flash.ROUTES[(torch.float32, dh)] == "fma"
-        assert flash.KERNEL_BK[(torch.float32, dh)] == const["kFk"]
+    routes = {"launch_wgmma": ("wgmma", const["kWgBk"]), "launch_bf16": ("mma.sync", const["kBk"]),
+              "launch_f32": ("fma", const["kFk"])}
+    dtypes = {"0": torch.bfloat16, "1": torch.float32}
+    lines = re.findall(r"ROUTE\((\d), (\d+), (\d+), (launch_\w+)\)", src)
+    got = {(dtypes[dt], int(dqk), int(dv)): routes[fn] for dt, dqk, dv, fn in lines}
+    assert len(got) == len(lines) == 2 * len(flash.HEAD_DIMS)
+    assert got == {key: (route, flash.KERNEL_BK[key]) for key, route in flash.ROUTES.items()}
+    assert {key[1:] for key in got} == set(flash.HEAD_DIMS)
 
 
 def test_bf16_error_passes_one_ulp_and_fails_a_dropped_key_tile():
@@ -160,6 +183,9 @@ def test_wrapper_on_cpu_runs_the_twin_and_counts_no_launch():
     (((1, 8, 4, 16), (1, 8, 3, 16), (1, 8, 3, 16)), None, ValueError, "multiple of KV"),
     (((1, 8, 4, 16), (1, 8, 2, 16), (1, 9, 2, 16)), None, ValueError, "want q"),
     (((1, 8, 4, 24), (1, 8, 2, 24), (1, 8, 2, 24)), None, ValueError, "head_dim 24"),
+    (((1, 8, 4, 192), (1, 8, 2, 192), (1, 8, 2, 64)), None, ValueError, "value width 64"),
+    (((1, 8, 4, 128), (1, 8, 2, 128), (1, 8, 2, 64)), None, ValueError, "value width 64"),
+    (((1, 8, 4, 192), (1, 8, 2, 128), (1, 8, 2, 128)), None, ValueError, "same B and dqk"),
     (((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16)), torch.float16, TypeError, "dtype"),
     (((1, 8, 4, 16), (1, 0, 2, 16), (1, 0, 2, 16)), None, ValueError, "T >= 1"),
 ])

@@ -55,7 +55,12 @@ def test_layers_flag_builds_repros_dense_only_config(tmp_path, capsys):
 
 
 def test_more_than_one_rank_is_item_11(monkeypatch):
+    """WORLD_SIZE=2 with no process group up, as the launcher sees a
+    ``torchrun`` start. The one-rank gloo group that other test files
+    leave in this worker process (``torch_parity.world_mesh``) would
+    answer 1 in its place, so it is hidden here."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
     with pytest.raises(NotImplementedError, match=r"item 11 \(sharded parameters"):
         train.main(["--device", "cpu"])
 

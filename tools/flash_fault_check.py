@@ -86,7 +86,7 @@ def launch(lib, q, k, v, causal: bool):
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     err = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  B, S, T, H, KV, dh, 0, dh ** -0.5, int(causal),
+                                  B, S, T, H, KV, dh, dh, 0, dh ** -0.5, int(causal),
                                   torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed: {lib.flash_error_string(err).decode()}")
