@@ -407,13 +407,14 @@ def check_ptxas(report: str) -> None:
     bad = [line.strip() for line in report.splitlines()
            if "setmaxnreg" in line or ("wgmma" in line and "serialized" in line)]
     entries = ptxas_entries(report)
+    mla = ("flash_fwd_wgmmaILi192ELi128E", "flash_fwd_f32_mla")
     for name, e in entries.items():
         if "flash_fwd_wgmma" in name and e.get("spills"):
             bad.append(f"{name}: {e['spills']} bytes spilled")
-        if "ILi192ELi128E" in name and (e.get("spills") or e.get("stack")):
+        if any(kernel in name for kernel in mla) and (e.get("spills") or e.get("stack")):
             bad.append(f"{name}: {e.get('stack')} bytes stack, {e.get('spills')} spilled")
-    for kernel in ("flash_fwd_wgmma", "flash_fwd_f32"):
-        if not any(f"{kernel}ILi192ELi128E" in name for name in entries):
+    for kernel in mla:
+        if not any(kernel in name for name in entries):
             bad.append(f"{kernel} at (192, 128) is missing")
     if bad:
         raise AssertionError("ptxas report of flash.cu: " + "; ".join(bad))
@@ -761,12 +762,15 @@ def check_kernels(device) -> dict:
 FLASH_SHAPES = [(1, 256, 4, 2, 16), (2, 1000, 4, 1, 64), (2, 1000, 8, 2, 128),
                 (1, 77, 8, 8, 128), (1, 8192, 32, 8, 128), (2, 8192, 32, 8, 128),
                 (2, 8192, 16, 16, 128)]
-# MLA's (dqk, dv) = (192, 128), heads not grouped (H = KV); the last one is
-# deepseek-v3's prefill at B = 1 (phase 13 serves it at B = 2)
+# MLA's (dqk, dv) = (192, 128), heads not grouped (H = KV); the last two are
+# deepseek-v3's prefill of one sequence and phase 13's of two
 FLASH_MLA_SHAPES = [(1, 300, 2, 2, 192, 128), (2, 1000, 4, 4, 192, 128),
-                    (1, 77, 8, 8, 192, 128), (1, 8192, 128, 128, 192, 128)]
+                    (1, 77, 8, 8, 192, 128), (1, 8192, 128, 128, 192, 128),
+                    (2, 8192, 128, 128, 192, 128)]
+FLASH_MLA_TIMED = FLASH_MLA_SHAPES[-2]  # flash's MLA time (the kernels line's *_mla)
 # max abs err against flash_attention_twin; bf16: tests/test_flash_kernel.py's
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+FLASH_MLA_F32_REL = 1e-5  # float32 at (192, 128): also within this x max |twin|
 
 
 def flash_inputs(gen, B, S, H, KV, dh, dtype, device, dv=None):
@@ -819,6 +823,12 @@ def check_flash(device) -> dict:
                 if not (err <= FLASH_TOL[name]) or got.shape != want.shape:
                     raise AssertionError(f"{label}: max abs err {err} > {FLASH_TOL[name]}")
                 line = f"max abs err {err:.3e} (tolerance {FLASH_TOL[name]})"
+                if dtype == torch.float32 and dh != dv:
+                    limit = FLASH_MLA_F32_REL * float(want.abs().max())
+                    if not err <= limit:
+                        raise AssertionError(f"{label}: max abs err {err} > {limit} "
+                                             f"({FLASH_MLA_F32_REL} x max |twin|)")
+                    line += f"; within {limit:.3e} ({FLASH_MLA_F32_REL} x max |twin|)"
                 if dtype == torch.bfloat16:
                     tight = flash.bf16_error(got, flash.kernel_twin(q, k, v, causal=causal))
                     line += (f"; against kernel_twin: max abs err {tight['max_abs']:.3e}, "
@@ -851,21 +861,32 @@ def check_flash(device) -> dict:
         f"{num['library_ms']:.4f} ms")
     del q, k, v, qt, kt, vt
 
-    num.update(mla_flash_times("phase 4", gen, device, plain=True), max_abs_err_mla=worst_mla)
+    num.update(mla_flash_times("phase 4", gen, device), max_abs_err_mla=worst_mla)
     return num
 
 
-def mla_flash_times(label: str, gen, device, plain: bool = False) -> dict:
-    """Flash at deepseek-v3's MLA prefill of one sequence, (1, 8192, 128,
-    192/128), bf16, causal: the kernel's time, its bound, one
-    scaled_dot_product_attention call's time on the same tensors, and with
-    ``plain`` ``kernel_twin``'s; logged with the card. Keys end in ``_mla``
-    (the kernels line's)."""
+_MLA_FLASH_TIMES: dict = {}  # mla_flash_times' numbers, once a run
+
+
+def mla_flash_times(label: str, gen, device) -> dict:
+    """Flash at deepseek-v3's MLA prefill of one sequence
+    (``FLASH_MLA_TIMED``), bf16, causal: the kernel's time, its bound,
+    ``kernel_twin``'s and one scaled_dot_product_attention call's time on
+    the same tensors; logged under ``label`` with the card. Keys end in
+    ``_mla`` (the kernels line's). Timed once a run: a later call logs the
+    first one's numbers again."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash
 
-    B, S, H, KV, dh, dv = FLASH_MLA_SHAPES[-1]
+    B, S, H, KV, dh, dv = FLASH_MLA_TIMED
+    if _MLA_FLASH_TIMES:
+        num = _MLA_FLASH_TIMES
+        log(f"{label}: flash_attention {(B, S, H, KV, f'{dh}/{dv}')} bf16 causal (MLA), as "
+            f"timed in this run: kernel {num['ms_mla']:.4f} ms, bound "
+            f"{num['bound_ms_mla']:.4f} ms, kernel_twin {num['plain_ms_mla']:.4f} ms, scaled_dot_product_attention "
+            f"{num['library_ms_mla']:.4f} ms")
+        return num
     q, k, v = flash_inputs(gen, B, S, H, KV, dh, torch.bfloat16, device, dv)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     moved, ops = flash_work(B, S, H, KV, dh, True, 2, dv)
@@ -874,16 +895,13 @@ def mla_flash_times(label: str, gen, device, plain: bool = False) -> dict:
         ms_mla=time_ms(lambda: flash.flash_attention(q, k, v, causal=True)),
         library_ms_mla=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=dh ** -0.5)),
+        plain_ms_mla=time_ms(lambda: flash.kernel_twin(q, k, v, causal=True), reps=3, batch=1),
         bound_ms_mla=b_ms, bound_by_mla=b_by)
-    twin = ""
-    if plain:
-        num["plain_ms_mla"] = time_ms(lambda: flash.kernel_twin(q, k, v, causal=True), reps=3,
-                                      batch=1)
-        twin = f"kernel_twin {num['plain_ms_mla']:.4f} ms, "
     log(f"{label}: flash_attention {(B, S, H, KV, f'{dh}/{dv}')} bf16 causal (MLA): kernel "
         f"{num['ms_mla']:.4f} ms ({ops / num['ms_mla'] / 1e9:.1f} TFLOP/s useful), bound "
-        f"{b_ms:.4f} ms ({b_by}), {twin}scaled_dot_product_attention "
-        f"{num['library_ms_mla']:.4f} ms; card {card_line()}")
+        f"{b_ms:.4f} ms ({b_by}), kernel_twin {num['plain_ms_mla']:.4f} ms, "
+        f"scaled_dot_product_attention {num['library_ms_mla']:.4f} ms; card {card_line()}")
+    _MLA_FLASH_TIMES.update(num)
     return num
 
 

@@ -769,16 +769,14 @@ constexpr int kFq = 32;  // query rows per CTA
 constexpr int kFk = 32;  // keys per tile (= warp width: one lane per key)
 constexpr int kFThreads = 256;
 
-// Blocks of the f32 kernel an SM must hold, which caps its registers at
-// 65536 / (256 x blocks): ptxas takes 8 (32 registers) when it is not told;
-// at MLA's (192, 128) that spills, so that pair asks for 4 (64 registers).
-constexpr int f32_min_blocks(int dqk, int dv) { return dqk == dv ? 8 : 4; }
-
+// One 32-row query tile of the f32 kernel; its kernels below differ only
+// in their launch bounds.
 template <int DQK, int DV>
-__global__ void __launch_bounds__(kFThreads, f32_min_blocks(DQK, DV))
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S, int T,
-              int H, int KV, float scale_log2, int causal) {
+__device__ __forceinline__ void f32_attend(const float* __restrict__ q,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v,
+                                           float* __restrict__ o, int S, int T, int H,
+                                           int KV, float scale_log2, int causal) {
   constexpr int QS = DQK + 1;  // padded: lanes reading one column hit distinct banks
   constexpr int PS = kFk + 1;
   constexpr int PER = DV / 8;  // output columns per thread
@@ -883,6 +881,24 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Equal widths: bounded by the threads alone, ptxas chooses the registers.
+template <int DH>
+__global__ void __launch_bounds__(kFThreads)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int S, int T,
+              int H, int KV, float scale_log2, int causal) {
+  f32_attend<DH, DH>(q, k, v, o, S, T, H, KV, scale_log2, causal);
+}
+
+// MLA's (192, 128): left to itself ptxas spills here, so this kernel asks
+// for 4 blocks an SM, which leaves each thread 64 registers.
+__global__ void __launch_bounds__(kFThreads, 4)
+flash_fwd_f32_mla(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int S, int T,
+                  int H, int KV, float scale_log2, int causal) {
+  f32_attend<192, 128>(q, k, v, o, S, T, H, KV, scale_log2, causal);
+}
+
 template <int DH, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int T, int H, int KV, float scale_log2,
@@ -911,7 +927,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        static_cast<size_t>(kFk) * DV +
                        static_cast<size_t>(kFq) * (kFk + 1) + 3 * kFq) *
                       sizeof(float);
-  auto kern = flash_fwd_f32<DQK, DV>;
+  static_assert(DQK == DV || (DQK == 192 && DV == 128), "no f32 kernel for these widths");
+  auto kern = flash_fwd_f32_mla;
+  if constexpr (DQK == DV) kern = flash_fwd_f32<DQK>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
