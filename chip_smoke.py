@@ -264,13 +264,38 @@ Phases, one line or more each:
      (4) is phase 4's; (5) 4 requests of 512-2048 tokens and 8 new
      through ``ContinuousBatcher(n_slots=2)``, launches as derived, each
      request held to itself alone (``hold_batch``, routing replayed);
+ 14. recurrent and sliding-window serving: falcon-mamba-7b (64 Mamba
+     layers, 7,272,140,800 parameters) answers 2 prompts of 4096 tokens
+     and recurrentgemma-9b ((RG-LRU, RG-LRU, local attention) x 12 + 2
+     RG-LRU, window 2048, flash_attention=True, 8,578,199,552 parameters)
+     2 prompts of 8192, each with 16 new through ``engine.generate`` at
+     full width and depth (bf16, seeded; each count equal to the config's
+     on the meta device), every launch count set to 0 just before and read
+     just after: all five kernels at 0 (the scan is plain PyTorch, a
+     window keeps flash off, no experts). Each prints prefill ms, decode
+     ms a step, one decode step's idle share under torch.profiler, peak
+     memory and its first layer's prefill split by the profiler into
+     scan, GEMMs and the rest. Checks: (1) one Mamba and one RG-LRU layer
+     at full width, S = 1024, and one local-attention layer at S = 4096
+     (its keys banded), float32 (TF32 off), card against CPU within 1e-5
+     x max; (2) each decode step's logits against the teacher-forced
+     forward (padded to a multiple of 512: every mixer is causal) within
+     5e-2 x max |logit|: recurrentgemma's served bf16 run, falcon-mamba's
+     served weights converted to float32 (TF32 off; its 64 bf16 layers
+     drift past the limit by rounding, printed); (3) recurrentgemma's third request of 1024 tokens
+     (shorter than the window: ``extend_caches`` re-slots its ring) and
+     16 decode steps: each ring slot s holds the position pos[s] with
+     pos[s] % W == s, its k and v within 5e-2 x max of the teacher-forced
+     forward's; the 8192-token run's rolled rings hold every position at
+     its slot.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
 served run's as ``launches_moe``, phase 11's training run's as
 ``launches_train``, phase 12's two batcher runs' as ``launches_batch``,
 phase 13's served run's as ``launches_mla``, flash's too, with flash's
-numbers at MLA's shape as ``*_mla``; their
+numbers at MLA's shape as ``*_mla``, phase 14's two served models' as
+``launches_rec``, all 0; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -282,6 +307,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 11    # phases 1, 2 and 11
     python3 chip_smoke.py --phases 9,12  # phases 1, 2, 9 and 12
     python3 chip_smoke.py --phases 13    # phases 1, 2 and 13
+    python3 chip_smoke.py --phases 14    # phases 1, 2 and 14
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -3755,7 +3781,450 @@ def run_mla(device) -> dict:
     return launches
 
 
-ALL_PHASES = frozenset(range(1, 14))
+# ----------------------------------------------------------------- phase 14
+
+# (arch, prompts, prompt length, new tokens, parameters as repro's
+# param_count() counts them at full width and depth, the dtype check 2
+# holds). In bf16 falcon-mamba's decode drifts from its teacher-forced
+# forward with depth, past REC_TOL at its 64 layers, and a float32 cut
+# does not drift (tools/rec_decode_drift.py; PERF.md §6): bf16 rounding
+# of the decode's and the prefill's GEMMs, which differ in shape,
+# compounds over the depth. Its check 2 runs on the served weights in
+# float32, where the path, not the rounding, is held; its bf16 errors are
+# printed.
+REC_RUNS = (("falcon-mamba-7b", 2, 4096, 16, 7_272_140_800, "float32"),
+            ("recurrentgemma-9b", 2, 8192, 16, 8_578_199_552, "bfloat16"))
+REC_RESLOT = 1024  # recurrentgemma's third request: shorter than its window
+REC_LAYER_TOL = 1e-5  # check 1: card against CPU, of max |CPU|
+REC_TOL = 5e-2  # checks 2 and 3: of max |logit| and of max |k|, |v|, as phase 13
+REC_PAD = 512  # the teacher-forced forward's length: a multiple of SCAN_CHUNK and Q_CHUNK
+
+
+def rec_config(arch: str, dtype: str = "bfloat16"):
+    """The published config at full width and depth; recurrentgemma with
+    flash_attention=True, so that its window alone keeps flash off."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if cfg.sliding_window:
+        cfg = dataclasses.replace(cfg, flash_attention=True)
+    return cfg
+
+
+def rec_layers_on_both(device) -> None:
+    """Phase 14's check 1: one Mamba and one RG-LRU layer at full width, S
+    = 1024 (four scan chunks), and one local-attention layer at full width,
+    S = 4096 (band 2560 < 4096: the keys sliced), each in float32 (TF32
+    off) on the card and on the CPU, the same weights and input: output and
+    cache within REC_LAYER_TOL x max |CPU|. The local layer's cache is its
+    ring of the last 2048 keys and values; the two devices' float32 rope
+    tables differ by up to ``rope``, which moves each rotated key by at most
+    2 x rope x its largest magnitude before rope, added to k's limit."""
+    import torch
+    from repro_torch.models import attention, recurrent
+    from repro_torch.models.layers import rope_table
+
+    cases = (("mamba", "falcon-mamba-7b", 1024, recurrent.Mamba, recurrent.mamba_forward,
+              lambda c: recurrent.init_mamba_cache(c, 1, device)),
+             ("rglru", "recurrentgemma-9b", 1024, recurrent.RGLRU, recurrent.rglru_forward,
+              lambda c: recurrent.init_rglru_cache(c, 1, device)),
+             ("local_attn", "recurrentgemma-9b", 4096, attention.Attention,
+              lambda x, p, c, cache: attention.gqa_forward(x, p, c, window=c.sliding_window,
+                                                           cache=cache),
+              lambda c: attention.init_gqa_cache(c, 1, 4096, c.sliding_window, device)))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, arch, S, cls, fwd, init_cache in cases:
+            cfg = rec_config(arch, "float32")
+            gen = torch.Generator(device=device).manual_seed(41)
+            layer = cls(cfg, gen, device)
+            x = torch.randn((1, S, cfg.d_model), generator=gen, device=device)
+            t0 = time.perf_counter()
+            out, cache = fwd(x, layer, cfg, cache=init_cache(cfg))
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            layer_cpu = cls(cfg, None, "meta").to_empty(device="cpu")
+            layer_cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+            cache_cpu = {k: v.cpu() for k, v in init_cache(cfg).items()}
+            t0 = time.perf_counter()
+            want, want_cache = fwd(x.cpu(), layer_cpu, cfg, cache=cache_cpu)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            pairs = {"out": (out, want), **{k: (cache[k], want_cache[k]) for k in want_cache
+                                            if k != "pos"}}
+            scales = {k: float(b.float().abs().max()) for k, (a, b) in pairs.items()}
+            errs = {k: float((a.cpu().float() - b.float()).abs().max())
+                    for k, (a, b) in pairs.items()}
+            limits = {k: REC_LAYER_TOL * v for k, v in scales.items()}
+            extra = ""
+            if "pos" in want_cache:
+                if not torch.equal(cache["pos"].cpu(), want_cache["pos"]):
+                    raise AssertionError("phase 14: check 1: the ring's positions differ")
+                pos = torch.arange(S)
+                rope = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+                    rope_table(pos.to(device), cfg.head_dim, cfg.rope_theta),
+                    rope_table(pos, cfg.head_dim, cfg.rope_theta)))
+                raw = float((x.cpu() @ layer_cpu.wk).abs().max())
+                limits["k"] += 2 * rope * raw
+                extra = (f"; the rope tables differ by up to {rope:.3e}, k before rope up to "
+                         f"{raw:.3f}")
+            log(f"phase 14: check 1: one {name} layer of {arch} in float32 at full width, S = "
+                f"{S}: card {card_ms:.3f} ms, CPU {cpu_ms:.3f} ms; max abs diff (limit): "
+                + ", ".join(f"{k} {errs[k]:.3e} ({limits[k]:.3e}; max |CPU| {scales[k]:.3f})"
+                            for k in errs) + extra)
+            if not all(errs[k] <= limits[k] for k in errs):
+                raise AssertionError(f"phase 14: check 1: the card's float32 {name} layer is "
+                                     f"off the CPU's: {errs}, limits {limits}")
+            del layer, layer_cpu, out, cache, want, want_cache, x
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def layer_split(fn) -> tuple:
+    """One ``fn()`` (a recurrent layer's prefill) under ``torch.profiler``:
+    (wall ms, device ms, {"scan", "gemm", "rest": device ms}). The scan is
+    every ``recurrent._assoc_scan`` call (wrapped in a ``record_function``
+    range for this run only), the GEMMs every ``aten::mm`` and ``aten::bmm``
+    (the projections and the RG-LRU's block-diagonal gates), the rest the
+    remaining device time (the gates' and the scan inputs' elementwise
+    work, the conv, the reductions)."""
+    import torch
+    from repro_torch.models import recurrent
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scan = recurrent._assoc_scan
+
+    def ranged(*args):
+        with record_function("scan"):
+            return scan(*args)
+
+    recurrent._assoc_scan = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        recurrent._assoc_scan = scan
+
+    def self_us(e) -> float:
+        v = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if v is None else v
+
+    def total_us(e) -> float:
+        v = getattr(e, "device_time_total", None)
+        return e.cuda_time_total if v is None else v
+
+    # the "scan" range also appears as a device-side annotation spanning
+    # its kernels: left out of the device sum, and the scan's time is the
+    # host-side range's (the kernels it launched)
+    rows = prof.key_averages()
+    on_host = [e for e in rows if not str(e.device_type).endswith("CUDA")]
+    dev = sum(self_us(e) for e in rows
+              if str(e.device_type).endswith("CUDA") and e.key != "scan") / 1e3
+    if dev == 0:
+        raise AssertionError("the profiler recorded no device time")
+    scan_ms = sum(total_us(e) for e in on_host if e.key == "scan") / 1e3
+    gemm_ms = sum(total_us(e) for e in on_host if e.key in ("aten::mm", "aten::bmm")) / 1e3
+    return wall, dev, {"scan": scan_ms, "gemm": gemm_ms, "rest": dev - scan_ms - gemm_ms}
+
+
+def teacher_forced(model, tokens):
+    """The logits and caches of one forward over ``tokens`` padded at the
+    end to a multiple of REC_PAD (the scan's and the query chunks'
+    lengths): every mixer is causal, so the padding changes no earlier
+    position."""
+    import torch
+
+    B, S = tokens.shape
+    pad = -S % REC_PAD
+    full = torch.cat([tokens, tokens.new_zeros((B, pad))], dim=1)
+    logits, caches, _ = model({"tokens": full}, caches=model.init_caches(B, S + pad))
+    return logits[:, :S], caches
+
+
+def ring_check(label, model, cfg, caches, teacher_caches, n_filled: int) -> float:
+    """Check 3: in each local-attention layer's ring, every slot s that
+    holds a position (pos[s] >= 0) holds it at s = pos[s] % W, and its k
+    and v equal the teacher-forced forward's at that position (its ring,
+    a prefill of at most the window, holds every position densely) within
+    REC_TOL x max; ``n_filled`` slots hold one. Returns the worst
+    relative difference."""
+    import torch
+
+    worst = 0.0
+    for spec, c, t in zip(cfg.layer_list(), caches, teacher_caches, strict=True):
+        if spec.mixer != "local_attn":
+            continue
+        ring, full = c["mix"], t["mix"]
+        W = ring["k"].shape[1]
+        pos = ring["pos"].long()
+        held = pos >= 0
+        slots = torch.arange(W, device=pos.device)
+        if int(held.sum()) != n_filled or not bool((pos[held] % W == slots[held]).all()):
+            raise AssertionError(f"{label}: check 3: the ring's positions {pos.tolist()[:8]}... "
+                                 f"are not at their slots")
+        if not bool((full["pos"].long() == torch.arange(full["pos"].shape[0],
+                                                        device=pos.device)).all()):
+            raise AssertionError(f"{label}: check 3: the teacher-forced ring is not dense")
+        for name in ("k", "v"):
+            got = ring[name][:, held].float()
+            want = full[name][:, pos[held]].float()
+            err = float((got - want).abs().max()) / float(want.abs().max())
+            worst = max(worst, err)
+            if err > REC_TOL:
+                raise AssertionError(f"{label}: check 3: ring {name} is {err} x max off the "
+                                     f"teacher-forced forward's")
+    return worst
+
+
+def rec_step_errors(step_logits, tf, S: int, vocab: int) -> list:
+    """Each decode step's largest |logit - teacher-forced logit|, as a
+    fraction of the teacher-forced step's largest |logit| (inf where the
+    step's logits are not finite)."""
+    import torch
+
+    errs = []
+    for i, lg in enumerate(step_logits):
+        ref = tf[:, S + i, :vocab].float()
+        err = float((lg - ref).abs().max()) / float(ref.abs().max())
+        errs.append(err if bool(torch.isfinite(lg).all()) else float("inf"))
+    return errs
+
+
+def decode_against_teacher(model, batch, n_new: int) -> tuple:
+    """Greedy prefill and n_new - 1 decode steps, then each step's logits
+    against the teacher-forced forward of the prompt and the tokens fed
+    (``rec_step_errors``). Returns (errors, the forward's length)."""
+    import torch
+    from repro_torch.serve import engine
+
+    vocab = model.cfg.vocab
+    S = batch["tokens"].shape[1]
+    prefill, step = engine.make_prefill(model), engine.make_serve_step(model)
+    logits, caches = prefill(batch)
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    fed, step_logits = [], []
+    for i in range(n_new - 1):
+        fed.append(tok)
+        lg, caches = step(caches, tok, S + i)
+        tok = lg[..., :vocab].argmax(-1).to(torch.int32)
+        step_logits.append(lg[:, 0, :vocab].float())
+    del caches, logits
+    full = torch.cat([batch["tokens"], *fed], dim=1)
+    tf, _ = teacher_forced(model, full)
+    return rec_step_errors(step_logits, tf, S, vocab), full.shape[1]
+
+
+def serve_rec(device, arch, B, S, n_new, want_params, check_dtype) -> dict:
+    """One model of phase 14: built on the card, ``engine.generate`` of B
+    prompts of S tokens and n_new new (every count set to 0 just before and
+    read just after: no kernel of the port runs on this path), then timed
+    prefill and decode steps, one decode step under torch.profiler, one
+    recurrent layer's prefill split, peak memory, check 2 (each decode
+    step's logits against the teacher-forced forward; in ``check_dtype``:
+    float32 converts the served weights, TF32 off) and, with a window,
+    check 3. Returns the launches of the main path."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+
+    t_model = time.perf_counter()
+    cfg = rec_config(arch)
+    counted = Model(cfg, device="meta")
+    meta_params = sum(p.numel() for p in counted.parameters())
+    del counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = sorted({s.mixer for s in cfg.layer_list()})
+    log(f"phase 14: {arch} ({cfg.n_layers} layers: {', '.join(kinds)}; d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}) built on the card in {time.perf_counter() - t0:.2f} "
+        f"s: {n_params} parameters (the config counts {meta_params} on the meta device), "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    if not n_params == meta_params == cfg.param_count() == want_params:
+        raise AssertionError(f"phase 14: {arch}: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}, want {want_params}")
+    vocab = cfg.vocab
+    gen = torch.Generator(device=device).manual_seed(23)
+    batch = {"tokens": torch.randint(0, vocab, (B, S), generator=gen, device=device,
+                                     dtype=torch.int32)}
+
+    # the main path: generate, counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(model, batch, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"phase 14: {arch}: generate {B} x {S} prompt tokens + {n_new} new: "
+        f"{gen_s * 1e3:.3f} ms wall (first call), launches {launches}, tokens {out.tolist()}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 14: {arch}: a kernel launched on the recurrent path: "
+                             f"{launches}")
+    if out.shape != (B, n_new) or not bool(((out >= 0) & (out < vocab)).all()):
+        raise AssertionError(f"phase 14: {arch}: tokens out of [0, {vocab}) or of shape "
+                             f"{out.shape}")
+
+    prefill, step = engine.make_prefill(model), engine.make_serve_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    steps, step_ms, step_logits = [tok], [], []
+    for i in range(n_new - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = step(caches, tok, S + i)
+        tok = lg[..., :vocab].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(tok)
+        step_logits.append(lg[:, 0, :vocab].float())
+    if not torch.equal(torch.cat(steps, dim=1), out):
+        raise AssertionError(f"phase 14: {arch}: the timed prefill and steps gave other tokens")
+    if cfg.sliding_window:  # the roll branch: every slot at pos % W
+        for spec, c in zip(cfg.layer_list(), caches, strict=True):
+            if spec.mixer == "local_attn":
+                pos = c["mix"]["pos"].long()
+                if not bool((pos % pos.numel() == torch.arange(pos.numel(),
+                                                               device=pos.device)).all()):
+                    raise AssertionError(f"phase 14: {arch}: a rolled ring is out of place")
+    wall, dev, events = device_breakdown(lambda: step(caches, tok, S + n_new - 1))
+    log(f"phase 14: {arch}: one decode step under torch.profiler: {wall:.3f} ms wall, "
+        f"{dev:.3f} ms device (idle {1 - dev / wall:.3f}); largest device events: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms ({ms / dev:.3f})" for name, ms in events[:6]))
+    del caches
+    decode_ms = statistics.median(step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 14: {arch}: prefill {prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.1f} "
+        f"tokens/s), decode {decode_ms:.3f} ms a step (median of {len(step_ms)}), "
+        f"{B / decode_ms * 1e3:.3f} tokens/s, peak {peak_gb:.3f} GB; card {card_line()}")
+
+    # one recurrent layer's prefill (the first), split by the profiler,
+    # on the first layer's input
+    first = cfg.layer_list()[0]
+    h = model.embed.table[batch["tokens"]]
+    if cfg.name.startswith("recurrentgemma"):
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
+    cache0 = tfm.init_block_cache(first, cfg, B, S, device)
+    fn = lambda: tfm.apply_block(h, model.layers[0], first, cfg,  # noqa: E731
+                                 positions=torch.arange(S, device=device), cache=cache0)
+    fn()
+    wall, dev, split = layer_split(fn)
+    log(f"phase 14: {arch}: one {first.mixer} layer's prefill ({B} x {S}, its block with "
+        f"{first.ffn} FFN) under torch.profiler: {wall:.3f} ms wall, {dev:.3f} ms device; "
+        + ", ".join(f"{k} {v:.3f} ms ({v / dev:.3f})" for k, v in split.items()))
+    del h, cache0
+
+    # check 2: each decode step against the teacher-forced forward of the
+    # prompt and the generated tokens
+    full = torch.cat([batch["tokens"], out[:, :-1]], dim=1)
+    tf, tf_caches = teacher_forced(model, full)
+    del tf_caches
+    errs = rec_step_errors(step_logits, tf, S, vocab)
+    held = check_dtype == cfg.dtype
+    log(f"phase 14: {arch}: {'check 2' if held else 'bf16 decode'}: {len(step_logits)} decode "
+        f"steps (one recurrence step from the carried state"
+        f"{', the rings' if cfg.sliding_window else ''}) against the teacher-forced forward of "
+        f"{full.shape[1]} tokens (padded to {full.shape[1] + (-full.shape[1] % REC_PAD)}): x "
+        f"max |logit| by step {[round(e, 5) for e in errs]}, worst {max(errs):.5f}"
+        + (f" (limit {REC_TOL})" if held else " (held in float32 below)"))
+    if held and max(errs) > REC_TOL:
+        raise AssertionError(f"phase 14: {arch}: check 2: a decode step is {max(errs)} x max "
+                             f"|logit| off the teacher-forced forward")
+    del tf, logits, step_logits
+
+    if cfg.sliding_window:
+        # check 3: a request shorter than the window: extend_caches
+        # re-slots its ring, 16 steps fill it; each slot against the
+        # teacher-forced k/v of the position it names
+        L = REC_RESLOT
+        one = {"tokens": torch.randint(0, vocab, (1, L), generator=gen, device=device,
+                                       dtype=torch.int32)}
+        logits, caches = prefill(one)
+        W = next(c["mix"]["k"].shape[1] for s, c in zip(cfg.layer_list(), caches, strict=True)
+                 if s.mixer == "local_attn")
+        caches = engine.extend_caches(model, caches, L, L + n_new)
+        tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+        fed = []
+        for i in range(n_new):
+            fed.append(tok)
+            lg, caches = step(caches, tok, L + i)
+            tok = lg[..., :vocab].argmax(-1).to(torch.int32)
+        _, tf_caches = teacher_forced(model, torch.cat([one["tokens"], *fed], dim=1))
+        worst = ring_check(f"phase 14: {arch}", model, cfg, caches, tf_caches, L + n_new)
+        log(f"phase 14: {arch}: check 3: a request of {L} tokens (ring of {W} after prefill, "
+            f"re-slotted to {min(cfg.sliding_window, L + n_new)} by extend_caches) and "
+            f"{n_new} decode steps: every slot s holds pos[s] with pos[s] % W == s, its k and "
+            f"v within {worst:.5f} x max of the teacher-forced forward's (limit {REC_TOL})")
+        del caches, tf_caches
+    if check_dtype == "float32" and cfg.dtype != "float32":
+        # check 2 on the served weights in float32, TF32 off
+        t0 = time.perf_counter()
+        model.float()
+        model.cfg = dataclasses.replace(cfg, dtype="float32")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            errs, n_tf = decode_against_teacher(model, batch, n_new)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        log(f"phase 14: {arch}: check 2: the served weights in float32 (TF32 off), "
+            f"{len(errs)} decode steps against the teacher-forced forward of {n_tf} tokens: x "
+            f"max |logit| by step {[f'{e:.2e}' for e in errs]}, worst {max(errs):.3e} (limit "
+            f"{REC_TOL}); {time.perf_counter() - t0:.1f} s")
+        if max(errs) > REC_TOL:
+            raise AssertionError(f"phase 14: {arch}: check 2: a float32 decode step is "
+                                 f"{max(errs)} x max |logit| off the teacher-forced forward")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14: {arch}: {time.perf_counter() - t_model:.1f} s")
+    return launches
+
+
+def run_recurrent(device) -> dict:
+    """Phase 14: falcon-mamba-7b (64 Mamba layers) and recurrentgemma-9b
+    (RG-LRU and local attention, window 2048) at full width and depth
+    (bf16, seeded), each served through ``engine.generate`` and checked
+    (``serve_rec``: checks 2 and 3), then check 1 (``rec_layers_on_both``). No kernel of the port lies on
+    these paths (the scan is plain PyTorch, as ``repro``'s is plain jnp;
+    flash never serves a window; neither model has experts). Returns the
+    launches over both main paths, all 0."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    total = None
+    for arch, B, S, n_new, want_params, check_dtype in REC_RUNS:
+        launches = serve_rec(device, arch, B, S, n_new, want_params, check_dtype)
+        total = launches if total is None else {k: total[k] + v for k, v in launches.items()}
+    rec_layers_on_both(device)
+    torch.cuda.empty_cache()
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+ALL_PHASES = frozenset(range(1, 15))
 
 
 def main() -> int:
@@ -3765,7 +4234,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-13: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-14: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -3822,7 +4291,8 @@ def main() -> int:
     if phases != ALL_PHASES:  # a partial run (development): no result lines
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
-                           (10, run_moe), (11, run_train), (12, run_batch), (13, run_mla)):
+                           (10, run_moe), (11, run_train), (12, run_batch), (13, run_mla),
+                           (14, run_recurrent)):
             if phase in phases:
                 run(device)
         return 0
@@ -3845,13 +4315,16 @@ def main() -> int:
     launches_batch = run_batch(device)
     torch.cuda.empty_cache()
     launches_mla = run_mla(device)
+    torch.cuda.empty_cache()
+    launches_rec = run_recurrent(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
              launches=launches[name], launches_serve=launches_serve[name],
              launches_mesh=launches_mesh[name], launches_moe=launches_moe[name],
              launches_train=launches_train[name], launches_batch=launches_batch[name],
-             launches_mla=launches_mla[name], max_abs_err=num["max_abs_err"], ms=num["ms"],
+             launches_mla=launches_mla[name], launches_rec=launches_rec[name],
+             max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
              ms_x64=num["ms_x64"], plain_ms_x64=num["plain_ms_x64"],
@@ -3864,6 +4337,7 @@ def main() -> int:
         launches_train=launches_train["flash_attention"],
         launches_batch=launches_batch["flash_attention"],
         launches_mla=launches_mla["flash_attention"],
+        launches_rec=launches_rec["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"],

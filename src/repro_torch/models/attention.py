@@ -20,6 +20,16 @@ writes the new entry into them in place (``repro`` returns updated
 copies): the cache of a long prompt is gigabytes, and the old buffers are
 never read again.
 
+A sliding window of W keys (``window``, recurrentgemma's local attention)
+bands the causal mask (q - k < W), and at prefill each query chunk of
+Q_CHUNK rows attends to its band of W + Q_CHUNK keys only, so the cost is
+linear in the sequence. Its cache is a ring of min(W, S_max) k/v entries
+with a ``pos`` side-car (int32, -1 where empty): prefill keeps the last
+min(W, S) entries densely (``serve.engine.extend_caches`` re-slots them),
+and decode writes the entry of position p at slot p % W and masks each
+slot by the position it holds. Flash never serves a window (``repro``'s
+condition).
+
 MLA (``mla_forward``) projects q through a LoRA pair (``wq_a``, ``q_ln``,
 ``wq_b``) and the keys and values through one compressed latent c_kv
 (``wkv_a``, ``kv_ln``) plus one rope key k_pe shared by every head. Prefill
@@ -32,8 +42,9 @@ widths flash takes (dqk, dv) = (192, 128). Decode keeps the compressed
 Decode takes one position for the whole batch, or one per row (a (B,)
 tensor with B > 1: continuous batching, ``serve/batching.py``), as
 ``repro``'s per-slot path: its own rope angles, its own cache position,
-its own causal mask. Cross-attention and sliding windows raise
-NotImplementedError naming their ROADMAP.md item.
+its own causal mask; with a window it takes one position only (the
+batcher refuses windowed configs). Cross-attention raises
+NotImplementedError naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -120,24 +131,34 @@ def _grouped_attn(q, k, v, mask, scale):
     return ctx.reshape(B, S, KV * rep, v.shape[-1])
 
 
-def _causal_mask(q_pos, k_pos):
-    """(S, T) bool mask."""
-    return q_pos[:, None] >= k_pos[None, :]
+def _causal_mask(q_pos, k_pos, window: int = 0):
+    """(S, T) bool mask; window > 0 adds the sliding-window band."""
+    m = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        m &= q_pos[:, None] - k_pos[None, :] < window
+    return m
 
 
-def _chunked_attn(q, k, v, *, causal, q_positions, k_positions, scale):
-    """Query chunks of Q_CHUNK rows, each against all keys."""
-    S = q.shape[1]
+def _chunked_attn(q, k, v, *, causal, q_positions, k_positions, scale, window: int = 0):
+    """Query chunks of Q_CHUNK rows; with a causal window each chunk takes
+    only its band of window + Q_CHUNK keys, [start - window, start +
+    Q_CHUNK) clamped into the keys, when the band is shorter than them."""
+    S, T = q.shape[1], k.shape[1]
     if S <= Q_CHUNK:
-        mask = _causal_mask(q_positions, k_positions)[None, None, None] if causal else None
+        mask = _causal_mask(q_positions, k_positions, window)[None, None, None] if causal else None
         return _grouped_attn(q, k, v, mask, scale)
     if S % Q_CHUNK:
         raise ValueError(f"seq {S} must be divisible by Q_CHUNK {Q_CHUNK}")
+    band = window + Q_CHUNK if (window and causal) else 0
     chunks = []
     for start in range(0, S, Q_CHUNK):
         qp = q_positions[start:start + Q_CHUNK]
-        mask = _causal_mask(qp, k_positions)[None, None, None] if causal else None
-        chunks.append(_grouped_attn(q[:, start:start + Q_CHUNK], k, v, mask, scale))
+        kc, vc, kp = k, v, k_positions
+        if band and band < T:
+            ks = min(max(start - window, 0), T - band)
+            kc, vc, kp = k[:, ks:ks + band], v[:, ks:ks + band], k_positions[ks:ks + band]
+        mask = _causal_mask(qp, kp, window)[None, None, None] if causal else None
+        chunks.append(_grouped_attn(q[:, start:start + Q_CHUNK], kc, vc, mask, scale))
     return torch.cat(chunks, dim=1)
 
 
@@ -230,11 +251,11 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     False) returns the prompt's k/v as the cache; decode (S == 1) writes
     the new k/v at the one position in ``positions`` in place and attends
     over the cache up to it, or, with ``positions`` of shape (B,) and
-    B > 1, each row at its own position (``_write_slots``)."""
+    B > 1, each row at its own position (``_write_slots``). With a
+    ``window``, prefill returns the ring of the last min(window, S) entries
+    and decode writes into the ring (``_ring_decode``)."""
     if memory is not None or (cache is not None and "ck" in cache):
         raise not_ported("cross-attention", "cross")
-    if window:
-        raise not_ported("sliding-window attention", "window")
     B, S, d = x.shape
     dh = cfg.head_dim
     H = p.wq.shape[-1] // dh
@@ -264,6 +285,11 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     if decode:
         if cache is None or S != 1:
             raise ValueError("decode takes one token (S == 1) and a cache")
+        if window:
+            if per_slot:
+                raise ValueError("a sliding window decodes one position for the whole batch")
+            ctx, new_cache = _ring_decode(q, k, v, cache, positions, window, scale)
+            return ctx.reshape(B, S, H * dh) @ p.wo, new_cache
         if per_slot:
             ck, cv = _write_slots(cache["k"], k, positions), _write_slots(cache["v"], v, positions)
             t = torch.arange(ck.shape[1], device=x.device)
@@ -277,16 +303,37 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
         ctx = _grouped_attn(q, ck, cv, mask, scale)
         return ctx.reshape(B, S, H * dh) @ p.wo, {"k": ck, "v": cv}
 
-    # training / prefill; window is 0 here (windows raise above), so this is
-    # repro's condition (attention.py:400)
-    if cfg.flash_attention and S >= FLASH_MIN_SEQ:
+    # training / prefill: repro's condition (attention.py:400)
+    if cfg.flash_attention and window == 0 and S >= FLASH_MIN_SEQ:
         # online-softmax tiles; the kernel at prefill (cache given <=> inference)
         ctx = _flash_attn(q, k, v, causal=causal, scale=scale, inference=cache is not None)
     else:
         ctx = _chunked_attn(q, k, v, causal=causal, q_positions=positions,
-                            k_positions=positions, scale=scale)
+                            k_positions=positions, scale=scale, window=window)
     out = ctx.reshape(B, S, H * dh) @ p.wo
-    return out, ({"k": k, "v": v} if cache is not None else None)
+    if cache is None:
+        return out, None
+    if window:  # the ring: the last W entries, densely, with their positions (copies)
+        W = min(window, S)
+        return out, {"k": k[:, -W:].clone(), "v": v[:, -W:].clone(),
+                     "pos": positions[-W:].to(torch.int32)}
+    return out, {"k": k, "v": v}
+
+
+def _ring_decode(q, k, v, cache, positions, window: int, scale):
+    """One decode step over a ring cache, at the one position of
+    ``positions``: the new k/v and its position written at slot pos % W in
+    place, every slot masked by the position it holds (valid when 0 <= p
+    <= pos and pos - p < window). Returns (ctx, cache)."""
+    W = cache["k"].shape[1]
+    pos = positions.reshape(1).long()
+    slot = pos % W
+    ck = cache["k"].index_copy_(1, slot, k)
+    cv = cache["v"].index_copy_(1, slot, v)
+    cpos = cache["pos"].index_copy_(0, slot, pos.to(torch.int32))
+    valid = (cpos >= 0) & (cpos <= pos) & (pos - cpos < window)
+    ctx = _grouped_attn(q, ck, cv, valid[None, None, None, None, :], scale)
+    return ctx, {"k": ck, "v": cv, "pos": cpos}
 
 
 def _write_slots(cache, new, positions):
@@ -308,12 +355,16 @@ def _write_slots(cache, new, positions):
 
 
 def init_gqa_cache(cfg, B: int, S_max: int, window: int = 0, device=None):
-    if window:
-        raise not_ported("sliding-window ring caches", "window")
+    """Zeroed k and v of (B, S_max, KV, dh); with a window, a ring of
+    min(window, S_max) entries and its ``pos`` (int32, all -1)."""
     dtype = torch_dtype(cfg.dtype)
-    shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    W = min(window, S_max) if window else S_max
+    shape = (B, W, cfg.n_kv_heads, cfg.head_dim)
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if window:
+        c["pos"] = torch.full((W,), -1, dtype=torch.int32, device=device)
+    return c
 
 
 # ------------------------------------------------------------- MLA mixer

@@ -1,7 +1,7 @@
 """Config -> model: parameters, the forward pass for prefill and decode.
 
-The port of ``repro/models/model.py`` for decoder-only configs whose
-blocks this slice runs (GQA with dense or MoE FFNs). ``repro``'s
+The port of ``repro/models/model.py`` for decoder-only configs: GQA,
+sliding-window, MLA, RG-LRU and Mamba blocks with dense, MoE or no FFNs. ``repro``'s
 ``Model`` is a frozen description plus a parameter pytree; here it is an
 ``nn.Module`` that holds its parameters, drawn from a seeded
 ``torch.Generator`` on its device, or loaded from ``repro``'s with
@@ -75,6 +75,8 @@ class Model(nn.Module):
     def _embed_in(self, batch, positions):
         cfg = self.cfg
         x = embed_tokens(batch["tokens"], self.embed)
+        if cfg.name.startswith("recurrentgemma"):  # gemma's scaling, in x's dtype
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
         if cfg.pos_embedding == "sinusoidal":
             x = x + sinusoidal_embed(positions, cfg.d_model).to(x.dtype)[None]
         elif cfg.pos_embedding == "learned":

@@ -1,9 +1,11 @@
 """Residual block assembly and the layer loop.
 
-The port of ``repro/models/transformer.py`` for the blocks this slice
-runs: mixer ``"attn"`` (GQA) or ``"mla"`` (deepseek-v3's latent
-attention) with a dense FFN, an MoE FFN (plus its shared experts) or
-none. A block is norm -> mixer -> norm -> FFN with residual
+The port of ``repro/models/transformer.py`` for decoder blocks: mixer
+``"attn"`` (GQA), ``"local_attn"`` (GQA over a sliding window of
+cfg.sliding_window keys, rope always on), ``"mla"`` (deepseek-v3's
+latent attention), ``"rglru"`` or ``"mamba"`` (``recurrent.py``) or
+``"none"`` (adds zeros), with a dense FFN, an MoE FFN (plus its shared
+experts) or none. A block is norm -> mixer -> norm -> FFN with residual
 adds. ``repro`` runs each config segment as one ``lax.scan`` over stacked
 parameters; here the layers are a list of per-layer modules in the order
 ``cfg.layer_list()`` gives, and the scan is a Python loop over them.
@@ -27,22 +29,23 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import not_ported
+from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm
-
-_MIXER_ITEMS = {"local_attn": "window", "rglru": "recurrent", "mamba": "recurrent",
-                "none": "recurrent"}
 
 
 def check_spec(spec) -> None:
-    """Raise NotImplementedError for a block this slice does not run."""
-    if spec.mixer not in ("attn", "mla"):
-        raise not_ported(f"the {spec.mixer!r} mixer", _MIXER_ITEMS[spec.mixer])
+    """Raise NotImplementedError for a block the port does not run."""
     if spec.cross:
         raise not_ported("cross-attention blocks", "cross")
 
 
+def _window(spec, cfg) -> int:
+    return cfg.sliding_window if spec.mixer == "local_attn" else 0
+
+
 class Block(nn.Module):
-    """``init_block``: ``ln1``, ``mix`` (``attn.Attention`` or ``attn.MLA``),
+    """``init_block``: ``ln1``, ``mix`` (``attn.Attention``, ``attn.MLA``,
+    ``recurrent.RGLRU``, ``recurrent.Mamba``, or None for mixer "none"),
     and ``ln2`` with ``mlp`` for a dense FFN or with ``moe`` (and
     ``shared``, an MLP of width d_expert x n_shared_experts, when
     cfg.n_shared_experts) for an MoE FFN."""
@@ -52,8 +55,9 @@ class Block(nn.Module):
         check_spec(spec)
         d = cfg.d_model
         self.ln1 = Norm(cfg, d, device)
-        self.mix = (attn.MLA(cfg, gen, device) if spec.mixer == "mla"
-                    else attn.Attention(cfg, gen, device))
+        mixers = {"attn": attn.Attention, "local_attn": attn.Attention, "mla": attn.MLA,
+                  "rglru": rec.RGLRU, "mamba": rec.Mamba}
+        self.mix = mixers[spec.mixer](cfg, gen, device) if spec.mixer in mixers else None
         if spec.ffn == "dense":
             self.ln2 = Norm(cfg, d, device)
             self.mlp = MLP(cfg, d, cfg.d_ff, gen, device)
@@ -68,7 +72,14 @@ def init_block_cache(spec, cfg, B: int, S_max: int, device=None) -> dict:
     check_spec(spec)
     if spec.mixer == "mla":
         return {"mix": attn.init_mla_cache(cfg, B, S_max, device=device)}
-    return {"mix": attn.init_gqa_cache(cfg, B, S_max, device=device)}
+    if spec.mixer == "rglru":
+        return {"mix": rec.init_rglru_cache(cfg, B, device=device)}
+    if spec.mixer == "mamba":
+        return {"mix": rec.init_mamba_cache(cfg, B, device=device)}
+    if spec.mixer == "none":
+        return {}
+    return {"mix": attn.init_gqa_cache(cfg, B, S_max, window=_window(spec, cfg),
+                                       device=device)}
 
 
 def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False,
@@ -79,14 +90,21 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False,
 
     h = apply_norm(x, p.ln1, cfg)
     mix_cache = cache.get("mix") if cache else None
-    if spec.mixer == "mla":
+    if spec.mixer in ("attn", "local_attn"):
+        out, mc = attn.gqa_forward(
+            h, p.mix, cfg, causal=spec.causal, window=_window(spec, cfg), positions=positions,
+            rope=cfg.pos_embedding == "rope" or spec.mixer == "local_attn",
+            cache=mix_cache, decode=decode,
+        )
+    elif spec.mixer == "mla":
         out, mc = attn.mla_forward(h, p.mix, cfg, positions=positions, cache=mix_cache,
                                    decode=decode)
-    else:
-        out, mc = attn.gqa_forward(
-            h, p.mix, cfg, causal=spec.causal, positions=positions,
-            rope=cfg.pos_embedding == "rope", cache=mix_cache, decode=decode,
-        )
+    elif spec.mixer == "rglru":
+        out, mc = rec.rglru_forward(h, p.mix, cfg, cache=mix_cache, decode=decode)
+    elif spec.mixer == "mamba":
+        out, mc = rec.mamba_forward(h, p.mix, cfg, cache=mix_cache, decode=decode)
+    else:  # "none"
+        out, mc = torch.zeros_like(x), mix_cache
     x = x + out
     if new_cache is not None and mc is not None:
         new_cache["mix"] = mc

@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import not_ported
 from repro_torch.models.model import Model
 
 
@@ -43,22 +42,53 @@ def make_prefill(model: Model):
     return prefill
 
 
+def _grow_ring(mix: dict, window: int, prefill_len: int, S_max: int) -> dict:
+    """A ring cache (k/v (B, W, KV, dh), pos (W,)) as decode reads it: the
+    entry of position p at slot p % W2, W2 = min(window, S_max). When W2 >
+    W (the prompt was shorter than the window) each entry moves to its
+    slot of a new ring of W2, whose other slots are empty (pos -1);
+    otherwise prefill's last W entries, held densely, roll by prefill_len
+    % W."""
+    k, v, pos = mix["k"], mix["v"], mix["pos"]
+    W = k.shape[1]
+    W2 = min(window, S_max) if window else W
+    if W2 <= W:
+        shift = prefill_len % W
+        return {"k": torch.roll(k, shift, 1), "v": torch.roll(v, shift, 1),
+                "pos": torch.roll(pos, shift, 0)}
+    slots = torch.where(pos >= 0, pos.long() % W2, W2)  # slot W2 takes what is dropped
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        z = t.new_zeros(t.shape[:1] + (W2 + 1,) + t.shape[2:])
+        z[:, slots] = t
+        out[name] = z[:, :W2]
+    zp = pos.new_full((W2 + 1,), -1)
+    zp[slots] = pos
+    out["pos"] = zp[:W2]
+    return out
+
+
 @torch.no_grad()
 def extend_caches(model: Model, caches, prefill_len: int, S_max: int):
-    """Grow the caches from prefill length to the decode budget by
-    zero-padding their sequence axis: axis 1 of each layer's full-attention
-    (B, S, KV, dh) buffers and of its MLA (B, S, kv_lora_rank) and (B, S,
-    qk_rope_dim) compressed ones (``repro`` pads axis 2 of its stacked
-    ones). Sliding-window ring caches, the only ones that need
-    ``prefill_len``, raise NotImplementedError."""
+    """Grow the caches from prefill length to the decode budget: zero-pad
+    the sequence axis, axis 1, of each layer's full-attention (B, S, KV,
+    dh) buffers and of its MLA (B, S, kv_lora_rank) and (B, S, qk_rope_dim)
+    compressed ones (``repro`` pads axis 2 of its stacked ones); re-slot or
+    roll each sliding-window ring (``_grow_ring``); pass the recurrent
+    caches (conv and h, fixed size) through unchanged."""
     out = []
     for c in caches:
-        mix = c["mix"]
+        mix = c.get("mix")
+        if mix is None or "conv" in mix:
+            out.append(c)
+            continue
         if "pos" in mix:
-            raise not_ported("sliding-window ring caches", "window")
-        pad = S_max - next(iter(mix.values())).shape[1]
-        if pad > 0:  # pad the sequence axis (1) only
-            mix = {name: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for name, t in mix.items()}
+            mix = _grow_ring(mix, model.cfg.sliding_window, prefill_len, S_max)
+        else:
+            pad = S_max - next(iter(mix.values())).shape[1]
+            if pad > 0:  # pad the sequence axis (1) only
+                mix = {name: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                       for name, t in mix.items()}
         out.append({**c, "mix": mix})
     return out
 

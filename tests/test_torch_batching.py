@@ -8,7 +8,6 @@ per-slot decode under it is held to ``repro``'s ``gqa_forward`` within
 1e-5.
 """
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -96,17 +95,17 @@ def test_sequence_ends_at_s_max(dense):
 
 
 def test_rejects_unsupported_arch():
-    """recurrentgemma-9b: ``repro`` raises AssertionError, and the port's
-    batcher the same type (its model has no port yet, item 10.6, so the
-    batcher is handed the config alone)."""
+    """recurrentgemma-9b (sliding window) and falcon-mamba-7b (recurrent
+    mixers): the port's models build, and its batcher raises the
+    AssertionError ``repro``'s raises (``serve.engine`` serves them)."""
     jc = jsmoke("recurrentgemma-9b")
     jm = JModel(jc)
     with pytest.raises(AssertionError):
         JBatcher(jm, jm.init(jax.random.key(0)), 2, 16)
     with pytest.raises(AssertionError, match="rope/non-windowed"):
-        ContinuousBatcher(types.SimpleNamespace(cfg=smoke_config("recurrentgemma-9b")), 2, 16)
-    with pytest.raises(NotImplementedError, match="item 10.6"):
-        Model(smoke_config("recurrentgemma-9b"), device="cpu")
+        ContinuousBatcher(Model(smoke_config("recurrentgemma-9b"), device="cpu"), 2, 16)
+    with pytest.raises(AssertionError, match="recurrent mixers"):
+        ContinuousBatcher(Model(smoke_config("falcon-mamba-7b"), device="cpu"), 2, 16)
 
 
 def test_moe_smoke_config_equals_repro():

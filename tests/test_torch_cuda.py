@@ -973,3 +973,76 @@ def test_batcher_on_cuda_equals_cpu(gpu, monkeypatch):
     got = ContinuousBatcher(m_gpu, n_slots=2, s_max=160).run([Request(*r) for r in reqs])
     want = ContinuousBatcher(m_cpu, n_slots=2, s_max=160).run([Request(*r) for r in reqs])
     assert got == want and sorted(got) == [0, 1, 2]
+
+
+@pytest.mark.parametrize("mixer", ["rglru", "mamba"])
+def test_recurrent_layer_on_cuda_matches_cpu(gpu, mixer, monkeypatch):
+    """One RG-LRU or Mamba layer of the smoke configs in float32 (TF32
+    off): a prefill of 1024 (four scan chunks) and three decode steps from
+    its cache, outputs and caches within 1e-5 x max of the same layer on
+    the CPU (which tests/test_torch_recurrent.py holds against repro)."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import recurrent
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    arch, cls, fwd, init_cache = {
+        "rglru": ("recurrentgemma-9b", recurrent.RGLRU, recurrent.rglru_forward,
+                  recurrent.init_rglru_cache),
+        "mamba": ("falcon-mamba-7b", recurrent.Mamba, recurrent.mamba_forward,
+                  recurrent.init_mamba_cache)}[mixer]
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    layer = cls(cfg, torch.Generator(device=gpu).manual_seed(2), gpu)
+    cpu = cls(cfg, None, "meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    x = torch.randn((2, 1027, cfg.d_model), generator=torch.Generator().manual_seed(2))
+
+    def run(p, dev):
+        out, cache = fwd(x[:, :1024].to(dev), p, cfg, cache=init_cache(cfg, 2, dev))
+        outs = [out]
+        for t in range(1024, 1027):
+            o, cache = fwd(x[:, t:t + 1].to(dev), p, cfg, cache=cache, decode=True)
+            outs.append(o)
+        return torch.cat(outs, dim=1).cpu(), {k: v.cpu() for k, v in cache.items()}
+
+    with torch.no_grad():
+        got, got_cache = run(layer, gpu)
+        want, want_cache = run(cpu, "cpu")
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for name, w in want_cache.items():
+        assert float((got_cache[name] - w).abs().max()) <= 1e-5 * float(w.abs().max()), name
+
+
+def test_window_layer_on_cuda_matches_cpu(gpu, monkeypatch):
+    """recurrentgemma's local attention on the smoke config in float32
+    (TF32 off): a banded prefill of 2048 (band 544 of 2048 keys) and 40
+    ring decode steps, outputs and ring within 1e-5 x max of the CPU's."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import attention
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(smoke_config("recurrentgemma-9b"), dtype="float32")
+    W = cfg.sliding_window
+    layer = attention.Attention(cfg, torch.Generator(device=gpu).manual_seed(3), gpu)
+    cpu = attention.Attention(cfg, None, "meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    x = torch.randn((2, 2088, cfg.d_model), generator=torch.Generator().manual_seed(3))
+
+    def run(p, dev):
+        out, ring = attention.gqa_forward(x[:, :2048].to(dev), p, cfg, window=W,
+                                          cache=attention.init_gqa_cache(cfg, 2, 2048, W, dev))
+        outs = [out]
+        for t in range(2048, 2088):
+            o, ring = attention.gqa_forward(x[:, t:t + 1].to(dev), p, cfg, window=W,
+                                            cache=ring, decode=True,
+                                            positions=torch.tensor([t], device=dev))
+            outs.append(o)
+        return torch.cat(outs, dim=1).cpu(), {k: v.cpu() for k, v in ring.items()}
+
+    with torch.no_grad():
+        got, got_ring = run(layer, gpu)
+        want, want_ring = run(cpu, "cpu")
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got_ring["pos"], want_ring["pos"])
+    for name in ("k", "v"):
+        assert float((got_ring[name] - want_ring[name]).abs().max()) <= 1e-5 * float(
+            want_ring[name].abs().max())

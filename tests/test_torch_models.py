@@ -272,7 +272,8 @@ def test_moe_block_sort_paths_agree_and_ep_decode_raises():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-32b", "starcoder2-7b", "starcoder2-15b",
-                                  "deepseek-moe-16b", "deepseek-v3-671b"])
+                                  "deepseek-moe-16b", "deepseek-v3-671b", "falcon-mamba-7b",
+                                  "recurrentgemma-9b"])
 def test_param_count_matches_repro_at_full_width(arch):
     """Counted on the meta device: no allocation at full width."""
     assert get_config(arch).param_count() == jget_config(arch).param_count()
@@ -290,15 +291,32 @@ def test_configs_are_copies():
     ("whisper-base", "item 10.3"), ("llama-3.2-vision-11b", "item 10.3"),
 ])
 def test_unported_architectures_raise_naming_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Model(smoke_config(arch), device="cpu")
+    """The cross-attention models (item 10.3) raise naming their item. The
+    recurrent ones (item 10.6, ported) build: each block's mixer is the
+    module of its spec, and a Mamba block (ffn "none") has no ln2."""
+    if item != "item 10.6":
+        with pytest.raises(NotImplementedError, match=item):
+            Model(smoke_config(arch), device="cpu")
+        return
+    from repro_torch.models import recurrent
+
+    cfg = smoke_config(arch)
+    tm = Model(cfg, device="cpu")
+    kinds = {"rglru": recurrent.RGLRU, "mamba": recurrent.Mamba,
+             "local_attn": attention.Attention}
+    for block, spec in zip(tm.layers, cfg.layer_list(), strict=True):
+        assert type(block.mix) is kinds[spec.mixer]
+        assert hasattr(block, "ln2") == (spec.ffn != "none")
 
 
 def test_unported_attention_branches_raise_naming_their_item():
     _, tc, _, p, x = _attn_inputs("qwen3-4b", "float32", 4)
     x = tt(x)
-    with pytest.raises(NotImplementedError, match="item 10.2"):
-        attention.gqa_forward(x, p, tc, window=32)
+    # sliding windows (item 10.2) are ported: a window of the whole prompt
+    # is plain causal attention
+    out, _ = attention.gqa_forward(x, p, tc, window=x.shape[1])
+    want, _ = attention.gqa_forward(x, p, tc)
+    assert torch.equal(out, want)
     with pytest.raises(NotImplementedError, match="item 10.3"):
         attention.gqa_forward(x, p, tc, memory=x)
     # per-slot decode positions (item 10.1) are ported: they run
@@ -307,8 +325,9 @@ def test_unported_attention_branches_raise_naming_their_item():
                                        cache=attention.init_gqa_cache(tc, 2, 8))
     assert out.shape == (2, 1, tc.d_model) and bool(torch.isfinite(out).all())
     assert cache["k"][0, 3].abs().sum() > 0 and cache["k"][1, 4].abs().sum() > 0
-    with pytest.raises(NotImplementedError, match="item 10.2"):
-        attention.init_gqa_cache(tc, 2, 8, window=4)
+    ring = attention.init_gqa_cache(tc, 2, 8, window=4)
+    assert ring["k"].shape == (2, 4, tc.n_kv_heads, tc.head_dim)
+    assert ring["pos"].tolist() == [-1] * 4
     tm = Model(tc, device="cpu")
     logits, _, _ = tm({"tokens": torch.zeros((2, 1), dtype=torch.int32)},
                       caches=tm.init_caches(2, 4), decode=True, pos=torch.tensor([1, 2]))

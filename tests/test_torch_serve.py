@@ -217,8 +217,20 @@ def test_sample_logits_topk_and_vocab_mask():
 
 
 def test_extend_caches_refuses_ring_caches():
-    tm = Model(smoke_config("qwen3-4b"), device="cpu")
-    ring = [{"mix": {"k": torch.zeros(1, 4, 2, 16), "v": torch.zeros(1, 4, 2, 16),
-                     "pos": torch.zeros(4, dtype=torch.int32)}}]
-    with pytest.raises(NotImplementedError, match="item 10.2"):
-        engine.extend_caches(tm, ring, 4, 8)
+    """Ring caches, once refused (item 10.2), are re-slotted and rolled: a
+    ring of 4 from a prompt of 4 grows to a window of 6 (each entry at slot
+    p % 6, the others empty); a full ring of 6 from a prompt of 9 rolls by
+    9 % 6 so that position p sits at slot p % 6."""
+    tm = Model(dataclasses.replace(smoke_config("qwen3-4b"), sliding_window=6), device="cpu")
+    k = torch.arange(4.0).reshape(1, 4, 1, 1).expand(1, 4, 2, 16)
+    ring = [{"mix": {"k": k, "v": -k, "pos": torch.arange(4, dtype=torch.int32)}}]
+    (out,) = engine.extend_caches(tm, ring, 4, 8)
+    assert out["mix"]["pos"].tolist() == [0, 1, 2, 3, -1, -1]
+    assert out["mix"]["k"][0, :, 0, 0].tolist() == [0, 1, 2, 3, 0, 0]
+    assert torch.equal(out["mix"]["v"], -out["mix"]["k"])
+    pos = torch.arange(3, 9, dtype=torch.int32)
+    k = pos.float().reshape(1, 6, 1, 1).expand(1, 6, 2, 16)
+    ring = [{"mix": {"k": k, "v": k, "pos": pos}}]
+    (out,) = engine.extend_caches(tm, ring, 9, 12)
+    assert out["mix"]["pos"].tolist() == [6, 7, 8, 3, 4, 5]
+    assert out["mix"]["k"][0, :, 1, 3].tolist() == [6, 7, 8, 3, 4, 5]
