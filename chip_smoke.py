@@ -288,6 +288,34 @@ Phases, one line or more each:
      pos[s] % W == s, its k and v within 5e-2 x max of the teacher-forced
      forward's; the 8192-token run's rolled rings hold every position at
      its slot.
+ 15. cross-attention, whisper's encoder and vision memory: whisper-base
+     (6 encoder and 6 decoder layers, vocab 51,865 padded to 51,968,
+     97,346,560 parameters) answers 8 requests of 1536 seeded stub frames
+     (whisper's 1500 are refused past one query chunk, in ``repro`` too)
+     and a 4-token prompt with 64 new, and llama-3.2-vision-11b (40
+     layers, 8 with cross-attention, 10,110,734,344 parameters,
+     flash_attention=True, its cross gates, zero at init, seeded nonzero)
+     2 prompts of 8192 tokens with 1600 seeded stub vision tokens each
+     and 16 new, through ``engine.generate`` at full width and depth
+     (bf16, seeded; each count equal to the config's on the meta
+     device), every launch count set to 0 just before and read just
+     after: flash 40 per VLM prefill, every other kernel 0 (whisper's
+     encoder and decoder lie under FLASH_MIN_SEQ, its flash off). Each
+     prints prefill ms (whisper: and its encoder's), decode ms a step,
+     one decode step's idle share under torch.profiler and peak memory;
+     the VLM its first cross block's prefill split by the profiler into
+     flash, cross-attention (the unchunked ``_grouped_attn`` over the
+     memory), GEMMs and the rest. Checks: (1) one VLM cross block at full
+     width (S = 2048, M = 1600) and one whisper encoder layer (S_enc =
+     1536), float32 (TF32 off), card against CPU within 1e-5 x max; (2)
+     each decode step's logits against the teacher-forced forward (the
+     same memory, padded at the end to a multiple of 512) within 5e-2 x
+     max |logit|, both models; (3) the VLM's prefill logits against
+     flash_attention=False (no flash launch) within 5e-2 x max |logit|;
+     (4) each cross cache after prefill equals its memory's K/V
+     projections bit for bit, and holds the same bits after the last
+     decode step; (5) the VLM's prefill logits with every gate at 0
+     differ from the seeded gates' by more than 1e-3 x max |logit|.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
@@ -295,7 +323,8 @@ served run's as ``launches_moe``, phase 11's training run's as
 ``launches_train``, phase 12's two batcher runs' as ``launches_batch``,
 phase 13's served run's as ``launches_mla``, flash's too, with flash's
 numbers at MLA's shape as ``*_mla``, phase 14's two served models' as
-``launches_rec``, all 0; their
+``launches_rec``, all 0, phase 15's two served models' as
+``launches_cross`` (flash 40, the rest 0); their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -308,6 +337,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 9,12  # phases 1, 2, 9 and 12
     python3 chip_smoke.py --phases 13    # phases 1, 2 and 13
     python3 chip_smoke.py --phases 14    # phases 1, 2 and 14
+    python3 chip_smoke.py --phases 15    # phases 1, 2 and 15
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -3883,25 +3913,29 @@ def rec_layers_on_both(device) -> None:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def layer_split(fn) -> tuple:
-    """One ``fn()`` (a recurrent layer's prefill) under ``torch.profiler``:
-    (wall ms, device ms, {"scan", "gemm", "rest": device ms}). The scan is
-    every ``recurrent._assoc_scan`` call (wrapped in a ``record_function``
-    range for this run only), the GEMMs every ``aten::mm`` and ``aten::bmm``
-    (the projections and the RG-LRU's block-diagonal gates), the rest the
-    remaining device time (the gates' and the scan inputs' elementwise
-    work, the conv, the reductions)."""
+def layer_split(fn, ranges: dict, gemms=("aten::mm", "aten::bmm"), kernels=None) -> tuple:
+    """One ``fn()`` (a layer's prefill) under ``torch.profiler``: (wall ms,
+    device ms, {range: ms, ..., kernel: ms, ..., "gemm": ms, "rest": ms}).
+    ``ranges`` maps a name to (module, function name): every call of that
+    function is wrapped in a ``record_function`` range of that name for
+    this run only, and the range's time is the device time of the kernels
+    it launched. ``kernels`` maps a name to a part of device kernels'
+    names, for the port's own kernels: launched through ctypes, they are
+    traced on the device but tied to no op or range on the host. "gemm" is
+    the device time of the ops named in ``gemms`` outside every range, and
+    "rest" the remaining device time."""
     import torch
-    from repro_torch.models import recurrent
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    scan = recurrent._assoc_scan
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
 
-    def ranged(*args):
-        with record_function("scan"):
-            return scan(*args)
-
-    recurrent._assoc_scan = ranged
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in ranges.items()}
+    for name, (mod, attr) in ranges.items():
+        setattr(mod, attr, ranged(name, saved[name]))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -3910,7 +3944,8 @@ def layer_split(fn) -> tuple:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     finally:
-        recurrent._assoc_scan = scan
+        for name, (mod, attr) in ranges.items():
+            setattr(mod, attr, saved[name])
 
     def self_us(e) -> float:
         v = getattr(e, "self_device_time_total", None)
@@ -3920,31 +3955,48 @@ def layer_split(fn) -> tuple:
         v = getattr(e, "device_time_total", None)
         return e.cuda_time_total if v is None else v
 
-    # the "scan" range also appears as a device-side annotation spanning
-    # its kernels: left out of the device sum, and the scan's time is the
+    def within(e) -> bool:
+        p = e.cpu_parent
+        while p is not None:
+            if p.name in ranges:
+                return True
+            p = p.cpu_parent
+        return False
+
+    # each range also appears as a device-side annotation spanning its
+    # kernels: left out of the device sum, and a range's time is the
     # host-side range's (the kernels it launched)
-    rows = prof.key_averages()
-    on_host = [e for e in rows if not str(e.device_type).endswith("CUDA")]
-    dev = sum(self_us(e) for e in rows
-              if str(e.device_type).endswith("CUDA") and e.key != "scan") / 1e3
+    events = prof.events()
+    on_host = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    dev = sum(self_us(e) for e in events
+              if str(e.device_type).endswith("CUDA") and e.name not in ranges) / 1e3
     if dev == 0:
         raise AssertionError("the profiler recorded no device time")
-    scan_ms = sum(total_us(e) for e in on_host if e.key == "scan") / 1e3
-    gemm_ms = sum(total_us(e) for e in on_host if e.key in ("aten::mm", "aten::bmm")) / 1e3
-    return wall, dev, {"scan": scan_ms, "gemm": gemm_ms, "rest": dev - scan_ms - gemm_ms}
+    split = {name: sum(total_us(e) for e in on_host if e.name == name) / 1e3 for name in ranges}
+    for name, part in (kernels or {}).items():
+        split[name] = sum(self_us(e) for e in events
+                          if str(e.device_type).endswith("CUDA") and part in e.name) / 1e3
+    split["gemm"] = sum(total_us(e) for e in on_host
+                        if e.name in gemms and not within(e)) / 1e3
+    split["rest"] = dev - sum(split.values())
+    return wall, dev, split
 
 
-def teacher_forced(model, tokens):
+def teacher_forced(model, tokens, memory=None):
     """The logits and caches of one forward over ``tokens`` padded at the
     end to a multiple of REC_PAD (the scan's and the query chunks'
-    lengths): every mixer is causal, so the padding changes no earlier
+    lengths), with ``memory`` (a dict of ``frames`` or ``vision``) beside
+    them: every decoder mixer is causal, so the padding changes no earlier
     position."""
     import torch
 
+    memory = memory or {}
     B, S = tokens.shape
     pad = -S % REC_PAD
     full = torch.cat([tokens, tokens.new_zeros((B, pad))], dim=1)
-    logits, caches, _ = model({"tokens": full}, caches=model.init_caches(B, S + pad))
+    M = next((v.shape[1] for v in memory.values()), 0)
+    logits, caches, _ = model({"tokens": full, **memory},
+                              caches=model.init_caches(B, S + pad, memory_len=M))
     return logits[:, :S], caches
 
 
@@ -4035,6 +4087,7 @@ def serve_rec(device, arch, B, S, n_new, want_params, check_dtype) -> dict:
     import gc
 
     import torch
+    from repro_torch.models import recurrent
     from repro_torch.models import transformer as tfm
     from repro_torch.models.model import Model
     from repro_torch.serve import engine
@@ -4129,7 +4182,7 @@ def serve_rec(device, arch, B, S, n_new, want_params, check_dtype) -> dict:
     fn = lambda: tfm.apply_block(h, model.layers[0], first, cfg,  # noqa: E731
                                  positions=torch.arange(S, device=device), cache=cache0)
     fn()
-    wall, dev, split = layer_split(fn)
+    wall, dev, split = layer_split(fn, {"scan": (recurrent, "_assoc_scan")})
     log(f"phase 14: {arch}: one {first.mixer} layer's prefill ({B} x {S}, its block with "
         f"{first.ffn} FFN) under torch.profiler: {wall:.3f} ms wall, {dev:.3f} ms device; "
         + ", ".join(f"{k} {v:.3f} ms ({v / dev:.3f})" for k, v in split.items()))
@@ -4224,7 +4277,376 @@ def run_recurrent(device) -> dict:
     return total
 
 
-ALL_PHASES = frozenset(range(1, 15))
+# ----------------------------------------------------------------- phase 15
+
+# (arch, prompts, prompt length, memory length, new tokens, parameters as
+# repro's param_count() counts them at full width and depth). whisper's
+# real 1500 frames are refused past one query chunk (a multiple of
+# Q_CHUNK = 512, in repro too): it serves 1536 stub frames.
+CROSS_RUNS = (("whisper-base", 8, 4, 1536, 64, 97_346_560),
+              ("llama-3.2-vision-11b", 2, 8192, 1600, 16, 10_110_734_344))
+CROSS_LAYER_TOL = 1e-5  # check 1: card against CPU, of max |CPU|
+CROSS_TOL = 5e-2  # checks 2 and 3: of max |logit|
+CROSS_LIVE = 1e-3  # check 5: the gates at 0 move the logits by more, of max |logit|
+
+
+def cross_config(arch: str, dtype: str = "bfloat16"):
+    """The published config at full width and depth; the VLM with
+    flash_attention=True, so that its 8192-token prefill takes the kernel."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if cfg.n_vision_tokens:
+        cfg = dataclasses.replace(cfg, flash_attention=True)
+    return cfg
+
+
+def seed_gates(blocks, gen) -> list:
+    """Each cross gate of ``blocks`` (zero at init, which would hide the
+    cross path) set to a seeded value uniform in +-[0.5, 1.5]. Returns the
+    gates."""
+    import torch
+
+    gates = [b.cross.gate for b in blocks
+             if getattr(b, "cross", None) is not None and b.cross.gate is not None]
+    for g in gates:
+        u = torch.rand((2,), generator=gen, device=g.device)
+        g.copy_((0.5 + u[0]) * torch.where(u[1] < 0.5, -1.0, 1.0))
+    return gates
+
+
+def cross_projections(model, memory) -> list:
+    """Each cross block's k and v projections of ``memory``, as its cache
+    holds them."""
+    from repro_torch.models import attention
+
+    out = []
+    for block, spec in zip(model.layers, model.cfg.layer_list(), strict=True):
+        if spec.cross:
+            p, (B, M, _) = block.cross, memory.shape
+            shape = (B, M, model.cfg.n_kv_heads, model.cfg.head_dim)
+            out.append({"ck": attention._proj(memory, p.wk, p.bk).reshape(shape),
+                        "cv": attention._proj(memory, p.wv, p.bv).reshape(shape)})
+    return out
+
+
+def cross_caches(model, caches) -> list:
+    return [c["cross"] for spec, c in zip(model.cfg.layer_list(), caches, strict=True)
+            if spec.cross]
+
+
+def cross_layers_on_both(device) -> None:
+    """Phase 15's check 1: one VLM cross block (self-attention, then
+    cross-attention over 1600 memory tokens, then the MLP) at full width, S
+    = 2048, as a prefill with its caches, and one whisper encoder layer at
+    S_enc = 1536 (three query chunks, non-causal, no rope), each in float32
+    (TF32 off) on the card and on the CPU, the same weights and input:
+    output and caches within CROSS_LAYER_TOL x max |CPU|. The two devices'
+    float32 rope tables differ by up to ``rope``, which moves each rotated
+    self-attention key by at most 2 x rope x its largest magnitude before
+    rope, added to k's limit, as phase 14's check 1 adds it."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import apply_norm, rope_table
+
+    cases = (("llama-3.2-vision-11b", 2048, 1600), ("whisper-base", 1536, 0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch, S, M in cases:
+            cfg = cross_config(arch, "float32")
+            spec = (next(s for s in cfg.layer_list() if s.cross) if M
+                    else tfm.segment_specs(cfg.encoder_segments)[0])
+            gen = torch.Generator(device=device).manual_seed(43)
+            block = tfm.Block(spec, cfg, gen, device)
+            seed_gates([block], gen)
+            x = torch.randn((1, S, cfg.d_model), generator=gen, device=device)
+            mem = torch.randn((1, M, cfg.d_model), generator=gen, device=device) if M else None
+            pos = torch.arange(S, device=device)
+
+            def run(b, x, mem, pos, dev):
+                cache = (tfm.init_block_cache(spec, cfg, 1, S, dev, memory_len=M) if M
+                         else None)
+                out, cache, _ = tfm.apply_block(x, b, spec, cfg, positions=pos, cache=cache,
+                                                memory=mem)
+                return {"out": out, **({f"{part}.{k}": t for part, c in cache.items()
+                                        for k, t in c.items()} if cache else {})}
+
+            t0 = time.perf_counter()
+            got = run(block, x, mem, pos, device)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            block_cpu = tfm.Block(spec, cfg, None, "meta").to_empty(device="cpu")
+            block_cpu.load_state_dict({k: v.cpu() for k, v in block.state_dict().items()})
+            t0 = time.perf_counter()
+            want = run(block_cpu, x.cpu(), None if mem is None else mem.cpu(), pos.cpu(), "cpu")
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            scales = {k: float(v.abs().max()) for k, v in want.items()}
+            errs = {k: float((got[k].cpu() - want[k]).abs().max()) for k in want}
+            limits = {k: CROSS_LAYER_TOL * v for k, v in scales.items()}
+            extra = ""
+            if "mix.k" in want and cfg.pos_embedding == "rope":
+                rope = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+                    rope_table(pos, cfg.head_dim, cfg.rope_theta),
+                    rope_table(pos.cpu(), cfg.head_dim, cfg.rope_theta)))
+                raw = float(attention._proj(apply_norm(x.cpu(), block_cpu.ln1, cfg),
+                                            block_cpu.mix.wk).abs().max())
+                limits["mix.k"] += 2 * rope * raw
+                extra = (f"; the rope tables differ by up to {rope:.3e}, k before rope up to "
+                         f"{raw:.3f}")
+            what = (f"cross block (self, cross over {M} memory tokens, MLP), S = {S}" if M
+                    else f"encoder layer, S_enc = {S}")
+            log(f"phase 15: check 1: one {arch} {what}, float32 at full width: card "
+                f"{card_ms:.3f} ms, CPU {cpu_ms:.3f} ms; max abs diff (limit): "
+                + ", ".join(f"{k} {errs[k]:.3e} ({limits[k]:.3e}; max |CPU| {scales[k]:.3f})"
+                            for k in errs) + extra)
+            if not all(errs[k] <= limits[k] for k in errs):
+                raise AssertionError(f"phase 15: check 1: the card's float32 {arch} layer is "
+                                     f"off the CPU's: {errs}, limits {limits}")
+            del block, block_cpu, got, want, x, mem
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def serve_cross(device, arch, B, S, M, n_new, want_params) -> dict:
+    """One model of phase 15: built on the card (the VLM's gates seeded),
+    ``engine.generate`` of B prompts of S tokens with M memory positions
+    each and n_new new (every count set to 0 just before and read just
+    after: flash once per self-attention layer for the VLM's prefill, which
+    flash serves at 8192; nothing for whisper, under FLASH_MIN_SEQ with
+    flash off), then timed prefill and decode steps with check 4 (each
+    cross cache after prefill equal to the K/V projections of its memory
+    bit for bit, and holding the same bits after the last decode step),
+    one decode step under torch.profiler, peak memory, the encoder's time
+    (whisper) or the first cross block's prefill split (the VLM), check 2
+    (each decode step against the teacher-forced forward) and for the VLM
+    checks 3 (flash_attention=False) and 5 (the gates at 0). Returns the
+    launches of the main path."""
+    import copy
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+
+    t_model = time.perf_counter()
+    cfg = cross_config(arch)
+    counted = Model(cfg, device="meta")
+    meta_params = sum(p.numel() for p in counted.parameters())
+    del counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    gen = torch.Generator(device=device).manual_seed(29)
+    gates = seed_gates(model.layers, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_cross = sum(s.cross for s in cfg.layer_list())
+    enc = f", encoder {len(model.encoder.layers)} layers" if model.encoder is not None else ""
+    log(f"phase 15: {arch} ({cfg.n_layers} decoder layers, {n_cross} with cross-attention"
+        f"{enc}; d_model {cfg.d_model}, vocab {cfg.vocab} padded to {model.vocab_padded}) built "
+        f"on the card in {time.perf_counter() - t0:.2f} s: {n_params} parameters (the config "
+        f"counts {meta_params} on the meta device), {torch.cuda.memory_allocated() / 1e9:.3f} "
+        f"GB; gates {[round(float(g), 4) for g in gates]}")
+    if not n_params == meta_params == cfg.param_count() == want_params:
+        raise AssertionError(f"phase 15: {arch}: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}, want {want_params}")
+    vocab = cfg.vocab
+    mem_key = "frames" if cfg.encoder_segments else "vision"
+    memory = {mem_key: torch.randn((B, M, cfg.d_model), generator=gen, device=device)
+              .to(torch.bfloat16)}
+    batch = {"tokens": torch.randint(0, vocab, (B, S), generator=gen, device=device,
+                                     dtype=torch.int32), **memory}
+    n_self_flash = sum(s.mixer == "attn" for s in cfg.layer_list()) if (
+        cfg.flash_attention and S >= attention.FLASH_MIN_SEQ) else 0
+
+    # the main path: generate, counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(model, batch, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"phase 15: {arch}: generate {B} x {S} prompt tokens ({M} memory positions) + {n_new} "
+        f"new: {gen_s * 1e3:.3f} ms wall (first call), launches {launches}, tokens "
+        f"{out.tolist()}")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = n_self_flash
+    if launches != want:
+        raise AssertionError(f"phase 15: {arch}: launches {launches}, want {want}")
+    if out.shape != (B, n_new) or not bool(((out >= 0) & (out < vocab)).all()):
+        raise AssertionError(f"phase 15: {arch}: tokens out of [0, {vocab}) or of shape "
+                             f"{out.shape}")
+
+    prefill, step = engine.make_prefill(model), engine.make_serve_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    # check 4: each cross cache holds its memory's projections, bit for bit
+    proj = cross_projections(model, model._memory(batch))
+    held = cross_caches(model, caches)
+    if len(held) != n_cross or not all(torch.equal(h[k], p[k]) for h, p in zip(held, proj)
+                                       for k in ("ck", "cv")):
+        raise AssertionError(f"phase 15: {arch}: check 4: a cross cache after prefill is not "
+                             f"its memory's K/V projection")
+    held = [{k: t.clone() for k, t in h.items()} for h in held]
+    del proj
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    steps, step_ms, step_logits = [tok], [], []
+    for i in range(n_new - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = step(caches, tok, S + i)
+        tok = lg[..., :vocab].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(tok)
+        step_logits.append(lg[:, 0, :vocab].float())
+    if not torch.equal(torch.cat(steps, dim=1), out):
+        raise AssertionError(f"phase 15: {arch}: the timed prefill and steps gave other tokens")
+    wall, dev, events = device_breakdown(lambda: step(caches, tok, S + n_new - 1))
+    log(f"phase 15: {arch}: one decode step under torch.profiler: {wall:.3f} ms wall, "
+        f"{dev:.3f} ms device (idle {1 - dev / wall:.3f}); largest device events: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms ({ms / dev:.3f})" for name, ms in events[:6]))
+    if not all(torch.equal(c[k], h[k]) for c, h in zip(cross_caches(model, caches), held)
+               for k in ("ck", "cv")):
+        raise AssertionError(f"phase 15: {arch}: check 4: decode wrote into a cross cache")
+    log(f"phase 15: {arch}: check 4: {n_cross} cross caches of ({B}, {M}, {cfg.n_kv_heads}, "
+        f"{cfg.head_dim}) equal their memory's K/V projections bit for bit after prefill, "
+        f"and hold the same bits after {n_new} decode steps")
+    del caches
+    decode_ms = statistics.median(step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 15: {arch}: prefill {prefill_ms:.3f} ms ({B * S / prefill_ms * 1e3:.1f} "
+        f"tokens/s), decode {decode_ms:.3f} ms a step (median of {len(step_ms)}), "
+        f"{B / decode_ms * 1e3:.3f} tokens/s, peak {peak_gb:.3f} GB; card {card_line()}")
+
+    if cfg.encoder_segments:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._memory(batch)
+        torch.cuda.synchronize()
+        log(f"phase 15: {arch}: the encoder ({len(model.encoder.layers)} layers, {B} x {M} "
+            f"frames) alone: {(time.perf_counter() - t0) * 1e3:.3f} ms of the prefill")
+    else:
+        # the first cross block's prefill, split by the profiler, on the
+        # embeddings of the prompt
+        i = next(i for i, s in enumerate(cfg.layer_list()) if s.cross)
+        spec = cfg.layer_list()[i]
+        h = model.embed.table[batch["tokens"]]
+        cache = tfm.init_block_cache(spec, cfg, B, S, device, memory_len=M)
+        pos = torch.arange(S, device=device)
+        fn = lambda: tfm.apply_block(h, model.layers[i], spec, cfg,  # noqa: E731
+                                     positions=pos, cache=cache, memory=memory[mem_key])
+        fn()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        block_peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        wall, dev, split = layer_split(fn, {"cross": (attention, "_grouped_attn")},
+                                       gemms=("aten::mm",), kernels={"flash": "flash_fwd"})
+        log(f"phase 15: {arch}: cross block {i}'s prefill ({B} x {S}, {M} memory tokens) "
+            f"under torch.profiler: {wall:.3f} ms wall, {dev:.3f} ms device; "
+            + ", ".join(f"{k} {v:.3f} ms ({v / dev:.3f})" for k, v in split.items())
+            + f"; the block's transient peak {block_peak:.3f} GB over what it holds (the "
+            f"cross scores, ({B}, {cfg.n_kv_heads}, {cfg.n_heads // cfg.n_kv_heads}, {S}, "
+            f"{M}) float32, are {B * cfg.n_heads * S * M * 4 / 1e9:.3f} GB)")
+        del h, cache
+
+    # check 2: each decode step against the teacher-forced forward of the
+    # prompt and the generated tokens, the same memory
+    full = torch.cat([batch["tokens"], out[:, :-1]], dim=1)
+    tf, _ = teacher_forced(model, full, memory)
+    errs = rec_step_errors(step_logits, tf, S, vocab)
+    log(f"phase 15: {arch}: check 2: {len(step_logits)} decode steps against the "
+        f"teacher-forced forward of {full.shape[1]} tokens (padded to "
+        f"{full.shape[1] + (-full.shape[1] % REC_PAD)}), the same memory: x max |logit| by "
+        f"step {[round(e, 5) for e in errs]}, worst {max(errs):.5f} (limit {CROSS_TOL})")
+    if max(errs) > CROSS_TOL:
+        raise AssertionError(f"phase 15: {arch}: check 2: a decode step is {max(errs)} x max "
+                             f"|logit| off the teacher-forced forward")
+    del tf, step_logits
+
+    if cfg.n_vision_tokens:
+        # check 3: the flash prefill against flash_attention=False, which
+        # launches no flash kernel
+        plain = copy.copy(model)  # the same parameters, read with another config
+        plain.cfg = dataclasses.replace(cfg, flash_attention=False)
+        before = launch_counts()["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, _ = engine.make_prefill(plain)(batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if launch_counts()["flash_attention"] != before:
+            raise AssertionError(f"phase 15: {arch}: the flash_attention=False prefill "
+                                 f"launched the flash kernel")
+        got, ref = logits.float(), ref.float()
+        diff, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        log(f"phase 15: {arch}: check 3: prefill logits against flash_attention=False "
+            f"({plain_ms:.3f} ms, chunked): max abs diff {diff:.4f}, max |logit| {scale:.4f} "
+            f"({diff / scale:.5f}, limit {CROSS_TOL})")
+        if not (bool(torch.isfinite(got).all()) and diff <= CROSS_TOL * scale):
+            raise AssertionError(f"phase 15: {arch}: check 3: the flash prefill disagrees "
+                                 f"with the plain one")
+        # check 5: the gates at 0 (as at init) take the cross path out
+        seeded = [g.clone() for g in gates]
+        for g in gates:
+            g.zero_()
+        zero, _ = prefill(batch)
+        for g, v in zip(gates, seeded):
+            g.copy_(v)
+        moved = float((zero.float() - got).abs().max())
+        log(f"phase 15: {arch}: check 5: prefill logits with every gate at 0 differ from the "
+            f"seeded gates' by {moved:.4f} ({moved / scale:.5f} x max |logit|, must exceed "
+            f"{CROSS_LIVE})")
+        if not moved > CROSS_LIVE * scale:
+            raise AssertionError(f"phase 15: {arch}: check 5: the cross path moves the logits "
+                                 f"by {moved / scale} x max |logit| only")
+        del plain, ref, zero, got
+    del model, logits, batch, memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15: {arch}: {time.perf_counter() - t_model:.1f} s")
+    return launches
+
+
+def run_cross(device) -> dict:
+    """Phase 15: whisper-base (8 requests of 1536 stub frames, a 4-token
+    prompt, 64 new) and llama-3.2-vision-11b (2 prompts of 8192 tokens with
+    1600 stub vision tokens each, 16 new, flash) at full width and depth
+    (bf16, seeded, the VLM's gates seeded nonzero), each served through
+    ``engine.generate`` and checked (``serve_cross``: checks 2-5), then
+    check 1 (``cross_layers_on_both``). Returns the launches over both
+    main paths: flash once per VLM self-attention layer, nothing else."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    total = None
+    for arch, B, S, M, n_new, want_params in CROSS_RUNS:
+        launches = serve_cross(device, arch, B, S, M, n_new, want_params)
+        total = launches if total is None else {k: total[k] + v for k, v in launches.items()}
+    cross_layers_on_both(device)
+    torch.cuda.empty_cache()
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+ALL_PHASES = frozenset(range(1, 16))
 
 
 def main() -> int:
@@ -4234,7 +4656,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-14: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-15: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -4292,7 +4714,7 @@ def main() -> int:
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
                            (10, run_moe), (11, run_train), (12, run_batch), (13, run_mla),
-                           (14, run_recurrent)):
+                           (14, run_recurrent), (15, run_cross)):
             if phase in phases:
                 run(device)
         return 0
@@ -4317,6 +4739,8 @@ def main() -> int:
     launches_mla = run_mla(device)
     torch.cuda.empty_cache()
     launches_rec = run_recurrent(device)
+    torch.cuda.empty_cache()
+    launches_cross = run_cross(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -4324,6 +4748,7 @@ def main() -> int:
              launches_mesh=launches_mesh[name], launches_moe=launches_moe[name],
              launches_train=launches_train[name], launches_batch=launches_batch[name],
              launches_mla=launches_mla[name], launches_rec=launches_rec[name],
+             launches_cross=launches_cross[name],
              max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
@@ -4338,6 +4763,7 @@ def main() -> int:
         launches_batch=launches_batch["flash_attention"],
         launches_mla=launches_mla["flash_attention"],
         launches_rec=launches_rec["flash_attention"],
+        launches_cross=launches_cross["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"],

@@ -122,8 +122,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Exact parameter count of the port's model, built on the meta
-        device (no allocation). Raises NotImplementedError for the blocks
-        the port does not run yet."""
+        device (no allocation)."""
         from repro_torch.models.model import Model  # lazy, avoids cycle
 
         return sum(p.numel() for p in Model(self, device="meta").parameters())

@@ -55,6 +55,11 @@ def output_to_numpy(out: SortOutput) -> dict:
     }
 
 
+def _tensor(a) -> torch.Tensor:
+    """``as_tensor`` keeping a 0-d leaf (a VLM's cross gate) 0-d."""
+    return as_tensor(a).reshape(np.shape(a))
+
+
 def _leaves(tree, prefix: str = ""):
     """(dotted path, array) for every leaf of a nested dict of arrays."""
     if isinstance(tree, dict):
@@ -71,17 +76,30 @@ def params_from_jax(cfg, params: dict) -> dict[str, torch.Tensor]:
     The port names its parameters as the pytree's leaves. ``repro`` stacks
     each period position of a segment over the segment's count, ``(count,
     ...)``; the port holds one module per layer, ``layers.<i>``, in the
-    order ``cfg.layer_list()`` gives, so each stacked leaf is split."""
+    order ``cfg.layer_list()`` gives, so each stacked leaf is split, and so
+    are the encoder's (``params["encoder"]["segments"]``, in
+    cfg.encoder_segments order) into ``encoder.layers.<i>``."""
     out = {}
     for key, tree in params.items():
-        if key != "segments":
-            out.update((name, as_tensor(a)) for name, a in _leaves(tree, key))
-    layer = 0
-    for (period, count), seg in zip(cfg.segments, params["segments"], strict=True):
+        if key == "encoder":
+            out.update(_split_segments(cfg.encoder_segments, tree["segments"], "encoder.layers"))
+            out.update((name, _tensor(a)) for name, a in _leaves(tree["final_norm"],
+                                                                 "encoder.final_norm"))
+        elif key != "segments":
+            out.update((name, _tensor(a)) for name, a in _leaves(tree, key))
+    out.update(_split_segments(cfg.segments, params["segments"], "layers"))
+    return out
+
+
+def _split_segments(segments, seg_params, prefix: str) -> dict:
+    """``repro``'s stacked segment parameters as ``<prefix>.<i>.<leaf>``,
+    one layer each."""
+    out, layer = {}, 0
+    for (period, count), seg in zip(segments, seg_params, strict=True):
         for c in range(count):
             for i in range(len(period)):
                 for name, a in _leaves(seg[i]):
-                    out[f"layers.{layer}.{name}"] = as_tensor(a[c])
+                    out[f"{prefix}.{layer}.{name}"] = _tensor(a[c])
                 layer += 1
     return out
 
@@ -106,7 +124,8 @@ def caches_to_numpy(cfg, caches: list) -> list:
     tuple per period position of dicts whose arrays are stacked over the
     segment's count, ``(count, B, S, KV, dh)`` for GQA's k and v, ``(count,
     B, S, kv_lora_rank)`` and ``(count, B, S, qk_rope_dim)`` for MLA's c_kv
-    and k_pe (bfloat16 as uint16 bits)."""
+    and k_pe, ``(count, B, M, KV, dh)`` for a cross block's ck and cv under
+    ``"cross"`` (bfloat16 as uint16 bits)."""
 
     def stack(trees):
         if isinstance(trees[0], dict):

@@ -1,5 +1,6 @@
 """The model tier of the port: GQA, sliding-window, MLA, RG-LRU and Mamba
-decoders with dense, MoE or no FFNs, prefill, decode and training.
+decoders with dense, MoE or no FFNs, cross-attention over an encoder's
+output or vision embeddings, prefill, decode and training.
 
 What the slice does not run raises NotImplementedError naming the
 ROADMAP.md §1 item that ports it.
@@ -7,7 +8,6 @@ ROADMAP.md §1 item that ports it.
 from __future__ import annotations
 
 _LATER = {
-    "cross": "item 10.3 (cross-attention, encoder and vision memory)",
     "moe_ep": "item 10.4.1 (EP x TP MoE decode: cfg.decode_moe_ep, tp_axis), under "
               "item 11: it needs the sharded model tier",
     "sharded_train": "item 11 (sharded parameters and optimizer states through "

@@ -43,8 +43,16 @@ Decode takes one position for the whole batch, or one per row (a (B,)
 tensor with B > 1: continuous batching, ``serve/batching.py``), as
 ``repro``'s per-slot path: its own rope angles, its own cache position,
 its own causal mask; with a window it takes one position only (the
-batcher refuses windowed configs). Cross-attention raises
-NotImplementedError naming its ROADMAP.md item.
+batcher refuses windowed configs).
+
+Cross-attention (``gqa_forward`` with ``memory`` (B, M, d), or with a
+cache holding ``ck``/``cv``) projects the keys and values from the memory
+(whisper's encoder output, the VLM's vision tokens), with no rope and no
+mask, through ``_grouped_attn`` over all M keys, unchunked as in
+``repro``. Prefill returns those projections as the cache; decode reads
+them and returns the cache as it was, never writing into it. A VLM's
+cross module holds a float32 scalar ``gate`` (zero at init) and scales
+its output by tanh(gate).
 """
 from __future__ import annotations
 
@@ -52,7 +60,6 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash import flash_attention
-from repro_torch.models import not_ported
 from repro_torch.models.layers import _const, _init, apply_rope, rms_norm_simple, rope_table, torch_dtype
 
 Q_CHUNK = 512
@@ -68,12 +75,12 @@ FLASH_MIN_SEQ = 8192
 class Attention(nn.Module):
     """``init_attention``: ``wq`` (d, H*dh), ``wk``/``wv`` (d, KV*dh),
     ``wo`` (H*dh, d); zero biases ``bq``/``bk``/``bv`` with cfg.attn_bias;
-    float32 ``q_norm``/``k_norm`` (ones) with cfg.qk_norm."""
+    float32 ``q_norm``/``k_norm`` (ones) with cfg.qk_norm; for a cross
+    module of a VLM (``cross`` and cfg.n_vision_tokens) the float32 scalar
+    ``gate`` (zero)."""
 
     def __init__(self, cfg, gen, device=None, cross: bool = False):
         super().__init__()
-        if cross:
-            raise not_ported("cross-attention", "cross")
         dtype = torch_dtype(cfg.dtype)
         d, dh, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         s = d ** -0.5
@@ -88,6 +95,8 @@ class Attention(nn.Module):
         norm = cfg.qk_norm
         self.q_norm = _const(1.0, (dh,), torch.float32, device) if norm else None
         self.k_norm = _const(1.0, (dh,), torch.float32, device) if norm else None
+        gated = cross and cfg.n_vision_tokens  # tanh-gated cross-attention
+        self.gate = _const(0.0, (), torch.float32, device) if gated else None
 
 
 class MLA(nn.Module):
@@ -253,9 +262,9 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     over the cache up to it, or, with ``positions`` of shape (B,) and
     B > 1, each row at its own position (``_write_slots``). With a
     ``window``, prefill returns the ring of the last min(window, S) entries
-    and decode writes into the ring (``_ring_decode``)."""
-    if memory is not None or (cache is not None and "ck" in cache):
-        raise not_ported("cross-attention", "cross")
+    and decode writes into the ring (``_ring_decode``). ``memory`` (B, M,
+    d), or a cache holding ``ck``/``cv``, makes it cross-attention
+    (``_cross``)."""
     B, S, d = x.shape
     dh = cfg.head_dim
     H = p.wq.shape[-1] // dh
@@ -265,6 +274,8 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     q = _proj(x, p.wq, p.bq).reshape(B, S, H, dh)
     if cfg.qk_norm:
         q = rms_norm_simple(q, p.q_norm, cfg.norm_eps)
+    if memory is not None or (cache is not None and "ck" in cache):
+        return _cross(q, p, cfg, memory, cache, scale)
     k = _proj(x, p.wk, p.bk).reshape(B, -1, KV, dh)
     v = _proj(x, p.wv, p.bv).reshape(B, -1, KV, dh)
     if cfg.qk_norm:
@@ -318,6 +329,25 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
         return out, {"k": k[:, -W:].clone(), "v": v[:, -W:].clone(),
                      "pos": positions[-W:].to(torch.int32)}
     return out, {"k": k, "v": v}
+
+
+def _cross(q, p: Attention, cfg, memory, cache, scale):
+    """Cross-attention of q (B, S, H, dh) over keys and values projected
+    from ``memory`` (prefill and training: returned as the cache when one
+    is given) or read from ``cache["ck"]``/``["cv"]`` (decode: the cache is
+    returned as it was). No rope, no mask, no k_norm; the output times
+    tanh(gate) where the module has one. Returns (out, new_cache)."""
+    B, S, H, dh = q.shape
+    if memory is not None:
+        k = _proj(memory, p.wk, p.bk).reshape(B, -1, cfg.n_kv_heads, dh)
+        v = _proj(memory, p.wv, p.bv).reshape(B, -1, cfg.n_kv_heads, dh)
+        new_cache = {"ck": k, "cv": v} if cache is not None else None
+    else:
+        k, v, new_cache = cache["ck"], cache["cv"], cache
+    out = _grouped_attn(q, k, v, None, scale).reshape(B, S, H * dh) @ p.wo
+    if p.gate is not None:
+        out = torch.tanh(p.gate).to(out.dtype) * out
+    return out, new_cache
 
 
 def _ring_decode(q, k, v, cache, positions, window: int, scale):

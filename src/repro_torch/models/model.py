@@ -1,15 +1,25 @@
 """Config -> model: parameters, the forward pass for prefill and decode.
 
-The port of ``repro/models/model.py`` for decoder-only configs: GQA,
-sliding-window, MLA, RG-LRU and Mamba blocks with dense, MoE or no FFNs. ``repro``'s
-``Model`` is a frozen description plus a parameter pytree; here it is an
-``nn.Module`` that holds its parameters, drawn from a seeded
-``torch.Generator`` on its device, or loaded from ``repro``'s with
-``convert.params_from_jax``.
+The port of ``repro/models/model.py`` for every config: GQA,
+sliding-window, MLA, RG-LRU and Mamba blocks with dense, MoE or no FFNs,
+cross-attention blocks, and whisper's encoder. ``repro``'s ``Model`` is a
+frozen description plus a parameter pytree; here it is an ``nn.Module``
+that holds its parameters, drawn from a seeded ``torch.Generator`` on its
+device, or loaded from ``repro``'s with ``convert.params_from_jax``.
 
-Batch dict keys: ``tokens`` (B, S) integer token ids. Encoder frames and
-vision embeddings (whisper, the VLM) raise NotImplementedError naming
-their ROADMAP.md item.
+Batch dict keys:
+  tokens  (B, S) integer        — the decoder's input
+  labels  (B, S) integer        — next-token targets (training)
+  frames  (B, S_enc, d)         — whisper's stub frame embeddings
+  vision  (B, n_vision_tokens, d) — the VLM's stub patch embeddings
+
+The memory the cross blocks attend to (``_memory``) is the encoder's
+output over the frames plus their sinusoidal embedding (non-causal, no
+rope, then the encoder's final norm), or the vision embeddings as they
+are; it is computed outside decode only, where the cross caches hold its
+projections. Frames and vision enter in the model's dtype (cast if
+given in another): ``repro`` would promote a float32 memory through a
+bfloat16 model, which PyTorch's matmuls refuse.
 """
 from __future__ import annotations
 
@@ -18,7 +28,6 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import not_ported
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     Embed, Norm, _init, apply_norm, embed_tokens, sinusoidal_embed, torch_dtype,
@@ -35,17 +44,25 @@ class LMHead(nn.Module):
                        torch_dtype(cfg.dtype), device)
 
 
+class Encoder(nn.Module):
+    """``params["encoder"]``: one block a layer of ``cfg.encoder_segments``
+    (``layers``) and ``final_norm``."""
+
+    def __init__(self, cfg, gen, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(tfm.Block(spec, cfg, gen, device)
+                                    for spec in tfm.segment_specs(cfg.encoder_segments))
+        self.final_norm = Norm(cfg, cfg.d_model, device)
+
+
 class Model(nn.Module):
-    """A decoder on ``device`` (None means "cuda"; "meta" builds shapes
+    """A model on ``device`` (None means "cuda"; "meta" builds shapes
     only, for ``ModelConfig.param_count``) with weights drawn from
-    ``seed``. ``cfg`` is read at every forward."""
+    ``seed``; with ``encoder``, an ``Encoder``, when cfg.encoder_segments.
+    ``cfg`` is read at every forward."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if cfg.encoder_segments:
-            raise not_ported("encoder-decoder models (the encoder)", "cross")
-        if cfg.n_vision_tokens:
-            raise not_ported("vision memory", "cross")
         dev = torch.device("meta") if str(device) == "meta" else resolve(device)
         gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
@@ -53,6 +70,7 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(tfm.Block(spec, cfg, gen, dev) for spec in cfg.layer_list())
         self.final_norm = Norm(cfg, cfg.d_model, dev)
         self.lm_head = None if cfg.tie_embeddings else LMHead(cfg, self.vocab_padded, gen, dev)
+        self.encoder = Encoder(cfg, gen, dev) if cfg.encoder_segments else None
         self.pos_embed = (_init(gen, (8192, cfg.d_model), 0.02, torch_dtype(cfg.dtype), dev)
                           if cfg.pos_embedding == "learned" else None)
 
@@ -65,10 +83,11 @@ class Model(nn.Module):
         return self.embed.table.device
 
     # ------------------------------------------------------------- caches
-    def init_caches(self, B: int, S_max: int, device=None) -> list:
-        """One zeroed cache per layer, on ``device`` (default: the model's)."""
+    def init_caches(self, B: int, S_max: int, memory_len: int = 0, device=None) -> list:
+        """One zeroed cache per layer, on ``device`` (default: the model's);
+        a cross block's holds ``memory_len`` memory positions."""
         device = self.device if device is None else device
-        return [tfm.init_block_cache(spec, self.cfg, B, S_max, device)
+        return [tfm.init_block_cache(spec, self.cfg, B, S_max, device, memory_len=memory_len)
                 for spec in self.cfg.layer_list()]
 
     # ------------------------------------------------------------ forward
@@ -82,6 +101,22 @@ class Model(nn.Module):
         elif cfg.pos_embedding == "learned":
             x = x + self.pos_embed[positions][None]
         return x
+
+    def _memory(self, batch):
+        """The encoder's output (whisper), the vision embeddings (the VLM),
+        or None."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        if cfg.encoder_segments:
+            frames = batch["frames"].to(dtype)
+            pos = torch.arange(frames.shape[1], device=frames.device)
+            h = frames + sinusoidal_embed(pos, cfg.d_model).to(dtype)[None]
+            h, _, _ = tfm.run_segments(h, self.encoder.layers, cfg.encoder_segments, cfg,
+                                       positions=pos)
+            return apply_norm(h, self.encoder.final_norm, cfg)
+        if cfg.n_vision_tokens:
+            return batch["vision"].to(dtype)
+        return None
 
     def _logits(self, x):
         x = apply_norm(x, self.final_norm, self.cfg)
@@ -108,8 +143,9 @@ class Model(nn.Module):
         else:
             positions = torch.arange(S, device=tokens.device)
         x = self._embed_in(batch, positions)
+        memory = None if decode else self._memory(batch)
         x, new_caches, aux = tfm.run_segments(
             x, self.layers, self.cfg.segments, self.cfg,
-            positions=positions, caches=caches, decode=decode,
+            positions=positions, caches=caches, decode=decode, memory=memory,
         )
         return self._logits(x), new_caches, aux

@@ -1,14 +1,17 @@
 """Residual block assembly and the layer loop.
 
-The port of ``repro/models/transformer.py`` for decoder blocks: mixer
-``"attn"`` (GQA), ``"local_attn"`` (GQA over a sliding window of
-cfg.sliding_window keys, rope always on), ``"mla"`` (deepseek-v3's
-latent attention), ``"rglru"`` or ``"mamba"`` (``recurrent.py``) or
-``"none"`` (adds zeros), with a dense FFN, an MoE FFN (plus its shared
-experts) or none. A block is norm -> mixer -> norm -> FFN with residual
-adds. ``repro`` runs each config segment as one ``lax.scan`` over stacked
-parameters; here the layers are a list of per-layer modules in the order
-``cfg.layer_list()`` gives, and the scan is a Python loop over them.
+The port of ``repro/models/transformer.py``: mixer ``"attn"`` (GQA),
+``"local_attn"`` (GQA over a sliding window of cfg.sliding_window keys,
+rope always on), ``"mla"`` (deepseek-v3's latent attention), ``"rglru"``
+or ``"mamba"`` (``recurrent.py``) or ``"none"`` (adds zeros), an optional
+cross-attention mixer (``spec.cross``: whisper's decoder, the VLM's
+image layers) over the model's memory, and a dense FFN, an MoE FFN (plus
+its shared experts) or none. A block is norm -> mixer -> (norm ->
+cross-attention) -> norm -> FFN with residual adds. ``repro`` runs each
+config segment as one ``lax.scan`` over stacked parameters; here the
+layers are a list of per-layer modules in the order ``cfg.layer_list()``
+gives (the encoder's in ``cfg.encoder_segments`` order), and the scan is
+a Python loop over them.
 
 An MoE block runs the sorted dispatch (``moe.moe_forward``) at prefill
 and the per-token expert gather (``moe.moe_forward_decode``) at decode.
@@ -30,13 +33,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import not_ported
 from repro_torch.models import recurrent as rec
-from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm
+from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm, torch_dtype
 
 
-def check_spec(spec) -> None:
-    """Raise NotImplementedError for a block the port does not run."""
-    if spec.cross:
-        raise not_ported("cross-attention blocks", "cross")
+def segment_specs(segments) -> list:
+    """The block specs of ``segments`` ((period, count), ...) in layer order."""
+    return [spec for period, count in segments for _ in range(count) for spec in period]
 
 
 def _window(spec, cfg) -> int:
@@ -48,16 +50,19 @@ class Block(nn.Module):
     ``recurrent.RGLRU``, ``recurrent.Mamba``, or None for mixer "none"),
     and ``ln2`` with ``mlp`` for a dense FFN or with ``moe`` (and
     ``shared``, an MLP of width d_expert x n_shared_experts, when
-    cfg.n_shared_experts) for an MoE FFN."""
+    cfg.n_shared_experts) for an MoE FFN; ``ln_x`` and ``cross`` (a cross
+    ``attn.Attention``) for a spec with ``cross``."""
 
     def __init__(self, spec, cfg, gen, device=None):
         super().__init__()
-        check_spec(spec)
         d = cfg.d_model
         self.ln1 = Norm(cfg, d, device)
         mixers = {"attn": attn.Attention, "local_attn": attn.Attention, "mla": attn.MLA,
                   "rglru": rec.RGLRU, "mamba": rec.Mamba}
         self.mix = mixers[spec.mixer](cfg, gen, device) if spec.mixer in mixers else None
+        if spec.cross:
+            self.ln_x = Norm(cfg, d, device)
+            self.cross = attn.Attention(cfg, gen, device, cross=True)
         if spec.ffn == "dense":
             self.ln2 = Norm(cfg, d, device)
             self.mlp = MLP(cfg, d, cfg.d_ff, gen, device)
@@ -68,23 +73,30 @@ class Block(nn.Module):
                            if cfg.n_shared_experts else None)
 
 
-def init_block_cache(spec, cfg, B: int, S_max: int, device=None) -> dict:
-    check_spec(spec)
+def init_block_cache(spec, cfg, B: int, S_max: int, device=None, memory_len: int = 0) -> dict:
+    """The mixer's zeroed cache as ``"mix"`` (none for mixer "none"), and
+    for a cross block the ``"cross"`` cache: ``ck``/``cv`` of zeros, (B,
+    memory_len, KV, dh) each, which prefill replaces."""
+    c = {}
     if spec.mixer == "mla":
-        return {"mix": attn.init_mla_cache(cfg, B, S_max, device=device)}
-    if spec.mixer == "rglru":
-        return {"mix": rec.init_rglru_cache(cfg, B, device=device)}
-    if spec.mixer == "mamba":
-        return {"mix": rec.init_mamba_cache(cfg, B, device=device)}
-    if spec.mixer == "none":
-        return {}
-    return {"mix": attn.init_gqa_cache(cfg, B, S_max, window=_window(spec, cfg),
-                                       device=device)}
+        c["mix"] = attn.init_mla_cache(cfg, B, S_max, device=device)
+    elif spec.mixer == "rglru":
+        c["mix"] = rec.init_rglru_cache(cfg, B, device=device)
+    elif spec.mixer == "mamba":
+        c["mix"] = rec.init_mamba_cache(cfg, B, device=device)
+    elif spec.mixer != "none":
+        c["mix"] = attn.init_gqa_cache(cfg, B, S_max, window=_window(spec, cfg), device=device)
+    if spec.cross:
+        shape = (B, memory_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross"] = {name: torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device=device)
+                      for name in ("ck", "cv")}
+    return c
 
 
-def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False,
+def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, memory=None,
                 use_pallas_moe: bool = True):
-    """Returns (x, new_cache, aux)."""
+    """Returns (x, new_cache, aux). A cross block attends to ``memory``
+    (B, M, d) outside decode, and to its ``"cross"`` cache in decode."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
 
@@ -109,6 +121,14 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False,
     if new_cache is not None and mc is not None:
         new_cache["mix"] = mc
 
+    if spec.cross:
+        out, cc = attn.gqa_forward(apply_norm(x, p.ln_x, cfg), p.cross, cfg, causal=False,
+                                   positions=positions, cache=cache.get("cross") if cache else None,
+                                   memory=memory)
+        x = x + out
+        if new_cache is not None and cc is not None:
+            new_cache["cross"] = cc
+
     if spec.ffn == "dense":
         x = x + apply_mlp(apply_norm(x, p.ln2, cfg), p.mlp, cfg)
     elif spec.ffn == "moe":
@@ -126,17 +146,19 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False,
     return x, new_cache, aux
 
 
-def run_segments(x, blocks, segments, cfg, *, positions, caches=None, decode=False):
+def run_segments(x, blocks, segments, cfg, *, positions, caches=None, decode=False,
+                 memory=None):
     """Run every layer. ``blocks`` and ``caches`` (or None) hold one entry
     per layer, in segment order: for each (period, count), count copies
-    of the period. Returns (x, new_caches, aux_total).
+    of the period. ``memory`` goes to every block (the cross blocks read
+    it). Returns (x, new_caches, aux_total).
 
     With cfg.remat, outside decode and while autograd records, each block
     is rematerialized (``torch.utils.checkpoint``, non-reentrant): its
     activations are dropped after the forward and the backward runs the
     block again, MoE dispatch and sort included, as ``repro`` wraps each
     segment period in ``jax.checkpoint``."""
-    specs = [spec for period, count in segments for _ in range(count) for spec in period]
+    specs = segment_specs(segments)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
     remat = cfg.remat and not decode and torch.is_grad_enabled()
@@ -144,10 +166,10 @@ def run_segments(x, blocks, segments, cfg, *, positions, caches=None, decode=Fal
         cache = caches[i] if caches is not None else None
         if remat:
             x, nc, aux = checkpoint(apply_block, x, p, spec, cfg, positions=positions,
-                                    cache=cache, use_reentrant=False)
+                                    cache=cache, memory=memory, use_reentrant=False)
         else:
             x, nc, aux = apply_block(x, p, spec, cfg, positions=positions, cache=cache,
-                                     decode=decode)
+                                     decode=decode, memory=memory)
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)

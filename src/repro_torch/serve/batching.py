@@ -15,7 +15,9 @@ its token budget or at position ``s_max - 1``.
 It serves what ``repro``'s serves, rope-positioned models without
 windowed caches (GQA and MLA, dense and MoE: ``_splice`` walks the
 compressed MLA caches as any other), and refuses the rest with
-``repro``'s AssertionError.
+``repro``'s AssertionError: models with memory (whisper's encoder, the
+VLM's vision tokens) too, whose prefill needs inputs a request does not
+carry (``repro``'s fails there, with a KeyError on the VLM).
 """
 from __future__ import annotations
 
@@ -71,6 +73,9 @@ class ContinuousBatcher:
 
     def __init__(self, model, n_slots: int, s_max: int):
         cfg = model.cfg
+        if cfg.encoder_segments or cfg.n_vision_tokens:
+            raise AssertionError("continuous batching serves no model with memory (encoder "
+                                 "frames, vision tokens); use serve.engine for them")
         if cfg.pos_embedding != "rope" or cfg.sliding_window:
             raise AssertionError("continuous batching supports rope/non-windowed archs; "
                                  "use serve.engine for the others")

@@ -30,12 +30,18 @@ def make_serve_step(model: Model):
 
 def make_prefill(model: Model):
     """Run the prompt through the model, returning last-position logits and
-    the populated caches (length = prompt length)."""
+    the populated caches (length = prompt length; the cross caches as long
+    as the memory: ``frames`` or ``vision``, axis 1)."""
 
     @torch.no_grad()
     def prefill(batch):
         B, S = batch["tokens"].shape
-        caches = model.init_caches(B, S, device=batch["tokens"].device)
+        memory_len = 0
+        if model.cfg.encoder_segments:
+            memory_len = batch["frames"].shape[1]
+        elif model.cfg.n_vision_tokens:
+            memory_len = batch["vision"].shape[1]
+        caches = model.init_caches(B, S, memory_len=memory_len, device=batch["tokens"].device)
         logits, caches, _ = model(batch, caches=caches)
         return logits[:, -1:].clone(), caches  # a copy: frees the (B, S, Vp) logits
 
@@ -75,7 +81,8 @@ def extend_caches(model: Model, caches, prefill_len: int, S_max: int):
     dh) buffers and of its MLA (B, S, kv_lora_rank) and (B, S, qk_rope_dim)
     compressed ones (``repro`` pads axis 2 of its stacked ones); re-slot or
     roll each sliding-window ring (``_grow_ring``); pass the recurrent
-    caches (conv and h, fixed size) through unchanged."""
+    caches (conv and h) and the cross caches (ck and cv), fixed size,
+    through unchanged."""
     out = []
     for c in caches:
         mix = c.get("mix")
@@ -116,7 +123,9 @@ def sample_logits(logits, generator: torch.Generator | None = None, *, top_k: in
 
 @torch.no_grad()
 def generate(model: Model, batch, n_new: int):
-    """Greedy batched generation: (B, n_new) int32 tokens."""
+    """Greedy batched generation: (B, n_new) int32 tokens. ``batch`` holds
+    the prompts' ``tokens`` and, for a model with memory, its ``frames`` or
+    ``vision``, which the prefill reads."""
     prefill = make_prefill(model)
     step = make_serve_step(model)
     B, S = batch["tokens"].shape

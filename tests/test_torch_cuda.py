@@ -625,6 +625,46 @@ def test_model_on_cuda_matches_model_on_cpu(gpu, dtype, tol, monkeypatch):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b"])
+def test_memory_model_on_cuda_matches_model_on_cpu(gpu, arch, monkeypatch):
+    """The whisper-base and llama-3.2-vision-11b smoke configs in float32
+    (TF32 off), the VLM's gates set nonzero: a prefill with memory
+    (whisper: 1024 frames through the encoder; the VLM: S = 8192 with
+    flash_attention=True, one launch per layer, over 16 vision tokens) and
+    4 generated tokens, against the same weights on the CPU (which
+    tests/test_torch_cross.py holds against repro)."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels import flash
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                              flash_attention=bool(smoke_config(arch).n_vision_tokens))
+    m_gpu = Model(cfg, device=gpu, seed=5)
+    with torch.no_grad():
+        for block in m_gpu.layers:
+            if getattr(block, "cross", None) is not None and block.cross.gate is not None:
+                block.cross.gate.fill_(0.8)
+    m_cpu = Model(cfg, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    gen = torch.Generator().manual_seed(1)
+    S, (key, M) = ((8192, ("vision", cfg.n_vision_tokens)) if cfg.n_vision_tokens
+                   else (16, ("frames", 1024)))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, S), generator=gen),
+             key: torch.randn((2, M, cfg.d_model), generator=gen)}
+    on_gpu = {k: v.to(gpu) for k, v in batch.items()}
+    before = flash.flash_attention.launches
+    with torch.no_grad():
+        lg_gpu, caches = engine.make_prefill(m_gpu)(on_gpu)
+        assert flash.flash_attention.launches == before + (cfg.n_layers if S >= 8192 else 0)
+        lg_cpu, _ = engine.make_prefill(m_cpu)(batch)
+        assert float((lg_gpu.cpu() - lg_cpu).abs().max()) <= 1e-4 * float(lg_cpu.abs().max())
+        got = engine.generate(m_gpu, on_gpu, 4)
+        want = engine.generate(m_cpu, batch, 4)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
 def test_mla_model_on_cuda_matches_model_on_cpu(gpu, monkeypatch):
     """The deepseek-v3 smoke config at MLA's published head widths (192,
     128) in float32 (TF32 off), S = 8192 with flash_attention=True: the

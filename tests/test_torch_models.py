@@ -273,7 +273,7 @@ def test_moe_block_sort_paths_agree_and_ep_decode_raises():
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-32b", "starcoder2-7b", "starcoder2-15b",
                                   "deepseek-moe-16b", "deepseek-v3-671b", "falcon-mamba-7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "whisper-base", "llama-3.2-vision-11b"])
 def test_param_count_matches_repro_at_full_width(arch):
     """Counted on the meta device: no allocation at full width."""
     assert get_config(arch).param_count() == jget_config(arch).param_count()
@@ -291,22 +291,30 @@ def test_configs_are_copies():
     ("whisper-base", "item 10.3"), ("llama-3.2-vision-11b", "item 10.3"),
 ])
 def test_unported_architectures_raise_naming_their_item(arch, item):
-    """The cross-attention models (item 10.3) raise naming their item. The
-    recurrent ones (item 10.6, ported) build: each block's mixer is the
-    module of its spec, and a Mamba block (ffn "none") has no ln2."""
-    if item != "item 10.6":
-        with pytest.raises(NotImplementedError, match=item):
-            Model(smoke_config(arch), device="cpu")
-        return
+    """Both items are ported, and each model builds. The recurrent ones
+    (item 10.6): each block's mixer is the module of its spec, and a Mamba
+    block (ffn "none") has no ln2. The cross-attention ones (item 10.3):
+    each cross block holds ``ln_x`` and a cross ``Attention``, with a
+    ``gate`` on the VLM only; whisper holds its encoder's layers."""
     from repro_torch.models import recurrent
 
     cfg = smoke_config(arch)
     tm = Model(cfg, device="cpu")
     kinds = {"rglru": recurrent.RGLRU, "mamba": recurrent.Mamba,
-             "local_attn": attention.Attention}
+             "local_attn": attention.Attention, "attn": attention.Attention}
     for block, spec in zip(tm.layers, cfg.layer_list(), strict=True):
         assert type(block.mix) is kinds[spec.mixer]
         assert hasattr(block, "ln2") == (spec.ffn != "none")
+        assert hasattr(block, "ln_x") == hasattr(block, "cross") == spec.cross
+        if spec.cross:
+            assert type(block.cross) is attention.Attention
+            assert (block.cross.gate is not None) == (arch == "llama-3.2-vision-11b")
+    assert any(s.cross for s in cfg.layer_list()) == (item == "item 10.3")
+    if arch == "whisper-base":
+        full = Model(get_config(arch), device="meta")
+        assert len(full.encoder.layers) == 6 and len(tm.encoder.layers) == 1
+    else:
+        assert tm.encoder is None
 
 
 def test_unported_attention_branches_raise_naming_their_item():
@@ -317,8 +325,9 @@ def test_unported_attention_branches_raise_naming_their_item():
     out, _ = attention.gqa_forward(x, p, tc, window=x.shape[1])
     want, _ = attention.gqa_forward(x, p, tc)
     assert torch.equal(out, want)
-    with pytest.raises(NotImplementedError, match="item 10.3"):
-        attention.gqa_forward(x, p, tc, memory=x)
+    # cross-attention (item 10.3) is ported: it runs over the memory
+    out, _ = attention.gqa_forward(x, p, tc, memory=x[:, :3])
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
     # per-slot decode positions (item 10.1) are ported: they run
     out, cache = attention.gqa_forward(x[:, :1], p, tc, decode=True,
                                        positions=torch.tensor([3, 4]),
