@@ -316,6 +316,34 @@ Phases, one line or more each:
      projections bit for bit, and holds the same bits after the last
      decode step; (5) the VLM's prefill logits with every gate at 0
      differ from the seeded gates' by more than 1e-3 x max |logit|.
+ 16. sharded training: deepseek-moe-16b at full width on four ranks
+     sharing the card through gloo (``run_ranks``, ``--mesh-phase 16``;
+     every group with a 300 s timeout), on (data, model) = (1, 4) and
+     (2, 2) with experts over both axes and ZeRO-1 over "data", one mesh
+     after the other, each rank its blocks of the one-rank model the
+     same seed draws. Checks: (1) a 1 dense + 1 MoE cut in float32
+     (capacity 8, the aux loss off: over a mesh it is the mean of the
+     blocks' aux), one step on 4 x 1024 tokens, the loss, grad norm and
+     every parameter block within 1e-5 x max of the one-rank step's
+     (TF32 off; an entry whose gradient is at the noise floor, m under
+     1e-6 of max |m|, within lr); (2) phase 11's cut (1 dense + 3 MoE,
+     bf16, capacity 1.25, remat) for 4 steps of 2 x 4096 x accum 2
+     through ``RestartManager.run`` on ``PackedLoader``'s blocks, every
+     loss finite and within 5% of the one-rank run's on the same batch,
+     every replicated leaf the same bits on its replicas after each
+     step; logged: step wall, tokens/s, each rank's peak and the card's
+     (nvidia-smi), a fifth step with every collective timed (the
+     exchange's and the all-reduces' shares), the MoE drops per rank
+     and layer; (3) each rank's kv sort and kv merge launches (counts set
+     to 0 just before the run, read just after) equal to the data round
+     plus 4 steps of ``moe_dispatch_launches`` at the rank's 2048 tokens
+     and 4 shards, and nonzero; (4) ``python -m repro_torch.launch.train
+     --arch deepseek-moe-16b --full-config --layers 2 --seq-len 1024
+     --global-batch 4 --steps 3 --save-every 2 --dist-backend gloo`` on
+     four ranks as torchrun starts them, then, its step-3 checkpoint
+     removed as if the run had died after step 2's, again with
+     ``--resume``: every rank resumes at step 2 (each saves step 3), and
+     the third step's line (step 2) equals the uninterrupted run's.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
@@ -324,7 +352,8 @@ served run's as ``launches_moe``, phase 11's training run's as
 phase 13's served run's as ``launches_mla``, flash's too, with flash's
 numbers at MLA's shape as ``*_mla``, phase 14's two served models' as
 ``launches_rec``, all 0, phase 15's two served models' as
-``launches_cross`` (flash 40, the rest 0); their
+``launches_cross`` (flash 40, the rest 0), phase 16's check-2 runs
+summed over the ranks and both meshes as ``launches_sharded``; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -338,6 +367,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 13    # phases 1, 2 and 13
     python3 chip_smoke.py --phases 14    # phases 1, 2 and 14
     python3 chip_smoke.py --phases 15    # phases 1, 2 and 15
+    python3 chip_smoke.py --phases 16    # phases 1, 2 and 16
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -4646,7 +4676,511 @@ def run_cross(device) -> dict:
     return total
 
 
-ALL_PHASES = frozenset(range(1, 16))
+# ------------------------------------------------------------------ phase 16
+
+# label: ((data, model), experts over ("data", "model")), run one after the other
+SHARD_MESHES = (("(1, 4)", (1, 4), False), ("(2, 2), 2-D experts", (2, 2), True))
+SHARD_F32_B, SHARD_F32_S = 4, 1024  # check 1: one step, one micro-batch
+SHARD_F32_TOL = 1e-5  # of max |m| and of max |parameter|
+# Adam divides by sqrt(v) + 1e-8: under this |m| (a gradient of 1e-6) an
+# entry's step stops following its gradient's sign, and the gradient's
+# float32 rounding (about 1e-8 at full width) moves it by up to lr
+SHARD_ADAM_FLOOR = 1e-7
+SHARD_LOSS_TOL = 0.05  # check 2: tests/test_distributed.py's limit
+SHARD_TIMEOUT_S = 300  # every gloo group of the phase
+SHARD_LAUNCH = ("--arch", "deepseek-moe-16b", "--full-config", "--layers", "2", "--seq-len",
+                "1024", "--global-batch", "4", "--save-every", "2", "--dist-backend", "gloo",
+                "--log-every", "1")  # check 4
+
+
+def shard_f32_config():
+    """Check 1's cut: deepseek-moe-16b at full width, 1 dense + 1 MoE layer,
+    float32, capacity factor 8 (nothing drops)."""
+    import dataclasses
+
+    cfg = train_config()
+    (dense, _), (moe_period, _) = cfg.segments
+    return dataclasses.replace(cfg, segments=((dense, 1), (moe_period, 1)), n_layers=2,
+                               dtype="float32", moe_capacity_factor=8.0)
+
+
+def shard_tcfg(cfg, aux_coef: float = 0.01):
+    """Phase 11's train settings (AdamW, lr warming up over 2 steps).
+    Check 1 turns the MoE aux loss off: over a mesh it is the mean of each
+    rank's block's aux (``repro``'s ``pmean``), another function than one
+    rank's aux over all tokens."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig
+
+    return TrainConfig(opt=adamw.OptConfig(name=cfg.optimizer, peak_lr=3e-4, warmup_steps=2,
+                                           total_steps=8, state_dtype=cfg.opt_state_dtype),
+                       aux_coef=aux_coef)
+
+
+def shard_f32_batch(vocab: int) -> dict:
+    """Check 1's global batch: (1, 4, 1024) seeded tokens and labels, a few
+    labels ignored."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    shape = (1, SHARD_F32_B, SHARD_F32_S)
+    batch = {"tokens": rng.integers(0, vocab, shape).astype(np.int32),
+             "labels": rng.integers(0, vocab, shape).astype(np.int32)}
+    batch["labels"][0, 0, :64] = -1
+    return batch
+
+
+def shard_loader(cfg, device, axes=None):
+    """Phase 11's loader (2 x 4096 x accum 2), this rank's block with ``axes``."""
+    import argparse
+
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launcher
+
+    args = argparse.Namespace(seq_len=TRAIN_S, global_batch=TRAIN_B, grad_accum=TRAIN_ACCUM)
+    return pipeline.PackedLoader(launcher.data_config(cfg, args), cfg, device=device, axes=axes)
+
+
+def checksums(params: dict, specs: dict, axes) -> dict:
+    """Per leaf, two sums of its bits (plain and weighted by position mod
+    251), gathered over the ranks that hold the same block (the mesh axes
+    its spec does not use): {name: (ranks, 2) int64}."""
+    import torch
+    from repro_torch.sharding import parallel as par
+    from repro_torch.sharding.rules import spec_axes
+
+    groups: dict = {}
+    for name, t in params.items():
+        used = spec_axes(specs[name])
+        names = tuple(a for a in axes.mesh.mesh_dim_names if a not in used)
+        bits = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+        bits = bits.long()
+        w = torch.arange(bits.numel(), device=bits.device) % 251 + 1
+        groups.setdefault(names, []).append((name, torch.stack([bits.sum(), (bits * w).sum()])))
+    out = {}
+    for names, sums in groups.items():
+        g = par.group(axes, names)
+        stacked = torch.stack([s for _, s in sums])
+        every = stacked[None] if g is None else g.all_gather(stacked)
+        out.update((name, every[:, i].cpu()) for i, (name, _) in enumerate(sums))
+    return out
+
+
+def shard_f32_rank(axes, device, ref) -> dict:
+    """Check 1 on one rank: the f32 cut's step on this rank's block of the
+    batch; each block of AdamW's m (0.1 x the clipped gradient, ZeRO's
+    block of it on (2, 2)) and of the parameters against the one-rank
+    step's (``ref``), the parameters apart for the entries under
+    SHARD_ADAM_FLOOR. Each error with its leaf's name."""
+    import torch
+    from repro_torch.data.pipeline import batch_block
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import parallel as par
+    from repro_torch.train.step import init_train_state, make_train_step, state_specs
+
+    cfg = shard_f32_config()
+    tcfg = shard_tcfg(cfg, aux_coef=0.0)
+    model = Model(cfg, axes=axes, device=device, seed=0)
+    params, ost = init_train_state(model, tcfg)
+    batch = batch_block(shard_f32_batch(cfg.vocab), axes)
+    _, _, metrics = make_train_step(model, tcfg)(params, ost, 1, batch)
+    zspecs = state_specs(model, tcfg)["m"]
+    m_err, live_err, dead_err, dead = (0.0, ""), (0.0, ""), (0.0, ""), 0
+    for name, p in params.items():
+        m = par.shard_leaf(ref["m"][name], zspecs[name], axes).to(device)
+        m_err = max(m_err, (float((ost["m"][name] - m).abs().max()), name))
+        want = par.shard_leaf(ref["params"][name], model.specs[name], axes).to(device)
+        live = par.shard_leaf(ref["m"][name], model.specs[name], axes).to(device).abs()
+        live = live >= SHARD_ADAM_FLOOR
+        diff = (p.detach() - want).abs()
+        if live.any():
+            live_err = max(live_err, (float(diff[live].max()), name))
+        if not live.all():
+            dead_err = max(dead_err, (float(diff[~live].max()), name))
+            dead += int((~live).sum())
+    out = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+               m_err=m_err, live_err=live_err, dead_err=dead_err, dead=dead,
+               block_params=sum(p.numel() for p in params.values()))
+    del model, params, ost
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_bf16_rank(axes, device, rank: int, scratch) -> dict:
+    """Check 2 on one rank: phase 11's cut trained over the mesh through
+    ``RestartManager.run`` (counts set to 0 just before, read just after),
+    its replicas' bits compared after each step; then one step with every
+    collective timed, and one forward recording the MoE drops."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.ft.manager import RestartManager
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import spec
+    from repro_torch.train.step import init_train_state, make_loss_fn, make_train_step
+
+    cfg = train_config()
+    tcfg = shard_tcfg(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, axes=axes, device=device, seed=0)
+    params, ost = init_train_state(model, tcfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    it = iter(shard_loader(cfg, device, axes))
+    step_fn = make_train_step(model, tcfg)
+    batches, data_launches, step_launches, step_ms, losses, same = [], [], [], [], [], []
+
+    def make_batch(step):
+        if not batches:
+            before = launch_counts()
+            batches.append(next(it))
+            data_launches.append(counts_minus(launch_counts(), before))
+        return batches[0]
+
+    def wrapped_step(state, step, batch):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t1 = time.perf_counter()
+        p, o, metrics = step_fn(*state, step, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_launches.append(counts_minus(launch_counts(), before))
+        losses.append({k: float(v) for k, v in metrics.items()})
+        sums = checksums(p, model.specs, axes)
+        same.append(all(bool((s == s[0]).all()) for s in sums.values()))
+        return (p, o), metrics
+
+    mgr = RestartManager(CheckpointManager(str(scratch / f"run{rank}"), keep=1),
+                         save_every=10 ** 9)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    (params, ost), _ = mgr.run((params, ost), 0, TRAIN_STEPS, wrapped_step, make_batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    # one more step with every collective timed (synchronised on both sides)
+    spent = {"all_to_all": 0.0, "all_sum": 0.0, "all_gather": 0.0}
+    real = {k: getattr(spec.AxisGroup, k) for k in spent}
+
+    def timed(kind):
+        def call(self, *a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = real[kind](self, *a, **k)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t1
+            return r
+        return call
+
+    for k in spent:
+        setattr(spec.AxisGroup, k, timed(k))
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_fn(params, ost, TRAIN_STEPS, batches[0])
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        for k, fn in real.items():
+            setattr(spec.AxisGroup, k, fn)
+
+    # the MoE drops of one forward over the first micro-batch
+    micro = {k: torch.as_tensor(v[0], device=device) for k, v in batches[0].items()}
+    with torch.no_grad(), moe.recording_drops() as drops:
+        make_loss_fn(model, tcfg)(micro)
+    out = dict(build_s=build_s, step_ms=step_ms, losses=losses, same=same,
+               launches=launches, data_launches=data_launches[0], step_launches=step_launches,
+               peak_gb=peak / 1e9, timed_ms=timed_ms,
+               spent_ms={k: v * 1e3 for k, v in spent.items()},
+               drops=drops, block_params=sum(p.numel() for p in params.values()))
+    del model, params, ost, step_fn, mgr, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_rank(rank: int, world: int, out_dir: str, device) -> None:
+    """One of phase 16's ranks (``--mesh-rank r --mesh-phase 16``): a gloo
+    group through a file store (SHARD_TIMEOUT_S on it and on every group
+    made from it), then for each mesh of SHARD_MESHES check 1 and check
+    2 (``shard_f32_rank``, ``shard_bf16_rank``); results to ``rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.sharding import spec
+
+    timeout = datetime.timedelta(seconds=SHARD_TIMEOUT_S)
+    distributed_c10d.default_pg_timeout = timeout  # the mesh's and the tuples' groups
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=world, timeout=timeout)
+    scratch = pathlib.Path(out_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(scratch / "f32_ref.pt", mmap=True, weights_only=False)
+    results = {}
+    with torch.enable_grad():
+        for label, shape, expert_2d in SHARD_MESHES:
+            mesh = DeviceMesh(device.type, torch.arange(world).reshape(shape),
+                              mesh_dim_names=("data", "model"))
+            axes = spec.from_mesh(mesh, expert_2d=expert_2d)
+            results[label] = {"f32": shard_f32_rank(axes, device, ref),
+                              "bf16": shard_bf16_rank(axes, device, rank, scratch)}
+            dist.barrier()
+    torch.save(results, scratch / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(scratch, tag: str, *argv) -> list:
+    """``python -m repro_torch.launch.train`` on MESH_WORLD ranks as
+    ``torchrun`` starts them (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT), sharing the card; killed past SHARD_TIMEOUT_S. Returns
+    each rank's output lines."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(MESH_WORLD))
+    outs = [(scratch / f"{tag}{r}.out", scratch / f"{tag}{r}.err") for r in range(MESH_WORLD)]
+    files = [(open(o, "w"), open(e, "w")) for o, e in outs]
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *argv],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=f, stderr=e,
+                              cwd=ROOT) for r, (f, e) in enumerate(files)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, SHARD_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f, e in files:
+            f.close()
+            e.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"phase 16: check 4: launcher ranks {bad} failed:\n" + "\n".join(
+            outs[r][1].read_text()[-3000:] for r in bad))
+    return [o.read_text().splitlines() for o, _ in outs]
+
+
+def run_sharded(device) -> dict:
+    """Phase 16, with autograd on (``main`` turns it off for the others)."""
+    import torch
+
+    with torch.enable_grad():
+        return sharded_phase(device)
+
+
+def sharded_phase(device) -> dict:
+    """Phase 16: deepseek-moe-16b trained at full width on four gloo ranks
+    sharing the card, on (data, model) = (1, 4) and (2, 2) with 2-D
+    experts, and its four checks. Returns the launches of every kernel
+    over check 2's runs, summed over the ranks and both meshes."""
+    import math
+    import shutil
+    import threading
+
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import lr_at
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    scratch = ROOT / "build" / "phase16"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # check 1's one-rank step: the updated parameters and AdamW's m to files
+        c32 = shard_f32_config()
+        tcfg = shard_tcfg(c32, aux_coef=0.0)
+        t0 = time.perf_counter()
+        model = Model(c32, device=device, seed=0)
+        params, ost = init_train_state(model, tcfg)
+        _, _, m32 = make_train_step(model, tcfg)(params, ost, 1, shard_f32_batch(c32.vocab))
+        ref = {"params": {k: v.detach().cpu() for k, v in params.items()},
+               "m": {k: v.cpu() for k, v in ost["m"].items()}}
+        top = max(float(t.abs().max()) for t in ref["params"].values())
+        top_m = max(float(t.abs().max()) for t in ref["m"].values())
+        torch.save(ref, scratch / "f32_ref.pt")
+        n32 = sum(p.numel() for p in params.values())
+        one32 = {k: float(m32[k]) for k in ("loss", "grad_norm")}
+        log(f"phase 16: check 1's cut (1 dense + 1 MoE, float32, capacity 8, {n32} parameters):"
+            f" the one-rank step on {SHARD_F32_B} x {SHARD_F32_S} tokens, loss "
+            f"{one32['loss']:.6f}, grad norm {one32['grad_norm']:.6f}, in "
+            f"{time.perf_counter() - t0:.1f} s with its files")
+        del model, params, ost, ref, m32
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # check 2's one-rank run: phase 11's four steps on the same batch
+    cfg = train_config()
+    tcfg = shard_tcfg(cfg)
+    model = Model(cfg, device=device, seed=0)
+    params, ost = init_train_state(model, tcfg)
+    n_params = sum(p.numel() for p in params.values())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"phase 16: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    batch = next(iter(shard_loader(cfg, device)))
+    step_fn = make_train_step(model, tcfg)
+    one = []
+    for s in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = float(step_fn(params, ost, s, batch)[2]["loss"])
+        one.append((loss, (time.perf_counter() - t1) * 1e3))
+    log(f"phase 16: one rank, {n_params} parameters: losses "
+        + ", ".join(f"{l:.6f}" for l, _ in one) + "; step ms "
+        + ", ".join(f"{t:.3f}" for _, t in one))
+    del model, params, ost, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # the ranks, the card's memory sampled meanwhile
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,"
+                                  "noheader,nounits"], capture_output=True, text=True,
+                                 timeout=60)
+            if out.returncode == 0:
+                samples.append(float(out.stdout.split()[0]) / 1e3)
+            stop.wait(0.5)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        got = run_ranks(scratch, 16)
+    finally:
+        stop.set()
+        sampler.join()
+    log(f"phase 16: {MESH_WORLD} ranks on gloo sharing the card in "
+        f"{time.perf_counter() - t0:.1f} s; the card's memory in use peaked at "
+        f"{max(samples, default=float('nan')):.3f} GB (nvidia-smi, every 0.5 s)")
+
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_list())
+    lr1 = float(lr_at(1, tcfg.opt))
+    total, failed = None, []
+    for label, shape, _ in SHARD_MESHES:
+        data, model_n = shape
+        # check 1
+        f32 = [g[label]["f32"] for g in got]
+        m_err, live, dead = (max(r[k] for r in f32) for k in ("m_err", "live_err", "dead_err"))
+        lerr = max(abs(r["loss"] - one32["loss"]) for r in f32)
+        gerr = max(abs(r["grad_norm"] - one32["grad_norm"]) for r in f32)
+        log(f"phase 16: check 1 on {label}: loss {f32[0]['loss']:.6f} (err {lerr:.3e}), grad "
+            f"norm {f32[0]['grad_norm']:.6f} (err {gerr:.3e}); m (the gradient) max abs err "
+            f"{m_err[0]:.3e} in {m_err[1]} (limit {SHARD_F32_TOL} x {top_m:.4e}); parameters "
+            f"max abs err {live[0]:.3e} in {live[1]} (limit {SHARD_F32_TOL} x {top:.4f}), "
+            f"{sum(r['dead'] for r in f32)} entries with |m| under {SHARD_ADAM_FLOOR} within "
+            f"{dead[0]:.3e} in {dead[1]} (limit lr {lr1:.1e}); {f32[0]['block_params']} "
+            f"parameters on rank 0")
+        if not (lerr <= SHARD_F32_TOL * abs(one32["loss"])
+                and gerr <= SHARD_F32_TOL * abs(one32["grad_norm"])
+                and m_err[0] <= SHARD_F32_TOL * top_m and live[0] <= SHARD_F32_TOL * top
+                and dead[0] <= lr1):
+            failed.append(f"check 1 on {label}: off the one-rank step")
+        # check 2
+        runs = [g[label]["bf16"] for g in got]
+        T = TRAIN_B * TRAIN_S // (data * model_n)  # tokens a rank routes a micro-step
+        K = cfg.moe_topk
+        C = moe_capacity(T * K, MESH_WORLD, cfg.moe_capacity_factor)
+        per_layer = moe_dispatch_launches(T, K, MESH_WORLD, C)
+        want_step = {k: v * n_moe * TRAIN_ACCUM * (2 if cfg.remat else 1)
+                     for k, v in per_layer.items()}
+        want_step["flash_attention"] = 0
+        want_data = dict(zip(per_layer, KEY_VALUE), flash_attention=0)
+        want_run = {k: want_data[k] + TRAIN_STEPS * want_step[k] for k in want_step}
+        for r, run in enumerate(runs):
+            med = statistics.median(run["step_ms"][1:])
+            spent = run["spent_ms"]
+            log(f"phase 16: check 2 on {label}, rank {r}: built in {run['build_s']:.2f} s, "
+                f"{run['block_params']} parameters; losses "
+                + ", ".join(f"{m['loss']:.6f}" for m in run["losses"]) + "; step ms "
+                + ", ".join(f"{t:.3f}" for t in run["step_ms"])
+                + f"; median after the first {med:.3f} ms, "
+                f"{TRAIN_B * TRAIN_S * TRAIN_ACCUM / med * 1e3:.1f} tokens/s (the global "
+                f"batch's); peak {run['peak_gb']:.3f} GB; a timed step {run['timed_ms']:.3f} ms: "
+                f"exchange (all_to_all) {spent['all_to_all']:.3f} ms "
+                f"({spent['all_to_all'] / run['timed_ms']:.4f}), all-reduce {spent['all_sum']:.3f}"
+                f" ms ({spent['all_sum'] / run['timed_ms']:.4f}), all-gather "
+                f"{spent['all_gather']:.3f} ms ({spent['all_gather'] / run['timed_ms']:.4f}); "
+                f"MoE drops by layer (assignments, at C, at the expert capacity) {run['drops']}; "
+                f"launches {run['launches']} (data {run['data_launches']})")
+            bad = [i for i, (m, (l, _)) in enumerate(zip(run["losses"], one))
+                   if not (math.isfinite(m["loss"]) and abs(m["loss"] - l) <= SHARD_LOSS_TOL * l)]
+            if bad or not all(run["same"]):
+                failed.append(f"check 2 on {label}, rank {r}: losses off the one rank's at steps "
+                              f"{bad}, replicas equal {run['same']}")
+            # check 3
+            if (run["data_launches"] != want_data or any(s != want_step
+                                                         for s in run["step_launches"])
+                    or run["launches"] != want_run):
+                failed.append(f"check 3 on {label}, rank {r}: launches {run['launches']} (data "
+                              f"{run['data_launches']}, steps {run['step_launches']}), derived "
+                              f"{want_run}")
+            total = (run["launches"] if total is None
+                     else {k: total[k] + v for k, v in run["launches"].items()})
+        log(f"phase 16: check 2 on {label}: losses within {SHARD_LOSS_TOL} of the one rank's and "
+            f"replicas the same bits on every rank: {not any('check 2' in f for f in failed)}; "
+            f"check 3: derived per rank {want_run} = the data round {want_data} + "
+            f"{TRAIN_STEPS} steps x {want_step} (per MoE layer and micro-step {per_layer}: {T} "
+            f"tokens, {T * K} assignments, {MESH_WORLD} shards, C {C})")
+    if not all(total[k] > 0 for k in ("bitonic_sort_rows_kv", "bitonic_merge_rows_kv")):
+        failed.append(f"check 3: a kv kernel did not launch: {total}")
+
+    # check 4: the launcher on 4 ranks, then resumed from its step-2 checkpoint
+    ckpt = scratch / "launch"
+    t0 = time.perf_counter()
+    full = launch_ranks(scratch, "full", *SHARD_LAUNCH, "--steps", "3", "--ckpt-dir", str(ckpt))
+    t_full = time.perf_counter() - t0
+    shutil.rmtree(ckpt / "step_000000003")  # as if the run had died after step 2's checkpoint
+    t0 = time.perf_counter()
+    again = launch_ranks(scratch, "again", *SHARD_LAUNCH, "--steps", "1", "--resume",
+                         "--ckpt-dir", str(ckpt))
+    t_again = time.perf_counter() - t0
+    step2 = [line for line in full[0] if line.startswith("[train] step 2:")]
+    resumed = [line for line in again[0] if line.startswith("[train] step 2:")]
+    saved = sorted(p.name for p in (ckpt / "step_000000003").iterdir())
+    want_saved = sorted([*(f"COMMITTED_{r}" for r in range(MESH_WORLD)),
+                         *(f"arrays_{r}.npz" for r in range(MESH_WORLD)),
+                         *(f"tree_{r}.json" for r in range(MESH_WORLD)), "mesh.json"])
+    log(f"phase 16: check 4: the launcher on {MESH_WORLD} ranks ({' '.join(SHARD_LAUNCH)}): "
+        f"--steps 3 in {t_full:.1f} s: " + " | ".join(full[0])
+        + f"; resumed in {t_again:.1f} s: " + " | ".join(again[0])
+        + f"; every rank saved step 3 after it: {saved == want_saved}")
+    if not (step2 and resumed and "[train] resumed from step 2" in again[0]
+            and resumed[0].split(" (")[0] == step2[0].split(" (")[0] and saved == want_saved
+            and all(lines == [] for lines in (*full[1:], *again[1:]))):
+        failed.append("check 4: the resumed launcher is off the uninterrupted")
+    if failed:
+        raise AssertionError("phase 16: " + "; ".join(failed))
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+ALL_PHASES = frozenset(range(1, 17))
 
 
 def main() -> int:
@@ -4656,7 +5190,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-15: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-16: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -4666,10 +5200,11 @@ def main() -> int:
     # the sort, serving and MoE phases run forward passes only (parameters
     # require grad since the port trains); phase 11 turns grad on
     torch.set_grad_enabled(False)
-    if args.mesh_rank is not None:  # one of phase 9's or phase 10's ranks
-        if args.mesh_phase == 10:
+    if args.mesh_rank is not None:  # one of phase 9's, 10's or 16's ranks
+        if args.mesh_phase in (10, 16):
             torch.cuda.set_device(0)
-            moe_rank(args.mesh_rank, MESH_WORLD, args.mesh_dir, torch.device("cuda", 0))
+            rank = moe_rank if args.mesh_phase == 10 else shard_rank
+            rank(args.mesh_rank, MESH_WORLD, args.mesh_dir, torch.device("cuda", 0))
         else:
             mesh_rank(args.mesh_rank, MESH_WORLD, args.mesh_dir)
         return 0
@@ -4714,7 +5249,7 @@ def main() -> int:
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
                            (10, run_moe), (11, run_train), (12, run_batch), (13, run_mla),
-                           (14, run_recurrent), (15, run_cross)):
+                           (14, run_recurrent), (15, run_cross), (16, run_sharded)):
             if phase in phases:
                 run(device)
         return 0
@@ -4741,6 +5276,8 @@ def main() -> int:
     launches_rec = run_recurrent(device)
     torch.cuda.empty_cache()
     launches_cross = run_cross(device)
+    torch.cuda.empty_cache()
+    launches_sharded = run_sharded(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -4748,7 +5285,7 @@ def main() -> int:
              launches_mesh=launches_mesh[name], launches_moe=launches_moe[name],
              launches_train=launches_train[name], launches_batch=launches_batch[name],
              launches_mla=launches_mla[name], launches_rec=launches_rec[name],
-             launches_cross=launches_cross[name],
+             launches_cross=launches_cross[name], launches_sharded=launches_sharded[name],
              max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
@@ -4764,6 +5301,7 @@ def main() -> int:
         launches_mla=launches_mla["flash_attention"],
         launches_rec=launches_rec["flash_attention"],
         launches_cross=launches_cross["flash_attention"],
+        launches_sharded=launches_sharded["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"],

@@ -19,6 +19,20 @@ readers pick the newest valid step; writers write to a temporary
 directory and rename it, so a node dying mid-save never corrupts the
 restore state.
 
+A sharded train state is saved by every rank, each its own blocks
+(``host_id`` = rank, ``n_hosts`` ranks), into one step directory::
+
+    <dir>/step_000123/
+        arrays_<rank>.npz   the rank's blocks
+        tree_<rank>.json    their names, dtypes and shapes
+        mesh.json           the mesh shape and the number of ranks
+        COMMITTED_<rank>    each rank's marker, written last
+
+and the step is valid once every rank's marker is there. A state saved on
+one mesh shape restores only on the same shape: another raises a
+ValueError naming both (re-sharding on restore is ``repro``'s elastic
+path, which does not run on jax 0.9).
+
 ``repro``'s arrays are immutable, so its ``save_async`` can serialize them
 from a thread while training goes on. The port updates its parameters
 and optimizer states in place, so ``save_async`` copies the whole tree to
@@ -86,20 +100,44 @@ def _host_tree(tree) -> tuple[list, list]:
             [_dtype_name(leaf) for _, leaf in leaves])
 
 
-def _write(path: str, step: int, host: list, dtypes: list, host_id: int) -> str:
-    tmp = os.path.join(path, f".tmp_step_{step:09d}_{host_id}")
-    final = os.path.join(path, f"step_{step:09d}")
-    os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, f"arrays_{host_id}.npz"), **dict(host))
-    meta = {
+def _meta(step: int, host: list, dtypes: list) -> dict:
+    return {
         "step": step,
         "n_leaves": len(host),
         "names": [name for name, _ in host],
         "dtypes": dtypes,
         "shapes": [list(a.shape) for _, a in host],
     }
+
+
+def _write_shard(path: str, step: int, host: list, dtypes: list, host_id: int,
+                 n_hosts: int, mesh_shape: dict) -> str:
+    """One rank's blocks into the shared step directory (module docstring)."""
+    final = os.path.join(path, f"step_{step:09d}")
+    os.makedirs(final, exist_ok=True)
+    tmp = os.path.join(final, f".tmp_{host_id}")
+    np.savez(tmp + ".npz", **dict(host))
+    os.replace(tmp + ".npz", os.path.join(final, f"arrays_{host_id}.npz"))
+    for name, obj in ((f"tree_{host_id}.json", _meta(step, host, dtypes)),
+                      ("mesh.json", {"mesh_shape": mesh_shape, "n_hosts": n_hosts})):
+        with open(tmp + ".json", "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp + ".json", os.path.join(final, name))
+    with open(os.path.join(final, f"COMMITTED_{host_id}"), "w") as f:
+        f.write("ok")
+    return final
+
+
+def _write(path: str, step: int, host: list, dtypes: list, host_id: int, n_hosts: int = 1,
+           mesh_shape: dict | None = None) -> str:
+    if mesh_shape is not None:
+        return _write_shard(path, step, host, dtypes, host_id, n_hosts, mesh_shape)
+    tmp = os.path.join(path, f".tmp_step_{step:09d}_{host_id}")
+    final = os.path.join(path, f"step_{step:09d}")
+    os.makedirs(tmp, exist_ok=True)
+    np.savez(os.path.join(tmp, f"arrays_{host_id}.npz"), **dict(host))
     with open(os.path.join(tmp, "tree.json"), "w") as f:
-        json.dump(meta, f)
+        json.dump(_meta(step, host, dtypes), f)
     os.makedirs(path, exist_ok=True)
     if os.path.exists(final):
         shutil.rmtree(final)
@@ -110,19 +148,40 @@ def _write(path: str, step: int, host: list, dtypes: list, host_id: int) -> str:
     return final
 
 
-def save_checkpoint(path: str, step: int, tree, host_id: int = 0) -> str:
+def save_checkpoint(path: str, step: int, tree, host_id: int = 0, n_hosts: int = 1,
+                    mesh_shape: dict | None = None) -> str:
+    """``mesh_shape``: a sharded state, one of ``n_hosts`` ranks' blocks."""
     host, dtypes = _host_tree(tree)
-    return _write(path, step, host, dtypes, host_id)
+    return _write(path, step, host, dtypes, host_id, n_hosts, mesh_shape)
+
+
+def _mesh_of(d: str) -> dict | None:
+    """The step directory's mesh.json, or None (a one-rank checkpoint)."""
+    p = os.path.join(d, "mesh.json")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return json.load(f)
+
+
+def _committed(d: str) -> bool:
+    if os.path.exists(os.path.join(d, "COMMITTED")):
+        return True
+    mesh = _mesh_of(d)
+    return mesh is not None and all(
+        os.path.exists(os.path.join(d, f"COMMITTED_{h}")) for h in range(mesh["n_hosts"]))
+
+
+def _committed_steps(path: str) -> list:
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(d.split("_")[1]) for d in os.listdir(path)
+                  if d.startswith("step_") and _committed(os.path.join(path, d)))
 
 
 def latest_step(path: str) -> int | None:
-    if not os.path.isdir(path):
-        return None
-    steps = []
-    for d in os.listdir(path):
-        if d.startswith("step_") and os.path.exists(os.path.join(path, d, "COMMITTED")):
-            steps.append(int(d.split("_")[1]))
-    return max(steps) if steps else None
+    steps = _committed_steps(path)
+    return steps[-1] if steps else None
 
 
 def _decode(arr: np.ndarray, dtype_name: str):
@@ -132,15 +191,26 @@ def _decode(arr: np.ndarray, dtype_name: str):
 
 
 @torch.no_grad()
-def restore_checkpoint(path: str, tree_template, step: int | None = None, host_id: int = 0):
+def restore_checkpoint(path: str, tree_template, step: int | None = None, host_id: int = 0,
+                       mesh_shape: dict | None = None):
     """Restore into the template: tensor leaves are overwritten in place,
     numpy leaves replaced by the loaded arrays. Returns (tree, step), or
-    (None, None) when there is no committed step."""
+    (None, None) when there is no committed step. ``mesh_shape``: the
+    sharded state's mesh, which must be the checkpoint's (ValueError
+    otherwise)."""
     step = latest_step(path) if step is None else step
     if step is None:
         return None, None
     d = os.path.join(path, f"step_{step:09d}")
-    with open(os.path.join(d, "tree.json")) as f:
+    saved = _mesh_of(d)
+    saved_shape = None if saved is None else saved["mesh_shape"]
+    if saved_shape != (None if mesh_shape is None else dict(mesh_shape)):
+        raise ValueError(f"the checkpoint at step {step} was saved on mesh "
+                         f"{saved_shape or 'of one rank'}, and this state is on mesh "
+                         f"{mesh_shape or 'of one rank'}: re-sharding on restore is not "
+                         f"ported")
+    tree = "tree.json" if saved is None else f"tree_{host_id}.json"
+    with open(os.path.join(d, tree)) as f:
         meta = json.load(f)
     dtypes = dict(zip(meta["names"], meta["dtypes"]))
     leaves = _flatten(tree_template)
@@ -161,12 +231,17 @@ def restore_checkpoint(path: str, tree_template, step: int | None = None, host_i
 
 
 class CheckpointManager:
-    """Async writer + retention policy + restart helper."""
+    """Async writer + retention policy + restart helper. A sharded state's
+    manager on each rank: ``host_id`` the rank, ``n_hosts`` the ranks,
+    ``mesh_shape`` the mesh's; rank 0 alone drops old steps."""
 
-    def __init__(self, path: str, keep: int = 3, host_id: int = 0):
+    def __init__(self, path: str, keep: int = 3, host_id: int = 0, n_hosts: int = 1,
+                 mesh_shape: dict | None = None):
         self.path = path
         self.keep = keep
         self.host_id = host_id
+        self.n_hosts = n_hosts
+        self.mesh_shape = None if mesh_shape is None else dict(mesh_shape)
         self._thread: threading.Thread | None = None
 
     def wait(self):
@@ -180,24 +255,19 @@ class CheckpointManager:
         host, dtypes = _host_tree(tree)
 
         def work():
-            _write(self.path, step, host, dtypes, self.host_id)
-            self._gc()
+            _write(self.path, step, host, dtypes, self.host_id, self.n_hosts,
+                   self.mesh_shape)
+            if self.host_id == 0:
+                self._gc()
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
     def _gc(self):
-        if not os.path.isdir(self.path):
-            return
-        steps = sorted(
-            int(d.split("_")[1])
-            for d in os.listdir(self.path)
-            if d.startswith("step_")
-            and os.path.exists(os.path.join(self.path, d, "COMMITTED"))
-        )
-        for s in steps[: -self.keep]:
+        for s in _committed_steps(self.path)[: -self.keep]:
             shutil.rmtree(os.path.join(self.path, f"step_{s:09d}"), ignore_errors=True)
 
     def restore_latest(self, template):
         self.wait()
-        return restore_checkpoint(self.path, template, host_id=self.host_id)
+        return restore_checkpoint(self.path, template, host_id=self.host_id,
+                                  mesh_shape=self.mesh_shape)

@@ -6,7 +6,10 @@ For a sort, what crosses between the two packages is the configuration
 is also the weights (``params_from_jax``), the optimizer states
 (``opt_state_from_jax``) and the caches (``caches_to_numpy``). The tests
 use these to feed both packages the same thing and compare the results as
-numpy arrays.
+numpy arrays. ``shard_state`` takes a rank's blocks of a state by the
+sharding rules' specs, and ``gather_state`` puts the whole state back
+together from every rank's blocks: with them a sharded model gets the
+weights of ``repro``'s one-device model.
 """
 from __future__ import annotations
 
@@ -117,6 +120,29 @@ def opt_state_from_jax(cfg, opt_state: dict) -> dict:
         leaf, kind = name.rsplit(".", 1)
         out.setdefault(leaf, {})[kind] = t
     return {"v": out}
+
+
+def _map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_state(state, specs, axes):
+    """This rank's blocks of a state (parameters, or an optimizer state's
+    nested dicts) of whole tensors, by the matching tree of specs
+    (``sharding.rules``); each block is a contiguous copy."""
+    from repro_torch.sharding.parallel import shard_leaf
+
+    return _map_specs(lambda t, s: shard_leaf(t, s, axes).contiguous(), state, specs)
+
+
+def gather_state(state, specs, axes):
+    """The whole state from every rank's blocks (collective: every rank of
+    the mesh calls it, with the same names in the same order)."""
+    from repro_torch.sharding.parallel import gather_leaf
+
+    return _map_specs(lambda t, s: gather_leaf(t.detach(), s, axes), state, specs)
 
 
 def caches_to_numpy(cfg, caches: list) -> list:

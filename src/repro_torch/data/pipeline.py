@@ -14,6 +14,12 @@ the model's device.
 
 Everything is deterministic in (seed, host_id): the corpus draws from
 ``repro``'s numpy streams, so both packages pack the same batches.
+
+With ``axes`` over a mesh the loader yields this rank's block of each
+global batch (``batch_block``: the batch dimension over
+``rules.fit_batch_axes``). Every rank packs the same global batches, the
+data round's length sort included, one sort computed alike on each rank,
+and keeps its block.
 """
 from __future__ import annotations
 
@@ -92,16 +98,30 @@ def bucket_by_length(doc_lens: np.ndarray, n_procs: int, sort_cfg=SortConfig(), 
     return out.order().cpu().numpy()
 
 
+def batch_block(batch: dict, axes) -> dict:
+    """This rank's block of a global batch of (accum, B, ...) arrays or
+    tensors (``rules.batch_specs``); the whole batch with no mesh."""
+    from repro_torch.sharding import parallel as par
+    from repro_torch.sharding import rules
+
+    if axes is None or axes.mesh is None:
+        return batch
+    specs = rules.batch_specs(batch, axes)
+    return {k: par.shard_leaf(v, specs[k], axes) for k, v in batch.items()}
+
+
 class PackedLoader:
     """Packs length-bucketed documents into (accum, B, S) token/label
     batches. Labels are next-token targets, -1 on padding. ``device``: where
-    the length sort runs (None: the card)."""
+    the length sort runs (None: the card). ``axes``: yield this rank's
+    block of each batch (module docstring)."""
 
-    def __init__(self, cfg: DataConfig, model_cfg=None, device=None):
+    def __init__(self, cfg: DataConfig, model_cfg=None, device=None, axes=None):
         self.cfg = cfg
         self.corpus = SyntheticCorpus(cfg)
         self.model_cfg = model_cfg
         self.device = device
+        self.axes = axes
         self._step = 0
 
     def fast_forward(self, step: int):
@@ -156,6 +176,6 @@ class PackedLoader:
 
     def __iter__(self):
         while True:
-            b = self._make_batch()
+            b = batch_block(self._make_batch(), self.axes)
             self._step += 1
             yield b

@@ -2,11 +2,23 @@
 
 The port of ``repro/launch/train.py``, with its flags and its lines: the
 sort-bucketed data pipeline, the train step, checkpoints and restarts
-through the fault-tolerance manager. One flag more, ``--device`` (default:
-the card, by the device rule; ``--device cpu`` trains on the CPU). On one
-rank it builds no mesh, as ``repro`` builds none on one device; with more
-than one rank it raises NotImplementedError naming ROADMAP.md §1 item 11
-(sharded parameters and optimizer states).
+through the fault-tolerance manager. Two flags more: ``--device`` (default:
+the card, by the device rule; ``--device cpu`` trains on the CPU) and
+``--dist-backend``. On one rank it builds no mesh, as ``repro`` builds
+none on one device. With more than one rank (``torchrun``: RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) it joins the process
+group on ``--dist-backend`` (``nccl``, the default, for one card a rank;
+``gloo`` for ranks that share a card, which NCCL refuses), builds
+``make_mesh_for(world)``, the rank's part of the model and of its
+optimizer state (``Model(cfg, axes=...)``), loads its block of every
+batch, saves its own blocks beside the mesh shape, and prints ``repro``'s
+lines from rank 0. A rank uses the card ``LOCAL_RANK`` modulo the cards it
+sees. What a mesh does not train yet raises NotImplementedError naming its
+ROADMAP.md item before the group is joined.
+
+On ``--resume`` the loader first makes, and drops, the batches of the
+steps the checkpoint has taken, so a resumed run sees the batches an
+uninterrupted one would.
 
 As in ``repro``, ``--layers n`` replaces the segments with n copies of the
 config's first period: for deepseek-moe-16b, whose first segment is its
@@ -16,18 +28,22 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import tempfile
 import time
+
+import torch
 
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.data.pipeline import DataConfig, PackedLoader
 from repro_torch.device import resolve
 from repro_torch.ft.manager import RestartManager
-from repro_torch.models import not_ported
-from repro_torch.models.model import Model
+from repro_torch.launch.mesh import make_mesh_for
+from repro_torch.models.model import Model, check_sharded
 from repro_torch.optim.adamw import OptConfig
+from repro_torch.sharding.spec import from_mesh
 from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
 
 
@@ -50,6 +66,9 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--dist-backend", default="nccl",
+                    help="the process group's backend with more than one rank: nccl (one "
+                         "card a rank) or gloo (ranks sharing a card, or the CPU)")
     return ap.parse_args(argv)
 
 
@@ -85,34 +104,54 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
+def join_group(backend: str, device: torch.device) -> int:
+    """Join the torchrun process group (unless one is up); on the card,
+    use the card LOCAL_RANK modulo the cards seen. Returns the rank."""
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+    if not dist.is_initialized():
+        dist.init_process_group(backend, rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]))
+    return dist.get_rank()
+
+
 def main(argv=None):
     args = parse_args(argv)
     cfg = model_config(args)
     n_dev = world_size()
-    if n_dev > 1:
-        raise not_ported(f"training across {n_dev} ranks", "sharded_train")
     device = resolve(args.device)
-    model = Model(cfg, device=device, seed=0)
+    rank, axes = 0, None
+    if n_dev > 1:
+        check_sharded(cfg)
+        rank = join_group(args.dist_backend, device)
+        axes = from_mesh(make_mesh_for(n_dev, device=device))
+    say = print if rank == 0 else (lambda *a, **k: None)
+    model = Model(cfg, axes=axes, device=device, seed=0)
     tcfg = TrainConfig(opt=OptConfig(
         name=cfg.optimizer, peak_lr=args.lr, warmup_steps=max(args.steps // 20, 5),
         total_steps=args.steps, state_dtype=cfg.opt_state_dtype,
     ))
 
     params, opt_state = init_train_state(model, tcfg)
-    n_params = sum(p.numel() for p in params.values())
-    print(f"[train] {cfg.name}: {n_params:,} params on {n_dev} device(s)")
+    shapes = model.global_shapes if model.sharded else {k: p.shape for k, p in params.items()}
+    n_params = sum(math.prod(s) for s in shapes.values())
+    say(f"[train] {cfg.name}: {n_params:,} params on {n_dev} device(s)")
 
     step_fn = make_train_step(model, tcfg)
-    loader = PackedLoader(data_config(cfg, args), cfg, device=device)
-    it = iter(loader)
+    loader = PackedLoader(data_config(cfg, args), cfg, device=device, axes=axes)
 
-    ckpt = CheckpointManager(args.ckpt_dir, keep=3)
+    ckpt = CheckpointManager(args.ckpt_dir, keep=3, host_id=rank, n_hosts=n_dev,
+                             mesh_shape=axes.mesh_shape if axes else None)
     start_step = 0
     if args.resume:
         restored, ck_step = ckpt.restore_latest((params, opt_state))
         if restored is not None:
             (params, opt_state), start_step = restored, ck_step
-            print(f"[train] resumed from step {start_step}")
+            say(f"[train] resumed from step {start_step}")
+            loader.fast_forward(start_step)
+    it = iter(loader)
 
     mgr = RestartManager(ckpt, save_every=args.save_every)
 
@@ -127,7 +166,7 @@ def main(argv=None):
         if "loss" in metrics and step % args.log_every == 0:
             toks = args.global_batch * args.seq_len * args.grad_accum
             dt = time.time() - t_start
-            print(f"[train] step {step}: loss={float(metrics['loss']):.4f} "
+            say(f"[train] step {step}: loss={float(metrics['loss']):.4f} "
                   f"acc={float(metrics['accuracy']):.3f} "
                   f"gnorm={float(metrics['grad_norm']):.2f} "
                   f"({toks * (step - start_step + 1) / max(dt, 1e-9):.0f} tok/s)")
@@ -138,8 +177,12 @@ def main(argv=None):
     )
     ckpt.save_async(final, (params, opt_state))
     ckpt.wait()
-    print(f"[train] done at step {final}; recoveries={mgr.recoveries} "
-          f"stragglers={mgr.watchdog.stragglers}")
+    say(f"[train] done at step {final}; recoveries={mgr.recoveries} "
+        f"stragglers={mgr.watchdog.stragglers}")
+    if axes is not None:
+        import torch.distributed as dist
+
+        dist.barrier()  # every rank's checkpoint is committed
 
 
 if __name__ == "__main__":

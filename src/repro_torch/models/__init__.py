@@ -8,10 +8,13 @@ ROADMAP.md §1 item that ports it.
 from __future__ import annotations
 
 _LATER = {
-    "moe_ep": "item 10.4.1 (EP x TP MoE decode: cfg.decode_moe_ep, tp_axis), under "
-              "item 11: it needs the sharded model tier",
-    "sharded_train": "item 11 (sharded parameters and optimizer states through "
-                     "sharding/rules.py)",
+    "moe_ep": "item 11.3 (with item 10.4.1, EP x TP MoE decode: cfg.decode_moe_ep, "
+              "tp_axis)",
+    "tp_mixers": "item 11.2 (tensor parallelism for MLA, RG-LRU, Mamba, sliding windows, "
+                 "cross-attention and the encoder, and sharded Adafactor)",
+    "sharded_serve": "item 11.3 (sharded prefill and decode over rules.cache_specs, with "
+                     "item 10.4.1)",
+    "dryrun": "item 11.4 (launch/dryrun.py and launch/hlo_stats.py)",
 }
 
 

@@ -45,6 +45,17 @@ tensor with B > 1: continuous batching, ``serve/batching.py``), as
 its own causal mask; with a window it takes one position only (the
 batcher refuses windowed configs).
 
+Under a mesh (``axes``) GQA self-attention is tensor-parallel over
+"model", as ``repro``'s partition specs put it: ``repro`` pads the heads
+to a multiple of the model axis (``Axes.pad_heads``), ``wq``/``bq`` hold
+this rank's heads, ``wo`` their rows, and the output is summed over
+"model" (``reduce_from``). k and v follow ``Axes.kv_spec``: sharded with
+the heads when "model" divides the KV heads, else replicated, and then a
+rank projects only the KV groups its own heads read (one gather of them
+per head where the groups do not split evenly). The replicated weights
+(the KV projections then, and the q/k norms) go through ``copy_to``:
+their gradient is the sum of the ranks' parts.
+
 Cross-attention (``gqa_forward`` with ``memory`` (B, M, d), or with a
 cache holding ``ck``/``cv``) projects the keys and values from the memory
 (whisper's encoder output, the VLM's vision tokens), with no rope and no
@@ -61,6 +72,7 @@ from torch import nn
 
 from repro_torch.kernels.flash import flash_attention
 from repro_torch.models.layers import _const, _init, apply_rope, rms_norm_simple, rope_table, torch_dtype
+from repro_torch.sharding import parallel as par
 
 Q_CHUNK = 512
 # flash attention pays (tile re-reads) only once the score matrix stops
@@ -77,12 +89,13 @@ class Attention(nn.Module):
     ``wo`` (H*dh, d); zero biases ``bq``/``bk``/``bv`` with cfg.attn_bias;
     float32 ``q_norm``/``k_norm`` (ones) with cfg.qk_norm; for a cross
     module of a VLM (``cross`` and cfg.n_vision_tokens) the float32 scalar
-    ``gate`` (zero)."""
+    ``gate`` (zero). With ``axes``, H is padded to the model axis."""
 
-    def __init__(self, cfg, gen, device=None, cross: bool = False):
+    def __init__(self, cfg, gen, device=None, cross: bool = False, axes=None):
         super().__init__()
         dtype = torch_dtype(cfg.dtype)
-        d, dh, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        d, dh, KV = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
+        H = axes.pad_heads(cfg.n_heads) if axes else cfg.n_heads
         s = d ** -0.5
         self.wq = _init(gen, (d, H * dh), s, dtype, device)
         self.wk = _init(gen, (d, KV * dh), s, dtype, device)
@@ -104,12 +117,14 @@ class MLA(nn.Module):
     ``wq_b`` (q_lora_rank, H*(qk_nope_dim + qk_rope_dim)), ``wkv_a`` (d,
     kv_lora_rank + qk_rope_dim), float32 ``kv_ln`` (ones), ``wk_b``
     (kv_lora_rank, H*qk_nope_dim), ``wv_b`` (kv_lora_rank, H*v_head_dim),
-    ``wo`` (H*v_head_dim, d), each at ``repro``'s scale."""
+    ``wo`` (H*v_head_dim, d), each at ``repro``'s scale; with ``axes``, H
+    padded to the model axis."""
 
-    def __init__(self, cfg, gen, device=None):
+    def __init__(self, cfg, gen, device=None, axes=None):
         super().__init__()
         dtype = torch_dtype(cfg.dtype)
-        d, H = cfg.d_model, cfg.n_heads
+        d = cfg.d_model
+        H = axes.pad_heads(cfg.n_heads) if axes else cfg.n_heads
         qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         qa, r = cfg.q_lora_rank, cfg.kv_lora_rank
         self.wq_a = _init(gen, (d, qa), d ** -0.5, dtype, device)
@@ -253,9 +268,32 @@ def _proj(x, w, b=None):
     return y + b if b is not None else y
 
 
+def _tp_weights(p: Attention, cfg, axes, H: int):
+    """(wk, wv, bk, bv, q_norm, k_norm, KV, idx) for this rank's H heads
+    under a mesh: the KV projections of its own KV heads when they are
+    sharded with the heads; when they are replicated, those of the KV
+    groups [lo, hi) its heads read, with ``idx`` the group of each head
+    where the heads do not split evenly over them (else None)."""
+    dh = cfg.head_dim
+    q_norm, k_norm = (None if n is None else par.copy_to(n, axes) for n in (p.q_norm, p.k_norm))
+    if axes.kv_spec(cfg.n_kv_heads) is not None:
+        return p.wk, p.wv, p.bk, p.bv, q_norm, k_norm, p.wk.shape[-1] // dh, None
+    g = par.group(axes, axes.model)
+    rep = H * g.size // cfg.n_kv_heads
+    first = g.index * H
+    lo, hi = first // rep, (first + H - 1) // rep + 1
+    cols = slice(lo * dh, hi * dh)
+    wk, wv = (par.copy_to(w, axes)[:, cols] for w in (p.wk, p.wv))
+    bk, bv = (None if b is None else par.copy_to(b, axes)[cols] for b in (p.bk, p.bv))
+    n = hi - lo
+    idx = torch.arange(first, first + H) // rep - lo
+    even = H % n == 0 and torch.equal(idx, torch.arange(H) // (H // n))
+    return wk, wv, bk, bv, q_norm, k_norm, n, None if even else idx.to(p.wk.device)
+
+
 def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
                 positions=None, rope: bool = True, cache=None, decode: bool = False,
-                memory=None):
+                memory=None, axes=None):
     """Returns (out, new_cache). Prefill (``cache`` given, ``decode``
     False) returns the prompt's k/v as the cache; decode (S == 1) writes
     the new k/v at the one position in ``positions`` in place and attends
@@ -264,22 +302,29 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     ``window``, prefill returns the ring of the last min(window, S) entries
     and decode writes into the ring (``_ring_decode``). ``memory`` (B, M,
     d), or a cache holding ``ck``/``cv``, makes it cross-attention
-    (``_cross``)."""
+    (``_cross``). With ``axes`` (training only: ``transformer.apply_block``
+    refuses the rest) the heads are this rank's (module docstring)."""
     B, S, d = x.shape
     dh = cfg.head_dim
     H = p.wq.shape[-1] // dh
     KV = cfg.n_kv_heads
     scale = dh ** -0.5
+    wk, wv, bk, bv, q_norm, k_norm, idx = p.wk, p.wv, p.bk, p.bv, p.q_norm, p.k_norm, None
+    if par.group(axes, axes.model if axes is not None else ()) is not None:
+        x = par.copy_to(x, axes)
+        wk, wv, bk, bv, q_norm, k_norm, KV, idx = _tp_weights(p, cfg, axes, H)
 
     q = _proj(x, p.wq, p.bq).reshape(B, S, H, dh)
     if cfg.qk_norm:
-        q = rms_norm_simple(q, p.q_norm, cfg.norm_eps)
+        q = rms_norm_simple(q, q_norm, cfg.norm_eps)
     if memory is not None or (cache is not None and "ck" in cache):
         return _cross(q, p, cfg, memory, cache, scale)
-    k = _proj(x, p.wk, p.bk).reshape(B, -1, KV, dh)
-    v = _proj(x, p.wv, p.bv).reshape(B, -1, KV, dh)
+    k = _proj(x, wk, bk).reshape(B, -1, KV, dh)
+    v = _proj(x, wv, bv).reshape(B, -1, KV, dh)
     if cfg.qk_norm:
-        k = rms_norm_simple(k, p.k_norm, cfg.norm_eps)
+        k = rms_norm_simple(k, k_norm, cfg.norm_eps)
+    if idx is not None:  # the KV group of each of this rank's heads
+        k, v = k[:, :, idx], v[:, :, idx]
 
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -321,7 +366,7 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     else:
         ctx = _chunked_attn(q, k, v, causal=causal, q_positions=positions,
                             k_positions=positions, scale=scale, window=window)
-    out = ctx.reshape(B, S, H * dh) @ p.wo
+    out = par.reduce_from(ctx.reshape(B, S, H * dh) @ p.wo, axes)
     if cache is None:
         return out, None
     if window:  # the ring: the last W entries, densely, with their positions (copies)

@@ -10,25 +10,76 @@ times a scale, then cast: the same distribution, not the same bits.
 Compute dtype is cfg.dtype; norm statistics are taken in float32.
 Parameters are trainable (``requires_grad``); serving runs under
 ``torch.no_grad()`` (``serve/engine.py``), so it records no graph.
+
+Under a mesh (``axes``) the MLP is tensor-parallel, Megatron's way: ``wi``,
+``wg`` and ``bi`` hold this rank's columns of the hidden width, ``wo`` its
+rows, and the partial products are summed over "model" (``reduce_from``)
+before ``bo``. The embedding is vocab-parallel: a rank holds a block of
+the table's rows, looks up the ids that fall in it, zeros the others, and
+the blocks' lookups are summed over "model": exactly one rank contributes
+to each id, so the sum is the one-rank lookup bit for bit.
+
+A sharded model draws its parameters whole, one leaf at a time and in the
+one-rank model's order, and keeps its block of each (``model.Model``):
+inside ``recording()`` (per thread), ``_init`` and ``_const`` make
+parameters on the meta device and note in creation order how to draw each.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding import parallel as par
+
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Within it, on this thread, ``_init`` and ``_const`` draw nothing:
+    each returns a meta parameter and appends (parameter, "randn" |
+    "full", scale | value) to the list this yields."""
+    prev, _LOCAL.drawn = getattr(_LOCAL, "drawn", None), []
+    try:
+        yield _LOCAL.drawn
+    finally:
+        _LOCAL.drawn = prev
+
+
+def _recorded(shape, dtype, kind: str, arg) -> nn.Parameter | None:
+    """Inside ``recording()``: a meta parameter, noted; else None."""
+    drawn = getattr(_LOCAL, "drawn", None)
+    if drawn is None:
+        return None
+    p = nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
+    drawn.append((p, kind, arg))
+    return p
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def draw(gen, kind: str, arg, shape, dtype, device) -> torch.Tensor:
+    """What ``_init`` ("randn", scale) or ``_const`` ("full", value) makes."""
+    if kind == "randn":
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * arg
+        return w.to(dtype)
+    return torch.full(shape, arg, dtype=dtype, device=device)
+
+
 def _init(gen, shape, scale, dtype, device) -> nn.Parameter:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
-    return nn.Parameter(w.to(dtype))
+    p = _recorded(shape, dtype, "randn", scale)
+    return p if p is not None else nn.Parameter(draw(gen, "randn", scale, shape, dtype, device))
 
 
 def _const(value: float, shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
+    p = _recorded(shape, dtype, "full", value)
+    return p if p is not None else nn.Parameter(draw(None, "full", value, shape, dtype, device))
 
 
 # ------------------------------------------------------------------ norms
@@ -121,7 +172,8 @@ def _act(x, name: str):
     return F.silu(x)
 
 
-def apply_mlp(x, p: MLP, cfg):
+def apply_mlp(x, p: MLP, cfg, axes=None):
+    x = par.copy_to(x, axes)
     h = x @ p.wi
     if p.bi is not None:
         h = h + p.bi
@@ -129,7 +181,7 @@ def apply_mlp(x, p: MLP, cfg):
         h = _act(x @ p.wg, cfg.act) * h
     else:
         h = _act(h, cfg.act)
-    out = h @ p.wo
+    out = par.reduce_from(h @ p.wo, axes)
     if p.bo is not None:
         out = out + p.bo
     return out
@@ -146,5 +198,12 @@ class Embed(nn.Module):
         self.table = _init(gen, (vocab_padded, cfg.d_model), 0.02, torch_dtype(cfg.dtype), device)
 
 
-def embed_tokens(ids, p: Embed):
-    return p.table[ids]
+def embed_tokens(ids, p: Embed, axes=None):
+    g = par.group(axes, axes.model) if axes is not None else None
+    if g is None:
+        return p.table[ids]
+    rows = p.table.shape[0]
+    local = ids.long() - g.index * rows
+    mine = (local >= 0) & (local < rows)
+    out = torch.where(mine[..., None], p.table[local.clamp(0, rows - 1)], 0)
+    return par.reduce_from(out, axes)

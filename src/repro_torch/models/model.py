@@ -20,6 +20,18 @@ are; it is computed outside decode only, where the cross caches hold its
 projections. Frames and vision enter in the model's dtype (cast if
 given in another): ``repro`` would promote a float32 memory through a
 bfloat16 model, which PyTorch's matmuls refuse.
+
+``Model(cfg, axes=...)`` is ``repro``'s ``Model(cfg, axes)``: the heads
+and the vocabulary padded to the model axis. With a mesh in ``axes``
+(``spec.from_mesh``) it is this rank's part of the sharded model: each
+parameter is this rank's block, by ``rules.param_specs`` (``specs``), of
+the leaf the one-rank model draws from the same seed. A rank draws one
+whole leaf at a time, in the one-rank model's order, and keeps its block,
+so it never holds the whole model. The forward takes the rank's block of
+the batch and returns logits over its block of the padded vocabulary
+(``train/loss.py`` takes them so). With ``axes`` and no mesh the model
+holds the whole padded leaves: their shapes on the meta device are
+``repro``'s ``abstract_params(cfg, axes=axes)``.
 """
 from __future__ import annotations
 
@@ -28,11 +40,25 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models import not_ported
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
-    Embed, Norm, _init, apply_norm, embed_tokens, sinusoidal_embed, torch_dtype,
+    Embed, Norm, _init, apply_norm, draw, embed_tokens, recording, sinusoidal_embed,
+    torch_dtype,
 )
-from repro_torch.sharding.spec import vocab_pad
+from repro_torch.sharding import parallel as par
+from repro_torch.sharding import rules
+from repro_torch.sharding.spec import Axes, vocab_pad
+
+
+def check_sharded(cfg: ModelConfig) -> None:
+    """Raise naming its item where a mesh does not train this config yet."""
+    for spec in cfg.layer_list():
+        tfm.check_sharded(spec)
+    if cfg.encoder_segments:
+        raise not_ported("the encoder under a mesh", "tp_mixers")
+    if cfg.optimizer == "adafactor":
+        raise not_ported("Adafactor under a mesh", "tp_mixers")
 
 
 class LMHead(nn.Module):
@@ -48,9 +74,9 @@ class Encoder(nn.Module):
     """``params["encoder"]``: one block a layer of ``cfg.encoder_segments``
     (``layers``) and ``final_norm``."""
 
-    def __init__(self, cfg, gen, device=None):
+    def __init__(self, cfg, gen, device=None, axes=None):
         super().__init__()
-        self.layers = nn.ModuleList(tfm.Block(spec, cfg, gen, device)
+        self.layers = nn.ModuleList(tfm.Block(spec, cfg, gen, device, axes=axes)
                                     for spec in tfm.segment_specs(cfg.encoder_segments))
         self.final_norm = Norm(cfg, cfg.d_model, device)
 
@@ -59,24 +85,56 @@ class Model(nn.Module):
     """A model on ``device`` (None means "cuda"; "meta" builds shapes
     only, for ``ModelConfig.param_count``) with weights drawn from
     ``seed``; with ``encoder``, an ``Encoder``, when cfg.encoder_segments.
-    ``cfg`` is read at every forward."""
+    ``cfg`` is read at every forward. ``axes``: module docstring; under a
+    mesh, ``specs`` maps each parameter to its spec and ``global_shapes``
+    to its whole shape."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, axes: Axes | None = None, device=None,
+                 seed: int = 0):
         super().__init__()
         dev = torch.device("meta") if str(device) == "meta" else resolve(device)
-        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
+        self.axes = axes
+        self.specs = None
+        if not self.sharded or dev.type == "meta":
+            gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+            self._build(gen, dev)
+            return
+        check_sharded(cfg)
+        par.make_groups(axes)
+        with recording() as drawn:
+            self._build(None, torch.device("meta"))
+        names = {id(p): n for n, p in self.named_parameters()}
+        self.global_shapes = {n: tuple(p.shape) for n, p in self.named_parameters()}
+        self.specs = rules.param_specs(self.global_shapes, cfg, axes)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for p, kind, arg in drawn:  # the one-rank model's order
+            name = names[id(p)]
+            whole = draw(gen, kind, arg, p.shape, p.dtype, dev)
+            block = par.shard_leaf(whole, self.specs[name], axes).clone()
+            del whole
+            owner, _, leaf = name.rpartition(".")
+            setattr(self.get_submodule(owner), leaf, nn.Parameter(block))
+
+    def _build(self, gen, dev):
+        cfg, axes = self.cfg, self.axes
         self.embed = Embed(cfg, self.vocab_padded, gen, dev)
-        self.layers = nn.ModuleList(tfm.Block(spec, cfg, gen, dev) for spec in cfg.layer_list())
+        self.layers = nn.ModuleList(tfm.Block(spec, cfg, gen, dev, axes=axes)
+                                    for spec in cfg.layer_list())
         self.final_norm = Norm(cfg, cfg.d_model, dev)
         self.lm_head = None if cfg.tie_embeddings else LMHead(cfg, self.vocab_padded, gen, dev)
-        self.encoder = Encoder(cfg, gen, dev) if cfg.encoder_segments else None
+        self.encoder = Encoder(cfg, gen, dev, axes=axes) if cfg.encoder_segments else None
         self.pos_embed = (_init(gen, (8192, cfg.d_model), 0.02, torch_dtype(cfg.dtype), dev)
                           if cfg.pos_embedding == "learned" else None)
 
     @property
+    def sharded(self) -> bool:
+        """Whether this is one rank's part of a model over a mesh."""
+        return self.axes is not None and self.axes.mesh is not None
+
+    @property
     def vocab_padded(self) -> int:
-        return vocab_pad(self.cfg.vocab)
+        return vocab_pad(self.cfg.vocab, self.axes)
 
     @property
     def device(self) -> torch.device:
@@ -93,7 +151,7 @@ class Model(nn.Module):
     # ------------------------------------------------------------ forward
     def _embed_in(self, batch, positions):
         cfg = self.cfg
-        x = embed_tokens(batch["tokens"], self.embed)
+        x = embed_tokens(batch["tokens"], self.embed, self.axes)
         if cfg.name.startswith("recurrentgemma"):  # gemma's scaling, in x's dtype
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
         if cfg.pos_embedding == "sinusoidal":
@@ -119,7 +177,7 @@ class Model(nn.Module):
         return None
 
     def _logits(self, x):
-        x = apply_norm(x, self.final_norm, self.cfg)
+        x = par.copy_to(apply_norm(x, self.final_norm, self.cfg), self.axes)
         if self.lm_head is None:
             return x @ self.embed.table.T
         return x @ self.lm_head.w
@@ -146,6 +204,6 @@ class Model(nn.Module):
         memory = None if decode else self._memory(batch)
         x, new_caches, aux = tfm.run_segments(
             x, self.layers, self.cfg.segments, self.cfg,
-            positions=positions, caches=caches, decode=decode, memory=memory,
+            positions=positions, caches=caches, decode=decode, memory=memory, axes=self.axes,
         )
         return self._logits(x), new_caches, aux

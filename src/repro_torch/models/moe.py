@@ -36,6 +36,16 @@ axes.expert)``: ("model",), or ("data", "model") for 2-D expert
 parallelism, which ``cfg.hierarchical_a2a`` factors into an exchange over
 "data" and one over "model".
 
+Both are differentiable (``sharding/parallel.py``): the exchange's
+backward is the same exchange of the gradients, the aux mean's gives each
+rank its part, and ``local_tokens`` takes the blocks with ``split``, whose
+backward gathers the gradients of the blocks. A sharded model
+(``transformer.apply_block``) already holds its batch block, holds its
+experts, splits the sequence over "model" itself (``split_seq``,
+``gather_seq`` on the output) and passes the router through ``copy_to``:
+each rank of "model" routes its own slice, so the router's gradient is
+the sum of theirs.
+
 ``jnp``'s out-of-range scatters drop (``mode="drop"``) and its gathers
 clamp. Here each scatter writes its dropped rows into one extra row that
 is cut off after it, and each gather clamps its index before the mask.
@@ -44,17 +54,22 @@ The dispatch is differentiable as ``repro``'s: the sort's keys and slots
 are integers, and gradients flow through the router's gate weights, the
 gathers, the scatters and the combine.
 ``moe_forward_decode`` gathers each token's top-k expert slices;
-``moe_ref`` is the dense one-hot oracle.
+``moe_ref`` is the dense one-hot oracle. Within ``recording_drops()``
+each dispatch notes how many assignments its two capacities dropped.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import _act, _init, torch_dtype
+from repro_torch.sharding import parallel as par
 from repro_torch.sharding.rules import fit_batch_axes
-from repro_torch.sharding.spec import Axes, axis_group, axis_index, axis_size
+from repro_torch.sharding.spec import Axes, axis_group
 
 
 class MoE(nn.Module):
@@ -64,7 +79,23 @@ class MoE(nn.Module):
 
     def __init__(self, router, wi, wg, wo):
         super().__init__()
-        self.router, self.wi, self.wg, self.wo = (nn.Parameter(t) for t in (router, wi, wg, wo))
+        self.router, self.wi, self.wg, self.wo = (
+            t if isinstance(t, nn.Parameter) else nn.Parameter(t) for t in (router, wi, wg, wo))
+
+
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def recording_drops():
+    """Within it, each dispatch on this thread appends (assignments,
+    dropped at the send capacity C, dropped at the expert capacity) to the
+    list this yields, read from the device (a synchronisation each)."""
+    prev, _LOCAL.drops = getattr(_LOCAL, "drops", None), []
+    try:
+        yield _LOCAL.drops
+    finally:
+        _LOCAL.drops = prev
 
 
 def init_moe(cfg, gen, device=None) -> MoE:
@@ -147,6 +178,10 @@ def _dispatch_body(xf, moe: MoE, cfg, *, n_shards: int, shard_id: int, a2a,
     e_bounds = torch.searchsorted(
         mkeys, first + torch.arange(E_loc + 1, dtype=torch.int32, device=dev), side="left")
     cap_e = max(1, int(T * K * n_shards // max(E, 1) * cfg.moe_capacity_factor) + 1)
+    drops = getattr(_LOCAL, "drops", None)
+    if drops is not None:
+        drops.append((A, int((send_counts - C).clamp(min=0).sum()),
+                      int((e_bounds[1:] - e_bounds[:-1] - cap_e).clamp(min=0).sum())))
     eidx = e_bounds[:-1, None] + torch.arange(cap_e, device=dev)[None, :]  # (E_loc, cap_e)
     evalid = eidx < e_bounds[1:, None]
     rows = torch.where(evalid, mpool[eidx.clamp(max=n_pool - 1)].long(), n_pool)
@@ -176,17 +211,19 @@ def _make_a2a(mesh, axis_names, hierarchical: bool = False):
         r[(d1,d2)][(s1,s2)] = x[(s1,s2)][(d1,d2)]
           == a2a_axis1(a2a_axis0(x.reshape(S1, S2, C)))
 
-    each over contiguous groups, with the same total bytes."""
+    each over contiguous groups, with the same total bytes. Either
+    permutation is its own inverse, which is its backward
+    (``parallel.exchange``)."""
     if hierarchical and isinstance(axis_names, (tuple, list)) and len(axis_names) == 2:
         g1, g2 = (axis_group(mesh, a) for a in axis_names)
 
-        def a2a(x):
+        def flat(x):
             y = g1.all_to_all(x.reshape(g1.size, g2.size, *x.shape[1:]))
-            y = g2.all_to_all(y.transpose(0, 1)).transpose(0, 1)
+            y = g2.all_to_all(y.transpose(0, 1).contiguous()).transpose(0, 1)
             return y.reshape(x.shape)
-
-        return a2a
-    return axis_group(mesh, axis_names).all_to_all
+    else:
+        flat = axis_group(mesh, axis_names).all_to_all
+    return lambda x: par.exchange(x, flat)
 
 
 def local_tokens(x, axes: Axes | None):
@@ -196,11 +233,9 @@ def local_tokens(x, axes: Axes | None):
     B, S, _ = x.shape
     bax = fit_batch_axes(B, axes)
     if bax is not None:
-        n, i = axis_size(axes.mesh, bax), axis_index(axes.mesh, bax)
-        x = x[i * B // n:(i + 1) * B // n]
+        x = par.split(x, 0, axes, bax)
     if S % axes.model_size == 0:
-        m, j = axes.model_size, axis_index(axes.mesh, axes.model)
-        x = x[:, j * S // m:(j + 1) * S // m]
+        x = par.split_seq(x, axes)
     return x
 
 
@@ -226,6 +261,8 @@ def moe_forward(x, moe: MoE, cfg, axes: Axes | None = None, *, use_pallas: bool 
     if axes is None or axes.expert_size == 1:
         out, aux, _ = _dispatch_body(xf, moe, cfg, n_shards=1, shard_id=0,
                                      a2a=lambda t: t, use_pallas=use_pallas)
+        if axes is not None and axes.mesh is not None:  # batch blocks: their mean
+            aux = par.aux_mean(aux, axes)
         return out.reshape(B, S, d), aux
 
     group = axis_group(axes.mesh, axes.expert)
@@ -238,9 +275,7 @@ def moe_forward(x, moe: MoE, cfg, axes: Axes | None = None, *, use_pallas: bool 
         a2a=_make_a2a(axes.mesh, axes.expert, hierarchical=cfg.hierarchical_a2a),
         use_pallas=use_pallas,
     )
-    # aux: the mean over every rank of the mesh
-    aux = axis_group(axes.mesh, tuple(axes.mesh.mesh_dim_names)).all_mean(aux)
-    return out.reshape(B, S, d), aux
+    return out.reshape(B, S, d), par.aux_mean(aux, axes)  # the mean over the mesh
 
 
 def moe_forward_decode(x, moe: MoE, cfg):

@@ -19,11 +19,22 @@ and the per-token expert gather (``moe.moe_forward_decode``) at decode.
 mirrors ``repro``'s signature, and nothing in the port's model passes it
 (``run_segments`` takes the default). Its default here is True, so that
 on the card the model's dispatch launches the bitonic kernels, where
-``repro``'s is False (``lax.sort``); both give the same bits. ``repro``'s EP x TP decode branch (``cfg.decode_moe_ep`` on a 2-D
-expert mesh) raises NotImplementedError naming its ROADMAP.md item: the
-port's model runs on one device.
+``repro``'s is False (``lax.sort``); both give the same bits. ``repro``'s
+EP x TP decode branch (``cfg.decode_moe_ep`` on a 2-D expert mesh) raises
+NotImplementedError naming its ROADMAP.md item.
+
+Under a mesh (``axes`` with a ``DeviceMesh``) a block trains
+tensor-parallel over "model" (``attention.gqa_forward``, ``layers.apply_mlp``
+for the dense FFN and the shared experts) with the MoE token-parallel:
+each rank of "model" routes its slice of the sequence (``split_seq``) to
+the experts over the expert axes and gathers the outputs
+(``gather_seq``). What a mesh does not run yet raises naming its item:
+the other mixers and cross-attention (11.2), prefill and decode with
+caches (11.3).
 """
 from __future__ import annotations
+
+import types
 
 import torch
 from torch import nn
@@ -34,6 +45,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import not_ported
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm, torch_dtype
+from repro_torch.sharding import parallel as par
 
 
 def segment_specs(segments) -> list:
@@ -51,18 +63,22 @@ class Block(nn.Module):
     and ``ln2`` with ``mlp`` for a dense FFN or with ``moe`` (and
     ``shared``, an MLP of width d_expert x n_shared_experts, when
     cfg.n_shared_experts) for an MoE FFN; ``ln_x`` and ``cross`` (a cross
-    ``attn.Attention``) for a spec with ``cross``."""
+    ``attn.Attention``) for a spec with ``cross``. ``axes`` pads the
+    attention heads (``Axes.pad_heads``)."""
 
-    def __init__(self, spec, cfg, gen, device=None):
+    def __init__(self, spec, cfg, gen, device=None, axes=None):
         super().__init__()
         d = cfg.d_model
         self.ln1 = Norm(cfg, d, device)
-        mixers = {"attn": attn.Attention, "local_attn": attn.Attention, "mla": attn.MLA,
-                  "rglru": rec.RGLRU, "mamba": rec.Mamba}
-        self.mix = mixers[spec.mixer](cfg, gen, device) if spec.mixer in mixers else None
+        heads = {"attn": attn.Attention, "local_attn": attn.Attention, "mla": attn.MLA}
+        mixers = {"rglru": rec.RGLRU, "mamba": rec.Mamba}
+        if spec.mixer in heads:
+            self.mix = heads[spec.mixer](cfg, gen, device, axes=axes)
+        else:
+            self.mix = mixers[spec.mixer](cfg, gen, device) if spec.mixer in mixers else None
         if spec.cross:
             self.ln_x = Norm(cfg, d, device)
-            self.cross = attn.Attention(cfg, gen, device, cross=True)
+            self.cross = attn.Attention(cfg, gen, device, cross=True, axes=axes)
         if spec.ffn == "dense":
             self.ln2 = Norm(cfg, d, device)
             self.mlp = MLP(cfg, d, cfg.d_ff, gen, device)
@@ -93,10 +109,37 @@ def init_block_cache(spec, cfg, B: int, S_max: int, device=None, memory_len: int
     return c
 
 
+def check_sharded(spec, *, cache=None, decode=False) -> None:
+    """Raise naming its item where a mesh does not run this block yet."""
+    if spec.mixer not in ("attn", "none"):
+        raise not_ported(f"mixer {spec.mixer!r} under a mesh", "tp_mixers")
+    if spec.cross:
+        raise not_ported("cross-attention under a mesh", "tp_mixers")
+    if cache is not None or decode:
+        raise not_ported("prefill and decode under a mesh", "sharded_serve")
+
+
+def _moe_sharded(h, p: Block, cfg, axes, use_pallas: bool):
+    """The token-parallel MoE of a sharded block: this rank's slice of the
+    sequence over "model" through its experts (module docstring)."""
+    if par.group(axes, axes.model) is not None and h.shape[1] % axes.model_size:
+        raise ValueError(f"a sequence of {h.shape[1]} does not split over "
+                         f"{axes.model_size} ranks of {axes.model!r}")
+    local = types.SimpleNamespace(router=par.copy_to(p.moe.router, axes), wi=p.moe.wi,
+                                  wg=p.moe.wg, wo=p.moe.wo)
+    mo, a = moe_lib.moe_forward(par.split_seq(h, axes), local, cfg, axes, use_pallas=use_pallas)
+    return par.gather_seq(mo, axes), a
+
+
 def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, memory=None,
-                use_pallas_moe: bool = True):
+                use_pallas_moe: bool = True, axes=None):
     """Returns (x, new_cache, aux). A cross block attends to ``memory``
-    (B, M, d) outside decode, and to its ``"cross"`` cache in decode."""
+    (B, M, d) outside decode, and to its ``"cross"`` cache in decode.
+    ``axes`` with a mesh: this rank's part of the block (module
+    docstring)."""
+    sharded = axes is not None and axes.mesh is not None
+    if sharded:
+        check_sharded(spec, cache=cache, decode=decode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
 
@@ -106,7 +149,7 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, 
         out, mc = attn.gqa_forward(
             h, p.mix, cfg, causal=spec.causal, window=_window(spec, cfg), positions=positions,
             rope=cfg.pos_embedding == "rope" or spec.mixer == "local_attn",
-            cache=mix_cache, decode=decode,
+            cache=mix_cache, decode=decode, axes=axes,
         )
     elif spec.mixer == "mla":
         out, mc = attn.mla_forward(h, p.mix, cfg, positions=positions, cache=mix_cache,
@@ -130,24 +173,26 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, 
             new_cache["cross"] = cc
 
     if spec.ffn == "dense":
-        x = x + apply_mlp(apply_norm(x, p.ln2, cfg), p.mlp, cfg)
+        x = x + apply_mlp(apply_norm(x, p.ln2, cfg), p.mlp, cfg, axes)
     elif spec.ffn == "moe":
         h = apply_norm(x, p.ln2, cfg)
         if decode:
             if cfg.decode_moe_ep:
                 raise not_ported("EP x TP MoE decode (decode_moe_ep)", "moe_ep")
             mo, a = moe_lib.moe_forward_decode(h, p.moe, cfg)
+        elif sharded:
+            mo, a = _moe_sharded(h, p, cfg, axes, use_pallas_moe)
         else:
             mo, a = moe_lib.moe_forward(h, p.moe, cfg, use_pallas=use_pallas_moe)
         aux = aux + a
         if p.shared is not None:
-            mo = mo + apply_mlp(h, p.shared, cfg)
+            mo = mo + apply_mlp(h, p.shared, cfg, axes)
         x = x + mo
     return x, new_cache, aux
 
 
 def run_segments(x, blocks, segments, cfg, *, positions, caches=None, decode=False,
-                 memory=None):
+                 memory=None, axes=None):
     """Run every layer. ``blocks`` and ``caches`` (or None) hold one entry
     per layer, in segment order: for each (period, count), count copies
     of the period. ``memory`` goes to every block (the cross blocks read
@@ -166,10 +211,11 @@ def run_segments(x, blocks, segments, cfg, *, positions, caches=None, decode=Fal
         cache = caches[i] if caches is not None else None
         if remat:
             x, nc, aux = checkpoint(apply_block, x, p, spec, cfg, positions=positions,
-                                    cache=cache, memory=memory, use_reentrant=False)
+                                    cache=cache, memory=memory, axes=axes,
+                                    use_reentrant=False)
         else:
             x, nc, aux = apply_block(x, p, spec, cfg, positions=positions, cache=cache,
-                                     decode=decode, memory=memory)
+                                     decode=decode, memory=memory, axes=axes)
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)

@@ -17,6 +17,16 @@ moment is factored is decided on the stacked shape, and its relative
 step clip takes the RMS of the update over the whole stacked leaf, so
 over every layer of the segment. ``apply_updates`` therefore takes the
 per-layer names ``repro`` stacks together (``segment_groups``).
+
+On a sharded model (``axes`` with a mesh) a rank holds its block of each
+parameter and gradient. The global norm is the sum of squares of every
+leaf's block, summed over the axes that shard the leaf, so that each
+element counts once whatever its replicas. AdamW is ZeRO-1: where a
+rank's m and v are a block of its parameter's along one dimension
+(``rules.opt_state_specs`` put "data" there), it updates that block of
+the parameter and gathers the blocks over "data" into the parameter;
+every replica then holds the same bits. Adafactor is refused under a
+mesh (``models.model.check_sharded``, ROADMAP.md §1 item 11.2).
 """
 from __future__ import annotations
 
@@ -24,6 +34,10 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.models import not_ported
+from repro_torch.sharding import parallel as par
+from repro_torch.sharding.rules import spec_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,16 +90,29 @@ def segment_groups(model_cfg, names) -> list[tuple[str, ...]]:
     return [tuple(g) for g in groups.values()]
 
 
-def _global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+def _global_norm(tree: dict, axes=None, specs=None) -> torch.Tensor:
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+    sums: dict = {}  # by the axes that shard the leaf
+    for name, t in tree.items():
+        names = spec_axes(specs[name])
+        sq = torch.sum(torch.square(t.float()))
+        sums[names] = sums[names] + sq if names in sums else sq
+    total = 0.0
+    for names, sq in sums.items():
+        g = par.group(axes, names)
+        total = total + (sq if g is None else g.all_sum(sq))
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float, inplace: bool = False):
+def clip_by_global_norm(grads: dict, max_norm: float, inplace: bool = False, axes=None,
+                        specs=None):
     """Returns (clipped grads, the global norm before clipping). With
     ``inplace`` the float32 gradients are scaled where they are (the same
-    bits) and returned."""
-    norm = _global_norm(grads)
+    bits) and returned. ``axes`` and ``specs``: the blocks of a sharded
+    model's gradients (module docstring)."""
+    norm = _global_norm(grads, axes, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     if inplace:
         for g in grads.values():
@@ -99,29 +126,55 @@ def clip_by_global_norm(grads: dict, max_norm: float, inplace: bool = False):
 # -------------------------------------------------------------------- AdamW
 
 
-def init_adamw_state(params: dict, cfg: OptConfig) -> dict:
+def init_adamw_state(params: dict, cfg: OptConfig, shapes: dict | None = None) -> dict:
+    """Zeroed m and v, of each parameter's shape or of ``shapes[name]``
+    (ZeRO-1: a block of it along one dimension)."""
     dt = getattr(torch, cfg.state_dtype)
-    return {"m": {k: torch.zeros(p.shape, dtype=dt, device=p.device) for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=dt, device=p.device) for k, p in params.items()}}
+
+    def zeros(k, p):
+        return torch.zeros(p.shape if shapes is None else shapes[k], dtype=dt, device=p.device)
+
+    return {"m": {k: zeros(k, p) for k, p in params.items()},
+            "v": {k: zeros(k, p) for k, p in params.items()}}
+
+
+def _zero_dim(p, m) -> int | None:
+    """The dimension along which the state ``m`` is a block of ``p``."""
+    if m.shape == p.shape:
+        return None
+    return next(i for i, (a, b) in enumerate(zip(p.shape, m.shape)) if a != b)
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: dict, step, cfg: OptConfig) -> None:
+def adamw_update(params: dict, grads: dict, state: dict, step, cfg: OptConfig,
+                 axes=None) -> None:
     """One AdamW step on every leaf, in place: bias correction with
-    t = step + 1, decoupled decay on every leaf."""
+    t = step + 1, decoupled decay on every leaf. A leaf whose m and v are
+    a block of it (ZeRO-1) updates that block and gathers the blocks over
+    "data" (module docstring)."""
     lr = float(lr_at(step, cfg))
     t = _f32(step) + 1.0
     bc1 = float(1 - cfg.b1 ** t)
     bc2 = float(1 - cfg.b2 ** t)
     dt = getattr(torch, cfg.state_dtype)
+    data = par.group(axes, "data") if axes is not None else None
     for k, p in params.items():
         m, v = state["m"][k], state["v"][k]
-        gf = grads[k].float()
-        pf = p.float()
+        dim = _zero_dim(p, m)
+        g, w = grads[k], p
+        if dim is not None:
+            n = m.shape[dim]
+            g, w = g.narrow(dim, data.index * n, n), p.narrow(dim, data.index * n, n)
+        gf = g.float()
+        pf = w.float()
         mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
         vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
         delta = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps) + cfg.weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+        new = (pf - lr * delta).to(p.dtype)
+        if dim is None:
+            p.copy_(new)
+        else:
+            p.copy_(torch.cat(data.all_gather(new).unbind(0), dim=dim))
         m.copy_(mf.to(dt))
         v.copy_(vf.to(dt))
 
@@ -209,25 +262,33 @@ def adafactor_update(params: dict, grads: dict, state: dict, step, cfg: OptConfi
 # ------------------------------------------------------------------ facade
 
 
-def init_opt_state(params: dict, cfg: OptConfig, groups=None) -> dict:
+def init_opt_state(params: dict, cfg: OptConfig, groups=None, shapes=None) -> dict:
+    """``shapes``: AdamW's ZeRO-1 blocks on a sharded model
+    (``train.step.state_shapes``)."""
     if cfg.name == "adafactor":
+        if shapes is not None:
+            raise not_ported("Adafactor under a mesh", "tp_mixers")
         return init_adafactor_state(params, cfg, groups)
-    return init_adamw_state(params, cfg)
+    return init_adamw_state(params, cfg, shapes)
 
 
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: dict, step, cfg: OptConfig,
-                  groups=None):
+                  groups=None, axes=None, specs=None):
     """Clip the gradients to ``cfg.clip_norm``, then update ``params`` and
     ``state`` in place. ``groups``: the names stacked into one leaf
     (``segment_groups``; only Adafactor reads them). Float32 gradients
     are clipped in place (the train step passes its own sums; a full
-    clipped copy would cost another float32 copy of the model). Returns
-    (params, state, the global norm before clipping)."""
+    clipped copy would cost another float32 copy of the model). ``axes``
+    and ``specs``: a sharded model's (module docstring). Returns (params,
+    state, the global norm before clipping)."""
     f32 = all(g.dtype == torch.float32 for g in grads.values())
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, inplace=f32)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, inplace=f32, axes=axes,
+                                       specs=specs)
     if cfg.name == "adafactor":
+        if specs is not None:
+            raise not_ported("Adafactor under a mesh", "tp_mixers")
         adafactor_update(params, grads, state, step, cfg, groups)
     else:
-        adamw_update(params, grads, state, step, cfg)
+        adamw_update(params, grads, state, step, cfg, axes)
     return params, state, gnorm

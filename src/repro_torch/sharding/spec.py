@@ -22,9 +22,11 @@ takes CUDA tensors, so a CPU tensor on an NCCL group goes through the
 rank's current CUDA device. The choice is made from the group's backend
 name.
 
-``Axes`` (the fields ``vocab_pad`` and the MoE dispatch read) and
-``vocab_pad`` are ``repro``'s, with ``from_mesh`` reading a ``DeviceMesh``;
-the head helpers wait for a sharded model tier (ROADMAP.md §1 item 11).
+``Axes`` (with its head helpers ``pad_heads`` and ``kv_spec``) and
+``vocab_pad`` are ``repro``'s, with ``from_mesh`` reading a ``DeviceMesh``.
+An ``Axes`` with ``mesh_shape`` and no ``mesh`` describes a mesh without
+joining one: the rules (``rules.py``) and the abstract shapes of a
+sharded model (``Model(cfg, axes=..., device="meta")``) need no more.
 The MoE dispatch's shard index over the expert axes, data-major as
 ``repro``'s ``_shard_index`` computes it, is ``axis_group(mesh,
 axes.expert).index``, and its aux loss's ``lax.pmean`` over every mesh
@@ -202,6 +204,18 @@ class AxisGroup:
         dist.all_reduce(wire, op=dist.ReduceOp.MAX, group=self.group)
         return wire.tolist()
 
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The element-wise sum over the group of a float tensor of any
+        shape (``lax.psum``), on ``t``'s device, ``t`` left as it was.
+        Types narrower than float32 are summed in float32, then cast back;
+        every rank gets the same bits."""
+        dist = _dist()
+        wide = t.dtype in (torch.float32, torch.float64)
+        wire = self._on_backend(t if wide else t.float())
+        wire = wire.clone(memory_format=torch.contiguous_format) if wire is t else wire.contiguous()
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.group)
+        return wire.to(device=t.device, dtype=t.dtype)
+
     def all_mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean over the group of a float tensor (``lax.pmean``: the
         sum, then divided by p), on ``t``'s device."""
@@ -276,6 +290,24 @@ class Axes:
         if not self.mesh_shape:
             return 1
         return math.prod(self.mesh_shape[a] for a in self.expert)
+
+    @property
+    def batch_size(self) -> int:
+        """The number of batch blocks: the product of the batch axes."""
+        if not self.mesh_shape:
+            return 1
+        return math.prod(self.mesh_shape[a] for a in self.batch)
+
+    def pad_heads(self, h: int) -> int:
+        """``h`` rounded up to a multiple of the model axis."""
+        m = self.model_size
+        return ((h + m - 1) // m) * m
+
+    def kv_spec(self, kv_heads: int):
+        """The model axis when it divides the KV heads (and is no larger),
+        else None: the KV heads are replicated."""
+        m = self.model_size
+        return self.model if (kv_heads % m == 0 and kv_heads >= m) else None
 
 
 def from_mesh(mesh, expert_2d: bool = False) -> Axes | None:

@@ -9,6 +9,16 @@ update then divides by the number of micro-batches, clips and steps the
 optimizer in place (``optim/adamw.py``). Parameters and optimizer states
 are dicts of tensors keyed by the model's ``state_dict`` names; the
 parameters are the model's own, so the model sees every update.
+
+On a sharded model (``Model(cfg, axes=...)`` over a mesh) each rank takes
+its block of the batch, and its loss is its share of the global batch's
+(``train/loss.py``; the aux loss's share is 1 / batch blocks of it).
+After the accumulation, each gradient sum is summed over the batch axes
+("pod", "data") that its parameter's spec does not shard: a leaf sharded
+over "data" (experts over ("data", "model")) already holds every block's
+part, through the exchange's backward. The sums go one bucket a set of
+axes, in chunks. The update is the optimizer's ZeRO-1 step
+(``optim/adamw.py``).
 """
 from __future__ import annotations
 
@@ -18,7 +28,11 @@ import torch
 
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw as opt_lib
+from repro_torch.sharding import parallel as par
+from repro_torch.sharding import rules
 from repro_torch.train.loss import cross_entropy
+
+SUM_CHUNK_BYTES = 1 << 28  # the float32 gradients summed in one collective
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,15 +46,42 @@ class TrainConfig:
 def make_loss_fn(model: Model, tcfg: TrainConfig):
     """loss_fn(micro) -> (total loss, metrics) on the model's parameters."""
     cfg = model.cfg
+    axes = model.axes if model.sharded else None
 
     def loss_fn(micro):
         logits, _, aux = model(micro)
-        loss, metrics = cross_entropy(logits, micro["labels"], cfg.vocab)
-        total = loss + tcfg.aux_coef * aux
-        metrics = dict(metrics, aux=aux, loss=total)
-        return total, metrics
+        loss, metrics = cross_entropy(logits, micro["labels"], cfg.vocab, axes=axes)
+        if axes is None:
+            total = loss + tcfg.aux_coef * aux
+            return total, dict(metrics, aux=aux, loss=total)
+        total = loss + tcfg.aux_coef * aux / axes.batch_size  # this rank's share
+        whole = metrics["nll"] + metrics["zloss"] + tcfg.aux_coef * aux.detach()
+        return total, dict(metrics, aux=aux, loss=whole)
 
     return loss_fn
+
+
+@torch.no_grad()
+def sum_over_batch_axes(grads: dict, specs: dict, axes) -> None:
+    """Each gradient summed in place over the batch axes its spec does not
+    shard: one bucket a set of axes, in chunks of SUM_CHUNK_BYTES."""
+    buckets: dict = {}
+    for name, spec in specs.items():
+        names = tuple(a for a in axes.batch if a not in rules.spec_axes(spec))
+        if par.group(axes, names) is not None:
+            buckets.setdefault(names, []).append(grads[name])
+    for names, leaves in buckets.items():
+        g = par.group(axes, names)
+        chunk, size = [], 0
+        for t in [*leaves, None]:
+            if t is not None:
+                chunk.append(t)
+                size += t.numel() * t.element_size()
+            if chunk and (t is None or size >= SUM_CHUNK_BYTES):
+                flat = g.all_sum(torch.cat([c.reshape(-1) for c in chunk]))
+                for c, part in zip(chunk, flat.split([c.numel() for c in chunk])):
+                    c.copy_(part.reshape(c.shape))
+                chunk, size = [], 0
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -57,8 +98,11 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     loss_fn = make_loss_fn(model, tcfg)
     acc_dt = getattr(torch, tcfg.accum_dtype)
     groups = opt_lib.segment_groups(model.cfg, dict(model.named_parameters()))
+    axes = model.axes if model.sharded else None
 
     def train_step(params: dict, opt_state: dict, step, batch: dict):
+        """``batch``: on a sharded model, this rank's block
+        (``data.pipeline.batch_block``)."""
         batch = _to_device(batch, model.device)
         accum = next(iter(batch.values())).shape[0]
         names, leaves = list(params), list(params.values())
@@ -76,8 +120,11 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         with torch.no_grad():
             for s in gsum:
                 s.div_(accum)
+        grads = dict(zip(names, gsum))
+        if axes is not None:
+            sum_over_batch_axes(grads, model.specs, axes)
         params, opt_state, gnorm = opt_lib.apply_updates(
-            params, dict(zip(names, gsum)), opt_state, step, tcfg.opt, groups)
+            params, grads, opt_state, step, tcfg.opt, groups, axes=axes, specs=model.specs)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
         metrics["grad_norm"] = gnorm
         metrics["lr"] = opt_lib.lr_at(step, tcfg.opt)
@@ -88,7 +135,25 @@ def make_train_step(model: Model, tcfg: TrainConfig):
 
 def init_train_state(model: Model, tcfg: TrainConfig):
     """(params, opt_state): the model's parameters (drawn from the seed the
-    model was built with) and a zeroed optimizer state on their devices."""
+    model was built with) and a zeroed optimizer state on their devices; on
+    a sharded model this rank's blocks of the states, ZeRO-1 over "data"
+    (``opt_state_specs``)."""
     params = dict(model.named_parameters())
     groups = opt_lib.segment_groups(model.cfg, params)
-    return params, opt_lib.init_opt_state(params, tcfg.opt, groups)
+    if not model.sharded:
+        return params, opt_lib.init_opt_state(params, tcfg.opt, groups)
+    return params, opt_lib.init_opt_state(params, tcfg.opt, groups,
+                                          shapes=state_shapes(model, tcfg))
+
+
+def state_specs(model: Model, tcfg: TrainConfig) -> dict:
+    """The specs of a sharded model's optimizer state (ZeRO-1)."""
+    shapes = model.global_shapes  # AdamW's: a mesh refuses Adafactor (check_sharded)
+    return rules.opt_state_specs({"m": shapes, "v": shapes}, model.specs, model.cfg,
+                                 model.axes, zero=True)
+
+
+def state_shapes(model: Model, tcfg: TrainConfig) -> dict:
+    """{name: this rank's shape} of AdamW's m and v on a sharded model."""
+    specs = state_specs(model, tcfg)["m"]
+    return {n: par.local_shape(model.global_shapes[n], s, model.axes) for n, s in specs.items()}

@@ -1,9 +1,11 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) and
 mesh helpers on the CPU: it trains, saves, resumes and prints ``repro``'s
 lines; ``--layers`` builds ``repro``'s config (dense-only for
-deepseek-moe-16b); more than one rank raises NotImplementedError naming
-ROADMAP.md item 11; without ``--device`` and without a card it raises
-the device rule's RuntimeError."""
+deepseek-moe-16b); more than one rank trains (tests/test_torch_sharded_train.py
+runs it on four), except what a mesh does not run yet, which raises
+NotImplementedError naming its ROADMAP.md item 11 part before joining a
+process group; without ``--device`` and without a card it raises the
+device rule's RuntimeError."""
 import re
 
 import pytest
@@ -58,11 +60,13 @@ def test_more_than_one_rank_is_item_11(monkeypatch):
     """WORLD_SIZE=2 with no process group up, as the launcher sees a
     ``torchrun`` start. The one-rank gloo group that other test files
     leave in this worker process (``torch_parity.world_mesh``) would
-    answer 1 in its place, so it is hidden here."""
+    answer 1 in its place, so it is hidden here. Sharded training runs
+    (tests/test_torch_sharded_train.py); deepseek-v3's MLA under a mesh is
+    item 11.2, refused before any process group is joined."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
-    with pytest.raises(NotImplementedError, match=r"item 11 \(sharded parameters"):
-        train.main(["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match=r"item 11\.2 \(tensor parallelism"):
+        train.main(["--device", "cpu", "--arch", "deepseek-v3-671b"])
 
 
 def test_the_card_is_the_default_device(monkeypatch):
