@@ -327,16 +327,16 @@ Phases, one line or more each:
      every parameter block within 1e-5 x max of the one-rank step's
      (TF32 off; an entry whose gradient is at the noise floor, m under
      1e-6 of max |m|, within lr); (2) phase 11's cut (1 dense + 3 MoE,
-     bf16, capacity 1.25, remat) for 4 steps of 2 x 4096 x accum 2
+     bf16, capacity 1.25, remat) for 2 steps of 2 x 4096 x accum 2
      through ``RestartManager.run`` on ``PackedLoader``'s blocks, every
      loss finite and within 5% of the one-rank run's on the same batch,
      every replicated leaf the same bits on its replicas after each
      step; logged: step wall, tokens/s, each rank's peak and the card's
-     (nvidia-smi), a fifth step with every collective timed (the
+     (nvidia-smi), a third step with every collective timed (the
      exchange's and the all-reduces' shares), the MoE drops per rank
      and layer; (3) each rank's kv sort and kv merge launches (counts set
      to 0 just before the run, read just after) equal to the data round
-     plus 4 steps of ``moe_dispatch_launches`` at the rank's 2048 tokens
+     plus 2 steps of ``moe_dispatch_launches`` at the rank's 2048 tokens
      and 4 shards, and nonzero; (4) ``python -m repro_torch.launch.train
      --arch deepseek-moe-16b --full-config --layers 2 --seq-len 1024
      --global-batch 4 --steps 3 --save-every 2 --dist-backend gloo`` on
@@ -344,6 +344,35 @@ Phases, one line or more each:
      removed as if the run had died after step 2's, again with
      ``--resume``: every rank resumes at step 2 (each saves step 3), and
      the third step's line (step 2) equals the uninterrupted run's.
+ 17. sharded serving: deepseek-moe-16b served at full width on four ranks
+     sharing the card through gloo (``run_ranks``, ``--mesh-phase 17``;
+     every group with a 300 s timeout) through ``serve.engine``'s
+     prefill, ``extend_caches``, decode steps and ``generate`` on a
+     sharded ``Model``, against the one-rank port of the same seed, run
+     in this process before the ranks start (its MoE ``grouped_ffn``
+     with the assignments the ranks' dispatch keeps, ``dispatch_keep``:
+     EP x TP decode's expert capacity at one token a data rank is 1
+     whatever the factor). Checks: (1) a 1 dense + 1 MoE cut in float32
+     (TF32 off, capacity 16: nothing drops at prefill), 2 prompts of 1024
+     + 8 steps fed the reference's tokens, on (data, model) = (1, 4) with
+     expert-TP decode, (2, 2) with ``decode_moe_ep`` and (1, 4) with
+     ``seq_shard``: the prefill and every step's logits and the caches
+     gathered after prefill and after the last step within 1e-5 x max of
+     the reference's, replicated logits the same bits; (2) the published
+     config (28 layers, bf16, flash) on (2, 2) with ``decode_moe_ep``, 2
+     prompts of 8192 + 16 new: with the reference's routing replayed and
+     its tokens fed, the prefill logits and every step's within 5e-2 x
+     max |logit|, and the drops summed over the ranks equal to the
+     reference's rule, layer by layer; then the served run at capacity
+     1.25 (``generate``), its pieces timed from inside: the experts' re-lay
+     each way, prefill (its all-reduces', all-gathers' and exchange's
+     shares), the decode steps, tokens/s; then a step's shares, each
+     rank's peak and the card's (nvidia-smi), the drops per rank and
+     layer, a decode step's idle share on rank 0; every rank's tokens
+     the same; (3) each rank's launches in ``generate`` (counts set to 0
+     just before, read just after) equal to 27 MoE layers x
+     ``moe_dispatch_launches`` (prefill: 4096 tokens, 4 shards; each of
+     15 steps: 1 token, 2 shards) and flash one a layer, each nonzero.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
@@ -353,7 +382,8 @@ phase 13's served run's as ``launches_mla``, flash's too, with flash's
 numbers at MLA's shape as ``*_mla``, phase 14's two served models' as
 ``launches_rec``, all 0, phase 15's two served models' as
 ``launches_cross`` (flash 40, the rest 0), phase 16's check-2 runs
-summed over the ranks and both meshes as ``launches_sharded``; their
+summed over the ranks and both meshes as ``launches_sharded``, phase
+17's served runs summed over the ranks as ``launches_sharded_serve``; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -368,6 +398,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 14    # phases 1, 2 and 14
     python3 chip_smoke.py --phases 15    # phases 1, 2 and 15
     python3 chip_smoke.py --phases 16    # phases 1, 2 and 16
+    python3 chip_smoke.py --phases 17    # phases 1, 2 and 17
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -4688,6 +4719,7 @@ SHARD_F32_TOL = 1e-5  # of max |m| and of max |parameter|
 SHARD_ADAM_FLOOR = 1e-7
 SHARD_LOSS_TOL = 0.05  # check 2: tests/test_distributed.py's limit
 SHARD_TIMEOUT_S = 300  # every gloo group of the phase
+SHARD_STEPS = 2  # check 2's steps a mesh (phase 11 takes 4; cut so phase 17 fits the run)
 SHARD_LAUNCH = ("--arch", "deepseek-moe-16b", "--full-config", "--layers", "2", "--seq-len",
                 "1024", "--global-batch", "4", "--save-every", "2", "--dist-backend", "gloo",
                 "--log-every", "1")  # check 4
@@ -4858,7 +4890,7 @@ def shard_bf16_rank(axes, device, rank: int, scratch) -> dict:
     torch.cuda.synchronize()
     dist.barrier()
     reset_counts()
-    (params, ost), _ = mgr.run((params, ost), 0, TRAIN_STEPS, wrapped_step, make_batch)
+    (params, ost), _ = mgr.run((params, ost), 0, SHARD_STEPS, wrapped_step, make_batch)
     torch.cuda.synchronize()
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -4882,7 +4914,7 @@ def shard_bf16_rank(axes, device, rank: int, scratch) -> dict:
     try:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        step_fn(params, ost, TRAIN_STEPS, batches[0])
+        step_fn(params, ost, SHARD_STEPS, batches[0])
         torch.cuda.synchronize()
         timed_ms = (time.perf_counter() - t1) * 1e3
     finally:
@@ -5031,7 +5063,7 @@ def sharded_phase(device) -> dict:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
-    # check 2's one-rank run: phase 11's four steps on the same batch
+    # check 2's one-rank run: SHARD_STEPS of phase 11's steps on the same batch
     cfg = train_config()
     tcfg = shard_tcfg(cfg)
     model = Model(cfg, device=device, seed=0)
@@ -5043,7 +5075,7 @@ def sharded_phase(device) -> dict:
     batch = next(iter(shard_loader(cfg, device)))
     step_fn = make_train_step(model, tcfg)
     one = []
-    for s in range(TRAIN_STEPS):
+    for s in range(SHARD_STEPS):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         loss = float(step_fn(params, ost, s, batch)[2]["loss"])
@@ -5110,7 +5142,7 @@ def sharded_phase(device) -> dict:
                      for k, v in per_layer.items()}
         want_step["flash_attention"] = 0
         want_data = dict(zip(per_layer, KEY_VALUE), flash_attention=0)
-        want_run = {k: want_data[k] + TRAIN_STEPS * want_step[k] for k in want_step}
+        want_run = {k: want_data[k] + SHARD_STEPS * want_step[k] for k in want_step}
         for r, run in enumerate(runs):
             med = statistics.median(run["step_ms"][1:])
             spent = run["spent_ms"]
@@ -5144,7 +5176,7 @@ def sharded_phase(device) -> dict:
         log(f"phase 16: check 2 on {label}: losses within {SHARD_LOSS_TOL} of the one rank's and "
             f"replicas the same bits on every rank: {not any('check 2' in f for f in failed)}; "
             f"check 3: derived per rank {want_run} = the data round {want_data} + "
-            f"{TRAIN_STEPS} steps x {want_step} (per MoE layer and micro-step {per_layer}: {T} "
+            f"{SHARD_STEPS} steps x {want_step} (per MoE layer and micro-step {per_layer}: {T} "
             f"tokens, {T * K} assignments, {MESH_WORLD} shards, C {C})")
     if not all(total[k] > 0 for k in ("bitonic_sort_rows_kv", "bitonic_merge_rows_kv")):
         failed.append(f"check 3: a kv kernel did not launch: {total}")
@@ -5180,7 +5212,705 @@ def sharded_phase(device) -> dict:
     return total
 
 
-ALL_PHASES = frozenset(range(1, 17))
+# ----------------------------------------------------------------- phase 17
+
+# label: ((data, model), experts over ("data", "model"), decode_moe_ep, seq_shard)
+SERVE_MESHES = (("(1, 4), expert-TP decode", (1, 4), False, False, False),
+                ("(2, 2), decode_moe_ep", (2, 2), True, True, False),
+                ("(1, 4), seq_shard", (1, 4), False, False, True))
+SERVE_F32_B, SERVE_F32_S, SERVE_F32_NEW = 2, 1024, 8  # check 1
+# check 1's capacity: the seeded routers send nearly every token to the
+# same few experts (phase 16 drops most assignments at 1.25), so an expert may take
+# all 2048 tokens; at 16 its capacity (3073) holds them and nothing drops
+# at prefill. EP x TP decode's expert capacity at one token a rank is 1
+# whatever the factor: there the reference applies the same rule
+SERVE_F32_CF = 16.0
+SERVE_F32_TOL = 1e-5  # of max |logit| and of max |k|, |v|
+SERVE_B, SERVE_S, SERVE_NEW = 2, 8192, 16  # check 2, the published config
+SERVE_MESH = (2, 2)  # check 2: 2-D experts, decode_moe_ep
+SERVE_TOL = 5e-2  # of max |logit|, as phases 5, 10 and 12
+SERVE_TIMEOUT_S = 300  # every gloo group of the phase
+
+
+def serve_f32_config(decode_moe_ep: bool = False):
+    """Check 1's cut: deepseek-moe-16b at full width, 1 dense + 1 MoE layer,
+    float32, capacity factor SERVE_F32_CF, flash off (S < FLASH_MIN_SEQ)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("deepseek-moe-16b")
+    (dense, _), (moe_period, _) = cfg.segments
+    return dataclasses.replace(cfg, segments=((dense, 1), (moe_period, 1)), n_layers=2,
+                               dtype="float32", moe_capacity_factor=SERVE_F32_CF,
+                               decode_moe_ep=decode_moe_ep)
+
+
+def serve_config():
+    """Check 2's model: the published deepseek-moe-16b (28 layers, bf16),
+    flash on, ``decode_moe_ep`` (``repro``'s --opt serving), capacity 1.25."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config("deepseek-moe-16b"), flash_attention=True,
+                               decode_moe_ep=True)
+
+
+def serve_prompts(vocab: int, B: int, S: int, seed: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (B, S)).astype(np.int32))
+
+
+def prefill_blocks(shape, expert_2d: bool, B: int, S: int) -> list:
+    """The global token indices (b * S + position) each source shard of the
+    prefill's dispatch routes, in its order: the shards are the ranks of
+    the expert axes, data-major, each with its rows and its slice of the
+    sequence over "model"."""
+    import torch
+
+    data, model = shape
+    rows = B // data if B % data == 0 else B
+    sl = S // model
+    out = []
+    for d in range(data if expert_2d else 1):
+        for m in range(model):
+            b = torch.arange(rows) + (d * rows if expert_2d else 0)
+            out.append((b[:, None] * S + m * sl + torch.arange(sl)).reshape(-1))
+    return out
+
+
+def dispatch_keep(ids, blocks: list, n_experts: int, cf: float):
+    """Which assignments the sorted dispatch keeps (``moe._dispatch_body``'s
+    capacities): ids (T, K) for every token; ``blocks``, each source
+    shard's tokens in its order. A source sends the first C of its
+    (expert, slot)-sorted assignments to each shard; a shard takes, per
+    expert, the first cap_e of what it receives, sources in coordinate
+    order. Returns a (T, K) bool mask."""
+    import torch
+
+    T, K = ids.shape
+    n = len(blocks)
+    e_loc = n_experts // n
+    flat = ids.reshape(-1).long().cpu()
+    keep = torch.zeros(T * K, dtype=torch.bool)
+    taken = torch.zeros(n_experts, dtype=torch.long)
+    for tokens in blocks:  # sources in coordinate order
+        slots = (tokens[:, None] * K + torch.arange(K)).reshape(-1)
+        keys = flat[slots]
+        order = torch.sort(keys, stable=True).indices
+        sk = keys[order]
+        A = sk.numel()
+        C = moe_capacity(A, n, cf)
+        cap_e = max(1, int(A * n // n_experts * cf) + 1)
+        pos = torch.arange(A)
+        sent = pos - torch.searchsorted(sk, sk // e_loc * e_loc) < C
+        rank = taken[sk] + pos - torch.searchsorted(sk, sk)
+        keep[slots[order]] = sent & (rank < cap_e)
+        taken += torch.bincount(sk[sent], minlength=n_experts)
+    return keep.reshape(T, K)
+
+
+def grouped_ffn(xf, layer, cfg, w, ids):
+    """sum_k w[t, k] * FFN_{ids[t, k]}(x_t), each expert over the tokens it
+    takes (float32 accumulation): the MoE without capacities."""
+    import torch
+    from repro_torch.models.layers import _act
+
+    K = ids.shape[1]
+    flat = ids.reshape(-1).long()
+    order = torch.sort(flat, stable=True).indices
+    counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=xf.device)
+    start = 0
+    for e, c in enumerate(counts):
+        if c:
+            sel = order[start:start + c]
+            x = xf[sel // K]
+            y = (_act(x @ layer.wg[e], cfg.act) * (x @ layer.wi[e])) @ layer.wo[e]
+            out.index_add_(0, sel // K, y.float() * w.reshape(-1)[sel, None].float())
+            start += c
+    return out.to(xf.dtype)
+
+
+class ReferenceMoE:
+    """Within it, the one-rank model's MoE is ``grouped_ffn`` with each
+    assignment weighted by what the ranks' dispatch keeps
+    (``dispatch_keep`` at capacity ``cf``, over ``pre_blocks`` at prefill
+    and ``dec_blocks`` at decode; None: every assignment, as expert-TP
+    decode gathers). ``routes`` records every layer's (w, ids) and
+    ``drops`` the assignments left out, in call order."""
+
+    def __init__(self, pre_blocks, dec_blocks, cf: float):
+        self.blocks = {False: pre_blocks, True: dec_blocks}
+        self.cf = cf
+        self.routes, self.drops = [], []
+
+    def _forward(self, decode: bool):
+        def forward(x, layer, cfg, axes=None, **kw):
+            import torch
+            from repro_torch.models import moe
+
+            B, S, d = x.shape
+            xf = x.reshape(-1, d)
+            w, ids, aux = moe._router(xf, layer.router, cfg)
+            self.routes.append((w.cpu(), ids.cpu()))
+            blocks = self.blocks[decode]
+            keep = (torch.ones_like(ids, dtype=torch.bool) if blocks is None
+                    else dispatch_keep(ids, blocks, cfg.n_experts, self.cf).to(w.device))
+            self.drops.append(int((~keep).sum()))
+            return grouped_ffn(xf, layer, cfg, w * keep, ids).reshape(B, S, d), aux
+        return forward
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.saved = moe.moe_forward, moe.moe_forward_decode
+        moe.moe_forward, moe.moe_forward_decode = self._forward(False), self._forward(True)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_forward, moe.moe_forward_decode = self.saved
+
+
+def serve_reference(model, tokens, n_new: int, ref_moe) -> dict:
+    """The one-rank port's prefill, ``extend_caches`` and greedy steps
+    under ``ref_moe``: the last-position logits (float32, CPU), each step's,
+    the tokens, the caches after prefill and after the last step
+    (``caches_to_numpy``, float32 only), the routes and the drops."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.serve import engine
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    out = {}
+    with ref_moe:
+        logits, caches = engine.make_prefill(model)({"tokens": tokens})
+        n_pre = len(ref_moe.routes)
+        out["prefill"] = logits.float().cpu()
+        if cfg.dtype == "float32":
+            out["caches_prefill"] = convert.caches_to_numpy(cfg, caches)
+        caches = engine.extend_caches(model, caches, S, S + n_new)
+        step = engine.make_serve_step(model)
+        tok = logits[..., :cfg.vocab].argmax(-1).to(torch.int32)
+        toks, steps = [tok], []
+        for i in range(n_new - 1):
+            logits, caches = step(caches, tok, S + i)
+            steps.append(logits.float().cpu())
+            tok = logits[..., :cfg.vocab].argmax(-1).to(torch.int32)
+            toks.append(tok)
+    if cfg.dtype == "float32":
+        out["caches_decoded"] = convert.caches_to_numpy(cfg, caches)
+    out["steps"] = torch.stack(steps)
+    out["tokens"] = torch.cat(toks, dim=1).cpu()
+    out["routes_prefill"] = ref_moe.routes[:n_pre]
+    out["routes_decode"] = ref_moe.routes[n_pre:]
+    out["drops_prefill"] = ref_moe.drops[:n_pre]
+    out["drops_decode"] = ref_moe.drops[n_pre:]
+    return out
+
+
+def rows_err(got, want) -> float:
+    """max |got - want| over max |want| (float32)."""
+    want = want.float()
+    return float((got.float().cpu() - want).abs().max() / want.abs().max())
+
+
+def caches_err(got: list, want: list) -> float:
+    """The largest error of the caches (``caches_to_numpy``'s layout) over
+    the largest |entry| of its leaf."""
+    import numpy as np
+
+    worst = 0.0
+    for gs, ws in zip(got, want, strict=True):
+        for gd, wd in zip(gs, ws, strict=True):
+            for key in wd:
+                for name in wd[key]:
+                    a, b = np.asarray(gd[key][name], np.float32), np.asarray(wd[key][name],
+                                                                               np.float32)
+                    worst = max(worst, float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+    return worst
+
+
+def logits_replicated(t, axes, B: int) -> bool:
+    """Whether the ranks that hold the same rows hold the same bits."""
+    import torch
+    from repro_torch.sharding import parallel as par
+
+    bax = par.batch_axes(B, axes) or ()
+    g = par.group(axes, tuple(a for a in axes.mesh.mesh_dim_names if a not in bax))
+    return g is None or all(torch.equal(t, o) for o in g.all_gather(t.contiguous()).unbind(0))
+
+
+def serve_f32_rank(mesh, expert_2d, ep, seq_shard, device, ref) -> dict:
+    """Check 1 on one rank: the f32 cut served over ``mesh``, the decode
+    teacher-forced on the reference's tokens; each error over the
+    reference's max."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+    from repro_torch.sharding import parallel as par
+    from repro_torch.sharding import spec
+
+    axes = spec.from_mesh(mesh, expert_2d=expert_2d)
+    cfg = serve_f32_config(decode_moe_ep=ep)
+    model = Model(cfg, axes=axes, device=device, seed=0)
+    B, S, n_new = SERVE_F32_B, SERVE_F32_S, SERVE_F32_NEW
+    tokens = serve_prompts(cfg.vocab, B, S, 71).to(device)
+    rows = par.batch_rows(torch.arange(B), axes)
+    with moe.recording_drops() as drops:
+        logits, caches = engine.make_prefill(model)({"tokens": tokens}, seq_shard=seq_shard)
+    same = logits_replicated(logits, axes, B)
+    out = {"prefill": rows_err(logits, ref["prefill"][rows]), "prefill_drops": drops,
+           "caches_prefill": caches_err(convert.caches_to_numpy(cfg, caches, axes, B),
+                                        ref["caches_prefill"])}
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    step = engine.make_serve_step(model)
+    errs = []
+    with moe.recording_drops() as drops:
+        for i in range(n_new - 1):
+            logits, caches = step(caches, ref["tokens"][:, i:i + 1].to(device), S + i)
+            same &= logits_replicated(logits, axes, B)
+            errs.append(rows_err(logits, ref["steps"][i][rows]))
+    out.update(steps=errs, decode_drops=drops, replicated=bool(same),
+               caches_decoded=caches_err(convert.caches_to_numpy(cfg, caches, axes, B),
+                                         ref["caches_decoded"]),
+               local_cache=tuple(caches[1]["mix"]["k"].shape), layout=model.layout)
+    del model, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_router(routes: list, rows_of):
+    """``moe._router`` replaying ``routes`` (the reference's (w, ids) per
+    call, in order): each call returns this rank's rows (``rows_of(i)``
+    for call i) on the input's device, and a zero aux."""
+    import torch
+
+    it = iter(enumerate(routes))
+
+    def router(xf, router_w, cfg):
+        i, (w, ids) = next(it)
+        r = rows_of(i)
+        return (w[r].to(xf.device), ids[r].to(xf.device),
+                torch.zeros((), dtype=torch.float32, device=xf.device))
+
+    return router
+
+
+def timed_collectives(spent: dict):
+    """Patch ``AxisGroup``'s collectives named in ``spent`` to add their
+    synchronised wall time to it; returns the originals."""
+    import torch
+    from repro_torch.sharding import spec
+
+    real = {k: getattr(spec.AxisGroup, k) for k in spent}
+
+    def timed(kind):
+        def call(self, *a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = real[kind](self, *a, **k)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t1
+            return r
+        return call
+
+    for k in spent:
+        setattr(spec.AxisGroup, k, timed(k))
+    return real
+
+
+def restore_collectives(real: dict) -> None:
+    from repro_torch.sharding import spec
+
+    for k, fn in real.items():
+        setattr(spec.AxisGroup, k, fn)
+
+
+def serve_bf16_rank(mesh, device, rank: int, scratch) -> dict:
+    """Check 2 and check 3 on one rank: the published config over (2, 2)
+    with ``decode_moe_ep``; the held run with the reference's routing
+    replayed and its tokens fed; then the served run at capacity 1.25
+    (counts set to 0 just before ``generate``, read just after), timed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import engine
+    from repro_torch.sharding import parallel as par
+    from repro_torch.sharding import spec
+
+    axes = spec.from_mesh(mesh, expert_2d=True)
+    cfg = serve_config()
+    B, S, n_new = SERVE_B, SERVE_S, SERVE_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, axes=axes, device=device, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = {"tokens": serve_prompts(cfg.vocab, B, S, 73).to(device)}
+    ref = torch.load(scratch / "bf16_ref.pt", weights_only=False)
+    src = spec.axis_group(mesh, axes.expert).index
+    data = spec.axis_group(mesh, "data").index
+    model_idx = spec.axis_group(mesh, "model").index
+    rows = par.batch_rows(torch.arange(B), axes)
+    blocks = prefill_blocks(SERVE_MESH, True, B, S)
+    n_pre = len(ref["routes_prefill"])
+    prefill = engine.make_prefill(model)
+    step = engine.make_serve_step(model)
+
+    # the held run: routing replayed, the reference's tokens fed
+    real_router = moe._router
+    moe._router = replay_router(ref["routes_prefill"] + ref["routes_decode"],
+                                lambda i: blocks[src] if i < n_pre else [data])
+    try:
+        with moe.recording_drops() as pre_drops:
+            logits, caches = prefill(batch)
+        held = {"prefill": rows_err(logits, ref["prefill"][rows])}
+        caches = engine.extend_caches(model, caches, S, S + n_new)
+        errs = []
+        with moe.recording_drops() as dec_drops:
+            for i in range(n_new - 1):
+                logits, caches = step(caches, ref["tokens"][:, i:i + 1].to(device), S + i)
+                errs.append(rows_err(logits, ref["steps"][i][rows]))
+    finally:
+        moe._router = real_router
+    held.update(steps=errs, prefill_drops=[c + e for _, c, e in pre_drops],
+                decode_drops=[c + e for _, c, e in dec_drops] if model_idx == 0 else [])
+    del caches, logits
+    torch.cuda.empty_cache()
+
+    # the served run: ``generate``, counts set to 0 just before and read just
+    # after; its pieces timed from inside (the engine's prefill and step
+    # wrapped, the prefill's collectives timed, the experts' re-lays)
+    relay_ms, step_ms, spent, kept = [], [], {"all_to_all": 0.0, "all_sum": 0.0,
+                                              "all_gather": 0.0}, {}
+    real_layout = model.set_layout
+
+    def timed_layout(mode):
+        if mode == model.layout:
+            return
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        real_layout(mode)
+        torch.cuda.synchronize()
+        relay_ms.append((time.perf_counter() - t1) * 1e3)
+
+    real_prefill, real_step = engine.make_prefill, engine.make_serve_step
+
+    def make_prefill(m):
+        fn = real_prefill(m)
+
+        def timed_prefill(*a, **k):
+            real = timed_collectives(spent)
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                restore_collectives(real)
+            kept["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+            return r
+        return timed_prefill
+
+    def make_serve_step(m):
+        fn = real_step(m)
+
+        def timed_step(caches, tok, pos):
+            before = sum(relay_ms)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = fn(caches, tok, pos)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3 - (sum(relay_ms) - before))
+            kept["caches"] = r[1]
+            return r
+        return timed_step
+
+    timed_layout("train")  # generate's prefill starts from the train layout
+    model.set_layout = timed_layout
+    engine.make_prefill, engine.make_serve_step = make_prefill, make_serve_step
+    try:
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts()
+        with moe.recording_drops() as served_drops:
+            t0 = time.perf_counter()
+            out = engine.generate(model, batch, n_new)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        engine.make_prefill, engine.make_serve_step = real_prefill, real_step
+        del model.set_layout
+    prefill_ms = kept["prefill_ms"]
+    pre_spent = {k: v * 1e3 for k, v in spent.items()}
+    n_moe = sum(sp.ffn == "moe" for sp in cfg.layer_list())
+    served_dec_drops, served_drops = served_drops[n_moe:], served_drops[:n_moe]
+    caches, tok, last = kept.pop("caches"), out[:, -1:].to(device), S + n_new - 1
+    spent = {k: 0.0 for k in spent}
+    real = timed_collectives(spent)
+    try:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t1 = time.perf_counter()
+        logits, _ = step(caches, tok, last)
+        torch.cuda.synchronize()
+        timed_step_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        restore_collectives(real)
+    dist.barrier()
+    if rank == 0:
+        idle = device_breakdown(lambda: step(caches, tok, last))
+    else:
+        step(caches, tok, last)
+        idle = None
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    result = dict(held=held, build_s=build_s, gen_s=gen_s, launches=launches,
+                  tokens=out.cpu(), relay_ms=relay_ms, prefill_ms=prefill_ms,
+                  prefill_spent=pre_spent, step_ms=step_ms, timed_step_ms=timed_step_ms,
+                  step_spent={k: v * 1e3 for k, v in spent.items()},
+                  served_drops=served_drops, served_dec_drops=served_dec_drops,
+                  peak_gb=peak / 1e9,
+                  idle=None if idle is None else (idle[0], idle[1], idle[2][:6]),
+                  block_params=sum(p.numel() for p in model.parameters()))
+    del model, caches, logits
+    torch.cuda.empty_cache()
+    return result
+
+
+def serve_rank(rank: int, world: int, out_dir: str, device) -> None:
+    """One of phase 17's ranks (``--mesh-rank r --mesh-phase 17``): a gloo
+    group through a file store (SERVE_TIMEOUT_S on it and on every group
+    made from it); check 1 on each mesh of SERVE_MESHES, then checks 2
+    and 3 on (2, 2); results to ``rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    timeout = datetime.timedelta(seconds=SERVE_TIMEOUT_S)
+    distributed_c10d.default_pg_timeout = timeout
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=world, timeout=timeout)
+    scratch = pathlib.Path(out_dir)
+    results = {}
+    meshes = {}
+    for label, shape, expert_2d, ep, seq_shard in SERVE_MESHES:
+        mesh = meshes.setdefault(shape, DeviceMesh(device.type, torch.arange(world).reshape(shape),
+                                                   mesh_dim_names=("data", "model")))
+        ref = torch.load(scratch / f"f32_ref_{'ep' if ep else 'plain'}.pt", weights_only=False)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            results[label] = serve_f32_rank(mesh, expert_2d, ep, seq_shard, device, ref)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del ref
+        dist.barrier()
+    results["bf16"] = serve_bf16_rank(meshes[SERVE_MESH], device, rank, scratch)
+    torch.save(results, scratch / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def run_sharded_serve(device) -> dict:
+    """Phase 17: sharded prefill and decode of deepseek-moe-16b on four gloo
+    ranks sharing the card, against the one-rank port. Returns each
+    kernel's launches over the ranks' served runs, summed."""
+    import math
+    import shutil
+    import threading
+
+    import torch
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    scratch = ROOT / "build" / "phase17"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+
+    # check 1's references: the f32 cut on one rank, plain and with EP x
+    # TP decode's drops (one token a data rank)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        c32 = serve_f32_config()
+        model = Model(c32, device=device, seed=0)
+        tokens = serve_prompts(c32.vocab, SERVE_F32_B, SERVE_F32_S, 71).to(device)
+        for variant, shape, e2d, dec in (("plain", (1, 4), False, None),
+                                         ("ep", (2, 2), True,
+                                          [torch.tensor([b]) for b in range(SERVE_F32_B)])):
+            blocks = prefill_blocks(shape, e2d, SERVE_F32_B, SERVE_F32_S)
+            ref = serve_reference(model, tokens, SERVE_F32_NEW,
+                                  ReferenceMoE(blocks, dec, SERVE_F32_CF))
+            torch.save(ref, scratch / f"f32_ref_{variant}.pt")
+            log(f"phase 17: check 1's reference ({variant}): prefill drops "
+                f"{ref['drops_prefill']} (the ranks' capacity {SERVE_F32_CF}), decode drops "
+                f"{sum(ref['drops_decode'])} over {SERVE_F32_NEW - 1} steps, tokens "
+                f"{ref['tokens'].tolist()}")
+            if any(ref["drops_prefill"]):
+                raise AssertionError(f"phase 17: check 1's prefill drops at capacity "
+                                     f"{SERVE_F32_CF}: {ref['drops_prefill']}")
+        n32 = sum(p.numel() for p in model.parameters())
+        del model, ref
+        torch.cuda.empty_cache()
+        log(f"phase 17: check 1's cut (1 dense + 1 MoE, float32, {n32} parameters): references "
+            f"in {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # check 2's reference: the published config on one rank, the ranks'
+    # dispatch drops applied
+    cfg = serve_config()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"phase 17: {n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    tokens = serve_prompts(cfg.vocab, SERVE_B, SERVE_S, 73).to(device)
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = serve_reference(model, tokens, SERVE_NEW, ReferenceMoE(
+        prefill_blocks(SERVE_MESH, True, SERVE_B, SERVE_S),
+        [torch.tensor([b]) for b in range(SERVE_B)], cfg.moe_capacity_factor))
+    torch.save(ref, scratch / "bf16_ref.pt")
+    log(f"phase 17: check 2's reference, one rank, {n_params} parameters (built in {built:.1f} "
+        f"s): prefill and {SERVE_NEW - 1} steps in {time.perf_counter() - t0:.1f} s; the ranks' "
+        f"dispatch at capacity {cfg.moe_capacity_factor} drops {sum(ref['drops_prefill'])} of "
+        f"{SERVE_B * SERVE_S * cfg.moe_topk * len(ref['drops_prefill'])} prefill assignments "
+        f"and {sum(ref['drops_decode'])} of "
+        f"{SERVE_B * cfg.moe_topk * len(ref['drops_decode'])} decode ones; tokens "
+        f"{ref['tokens'].tolist()}")
+    del model
+    torch.cuda.empty_cache()
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            q = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,"
+                                "noheader,nounits"], capture_output=True, text=True, timeout=60)
+            if q.returncode == 0:
+                samples.append(float(q.stdout.split()[0]) / 1e3)
+            stop.wait(0.5)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        got = run_ranks(scratch, 17)
+    finally:
+        stop.set()
+        sampler.join()
+    card_gb = max(samples, default=float("nan"))
+    log(f"phase 17: {MESH_WORLD} ranks on gloo sharing the card in "
+        f"{time.perf_counter() - t0:.1f} s; the card's memory in use peaked at {card_gb:.3f} GB "
+        f"(nvidia-smi, every 0.5 s)")
+
+    failed = []
+    # check 1
+    for label, shape, _, ep, seq_shard in SERVE_MESHES:
+        runs = [g[label] for g in got]
+        worst = {k: max(max(r[k]) if isinstance(r[k], list) else r[k] for r in runs)
+                 for k in ("prefill", "steps", "caches_prefill", "caches_decoded")}
+        pre_drops = sum(c + e for r in runs for _, c, e in r["prefill_drops"])
+        log(f"phase 17: check 1 on {label}: max error over max |reference| (limit "
+            f"{SERVE_F32_TOL}): prefill logits {worst['prefill']:.3e}, {SERVE_F32_NEW - 1} decode "
+            f"steps {worst['steps']:.3e}, caches after prefill {worst['caches_prefill']:.3e}, "
+            f"after the last step {worst['caches_decoded']:.3e}; replicas the same bits "
+            f"{all(r['replicated'] for r in runs)}; prefill drops {pre_drops}; rank 0's cache "
+            f"block {runs[0]['local_cache']}, layout {runs[0]['layout']}")
+        if not (max(worst.values()) <= SERVE_F32_TOL and pre_drops == 0
+                and all(r["replicated"] and r["layout"] == "decode" for r in runs)):
+            failed.append(f"check 1 on {label}")
+
+    # check 2
+    bf = [g["bf16"] for g in got]
+    held = [r["held"] for r in bf]
+    h_pre = max(h["prefill"] for h in held)
+    h_steps = max(max(h["steps"]) for h in held)
+    rank_pre = [sum(x) for x in zip(*(h["prefill_drops"] for h in held))]
+    rank_dec = sum(sum(h["decode_drops"]) for h in held)
+    log(f"phase 17: check 2 on (2, 2), decode_moe_ep, {SERVE_B} x {SERVE_S} + {SERVE_NEW}, the "
+        f"reference's routing replayed: prefill logits max error {h_pre:.4e} of max |logit|, "
+        f"decode steps {h_steps:.4e} (limit {SERVE_TOL}); drops summed over the ranks, by "
+        f"layer, prefill {rank_pre} (the reference's rule: {ref['drops_prefill']}), decode "
+        f"{rank_dec} ({sum(ref['drops_decode'])})")
+    if not (h_pre <= SERVE_TOL and h_steps <= SERVE_TOL and rank_pre == ref["drops_prefill"]
+            and rank_dec == sum(ref["drops_decode"])):
+        failed.append("check 2: the held run is off the one-rank reference")
+    n_moe = sum(s.ffn == "moe" for s in cfg.layer_list())
+    K, cf = cfg.moe_topk, cfg.moe_capacity_factor
+    data, model_n = SERVE_MESH
+    T_pre = SERVE_S // model_n  # a rank's tokens at prefill: its row, its slice
+    pre = moe_dispatch_launches(T_pre, K, MESH_WORLD, moe_capacity(T_pre * K, MESH_WORLD, cf))
+    dec = moe_dispatch_launches(1, K, data, moe_capacity(K, data, cf))
+    want = {k: n_moe * (pre[k] + (SERVE_NEW - 1) * dec[k]) for k in pre}
+    want["flash_attention"] = cfg.n_layers
+    total = None
+    for r, run in enumerate(bf):
+        med = statistics.median(run["step_ms"])
+        ps, ss = run["prefill_spent"], run["step_spent"]
+        drops_pre = run["served_drops"]
+        drops_dec = [sum(c + e for _, c, e in run["served_dec_drops"][i::n_moe])
+                     for i in range(n_moe)]
+        idle = ("" if run["idle"] is None else
+                f"; a decode step under torch.profiler {run['idle'][0]:.3f} ms wall, "
+                f"{run['idle'][1]:.3f} ms device (idle {1 - run['idle'][1] / run['idle'][0]:.3f}),"
+                " largest device events " + "; ".join(f"{n[:50]} {ms:.3f} ms"
+                                                      for n, ms in run["idle"][2]))
+        log(f"phase 17: check 2's served run, rank {r}: built in {run['build_s']:.1f} s, "
+            f"{run['block_params']} parameters; generate {run['gen_s']:.1f} s; re-lay to train "
+            f"{run['relay_ms'][0]:.1f} ms, to decode {run['relay_ms'][1]:.1f} ms; prefill "
+            f"{run['prefill_ms']:.1f} ms (all-reduces {ps['all_sum'] / run['prefill_ms']:.4f}, "
+            f"all-gathers {ps['all_gather'] / run['prefill_ms']:.4f}, exchange "
+            f"{ps['all_to_all'] / run['prefill_ms']:.4f}); decode {med:.3f} ms a step (median of "
+            f"{len(run['step_ms'])}), {SERVE_B / med * 1e3:.3f} tokens/s; a timed step "
+            f"{run['timed_step_ms']:.3f} ms: all-reduces {ss['all_sum'] / run['timed_step_ms']:.4f},"
+            f" all-gathers {ss['all_gather'] / run['timed_step_ms']:.4f}, exchange "
+            f"{ss['all_to_all'] / run['timed_step_ms']:.4f}; peak {run['peak_gb']:.3f} GB; "
+            f"prefill drops by layer (assignments, at C, at the expert capacity) {drops_pre}; "
+            f"decode drops by layer over the steps {drops_dec}; launches {run['launches']}{idle}")
+        ok_tokens = (run["tokens"].shape == (SERVE_B, SERVE_NEW)
+                     and torch.equal(run["tokens"], bf[0]["tokens"])
+                     and bool(((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab)).all()))
+        if not ok_tokens:
+            failed.append(f"check 2: rank {r}'s tokens")
+        # check 3
+        if run["launches"] != want or not all(run["launches"][k] > 0 for k in (
+                "bitonic_sort_rows_kv", "bitonic_merge_rows_kv", "flash_attention")):
+            failed.append(f"check 3, rank {r}: launches {run['launches']}, derived {want}")
+        total = (run["launches"] if total is None
+                 else {k: total[k] + v for k, v in run["launches"].items()})
+    log(f"phase 17: check 3: launches per rank derived {want}: {n_moe} MoE layers x (prefill "
+        f"{pre}: {T_pre} tokens, {MESH_WORLD} shards; + {SERVE_NEW - 1} steps x {dec}: 1 token, "
+        f"{data} shards), flash one a layer; tokens {bf[0]['tokens'].tolist()}")
+    if failed:
+        raise AssertionError("phase 17: " + "; ".join(failed))
+    if not math.isfinite(card_gb):
+        log("phase 17: nvidia-smi gave no memory reading")
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+ALL_PHASES = frozenset(range(1, 18))
 
 
 def main() -> int:
@@ -5190,7 +5920,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-16: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-17: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -5200,10 +5930,10 @@ def main() -> int:
     # the sort, serving and MoE phases run forward passes only (parameters
     # require grad since the port trains); phase 11 turns grad on
     torch.set_grad_enabled(False)
-    if args.mesh_rank is not None:  # one of phase 9's, 10's or 16's ranks
-        if args.mesh_phase in (10, 16):
+    if args.mesh_rank is not None:  # one of phase 9's, 10's, 16's or 17's ranks
+        if args.mesh_phase in (10, 16, 17):
             torch.cuda.set_device(0)
-            rank = moe_rank if args.mesh_phase == 10 else shard_rank
+            rank = {10: moe_rank, 16: shard_rank, 17: serve_rank}[args.mesh_phase]
             rank(args.mesh_rank, MESH_WORLD, args.mesh_dir, torch.device("cuda", 0))
         else:
             mesh_rank(args.mesh_rank, MESH_WORLD, args.mesh_dir)
@@ -5249,7 +5979,8 @@ def main() -> int:
         for phase, run in ((3, run_main_path), (4, check_flash), (5, run_serve),
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
                            (10, run_moe), (11, run_train), (12, run_batch), (13, run_mla),
-                           (14, run_recurrent), (15, run_cross), (16, run_sharded)):
+                           (14, run_recurrent), (15, run_cross), (16, run_sharded),
+                           (17, run_sharded_serve)):
             if phase in phases:
                 run(device)
         return 0
@@ -5278,6 +6009,8 @@ def main() -> int:
     launches_cross = run_cross(device)
     torch.cuda.empty_cache()
     launches_sharded = run_sharded(device)
+    torch.cuda.empty_cache()
+    launches_sharded_serve = run_sharded_serve(device)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -5286,6 +6019,7 @@ def main() -> int:
              launches_train=launches_train[name], launches_batch=launches_batch[name],
              launches_mla=launches_mla[name], launches_rec=launches_rec[name],
              launches_cross=launches_cross[name], launches_sharded=launches_sharded[name],
+             launches_sharded_serve=launches_sharded_serve[name],
              max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
@@ -5302,6 +6036,7 @@ def main() -> int:
         launches_rec=launches_rec["flash_attention"],
         launches_cross=launches_cross["flash_attention"],
         launches_sharded=launches_sharded["flash_attention"],
+        launches_sharded_serve=launches_sharded_serve["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"],

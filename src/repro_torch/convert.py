@@ -145,17 +145,50 @@ def gather_state(state, specs, axes):
     return _map_specs(lambda t, s: gather_leaf(t.detach(), s, axes), state, specs)
 
 
-def caches_to_numpy(cfg, caches: list) -> list:
+def _gather_caches(cfg, caches: list, axes, B: int) -> list:
+    """Every rank's cache blocks put together, by the ``rules.cache_specs``
+    of the global shapes (B rows; a GQA cache's ``seq_len`` marks the
+    ``seq_shard`` layout and its global length); collective."""
+    from repro_torch.sharding import parallel as par
+    from repro_torch.sharding import rules
+
+    out = []
+    for c in caches:
+        mix = c.get("mix", {})
+        seq_shard = "seq_len" in mix
+        whole = {}
+        for key, d in c.items():
+            whole[key] = {}
+            for n, t in d.items():
+                if not isinstance(t, torch.Tensor):
+                    continue
+                shape = [B, *t.shape[1:]]
+                if n in ("k", "v") and key == "mix":
+                    shape[1] = mix["seq_len"] if seq_shard else t.shape[1]
+                    shape[2] = cfg.n_kv_heads
+                whole[key][n] = tuple(shape)
+        specs = rules.cache_specs([whole], cfg, axes, seq_shard=seq_shard)[0]
+        out.append({key: {n: par.gather_leaf(c[key][n].contiguous(), specs[key][n], axes)
+                          for n in d} for key, d in whole.items()})
+    return out
+
+
+def caches_to_numpy(cfg, caches: list, axes=None, B: int | None = None) -> list:
     """The port's per-layer caches in ``repro``'s layout: per segment, a
     tuple per period position of dicts whose arrays are stacked over the
     segment's count, ``(count, B, S, KV, dh)`` for GQA's k and v, ``(count,
     B, S, kv_lora_rank)`` and ``(count, B, S, qk_rope_dim)`` for MLA's c_kv
     and k_pe, ``(count, B, M, KV, dh)`` for a cross block's ck and cv under
-    ``"cross"`` (bfloat16 as uint16 bits)."""
+    ``"cross"`` (bfloat16 as uint16 bits). With ``axes`` over a mesh, each
+    rank's blocks of the caches of a global batch of ``B`` rows are
+    gathered first (collective: every rank calls it)."""
+    if axes is not None and axes.mesh is not None:
+        caches = _gather_caches(cfg, caches, axes, B)
 
     def stack(trees):
         if isinstance(trees[0], dict):
-            return {key: stack([t[key] for t in trees]) for key in trees[0]}
+            return {key: stack([t[key] for t in trees]) for key in trees[0]
+                    if isinstance(trees[0][key], (dict, torch.Tensor))}
         return np.stack([to_numpy(t) for t in trees])
 
     out, layer = [], 0

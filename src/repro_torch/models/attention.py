@@ -268,6 +268,20 @@ def _proj(x, w, b=None):
     return y + b if b is not None else y
 
 
+def _kv_groups(cfg, g, H: int):
+    """(lo, hi, idx): the KV groups [lo, hi) of all cfg.n_kv_heads that
+    this rank's H heads read when the KV heads are replicated over
+    "model" (``g``), with ``idx`` the group of each head, counted from lo,
+    where the heads do not split evenly over them (else None)."""
+    rep = H * g.size // cfg.n_kv_heads
+    first = g.index * H
+    lo, hi = first // rep, (first + H - 1) // rep + 1
+    n = hi - lo
+    idx = torch.arange(first, first + H) // rep - lo
+    even = H % n == 0 and torch.equal(idx, torch.arange(H) // (H // n))
+    return lo, hi, None if even else idx
+
+
 def _tp_weights(p: Attention, cfg, axes, H: int):
     """(wk, wv, bk, bv, q_norm, k_norm, KV, idx) for this rank's H heads
     under a mesh: the KV projections of its own KV heads when they are
@@ -278,17 +292,11 @@ def _tp_weights(p: Attention, cfg, axes, H: int):
     q_norm, k_norm = (None if n is None else par.copy_to(n, axes) for n in (p.q_norm, p.k_norm))
     if axes.kv_spec(cfg.n_kv_heads) is not None:
         return p.wk, p.wv, p.bk, p.bv, q_norm, k_norm, p.wk.shape[-1] // dh, None
-    g = par.group(axes, axes.model)
-    rep = H * g.size // cfg.n_kv_heads
-    first = g.index * H
-    lo, hi = first // rep, (first + H - 1) // rep + 1
+    lo, hi, idx = _kv_groups(cfg, par.group(axes, axes.model), H)
     cols = slice(lo * dh, hi * dh)
     wk, wv = (par.copy_to(w, axes)[:, cols] for w in (p.wk, p.wv))
     bk, bv = (None if b is None else par.copy_to(b, axes)[cols] for b in (p.bk, p.bv))
-    n = hi - lo
-    idx = torch.arange(first, first + H) // rep - lo
-    even = H % n == 0 and torch.equal(idx, torch.arange(H) // (H // n))
-    return wk, wv, bk, bv, q_norm, k_norm, n, None if even else idx.to(p.wk.device)
+    return wk, wv, bk, bv, q_norm, k_norm, hi - lo, None if idx is None else idx.to(p.wk.device)
 
 
 def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
@@ -302,15 +310,19 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     ``window``, prefill returns the ring of the last min(window, S) entries
     and decode writes into the ring (``_ring_decode``). ``memory`` (B, M,
     d), or a cache holding ``ck``/``cv``, makes it cross-attention
-    (``_cross``). With ``axes`` (training only: ``transformer.apply_block``
-    refuses the rest) the heads are this rank's (module docstring)."""
+    (``_cross``). With ``axes`` the heads are this rank's (module
+    docstring); prefill and decode under a mesh are ``_serve_tp``'s."""
     B, S, d = x.shape
     dh = cfg.head_dim
     H = p.wq.shape[-1] // dh
     KV = cfg.n_kv_heads
     scale = dh ** -0.5
     wk, wv, bk, bv, q_norm, k_norm, idx = p.wk, p.wv, p.bk, p.bv, p.q_norm, p.k_norm, None
-    if par.group(axes, axes.model if axes is not None else ()) is not None:
+    g = par.group(axes, axes.model if axes is not None else ())
+    if g is not None and cache is not None and memory is None and "ck" not in cache:
+        return _serve_tp(x, p, cfg, axes, g, causal=causal, positions=positions, rope=rope,
+                         cache=cache, decode=decode)
+    if g is not None:
         x = par.copy_to(x, axes)
         wk, wv, bk, bv, q_norm, k_norm, KV, idx = _tp_weights(p, cfg, axes, H)
 
@@ -374,6 +386,128 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
         return out, {"k": k[:, -W:].clone(), "v": v[:, -W:].clone(),
                      "pos": positions[-W:].to(torch.int32)}
     return out, {"k": k, "v": v}
+
+
+def _own_groups(t, cfg, axes, g, H: int):
+    """The KV groups this rank's H heads read, from ``t`` (B, T, KV, dh)
+    holding every KV head: its block where "model" splits the KV heads,
+    else the groups ``_kv_groups`` names (one gather a head where they do
+    not split evenly)."""
+    if axes.kv_spec(cfg.n_kv_heads) is not None:
+        n = cfg.n_kv_heads // g.size
+        return t.narrow(2, g.index * n, n)
+    lo, hi, idx = _kv_groups(cfg, g, H)
+    t = t.narrow(2, lo, hi - lo)
+    return t if idx is None else t[:, :, idx.to(t.device)]
+
+
+def _heads_to_seq(t, g):
+    """(B, S, KV/m, dh), this rank's KV heads over the whole sequence, to
+    (B, S/m, KV, dh), every KV head over this rank's block of the
+    sequence: one all-to-all over "model"."""
+    B, S, n, dh = t.shape
+    blocks = t.reshape(B, g.size, S // g.size, n, dh).transpose(0, 1)
+    got = g.all_to_all(blocks.contiguous())  # row i: coordinate i's heads, my block
+    return got.permute(1, 2, 0, 3, 4).reshape(B, S // g.size, g.size * n, dh)
+
+
+def _lse_attn(q, k, v, mask, scale, axes):
+    """``_grouped_attn`` over a cache whose sequence is split over "model":
+    this rank's block of keys for every head, the softmax's max and sum
+    combined over the ranks (``parallel.all_max``, ``reduce_from``), and
+    the blocks' partial contexts summed."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    qg = q.reshape(B, S, KV, rep, dh)
+    scores = torch.einsum("bskrd,btkd->bkrst", qg, k).float() * scale
+    scores = torch.where(mask, scores, -1e30)
+    top = par.all_max(scores.amax(-1, keepdim=True), axes)
+    e = torch.exp(scores - top)
+    probs = (e / par.reduce_from(e.sum(-1, keepdim=True), axes)).to(v.dtype)
+    ctx = par.reduce_from(torch.einsum("bkrst,btkd->bskrd", probs, v), axes)
+    return ctx.reshape(B, S, KV * rep, v.shape[-1])
+
+
+def _serve_tp(x, p: Attention, cfg, axes, g, *, causal, positions, rope, cache, decode):
+    """Prefill and decode of this rank's heads under a mesh (``g``: its
+    group over "model"), as ``repro`` shards them by ``rules.cache_specs``.
+
+    The cache layout is the cache's own: without ``seq_len`` it holds this
+    rank's KV heads (every KV head where ``Axes.kv_spec`` replicates them)
+    over the whole sequence; with ``seq_len`` (``seq_shard``) every KV
+    head, over the rank's block of a sequence of seq_len positions when
+    seq_len divides over "model", else over all of it. Prefill returns the
+    prompt's k/v in the layout of the cache it is given (every KV head
+    from the ranks' heads by an all-to-all or an all-gather); decode
+    writes the new entry (at the rank that holds its position) and
+    attends, with the softmax combined over the ranks when the sequence
+    is split (``_lse_attn``)."""
+    B, S, _ = x.shape
+    dh = cfg.head_dim
+    H = p.wq.shape[-1] // dh
+    scale = dh ** -0.5
+    kv_split = axes.kv_spec(cfg.n_kv_heads) is not None
+    seq_len = cache.get("seq_len")
+    q = _proj(x, p.wq, p.bq).reshape(B, S, H, dh)
+    k = _proj(x, p.wk, p.bk).reshape(B, S, -1, dh)  # this rank's KV heads, or all
+    v = _proj(x, p.wv, p.bv).reshape(B, S, -1, dh)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm_simple(k, p.k_norm, cfg.norm_eps)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if decode and (S != 1 or positions.numel() != 1):
+        raise ValueError("decode under a mesh takes one token (S == 1) at one position")
+    if rope:
+        cos, sin = rope_table(positions, dh, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+    def own(t):  # the groups this rank's heads read, from a tensor of its KV heads
+        return t if kv_split and t.shape[2] != cfg.n_kv_heads else _own_groups(t, cfg, axes,
+                                                                                 g, H)
+
+    def out_of(ctx):
+        return par.reduce_from(ctx.reshape(B, S, H * dh) @ p.wo, axes)
+
+    if not decode:
+        kk, vv = own(k), own(v)
+        if cfg.flash_attention and S >= FLASH_MIN_SEQ:
+            ctx = _flash_attn(q, kk.contiguous(), vv.contiguous(), causal=causal, scale=scale,
+                              inference=True)
+        else:
+            ctx = _chunked_attn(q, kk, vv, causal=causal, q_positions=positions,
+                                k_positions=positions, scale=scale)
+        if seq_len is None:
+            return out_of(ctx), {"k": k, "v": v}
+        if S % g.size == 0:  # every KV head over this rank's block of the sequence
+            n = S // g.size
+            k, v = ((_heads_to_seq(t, g) if kv_split else t.narrow(1, g.index * n, n).clone())
+                    for t in (k, v))
+        elif kv_split:
+            k, v = (par.gather(t, 2, axes, axes.model) for t in (k, v))
+        return out_of(ctx), {"k": k, "v": v, "seq_len": S}
+
+    pos = positions.reshape(1).long()
+    marker = {} if seq_len is None else {"seq_len": seq_len}
+    if seq_len is not None and kv_split:  # the new entry of every KV head
+        k, v = (par.gather(t, 2, axes, axes.model) for t in (k, v))
+    if seq_len is None or seq_len % g.size:  # the whole sequence on every rank
+        ck = cache["k"].index_copy_(1, pos, k)
+        cv = cache["v"].index_copy_(1, pos, v)
+        t = torch.arange(ck.shape[1], device=x.device)
+        ctx = _grouped_attn(q, own(ck), own(cv), (t <= pos)[None, None, None, None, :], scale)
+        return out_of(ctx), {"k": ck, "v": cv, **marker}
+    n = seq_len // g.size
+    first = g.index * n
+    at = (pos - first).clamp(0, n - 1)
+    mine = ((pos >= first) & (pos < first + n)).reshape(1, 1, 1, 1)
+    ck = cache["k"].index_copy_(1, at, torch.where(mine, k, cache["k"].index_select(1, at)))
+    cv = cache["v"].index_copy_(1, at, torch.where(mine, v, cache["v"].index_select(1, at)))
+    t = first + torch.arange(n, device=x.device)
+    qa = par.gather(q, 2, axes, axes.model)  # every head's query
+    ctx = _lse_attn(qa, ck, cv, (t <= pos)[None, None, None, None, :], scale, axes)
+    return out_of(ctx.narrow(2, g.index * H, H)), {"k": ck, "v": cv, "seq_len": seq_len}
 
 
 def _cross(q, p: Attention, cfg, memory, cache, scale):

@@ -32,6 +32,19 @@ the batch and returns logits over its block of the padded vocabulary
 (``train/loss.py`` takes them so). With ``axes`` and no mesh the model
 holds the whole padded leaves: their shapes on the meta device are
 ``repro``'s ``abstract_params(cfg, axes=axes)``.
+
+A sharded model also serves (``serve/engine.py``). Its caches are each
+rank's blocks by ``rules.cache_specs`` (``init_caches``), and prefill and
+decode return the rank's rows of ``repro``'s outputs. ``repro`` lowers
+prefill with the train layout of the experts and decode with
+``param_specs(mode="decode")`` (d_expert over "model"; with
+``cfg.decode_moe_ep`` on 2-D experts, experts over "data" too): the model
+holds one layout at a time, and ``forward`` re-lays the experts leaf by
+leaf when it switches between decode and the rest
+(``parallel.relay_leaf``: one all-to-all over "model", and a gather over
+"data" where the decode layout drops it), so that no rank ever holds
+more than its block and one leaf's pieces in flight. ``specs`` is the
+layout it holds.
 """
 from __future__ import annotations
 
@@ -96,6 +109,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.axes = axes
         self.specs = None
+        self.layout = "train"
         if not self.sharded or dev.type == "meta":
             gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
             self._build(gen, dev)
@@ -140,13 +154,53 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.table.device
 
+    def set_layout(self, mode: str) -> None:
+        """Hold the parameters in ``rules.param_specs(mode=...)``'s layout
+        ("train" or "decode"), re-laying each leaf whose spec changes
+        (collective: every rank calls it). A no-op with no mesh."""
+        if not self.sharded or self.layout == mode:
+            return
+        specs = rules.param_specs(self.global_shapes, self.cfg, self.axes, mode=mode)
+        for name, spec in specs.items():
+            if spec != self.specs[name]:
+                owner, _, leaf = name.rpartition(".")
+                module = self.get_submodule(owner)
+                old = getattr(module, leaf)
+                new = par.relay_leaf(old.detach(), self.specs[name], spec, self.axes)
+                setattr(module, leaf, nn.Parameter(new, requires_grad=old.requires_grad))
+                del old
+        self.specs, self.layout = specs, mode
+
     # ------------------------------------------------------------- caches
-    def init_caches(self, B: int, S_max: int, memory_len: int = 0, device=None) -> list:
+    def init_caches(self, B: int, S_max: int, memory_len: int = 0, device=None,
+                    seq_shard: bool = False) -> list:
         """One zeroed cache per layer, on ``device`` (default: the model's);
-        a cross block's holds ``memory_len`` memory positions."""
+        a cross block's holds ``memory_len`` memory positions. Under a mesh
+        each is this rank's block of the caches of a global batch of B rows
+        (``rules.cache_specs``: the batch over the batch axes that divide
+        it, the KV heads over "model" where it divides them); with
+        ``seq_shard`` (``repro``'s ``seq_shard_cache``) a GQA cache holds
+        every KV head, over the rank's block of the sequence where S_max
+        divides over "model", and says so with ``seq_len`` = S_max."""
         device = self.device if device is None else device
-        return [tfm.init_block_cache(spec, self.cfg, B, S_max, device, memory_len=memory_len)
-                for spec in self.cfg.layer_list()]
+        cfg = self.cfg
+        if not self.sharded:
+            return [tfm.init_block_cache(spec, cfg, B, S_max, device, memory_len=memory_len)
+                    for spec in cfg.layer_list()]
+        whole = [tfm.init_block_cache(spec, cfg, B, S_max, "meta", memory_len=memory_len)
+                 for spec in cfg.layer_list()]
+        specs = rules.cache_specs(whole, cfg, self.axes, seq_shard=seq_shard)
+        out = []
+        for c, sp in zip(whole, specs):
+            local = {}
+            for key, mix in c.items():
+                local[key] = {n: torch.zeros(par.local_shape(t.shape, sp[key][n], self.axes),
+                                             dtype=t.dtype, device=device)
+                              for n, t in mix.items()}
+                if seq_shard and key == "mix":
+                    local[key]["seq_len"] = S_max
+            out.append(local)
+        return out
 
     # ------------------------------------------------------------ forward
     def _embed_in(self, batch, positions):
@@ -186,7 +240,11 @@ class Model(nn.Module):
         """Returns (logits, new_caches, aux). ``pos``: the decode position
         (S == 1), one int or 0-d tensor for the whole batch, or a (B,)
         tensor with one position per row (continuous batching:
-        ``serve/batching.py``); otherwise the positions are 0..S-1."""
+        ``serve/batching.py``); otherwise the positions are 0..S-1. Under a
+        mesh ``batch`` is this rank's rows, the logits its vocabulary
+        block, and the experts are put in the layout of the pass first
+        (``set_layout``)."""
+        self.set_layout("decode" if decode else "train")
         tokens = batch["tokens"]
         B, S = tokens.shape
         if decode:

@@ -53,8 +53,11 @@ The capacities are ``repro``'s formulas, so the same tokens drop.
 The dispatch is differentiable as ``repro``'s: the sort's keys and slots
 are integers, and gradients flow through the router's gate weights, the
 gathers, the scatters and the combine.
-``moe_forward_decode`` gathers each token's top-k expert slices;
-``moe_ref`` is the dense one-hot oracle. Within ``recording_drops()``
+``moe_forward_decode`` gathers each token's top-k expert slices (under a
+mesh from every expert's slice of d_expert over "model"), and
+``moe_forward(..., tp_axis=)`` is ``repro``'s EP x TP decode (experts
+over "data", d_expert over "model"); ``moe_ref`` is the dense one-hot
+oracle. Within ``recording_drops()``
 each dispatch notes how many assignments its two capacities dropped.
 """
 from __future__ import annotations
@@ -132,9 +135,12 @@ def _expert_ffn(xe, moe: MoE, cfg):
 
 
 def _dispatch_body(xf, moe: MoE, cfg, *, n_shards: int, shard_id: int, a2a,
-                   use_pallas: bool = True):
+                   use_pallas: bool = True, tp_axis=None):
     """One rank's dispatch (the paper's six steps). xf: (T, d). Returns
-    (out (T, d), aux, send_counts (n_shards,) int32)."""
+    (out (T, d), aux, send_counts (n_shards,) int32). ``tp_axis``: the
+    ``AxisGroup`` over which ``moe`` holds a slice of d_expert (EP x TP);
+    the expert FFN's partial outputs are summed over it, as ``repro``
+    psums them."""
     # the sort library loads at the first dispatch: a dense model never needs it
     from repro_torch.core import keyenc
     from repro_torch.core.merge import merge_padded_runs_kv
@@ -188,6 +194,8 @@ def _dispatch_body(xf, moe: MoE, cfg, *, n_shards: int, shard_id: int, a2a,
     xe = pool[rows.clamp(max=n_pool - 1)] * evalid[..., None]
 
     ye = _expert_ffn(xe.to(xf.dtype), moe, cfg)
+    if tp_axis is not None:  # d_expert over the TP axis: sum the contraction
+        ye = tp_axis.all_sum(ye)
 
     # ---- route back: scatter to pool rows (row n_pool takes the drops),
     # inverse all_to_all
@@ -248,20 +256,41 @@ def shard_params(moe: MoE, axes: Axes | None) -> MoE:
     return MoE(moe.router, *(t[lo:lo + e_loc] for t in (moe.wi, moe.wg, moe.wo)))
 
 
-def moe_forward(x, moe: MoE, cfg, axes: Axes | None = None, *, use_pallas: bool = True):
+def _check_slice(moe: MoE, cfg, n_experts: int, d_expert: int, what: str) -> None:
+    want = (n_experts, cfg.d_model, d_expert)
+    if tuple(moe.wi.shape) != want:
+        raise ValueError(f"{what} takes experts of {want} a rank, not {tuple(moe.wi.shape)}: "
+                         f"the layout of rules.param_specs(mode='decode')")
+
+
+def moe_forward(x, moe: MoE, cfg, axes: Axes | None = None, *, use_pallas: bool = True,
+                tp_axis: str | None = None):
     """x: (B, S, d), on a mesh this rank's block of the tokens and ``moe``
     its experts (module docstring). Returns (out (B, S, d), aux scalar).
 
     ``use_pallas`` picks the sort's path (``keyenc.stable_argsort``,
     ``merge_padded_runs_kv``): True, the default here (``repro``'s is
     False, ``lax.sort``), takes the bitonic kernels on a CUDA tensor;
-    both give the same bits."""
+    both give the same bits.
+
+    ``tp_axis`` (EP x TP, ``repro``'s decode of ``cfg.decode_moe_ep``):
+    ``moe`` holds this rank's experts over ``axes.expert`` and its slice of
+    d_expert over the mesh axis ``tp_axis``; x is the rank's block of the
+    batch with the sequence whole (the ranks of ``tp_axis`` hold the same
+    tokens and dispatch them alike), and the expert FFN's partial outputs
+    are summed over ``tp_axis``."""
     B, S, d = x.shape
     xf = x.reshape(-1, d)
+    mesh = axes is not None and axes.mesh is not None
+    tp = par.group(axes, tp_axis) if tp_axis is not None and mesh else None
+    if tp is not None:
+        shards = axes.expert_size
+        _check_slice(moe, cfg, cfg.n_experts // shards, cfg.d_expert // tp.size,
+                     "EP x TP MoE")
     if axes is None or axes.expert_size == 1:
         out, aux, _ = _dispatch_body(xf, moe, cfg, n_shards=1, shard_id=0,
-                                     a2a=lambda t: t, use_pallas=use_pallas)
-        if axes is not None and axes.mesh is not None:  # batch blocks: their mean
+                                     a2a=lambda t: t, use_pallas=use_pallas, tp_axis=tp)
+        if mesh:  # batch blocks: their mean
             aux = par.aux_mean(aux, axes)
         return out.reshape(B, S, d), aux
 
@@ -273,24 +302,30 @@ def moe_forward(x, moe: MoE, cfg, axes: Axes | None = None, *, use_pallas: bool 
     out, aux, _ = _dispatch_body(
         xf, moe, cfg, n_shards=group.size, shard_id=group.index,
         a2a=_make_a2a(axes.mesh, axes.expert, hierarchical=cfg.hierarchical_a2a),
-        use_pallas=use_pallas,
+        use_pallas=use_pallas, tp_axis=tp,
     )
     return out.reshape(B, S, d), par.aux_mean(aux, axes)  # the mean over the mesh
 
 
-def moe_forward_decode(x, moe: MoE, cfg):
+def moe_forward_decode(x, moe: MoE, cfg, axes: Axes | None = None):
     """Decode-time MoE (S == 1): each token gathers exactly its top-k
     experts' weight slices, so the FLOPs are the active experts' and the
-    traffic is reading those slices. ``repro`` shards d_expert over
-    "model" here (the serve-mode rule); the port runs it on one device."""
+    traffic is reading those slices. Under a mesh this is expert tensor
+    parallelism, ``repro``'s serve-mode rule: ``moe`` holds every expert
+    with this rank's slice of d_expert over "model", x is the rank's rows
+    (the ranks of "model" hold the same), and the partial outputs are
+    summed over "model", the all-reduce GSPMD inserts in ``repro``."""
     B, S, d = x.shape
+    g = par.group(axes, axes.model) if axes is not None else None
+    if g is not None:
+        _check_slice(moe, cfg, cfg.n_experts, cfg.d_expert // g.size, "expert-TP decode")
     xf = x.reshape(-1, d)
     w, ids, aux = _router(xf, moe.router, cfg)
     ids = ids.long()
     h = torch.einsum("td,tkdf->tkf", xf, moe.wi[ids])  # (T, K, de)
-    g = torch.einsum("td,tkdf->tkf", xf, moe.wg[ids])
-    y = torch.einsum("tkf,tkfd->tkd", _act(g, cfg.act) * h, moe.wo[ids])
-    out = (y * w[..., None].to(xf.dtype)).sum(1)
+    gate = torch.einsum("td,tkdf->tkf", xf, moe.wg[ids])
+    y = torch.einsum("tkf,tkfd->tkd", _act(gate, cfg.act) * h, moe.wo[ids])
+    out = par.reduce_from((y * w[..., None].to(xf.dtype)).sum(1), axes)
     return out.reshape(B, S, d), aux
 
 

@@ -14,26 +14,29 @@ gives (the encoder's in ``cfg.encoder_segments`` order), and the scan is
 a Python loop over them.
 
 An MoE block runs the sorted dispatch (``moe.moe_forward``) at prefill
-and the per-token expert gather (``moe.moe_forward_decode``) at decode.
+and the per-token expert gather (``moe.moe_forward_decode``) at decode,
+or, with ``cfg.decode_moe_ep`` on a mesh whose experts lie over ("data",
+"model"), ``repro``'s EP x TP decode: the sorted dispatch over "data"
+with d_expert over "model" (``moe_forward(..., tp_axis=)``).
 ``apply_block``'s ``use_pallas_moe`` picks the dispatch sort's path; it
 mirrors ``repro``'s signature, and nothing in the port's model passes it
 (``run_segments`` takes the default). Its default here is True, so that
 on the card the model's dispatch launches the bitonic kernels, where
-``repro``'s is False (``lax.sort``); both give the same bits. ``repro``'s
-EP x TP decode branch (``cfg.decode_moe_ep`` on a 2-D expert mesh) raises
-NotImplementedError naming its ROADMAP.md item.
+``repro``'s is False (``lax.sort``); both give the same bits.
 
-Under a mesh (``axes`` with a ``DeviceMesh``) a block trains
+Under a mesh (``axes`` with a ``DeviceMesh``) a block runs
 tensor-parallel over "model" (``attention.gqa_forward``, ``layers.apply_mlp``
-for the dense FFN and the shared experts) with the MoE token-parallel:
-each rank of "model" routes its slice of the sequence (``split_seq``) to
-the experts over the expert axes and gathers the outputs
-(``gather_seq``). What a mesh does not run yet raises naming its item:
-the other mixers and cross-attention (11.2), prefill and decode with
-caches (11.3).
+for the dense FFN and the shared experts). Training and prefill run the
+MoE token-parallel: each rank of "model" routes its slice of the
+sequence (``split_seq``) to the experts over the expert axes and gathers
+the outputs (``gather_seq``); decode runs it over the decode layout of
+the experts (``rules.param_specs(mode="decode")``, which ``Model`` puts
+in place). What a mesh does not run yet raises naming its item: the
+other mixers and cross-attention (11.2).
 """
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import torch
@@ -109,14 +112,13 @@ def init_block_cache(spec, cfg, B: int, S_max: int, device=None, memory_len: int
     return c
 
 
-def check_sharded(spec, *, cache=None, decode=False) -> None:
-    """Raise naming its item where a mesh does not run this block yet."""
+def check_sharded(spec) -> None:
+    """Raise naming its item where a mesh does not run this block yet:
+    training, prefill and decode alike."""
     if spec.mixer not in ("attn", "none"):
         raise not_ported(f"mixer {spec.mixer!r} under a mesh", "tp_mixers")
     if spec.cross:
         raise not_ported("cross-attention under a mesh", "tp_mixers")
-    if cache is not None or decode:
-        raise not_ported("prefill and decode under a mesh", "sharded_serve")
 
 
 def _moe_sharded(h, p: Block, cfg, axes, use_pallas: bool):
@@ -139,7 +141,7 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, 
     docstring)."""
     sharded = axes is not None and axes.mesh is not None
     if sharded:
-        check_sharded(spec, cache=cache, decode=decode)
+        check_sharded(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
 
@@ -177,9 +179,13 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, 
     elif spec.ffn == "moe":
         h = apply_norm(x, p.ln2, cfg)
         if decode:
-            if cfg.decode_moe_ep:
-                raise not_ported("EP x TP MoE decode (decode_moe_ep)", "moe_ep")
-            mo, a = moe_lib.moe_forward_decode(h, p.moe, cfg)
+            if cfg.decode_moe_ep and sharded and tuple(axes.expert) == ("data", "model"):
+                # EP(data) x TP(model), repro's DESIGN.md §5
+                mo, a = moe_lib.moe_forward(h, p.moe, cfg,
+                                            dataclasses.replace(axes, expert=("data",)),
+                                            tp_axis=axes.model, use_pallas=use_pallas_moe)
+            else:
+                mo, a = moe_lib.moe_forward_decode(h, p.moe, cfg, axes)
         elif sharded:
             mo, a = _moe_sharded(h, p, cfg, axes, use_pallas_moe)
         else:

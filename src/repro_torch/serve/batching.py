@@ -73,6 +73,9 @@ class ContinuousBatcher:
 
     def __init__(self, model, n_slots: int, s_max: int):
         cfg = model.cfg
+        if getattr(model, "sharded", False):
+            raise ValueError("continuous batching runs on one device, as repro's batcher has "
+                             "no mesh; serve a sharded model through serve.engine")
         if cfg.encoder_segments or cfg.n_vision_tokens:
             raise AssertionError("continuous batching serves no model with memory (encoder "
                                  "frames, vision tokens); use serve.engine for them")

@@ -7,6 +7,16 @@ caches; ``extend_caches`` grows them to the generation budget;
 full-length caches; ``generate`` strings the three together greedily.
 The model holds its own parameters, so the functions take no ``params``.
 Every entry point runs under ``torch.no_grad()``.
+
+A sharded model (``Model(cfg, axes=...)`` over a mesh) serves through the
+same functions, called on every rank with the same global inputs, as
+``repro``'s are called with global arrays. Each rank runs its rows of the
+batch (``parallel.batch_rows``: the batch axes that divide B) and returns
+them, the logits over the whole vocabulary (``parallel.gather_logits``);
+its caches are its blocks by ``rules.cache_specs``, and ``seq_shard``
+(``repro``'s ``seq_shard_cache``) splits their sequence over "model"
+instead of their KV heads. ``generate`` gathers the greedy tokens over the
+batch axes after each step, so every rank returns the same (B, n_new).
 """
 from __future__ import annotations
 
@@ -14,16 +24,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.model import Model
+from repro_torch.sharding import parallel as par
 
 
 def make_serve_step(model: Model):
     """Decode one token: (caches, tokens (B, 1), pos) -> (logits (B, 1, Vp),
-    new_caches). The caches are updated in place."""
+    new_caches). The caches are updated in place. Under a mesh: this
+    rank's rows of the logits, from the global tokens."""
 
     @torch.no_grad()
     def serve_step(caches, tokens, pos):
-        logits, caches, _ = model({"tokens": tokens}, caches=caches, decode=True, pos=pos)
-        return logits, caches
+        rows = par.batch_rows(tokens, model.axes)
+        logits, caches, _ = model({"tokens": rows}, caches=caches, decode=True, pos=pos)
+        return par.gather_logits(logits, model.axes), caches
 
     return serve_step
 
@@ -31,19 +44,24 @@ def make_serve_step(model: Model):
 def make_prefill(model: Model):
     """Run the prompt through the model, returning last-position logits and
     the populated caches (length = prompt length; the cross caches as long
-    as the memory: ``frames`` or ``vision``, axis 1)."""
+    as the memory: ``frames`` or ``vision``, axis 1). Under a mesh: this
+    rank's rows and cache blocks, ``prefill(batch, seq_shard=True)`` the
+    caches' sequence over "model" (module docstring)."""
 
     @torch.no_grad()
-    def prefill(batch):
+    def prefill(batch, seq_shard: bool = False):
         B, S = batch["tokens"].shape
         memory_len = 0
         if model.cfg.encoder_segments:
             memory_len = batch["frames"].shape[1]
         elif model.cfg.n_vision_tokens:
             memory_len = batch["vision"].shape[1]
-        caches = model.init_caches(B, S, memory_len=memory_len, device=batch["tokens"].device)
-        logits, caches, _ = model(batch, caches=caches)
-        return logits[:, -1:].clone(), caches  # a copy: frees the (B, S, Vp) logits
+        caches = model.init_caches(B, S, memory_len=memory_len, device=batch["tokens"].device,
+                                   seq_shard=seq_shard)
+        rows = {k: par.batch_rows(v, model.axes) for k, v in batch.items()}
+        logits, caches, _ = model(rows, caches=caches)
+        # a copy: frees the (B, S, Vp) logits
+        return par.gather_logits(logits[:, -1:].contiguous(), model.axes).clone(), caches
 
     return prefill
 
@@ -74,6 +92,23 @@ def _grow_ring(mix: dict, window: int, prefill_len: int, S_max: int) -> dict:
     return out
 
 
+def _grow_seq_shard(model: Model, mix: dict, S_max: int) -> dict:
+    """A ``seq_shard`` cache (every KV head; the sequence over "model" when
+    its ``seq_len`` divides there) grown to S_max: rank r holds the r-th
+    block of S_max, so positions move between the ranks. Gathered whole,
+    padded, and cut again (collective)."""
+    axes = model.axes
+    m = axes.model_size
+    out = {"seq_len": S_max}
+    for name in ("k", "v"):
+        t = mix[name]
+        if mix["seq_len"] % m == 0:
+            t = par.gather(t, 1, axes, axes.model)
+        t = F.pad(t, (0, 0, 0, 0, 0, S_max - t.shape[1]))
+        out[name] = par.shard_leaf(t, (None, axes.model), axes).clone() if S_max % m == 0 else t
+    return out
+
+
 @torch.no_grad()
 def extend_caches(model: Model, caches, prefill_len: int, S_max: int):
     """Grow the caches from prefill length to the decode budget: zero-pad
@@ -82,14 +117,17 @@ def extend_caches(model: Model, caches, prefill_len: int, S_max: int):
     compressed ones (``repro`` pads axis 2 of its stacked ones); re-slot or
     roll each sliding-window ring (``_grow_ring``); pass the recurrent
     caches (conv and h) and the cross caches (ck and cv), fixed size,
-    through unchanged."""
+    through unchanged. A ``seq_shard`` cache of a sharded model moves
+    between its ranks (``_grow_seq_shard``)."""
     out = []
     for c in caches:
         mix = c.get("mix")
         if mix is None or "conv" in mix:
             out.append(c)
             continue
-        if "pos" in mix:
+        if "seq_len" in mix:
+            mix = _grow_seq_shard(model, mix, S_max)
+        elif "pos" in mix:
             mix = _grow_ring(mix, model.cfg.sliding_window, prefill_len, S_max)
         else:
             pad = S_max - next(iter(mix.values())).shape[1]
@@ -122,20 +160,25 @@ def sample_logits(logits, generator: torch.Generator | None = None, *, top_k: in
 
 
 @torch.no_grad()
-def generate(model: Model, batch, n_new: int):
+def generate(model: Model, batch, n_new: int, seq_shard: bool = False):
     """Greedy batched generation: (B, n_new) int32 tokens. ``batch`` holds
     the prompts' ``tokens`` and, for a model with memory, its ``frames`` or
-    ``vision``, which the prefill reads."""
+    ``vision``, which the prefill reads. Under a mesh every rank passes the
+    same global batch and returns the same tokens (module docstring)."""
     prefill = make_prefill(model)
     step = make_serve_step(model)
     B, S = batch["tokens"].shape
     vocab = model.cfg.vocab
-    logits, caches = prefill(batch)
+
+    def greedy(logits):  # every rank's rows of the next tokens
+        return par.gather_batch(logits[..., :vocab].argmax(-1).to(torch.int32), model.axes, B)
+
+    logits, caches = prefill(batch, seq_shard)
     caches = extend_caches(model, caches, S, S + n_new)
-    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    tok = greedy(logits)
     outs = [tok]
     for i in range(n_new - 1):
         logits, caches = step(caches, tok, S + i)
-        tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+        tok = greedy(logits)
         outs.append(tok)
     return torch.cat(outs, dim=1)

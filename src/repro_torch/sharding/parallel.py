@@ -45,6 +45,16 @@ a tuple of axes are made by a collective call, so ``make_groups`` makes
 every group a model needs up front, on every rank.
 
 With no mesh, or a group of one rank, each function is the identity.
+
+Serving runs under ``torch.no_grad()`` and adds three, built on
+``gather`` and ``AxisGroup``: ``gather_logits`` (the vocab-parallel head's blocks
+over "model": ``repro``'s ``serve_step`` returns whole logits),
+``all_max`` with ``reduce_from`` (the log-sum-exp combine of a decode over
+a cache whose sequence is split over "model") and ``gather_batch`` (the
+rows of every rank along the batch axes, so that every rank's
+``generate`` returns the same tokens). ``relay_leaf`` moves a leaf from
+one spec to another, as a served MoE model's experts move between the
+train layout of prefill and the decode layout (``rules.param_specs``).
 """
 from __future__ import annotations
 
@@ -201,6 +211,44 @@ def aux_mean(aux, axes: Axes):
     return _AuxMean.apply(aux, g, axes.batch_size / g.size)
 
 
+# ------------------------------------------------------ serving (no grad)
+
+
+def all_max(x, axes: Axes | None):
+    """The element-wise maximum of a float tensor over "model"."""
+    g = group(axes, axes.model if axes is not None else ())
+    return x if g is None else g.all_amax(x)
+
+
+def gather_logits(logits, axes: Axes | None):
+    """Whole-vocabulary logits from the vocab-parallel head's blocks (the
+    last dimension over "model")."""
+    return gather(logits, -1, axes, axes.model if axes is not None else ())
+
+
+def batch_axes(B: int, axes: Axes | None):
+    """The batch axes that split a global batch of B rows
+    (``rules.fit_batch_axes``), or None where nothing splits it."""
+    if axes is None or axes.mesh is None:
+        return None
+    from repro_torch.sharding.rules import fit_batch_axes
+
+    return fit_batch_axes(B, axes)
+
+
+def batch_rows(x, axes: Axes | None):
+    """This rank's rows (dim 0) of a global batch, by ``batch_axes``."""
+    names = batch_axes(x.shape[0], axes)
+    return x if names is None else shard_leaf(x, (names,), axes)
+
+
+def gather_batch(x, axes: Axes | None, B: int):
+    """Every rank's rows (dim 0) of a global batch of B rows, in order:
+    ``batch_rows``' inverse."""
+    names = batch_axes(B, axes)
+    return x if names is None else gather(x.contiguous(), 0, axes, names)
+
+
 # ------------------------------------------------- leaves and their specs
 
 
@@ -254,3 +302,50 @@ def local_shape(shape, spec, axes: Axes | None) -> tuple:
                 n *= axes.mesh_shape[a]
             out[dim] //= n
     return tuple(out)
+
+
+def _entry(spec, dim: int) -> tuple:
+    e = spec[dim] if dim < len(spec) else None
+    return () if e is None else _entry_axes(e)
+
+
+def _respec_dim(t, dim: int, frm: tuple, to: tuple, axes: Axes):
+    """``t``'s dimension ``dim`` from a split over the axes ``frm`` to one
+    over ``to`` (either may be (): whole): a slice where it only splits
+    more, a gather where it only splits less."""
+    if frm == to:
+        return t
+    if frm:
+        t = gather_leaf(t, (None,) * dim + (frm,), axes)
+    return shard_leaf(t, (None,) * dim + (to,), axes) if to else t
+
+
+def relay_leaf(t, src: tuple, dst: tuple, axes: Axes | None):
+    """This rank's block of a leaf by spec ``dst``, from its block by
+    ``src`` (collective: every rank of the mesh calls it).
+
+    Where "model" moves from one dimension a (last of its axes there) to
+    another b, as a served MoE layer's experts move between ``param_specs``'
+    train layout (experts over ("model",) or ("data", "model")) and its
+    decode layout (d_expert over "model"), it is one all-to-all over
+    "model": each rank sends coordinate j its j-th piece along b and
+    concatenates what it gets along a. The other axes of a and b are
+    gathered or sliced around it (``_respec_dim``). A rank then holds at
+    most its block and a few copies of one piece of it, never the whole
+    leaf. Any other change gathers the leaf whole and takes the block."""
+    if tuple(src) == tuple(dst) or axes is None or axes.mesh is None:
+        return t
+    m = axes.model
+    dims = range(t.dim())
+    a = next((d for d in dims if m in _entry(src, d)), None)
+    b = next((d for d in dims if m in _entry(dst, d)), None)
+    g = group(axes, m)
+    simple = (a is not None and b is not None and a != b and g is not None
+              and _entry(src, a)[-1] == m and _entry(dst, b)[-1] == m
+              and all(_entry(src, d) == _entry(dst, d) for d in dims if d not in (a, b)))
+    if not simple:
+        return shard_leaf(gather_leaf(t, src, axes), dst, axes).contiguous()
+    t = _respec_dim(t, b, _entry(src, b), _entry(dst, b)[:-1], axes)
+    pieces = g.all_to_all(torch.stack(t.chunk(g.size, dim=b)))
+    t = torch.cat(pieces.unbind(0), dim=a)
+    return _respec_dim(t, a, _entry(src, a)[:-1], _entry(dst, a), axes).contiguous()

@@ -216,6 +216,15 @@ class AxisGroup:
         dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.group)
         return wire.to(device=t.device, dtype=t.dtype)
 
+    def all_amax(self, t: torch.Tensor) -> torch.Tensor:
+        """The element-wise maximum over the group of a float tensor of any
+        shape (``lax.pmax``), on ``t``'s device, ``t`` left as it was."""
+        dist = _dist()
+        wire = self._on_backend(t)
+        wire = wire.clone(memory_format=torch.contiguous_format) if wire is t else wire.contiguous()
+        dist.all_reduce(wire, op=dist.ReduceOp.MAX, group=self.group)
+        return wire.to(t.device)
+
     def all_mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean over the group of a float tensor (``lax.pmean``: the
         sum, then divided by p), on ``t``'s device."""

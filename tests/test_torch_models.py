@@ -252,11 +252,16 @@ def test_moe_forward_logits_match(dtype, monkeypatch):
 
 def test_moe_block_sort_paths_agree_and_ep_decode_raises():
     """An MoE block with ``use_pallas_moe`` True and False gives the same
-    bits; ``decode_moe_ep`` (repro's EP x TP decode) names its item."""
+    bits. ``decode_moe_ep`` (repro's EP x TP decode), which raised here
+    until item 10.4.1 was ported, takes ``repro``'s test: without a 2-D
+    expert mesh the block decodes through ``moe_forward_decode`` whatever
+    the flag says, and equals ``repro``'s block with the flag set (output
+    and cache within 1e-4 x max), and the flag changes no bit of it."""
+    from repro.models import transformer as jtfm
     from repro_torch.models import transformer as tfm
 
-    _, tc = cfgs("deepseek-moe-16b")
-    tm = Model(tc, device="cpu", seed=3)
+    jm, params, tm = both_models("deepseek-moe-16b", seed=3)
+    tc = tm.cfg
     spec = tc.layer_list()[1]
     assert spec.ffn == "moe" and tm.layers[1].shared is not None
     x = torch.from_numpy(RNG.standard_normal((2, 16, 64)).astype(np.float32))
@@ -265,10 +270,24 @@ def test_moe_block_sort_paths_agree_and_ep_decode_raises():
     b = tfm.apply_block(x, tm.layers[1], spec, tc, positions=pos, use_pallas_moe=False)
     assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2]) and float(a[2]) > 0
     ep = dataclasses.replace(tc, decode_moe_ep=True)
-    cache = tfm.init_block_cache(spec, ep, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 10.4.1"):
-        tfm.apply_block(x[:, :1], tm.layers[1], spec, ep, positions=torch.tensor([0]),
-                        cache=cache, decode=True)
+    jep = dataclasses.replace(jm.cfg, decode_moe_ep=True)
+    x1 = x[:, 3:4]
+    outs = []
+    for c in (ep, tc):
+        cache = tfm.init_block_cache(spec, c, 2, 4)
+        outs.append(tfm.apply_block(x1, tm.layers[1], spec, c, positions=torch.tensor([2]),
+                                    cache=cache, decode=True))
+    (got, got_cache, _), (plain, _, _) = outs
+    assert torch.equal(got, plain)
+    jp = jax.tree.map(lambda t: t[0], params["segments"][1][0])  # the MoE layer's leaves
+    jcache = jtfm.init_block_cache(spec, jep, None, 2, 4)
+    want, want_cache, _ = jtfm.apply_block(jnp.asarray(x1.numpy()), jp, spec, jep, None,
+                                           positions=jnp.asarray([2], jnp.int32), cache=jcache,
+                                           decode=True)
+    close(convert.to_numpy(got), np.asarray(want), TOL["float32"])
+    for name in ("k", "v"):
+        close(convert.to_numpy(got_cache["mix"][name]), np.asarray(want_cache["mix"][name]),
+              TOL["float32"])
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-32b", "starcoder2-7b", "starcoder2-15b",

@@ -227,23 +227,31 @@ def test_per_rank_checkpoint_and_another_mesh_shape(runs):
                                        ("whisper-base", "item 11.2"),
                                        ("llama-3.2-vision-11b", "item 11.2"),
                                        ("adafactor", "item 11.2"),
-                                       ("decode", "item 11.3"),
-                                       ("ep_decode", "item 11.3"),
+                                       ("mla_decode", "item 11.2"),
+                                       ("window_decode", "item 11.2"),
+                                       ("cross_decode", "item 11.2"),
                                        ("dryrun", "item 11.4")])
 def test_what_a_mesh_does_not_run_names_its_item(arch, item):
+    """Sharded serving (item 11.3) runs GQA blocks with dense or MoE FFNs;
+    an MLA, windowed or cross block still raises under a mesh, in serving
+    as in training, naming item 11.2."""
     if arch == "dryrun":
         from repro_torch.launch import dryrun
 
         with pytest.raises(NotImplementedError, match=item):
             dryrun.main([])
         return
-    if arch in ("decode", "ep_decode"):
-        spec = get_config("qwen3-4b").layer_list()[0]
+    if arch.endswith("_decode"):
+        source = {"mla_decode": ("deepseek-v3-671b", "mla"),
+                  "window_decode": ("recurrentgemma-9b", "local_attn"),
+                  "cross_decode": ("whisper-base", "attn")}[arch]
+        spec = next(s for s in get_config(source[0]).layer_list()
+                    if s.mixer == source[1] and (arch != "cross_decode" or s.cross))
         with pytest.raises(NotImplementedError, match=item):
-            transformer.check_sharded(spec, decode=True)
-        from repro_torch.models import not_ported
+            transformer.check_sharded(spec)
+        from repro_torch.models import _LATER
 
-        assert item in str(not_ported("x", "moe_ep" if arch == "ep_decode" else "sharded_serve"))
+        assert set(_LATER) == {"tp_mixers", "dryrun"}
         return
     cfg = (dataclasses.replace(get_config("qwen3-4b"), optimizer="adafactor")
            if arch == "adafactor" else get_config(arch))

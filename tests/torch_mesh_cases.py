@@ -232,6 +232,11 @@ def moe_inputs() -> tuple[dict, np.ndarray]:
     return weights, rng.standard_normal((4, 16, MOE_D)).astype(np.float32)
 
 
+# EP x TP decode (tests/test_torch_sharded_serve.py): name -> capacity
+# factor; the (4, 1) tokens on a (2, 2) mesh drop assignments below 8
+MOE_TP_CASES = {"capacity_8": 8.0, "capacity_1.25": 1.25, "capacity_0.5": 0.5}
+
+
 def moe_cases() -> dict:
     """name -> expert_2d, the ``ModelConfig`` fields over the smoke config
     at capacity factor 8 in float32, and the sequence length used (S = 1:

@@ -19,7 +19,11 @@ per-device counts; ``topk_shard``'s answers; ``vocab_pad``'s.
 With ``moe`` it runs the MoE cases instead (tests/test_torch_moe_mesh.py):
 ``repro``'s ``moe_forward`` on ``jax.make_mesh((2, 4), ("data",
 "model"))``, as tests/test_distributed.py runs it, writing each case's
-global output and aux loss as ``<name>/out`` and ``<name>/aux``.
+global output and aux loss as ``<name>/out`` and ``<name>/aux``. With
+``moe_tp`` (tests/test_torch_sharded_serve.py, 4 virtual devices) it runs
+``repro``'s EP x TP decode dispatch, ``moe_forward(..., tp_axis="model")``
+with experts over "data", on ``jax.make_mesh((2, 2), ("data", "model"))``
+at S = 1, for each capacity factor of ``torch_mesh_cases.MOE_TP_CASES``.
 """
 from __future__ import annotations
 
@@ -69,6 +73,28 @@ def moe_main(path: str) -> None:
         with rspec.set_mesh_compat(mesh):
             o, aux = jax.jit(lambda x, p, cfg=cfg, axes=axes: moe.moe_forward(x, p, cfg, axes))(
                 jnp.asarray(x[:, :case["S"]]), p)
+        out[f"{name}/out"] = np.asarray(o)
+        out[f"{name}/aux"] = np.asarray(aux)
+    np.savez(path, **out)
+
+
+def moe_tp_main(path: str) -> None:
+    import dataclasses
+
+    from repro.configs.registry import smoke_config
+    from repro.models import moe
+
+    mesh = jax.make_mesh((2, 2), C.MESH_AXES, devices=jax.devices()[:4])
+    weights, x = C.moe_inputs()
+    p = {k: jnp.asarray(v) for k, v in weights.items()}
+    axes = dataclasses.replace(rspec.from_mesh(mesh, expert_2d=True), expert=("data",))
+    out: dict = {}
+    for name, cf in C.MOE_TP_CASES.items():
+        cfg = dataclasses.replace(smoke_config("deepseek-moe-16b"), dtype="float32",
+                                  moe_capacity_factor=cf)
+        with rspec.set_mesh_compat(mesh):
+            o, aux = jax.jit(lambda x, p, cfg=cfg: moe.moe_forward(
+                x, p, cfg, axes, tp_axis="model"))(jnp.asarray(x[:, :1]), p)
         out[f"{name}/out"] = np.asarray(o)
         out[f"{name}/aux"] = np.asarray(aux)
     np.savez(path, **out)
@@ -145,4 +171,5 @@ def main(path: str) -> None:
 
 
 if __name__ == "__main__":
-    (moe_main if sys.argv[2:] == ["moe"] else main)(sys.argv[1])
+    mode = sys.argv[2:3]
+    {("moe",): moe_main, ("moe_tp",): moe_tp_main}.get(tuple(mode), main)(sys.argv[1])
