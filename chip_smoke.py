@@ -264,8 +264,10 @@ Phases, one line or more each:
      (4) is phase 4's; (5) 4 requests of 512-2048 tokens and 8 new
      through ``ContinuousBatcher(n_slots=2)``, launches as derived, each
      request held to itself alone (``hold_batch``, routing replayed);
- 14. recurrent and sliding-window serving: falcon-mamba-7b (64 Mamba
-     layers, 7,272,140,800 parameters) answers 2 prompts of 4096 tokens
+ 14. recurrent and sliding-window serving: falcon-mamba-7b (its first 16
+     of 64 Mamba layers, cut so that phase 18 fits the run's time;
+     2,217,545,728 parameters at full width) answers 2 prompts of 4096
+     tokens
      and recurrentgemma-9b ((RG-LRU, RG-LRU, local attention) x 12 + 2
      RG-LRU, window 2048, flash_attention=True, 8,578,199,552 parameters)
      2 prompts of 8192, each with 16 new through ``engine.generate`` at
@@ -326,17 +328,19 @@ Phases, one line or more each:
      blocks' aux), one step on 4 x 1024 tokens, the loss, grad norm and
      every parameter block within 1e-5 x max of the one-rank step's
      (TF32 off; an entry whose gradient is at the noise floor, m under
-     1e-6 of max |m|, within lr); (2) phase 11's cut (1 dense + 3 MoE,
-     bf16, capacity 1.25, remat) for 2 steps of 2 x 4096 x accum 2
+     1e-6 of max |m|, within lr); (2) 1 dense + 1 MoE layer (phase 11's
+     settings: bf16, capacity 1.25, remat; cut from phase 11's 1 + 3 at
+     4096 a row so that phase 18 fits the run's time) for 2 steps of 2 x
+     2048 x accum 2
      through ``RestartManager.run`` on ``PackedLoader``'s blocks, every
      loss finite and within 5% of the one-rank run's on the same batch,
      every replicated leaf the same bits on its replicas after each
      step; logged: step wall, tokens/s, each rank's peak and the card's
-     (nvidia-smi), a third step with every collective timed (the
-     exchange's and the all-reduces' shares), the MoE drops per rank
+     (nvidia-smi), the last step's collectives timed (the exchange's and
+     the all-reduces' shares), the MoE drops per rank
      and layer; (3) each rank's kv sort and kv merge launches (counts set
      to 0 just before the run, read just after) equal to the data round
-     plus 2 steps of ``moe_dispatch_launches`` at the rank's 2048 tokens
+     plus 2 steps of ``moe_dispatch_launches`` at the rank's 1024 tokens
      and 4 shards, and nonzero; (4) ``python -m repro_torch.launch.train
      --arch deepseek-moe-16b --full-config --layers 2 --seq-len 1024
      --global-batch 4 --steps 3 --save-every 2 --dist-backend gloo`` on
@@ -358,8 +362,8 @@ Phases, one line or more each:
      expert-TP decode, (2, 2) with ``decode_moe_ep`` and (1, 4) with
      ``seq_shard``: the prefill and every step's logits and the caches
      gathered after prefill and after the last step within 1e-5 x max of
-     the reference's, replicated logits the same bits; (2) the published
-     config (28 layers, bf16, flash) on (2, 2) with ``decode_moe_ep``, 2
+     the reference's, replicated logits the same bits; (2) phase 11's
+     cut (1 dense + 3 MoE, bf16, flash) on (2, 2) with ``decode_moe_ep``, 2
      prompts of 8192 + 16 new: with the reference's routing replayed and
      its tokens fed, the prefill logits and every step's within 5e-2 x
      max |logit|, and the drops summed over the ranks equal to the
@@ -370,9 +374,45 @@ Phases, one line or more each:
      rank's peak and the card's (nvidia-smi), the drops per rank and
      layer, a decode step's idle share on rank 0; every rank's tokens
      the same; (3) each rank's launches in ``generate`` (counts set to 0
-     just before, read just after) equal to 27 MoE layers x
+     just before, read just after) equal to 3 MoE layers x
      ``moe_dispatch_launches`` (prefill: 4096 tokens, 4 shards; each of
      15 steps: 1 token, 2 shards) and flash one a layer, each nonzero.
+ 18. the other mixers across ranks: four gloo ranks sharing the card
+     (``run_ranks``, ``--mesh-phase 18``; every group with a 300 s
+     timeout), each holding its blocks of the one-rank model the same
+     seed draws, against the one-rank port run in this process and freed
+     before the ranks start. Checks: (1) in float32 with TF32 off, each
+     error within 1e-5 x max of the reference's: deepseek-v3's first
+     dense MLA layer (flash on), 1 x 8192 + 4 steps on (1, 4) and on
+     (1, 4) with ``seq_shard`` (flash's float32 MLA route once a prefill
+     on each rank), and one Adafactor step with ZeRO-1 and float32 states
+     on (2, 2) at 2 x 1024 (loss, grad norm, every ``vr`` / ``vc`` / ``v``
+     block by its square root, the RMS the update divides by, every
+     parameter block); recurrentgemma-9b's first (rec, rec,
+     local) period, 2 x 2560 + 8 steps (the ring rolls past the 2048
+     window) and one request of 1024 (the re-slot), on (1, 4), (2, 2) and
+     (1, 4) with ``seq_shard``; falcon-mamba-7b's first 2 layers, 2 x
+     1024 + 8 on (1, 4) and (2, 2); whisper-base whole (2 x (1536 frames
+     + 4 tokens) + 8) and the VLM's first period (2 x 1024 + 8 over 1600
+     vision tokens, gates seeded nonzero) on the three; the prefill and
+     every step's logits (the decode fed the reference's tokens), the
+     caches gathered after prefill, after ``extend_caches`` and after the
+     last step; one AdamW step on (2, 2) at 2 x 512 of the recurrent,
+     Mamba and whisper cuts and of the VLM period's last two layers
+     (cross + self, self: four ranks' float32 AdamW states of the whole
+     period exceed the card); (2) deepseek-v3's 3 dense + 1 MoE cut (phase
+     13's, 15,111,101,440 parameters, bf16, flash) on (2, 2) with
+     ``decode_moe_ep`` and ``seq_shard``, 2 prompts of 8192 + 16 new, held
+     and served as phase 17's check 2 (``serve_bf16_rank``,
+     ``hold_served``); (3) deepseek-v3's 3 dense MLA layers trained in
+     bf16 on (2, 2): Adafactor with bfloat16 states, ZeRO-1, remat, steps 1
+     and 2 of 2 x 4096 x accum 2, every loss within 5% of the one-rank
+     run's on the same batch, replicated leaves the same bits after each
+     step, the step wall and each collective's share of a third; (4) each
+     run's launches (counts set to 0 just before, read just after): flash
+     once a prefill a rank in (1)'s MLA runs, phase 17's derivation in
+     (2), none elsewhere. Phase 17's check 2 runs on phase 11's cut (1
+     dense + 3 MoE), so that this phase fits the run's time.
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
@@ -383,7 +423,8 @@ numbers at MLA's shape as ``*_mla``, phase 14's two served models' as
 ``launches_rec``, all 0, phase 15's two served models' as
 ``launches_cross`` (flash 40, the rest 0), phase 16's check-2 runs
 summed over the ranks and both meshes as ``launches_sharded``, phase
-17's served runs summed over the ranks as ``launches_sharded_serve``; their
+17's served runs summed over the ranks as ``launches_sharded_serve``,
+phase 18's counted runs summed over the ranks as ``launches_tp``; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -399,6 +440,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 15    # phases 1, 2 and 15
     python3 chip_smoke.py --phases 16    # phases 1, 2 and 16
     python3 chip_smoke.py --phases 17    # phases 1, 2 and 17
+    python3 chip_smoke.py --phases 18    # phases 1, 2 and 18
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -2280,13 +2322,14 @@ def mesh_rank(rank: int, world: int, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
-def run_ranks(scratch: pathlib.Path, phase: int) -> list:
+def run_ranks(scratch: pathlib.Path, phase: int, **env_extra) -> list:
     """Start MESH_WORLD processes of this script (``--mesh-rank r``), one
-    rank each of a gloo group through a file store in ``scratch``, wait for
-    them (killed past 600 s), and return each rank's ``rank<r>.pt``."""
+    rank each of a gloo group through a file store in ``scratch``, with
+    ``env_extra`` in their environment, wait for them (killed past 600
+    s), and return each rank's ``rank<r>.pt``."""
     import torch
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env_extra)
     logs = [open(scratch / f"rank{r}.log", "w") for r in range(MESH_WORLD)]
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
                                str(r), "--mesh-dir", str(scratch), "--mesh-phase", str(phase)],
@@ -3559,6 +3602,15 @@ def mla_config(dtype: str = "bfloat16"):
                                segments=(((MLA_DENSE,), 3), ((MLA_MOE,), 1)))
 
 
+PENDING = []  # checks whose CPU side runs in a thread while later phases use the card
+
+
+def finish_pending() -> None:
+    """Wait for every deferred CPU check (``PENDING``); raise if one failed."""
+    while PENDING:
+        PENDING.pop(0).result()
+
+
 def mla_layer_on_both(device) -> None:
     """Phase 13's check 1: one MLA layer at full width in float32 (TF32
     off), a prefill of S = 8192 on the card (the FMA route of the flash
@@ -3567,7 +3619,11 @@ def mla_layer_on_both(device) -> None:
     k_pe is rope'd: the two devices' float32 rope tables (a ``pow`` and a
     ``cos`` / ``sin`` of angles up to 8191 rad) differ by up to ``rope``,
     which moves each rotated value by at most 2 x rope x max |k_pe before
-    rope|; k_pe is held to MLA_LAYER_TOL x max plus that."""
+    rope|; k_pe is held to MLA_LAYER_TOL x max plus that. The CPU side (40
+    s and more) runs in a thread (``PENDING``) while the next phases use
+    the card; ``main`` waits for it after phase 15."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from repro_torch.kernels import flash
     from repro_torch.models import attention
@@ -3587,32 +3643,43 @@ def mla_layer_on_both(device) -> None:
         card_ms = (time.perf_counter() - t0) * 1e3
         if flash.flash_attention.launches != before + 1:
             raise AssertionError("phase 13: check 1: the float32 layer did not launch flash once")
-        layer_cpu = attention.MLA(cfg, None, "meta").to_empty(device="cpu")
-        layer_cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
-        t0 = time.perf_counter()
-        want, want_cache = attention.mla_forward(x.cpu(), layer_cpu, cfg, cache={})
-        cpu_ms = (time.perf_counter() - t0) * 1e3
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     pos = torch.arange(MLA_S)
     rope = max(float((a.cpu() - b).abs().max()) for a, b in zip(
         rope_table(pos.to(device), cfg.qk_rope_dim, cfg.rope_theta),
         rope_table(pos, cfg.qk_rope_dim, cfg.rope_theta)))
-    raw = float((x.cpu() @ layer_cpu.wkv_a)[..., cfg.kv_lora_rank:].abs().max())
-    errs = {"out": (out, want), "c_kv": (cache["c_kv"], want_cache["c_kv"]),
-            "k_pe": (cache["k_pe"], want_cache["k_pe"])}
-    scales = {k: float(b.abs().max()) for k, (a, b) in errs.items()}
-    errs = {k: float((a.cpu() - b).abs().max()) for k, (a, b) in errs.items()}
-    limits = {k: MLA_LAYER_TOL * v for k, v in scales.items()}
-    limits["k_pe"] += 2 * rope * raw
-    log(f"phase 13: check 1: one MLA layer in float32 at full width, S = {MLA_S}: card "
-        f"{card_ms:.3f} ms (flash's FMA route at (192, 128)), CPU {cpu_ms:.3f} ms; max abs "
-        "diff (limit): " + ", ".join(f"{k} {errs[k]:.3e} ({limits[k]:.3e}; max |want| "
-                                     f"{scales[k]:.3f})" for k in errs)
-        + f"; the rope tables differ by up to {rope:.3e}, k_pe before rope up to {raw:.3f}")
-    if not all(errs[k] <= limits[k] for k in errs):
-        raise AssertionError(f"phase 13: check 1: the card's float32 MLA layer is off the "
-                             f"CPU's: {errs}, limits {limits}")
+    got = {"out": out.cpu(), "c_kv": cache["c_kv"].cpu(), "k_pe": cache["k_pe"].cpu()}
+    weights = {k: v.detach().cpu() for k, v in layer.state_dict().items()}
+    x_cpu = x.cpu()
+    del layer, out, cache, x
+
+    def cpu_side():
+        with torch.no_grad():
+            layer_cpu = attention.MLA(cfg, None, "meta").to_empty(device="cpu")
+            layer_cpu.load_state_dict(weights)
+            t0 = time.perf_counter()
+            want, want_cache = attention.mla_forward(x_cpu, layer_cpu, cfg, cache={})
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            raw = float((x_cpu @ layer_cpu.wkv_a)[..., cfg.kv_lora_rank:].abs().max())
+        wants = {"out": want, "c_kv": want_cache["c_kv"], "k_pe": want_cache["k_pe"]}
+        scales = {k: float(b.abs().max()) for k, b in wants.items()}
+        errs = {k: float((got[k] - b).abs().max()) for k, b in wants.items()}
+        limits = {k: MLA_LAYER_TOL * v for k, v in scales.items()}
+        limits["k_pe"] += 2 * rope * raw
+        log(f"phase 13: check 1: one MLA layer in float32 at full width, S = {MLA_S}: card "
+            f"{card_ms:.3f} ms (flash's FMA route at (192, 128)), CPU {cpu_ms:.3f} ms (in a "
+            "thread beside the next phases); max abs diff (limit): "
+            + ", ".join(f"{k} {errs[k]:.3e} ({limits[k]:.3e}; max |want| {scales[k]:.3f})"
+                        for k in errs)
+            + f"; the rope tables differ by up to {rope:.3e}, k_pe before rope up to {raw:.3f}")
+        if not all(errs[k] <= limits[k] for k in errs):
+            raise AssertionError(f"phase 13: check 1: the card's float32 MLA layer is off the "
+                                 f"CPU's: {errs}, limits {limits}")
+
+    pool = ThreadPoolExecutor(1)
+    PENDING.append(pool.submit(cpu_side))
+    pool.shutdown(wait=False)
 
 
 def run_mla(device) -> dict:
@@ -3883,8 +3950,9 @@ def run_mla(device) -> dict:
 # compounds over the depth. Its check 2 runs on the served weights in
 # float32, where the path, not the rounding, is held; its bf16 errors are
 # printed.
-REC_RUNS = (("falcon-mamba-7b", 2, 4096, 16, 7_272_140_800, "float32"),
+REC_RUNS = (("falcon-mamba-7b", 2, 4096, 16, 2_217_545_728, "float32"),
             ("recurrentgemma-9b", 2, 8192, 16, 8_578_199_552, "bfloat16"))
+REC_MAMBA_LAYERS = 16  # falcon-mamba-7b's first 16 of its 64 layers: the smoke's time
 REC_RESLOT = 1024  # recurrentgemma's third request: shorter than its window
 REC_LAYER_TOL = 1e-5  # check 1: card against CPU, of max |CPU|
 REC_TOL = 5e-2  # checks 2 and 3: of max |logit| and of max |k|, |v|, as phase 13
@@ -3892,8 +3960,10 @@ REC_PAD = 512  # the teacher-forced forward's length: a multiple of SCAN_CHUNK a
 
 
 def rec_config(arch: str, dtype: str = "bfloat16"):
-    """The published config at full width and depth; recurrentgemma with
-    flash_attention=True, so that its window alone keeps flash off."""
+    """The published config at full width; recurrentgemma at full depth
+    with flash_attention=True, so that its window alone keeps flash off;
+    falcon-mamba cut to its first REC_MAMBA_LAYERS of 64 layers, so that
+    phase 18 fits the run's time."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -3901,6 +3971,10 @@ def rec_config(arch: str, dtype: str = "bfloat16"):
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
     if cfg.sliding_window:
         cfg = dataclasses.replace(cfg, flash_attention=True)
+    if arch == "falcon-mamba-7b":
+        period = cfg.segments[0][0]
+        cfg = dataclasses.replace(cfg, segments=((period, REC_MAMBA_LAYERS),),
+                                  n_layers=REC_MAMBA_LAYERS)
     return cfg
 
 
@@ -4317,7 +4391,7 @@ def serve_rec(device, arch, B, S, n_new, want_params, check_dtype) -> dict:
 
 
 def run_recurrent(device) -> dict:
-    """Phase 14: falcon-mamba-7b (64 Mamba layers) and recurrentgemma-9b
+    """Phase 14: falcon-mamba-7b (16 Mamba layers) and recurrentgemma-9b
     (RG-LRU and local attention, window 2048) at full width and depth
     (bf16, seeded), each served through ``engine.generate`` and checked
     (``serve_rec``: checks 2 and 3), then check 1 (``rec_layers_on_both``). No kernel of the port lies on
@@ -4720,9 +4794,21 @@ SHARD_ADAM_FLOOR = 1e-7
 SHARD_LOSS_TOL = 0.05  # check 2: tests/test_distributed.py's limit
 SHARD_TIMEOUT_S = 300  # every gloo group of the phase
 SHARD_STEPS = 2  # check 2's steps a mesh (phase 11 takes 4; cut so phase 17 fits the run)
+SHARD_S = 2048  # check 2's tokens a row (phase 11's 4096, cut so that phase 18 fits)
 SHARD_LAUNCH = ("--arch", "deepseek-moe-16b", "--full-config", "--layers", "2", "--seq-len",
                 "1024", "--global-batch", "4", "--save-every", "2", "--dist-backend", "gloo",
                 "--log-every", "1")  # check 4
+
+
+def shard_config():
+    """Check 2's cut: phase 11's settings (bf16, capacity 1.25, remat) on 1
+    dense + 1 MoE layer at full width (cut from phase 11's 1 + 3 so that
+    phase 18 fits the run's time)."""
+    import dataclasses
+
+    cfg = train_config()
+    (dense, _), (moe_period, _) = cfg.segments
+    return dataclasses.replace(cfg, segments=((dense, 1), (moe_period, 1)), n_layers=2)
 
 
 def shard_f32_config():
@@ -4763,13 +4849,14 @@ def shard_f32_batch(vocab: int) -> dict:
 
 
 def shard_loader(cfg, device, axes=None):
-    """Phase 11's loader (2 x 4096 x accum 2), this rank's block with ``axes``."""
+    """Phase 11's loader at SHARD_S tokens a row (2 x 2048 x accum 2), this
+    rank's block with ``axes``."""
     import argparse
 
     from repro_torch.data import pipeline
     from repro_torch.launch import train as launcher
 
-    args = argparse.Namespace(seq_len=TRAIN_S, global_batch=TRAIN_B, grad_accum=TRAIN_ACCUM)
+    args = argparse.Namespace(seq_len=SHARD_S, global_batch=TRAIN_B, grad_accum=TRAIN_ACCUM)
     return pipeline.PackedLoader(launcher.data_config(cfg, args), cfg, device=device, axes=axes)
 
 
@@ -4782,13 +4869,17 @@ def checksums(params: dict, specs: dict, axes) -> dict:
     from repro_torch.sharding.rules import spec_axes
 
     groups: dict = {}
+    step = 1 << 24  # elements a piece: a leaf's int64 copies stay small
     for name, t in params.items():
         used = spec_axes(specs[name])
         names = tuple(a for a in axes.mesh.mesh_dim_names if a not in used)
-        bits = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
-        bits = bits.long()
-        w = torch.arange(bits.numel(), device=bits.device) % 251 + 1
-        groups.setdefault(names, []).append((name, torch.stack([bits.sum(), (bits * w).sum()])))
+        flat = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+        total = torch.zeros(2, dtype=torch.long, device=flat.device)
+        for lo in range(0, flat.numel(), step):
+            bits = flat[lo:lo + step].long()
+            w = torch.arange(lo, lo + bits.numel(), device=bits.device) % 251 + 1
+            total += torch.stack([bits.sum(), (bits * w).sum()])
+        groups.setdefault(names, []).append((name, total))
     out = {}
     for names, sums in groups.items():
         g = par.group(axes, names)
@@ -4841,18 +4932,17 @@ def shard_f32_rank(axes, device, ref) -> dict:
 def shard_bf16_rank(axes, device, rank: int, scratch) -> dict:
     """Check 2 on one rank: phase 11's cut trained over the mesh through
     ``RestartManager.run`` (counts set to 0 just before, read just after),
-    its replicas' bits compared after each step; then one step with every
-    collective timed, and one forward recording the MoE drops."""
+    its replicas' bits compared after each step, the last step's
+    collectives timed; then one forward recording the MoE drops."""
     import torch
     import torch.distributed as dist
     from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.ft.manager import RestartManager
     from repro_torch.models import moe
     from repro_torch.models.model import Model
-    from repro_torch.sharding import spec
     from repro_torch.train.step import init_train_state, make_loss_fn, make_train_step
 
-    cfg = train_config()
+    cfg = shard_config()
     tcfg = shard_tcfg(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4871,14 +4961,21 @@ def shard_bf16_rank(axes, device, rank: int, scratch) -> dict:
             data_launches.append(counts_minus(launch_counts(), before))
         return batches[0]
 
+    spent = {"all_to_all": 0.0, "all_sum": 0.0, "all_gather": 0.0}
+
     def wrapped_step(state, step, batch):
         before = launch_counts()
         torch.cuda.synchronize()
         dist.barrier()
-        t1 = time.perf_counter()
-        p, o, metrics = step_fn(*state, step, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t1) * 1e3)
+        real = timed_collectives(spent) if step == SHARD_STEPS - 1 else None  # the last
+        try:
+            t1 = time.perf_counter()
+            p, o, metrics = step_fn(*state, step, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            if real is not None:
+                restore_collectives(real)
         step_launches.append(counts_minus(launch_counts(), before))
         losses.append({k: float(v) for k, v in metrics.items()})
         sums = checksums(p, model.specs, axes)
@@ -4895,31 +4992,7 @@ def shard_bf16_rank(axes, device, rank: int, scratch) -> dict:
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    # one more step with every collective timed (synchronised on both sides)
-    spent = {"all_to_all": 0.0, "all_sum": 0.0, "all_gather": 0.0}
-    real = {k: getattr(spec.AxisGroup, k) for k in spent}
-
-    def timed(kind):
-        def call(self, *a, **k):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            r = real[kind](self, *a, **k)
-            torch.cuda.synchronize()
-            spent[kind] += time.perf_counter() - t1
-            return r
-        return call
-
-    for k in spent:
-        setattr(spec.AxisGroup, k, timed(k))
-    try:
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        step_fn(params, ost, SHARD_STEPS, batches[0])
-        torch.cuda.synchronize()
-        timed_ms = (time.perf_counter() - t1) * 1e3
-    finally:
-        for k, fn in real.items():
-            setattr(spec.AxisGroup, k, fn)
+    timed_ms = step_ms[-1]  # the last step, its collectives timed (synchronised)
 
     # the MoE drops of one forward over the first micro-batch
     micro = {k: torch.as_tensor(v[0], device=device) for k, v in batches[0].items()}
@@ -5063,8 +5136,8 @@ def sharded_phase(device) -> dict:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
-    # check 2's one-rank run: SHARD_STEPS of phase 11's steps on the same batch
-    cfg = train_config()
+    # check 2's one-rank run: SHARD_STEPS steps of its cut on the same batch
+    cfg = shard_config()
     tcfg = shard_tcfg(cfg)
     model = Model(cfg, device=device, seed=0)
     params, ost = init_train_state(model, tcfg)
@@ -5134,7 +5207,7 @@ def sharded_phase(device) -> dict:
             failed.append(f"check 1 on {label}: off the one-rank step")
         # check 2
         runs = [g[label]["bf16"] for g in got]
-        T = TRAIN_B * TRAIN_S // (data * model_n)  # tokens a rank routes a micro-step
+        T = TRAIN_B * SHARD_S // (data * model_n)  # tokens a rank routes a micro-step
         K = cfg.moe_topk
         C = moe_capacity(T * K, MESH_WORLD, cfg.moe_capacity_factor)
         per_layer = moe_dispatch_launches(T, K, MESH_WORLD, C)
@@ -5151,9 +5224,9 @@ def sharded_phase(device) -> dict:
                 + ", ".join(f"{m['loss']:.6f}" for m in run["losses"]) + "; step ms "
                 + ", ".join(f"{t:.3f}" for t in run["step_ms"])
                 + f"; median after the first {med:.3f} ms, "
-                f"{TRAIN_B * TRAIN_S * TRAIN_ACCUM / med * 1e3:.1f} tokens/s (the global "
-                f"batch's); peak {run['peak_gb']:.3f} GB; a timed step {run['timed_ms']:.3f} ms: "
-                f"exchange (all_to_all) {spent['all_to_all']:.3f} ms "
+                f"{TRAIN_B * SHARD_S * TRAIN_ACCUM / med * 1e3:.1f} tokens/s (the global "
+                f"batch's); peak {run['peak_gb']:.3f} GB; the last step, collectives timed, "
+                f"{run['timed_ms']:.3f} ms: exchange (all_to_all) {spent['all_to_all']:.3f} ms "
                 f"({spent['all_to_all'] / run['timed_ms']:.4f}), all-reduce {spent['all_sum']:.3f}"
                 f" ms ({spent['all_sum'] / run['timed_ms']:.4f}), all-gather "
                 f"{spent['all_gather']:.3f} ms ({spent['all_gather'] / run['timed_ms']:.4f}); "
@@ -5247,14 +5320,13 @@ def serve_f32_config(decode_moe_ep: bool = False):
 
 
 def serve_config():
-    """Check 2's model: the published deepseek-moe-16b (28 layers, bf16),
-    flash on, ``decode_moe_ep`` (``repro``'s --opt serving), capacity 1.25."""
+    """Check 2's model: deepseek-moe-16b at full width cut to phase 11's 1
+    dense + 3 MoE layers (bf16; cut from the published 28 so that phase 18
+    fits the run's time), flash on, ``decode_moe_ep``
+    (``repro``'s --opt serving), capacity 1.25."""
     import dataclasses
 
-    from repro_torch.configs.registry import get_config
-
-    return dataclasses.replace(get_config("deepseek-moe-16b"), flash_attention=True,
-                               decode_moe_ep=True)
+    return dataclasses.replace(train_config(), flash_attention=True, decode_moe_ep=True)
 
 
 def serve_prompts(vocab: int, B: int, S: int, seed: int):
@@ -5536,11 +5608,35 @@ def restore_collectives(real: dict) -> None:
         setattr(spec.AxisGroup, k, fn)
 
 
-def serve_bf16_rank(mesh, device, rank: int, scratch) -> dict:
-    """Check 2 and check 3 on one rank: the published config over (2, 2)
-    with ``decode_moe_ep``; the held run with the reference's routing
-    replayed and its tokens fed; then the served run at capacity 1.25
-    (counts set to 0 just before ``generate``, read just after), timed."""
+def built_in_turns(make):
+    """``make()`` on each rank of the world in turn (a barrier between
+    turns), the allocator's cache emptied after: a rank draws each leaf
+    whole before it keeps its block (deepseek-v3's routed experts are 14
+    GB a leaf in float32), so four ranks drawing at once would not fit
+    the card they share."""
+    import torch
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = make()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def serve_bf16_rank(mesh, device, rank: int, scratch, cfg=None, shape=None,
+                    seq_shard: bool = False, seed: int = 73, turns: bool = False) -> dict:
+    """Check 2 and check 3 on one rank: ``cfg`` (the published config)
+    over (2, 2) with ``decode_moe_ep``, ``shape`` (B, S, n_new) (phase 17's
+    SERVE_B, SERVE_S, SERVE_NEW by default); the held run with the
+    reference's routing replayed (``scratch / "bf16_ref.pt"``) and its
+    tokens fed; then the served run at capacity 1.25 (counts set to 0
+    just before ``generate``, read just after), timed. ``seq_shard``: the
+    caches' layout, ``turns`` the model built a rank at a time
+    (``built_in_turns``; phase 18's check 2)."""
     import torch
     import torch.distributed as dist
     from repro_torch.models import moe
@@ -5550,20 +5646,24 @@ def serve_bf16_rank(mesh, device, rank: int, scratch) -> dict:
     from repro_torch.sharding import spec
 
     axes = spec.from_mesh(mesh, expert_2d=True)
-    cfg = serve_config()
-    B, S, n_new = SERVE_B, SERVE_S, SERVE_NEW
+    cfg = serve_config() if cfg is None else cfg
+    B, S, n_new = (SERVE_B, SERVE_S, SERVE_NEW) if shape is None else shape
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = Model(cfg, axes=axes, device=device, seed=0)
+
+    def make():
+        return Model(cfg, axes=axes, device=device, seed=0)
+
+    model = built_in_turns(make) if turns else make()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    batch = {"tokens": serve_prompts(cfg.vocab, B, S, 73).to(device)}
+    batch = {"tokens": serve_prompts(cfg.vocab, B, S, seed).to(device)}
     ref = torch.load(scratch / "bf16_ref.pt", weights_only=False)
     src = spec.axis_group(mesh, axes.expert).index
     data = spec.axis_group(mesh, "data").index
     model_idx = spec.axis_group(mesh, "model").index
     rows = par.batch_rows(torch.arange(B), axes)
-    blocks = prefill_blocks(SERVE_MESH, True, B, S)
+    blocks = prefill_blocks(tuple(axes.mesh_shape[a] for a in ("data", "model")), True, B, S)
     n_pre = len(ref["routes_prefill"])
     prefill = engine.make_prefill(model)
     step = engine.make_serve_step(model)
@@ -5574,7 +5674,7 @@ def serve_bf16_rank(mesh, device, rank: int, scratch) -> dict:
                                 lambda i: blocks[src] if i < n_pre else [data])
     try:
         with moe.recording_drops() as pre_drops:
-            logits, caches = prefill(batch)
+            logits, caches = prefill(batch, seq_shard)
         held = {"prefill": rows_err(logits, ref["prefill"][rows])}
         caches = engine.extend_caches(model, caches, S, S + n_new)
         errs = []
@@ -5646,7 +5746,7 @@ def serve_bf16_rank(mesh, device, rank: int, scratch) -> dict:
         reset_counts()
         with moe.recording_drops() as served_drops:
             t0 = time.perf_counter()
-            out = engine.generate(model, batch, n_new)
+            out = engine.generate(model, batch, n_new, seq_shard=seq_shard)
             torch.cuda.synchronize()
             gen_s = time.perf_counter() - t0
         launches = launch_counts()
@@ -5725,6 +5825,80 @@ def serve_rank(rank: int, world: int, out_dir: str, device) -> None:
     results["bf16"] = serve_bf16_rank(meshes[SERVE_MESH], device, rank, scratch)
     torch.save(results, scratch / f"rank{rank}.pt")
     dist.destroy_process_group()
+
+
+def hold_served(tag: str, bf: list, ref: dict, cfg, shape, mesh_shape, failed: list) -> dict:
+    """Phase 17's checks 2 and 3 (phase 18's checks 2 and 4) on the ranks'
+    ``serve_bf16_rank`` results ``bf``, against the one-rank reference
+    ``ref``: the held run's logits within SERVE_TOL and its drops summed
+    over the ranks equal to the reference's rule; the served run's pieces
+    logged; every rank's tokens the same; each rank's launches equal to
+    their derivation (the MoE layers' dispatches at prefill, a rank's row
+    and slice of the sequence over MESH_WORLD shards, and at each decode
+    step, one token over "data"; flash once a layer at prefill). Appends
+    what fails to ``failed``; returns the launches summed over the ranks."""
+    import torch
+
+    B, S, n_new = shape
+    held = [r["held"] for r in bf]
+    h_pre = max(h["prefill"] for h in held)
+    h_steps = max(max(h["steps"]) for h in held)
+    rank_pre = [sum(x) for x in zip(*(h["prefill_drops"] for h in held))]
+    rank_dec = sum(sum(h["decode_drops"]) for h in held)
+    log(f"{tag}: check 2 on {mesh_shape}, decode_moe_ep, {B} x {S} + {n_new}, the "
+        f"reference's routing replayed: prefill logits max error {h_pre:.4e} of max |logit|, "
+        f"decode steps {h_steps:.4e} (limit {SERVE_TOL}); drops summed over the ranks, by "
+        f"layer, prefill {rank_pre} (the reference's rule: {ref['drops_prefill']}), decode "
+        f"{rank_dec} ({sum(ref['drops_decode'])})")
+    if not (h_pre <= SERVE_TOL and h_steps <= SERVE_TOL and rank_pre == ref["drops_prefill"]
+            and rank_dec == sum(ref["drops_decode"])):
+        failed.append("check 2: the held run is off the one-rank reference")
+    n_moe = sum(sp.ffn == "moe" for sp in cfg.layer_list())
+    K, cf = cfg.moe_topk, cfg.moe_capacity_factor
+    data, model_n = mesh_shape
+    T_pre = (B // data) * S // model_n  # a rank's tokens at prefill: its rows, its slice
+    pre = moe_dispatch_launches(T_pre, K, MESH_WORLD, moe_capacity(T_pre * K, MESH_WORLD, cf))
+    dec = moe_dispatch_launches(1, K, data, moe_capacity(K, data, cf))
+    want = {k: n_moe * (pre[k] + (n_new - 1) * dec[k]) for k in pre}
+    want["flash_attention"] = cfg.n_layers
+    total = None
+    for r, run in enumerate(bf):
+        med = statistics.median(run["step_ms"])
+        ps, ss = run["prefill_spent"], run["step_spent"]
+        drops_pre = run["served_drops"]
+        drops_dec = [sum(c + e for _, c, e in run["served_dec_drops"][i::n_moe])
+                     for i in range(n_moe)]
+        idle = ("" if run["idle"] is None else
+                f"; a decode step under torch.profiler {run['idle'][0]:.3f} ms wall, "
+                f"{run['idle'][1]:.3f} ms device (idle {1 - run['idle'][1] / run['idle'][0]:.3f}),"
+                " largest device events " + "; ".join(f"{n[:50]} {ms:.3f} ms"
+                                                      for n, ms in run["idle"][2]))
+        log(f"{tag}: check 2's served run, rank {r}: built in {run['build_s']:.1f} s, "
+            f"{run['block_params']} parameters; generate {run['gen_s']:.1f} s; re-lay to train "
+            f"{run['relay_ms'][0]:.1f} ms, to decode {run['relay_ms'][1]:.1f} ms; prefill "
+            f"{run['prefill_ms']:.1f} ms (all-reduces {ps['all_sum'] / run['prefill_ms']:.4f}, "
+            f"all-gathers {ps['all_gather'] / run['prefill_ms']:.4f}, exchange "
+            f"{ps['all_to_all'] / run['prefill_ms']:.4f}); decode {med:.3f} ms a step (median of "
+            f"{len(run['step_ms'])}), {B / med * 1e3:.3f} tokens/s; a timed step "
+            f"{run['timed_step_ms']:.3f} ms: all-reduces {ss['all_sum'] / run['timed_step_ms']:.4f},"
+            f" all-gathers {ss['all_gather'] / run['timed_step_ms']:.4f}, exchange "
+            f"{ss['all_to_all'] / run['timed_step_ms']:.4f}; peak {run['peak_gb']:.3f} GB; "
+            f"prefill drops by layer (assignments, at C, at the expert capacity) {drops_pre}; "
+            f"decode drops by layer over the steps {drops_dec}; launches {run['launches']}{idle}")
+        ok_tokens = (run["tokens"].shape == (B, n_new)
+                     and torch.equal(run["tokens"], bf[0]["tokens"])
+                     and bool(((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab)).all()))
+        if not ok_tokens:
+            failed.append(f"check 2: rank {r}'s tokens")
+        if run["launches"] != want or not all(run["launches"][k] > 0 for k in (
+                "bitonic_sort_rows_kv", "bitonic_merge_rows_kv", "flash_attention")):
+            failed.append(f"launches, rank {r}: {run['launches']}, derived {want}")
+        total = (run["launches"] if total is None
+                 else {k: total[k] + v for k, v in run["launches"].items()})
+    log(f"{tag}: launches per rank derived {want}: {n_moe} MoE layers x (prefill "
+        f"{pre}: {T_pre} tokens, {MESH_WORLD} shards; + {n_new - 1} steps x {dec}: 1 token, "
+        f"{data} shards), flash one a layer; tokens {bf[0]['tokens'].tolist()}")
+    return total
 
 
 def run_sharded_serve(device) -> dict:
@@ -5840,67 +6014,9 @@ def run_sharded_serve(device) -> dict:
                 and all(r["replicated"] and r["layout"] == "decode" for r in runs)):
             failed.append(f"check 1 on {label}")
 
-    # check 2
-    bf = [g["bf16"] for g in got]
-    held = [r["held"] for r in bf]
-    h_pre = max(h["prefill"] for h in held)
-    h_steps = max(max(h["steps"]) for h in held)
-    rank_pre = [sum(x) for x in zip(*(h["prefill_drops"] for h in held))]
-    rank_dec = sum(sum(h["decode_drops"]) for h in held)
-    log(f"phase 17: check 2 on (2, 2), decode_moe_ep, {SERVE_B} x {SERVE_S} + {SERVE_NEW}, the "
-        f"reference's routing replayed: prefill logits max error {h_pre:.4e} of max |logit|, "
-        f"decode steps {h_steps:.4e} (limit {SERVE_TOL}); drops summed over the ranks, by "
-        f"layer, prefill {rank_pre} (the reference's rule: {ref['drops_prefill']}), decode "
-        f"{rank_dec} ({sum(ref['drops_decode'])})")
-    if not (h_pre <= SERVE_TOL and h_steps <= SERVE_TOL and rank_pre == ref["drops_prefill"]
-            and rank_dec == sum(ref["drops_decode"])):
-        failed.append("check 2: the held run is off the one-rank reference")
-    n_moe = sum(s.ffn == "moe" for s in cfg.layer_list())
-    K, cf = cfg.moe_topk, cfg.moe_capacity_factor
-    data, model_n = SERVE_MESH
-    T_pre = SERVE_S // model_n  # a rank's tokens at prefill: its row, its slice
-    pre = moe_dispatch_launches(T_pre, K, MESH_WORLD, moe_capacity(T_pre * K, MESH_WORLD, cf))
-    dec = moe_dispatch_launches(1, K, data, moe_capacity(K, data, cf))
-    want = {k: n_moe * (pre[k] + (SERVE_NEW - 1) * dec[k]) for k in pre}
-    want["flash_attention"] = cfg.n_layers
-    total = None
-    for r, run in enumerate(bf):
-        med = statistics.median(run["step_ms"])
-        ps, ss = run["prefill_spent"], run["step_spent"]
-        drops_pre = run["served_drops"]
-        drops_dec = [sum(c + e for _, c, e in run["served_dec_drops"][i::n_moe])
-                     for i in range(n_moe)]
-        idle = ("" if run["idle"] is None else
-                f"; a decode step under torch.profiler {run['idle'][0]:.3f} ms wall, "
-                f"{run['idle'][1]:.3f} ms device (idle {1 - run['idle'][1] / run['idle'][0]:.3f}),"
-                " largest device events " + "; ".join(f"{n[:50]} {ms:.3f} ms"
-                                                      for n, ms in run["idle"][2]))
-        log(f"phase 17: check 2's served run, rank {r}: built in {run['build_s']:.1f} s, "
-            f"{run['block_params']} parameters; generate {run['gen_s']:.1f} s; re-lay to train "
-            f"{run['relay_ms'][0]:.1f} ms, to decode {run['relay_ms'][1]:.1f} ms; prefill "
-            f"{run['prefill_ms']:.1f} ms (all-reduces {ps['all_sum'] / run['prefill_ms']:.4f}, "
-            f"all-gathers {ps['all_gather'] / run['prefill_ms']:.4f}, exchange "
-            f"{ps['all_to_all'] / run['prefill_ms']:.4f}); decode {med:.3f} ms a step (median of "
-            f"{len(run['step_ms'])}), {SERVE_B / med * 1e3:.3f} tokens/s; a timed step "
-            f"{run['timed_step_ms']:.3f} ms: all-reduces {ss['all_sum'] / run['timed_step_ms']:.4f},"
-            f" all-gathers {ss['all_gather'] / run['timed_step_ms']:.4f}, exchange "
-            f"{ss['all_to_all'] / run['timed_step_ms']:.4f}; peak {run['peak_gb']:.3f} GB; "
-            f"prefill drops by layer (assignments, at C, at the expert capacity) {drops_pre}; "
-            f"decode drops by layer over the steps {drops_dec}; launches {run['launches']}{idle}")
-        ok_tokens = (run["tokens"].shape == (SERVE_B, SERVE_NEW)
-                     and torch.equal(run["tokens"], bf[0]["tokens"])
-                     and bool(((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab)).all()))
-        if not ok_tokens:
-            failed.append(f"check 2: rank {r}'s tokens")
-        # check 3
-        if run["launches"] != want or not all(run["launches"][k] > 0 for k in (
-                "bitonic_sort_rows_kv", "bitonic_merge_rows_kv", "flash_attention")):
-            failed.append(f"check 3, rank {r}: launches {run['launches']}, derived {want}")
-        total = (run["launches"] if total is None
-                 else {k: total[k] + v for k, v in run["launches"].items()})
-    log(f"phase 17: check 3: launches per rank derived {want}: {n_moe} MoE layers x (prefill "
-        f"{pre}: {T_pre} tokens, {MESH_WORLD} shards; + {SERVE_NEW - 1} steps x {dec}: 1 token, "
-        f"{data} shards), flash one a layer; tokens {bf[0]['tokens'].tolist()}")
+    # checks 2 and 3
+    total = hold_served("phase 17", [g["bf16"] for g in got], ref, serve_config(),
+                        (SERVE_B, SERVE_S, SERVE_NEW), SERVE_MESH, failed)
     if failed:
         raise AssertionError("phase 17: " + "; ".join(failed))
     if not math.isfinite(card_gb):
@@ -5910,7 +6026,684 @@ def run_sharded_serve(device) -> dict:
     return total
 
 
-ALL_PHASES = frozenset(range(1, 18))
+# ----------------------------------------------------------------- phase 18
+
+MIX_TOL = 1e-5  # check 1: of max |reference|
+MIX_TIMEOUT_S = 300  # every gloo group of the phase
+# check 1's meshes: (data, model), experts over ("data", "model"), seq_shard
+MIX_MESHES = {"(1, 4)": ((1, 4), False, False), "(2, 2)": ((2, 2), True, False),
+              "(1, 4), seq_shard": ((1, 4), False, True)}
+# check 1's served runs: cut -> (meshes, [(B, S, n_new, memory positions), ...])
+MIX_SERVE = {"mla": (("(1, 4)", "(1, 4), seq_shard"), [(1, 8192, 4, 0)]),
+             "rec": (tuple(MIX_MESHES), [(2, 2560, 8, 0), (1, 1024, 8, 0)]),
+             "mamba": (("(1, 4)", "(2, 2)"), [(2, 1024, 8, 0)]),
+             "whisper": (tuple(MIX_MESHES), [(2, 4, 8, 1536)]),
+             "vlm": (tuple(MIX_MESHES), [(2, 1024, 8, 1600)])}
+# check 1's steps on (2, 2): cut -> (B, S) of one micro-batch
+MIX_STEPS = {"mla": (2, 1024), "rec": (2, 512), "mamba": (2, 512), "whisper": (2, 512),
+             "vlm-train": (2, 512)}
+MIX_MEMORY_TRAIN = {"whisper": 1536, "vlm-train": 1600}
+MIX_B, MIX_S, MIX_NEW = 2, 8192, 16  # check 2
+MIX_CF = 1.25  # check 2's served run
+MIX_TRAIN = (2, 4096, 2, 2)  # check 3: B, S, accum, steps
+MIX_LOSS_TOL = 0.05  # check 3: tests/test_distributed.py's limit
+MIX_SERVE_MESH = (2, 2)  # checks 2 and 3
+
+
+def mix_cut(name: str, dtype: str = "float32"):
+    """Check 1's cuts, every width as published: deepseek-v3-671b's first
+    dense MLA layer (flash on: its 8192-token prefill takes the kernel's
+    float32 MLA route); recurrentgemma-9b's first (rec, rec, local)
+    period; falcon-mamba-7b's first 2 layers; whisper-base whole (6 + 6);
+    llama-3.2-vision-11b's first period (self x 3, cross + self, self),
+    and for its step (``vlm-train``, so that the four ranks' float32
+    AdamW states fit the card) the period's last two layers."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    arch = {"mla": "deepseek-v3-671b", "rec": "recurrentgemma-9b", "mamba": "falcon-mamba-7b",
+            "whisper": "whisper-base", "vlm": "llama-3.2-vision-11b",
+            "vlm-train": "llama-3.2-vision-11b"}[name]
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    period = cfg.segments[0][0]
+    if name == "mla":
+        return dataclasses.replace(cfg, segments=((period, 1),), n_layers=1,
+                                   flash_attention=True, opt_state_dtype="float32")
+    if name == "mamba":
+        return dataclasses.replace(cfg, segments=((period, 2),), n_layers=2)
+    if name in ("rec", "vlm"):
+        return dataclasses.replace(cfg, segments=((period, 1),), n_layers=len(period))
+    if name == "vlm-train":
+        return dataclasses.replace(cfg, segments=((period[3:], 1),), n_layers=2)
+    return cfg
+
+
+def mix_check2_config():
+    """Check 2's model: phase 13's deepseek-v3 cut (3 dense + 1 MoE, bf16,
+    flash) with ``decode_moe_ep`` and capacity MIX_CF."""
+    import dataclasses
+
+    return dataclasses.replace(mla_config(), decode_moe_ep=True, moe_capacity_factor=MIX_CF)
+
+
+def mix_check3_config():
+    """Check 3's model: deepseek-v3's first three dense MLA layers, bf16,
+    Adafactor with the config's bfloat16 states, remat on."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("deepseek-v3-671b")
+    return dataclasses.replace(cfg, segments=(cfg.segments[0],), n_layers=cfg.segments[0][1],
+                               remat=True)
+
+
+def mix_tcfg(cfg):
+    """The step's settings: the config's optimizer (check 1: AdamW, or
+    deepseek-v3's Adafactor with float32 states), lr warming up over 2
+    steps, the MoE aux loss off."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig
+
+    return TrainConfig(opt=adamw.OptConfig(name=cfg.optimizer, peak_lr=3e-4, warmup_steps=2,
+                                           total_steps=8, state_dtype=cfg.opt_state_dtype),
+                       aux_coef=0.0)
+
+
+def mix_memory(cfg, B: int, M: int, device, lead=()):
+    """Seeded memory inputs of ``cfg`` (the same on every rank)."""
+    import torch
+
+    if not M:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(81)
+    x = torch.randn((*lead, B, M, cfg.d_model), generator=gen, device=device)
+    return {"frames" if cfg.encoder_segments else "vision": x.to(getattr(torch, cfg.dtype))}
+
+
+def mix_model(cfg, device, axes=None):
+    """The cut's model from seed 0 (this rank's blocks under ``axes``), its
+    cross gates seeded nonzero (``seed_gates``, the same on every rank)."""
+    import torch
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, axes=axes, device=device, seed=0)
+    with torch.no_grad():
+        seed_gates(model.layers, torch.Generator(device=device).manual_seed(83))
+    return model
+
+
+def mix_serve_reference(model, batch: dict, n_new: int) -> dict:
+    """The one-rank prefill, ``extend_caches`` and greedy steps: the logits
+    (CPU), the tokens, and the caches after each (``caches_to_numpy``)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.serve import engine
+
+    cfg = model.cfg
+    S = batch["tokens"].shape[1]
+    logits, caches = engine.make_prefill(model)(batch)
+    out = {"prefill": logits.float().cpu(), "caches_prefill": convert.caches_to_numpy(cfg, caches)}
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    out["caches_extended"] = convert.caches_to_numpy(cfg, caches)
+    step = engine.make_serve_step(model)
+    tok = logits[..., :cfg.vocab].argmax(-1).to(torch.int32)
+    toks, steps = [tok], []
+    for i in range(n_new - 1):
+        logits, caches = step(caches, tok, S + i)
+        steps.append(logits.float().cpu())
+        tok = logits[..., :cfg.vocab].argmax(-1).to(torch.int32)
+        toks.append(tok)
+    out["caches_decoded"] = convert.caches_to_numpy(cfg, caches)
+    out["steps"] = torch.stack(steps)
+    out["tokens"] = torch.cat(toks, dim=1).cpu()
+    return out
+
+
+def mix_serve_rank(model, ref: dict, batch: dict, n_new: int, seq_shard: bool) -> dict:
+    """Check 1's served run on one rank, the decode fed the reference's
+    tokens: each error over the reference's max, the launches of the
+    prefill and of the steps (counts set to 0 just before each)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.serve import engine
+    from repro_torch.sharding import parallel as par
+
+    cfg, axes = model.cfg, model.axes
+    B, S = batch["tokens"].shape
+    rows = par.batch_rows(torch.arange(B), axes)
+    reset_counts()
+    logits, caches = engine.make_prefill(model)(batch, seq_shard=seq_shard)
+    launches = {"prefill": launch_counts()}
+    out = {"prefill": rows_err(logits, ref["prefill"][rows]),
+           "caches_prefill": caches_err(convert.caches_to_numpy(cfg, caches, axes, B),
+                                        ref["caches_prefill"])}
+    caches = engine.extend_caches(model, caches, S, S + n_new)
+    out["caches_extended"] = caches_err(convert.caches_to_numpy(cfg, caches, axes, B),
+                                        ref["caches_extended"])
+    step = engine.make_serve_step(model)
+    device = batch["tokens"].device
+    reset_counts()
+    errs = []
+    for i in range(n_new - 1):
+        logits, caches = step(caches, ref["tokens"][:, i:i + 1].to(device), S + i)
+        errs.append(rows_err(logits, ref["steps"][i][rows]))
+    launches["decode"] = launch_counts()
+    out.update(steps=errs, launches=launches,
+               caches_decoded=caches_err(convert.caches_to_numpy(cfg, caches, axes, B),
+                                         ref["caches_decoded"]))
+    return out
+
+
+def mix_tokens(vocab: int, accum: int, B: int, S: int, seed: int) -> dict:
+    """(accum, B, S) seeded tokens and labels, a few labels ignored."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {k: rng.integers(0, vocab, (accum, B, S)).astype(np.int32)
+           for k in ("tokens", "labels")}
+    out["labels"][0, 0, :64] = -1
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def mix_train_batch(cfg, B: int, S: int, M: int, device) -> dict:
+    """Check 1's micro-batch (accum 1): tokens, labels and the memory of
+    ``cfg``."""
+    out = {k: v.to(device) for k, v in mix_tokens(cfg.vocab, 1, B, S, 93).items()}
+    out.update(mix_memory(cfg, B, M, device, lead=(1,)))
+    return out
+
+
+def mix_dead(ref_params: dict, ref_state: dict, name: str, spec, axes, adafactor: bool):
+    """The entries of a parameter's block whose step does not follow its
+    gradient (held to lr, not to MIX_TOL): AdamW's |m| under
+    SHARD_ADAM_FLOOR; Adafactor's unfactored v under 1e-12 of its leaf's
+    largest (a gradient under 1e-6 of the largest, whose normalised step
+    is +-1 whatever its size). None where there are none."""
+    from repro_torch.sharding import parallel as par
+
+    if not adafactor:
+        m = par.shard_leaf(ref_state["m"][name], spec, axes)
+        return m.abs() < SHARD_ADAM_FLOOR
+    s = ref_state["v"][name]
+    if "v" not in s:
+        return None
+    v = par.shard_leaf(s["v"], spec, axes)
+    return v < 1e-12 * float(s["v"].abs().max())
+
+
+def mix_train_rank(model, ref: dict, B: int, S: int, M: int) -> dict:
+    """Check 1's step on one rank (launches counted), against the one-rank
+    step's (``ref``): the loss, the grad norm, every block of the
+    optimizer's states (AdamW's m; Adafactor's vr, vc and v, each rank's
+    ZeRO block; each error over the largest |entry| of its kind in the
+    model: a key bias's gradient is zero but for rounding) and of the
+    parameters; replicas the same bits. Adafactor's second moments are
+    squares of the gradient, so their rounding is twice the gradient's:
+    they are held by their square roots, the RMS the update divides by,
+    over the largest root of their kind (on the card a norm scale's v,
+    a sum over 2048 tokens that cancels, came 1.05e-5-1.08e-5 of the
+    largest v from one rank's: 5.4e-6 in its root)."""
+    import torch
+    from repro_torch.data.pipeline import batch_block
+    from repro_torch.sharding import parallel as par
+    from repro_torch.train.step import init_train_state, make_train_step, state_specs
+
+    cfg, axes = model.cfg, model.axes
+    tcfg = mix_tcfg(cfg)
+    adafactor = tcfg.opt.name == "adafactor"
+    params, ost = init_train_state(model, tcfg)
+    batch = batch_block(mix_train_batch(cfg, B, S, M, model.device), axes)
+    reset_counts()
+    with torch.enable_grad():
+        _, _, metrics = make_train_step(model, tcfg)(params, ost, 1, batch)
+    launches = launch_counts()
+    torch.cuda.empty_cache()  # four ranks share the card: give back the step's peak
+    sspecs = state_specs(model, tcfg)
+    state_err, raw_err, live_err, dead_err, dead_n = (0.0, ""), (0.0, ""), (0.0, ""), (0.0, ""), 0
+    def pieces(t, *others):  # a leaf and its references, 2^24 elements at a time, on the card
+        flat = [x.reshape(-1) for x in (t, *others)]
+        for lo in range(0, flat[0].numel(), 1 << 24):
+            yield [x[lo:lo + (1 << 24)].to(t.device) for x in flat]
+
+    for name, p in params.items():
+        kinds = ost["v"][name] if adafactor else {"m": ost["m"][name]}
+        for kind, t in kinds.items():
+            want = ref["state"]["v"][name][kind] if adafactor else ref["state"]["m"][name]
+            spec = sspecs["v"][name][kind] if adafactor else sspecs["m"][name]
+            w = par.shard_leaf(want, spec, axes).contiguous()
+            raw = max(float((a.float() - b.float()).abs().max())
+                      for a, b in pieces(t, w)) / ref["state_top"][kind]
+            raw_err = max(raw_err, (raw, f"{name}.{kind}"))
+            if adafactor:  # second moments by their square roots (docstring)
+                raw = max(float((a.float().sqrt() - b.float().sqrt()).abs().max())
+                          for a, b in pieces(t, w)) / ref["state_top"][kind] ** 0.5
+            state_err = max(state_err, (raw, f"{name}.{kind}"))
+        want = par.shard_leaf(ref["params"][name], model.specs[name], axes).contiguous()
+        dead = mix_dead(ref["params"], ref["state"], name, model.specs[name], axes, adafactor)
+        dead = None if dead is None else dead.contiguous()
+        for a, b, *d in pieces(p.detach(), want, *(() if dead is None else (dead,))):
+            diff = (a - b).abs()
+            live = diff if not d else diff[~d[0]]
+            if live.numel():
+                live_err = max(live_err, (float(live.max()), name))
+            if d and bool(d[0].any()):
+                dead_err = max(dead_err, (float(diff[d[0]].max()), name))
+                dead_n += int(d[0].sum())
+    sums = checksums(params, model.specs, axes)
+    out = dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+               state_err=state_err, raw_err=raw_err, live_err=live_err, dead_err=dead_err,
+               dead=dead_n,
+               launches=launches, same=all(bool((s == s[0]).all()) for s in sums.values()),
+               block_params=sum(p.numel() for p in params.values()))
+    del params, ost
+    return out
+
+
+def mix_train_bf16_rank(axes, device, scratch) -> dict:
+    """Check 3 on one rank: deepseek-v3's 3 dense layers over (2, 2),
+    Adafactor with bfloat16 states and ZeRO-1, remat; MIX_TRAIN's steps on
+    this rank's block of one batch (counts set to 0 just before, read just
+    after), each step's wall, its replicas' bits compared after each, the
+    last step's collectives timed (synchronised on both sides)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import batch_block
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = mix_check3_config()
+    tcfg = mix_tcfg(cfg)
+    B, S, accum, steps = MIX_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, axes=axes, device=device, seed=0)
+    params, ost = init_train_state(model, tcfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = batch_block(torch.load(scratch / "train_batch.pt"), axes)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    step_fn = make_train_step(model, tcfg)
+    step_ms, losses, same = [], [], []
+    spent = {"all_to_all": 0.0, "all_sum": 0.0, "all_gather": 0.0}
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    with torch.enable_grad():
+        for i in range(1, steps + 1):  # lr(0) == 0; the last step's collectives timed
+            real = timed_collectives(spent) if i == steps else None
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                _, _, metrics = step_fn(params, ost, i, batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            finally:
+                if real is not None:
+                    restore_collectives(real)
+            losses.append(float(metrics["loss"]))
+            sums = checksums(params, model.specs, axes)
+            same.append(all(bool((s == s[0]).all()) for s in sums.values()))
+        launches = launch_counts()
+    out = dict(build_s=build_s, step_ms=step_ms, losses=losses, same=same, launches=launches,
+               timed_ms=step_ms[-1], spent_ms={k: v * 1e3 for k, v in spent.items()},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               block_params=sum(p.numel() for p in params.values()))
+    del model, params, ost, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def mix_rank(rank: int, world: int, out_dir: str, device) -> None:
+    """One of phase 18's ranks (``--mesh-rank r --mesh-phase 18``): a gloo
+    group through a file store (MIX_TIMEOUT_S on it and on every group
+    made from it); check 1's served runs and steps (TF32 off), each cut's
+    model built once a mesh; checks 2 and 3 on (2, 2); results to
+    ``rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.sharding import spec
+
+    timeout = datetime.timedelta(seconds=MIX_TIMEOUT_S)
+    distributed_c10d.default_pg_timeout = timeout
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=world, timeout=timeout)
+    scratch = pathlib.Path(out_dir)
+    meshes = {shape: DeviceMesh(device.type, torch.arange(world).reshape(shape),
+                                mesh_dim_names=("data", "model"))
+              for shape in {v[0] for v in MIX_MESHES.values()}}
+    results, walls = {}, {}
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for cut, (labels, requests) in MIX_SERVE.items():
+            cfg = mix_cut(cut)
+            for shape in dict.fromkeys(MIX_MESHES[lb][0] for lb in labels):
+                axes = spec.from_mesh(meshes[shape], expert_2d=shape == MIX_SERVE_MESH)
+                model = mix_model(cfg, device, axes)
+                for label in labels:
+                    if MIX_MESHES[label][0] != shape:
+                        continue
+                    for B, S, n_new, M in requests:
+                        ref = torch.load(scratch / f"ref_{cut}_{B}x{S}.pt", weights_only=False)
+                        batch = {"tokens": ref["prompt"].to(device),
+                                 **mix_memory(cfg, B, M, device)}
+                        results[f"{cut}/{label}/{B}x{S}"] = mix_serve_rank(
+                            model, ref, batch, n_new, MIX_MESHES[label][2])
+                        del ref
+                        dist.barrier()
+                del model
+                torch.cuda.empty_cache()
+            walls[f"check 1, {cut} served"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        axes = spec.from_mesh(meshes[MIX_SERVE_MESH], expert_2d=True)
+        for cut, (B, S) in MIX_STEPS.items():
+            ref = torch.load(scratch / f"step_{cut}.pt", mmap=True, weights_only=False)
+            model = mix_model(mix_cut(cut), device, axes)
+            results[f"step/{cut}"] = mix_train_rank(model, ref, B, S,
+                                                    MIX_MEMORY_TRAIN.get(cut, 0))
+            del model, ref
+            torch.cuda.empty_cache()
+            dist.barrier()
+            walls[f"check 1, {cut} step"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    mesh = meshes[MIX_SERVE_MESH]
+    results["bf16"] = serve_bf16_rank(mesh, device, rank, scratch, cfg=mix_check2_config(),
+                                      shape=(MIX_B, MIX_S, MIX_NEW), seq_shard=True, seed=87,
+                                      turns=True)
+    dist.barrier()
+    walls["check 2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results["train_bf16"] = mix_train_bf16_rank(spec.from_mesh(mesh, expert_2d=True), device,
+                                                scratch)
+    walls["check 3"] = time.perf_counter() - t0
+    results["walls"] = walls
+    torch.save(results, scratch / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def mix_references(device, scratch) -> dict:
+    """Check 1's references on one rank (TF32 off): each cut's served
+    requests and its step, to files (written by a thread while the next
+    reference runs on the card); their sizes and times."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    info = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    writer = ThreadPoolExecutor(1)
+    writes = []
+    try:
+        for cut, (_, requests) in MIX_SERVE.items():
+            t0 = time.perf_counter()
+            cfg = mix_cut(cut)
+            model = mix_model(cfg, device)
+            for B, S, n_new, M in requests:
+                batch = {"tokens": serve_prompts(cfg.vocab, B, S, 89).to(device),
+                         **mix_memory(cfg, B, M, device)}
+                ref = mix_serve_reference(model, batch, n_new)
+                ref["prompt"] = batch["tokens"].cpu()
+                writes.append(writer.submit(torch.save, ref, scratch / f"ref_{cut}_{B}x{S}.pt"))
+            info[cut] = (sum(p.numel() for p in model.parameters()), time.perf_counter() - t0)
+            del model, ref
+            torch.cuda.empty_cache()
+        for cut, (B, S) in MIX_STEPS.items():
+            t0 = time.perf_counter()
+            cfg = mix_cut(cut)
+            model = mix_model(cfg, device)
+            tcfg = mix_tcfg(cfg)
+            params, ost = init_train_state(model, tcfg)
+            batch = mix_train_batch(cfg, B, S, MIX_MEMORY_TRAIN.get(cut, 0), device)
+            with torch.enable_grad():
+                _, _, m = make_train_step(model, tcfg)(params, ost, 1, batch)
+
+            def host(tree):
+                if isinstance(tree, dict):
+                    return {k: host(v) for k, v in tree.items()}
+                return tree.detach().cpu()
+
+            state = host(ost) if tcfg.opt.name == "adafactor" else {"m": host(ost["m"])}
+            tops: dict = {}  # each kind's largest |entry| over the model
+            for name, kinds in (state["v"].items() if "v" in state else
+                                ((n, {"m": t}) for n, t in state["m"].items())):
+                for kind, t in kinds.items():
+                    tops[kind] = max(tops.get(kind, 0.0), float(t.abs().max()))
+            writes.append(writer.submit(
+                torch.save, {"params": host(params), "state": state, "state_top": tops,
+                             "top": max(float(p.abs().max()) for p in params.values())},
+                scratch / f"step_{cut}.pt"))
+            info[f"step/{cut}"] = ({k: float(m[k]) for k in ("loss", "grad_norm", "lr")},
+                                   sum(p.numel() for p in params.values()),
+                                   time.perf_counter() - t0)
+            del model, params, ost, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        for w in writes:
+            w.result()
+        writer.shutdown()
+    return info
+
+
+def run_mixers(device) -> dict:
+    """Phase 18: the other mixers across four gloo ranks sharing the card,
+    against the one-rank port of the same seed, run in this process and
+    freed before the ranks start. Returns each kernel's launches over the
+    phase's counted runs, summed over the ranks."""
+    import math
+    import shutil
+    import threading
+
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    scratch = ROOT / "build" / "phase18"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    info = mix_references(device, scratch)
+    for cut, val in info.items():
+        if cut.startswith("step/"):
+            m, n, sec = val
+            log(f"phase 18: check 1's reference step of {cut[5:]} ({n} parameters, float32, "
+                f"{mix_tcfg(mix_cut(cut[5:])).opt.name}): loss {m['loss']:.6f}, grad norm "
+                f"{m['grad_norm']:.6f}, in {sec:.1f} s")
+        else:
+            log(f"phase 18: check 1's references of {cut} ({val[0]} parameters, float32): "
+                f"{MIX_SERVE[cut][1]} (B, S, new, memory) in {val[1]:.1f} s")
+
+    # check 2's reference: the 15.1 B cut on one rank, the ranks' drops applied
+    cfg2 = mix_check2_config()
+    t0 = time.perf_counter()
+    model = Model(cfg2, device=device, seed=0)
+    n2 = sum(p.numel() for p in model.parameters())
+    if n2 != MLA_PARAMS:
+        raise AssertionError(f"phase 18: check 2's cut has {n2} parameters, not {MLA_PARAMS}")
+    tokens = serve_prompts(cfg2.vocab, MIX_B, MIX_S, 87).to(device)
+    ref2 = serve_reference(model, tokens, MIX_NEW, ReferenceMoE(
+        prefill_blocks(MIX_SERVE_MESH, True, MIX_B, MIX_S),
+        [torch.tensor([b]) for b in range(MIX_B)], cfg2.moe_capacity_factor))
+    torch.save(ref2, scratch / "bf16_ref.pt")
+    log(f"phase 18: check 2's reference, one rank, {n2} parameters: prefill and "
+        f"{MIX_NEW - 1} steps in {time.perf_counter() - t0:.1f} s; the ranks' dispatch at "
+        f"capacity {cfg2.moe_capacity_factor} drops {sum(ref2['drops_prefill'])} of "
+        f"{MIX_B * MIX_S * cfg2.moe_topk * len(ref2['drops_prefill'])} prefill assignments and "
+        f"{sum(ref2['drops_decode'])} of {MIX_B * cfg2.moe_topk * len(ref2['drops_decode'])} "
+        f"decode ones; tokens {ref2['tokens'].tolist()}")
+    del model
+    torch.cuda.empty_cache()
+
+    # check 3's reference: the same steps on one rank, on the same batch
+    cfg3 = mix_check3_config()
+    tcfg3 = mix_tcfg(cfg3)
+    B3, S3, accum3, steps3 = MIX_TRAIN
+    batch3 = mix_tokens(cfg3.vocab, accum3, B3, S3, 91)
+    torch.save(batch3, scratch / "train_batch.pt")
+    t0 = time.perf_counter()
+    model = Model(cfg3, device=device, seed=0)
+    params, ost = init_train_state(model, tcfg3)
+    n3 = sum(p.numel() for p in params.values())
+    step_fn = make_train_step(model, tcfg3)
+    batch3 = {k: v.to(device) for k, v in batch3.items()}
+    one = []
+    with torch.enable_grad():
+        for i in range(1, steps3 + 1):  # lr(0) == 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = float(step_fn(params, ost, i, batch3)[2]["loss"])
+            torch.cuda.synchronize()
+            one.append((loss, (time.perf_counter() - t1) * 1e3))
+    log(f"phase 18: check 3's one-rank run, {n3} parameters (Adafactor, {cfg3.opt_state_dtype} "
+        f"states, remat), {B3} x {S3} x accum {accum3}: losses "
+        + ", ".join(f"{l:.6f}" for l, _ in one) + "; step ms "
+        + ", ".join(f"{t:.3f}" for _, t in one) + f"; in {time.perf_counter() - t0:.1f} s")
+    del model, params, ost, step_fn, batch3
+    torch.cuda.empty_cache()
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            q = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,"
+                                "noheader,nounits"], capture_output=True, text=True, timeout=60)
+            if q.returncode == 0:
+                samples.append(float(q.stdout.split()[0]) / 1e3)
+            stop.wait(0.5)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        # four ranks' float32 steps fill the card: their allocators grow
+        # segments rather than hold fragments
+        got = run_ranks(scratch, 18, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    finally:
+        stop.set()
+        sampler.join()
+    card_gb = max(samples, default=float("nan"))
+    log(f"phase 18: {MESH_WORLD} ranks on gloo sharing the card in "
+        f"{time.perf_counter() - t0:.1f} s; the card's memory in use peaked at {card_gb:.3f} GB "
+        f"(nvidia-smi, every 0.5 s); rank 0's walls: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in got[0]["walls"].items()))
+
+    failed, total = [], None
+
+    def add(launches):
+        nonlocal total
+        total = dict(launches) if total is None else {k: total[k] + v
+                                                      for k, v in launches.items()}
+
+    zero = {k: 0 for k in launch_counts()}
+    # check 1: served runs
+    for cut, (labels, requests) in MIX_SERVE.items():
+        for label in labels:
+            for B, S, n_new, M in requests:
+                key = f"{cut}/{label}/{B}x{S}"
+                runs = [g[key] for g in got]
+                worst = {k: max(max(r[k]) if isinstance(r[k], list) else r[k] for r in runs)
+                         for k in ("prefill", "steps", "caches_prefill", "caches_extended",
+                                   "caches_decoded")}
+                # check 4: flash once a prefill on each rank for the MLA layer; else none
+                want_pre = dict(zero, flash_attention=int(cut == "mla"))
+                ok_launch = all(r["launches"]["prefill"] == want_pre
+                                and r["launches"]["decode"] == zero for r in runs)
+                log(f"phase 18: check 1, {cut} on {label}, {B} x {S}"
+                    + (f" (+ {M} memory)" if M else "") + f" + {n_new}: max error over max "
+                    f"|reference| (limit {MIX_TOL}): prefill logits {worst['prefill']:.3e}, "
+                    f"{n_new - 1} steps {worst['steps']:.3e}, caches after prefill "
+                    f"{worst['caches_prefill']:.3e}, extended {worst['caches_extended']:.3e}, "
+                    f"after the last step {worst['caches_decoded']:.3e}; check 4: launches "
+                    f"a rank {runs[0]['launches']} (derived: prefill {want_pre}, decode none)")
+                if max(worst.values()) > MIX_TOL:
+                    failed.append(f"check 1: {key}")
+                if not ok_launch:
+                    failed.append(f"check 4: {key}: {[r['launches'] for r in runs]}")
+                for r in runs:
+                    add(r["launches"]["prefill"])
+                    add(r["launches"]["decode"])
+    # check 1: steps
+    for cut in MIX_STEPS:
+        ref = info[f"step/{cut}"][0]
+        top = torch.load(scratch / f"step_{cut}.pt", mmap=True, weights_only=False)["top"]
+        runs = [g[f"step/{cut}"] for g in got]
+        lerr = max(abs(r["loss"] - ref["loss"]) for r in runs)
+        gerr = max(abs(r["grad_norm"] - ref["grad_norm"]) for r in runs)
+        st, raw, live, dead = (max(r[k] for r in runs)
+                               for k in ("state_err", "raw_err", "live_err", "dead_err"))
+        name = mix_tcfg(mix_cut(cut)).opt.name
+        held = ("their square roots' max err over the largest root" if name == "adafactor"
+                else "max err over their max")
+        log(f"phase 18: check 1, one {name} step of {cut} on {MIX_SERVE_MESH} (ZeRO-1): loss "
+            f"{runs[0]['loss']:.6f} (err {lerr:.3e}), grad norm {runs[0]['grad_norm']:.6f} (err "
+            f"{gerr:.3e}); states: {held} {st[0]:.3e} in {st[1]} (the states themselves "
+            f"{raw[0]:.3e} in {raw[1]}); parameters "
+            f"max abs err {live[0]:.3e} in {live[1]} (limit {MIX_TOL} x {top:.4f}), "
+            f"{sum(r['dead'] for r in runs)} entries at the gradient's noise floor within "
+            f"{dead[0]:.3e} in {dead[1]} (limit lr {ref['lr']:.1e}); replicas the same bits "
+            f"{all(r['same'] for r in runs)}; {runs[0]['block_params']} parameters on rank 0; "
+            f"check 4: launches {runs[0]['launches']} (derived none)")
+        if not (lerr <= MIX_TOL * abs(ref["loss"]) and gerr <= MIX_TOL * abs(ref["grad_norm"])
+                and st[0] <= MIX_TOL and live[0] <= MIX_TOL * top and dead[0] <= ref["lr"]
+                and all(r["same"] for r in runs)):
+            failed.append(f"check 1: the step of {cut}")
+        if any(r["launches"] != zero for r in runs):
+            failed.append(f"check 4: the step of {cut} launched {runs[0]['launches']}")
+    # checks 2 and 4: the served deepseek-v3
+    bf = [g["bf16"] for g in got]
+    add_total = hold_served("phase 18", bf, ref2, cfg2, (MIX_B, MIX_S, MIX_NEW),
+                            MIX_SERVE_MESH, failed)
+    add(add_total)
+    log(f"phase 18: check 2: each rank's peak {[round(r['peak_gb'], 3) for r in bf]} GB; the "
+        f"card's {card_gb:.3f} GB")
+    # check 3
+    for r, run in enumerate(g["train_bf16"] for g in got):
+        spent = run["spent_ms"]
+        log(f"phase 18: check 3, rank {r}: built in {run['build_s']:.2f} s, "
+            f"{run['block_params']} parameters; losses "
+            + ", ".join(f"{x:.6f}" for x in run["losses"]) + "; step ms "
+            + ", ".join(f"{t:.3f}" for t in run["step_ms"])
+            + f" ({B3 * S3 * accum3 / run['step_ms'][-1] * 1e3:.1f} tokens/s, the global "
+            f"batch's); peak {run['peak_gb']:.3f} GB; the last step, collectives timed, "
+            f"{run['timed_ms']:.3f} ms: "
+            f"all-reduce {spent['all_sum']:.3f} ms ({spent['all_sum'] / run['timed_ms']:.4f}), "
+            f"all-gather {spent['all_gather']:.3f} ms "
+            f"({spent['all_gather'] / run['timed_ms']:.4f}), all-to-all "
+            f"{spent['all_to_all']:.3f} ms ({spent['all_to_all'] / run['timed_ms']:.4f}); "
+            f"replicas the same bits {run['same']}; launches {run['launches']}")
+        bad = [i for i, (x, (l, _)) in enumerate(zip(run["losses"], one))
+               if not (math.isfinite(x) and abs(x - l) <= MIX_LOSS_TOL * l)]
+        if bad or not all(run["same"]):
+            failed.append(f"check 3, rank {r}: losses off the one rank's at steps {bad}, "
+                          f"replicas equal {run['same']}")
+        if run["launches"] != zero:
+            failed.append(f"check 4: check 3's run launched {run['launches']}")
+        add(run["launches"])
+    if failed:
+        raise AssertionError("phase 18: " + "; ".join(failed))
+    if not math.isfinite(card_gb):
+        log("phase 18: nvidia-smi gave no memory reading")
+    shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 18: launches summed over the ranks and the counted runs {total}")
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+ALL_PHASES = frozenset(range(1, 19))
 
 
 def main() -> int:
@@ -5920,7 +6713,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-17: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-18: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -5930,10 +6723,10 @@ def main() -> int:
     # the sort, serving and MoE phases run forward passes only (parameters
     # require grad since the port trains); phase 11 turns grad on
     torch.set_grad_enabled(False)
-    if args.mesh_rank is not None:  # one of phase 9's, 10's, 16's or 17's ranks
-        if args.mesh_phase in (10, 16, 17):
+    if args.mesh_rank is not None:  # one of phase 9's, 10's, 16's, 17's or 18's ranks
+        if args.mesh_phase in (10, 16, 17, 18):
             torch.cuda.set_device(0)
-            rank = {10: moe_rank, 16: shard_rank, 17: serve_rank}[args.mesh_phase]
+            rank = {10: moe_rank, 16: shard_rank, 17: serve_rank, 18: mix_rank}[args.mesh_phase]
             rank(args.mesh_rank, MESH_WORLD, args.mesh_dir, torch.device("cuda", 0))
         else:
             mesh_rank(args.mesh_rank, MESH_WORLD, args.mesh_dir)
@@ -5980,37 +6773,40 @@ def main() -> int:
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
                            (10, run_moe), (11, run_train), (12, run_batch), (13, run_mla),
                            (14, run_recurrent), (15, run_cross), (16, run_sharded),
-                           (17, run_sharded_serve)):
+                           (17, run_sharded_serve), (18, run_mixers)):
             if phase in phases:
                 run(device)
+        finish_pending()
         return 0
-    launches = run_main_path(device)
-    flash_num = check_flash(device)
-    serve = run_serve(device)
-    torch.cuda.empty_cache()
-    run_stream(device)
-    torch.cuda.empty_cache()
-    launches_x64 = run_x64(device)
-    torch.cuda.empty_cache()
-    launches_serve = run_serving(device)
-    torch.cuda.empty_cache()
-    launches_mesh = run_mesh(device)
-    torch.cuda.empty_cache()
-    launches_moe = run_moe(device)
-    torch.cuda.empty_cache()
-    launches_train = run_train(device)
-    torch.cuda.empty_cache()
-    launches_batch = run_batch(device)
-    torch.cuda.empty_cache()
-    launches_mla = run_mla(device)
-    torch.cuda.empty_cache()
-    launches_rec = run_recurrent(device)
-    torch.cuda.empty_cache()
-    launches_cross = run_cross(device)
-    torch.cuda.empty_cache()
-    launches_sharded = run_sharded(device)
-    torch.cuda.empty_cache()
-    launches_sharded_serve = run_sharded_serve(device)
+    walls = {}
+
+    def run(phase: int, fn):
+        """One phase of the full run, its wall kept (the last lines say
+        where the run's time went), the allocator's cache emptied after."""
+        t = time.perf_counter()
+        out = fn(device)
+        walls[phase] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        return out
+
+    launches = run(3, run_main_path)
+    flash_num = run(4, check_flash)
+    serve = run(5, run_serve)
+    run(6, run_stream)
+    launches_x64 = run(7, run_x64)
+    launches_serve = run(8, run_serving)
+    launches_mesh = run(9, run_mesh)
+    launches_moe = run(10, run_moe)
+    launches_train = run(11, run_train)
+    launches_batch = run(12, run_batch)
+    launches_mla = run(13, run_mla)
+    launches_rec = run(14, run_recurrent)
+    launches_cross = run(15, run_cross)
+    finish_pending()  # phase 13's CPU side, run beside phases 14 and 15
+    launches_sharded = run(16, run_sharded)
+    launches_sharded_serve = run(17, run_sharded_serve)
+    launches_tp = run(18, run_mixers)
+    log("phase walls: " + ", ".join(f"{p} {w:.1f} s" for p, w in walls.items()))
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -6019,7 +6815,7 @@ def main() -> int:
              launches_train=launches_train[name], launches_batch=launches_batch[name],
              launches_mla=launches_mla[name], launches_rec=launches_rec[name],
              launches_cross=launches_cross[name], launches_sharded=launches_sharded[name],
-             launches_sharded_serve=launches_sharded_serve[name],
+             launches_sharded_serve=launches_sharded_serve[name], launches_tp=launches_tp[name],
              max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
@@ -6037,6 +6833,7 @@ def main() -> int:
         launches_cross=launches_cross["flash_attention"],
         launches_sharded=launches_sharded["flash_attention"],
         launches_sharded_serve=launches_sharded_serve["flash_attention"],
+        launches_tp=launches_tp["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"],

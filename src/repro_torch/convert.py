@@ -145,28 +145,37 @@ def gather_state(state, specs, axes):
     return _map_specs(lambda t, s: gather_leaf(t.detach(), s, axes), state, specs)
 
 
+def _global_shape(cfg, name: str, t, d: dict, axes, B: int) -> tuple:
+    """The whole shape of a rank's cache block ``t`` (``name`` in the dict
+    ``d``) of a global batch of B rows: the KV heads whole, a ``seq_shard``
+    cache's positions its ``seq_len``, a recurrent cache's width times
+    "model"; ``pos`` is whole on every rank."""
+    if name == "pos":
+        return tuple(t.shape)
+    shape = [B, *t.shape[1:]]
+    if name in ("k", "v", "ck", "cv"):
+        shape[2] = cfg.n_kv_heads
+    if name in ("k", "v", "ck", "cv", "c_kv", "k_pe") and "seq_len" in d:
+        shape[1] = d["seq_len"]
+    if name == "conv":
+        shape[2] *= axes.model_size
+    if name == "h":
+        shape[1] *= axes.model_size
+    return tuple(shape)
+
+
 def _gather_caches(cfg, caches: list, axes, B: int) -> list:
     """Every rank's cache blocks put together, by the ``rules.cache_specs``
-    of the global shapes (B rows; a GQA cache's ``seq_len`` marks the
-    ``seq_shard`` layout and its global length); collective."""
+    of the global shapes (``_global_shape``; a cache's ``seq_len`` marks
+    the ``seq_shard`` layout); collective."""
     from repro_torch.sharding import parallel as par
     from repro_torch.sharding import rules
 
     out = []
     for c in caches:
-        mix = c.get("mix", {})
-        seq_shard = "seq_len" in mix
-        whole = {}
-        for key, d in c.items():
-            whole[key] = {}
-            for n, t in d.items():
-                if not isinstance(t, torch.Tensor):
-                    continue
-                shape = [B, *t.shape[1:]]
-                if n in ("k", "v") and key == "mix":
-                    shape[1] = mix["seq_len"] if seq_shard else t.shape[1]
-                    shape[2] = cfg.n_kv_heads
-                whole[key][n] = tuple(shape)
+        seq_shard = any("seq_len" in d for d in c.values())
+        whole = {key: {n: _global_shape(cfg, n, t, d, axes, B) for n, t in d.items()
+                       if isinstance(t, torch.Tensor)} for key, d in c.items()}
         specs = rules.cache_specs([whole], cfg, axes, seq_shard=seq_shard)[0]
         out.append({key: {n: par.gather_leaf(c[key][n].contiguous(), specs[key][n], axes)
                           for n in d} for key, d in whole.items()})
@@ -179,7 +188,8 @@ def caches_to_numpy(cfg, caches: list, axes=None, B: int | None = None) -> list:
     segment's count, ``(count, B, S, KV, dh)`` for GQA's k and v, ``(count,
     B, S, kv_lora_rank)`` and ``(count, B, S, qk_rope_dim)`` for MLA's c_kv
     and k_pe, ``(count, B, M, KV, dh)`` for a cross block's ck and cv under
-    ``"cross"`` (bfloat16 as uint16 bits). With ``axes`` over a mesh, each
+    ``"cross"``, a ring's ``pos`` ``(count, W)``, the recurrent ``conv`` and
+    ``h`` (bfloat16 as uint16 bits). With ``axes`` over a mesh, each
     rank's blocks of the caches of a global batch of ``B`` rows are
     gathered first (collective: every rank calls it)."""
     if axes is not None and axes.mesh is not None:

@@ -13,8 +13,7 @@ group on ``--dist-backend`` (``nccl``, the default, for one card a rank;
 optimizer state (``Model(cfg, axes=...)``), loads its block of every
 batch, saves its own blocks beside the mesh shape, and prints ``repro``'s
 lines from rank 0. A rank uses the card ``LOCAL_RANK`` modulo the cards it
-sees. What a mesh does not train yet raises NotImplementedError naming its
-ROADMAP.md item before the group is joined.
+sees. Every config trains over a mesh, with AdamW or Adafactor.
 
 On ``--resume`` the loader first makes, and drops, the batches of the
 steps the checkpoint has taken, so a resumed run sees the batches an
@@ -41,7 +40,7 @@ from repro_torch.data.pipeline import DataConfig, PackedLoader
 from repro_torch.device import resolve
 from repro_torch.ft.manager import RestartManager
 from repro_torch.launch.mesh import make_mesh_for
-from repro_torch.models.model import Model, check_sharded
+from repro_torch.models.model import Model
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.sharding.spec import from_mesh
 from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
@@ -124,7 +123,6 @@ def main(argv=None):
     device = resolve(args.device)
     rank, axes = 0, None
     if n_dev > 1:
-        check_sharded(cfg)
         rank = join_group(args.dist_backend, device)
         axes = from_mesh(make_mesh_for(n_dev, device=device))
     say = print if rank == 0 else (lambda *a, **k: None)

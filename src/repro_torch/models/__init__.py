@@ -9,8 +9,6 @@ ROADMAP.md §1 item that ports it.
 from __future__ import annotations
 
 _LATER = {
-    "tp_mixers": "item 11.2 (tensor parallelism for MLA, RG-LRU, Mamba, sliding windows, "
-                 "cross-attention and the encoder, and sharded Adafactor)",
     "dryrun": "item 11.4 (launch/dryrun.py and launch/hlo_stats.py)",
 }
 

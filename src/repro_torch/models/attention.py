@@ -54,7 +54,15 @@ the heads when "model" divides the KV heads, else replicated, and then a
 rank projects only the KV groups its own heads read (one gather of them
 per head where the groups do not split evenly). The replicated weights
 (the KV projections then, and the q/k norms) go through ``copy_to``:
-their gradient is the sum of the ranks' parts.
+their gradient is the sum of the ranks' parts. Prefill and decode under a
+mesh (``_serve_tp``) keep the cache in ``rules.cache_specs``' layout: the
+rank's KV heads (or every KV head), or with ``seq_shard`` (a cache
+carrying ``seq_len``) every KV head over the rank's block of its
+positions, the softmax then combined over "model" (``_attend``). A
+sliding window's bands are over the rank's heads; its ring holds ``pos``
+whole on every rank, and with ``seq_shard`` its W slots split over
+"model" where they divide: the rank that holds slot p % W writes
+position p, and every rank masks its slots by ``pos``.
 
 Cross-attention (``gqa_forward`` with ``memory`` (B, M, d), or with a
 cache holding ``ck``/``cv``) projects the keys and values from the memory
@@ -64,11 +72,28 @@ mask, through ``_grouped_attn`` over all M keys, unchunked as in
 them and returns the cache as it was, never writing into it. A VLM's
 cross module holds a float32 scalar ``gate`` (zero at init) and scales
 its output by tanh(gate).
+
+Cross-attention under a mesh splits ``wq``, ``wk``, ``wv`` and ``wo`` by
+heads as self-attention does; the memory enters through ``copy_to``, and
+a VLM's replicated ``gate`` too (``_gated``: each rank scales its part of
+the row-parallel sum, so the gate's gradient is the sum of the ranks'
+parts). The ``ck`` / ``cv`` caches follow ``Axes.kv_spec``, or with
+``seq_shard`` split over the memory's positions (``_cross_serve_tp``).
+
+MLA under a mesh holds the rank's heads: the columns of ``wq_b``,
+``wk_b`` and ``wv_b`` and the rows of ``wo``; the replicated ``wq_a``,
+``q_ln``, ``wkv_a`` and ``kv_ln`` are computed whole on every rank and
+their outputs enter the region through ``copy_to`` (``_mla_qkv``).
+Prefill sends the rank's heads through flash; the absorbed decode folds
+the rank's ``wk_b`` and ``wv_b`` over the compressed cache, whole on
+every rank or, with ``seq_shard``, split over its positions and combined
+by a log-sum-exp over every head's query (``mla_forward``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash import flash_attention
 from repro_torch.models.layers import _const, _init, apply_rope, rms_norm_simple, rope_table, torch_dtype
@@ -163,10 +188,15 @@ def _causal_mask(q_pos, k_pos, window: int = 0):
     return m
 
 
-def _chunked_attn(q, k, v, *, causal, q_positions, k_positions, scale, window: int = 0):
+def _chunked_attn(q, k, v, *, causal, q_positions, k_positions, scale, window: int = 0,
+                  remat: bool = False):
     """Query chunks of Q_CHUNK rows; with a causal window each chunk takes
     only its band of window + Q_CHUNK keys, [start - window, start +
-    Q_CHUNK) clamped into the keys, when the band is shorter than them."""
+    Q_CHUNK) clamped into the keys, when the band is shorter than them.
+    With ``remat`` (cfg.remat while autograd records) each chunk is
+    rematerialized in the backward: its float32 scores and probabilities,
+    0.8 GB a chunk at 4096 keys and 64 heads, are not kept between the
+    forward and the backward (the same values are computed again)."""
     S, T = q.shape[1], k.shape[1]
     if S <= Q_CHUNK:
         mask = _causal_mask(q_positions, k_positions, window)[None, None, None] if causal else None
@@ -182,7 +212,11 @@ def _chunked_attn(q, k, v, *, causal, q_positions, k_positions, scale, window: i
             ks = min(max(start - window, 0), T - band)
             kc, vc, kp = k[:, ks:ks + band], v[:, ks:ks + band], k_positions[ks:ks + band]
         mask = _causal_mask(qp, kp, window)[None, None, None] if causal else None
-        chunks.append(_grouped_attn(q[:, start:start + Q_CHUNK], kc, vc, mask, scale))
+        qc = q[:, start:start + Q_CHUNK]
+        if remat:
+            chunks.append(checkpoint(_grouped_attn, qc, kc, vc, mask, scale, use_reentrant=False))
+        else:
+            chunks.append(_grouped_attn(qc, kc, vc, mask, scale))
     return torch.cat(chunks, dim=1)
 
 
@@ -319,9 +353,12 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     scale = dh ** -0.5
     wk, wv, bk, bv, q_norm, k_norm, idx = p.wk, p.wv, p.bk, p.bv, p.q_norm, p.k_norm, None
     g = par.group(axes, axes.model if axes is not None else ())
-    if g is not None and cache is not None and memory is None and "ck" not in cache:
-        return _serve_tp(x, p, cfg, axes, g, causal=causal, positions=positions, rope=rope,
-                         cache=cache, decode=decode)
+    cross = memory is not None or (cache is not None and "ck" in cache)
+    if g is not None and cache is not None:
+        if cross:
+            return _cross_serve_tp(x, p, cfg, axes, g, memory, cache)
+        return _serve_tp(x, p, cfg, axes, g, causal=causal, window=window, positions=positions,
+                         rope=rope, cache=cache, decode=decode)
     if g is not None:
         x = par.copy_to(x, axes)
         wk, wv, bk, bv, q_norm, k_norm, KV, idx = _tp_weights(p, cfg, axes, H)
@@ -329,7 +366,15 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
     q = _proj(x, p.wq, p.bq).reshape(B, S, H, dh)
     if cfg.qk_norm:
         q = rms_norm_simple(q, q_norm, cfg.norm_eps)
-    if memory is not None or (cache is not None and "ck" in cache):
+    if cross:
+        if g is not None:  # training under a mesh: this rank's heads over the memory
+            memory = par.copy_to(memory, axes)
+            k = _proj(memory, wk, bk).reshape(B, -1, KV, dh)
+            v = _proj(memory, wv, bv).reshape(B, -1, KV, dh)
+            if idx is not None:
+                k, v = k[:, :, idx], v[:, :, idx]
+            out = _grouped_attn(q, k, v, None, scale).reshape(B, S, H * dh) @ p.wo
+            return par.reduce_from(_gated(out, p, axes), axes), None
         return _cross(q, p, cfg, memory, cache, scale)
     k = _proj(x, wk, bk).reshape(B, -1, KV, dh)
     v = _proj(x, wv, bv).reshape(B, -1, KV, dh)
@@ -377,7 +422,8 @@ def gqa_forward(x, p: Attention, cfg, *, causal: bool = True, window: int = 0,
         ctx = _flash_attn(q, k, v, causal=causal, scale=scale, inference=cache is not None)
     else:
         ctx = _chunked_attn(q, k, v, causal=causal, q_positions=positions,
-                            k_positions=positions, scale=scale, window=window)
+                            k_positions=positions, scale=scale, window=window,
+                            remat=cfg.remat and torch.is_grad_enabled())
     out = par.reduce_from(ctx.reshape(B, S, H * dh) @ p.wo, axes)
     if cache is None:
         return out, None
@@ -399,6 +445,13 @@ def _own_groups(t, cfg, axes, g, H: int):
     lo, hi, idx = _kv_groups(cfg, g, H)
     t = t.narrow(2, lo, hi - lo)
     return t if idx is None else t[:, :, idx.to(t.device)]
+
+
+def _own_heads(t, cfg, axes, g, H: int, kv_split: bool):
+    """The KV groups this rank's H heads read, from ``t`` (B, T, KVl, dh):
+    ``t`` itself where it holds this rank's KV heads, else (every KV head)
+    ``_own_groups``."""
+    return t if kv_split and t.shape[2] != cfg.n_kv_heads else _own_groups(t, cfg, axes, g, H)
 
 
 def _heads_to_seq(t, g):
@@ -429,7 +482,52 @@ def _lse_attn(q, k, v, mask, scale, axes):
     return ctx.reshape(B, S, KV * rep, v.shape[-1])
 
 
-def _serve_tp(x, p: Attention, cfg, axes, g, *, causal, positions, rope, cache, decode):
+def _cache_layout(t, S: int, seq_len, cfg, axes, g, kv_split: bool):
+    """The cache layout of ``t`` (B, S, KVl, dh): this rank's KV heads, or
+    every KV head where ``Axes.kv_spec`` replicates them, over all S
+    positions. Unchanged without ``seq_len``; with it (``seq_shard``)
+    every KV head over this rank's block of the S positions when S
+    divides over "model" (an all-to-all from the heads, or a slice), else
+    over all of them (an all-gather of the heads where they are split)."""
+    if seq_len is None:
+        return t
+    if S % g.size == 0:
+        n = S // g.size
+        return _heads_to_seq(t, g) if kv_split else t.narrow(1, g.index * n, n).clone()
+    return par.gather(t, 2, axes, axes.model) if kv_split else t
+
+
+def _split_cache(seq_len, g) -> bool:
+    """Whether a cache of ``seq_len`` positions (None: not ``seq_shard``)
+    holds this rank's block of them."""
+    return seq_len is not None and seq_len % g.size == 0
+
+
+def _attend(q, ck, cv, mask, scale, axes, g, split: bool, own):
+    """This rank's heads of q (B, S, H, dh) over a cache: its own KV groups
+    of the whole cache (``own``), or, where the cache holds this rank's
+    block of the positions for every KV head (``split``), every head's
+    query over the block, the softmax combined over "model"
+    (``_lse_attn``), and this rank's heads of the result."""
+    if not split:
+        return _grouped_attn(q, own(ck), own(cv), mask, scale)
+    H = q.shape[2]
+    qa = par.gather(q, 2, axes, axes.model)  # every head's query
+    if mask is None:
+        mask = torch.ones((1, 1, 1, 1, ck.shape[1]), dtype=torch.bool, device=q.device)
+    return _lse_attn(qa, ck, cv, mask, scale, axes).narrow(2, g.index * H, H)
+
+
+def _write_own(cache, at_global, new, first: int, n: int):
+    """``new`` (B, 1, ...) into ``cache`` (B, n, ...), this rank's block of
+    positions [first, first + n), at position ``at_global`` (a (1,) long
+    tensor) when the block holds it; in place, with no host read."""
+    at = (at_global - first).clamp(0, n - 1)
+    mine = ((at_global >= first) & (at_global < first + n)).reshape((1,) * cache.dim())
+    return cache.index_copy_(1, at, torch.where(mine, new, cache.index_select(1, at)))
+
+
+def _serve_tp(x, p: Attention, cfg, axes, g, *, causal, window, positions, rope, cache, decode):
     """Prefill and decode of this rank's heads under a mesh (``g``: its
     group over "model"), as ``repro`` shards them by ``rules.cache_specs``.
 
@@ -438,11 +536,16 @@ def _serve_tp(x, p: Attention, cfg, axes, g, *, causal, positions, rope, cache, 
     over the whole sequence; with ``seq_len`` (``seq_shard``) every KV
     head, over the rank's block of a sequence of seq_len positions when
     seq_len divides over "model", else over all of it. Prefill returns the
-    prompt's k/v in the layout of the cache it is given (every KV head
-    from the ranks' heads by an all-to-all or an all-gather); decode
-    writes the new entry (at the rank that holds its position) and
-    attends, with the softmax combined over the ranks when the sequence
-    is split (``_lse_attn``)."""
+    prompt's k/v in the layout of the cache it is given
+    (``_cache_layout``); decode writes the new entry (at the rank that
+    holds its position) and attends, with the softmax combined over the
+    ranks when the sequence is split (``_attend``).
+
+    With a ``window`` the cache is a ring of W slots and ``pos`` (module
+    docstring), ``pos`` whole on every rank; ``seq_len`` is W, and with
+    ``seq_shard`` the ring's slots are split over "model" when it divides
+    W: only the rank that holds slot p % W writes position p, and each
+    rank masks its slots by ``pos``."""
     B, S, _ = x.shape
     dh = cfg.head_dim
     H = p.wq.shape[-1] // dh
@@ -463,51 +566,104 @@ def _serve_tp(x, p: Attention, cfg, axes, g, *, causal, positions, rope, cache, 
         cos, sin = rope_table(positions, dh, cfg.rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
-    def own(t):  # the groups this rank's heads read, from a tensor of its KV heads
-        return t if kv_split and t.shape[2] != cfg.n_kv_heads else _own_groups(t, cfg, axes,
-                                                                                 g, H)
+    def own(t):
+        return _own_heads(t, cfg, axes, g, H, kv_split)
 
     def out_of(ctx):
         return par.reduce_from(ctx.reshape(B, S, H * dh) @ p.wo, axes)
 
+    marker = {} if seq_len is None else {"seq_len": seq_len}
     if not decode:
         kk, vv = own(k), own(v)
-        if cfg.flash_attention and S >= FLASH_MIN_SEQ:
+        if cfg.flash_attention and window == 0 and S >= FLASH_MIN_SEQ:
             ctx = _flash_attn(q, kk.contiguous(), vv.contiguous(), causal=causal, scale=scale,
                               inference=True)
         else:
             ctx = _chunked_attn(q, kk, vv, causal=causal, q_positions=positions,
-                                k_positions=positions, scale=scale)
-        if seq_len is None:
-            return out_of(ctx), {"k": k, "v": v}
-        if S % g.size == 0:  # every KV head over this rank's block of the sequence
-            n = S // g.size
-            k, v = ((_heads_to_seq(t, g) if kv_split else t.narrow(1, g.index * n, n).clone())
-                    for t in (k, v))
-        elif kv_split:
-            k, v = (par.gather(t, 2, axes, axes.model) for t in (k, v))
-        return out_of(ctx), {"k": k, "v": v, "seq_len": S}
+                                k_positions=positions, scale=scale, window=window)
+        if window:  # the ring: the last W entries, densely, with their positions
+            W = min(window, S)
+            k, v = k[:, -W:].clone(), v[:, -W:].clone()
+            marker = {"pos": positions[-W:].to(torch.int32)}
+            if seq_len is not None:
+                marker["seq_len"] = W
+            S_cache = W
+        else:
+            S_cache = S
+            if seq_len is not None:
+                marker["seq_len"] = S
+        k, v = (_cache_layout(t, S_cache, seq_len, cfg, axes, g, kv_split) for t in (k, v))
+        return out_of(ctx), {"k": k, "v": v, **marker}
 
     pos = positions.reshape(1).long()
-    marker = {} if seq_len is None else {"seq_len": seq_len}
     if seq_len is not None and kv_split:  # the new entry of every KV head
         k, v = (par.gather(t, 2, axes, axes.model) for t in (k, v))
-    if seq_len is None or seq_len % g.size:  # the whole sequence on every rank
-        ck = cache["k"].index_copy_(1, pos, k)
-        cv = cache["v"].index_copy_(1, pos, v)
-        t = torch.arange(ck.shape[1], device=x.device)
-        ctx = _grouped_attn(q, own(ck), own(cv), (t <= pos)[None, None, None, None, :], scale)
-        return out_of(ctx), {"k": ck, "v": cv, **marker}
-    n = seq_len // g.size
-    first = g.index * n
-    at = (pos - first).clamp(0, n - 1)
-    mine = ((pos >= first) & (pos < first + n)).reshape(1, 1, 1, 1)
-    ck = cache["k"].index_copy_(1, at, torch.where(mine, k, cache["k"].index_select(1, at)))
-    cv = cache["v"].index_copy_(1, at, torch.where(mine, v, cache["v"].index_select(1, at)))
-    t = first + torch.arange(n, device=x.device)
-    qa = par.gather(q, 2, axes, axes.model)  # every head's query
-    ctx = _lse_attn(qa, ck, cv, (t <= pos)[None, None, None, None, :], scale, axes)
-    return out_of(ctx.narrow(2, g.index * H, H)), {"k": ck, "v": cv, "seq_len": seq_len}
+    split = _split_cache(seq_len, g)
+    n = cache["k"].shape[1]
+    first = g.index * n if split else 0
+    if window:
+        at = pos % (seq_len if seq_len is not None else n)
+        cpos = cache["pos"].index_copy_(0, at, pos.to(torch.int32))
+        mine = cpos.narrow(0, first, n)
+        valid = (mine >= 0) & (mine <= pos) & (pos - mine < window)
+        marker["pos"] = cpos
+    else:
+        at = pos
+        valid = first + torch.arange(n, device=x.device) <= pos
+    if split:
+        ck, cv = (_write_own(cache[name], at, t, first, n) for name, t in (("k", k), ("v", v)))
+    else:
+        ck, cv = cache["k"].index_copy_(1, at, k), cache["v"].index_copy_(1, at, v)
+    ctx = _attend(q, ck, cv, valid[None, None, None, None, :], scale, axes, g, split, own)
+    return out_of(ctx), {"k": ck, "v": cv, **marker}
+
+
+def _gated(out, p: Attention, axes=None):
+    """A VLM cross module's output times tanh(gate); under a mesh the
+    replicated gate goes through ``copy_to`` (each rank scales its part of
+    the row-parallel sum, so the gate's gradient is the sum of the ranks'
+    parts)."""
+    if p.gate is None:
+        return out
+    return torch.tanh(par.copy_to(p.gate, axes)).to(out.dtype) * out
+
+
+def _cross_serve_tp(x, p: Attention, cfg, axes, g, memory, cache):
+    """Cross-attention prefill (``memory`` given) and decode (the cache's
+    ``ck``/``cv``) of this rank's heads under a mesh. The cross cache
+    follows ``rules.cache_specs`` as ``_serve_tp``'s does: this rank's KV
+    heads (or every KV head) over the whole memory, or with ``seq_len``
+    (``seq_shard``) every KV head over the rank's block of the memory's
+    positions when they divide over "model", the softmax then combined
+    over the ranks. Returns (out, new_cache)."""
+    B, S, _ = x.shape
+    dh = cfg.head_dim
+    H = p.wq.shape[-1] // dh
+    scale = dh ** -0.5
+    kv_split = axes.kv_spec(cfg.n_kv_heads) is not None
+    seq_len = cache.get("seq_len")
+    q = _proj(x, p.wq, p.bq).reshape(B, S, H, dh)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, p.q_norm, cfg.norm_eps)
+
+    def own(t):
+        return _own_heads(t, cfg, axes, g, H, kv_split)
+
+    if memory is not None:
+        k = _proj(memory, p.wk, p.bk).reshape(B, -1, p.wk.shape[-1] // dh, dh)
+        v = _proj(memory, p.wv, p.bv).reshape(B, -1, p.wv.shape[-1] // dh, dh)
+        ctx = _grouped_attn(q, own(k), own(v), None, scale)
+        M = k.shape[1]
+        new_cache = {name: _cache_layout(t, M, seq_len, cfg, axes, g, kv_split)
+                     for name, t in (("ck", k), ("cv", v))}
+        if seq_len is not None:
+            new_cache["seq_len"] = M
+    else:
+        split = _split_cache(seq_len, g)
+        ctx = _attend(q, cache["ck"], cache["cv"], None, scale, axes, g, split, own)
+        new_cache = cache
+    out = _gated(ctx.reshape(B, S, H * dh) @ p.wo, p)
+    return par.reduce_from(out, axes), new_cache
 
 
 def _cross(q, p: Attention, cfg, memory, cache, scale):
@@ -523,10 +679,7 @@ def _cross(q, p: Attention, cfg, memory, cache, scale):
         new_cache = {"ck": k, "cv": v} if cache is not None else None
     else:
         k, v, new_cache = cache["ck"], cache["cv"], cache
-    out = _grouped_attn(q, k, v, None, scale).reshape(B, S, H * dh) @ p.wo
-    if p.gate is not None:
-        out = torch.tanh(p.gate).to(out.dtype) * out
-    return out, new_cache
+    return _gated(_grouped_attn(q, k, v, None, scale).reshape(B, S, H * dh) @ p.wo, p), new_cache
 
 
 def _ring_decode(q, k, v, cache, positions, window: int, scale):
@@ -579,19 +732,27 @@ def init_gqa_cache(cfg, B: int, S_max: int, window: int = 0, device=None):
 # ------------------------------------------------------------- MLA mixer
 
 
-def _mla_qkv(x, p: MLA, cfg, H):
+def _mla_qkv(x, p: MLA, cfg, H, axes=None):
     """Shared q / compressed-kv computation. Returns q_nope (B,S,H,qn),
-    q_pe (B,S,H,qr), c_kv (B,S,r), k_pe (B,S,qr)."""
+    q_pe (B,S,H,qr), c_kv (B,S,r), k_pe (B,S,qr). Under a mesh every rank
+    computes the replicated ``wq_a``, ``q_ln``, ``wkv_a`` and ``kv_ln``
+    whole, and the tensor-parallel region begins at their outputs: q's
+    latent, c_kv and k_pe go through ``copy_to``, so that each of them
+    gets the sum of the ranks' heads' gradients before it reaches those
+    weights, which then take the whole gradient on every rank, summed over
+    the heads before the tokens as on one device; ``wq_b`` holds this
+    rank's H heads."""
     B, S, _ = x.shape
     qn, qr, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
-    q = rms_norm_simple(x @ p.wq_a, p.q_ln, cfg.norm_eps) @ p.wq_b
-    q = q.reshape(B, S, H, qn + qr)
+    q_lat = rms_norm_simple(x @ p.wq_a, p.q_ln, cfg.norm_eps)
+    q = (par.copy_to(q_lat, axes) @ p.wq_b).reshape(B, S, H, qn + qr)
     kv = x @ p.wkv_a
     c_kv = rms_norm_simple(kv[..., :r], p.kv_ln, cfg.norm_eps)
-    return q[..., :qn], q[..., qn:], c_kv, kv[..., r:]
+    return q[..., :qn], q[..., qn:], par.copy_to(c_kv, axes), par.copy_to(kv[..., r:], axes)
 
 
-def mla_forward(x, p: MLA, cfg, *, positions=None, cache=None, decode: bool = False):
+def mla_forward(x, p: MLA, cfg, *, positions=None, cache=None, decode: bool = False,
+                axes=None):
     """MLA attention; returns (out, new_cache). Prefill and training expand
     k and v per position (flash at S >= FLASH_MIN_SEQ with
     cfg.flash_attention, q and k qk_nope_dim + qk_rope_dim wide, v
@@ -600,17 +761,29 @@ def mla_forward(x, p: MLA, cfg, *, positions=None, cache=None, decode: bool = Fa
     the one position of ``positions`` or, with a (B,) tensor and B > 1, each
     row at its own (``_write_slots``), and attends through the absorbed
     products: scores in the input dtype, softmax in float32, probabilities
-    cast back before the context, as ``repro``."""
+    cast back before the context, as ``repro``.
+
+    Under a mesh (``axes``) the heads are this rank's: the columns of
+    ``wq_b``, ``wk_b`` and ``wv_b`` and the rows of ``wo``, whose product
+    is summed over "model" (``reduce_from``). The compressed cache is
+    whole on every rank of "model" (every rank writes the same entry), or
+    with ``seq_len`` (``seq_shard``) split over its positions when they
+    divide there: the rank that holds a position writes it, and decode
+    gathers every head's absorbed query, scores this rank's block of the
+    cache and combines the softmax over the ranks (as ``_lse_attn``)."""
     B, S, _ = x.shape
     qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     H = p.wq_b.shape[-1] // (qn + qr)
     scale = (qn + qr) ** -0.5
+    g = par.group(axes, axes.model if axes is not None else ())
+    seq_len = cache.get("seq_len") if (cache is not None and g is not None) else None
+    marker = {} if seq_len is None else {"seq_len": seq_len}
     if positions is None:
         positions = torch.arange(S, device=x.device)
     per_slot = decode and positions.dim() == 1 and positions.shape[0] == B and B > 1
 
-    q_nope, q_pe, c_kv, k_pe = _mla_qkv(x, p, cfg, H)
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(x, p, cfg, H, axes)
     cos, sin = rope_table(positions, qr, cfg.rope_theta)
     if per_slot:  # (B, half) -> (B, 1, half)
         cos, sin = cos[:, None, :], sin[:, None, :]
@@ -620,25 +793,44 @@ def mla_forward(x, p: MLA, cfg, *, positions=None, cache=None, decode: bool = Fa
     if decode:
         if cache is None or S != 1:
             raise ValueError("decode takes one token (S == 1) and a cache")
-        t = torch.arange(cache["c_kv"].shape[1], device=x.device)
+        split = g is not None and _split_cache(seq_len, g)
+        n = cache["c_kv"].shape[1]
+        first = g.index * n if split else 0
+        t = first + torch.arange(n, device=x.device)
         if per_slot:
+            if split:
+                raise ValueError("per-slot decode takes a cache whole on every rank")
             ckv = _write_slots(cache["c_kv"], c_kv, positions)
             ckpe = _write_slots(cache["k_pe"], k_pe, positions)
             tmask = (t[None, :] <= positions.long()[:, None])[:, None, None, :]
         else:
             pos = positions.reshape(1).long()
-            ckv = cache["c_kv"].index_copy_(1, pos, c_kv)
-            ckpe = cache["k_pe"].index_copy_(1, pos, k_pe)
+            if split:
+                ckv = _write_own(cache["c_kv"], pos, c_kv, first, n)
+                ckpe = _write_own(cache["k_pe"], pos, k_pe, first, n)
+            else:
+                ckv = cache["c_kv"].index_copy_(1, pos, c_kv)
+                ckpe = cache["k_pe"].index_copy_(1, pos, k_pe)
             tmask = (t <= pos)[None, None, None, :]
         # absorbed: q folded through W_UK scores against the compressed cache
         q_eff = torch.einsum("bshn,rhn->bshr", q_nope, p.wk_b.reshape(r, H, qn))
+        if split:  # every head's query over this rank's block of the cache
+            q_eff, q_pe = (par.gather(t_, 2, axes, axes.model) for t_ in (q_eff, q_pe))
         scores = (torch.einsum("bshr,btr->bhst", q_eff, ckv)
                   + torch.einsum("bshn,btn->bhst", q_pe, ckpe)).float() * scale
         scores = torch.where(tmask, scores, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx_c = torch.einsum("bhst,btr->bshr", probs, ckv)  # (B, 1, H, r)
+        if split:
+            top = par.all_max(scores.amax(-1, keepdim=True), axes)
+            e = torch.exp(scores - top)
+            probs = (e / par.reduce_from(e.sum(-1, keepdim=True), axes)).to(x.dtype)
+            ctx_c = par.reduce_from(torch.einsum("bhst,btr->bshr", probs, ckv), axes)
+            ctx_c = ctx_c.narrow(2, g.index * H, H)
+        else:
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            ctx_c = torch.einsum("bhst,btr->bshr", probs, ckv)  # (B, 1, H, r)
         ctx = torch.einsum("bshr,rhv->bshv", ctx_c, p.wv_b.reshape(r, H, vd))
-        return ctx.reshape(B, S, H * vd) @ p.wo, {"c_kv": ckv, "k_pe": ckpe}
+        out = par.reduce_from(ctx.reshape(B, S, H * vd) @ p.wo, axes)
+        return out, {"c_kv": ckv, "k_pe": ckpe, **marker}
 
     # train / prefill: expand per position
     k_nope = (c_kv @ p.wk_b).reshape(B, S, H, qn)
@@ -649,9 +841,17 @@ def mla_forward(x, p: MLA, cfg, *, positions=None, cache=None, decode: bool = Fa
         ctx = _flash_attn(q, k, v, causal=True, scale=scale, inference=cache is not None)
     else:
         ctx = _chunked_attn(q, k, v, causal=True, q_positions=positions,
-                            k_positions=positions, scale=scale)
-    out = ctx.reshape(B, S, H * vd) @ p.wo
-    return out, ({"c_kv": c_kv, "k_pe": k_pe} if cache is not None else None)
+                            k_positions=positions, scale=scale,
+                            remat=cfg.remat and torch.is_grad_enabled())
+    out = par.reduce_from(ctx.reshape(B, S, H * vd) @ p.wo, axes)
+    if cache is None:
+        return out, None
+    if seq_len is not None:  # seq_shard: the prompt's S positions, split where they divide
+        if S % g.size == 0:
+            m = S // g.size
+            c_kv, k_pe = (t_.narrow(1, g.index * m, m).clone() for t_ in (c_kv, k_pe))
+        marker["seq_len"] = S
+    return out, {"c_kv": c_kv, "k_pe": k_pe, **marker}
 
 
 def init_mla_cache(cfg, B: int, S_max: int, device=None):

@@ -21,8 +21,8 @@ to each id, so the sum is the one-rank lookup bit for bit.
 
 A sharded model draws its parameters whole, one leaf at a time and in the
 one-rank model's order, and keeps its block of each (``model.Model``):
-inside ``recording()`` (per thread), ``_init`` and ``_const`` make
-parameters on the meta device and note in creation order how to draw each.
+inside ``recording()`` (per thread), ``_init``, ``_const`` and
+``_s4d_log`` make parameters on the meta device and note in creation order how to draw each.
 """
 from __future__ import annotations
 
@@ -40,9 +40,10 @@ _LOCAL = threading.local()
 
 @contextlib.contextmanager
 def recording():
-    """Within it, on this thread, ``_init`` and ``_const`` draw nothing:
-    each returns a meta parameter and appends (parameter, "randn" |
-    "full", scale | value) to the list this yields."""
+    """Within it, on this thread, ``_init``, ``_const`` and ``_s4d_log``
+    draw nothing: each returns a meta parameter and appends (parameter,
+    "randn" | "full" | "s4d", scale | value | None) to the list this
+    yields."""
     prev, _LOCAL.drawn = getattr(_LOCAL, "drawn", None), []
     try:
         yield _LOCAL.drawn
@@ -65,10 +66,14 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def draw(gen, kind: str, arg, shape, dtype, device) -> torch.Tensor:
-    """What ``_init`` ("randn", scale) or ``_const`` ("full", value) makes."""
-    if kind == "randn":
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * arg
+    """What ``_init`` ("randn", scale), ``_const`` ("full", value) or
+    ``_s4d_log`` ("s4d") makes."""
+    if kind == "randn":  # scaled in place: a leaf's float32 draw is its largest copy
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(arg)
         return w.to(dtype)
+    if kind == "s4d":
+        a = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(shape).clone().to(dtype)
     return torch.full(shape, arg, dtype=dtype, device=device)
 
 
@@ -80,6 +85,14 @@ def _init(gen, shape, scale, dtype, device) -> nn.Parameter:
 def _const(value: float, shape, dtype, device) -> nn.Parameter:
     p = _recorded(shape, dtype, "full", value)
     return p if p is not None else nn.Parameter(draw(None, "full", value, shape, dtype, device))
+
+
+def _s4d_log(shape, device) -> nn.Parameter:
+    """float32 log(1..N) on every row of ``shape`` (..., N): Mamba's
+    S4D-real ``A_log``."""
+    p = _recorded(shape, torch.float32, "s4d", None)
+    return p if p is not None else nn.Parameter(draw(None, "s4d", None, shape, torch.float32,
+                                                     device))
 
 
 # ------------------------------------------------------------------ norms

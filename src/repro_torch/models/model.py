@@ -53,7 +53,6 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import not_ported
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     Embed, Norm, _init, apply_norm, draw, embed_tokens, recording, sinusoidal_embed,
@@ -62,16 +61,6 @@ from repro_torch.models.layers import (
 from repro_torch.sharding import parallel as par
 from repro_torch.sharding import rules
 from repro_torch.sharding.spec import Axes, vocab_pad
-
-
-def check_sharded(cfg: ModelConfig) -> None:
-    """Raise naming its item where a mesh does not train this config yet."""
-    for spec in cfg.layer_list():
-        tfm.check_sharded(spec)
-    if cfg.encoder_segments:
-        raise not_ported("the encoder under a mesh", "tp_mixers")
-    if cfg.optimizer == "adafactor":
-        raise not_ported("Adafactor under a mesh", "tp_mixers")
 
 
 class LMHead(nn.Module):
@@ -114,7 +103,6 @@ class Model(nn.Module):
             gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
             self._build(gen, dev)
             return
-        check_sharded(cfg)
         par.make_groups(axes)
         with recording() as drawn:
             self._build(None, torch.device("meta"))
@@ -179,9 +167,11 @@ class Model(nn.Module):
         each is this rank's block of the caches of a global batch of B rows
         (``rules.cache_specs``: the batch over the batch axes that divide
         it, the KV heads over "model" where it divides them); with
-        ``seq_shard`` (``repro``'s ``seq_shard_cache``) a GQA cache holds
-        every KV head, over the rank's block of the sequence where S_max
-        divides over "model", and says so with ``seq_len`` = S_max."""
+        ``seq_shard`` (``repro``'s ``seq_shard_cache``) an attention cache
+        (GQA, a ring, a cross cache, MLA's compressed one) holds every KV
+        head, over the rank's block of its positions where their count
+        divides over "model", and says so with ``seq_len``, that count
+        (S_max, the ring's W, the memory's length)."""
         device = self.device if device is None else device
         cfg = self.cfg
         if not self.sharded:
@@ -197,8 +187,10 @@ class Model(nn.Module):
                 local[key] = {n: torch.zeros(par.local_shape(t.shape, sp[key][n], self.axes),
                                              dtype=t.dtype, device=device)
                               for n, t in mix.items()}
-                if seq_shard and key == "mix":
-                    local[key]["seq_len"] = S_max
+                seq = next((t.shape[1] for n, t in mix.items() if n in ("k", "ck", "c_kv")),
+                           None)
+                if seq_shard and seq is not None:  # the positions' global count
+                    local[key]["seq_len"] = seq
             out.append(local)
         return out
 
@@ -224,7 +216,7 @@ class Model(nn.Module):
             pos = torch.arange(frames.shape[1], device=frames.device)
             h = frames + sinusoidal_embed(pos, cfg.d_model).to(dtype)[None]
             h, _, _ = tfm.run_segments(h, self.encoder.layers, cfg.encoder_segments, cfg,
-                                       positions=pos)
+                                       positions=pos, axes=self.axes)
             return apply_norm(h, self.encoder.final_norm, cfg)
         if cfg.n_vision_tokens:
             return batch["vision"].to(dtype)

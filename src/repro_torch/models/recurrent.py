@@ -13,6 +13,30 @@ advances the recurrence one step from the carried state.
 
 The scan is plain PyTorch: ``repro``'s is plain ``jnp`` too (no Pallas
 kernel lies on this path).
+
+Under a mesh (``axes``) both mixers are tensor-parallel over "model"
+along their width, as ``repro``'s partition specs put them, and the scan
+stays local: a recurrence is elementwise over the width.
+
+  * RG-LRU: ``wx``, ``wg``, ``conv`` and ``lam`` hold this rank's slice of
+    the width, ``wa`` and ``wi`` its nb / M of the nb gate blocks, which
+    are exactly the blocks of that slice (M must divide nb); ``wo`` holds
+    its rows and the output is summed over "model" (``reduce_from``).
+  * Mamba: ``conv``, ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` hold
+    this rank's slice of di; ``x_proj`` and ``out_proj`` its rows. The
+    (B, S, dt_rank + 2 N) product of ``x_proj`` is summed over "model"
+    before dt, B and C are taken from it, and enters the rank's part of
+    the scan through ``copy_to`` (its gradient is the sum of the ranks'
+    parts). ``in_proj`` (d, 2 di) keeps ``repro``'s spec (None, "model"):
+    a rank holds one contiguous block of its 2 di columns, so with two
+    ranks rank 0 holds all of x's half and rank 1 all of z's. The port
+    keeps that layout (so parameters, checkpoints and ``convert`` need no
+    other) and re-splits the product instead: one all-to-all over "model"
+    gives each rank its slice of x and its slice of z
+    (``parallel.split_halves``; backward, the inverse).
+
+The ``conv`` and ``h`` caches hold this rank's slice of the width
+(``rules.cache_specs``).
 """
 from __future__ import annotations
 
@@ -20,7 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import _const, _init, torch_dtype
+from repro_torch.models.layers import _const, _init, _s4d_log, torch_dtype
+from repro_torch.sharding import parallel as par
 
 SCAN_CHUNK = 256
 _RGLRU_C = 8.0
@@ -98,9 +123,12 @@ def _causal_conv(x, w, state=None):
 class RGLRU(nn.Module):
     """``init_rglru``: ``wx``/``wg`` (d, w), ``conv`` (4, w), the
     block-diagonal gates ``wa``/``wi`` (n_heads, w / n_heads, w / n_heads),
-    float32 ``lam`` (2.0) and ``wo`` (w, d), each at ``repro``'s scale."""
+    float32 ``lam`` (2.0) and ``wo`` (w, d), each at ``repro``'s scale.
+    ``axes`` is taken for the mixers' common signature: the shapes do not
+    change (a sharded model's blocks are cut by ``parallel.shard_leaf``,
+    which refuses an nb that "model" does not divide)."""
 
-    def __init__(self, cfg, gen, device=None):
+    def __init__(self, cfg, gen, device=None, axes=None):
         super().__init__()
         dtype = torch_dtype(cfg.dtype)
         d, w = cfg.d_model, cfg.lru_width
@@ -133,11 +161,12 @@ def _rglru_coeffs(u, p: RGLRU):
     return a, b
 
 
-def rglru_forward(x, p: RGLRU, cfg, *, cache=None, decode: bool = False):
+def rglru_forward(x, p: RGLRU, cfg, *, cache=None, decode: bool = False, axes=None):
     """Griffin's recurrent block: [Wx -> conv -> RG-LRU] * gelu(Wg) -> Wo.
     Returns (out, new_cache); the cache is {"conv", "h"} when one was
-    given."""
+    given. ``axes``: this rank's slice of the width (module docstring)."""
     B, S, _ = x.shape
+    x = par.copy_to(x, axes)
     u = x @ p.wx
     gate = F.gelu(x @ p.wg, approximate="tanh")  # jax.nn.gelu's default
     u, new_conv = _causal_conv(u, p.conv, cache.get("conv") if cache else None)
@@ -152,7 +181,7 @@ def rglru_forward(x, p: RGLRU, cfg, *, cache=None, decode: bool = False):
         h = h_last[:, None]
     else:
         h, h_last = _chunked_linear_scan(a, b, h0)
-    out = (h.to(x.dtype) * gate) @ p.wo
+    out = par.reduce_from((h.to(x.dtype) * gate) @ p.wo, axes)
     return out, ({"conv": new_conv, "h": h_last} if cache is not None else None)
 
 
@@ -171,9 +200,10 @@ class Mamba(nn.Module):
     ``x_proj`` (di, dt_rank + 2 N), ``dt_proj`` (dt_rank, di), float32
     ``dt_bias`` (zeros), ``A_log`` (log 1..N on every row, S4D-real) and
     ``D`` (ones), and ``out_proj`` (di, d); di = ssm_expand x d_model,
-    N = ssm_state, dt_rank = max(1, d_model // 16)."""
+    N = ssm_state, dt_rank = max(1, d_model // 16). ``axes`` is taken for
+    the mixers' common signature: the shapes do not change."""
 
-    def __init__(self, cfg, gen, device=None):
+    def __init__(self, cfg, gen, device=None, axes=None):
         super().__init__()
         dtype = torch_dtype(cfg.dtype)
         d = cfg.d_model
@@ -185,13 +215,12 @@ class Mamba(nn.Module):
         self.x_proj = _init(gen, (di, dt_rank + 2 * N), di ** -0.5, dtype, device)
         self.dt_proj = _init(gen, (dt_rank, di), dt_rank ** -0.5, dtype, device)
         self.dt_bias = _const(0.0, (di,), torch.float32, device)
-        A = torch.arange(1, N + 1, dtype=torch.float32, device=device)
-        self.A_log = nn.Parameter(torch.log(A).expand(di, N).clone())
+        self.A_log = _s4d_log((di, N), device)
         self.D = _const(1.0, (di,), torch.float32, device)
         self.out_proj = _init(gen, (di, d), di ** -0.5, dtype, device)
 
 
-def mamba_forward(x, p: Mamba, cfg, *, cache=None, decode: bool = False):
+def mamba_forward(x, p: Mamba, cfg, *, cache=None, decode: bool = False, axes=None):
     """Mamba1's selective SSM (diagonal, real A). Returns (out, new_cache).
 
     dt is a bf16 product plus the float32 ``dt_bias``, so float32, as in
@@ -200,18 +229,18 @@ def mamba_forward(x, p: Mamba, cfg, *, cache=None, decode: bool = False):
     whole sequence, (B, S, di, N) each; here prefill forms a and b, scans
     and reduces y = (h C).sum(-1) one SCAN_CHUNK of rows at a time, so the
     live set is (B, SCAN_CHUNK, di, N), with each element's arithmetic
-    unchanged."""
+    unchanged. ``axes``: this rank's slice of di (module docstring)."""
     B, S, _ = x.shape
     di = p.in_proj.shape[-1] // 2
     N = cfg.ssm_state
     dt_rank = p.dt_proj.shape[0]
 
-    xz = x @ p.in_proj
+    xz = par.split_halves(par.copy_to(x, axes) @ p.in_proj, axes)
     xb, z = xz[..., :di], xz[..., di:]
     xc, new_conv = _causal_conv(xb, p.conv, cache.get("conv") if cache else None)
     xc = F.silu(xc)
 
-    proj = xc @ p.x_proj  # (B, S, dt_rank + 2N)
+    proj = par.copy_to(par.reduce_from(xc @ p.x_proj, axes), axes)  # (B, S, dt_rank + 2N)
     dt = _softplus(proj[..., :dt_rank] @ p.dt_proj + p.dt_bias).float()  # (B, S, di)
     Bs = proj[..., dt_rank:dt_rank + N].float()  # (B, S, N)
     Cs = proj[..., dt_rank + N:].float()  # (B, S, N)
@@ -242,7 +271,7 @@ def mamba_forward(x, p: Mamba, cfg, *, cache=None, decode: bool = False):
             del a, b, h
         y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     y = y + p.D * xf
-    out = (y.to(x.dtype) * F.silu(z)) @ p.out_proj
+    out = par.reduce_from((y.to(x.dtype) * F.silu(z)) @ p.out_proj, axes)
     return out, ({"conv": new_conv, "h": h0} if cache is not None else None)
 
 

@@ -25,14 +25,15 @@ on the card the model's dispatch launches the bitonic kernels, where
 ``repro``'s is False (``lax.sort``); both give the same bits.
 
 Under a mesh (``axes`` with a ``DeviceMesh``) a block runs
-tensor-parallel over "model" (``attention.gqa_forward``, ``layers.apply_mlp``
-for the dense FFN and the shared experts). Training and prefill run the
-MoE token-parallel: each rank of "model" routes its slice of the
-sequence (``split_seq``) to the experts over the expert axes and gathers
-the outputs (``gather_seq``); decode runs it over the decode layout of
-the experts (``rules.param_specs(mode="decode")``, which ``Model`` puts
-in place). What a mesh does not run yet raises naming its item: the
-other mixers and cross-attention (11.2).
+tensor-parallel over "model": every mixer (``attention.gqa_forward`` with
+or without a window, ``attention.mla_forward``, ``recurrent.rglru_forward``,
+``recurrent.mamba_forward``), the cross-attention mixer, and
+``layers.apply_mlp`` for the dense FFN and the shared experts. Training
+and prefill run the MoE token-parallel: each rank of "model" routes its
+slice of the sequence (``split_seq``) to the experts over the expert axes
+and gathers the outputs (``gather_seq``); decode runs it over the decode
+layout of the experts (``rules.param_specs(mode="decode")``, which
+``Model`` puts in place).
 """
 from __future__ import annotations
 
@@ -45,7 +46,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models import not_ported
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm, torch_dtype
 from repro_torch.sharding import parallel as par
@@ -67,18 +67,15 @@ class Block(nn.Module):
     ``shared``, an MLP of width d_expert x n_shared_experts, when
     cfg.n_shared_experts) for an MoE FFN; ``ln_x`` and ``cross`` (a cross
     ``attn.Attention``) for a spec with ``cross``. ``axes`` pads the
-    attention heads (``Axes.pad_heads``)."""
+    attention heads (``Axes.pad_heads``) and goes to every mixer."""
 
     def __init__(self, spec, cfg, gen, device=None, axes=None):
         super().__init__()
         d = cfg.d_model
         self.ln1 = Norm(cfg, d, device)
-        heads = {"attn": attn.Attention, "local_attn": attn.Attention, "mla": attn.MLA}
-        mixers = {"rglru": rec.RGLRU, "mamba": rec.Mamba}
-        if spec.mixer in heads:
-            self.mix = heads[spec.mixer](cfg, gen, device, axes=axes)
-        else:
-            self.mix = mixers[spec.mixer](cfg, gen, device) if spec.mixer in mixers else None
+        mixers = {"attn": attn.Attention, "local_attn": attn.Attention, "mla": attn.MLA,
+                  "rglru": rec.RGLRU, "mamba": rec.Mamba}
+        self.mix = mixers[spec.mixer](cfg, gen, device, axes=axes) if spec.mixer in mixers else None
         if spec.cross:
             self.ln_x = Norm(cfg, d, device)
             self.cross = attn.Attention(cfg, gen, device, cross=True, axes=axes)
@@ -112,15 +109,6 @@ def init_block_cache(spec, cfg, B: int, S_max: int, device=None, memory_len: int
     return c
 
 
-def check_sharded(spec) -> None:
-    """Raise naming its item where a mesh does not run this block yet:
-    training, prefill and decode alike."""
-    if spec.mixer not in ("attn", "none"):
-        raise not_ported(f"mixer {spec.mixer!r} under a mesh", "tp_mixers")
-    if spec.cross:
-        raise not_ported("cross-attention under a mesh", "tp_mixers")
-
-
 def _moe_sharded(h, p: Block, cfg, axes, use_pallas: bool):
     """The token-parallel MoE of a sharded block: this rank's slice of the
     sequence over "model" through its experts (module docstring)."""
@@ -140,8 +128,6 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, 
     ``axes`` with a mesh: this rank's part of the block (module
     docstring)."""
     sharded = axes is not None and axes.mesh is not None
-    if sharded:
-        check_sharded(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
 
@@ -155,11 +141,11 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, 
         )
     elif spec.mixer == "mla":
         out, mc = attn.mla_forward(h, p.mix, cfg, positions=positions, cache=mix_cache,
-                                   decode=decode)
+                                   decode=decode, axes=axes)
     elif spec.mixer == "rglru":
-        out, mc = rec.rglru_forward(h, p.mix, cfg, cache=mix_cache, decode=decode)
+        out, mc = rec.rglru_forward(h, p.mix, cfg, cache=mix_cache, decode=decode, axes=axes)
     elif spec.mixer == "mamba":
-        out, mc = rec.mamba_forward(h, p.mix, cfg, cache=mix_cache, decode=decode)
+        out, mc = rec.mamba_forward(h, p.mix, cfg, cache=mix_cache, decode=decode, axes=axes)
     else:  # "none"
         out, mc = torch.zeros_like(x), mix_cache
     x = x + out
@@ -169,7 +155,7 @@ def apply_block(x, p: Block, spec, cfg, *, positions, cache=None, decode=False, 
     if spec.cross:
         out, cc = attn.gqa_forward(apply_norm(x, p.ln_x, cfg), p.cross, cfg, causal=False,
                                    positions=positions, cache=cache.get("cross") if cache else None,
-                                   memory=memory)
+                                   memory=memory, axes=axes)
         x = x + out
         if new_cache is not None and cc is not None:
             new_cache["cross"] = cc

@@ -25,8 +25,26 @@ element counts once whatever its replicas. AdamW is ZeRO-1: where a
 rank's m and v are a block of its parameter's along one dimension
 (``rules.opt_state_specs`` put "data" there), it updates that block of
 the parameter and gathers the blocks over "data" into the parameter;
-every replica then holds the same bits. Adafactor is refused under a
-mesh (``models.model.check_sharded``, ROADMAP.md §1 item 11.2).
+every replica then holds the same bits.
+
+Adafactor is ZeRO-1 too: a rank holds, between steps, its block of each
+``vr``, ``vc`` and ``v`` by ``rules.opt_state_specs`` (the state's spec
+from its parameter's, "data" on the largest replicated dimension of
+``repro``'s stacked state). A step gathers the rank's blocks over the
+axes the state has and its parameter's block lacks (``_relayout``),
+updates the parameter's block whole, and keeps its block of the new
+states. Every rank that holds a parameter block updates it from the same
+bits, so replicas stay equal with no gather of the parameters. A mean
+over a dimension the parameter's spec shards (``vr``'s over the last,
+``vc``'s over the second to last, the denominator's ``vr.mean(-1)``) is
+summed over the axes that shard it (``_mean``), and the relative step
+clip takes the RMS of the update over the whole stacked leaf: every
+layer of the segment (``segment_groups``) and every rank that shards the
+leaf, never its replicas (as ``_global_norm`` counts). Where ``repro``
+puts "data" on the stack dimension of a state (a stacked ``vr`` whose
+only replicated dimension is the stack, as MLA's ``wo``: (count, H v)
+over (None, "model")), the port, which holds one tensor a layer, holds
+that state whole over "data" (``rules._strip``).
 """
 from __future__ import annotations
 
@@ -35,7 +53,6 @@ import math
 
 import torch
 
-from repro_torch.models import not_ported
 from repro_torch.sharding import parallel as par
 from repro_torch.sharding.rules import spec_axes
 
@@ -187,108 +204,173 @@ def _factored(shape, cfg: OptConfig) -> bool:
             and shape[-2] >= cfg.factored_min_dim)
 
 
-def _leaf_groups(params: dict, groups) -> list[tuple[tuple[str, ...], bool]]:
+def _leaf_groups(names, groups) -> list[tuple[tuple[str, ...], bool]]:
     """(names, stacked) for every leaf of ``repro``'s tree: the stacked
     groups first, then each other name alone."""
     out = [(tuple(g), True) for g in (groups or ())]
     seen = {n for g, _ in out for n in g}
-    return out + [((k,), False) for k in params if k not in seen]
+    return out + [((k,), False) for k in names if k not in seen]
 
 
-def _stacked_shape(params: dict, names, stacked: bool) -> tuple:
-    shape = tuple(params[names[0]].shape)
-    return (len(names),) + shape if stacked else shape
-
-
-def init_adafactor_state(params: dict, cfg: OptConfig, groups=None) -> dict:
-    dt = getattr(torch, cfg.state_dtype)
-    v = {}
-    for names, stacked in _leaf_groups(params, groups):
-        full = _stacked_shape(params, names, stacked)
+def adafactor_shapes(shapes: dict, cfg: OptConfig, groups=None) -> dict:
+    """{name: {"vr": shape, "vc": shape} | {"v": shape}}: Adafactor's state
+    of parameters of ``shapes`` (whole), factored where ``repro``'s
+    stacked leaf is (``_factored`` of (count, ...) for a group of
+    ``segment_groups``)."""
+    out = {}
+    for names, stacked in _leaf_groups(shapes, groups):
+        shape = tuple(shapes[names[0]])
+        full = (len(names),) + shape if stacked else shape
         for k in names:
-            p = params[k]
+            s = tuple(shapes[k])
             if not _factored(full, cfg):
-                v[k] = {"v": torch.zeros(p.shape, dtype=dt, device=p.device)}
-            elif p.dim() < 2:
+                out[k] = {"v": s}
+            elif len(s) < 2:
                 raise NotImplementedError(
                     f"{k}: a segment of {len(names)} layers stacks this 1-D leaf into a "
                     f"factored {full}, whose second moments do not split per layer")
             else:
-                v[k] = {"vr": torch.zeros(p.shape[:-1], dtype=dt, device=p.device),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=dt,
-                                          device=p.device)}
-    return {"v": v}
+                out[k] = {"vr": s[:-1], "vc": s[:-2] + s[-1:]}
+    return out
+
+
+def init_adafactor_state(params: dict, cfg: OptConfig, groups=None, shapes=None) -> dict:
+    """Zeroed second moments; ``shapes``: a sharded model's blocks of them
+    (``train.step.state_shapes``), else ``adafactor_shapes`` of the
+    parameters."""
+    dt = getattr(torch, cfg.state_dtype)
+    if shapes is None:
+        shapes = adafactor_shapes({k: p.shape for k, p in params.items()}, cfg, groups)
+    return {"v": {k: {kind: torch.zeros(s, dtype=dt, device=params[k].device)
+                      for kind, s in shapes[k].items()} for k in params}}
+
+
+def _dim_axes(spec, dim: int) -> tuple:
+    """The mesh axes that shard dimension ``dim`` of a leaf with ``spec``."""
+    return () if spec is None else par._entry(spec, dim)
+
+
+def _mean(t, dim: int, names, axes):
+    """``t.mean(dim)`` of the whole leaf from this rank's block, ``dim``
+    split over ``names``: the block's sums summed over them."""
+    g = par.group(axes, names) if names else None
+    if g is None:
+        return t.mean(dim)
+    return g.all_sum(t.sum(dim)) / (t.shape[dim] * g.size)
+
+
+def _relayout(t, src, dst, axes):
+    """A rank's block of a leaf by ``dst`` from its block by ``src``: each
+    dimension whose axes differ gathered whole first, then sliced by
+    ``dst`` (collective)."""
+    if src is None or tuple(src) == tuple(dst):
+        return t
+    moved = [d for d in range(t.dim()) if _dim_axes(src, d) != _dim_axes(dst, d)]
+    for d in moved:
+        if _dim_axes(src, d):
+            t = par.gather_leaf(t, (None,) * d + (_dim_axes(src, d),), axes)
+    for d in moved:
+        if _dim_axes(dst, d):
+            t = par.shard_leaf(t, (None,) * d + (_dim_axes(dst, d),), axes)
+    return t
+
+
+def _factored_spec(spec, kind: str):
+    """The layout of a factored state over a parameter block of ``spec``."""
+    if spec is None:
+        return None
+    spec = tuple(spec)
+    return spec[:-1] if kind == "vr" else spec[:-2] + spec[-1:]
 
 
 @torch.no_grad()
 def adafactor_update(params: dict, grads: dict, state: dict, step, cfg: OptConfig,
-                     groups=None) -> None:
+                     groups=None, axes=None, specs=None, state_specs=None) -> None:
     """One Adafactor step in place (Shazeer-Stern beta2, factored second
-    moments, relative step-size clipping over each stacked leaf)."""
+    moments, relative step-size clipping over each stacked leaf).
+    ``axes``, ``specs`` and ``state_specs``: a sharded model's, its
+    parameters' and its states' (ZeRO-1; module docstring)."""
     lr = float(lr_at(step, cfg))
     t = _f32(step) + 1.0
     beta2 = float(1.0 - t ** -0.8)
     dt = getattr(torch, cfg.state_dtype)
     eps = 1e-30
+    sharded = specs is not None and axes is not None and axes.mesh is not None
     for names, _ in _leaf_groups(params, groups):
-        upds, sq = [], 0.0
+        upds, sq, count = [], 0.0, 0
         for k in names:
+            pspec = specs[k] if sharded else None
             gf = grads[k].float()
-            g2 = gf * gf + eps
+            g2 = gf.square().add_(eps)
             s = state["v"][k]
+            own = state_specs["v"][k] if sharded else {}
             if "vr" in s:
-                vr = beta2 * s["vr"].float() + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * s["vc"].float() + (1 - beta2) * g2.mean(-2)
-                denom = (vr[..., :, None] * vc[..., None, :]
-                         / torch.clamp(vr.mean(-1)[..., None, None], min=eps))
-                upd = gf * torch.rsqrt(torch.clamp(denom, min=eps))
-                s["vr"].copy_(vr.to(dt))
-                s["vc"].copy_(vc.to(dt))
+                rs, cs = _factored_spec(pspec, "vr"), _factored_spec(pspec, "vc")
+                old_r = _relayout(s["vr"], own.get("vr"), rs, axes).float()
+                old_c = _relayout(s["vc"], own.get("vc"), cs, axes).float()
+                row = _mean(g2, -1, _dim_axes(pspec, -1), axes)
+                col = _mean(g2, -2, _dim_axes(pspec, -2), axes)
+                del g2  # the leaf's temporaries one at a time: a large leaf is GBs
+                vr = beta2 * old_r + (1 - beta2) * row
+                vc = beta2 * old_c + (1 - beta2) * col
+                vr_mean = _mean(vr, -1, _dim_axes(rs, -1), axes)
+                denom = vr[..., :, None] * vc[..., None, :]
+                denom.div_(torch.clamp(vr_mean[..., None, None], min=eps))
+                upd = denom.clamp_(min=eps).rsqrt_().mul_(gf)
+                s["vr"].copy_(_relayout(vr.to(dt), rs, own.get("vr", rs), axes))
+                s["vc"].copy_(_relayout(vc.to(dt), cs, own.get("vc", cs), axes))
             else:
-                v = beta2 * s["v"].float() + (1 - beta2) * g2
-                upd = gf * torch.rsqrt(torch.clamp(v, min=eps))
-                s["v"].copy_(v.to(dt))
+                old = _relayout(s["v"], own.get("v"), pspec, axes).float()
+                v = (beta2 * old).add_(g2.mul_(1 - beta2))
+                del g2
+                upd = torch.clamp(v, min=eps).rsqrt_().mul_(gf)
+                s["v"].copy_(_relayout(v.to(dt), pspec, own.get("v", pspec), axes))
             upds.append(upd)
             sq = sq + torch.square(upd).sum()
+            count += upd.numel()
+        if sharded:  # over the ranks that shard the leaf (every layer of it shares one spec)
+            g = par.group(axes, spec_axes(specs[names[0]]))
+            if g is not None:
+                sq, count = g.all_sum(sq), count * g.size
         # relative step-size clipping (RMS(update) <= 1) over the stacked leaf
-        rms = torch.sqrt(sq / sum(u.numel() for u in upds) + eps)
+        rms = torch.sqrt(sq / count + eps)
         for k, upd in zip(names, upds):
             p = params[k]
             pf = p.float()
-            upd = upd / torch.clamp(rms, min=1.0)
-            p.copy_((pf - lr * (upd + cfg.weight_decay * pf)).to(p.dtype))
+            upd.div_(torch.clamp(rms, min=1.0)).add_(pf * cfg.weight_decay).mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(upd)
+            else:
+                p.copy_((pf - upd).to(p.dtype))
 
 
 # ------------------------------------------------------------------ facade
 
 
 def init_opt_state(params: dict, cfg: OptConfig, groups=None, shapes=None) -> dict:
-    """``shapes``: AdamW's ZeRO-1 blocks on a sharded model
+    """``shapes``: the ZeRO-1 blocks of the states on a sharded model
     (``train.step.state_shapes``)."""
     if cfg.name == "adafactor":
-        if shapes is not None:
-            raise not_ported("Adafactor under a mesh", "tp_mixers")
-        return init_adafactor_state(params, cfg, groups)
+        return init_adafactor_state(params, cfg, groups, shapes)
     return init_adamw_state(params, cfg, shapes)
 
 
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: dict, step, cfg: OptConfig,
-                  groups=None, axes=None, specs=None):
+                  groups=None, axes=None, specs=None, state_specs=None):
     """Clip the gradients to ``cfg.clip_norm``, then update ``params`` and
     ``state`` in place. ``groups``: the names stacked into one leaf
     (``segment_groups``; only Adafactor reads them). Float32 gradients
     are clipped in place (the train step passes its own sums; a full
-    clipped copy would cost another float32 copy of the model). ``axes``
-    and ``specs``: a sharded model's (module docstring). Returns (params,
-    state, the global norm before clipping)."""
+    clipped copy would cost another float32 copy of the model). ``axes``,
+    ``specs`` and ``state_specs``: a sharded model's, its parameters' and
+    its optimizer states' (module docstring). Returns (params, state, the
+    global norm before clipping)."""
     f32 = all(g.dtype == torch.float32 for g in grads.values())
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, inplace=f32, axes=axes,
                                        specs=specs)
     if cfg.name == "adafactor":
-        if specs is not None:
-            raise not_ported("Adafactor under a mesh", "tp_mixers")
-        adafactor_update(params, grads, state, step, cfg, groups)
+        adafactor_update(params, grads, state, step, cfg, groups, axes, specs, state_specs)
     else:
         adamw_update(params, grads, state, step, cfg, axes)
     return params, state, gnorm

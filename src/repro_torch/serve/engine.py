@@ -92,21 +92,44 @@ def _grow_ring(mix: dict, window: int, prefill_len: int, S_max: int) -> dict:
     return out
 
 
-def _grow_seq_shard(model: Model, mix: dict, S_max: int) -> dict:
-    """A ``seq_shard`` cache (every KV head; the sequence over "model" when
-    its ``seq_len`` divides there) grown to S_max: rank r holds the r-th
-    block of S_max, so positions move between the ranks. Gathered whole,
-    padded, and cut again (collective)."""
+def _whole_seq(model: Model, mix: dict) -> dict:
+    """The tensors of a ``seq_shard`` cache with their positions (axis 1)
+    gathered whole where its ``seq_len`` divides over "model" (collective);
+    ``pos`` and ``seq_len`` left out."""
     axes = model.axes
-    m = axes.model_size
-    out = {"seq_len": S_max}
-    for name in ("k", "v"):
-        t = mix[name]
-        if mix["seq_len"] % m == 0:
-            t = par.gather(t, 1, axes, axes.model)
-        t = F.pad(t, (0, 0, 0, 0, 0, S_max - t.shape[1]))
-        out[name] = par.shard_leaf(t, (None, axes.model), axes).clone() if S_max % m == 0 else t
-    return out
+    split = mix["seq_len"] % axes.model_size == 0
+    return {name: par.gather(t, 1, axes, axes.model) if split else t
+            for name, t in mix.items() if name not in ("pos", "seq_len")}
+
+
+def _cut_seq(model: Model, mix: dict, S: int) -> dict:
+    """A whole cache of S positions as a ``seq_shard`` one: each tensor's
+    block of them where S divides over "model", else whole."""
+    axes = model.axes
+    split = S % axes.model_size == 0
+    return {**{name: par.shard_leaf(t, (None, axes.model), axes).clone() if split else t
+               for name, t in mix.items()}, "seq_len": S}
+
+
+def _grow_seq_shard(model: Model, mix: dict, S_max: int) -> dict:
+    """A ``seq_shard`` cache (every KV head, or MLA's compressed entries;
+    the positions over "model" when its ``seq_len`` divides there) grown
+    to S_max: rank r holds the r-th block of S_max, so positions move
+    between the ranks. Gathered whole, padded, and cut again
+    (collective)."""
+    whole = _whole_seq(model, mix)
+    return _cut_seq(model, {name: F.pad(t, (0, 0) * (t.dim() - 2) + (0, S_max - t.shape[1]))
+                            for name, t in whole.items()}, S_max)
+
+
+def _grow_seq_ring(model: Model, mix: dict, prefill_len: int, S_max: int) -> dict:
+    """A ``seq_shard`` ring (its W slots over "model" when it divides W)
+    grown as ``_grow_ring`` grows a whole one: gathered, re-slotted or
+    rolled, and cut again (collective)."""
+    ring = _grow_ring({**_whole_seq(model, mix), "pos": mix["pos"]},
+                      model.cfg.sliding_window, prefill_len, S_max)
+    pos = ring.pop("pos")
+    return {**_cut_seq(model, ring, pos.shape[0]), "pos": pos}
 
 
 @torch.no_grad()
@@ -118,14 +141,17 @@ def extend_caches(model: Model, caches, prefill_len: int, S_max: int):
     roll each sliding-window ring (``_grow_ring``); pass the recurrent
     caches (conv and h) and the cross caches (ck and cv), fixed size,
     through unchanged. A ``seq_shard`` cache of a sharded model moves
-    between its ranks (``_grow_seq_shard``)."""
+    between its ranks (``_grow_seq_shard``, ``_grow_seq_ring``); the other
+    caches of a sharded model grow where they are."""
     out = []
     for c in caches:
         mix = c.get("mix")
         if mix is None or "conv" in mix:
             out.append(c)
             continue
-        if "seq_len" in mix:
+        if "pos" in mix and "seq_len" in mix:
+            mix = _grow_seq_ring(model, mix, prefill_len, S_max)
+        elif "seq_len" in mix:
             mix = _grow_seq_shard(model, mix, S_max)
         elif "pos" in mix:
             mix = _grow_ring(mix, model.cfg.sliding_window, prefill_len, S_max)

@@ -20,7 +20,11 @@ of a mesh axis (``spec.axis_group``):
   * ``exchange``: the expert all-to-all, flat or factored (``moe._make_a2a``);
     its permutation is its own inverse, so the backward runs it again;
   * ``aux_mean``: the MoE aux loss averaged over every rank of the mesh
-    (``lax.pmean``).
+    (``lax.pmean``);
+  * ``split_halves``: a column-parallel product of two stacked halves
+    (Mamba's ``in_proj``, (d, 2 di) over "model" as one contiguous block
+    a rank) re-split so that each rank holds its slice of each half: one
+    all-to-all over "model", its inverse backward.
 
 What a rank differentiates. Every rank of a "model" group holds the same
 loss; the ranks along the batch axes ("pod", "data") hold their block's
@@ -160,6 +164,53 @@ class _AuxMean(torch.autograd.Function):
         return grad * ctx.scale, None, None
 
 
+def _halves_moves(g, forward: bool):
+    """The chunks of width n that cross in ``split_halves``: the product's
+    2 M chunks, chunk k held by coordinate k // 2 (its block of 2 n
+    columns) and wanted by coordinate k % M (slot k // M: x, then z).
+    Returns (the chunks this rank sends: (chunk, dest, local slot)), (the
+    chunks it gets: (chunk, src, slot)), each in (peer, chunk) order, the
+    order both sides agree on; backward, the same moves the other way."""
+    M, r = g.size, g.index
+    held = [(k, k % M, k - 2 * r) for k in (2 * r, 2 * r + 1)]  # at the block's slots
+    wanted = [(k, k // 2, k // M) for k in (r, M + r)]  # at the halves' slots
+    send, recv = (held, wanted) if forward else (wanted, held)
+
+    def order(move):
+        return move[1], move[0]
+
+    return sorted(send, key=order), sorted(recv, key=order)
+
+
+def _move_halves(t, g, forward: bool):
+    """``t`` (..., 2 n): the two chunks of width n this rank holds, to the
+    ranks that want them (``_halves_moves``); returns the two it gets in
+    slot order."""
+    n = t.shape[-1] // 2
+    send, recv = _halves_moves(g, forward)
+    rows = torch.cat([t[..., s * n:(s + 1) * n].movedim(-1, 0) for _, _, s in send])
+    counts = [0] * g.size
+    for _, dest, _ in send:
+        counts[dest] += n
+    got_counts = [0] * g.size
+    for _, src, _ in recv:
+        got_counts[src] += n
+    got = g.all_to_all_v(rows.contiguous(), counts, got_counts).split(n)
+    slots = sorted(zip((s for _, _, s in recv), got))
+    return torch.cat([piece.movedim(0, -1) for _, piece in slots], dim=-1)
+
+
+class _SplitHalves(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _move_halves(x, g, True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _move_halves(grad, ctx.g, False), None
+
+
 def copy_to(x, axes: Axes | None, names=None):
     """Identity forward; the sum over ``names`` (default: "model") backward."""
     g = group(axes, axes.model if names is None and axes is not None else names)
@@ -200,6 +251,16 @@ def exchange(x, fn):
     """``fn(x)``, an all-to-all whose permutation is its own inverse; its
     backward is ``fn`` of the gradient."""
     return _Exchange.apply(x, fn)
+
+
+def split_halves(x, axes: Axes | None):
+    """``x`` (..., 2 n), this rank's contiguous block of a product over
+    "model" whose columns are two halves [a | b] of M n each, as
+    [this rank's n of a | its n of b]: the block ``repro``'s spec (None,
+    "model") gives each rank of the weight, re-split by one all-to-all
+    (``_halves_moves``); backward, the inverse."""
+    g = group(axes, axes.model if axes is not None else ())
+    return x if g is None else _SplitHalves.apply(x, g)
 
 
 def aux_mean(aux, axes: Axes):

@@ -216,6 +216,18 @@ class AxisGroup:
         dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.group)
         return wire.to(device=t.device, dtype=t.dtype)
 
+    def all_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``all_sum`` written back into ``t`` (contiguous float32 or
+        float64), with no second tensor of its size on its device: in
+        place where the backend takes ``t`` where it lives, else through
+        the host copy. Returns ``t``."""
+        dist = _dist()
+        wire = self._on_backend(t)
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=self.group)
+        if wire is not t:
+            t.copy_(wire)
+        return t
+
     def all_amax(self, t: torch.Tensor) -> torch.Tensor:
         """The element-wise maximum over the group of a float tensor of any
         shape (``lax.pmax``), on ``t``'s device, ``t`` left as it was."""

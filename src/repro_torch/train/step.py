@@ -2,9 +2,13 @@
 model forward, one optimizer update: ``repro/train/step.py``.
 
 ``repro`` scans over the micro-batches with the float32 gradient sum as
-the carry; here a Python loop takes each micro-batch's gradients with
-``torch.autograd.grad`` (never through ``.grad``, which would add bf16
-gradients in bf16) and adds them to sums held in ``accum_dtype``. The
+the carry; here a Python loop runs each micro-batch's backward and adds
+each parameter's gradient to its sum, held in ``accum_dtype``, as soon as
+the backward has made it (a hook after the gradient's accumulation takes
+it from ``.grad`` and leaves ``.grad`` None: bf16 gradients are never
+added to one another in bf16 across micro-batches, and at most the
+gradients the backward is still making are alive besides the sums). The
+first micro-batch's gradients start the sums (no zeroed copy). The
 update then divides by the number of micro-batches, clips and steps the
 optimizer in place (``optim/adamw.py``). Parameters and optimizer states
 are dicts of tensors keyed by the model's ``state_dict`` names; the
@@ -78,9 +82,12 @@ def sum_over_batch_axes(grads: dict, specs: dict, axes) -> None:
                 chunk.append(t)
                 size += t.numel() * t.element_size()
             if chunk and (t is None or size >= SUM_CHUNK_BYTES):
-                flat = g.all_sum(torch.cat([c.reshape(-1) for c in chunk]))
-                for c, part in zip(chunk, flat.split([c.numel() for c in chunk])):
-                    c.copy_(part.reshape(c.shape))
+                if len(chunk) == 1:  # a leaf of a chunk or more: summed where it is
+                    g.all_sum_(chunk[0])
+                else:
+                    flat = g.all_sum_(torch.cat([c.reshape(-1) for c in chunk]))
+                    for c, part in zip(chunk, flat.split([c.numel() for c in chunk])):
+                        c.copy_(part.reshape(c.shape))
                 chunk, size = [], 0
 
 
@@ -106,25 +113,46 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         batch = _to_device(batch, model.device)
         accum = next(iter(batch.values())).shape[0]
         names, leaves = list(params), list(params.values())
-        gsum = [torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in leaves]
+        gsum = [None] * len(leaves)
+
+        def fold(i):
+            def hook(p):  # p.grad: this micro-batch's whole gradient of leaf i
+                g, p.grad = p.grad, None
+                with torch.no_grad():
+                    if gsum[i] is None:
+                        gsum[i] = g.to(acc_dt).contiguous()
+                    else:
+                        gsum[i].add_(g.to(acc_dt))
+            return hook
+
+        for p in leaves:
+            p.grad = None
+        hooks = [p.register_post_accumulate_grad_hook(fold(i)) for i, p in enumerate(leaves)]
         per_micro = []
-        for a in range(accum):
-            with torch.enable_grad():
-                total, metrics = loss_fn({k: v[a] for k, v in batch.items()})
-                grads = torch.autograd.grad(total, leaves)
-            with torch.no_grad():
-                for s, g in zip(gsum, grads):
-                    s.add_(g.to(acc_dt))
-            del grads, total
-            per_micro.append({k: v.detach().float() for k, v in metrics.items()})
+        try:
+            for a in range(accum):
+                with torch.enable_grad():
+                    total, metrics = loss_fn({k: v[a] for k, v in batch.items()})
+                    total.backward()
+                del total
+                per_micro.append({k: v.detach().float() for k, v in metrics.items()})
+        finally:
+            for h in hooks:
+                h.remove()
         with torch.no_grad():
+            for i, p in enumerate(leaves):
+                if gsum[i] is None:  # a leaf the loss does not reach
+                    gsum[i] = torch.zeros(p.shape, dtype=acc_dt, device=p.device)
             for s in gsum:
                 s.div_(accum)
         grads = dict(zip(names, gsum))
+        sspecs = None
         if axes is not None:
             sum_over_batch_axes(grads, model.specs, axes)
+            sspecs = state_specs(model, tcfg)
         params, opt_state, gnorm = opt_lib.apply_updates(
-            params, grads, opt_state, step, tcfg.opt, groups, axes=axes, specs=model.specs)
+            params, grads, opt_state, step, tcfg.opt, groups, axes=axes, specs=model.specs,
+            state_specs=sspecs)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
         metrics["grad_norm"] = gnorm
         metrics["lr"] = opt_lib.lr_at(step, tcfg.opt)
@@ -146,14 +174,28 @@ def init_train_state(model: Model, tcfg: TrainConfig):
                                           shapes=state_shapes(model, tcfg))
 
 
+def _whole_states(model: Model, tcfg: TrainConfig) -> dict:
+    """The optimizer state's leaves of a sharded model, whole: AdamW's m
+    and v of each parameter's shape, Adafactor's ``adafactor_shapes``."""
+    shapes = model.global_shapes
+    if tcfg.opt.name == "adafactor":
+        groups = opt_lib.segment_groups(model.cfg, shapes)
+        return {"v": opt_lib.adafactor_shapes(shapes, tcfg.opt, groups)}
+    return {"m": shapes, "v": shapes}
+
+
 def state_specs(model: Model, tcfg: TrainConfig) -> dict:
     """The specs of a sharded model's optimizer state (ZeRO-1)."""
-    shapes = model.global_shapes  # AdamW's: a mesh refuses Adafactor (check_sharded)
-    return rules.opt_state_specs({"m": shapes, "v": shapes}, model.specs, model.cfg,
+    return rules.opt_state_specs(_whole_states(model, tcfg), model.specs, model.cfg,
                                  model.axes, zero=True)
 
 
 def state_shapes(model: Model, tcfg: TrainConfig) -> dict:
-    """{name: this rank's shape} of AdamW's m and v on a sharded model."""
-    specs = state_specs(model, tcfg)["m"]
-    return {n: par.local_shape(model.global_shapes[n], s, model.axes) for n, s in specs.items()}
+    """{name: this rank's shape} of AdamW's m and v on a sharded model, or
+    {name: {kind: this rank's shape}} of Adafactor's states."""
+    specs = state_specs(model, tcfg)
+    whole = _whole_states(model, tcfg)
+    if "m" in specs:
+        return {n: par.local_shape(whole["m"][n], s, model.axes) for n, s in specs["m"].items()}
+    return {n: {k: par.local_shape(whole["v"][n][k], s, model.axes) for k, s in d.items()}
+            for n, d in specs["v"].items()}

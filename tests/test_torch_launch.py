@@ -2,9 +2,8 @@
 mesh helpers on the CPU: it trains, saves, resumes and prints ``repro``'s
 lines; ``--layers`` builds ``repro``'s config (dense-only for
 deepseek-moe-16b); more than one rank trains (tests/test_torch_sharded_train.py
-runs it on four), except what a mesh does not run yet, which raises
-NotImplementedError naming its ROADMAP.md item 11 part before joining a
-process group; without ``--device`` and without a card it raises the
+runs it on four), every config, deepseek-v3's MLA and Adafactor included;
+without ``--device`` and without a card it raises the
 device rule's RuntimeError."""
 import re
 
@@ -61,11 +60,17 @@ def test_more_than_one_rank_is_item_11(monkeypatch):
     ``torchrun`` start. The one-rank gloo group that other test files
     leave in this worker process (``torch_parity.world_mesh``) would
     answer 1 in its place, so it is hidden here. Sharded training runs
-    (tests/test_torch_sharded_train.py); deepseek-v3's MLA under a mesh is
-    item 11.2, refused before any process group is joined."""
+    (tests/test_torch_sharded_train.py); deepseek-v3's MLA and Adafactor
+    under a mesh (item 11.2) are no longer refused: the launcher goes on
+    to join the process group (stopped here at that call)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
-    with pytest.raises(NotImplementedError, match=r"item 11\.2 \(tensor parallelism"):
+
+    def join(backend, device):
+        raise LookupError(f"joining {backend}")
+
+    monkeypatch.setattr(train, "join_group", join)
+    with pytest.raises(LookupError, match="joining nccl"):
         train.main(["--device", "cpu", "--arch", "deepseek-v3-671b"])
 
 

@@ -30,8 +30,9 @@ backward. Besides: a sharded model's blocks are the one-rank model's
 from the same seed, bit for bit; replicated leaves are the same bits on
 every replica after the step; the vocab-parallel cross-entropy and
 embedding against the one-rank ones; a per-rank checkpoint round trip and
-the ValueError on another mesh shape; what a mesh does not run yet raises
-naming its ROADMAP.md item.
+the ValueError on another mesh shape; the dry run, which a mesh does not
+run yet, raises naming its ROADMAP.md item, and what item 11.2 ported
+builds and steps on a one-rank mesh.
 """
 import dataclasses
 import os
@@ -55,9 +56,8 @@ from repro.sharding.spec import Axes as JAxes
 from repro.train.step import TrainConfig as JTrainConfig
 from repro.train.step import make_train_step as jmake_step
 from repro_torch import convert
-from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.configs.registry import smoke_config
 from repro_torch.models import model as model_lib
-from repro_torch.models import transformer
 from repro_torch.sharding.spec import Axes
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -221,47 +221,85 @@ def test_per_rank_checkpoint_and_another_mesh_shape(runs):
         assert "{'data': 1, 'model': 4}" in msg
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek-v3-671b", "item 11.2"),
-                                       ("falcon-mamba-7b", "item 11.2"),
-                                       ("recurrentgemma-9b", "item 11.2"),
-                                       ("whisper-base", "item 11.2"),
-                                       ("llama-3.2-vision-11b", "item 11.2"),
-                                       ("adafactor", "item 11.2"),
-                                       ("mla_decode", "item 11.2"),
-                                       ("window_decode", "item 11.2"),
-                                       ("cross_decode", "item 11.2"),
-                                       ("dryrun", "item 11.4")])
+@pytest.mark.parametrize("arch,item", [("dryrun", "item 11.4")])
 def test_what_a_mesh_does_not_run_names_its_item(arch, item):
-    """Sharded serving (item 11.3) runs GQA blocks with dense or MoE FFNs;
-    an MLA, windowed or cross block still raises under a mesh, in serving
-    as in training, naming item 11.2."""
-    if arch == "dryrun":
-        from repro_torch.launch import dryrun
+    """The dry run (item 11.4) is still to port; every mixer, the encoder,
+    cross-attention and Adafactor run under a mesh (item 11.2:
+    ``test_what_a_mesh_runs_now``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import _LATER
 
-        with pytest.raises(NotImplementedError, match=item):
-            dryrun.main([])
-        return
-    if arch.endswith("_decode"):
-        source = {"mla_decode": ("deepseek-v3-671b", "mla"),
-                  "window_decode": ("recurrentgemma-9b", "local_attn"),
-                  "cross_decode": ("whisper-base", "attn")}[arch]
-        spec = next(s for s in get_config(source[0]).layer_list()
-                    if s.mixer == source[1] and (arch != "cross_decode" or s.cross))
-        with pytest.raises(NotImplementedError, match=item):
-            transformer.check_sharded(spec)
-        from repro_torch.models import _LATER
-
-        assert set(_LATER) == {"tp_mixers", "dryrun"}
-        return
-    cfg = (dataclasses.replace(get_config("qwen3-4b"), optimizer="adafactor")
-           if arch == "adafactor" else get_config(arch))
+    assert set(_LATER) == {"dryrun"}
     with pytest.raises(NotImplementedError, match=item):
-        model_lib.check_sharded(cfg)
+        dryrun.main([])
+
+
+def _one_rank_axes():
+    """``Axes`` of a (data, model) = (1, 1) mesh over this process's
+    one-rank gloo group: the sharded paths, with no peer."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.sharding import spec
+    from torch_parity import world_mesh
+
+    world_mesh()
+    return spec.from_mesh(DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
+                                     mesh_dim_names=("data", "model")))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "falcon-mamba-7b", "recurrentgemma-9b",
+                                  "whisper-base", "llama-3.2-vision-11b", "adafactor",
+                                  "mla_decode", "window_decode", "cross_decode"])
+def test_what_a_mesh_runs_now(arch):
+    """What a mesh refused before item 11.2 builds and runs on one: each
+    config (its own optimizer: deepseek-v3's Adafactor, the others' AdamW)
+    takes a train step on a one-rank (1, 1) mesh, qwen3-4b with Adafactor
+    too, and an MLA, windowed or cross model prefills and decodes there
+    with ``seq_shard``. Four ranks against ``repro``: tests/
+    test_torch_tp_mixers.py and tests/test_torch_sharded_adafactor.py."""
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.serve import engine
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+
+    axes = _one_rank_axes()
+    source = {"adafactor": "qwen3-4b", "mla_decode": "deepseek-v3-671b",
+              "window_decode": "recurrentgemma-9b", "cross_decode": "whisper-base"}
+    cfg = dataclasses.replace(smoke_config(source.get(arch, arch)), dtype="float32")
+    if arch == "adafactor":
+        cfg = dataclasses.replace(cfg, optimizer="adafactor")
+    model = model_lib.Model(cfg, axes=axes, device="cpu", seed=2)
+    assert model.sharded
+    rng = np.random.default_rng(5)
+    memory = {}
+    if cfg.encoder_segments:
+        memory["frames"] = rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)
+    if cfg.n_vision_tokens:
+        memory["vision"] = rng.standard_normal((2, cfg.n_vision_tokens, cfg.d_model)).astype(
+            np.float32)
+    if arch.endswith("_decode"):
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)),
+                 **{k: torch.from_numpy(v) for k, v in memory.items()}}
+        toks = engine.generate(model, batch, 3, seq_shard=True)
+        assert toks.shape == (2, 3)
+        return
+    tcfg = TrainConfig(opt=OptConfig(name=cfg.optimizer, state_dtype=cfg.opt_state_dtype,
+                                     **W.OPT))
+    params, ost = init_train_state(model, tcfg)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (1, 2, 16)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (1, 2, 16)).astype(np.int32),
+             **{k: v[None] for k, v in memory.items()}}
+    _, _, metrics = make_train_step(model, tcfg)(params, ost, 1, batch)
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
 
 
 def test_qwen3_and_deepseek_moe_train_under_a_mesh():
-    for arch in ("qwen3-4b", "deepseek-moe-16b", "qwen2.5-32b", "starcoder2-7b"):
-        model_lib.check_sharded(get_config(arch))
+    """Every config's sharded model builds (its shapes on the meta device)
+    on a (2, 4) mesh: nothing is refused."""
+    for arch in ("qwen3-4b", "deepseek-moe-16b", "qwen2.5-32b", "starcoder2-7b",
+                 "deepseek-v3-671b", "falcon-mamba-7b", "recurrentgemma-9b", "whisper-base",
+                 "llama-3.2-vision-11b"):
+        model_lib.Model(smoke_config(arch), axes=Axes(mesh_shape={"data": 2, "model": 4}),
+                        device="meta")
     assert Axes(mesh_shape={"data": 2, "model": 4}).batch_size == 2
 
 
