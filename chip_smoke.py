@@ -413,6 +413,20 @@ Phases, one line or more each:
      once a prefill a rank in (1)'s MLA runs, phase 17's derivation in
      (2), none elsewhere. Phase 17's check 2 runs on phase 11's cut (1
      dense + 3 MoE), so that this phase fits the run's time.
+ 19. the dry run (``launch/dryrun.py``) held to the card: each check
+     builds its cell through ``dryrun.Cell`` on the card and on the meta
+     device and counts one step of each under ``hlo_stats.Counts`` (the
+     card's counts set to 0 just before its step and read just after).
+     (1) qwen3-4b, bf16, seeded, flash on, full width, its first 4 of 36
+     layers, one prefill of 1 x 8192: the matrix FLOPs equal, the flash
+     op's calls equal on both and equal to the kernel's launches (4); (2)
+     deepseek-moe-16b, phase 11's construction cut to 1 dense + 1 MoE
+     layer (bf16, remat, AdamW), one train step of 1 x 4096 x accum 2 on
+     one rank: the FLOPs and every kernel op's calls equal, the kv sort's
+     and kv merge's calls equal to their wrappers' launches, the dry run's
+     args (parameters, AdamW states, batch) within 1% of the card's
+     ``memory_allocated`` growth while they are built, and its peak within
+     25% of ``max_memory_allocated`` over the step (reset before it).
 Last, one JSON line {"kernels": [...]} with each kernel's numbers (the
 bitonic kernels' ``launches`` are phase 3's, phase 8's serving runs'
 as ``launches_serve``, phase 9's ranks' as ``launches_mesh``, phase 10's
@@ -424,7 +438,8 @@ numbers at MLA's shape as ``*_mla``, phase 14's two served models' as
 ``launches_cross`` (flash 40, the rest 0), phase 16's check-2 runs
 summed over the ranks and both meshes as ``launches_sharded``, phase
 17's served runs summed over the ranks as ``launches_sharded_serve``,
-phase 18's counted runs summed over the ranks as ``launches_tp``; their
+phase 18's counted runs summed over the ranks as ``launches_tp``, phase
+19's two card runs as ``launches_dryrun``; their
 64-bit ones as ``*_x64``: times at a 2^22 int64 sort's shapes,
 ``launches_x64`` the 8-byte launches of phase 7), the card's name and
 power limit, and, last, {"ok": true, "device": {...}}.
@@ -441,6 +456,7 @@ power limit, and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --phases 16    # phases 1, 2 and 16
     python3 chip_smoke.py --phases 17    # phases 1, 2 and 17
     python3 chip_smoke.py --phases 18    # phases 1, 2 and 18
+    python3 chip_smoke.py --phases 19    # phases 1, 2 and 19
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device, or without the port beside this script, it exits 2 and prints no
@@ -6703,7 +6719,134 @@ def run_mixers(device) -> dict:
     return total
 
 
-ALL_PHASES = frozenset(range(1, 19))
+# ------------------------------------------------------------------ phase 19
+
+DRY_QWEN_LAYERS = 4  # check 1: qwen3-4b's first 4 of its 36 layers, full width
+DRY_QWEN = (8192, 1, "prefill")  # (seq, batch, kind): flash serves S >= 8192
+DRY_MOE = (4096, 2, "train")  # check 2: 1 x 4096 a micro-batch, accum 2
+DRY_ARGS_TOL = 0.01  # check 2: the dry run's args against the card's growth
+DRY_PEAK_TOL = 0.25  # check 2: the dry run's peak against the card's
+
+
+def dry_configs():
+    """Check 1's qwen3-4b (bf16, flash, 4 layers) and check 2's
+    deepseek-moe-16b (phase 11's cut to 1 dense + 1 MoE layer) with phase
+    11's TrainConfig."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig
+
+    full = get_config("qwen3-4b")
+    qwen = dataclasses.replace(full, flash_attention=True, dtype="bfloat16",
+                               segments=((full.segments[0][0], DRY_QWEN_LAYERS),),
+                               n_layers=DRY_QWEN_LAYERS)
+    (dense, _), (moe_period, _) = train_config().segments
+    moe = dataclasses.replace(train_config(), segments=((dense, 1), (moe_period, 1)),
+                              n_layers=2)
+    tcfg = TrainConfig(opt=adamw.OptConfig(name=moe.optimizer, peak_lr=3e-4, warmup_steps=2,
+                                           total_steps=8, state_dtype=moe.opt_state_dtype))
+    return qwen, moe, tcfg
+
+
+def run_dryrun(device) -> dict:
+    """Phase 19: the dry run (``launch/dryrun.py``) held to the card. Each
+    check builds its cell through ``dryrun.Cell`` on the card and on the
+    meta device, and counts one step of each under ``hlo_stats.Counts``;
+    the card's run is the program itself, its launch counts set to 0 just
+    before the step and read just after. Check 1: qwen3-4b, bf16, seeded,
+    flash on, full width, 4 of its 36 layers, one prefill of 1 x 8192: the
+    matrix FLOPs equal, the flash op's calls equal and equal to the
+    kernel's launches (4). Check 2: deepseek-moe-16b, phase 11's
+    construction cut to 1 dense + 1 MoE layer (bf16, remat, AdamW), one
+    train step of 1 x 4096 x accum 2 on one rank: the FLOPs and every
+    kernel op's calls equal, the kv sort's and kv merge's calls equal to
+    their launches, the dry run's ``args`` (parameters, AdamW states,
+    batch) within 1% of the card's allocated growth while they are built,
+    and its peak within 25% of ``max_memory_allocated`` over the step.
+    Returns the launches of both card runs, summed."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    qwen, moe, tcfg = dry_configs()
+    total = {k: 0 for k in launch_counts()}
+    failed = []
+
+    def on_card(cfg, shape, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        cell = dryrun.Cell(cfg, shape, device=device, **kw)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = cell.count()
+        torch.cuda.synchronize()
+        got.update(launches=launch_counts(), grown=grown, wall_s=time.perf_counter() - t0,
+                   card_peak=torch.cuda.max_memory_allocated() - base)
+        for k, v in got["launches"].items():
+            total[k] += v
+        del cell
+        return got
+
+    # check 1
+    card = on_card(qwen, DRY_QWEN, seed=0)
+    meta = dryrun.run_counted(qwen, DRY_QWEN, seed=0)
+    log(f"phase 19: check 1: qwen3-4b ({DRY_QWEN_LAYERS} layers, bf16, flash) prefill "
+        f"{DRY_QWEN[1]} x {DRY_QWEN[0]}: FLOPs card {card['dot_flops']:.0f}, meta "
+        f"{meta['dot_flops']:.0f}; kernel ops card {card['kernels']}, meta {meta['kernels']}; "
+        f"flash launches {card['launches']['flash_attention']}; traffic card "
+        f"{card['traffic']:.0f}, meta {meta['traffic']:.0f} bytes; counted step "
+        f"{card['wall_s']:.2f} s")
+    if card["dot_flops"] != meta["dot_flops"]:
+        failed.append("check 1: the FLOPs differ")
+    flash_calls = card["kernels"].get("flash_attention", 0)
+    if not (flash_calls == meta["kernels"].get("flash_attention", 0)
+            == card["launches"]["flash_attention"] == DRY_QWEN_LAYERS):
+        failed.append(f"check 1: flash calls {flash_calls} / {meta['kernels']}, launches "
+                      f"{card['launches']['flash_attention']}, want {DRY_QWEN_LAYERS}")
+
+    # check 2, with autograd on (``main`` turns it off)
+    with torch.enable_grad():
+        card = on_card(moe, DRY_MOE, accum=2, tcfg=tcfg, seed=0)
+        meta = dryrun.run_counted(moe, DRY_MOE, accum=2, tcfg=tcfg, seed=0)
+    args_ratio = meta["args_bytes"] / card["grown"]
+    peak_ratio = meta["peak_bytes"] / card["card_peak"]
+    log(f"phase 19: check 2: deepseek-moe-16b (1 dense + 1 MoE, bf16, remat, AdamW) train "
+        f"step of 1 x {DRY_MOE[0]} x accum 2: FLOPs card {card['dot_flops']:.0f}, meta "
+        f"{meta['dot_flops']:.0f}; kernel ops card {card['kernels']}, meta {meta['kernels']}; "
+        f"launches {card['launches']}; args: dry run {meta['args_bytes']} "
+        f"({meta['args_detail']}), card's growth {card['grown']} bytes, ratio "
+        f"{args_ratio:.4f}; peak: dry run {meta['peak_bytes']} bytes (temp "
+        f"{meta['temp_peak_bytes']}), card's max_memory_allocated {card['card_peak']}, ratio "
+        f"{peak_ratio:.4f}; counted step {card['wall_s']:.2f} s")
+    if card["dot_flops"] != meta["dot_flops"]:
+        failed.append("check 2: the FLOPs differ")
+    if card["kernels"] != meta["kernels"]:
+        failed.append(f"check 2: kernel calls card {card['kernels']}, meta {meta['kernels']}")
+    for op, wrapper in (("sort_rows_kv", "bitonic_sort_rows_kv"),
+                        ("merge_rows_kv", "bitonic_merge_rows_kv")):
+        if card["kernels"].get(op, 0) != card["launches"][wrapper]:
+            failed.append(f"check 2: {op} called {card['kernels'].get(op, 0)} times, "
+                          f"{wrapper} launched {card['launches'][wrapper]}")
+    if card["kernels"].get("sort_rows_kv", 0) == 0:
+        failed.append("check 2: the dispatch's kv sort never ran")
+    if abs(args_ratio - 1) > DRY_ARGS_TOL:
+        failed.append(f"check 2: args ratio {args_ratio:.4f}")
+    if abs(peak_ratio - 1) > DRY_PEAK_TOL:
+        failed.append(f"check 2: peak ratio {peak_ratio:.4f}")
+    if failed:
+        raise AssertionError("phase 19: " + "; ".join(failed))
+    log(f"phase 19: launches of both card runs {total}")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+ALL_PHASES = frozenset(range(1, 20))
 
 
 def main() -> int:
@@ -6713,7 +6856,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one GPU.")
     ap.add_argument("--phases", default="all",
-                    help="for a development run, a comma-separated subset of 1-18: phase 1 "
+                    help="for a development run, a comma-separated subset of 1-19: phase 1 "
                          "always runs, and phase 2 unless 1 alone is named; a partial run "
                          "prints no result lines")
     ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
@@ -6773,7 +6916,7 @@ def main() -> int:
                            (6, run_stream), (7, run_x64), (8, run_serving), (9, run_mesh),
                            (10, run_moe), (11, run_train), (12, run_batch), (13, run_mla),
                            (14, run_recurrent), (15, run_cross), (16, run_sharded),
-                           (17, run_sharded_serve), (18, run_mixers)):
+                           (17, run_sharded_serve), (18, run_mixers), (19, run_dryrun)):
             if phase in phases:
                 run(device)
         finish_pending()
@@ -6786,6 +6929,7 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(device)
         walls[phase] = time.perf_counter() - t
+        log(f"phase {phase}: wall {walls[phase]:.1f} s")
         torch.cuda.empty_cache()
         return out
 
@@ -6806,6 +6950,7 @@ def main() -> int:
     launches_sharded = run(16, run_sharded)
     launches_sharded_serve = run(17, run_sharded_serve)
     launches_tp = run(18, run_mixers)
+    launches_dryrun = run(19, run_dryrun)
     log("phase walls: " + ", ".join(f"{p} {w:.1f} s" for p, w in walls.items()))
 
     kernels = [
@@ -6816,6 +6961,7 @@ def main() -> int:
              launches_mla=launches_mla[name], launches_rec=launches_rec[name],
              launches_cross=launches_cross[name], launches_sharded=launches_sharded[name],
              launches_sharded_serve=launches_sharded_serve[name], launches_tp=launches_tp[name],
+             launches_dryrun=launches_dryrun[name],
              max_abs_err=num["max_abs_err"], ms=num["ms"],
              plain_ms=num["plain_ms"], bound_ms=num["bound_ms"], bound_by=num["bound_by"],
              library_ms=num["library_ms"], launches_x64=launches_x64[name],
@@ -6834,6 +6980,7 @@ def main() -> int:
         launches_sharded=launches_sharded["flash_attention"],
         launches_sharded_serve=launches_sharded_serve["flash_attention"],
         launches_tp=launches_tp["flash_attention"],
+        launches_dryrun=launches_dryrun["flash_attention"],
         max_abs_err=flash_num["max_abs_err"],
         ms=flash_num["ms"], plain_ms=flash_num["plain_ms"], bound_ms=flash_num["bound_ms"],
         bound_by=flash_num["bound_by"], library_ms=flash_num["library_ms"],

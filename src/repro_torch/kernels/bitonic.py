@@ -1,9 +1,13 @@
 """Bitonic sorting-network kernels: CUDA wrappers and their plain twins.
 
 Counterpart of ``repro/kernels/bitonic.py``. Each of the four wrappers
-below launches a hand-written CUDA kernel (``csrc/bitonic.cu``) on a CUDA
-tensor and runs its plain PyTorch twin on a CPU tensor; any other device
-raises. The twin runs the same compare-exchange schedule as the Pallas
+below checks its operands and calls an op of the ``repro_torch`` namespace
+(``torch.library``, through ``build.define_op``: ``sort_rows``,
+``sort_rows_kv``, ``merge_rows``, ``merge_rows_kv``), which launches a hand-written CUDA
+kernel (``csrc/bitonic.cu``) on a CUDA tensor and runs its plain PyTorch
+twin on a CPU tensor; on the meta device the op's fake gives the outputs'
+shapes only (the dry run, ``launch/dryrun.py``); any other device raises.
+The twin runs the same compare-exchange schedule as the Pallas
 kernel (``_sort_network`` / ``_merge_network``: a static reshape to
 ``(rows, n_blocks, 2, j)`` and a ``torch.where`` swap per stage), so the
 CPU tests hold it against ``repro`` and ``chip_smoke.py`` holds each
@@ -244,8 +248,8 @@ def _merge_operand(x: torch.Tensor) -> torch.Tensor:
     return x if unit else _wide(x)
 
 
-def _check(name: str, *tensors: torch.Tensor, n_max: int = MAX_ROW) -> str:
-    """Validate shapes and dtypes; return the device type that runs."""
+def _check(name: str, *tensors: torch.Tensor, n_max: int = MAX_ROW) -> None:
+    """Validate shapes, dtypes and devices."""
     first = tensors[0]
     if first.dim() != 2:
         raise ValueError(f"{name}: rows must be 2-D (R, N), got {tuple(first.shape)}")
@@ -258,9 +262,8 @@ def _check(name: str, *tensors: torch.Tensor, n_max: int = MAX_ROW) -> str:
         wide = torch.int64 if t.dtype == torch.uint64 else _WIDEN.get(t.dtype, t.dtype)
         if wide not in _TYPE_CODES:
             raise TypeError(f"{name}: unsupported dtype {t.dtype}")
-    if first.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: tensors on {first.device} (want cuda or cpu)")
-    return first.device.type
+    if first.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"{name}: tensors on {first.device} (want cuda, cpu or meta)")
 
 
 _COUNT_LOCK = threading.Lock()
@@ -275,16 +278,9 @@ def _count(wrapper, wide: bool) -> None:
 
 def bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
     """Sort each row of ``keys`` (R, N) ascending. N must be a power of 2."""
-    on = _check("bitonic_sort_rows", keys)
-    k = _wide(keys)
-    if on == "cpu" or k.shape[1] == 1 or k.shape[0] == 0:
-        out = k if k.shape[1] == 1 or k.shape[0] == 0 else sort_rows_twin(k)
-        return _narrow(out, keys.dtype)
-    out = torch.empty_like(k)
-    with torch.cuda.device(k.device):
-        _launch("bitonic_sort_rows", k.data_ptr(), out.data_ptr(), k.shape[0],
-                k.shape[1], _TYPE_CODES[k.dtype], _stream(k))
-    _count(bitonic_sort_rows, k.element_size() == 8)
+    _check("bitonic_sort_rows", keys)
+    k = _widen(keys).contiguous()
+    out = k if k.shape[1] == 1 or k.shape[0] == 0 else _sort_rows_op(k)
     return _narrow(out, keys.dtype)
 
 
@@ -292,27 +288,67 @@ def bitonic_sort_rows_kv(keys: torch.Tensor, values: torch.Tensor, *,
                          stable: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Key/value row sort. ``stable=True`` breaks key ties on the value,
     giving (key, value) lexicographic order."""
-    on = _check("bitonic_sort_rows_kv", keys, values)
+    _check("bitonic_sort_rows_kv", keys, values)
+    k, v = _widen(keys).contiguous(), _widen(values).contiguous()
+    if k.shape[1] > 1 and k.shape[0] > 0:
+        k, v = _sort_rows_kv_op(k, v, bool(stable))
+    return _narrow(k, keys.dtype), _narrow(v, values.dtype)
+
+
+def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge row-wise sorted (R, N) + (R, N) -> sorted (R, 2N). On the card
+    a and b may be views with any row stride (``_merge_operand``)."""
+    _check("bitonic_merge_rows", a, b, n_max=MAX_ROW // 2)
+    wa, wb = _widen(a), _widen(b)
+    out = merge_rows_twin(wa, wb) if a.shape[0] == 0 else _merge_rows_op(wa, wb)
+    return _narrow(out, a.dtype)
+
+
+def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
+    """Key/value merge with the same tie rule as ``bitonic_sort_rows_kv``."""
+    _check("bitonic_merge_rows_kv", ak, av, bk, bv, n_max=MAX_ROW // 2)
+    wide = tuple(map(_widen, (ak, av, bk, bv)))
+    if ak.shape[0] == 0:
+        ok, ov = merge_rows_twin(wide[0], wide[2], wide[1], wide[3], stable=stable)
+    else:
+        ok, ov = _merge_rows_kv_op(*wide, bool(stable))
+    return _narrow(ok, ak.dtype), _narrow(ov, av.dtype)
+
+
+# The four kernels as ops of the ``repro_torch`` namespace
+# (``build.define_op``): a CUDA tensor launches the kernel, a CPU tensor
+# runs the twin, and on the meta device each op's fake gives the outputs'
+# shapes and computes nothing (the dry run, ``launch/dryrun.py``). The
+# wrappers above check the operands and widen them to a kernel type first.
+
+def _sort_rows(keys):
+    if keys.device.type == "cpu":
+        return sort_rows_twin(keys)
+    k = _wide(keys)
+    out = torch.empty_like(k)
+    with torch.cuda.device(k.device):
+        _launch("bitonic_sort_rows", k.data_ptr(), out.data_ptr(), k.shape[0],
+                k.shape[1], _TYPE_CODES[k.dtype], _stream(k))
+    _count(bitonic_sort_rows, k.element_size() == 8)
+    return out
+
+
+def _sort_rows_kv(keys, values, stable):
+    if keys.device.type == "cpu":
+        return sort_rows_twin(keys, values, stable=stable)
     k, v = _wide(keys), _wide(values)
-    if on == "cpu" or k.shape[1] == 1 or k.shape[0] == 0:
-        if k.shape[1] > 1 and k.shape[0] > 0:
-            k, v = sort_rows_twin(k, v, stable=stable)
-        return _narrow(k, keys.dtype), _narrow(v, values.dtype)
     ok, ov = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(k.device):
         _launch("bitonic_sort_rows_kv", k.data_ptr(), v.data_ptr(), ok.data_ptr(),
                 ov.data_ptr(), k.shape[0], k.shape[1], _TYPE_CODES[k.dtype],
                 _TYPE_CODES[v.dtype], int(stable), _stream(k))
     _count(bitonic_sort_rows_kv, 8 in (k.element_size(), v.element_size()))
-    return _narrow(ok, keys.dtype), _narrow(ov, values.dtype)
+    return ok, ov
 
 
-def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Merge row-wise sorted (R, N) + (R, N) -> sorted (R, 2N). On the card
-    a and b may be views with any row stride (``_merge_operand``)."""
-    on = _check("bitonic_merge_rows", a, b, n_max=MAX_ROW // 2)
-    if on == "cpu" or a.shape[0] == 0:
-        return _narrow(merge_rows_twin(_widen(a), _widen(b)), a.dtype)
+def _merge_rows(a, b):
+    if a.device.type == "cpu":
+        return merge_rows_twin(a, b)
     wa, wb = _merge_operand(a), _merge_operand(b)
     rows, n = wa.shape
     out = torch.empty((rows, 2 * n), dtype=wa.dtype, device=wa.device)
@@ -320,15 +356,12 @@ def bitonic_merge_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _launch("bitonic_merge_rows", wa.data_ptr(), wa.stride(0), wb.data_ptr(), wb.stride(0),
                 out.data_ptr(), rows, n, _TYPE_CODES[wa.dtype], _stream(wa))
     _count(bitonic_merge_rows, wa.element_size() == 8)
-    return _narrow(out, a.dtype)
+    return out
 
 
-def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
-    """Key/value merge with the same tie rule as ``bitonic_sort_rows_kv``."""
-    on = _check("bitonic_merge_rows_kv", ak, av, bk, bv, n_max=MAX_ROW // 2)
-    if on == "cpu" or ak.shape[0] == 0:
-        ok, ov = merge_rows_twin(_widen(ak), _widen(bk), _widen(av), _widen(bv), stable=stable)
-        return _narrow(ok, ak.dtype), _narrow(ov, av.dtype)
+def _merge_rows_kv(ak, av, bk, bv, stable):
+    if ak.device.type == "cpu":
+        return merge_rows_twin(ak, bk, av, bv, stable=stable)
     wak, wav, wbk, wbv = map(_merge_operand, (ak, av, bk, bv))
     rows, n = wak.shape
     ok = torch.empty((rows, 2 * n), dtype=wak.dtype, device=wak.device)
@@ -339,7 +372,23 @@ def bitonic_merge_rows_kv(ak, av, bk, bv, *, stable: bool = True):
                 ok.data_ptr(), ov.data_ptr(), rows, n, _TYPE_CODES[wak.dtype],
                 _TYPE_CODES[wav.dtype], int(stable), _stream(wak))
     _count(bitonic_merge_rows_kv, 8 in (wak.element_size(), wav.element_size()))
-    return _narrow(ok, ak.dtype), _narrow(ov, av.dtype)
+    return ok, ov
+
+
+def _merged(a):
+    return a.new_empty((a.shape[0], 2 * a.shape[1]))
+
+
+_sort_rows_op = build.define_op("sort_rows(Tensor keys) -> Tensor", _sort_rows,
+                                lambda keys: torch.empty_like(keys))
+_sort_rows_kv_op = build.define_op(
+    "sort_rows_kv(Tensor keys, Tensor values, bool stable) -> (Tensor, Tensor)", _sort_rows_kv,
+    lambda keys, values, stable: (torch.empty_like(keys), torch.empty_like(values)))
+_merge_rows_op = build.define_op("merge_rows(Tensor a, Tensor b) -> Tensor", _merge_rows,
+                                 lambda a, b: _merged(a))
+_merge_rows_kv_op = build.define_op(
+    "merge_rows_kv(Tensor ak, Tensor av, Tensor bk, Tensor bv, bool stable) -> (Tensor, Tensor)",
+    _merge_rows_kv, lambda ak, av, bk, bv, stable: (_merged(ak), _merged(av)))
 
 
 KERNELS = (bitonic_sort_rows, bitonic_sort_rows_kv, bitonic_merge_rows, bitonic_merge_rows_kv)

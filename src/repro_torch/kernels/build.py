@@ -16,6 +16,9 @@ per source, processes through an ``fcntl.flock`` on
 ``build/lib<name>.lock`` taken inside it. A process that waited finds the
 library built and loads it, so ranks started together (a mesh sort's
 processes) run ``nvcc`` once.
+
+``define_op`` binds a kernel's wrapper to the dispatcher as an op of the
+``repro_torch`` namespace.
 """
 from __future__ import annotations
 
@@ -125,3 +128,31 @@ def _build(name: str) -> pathlib.Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name)))
+
+
+_OPS = None  # the namespace's torch.library.Library, made at the first define_op
+
+
+def define_op(schema: str, impl, fake):
+    """The op ``repro_torch::<schema>``: ``impl`` runs on CPU and CUDA
+    tensors (the twin, or the kernel's launch), ``fake`` on the meta device
+    (the outputs' shapes only; also what ``torch.library.register_fake``
+    gives tracing). Any other device has no kernel and raises. Returns the
+    op's overload, which the wrapper calls.
+
+    It is made with ``torch.library.Library``'s ``define`` / ``impl``,
+    which put ``impl`` straight in the dispatcher's table:
+    ``torch.library.custom_op`` wraps each call in Python layers of its
+    own (its autograd kernel among them), several times the host cost of
+    a call (``PERF.md`` §6)."""
+    import torch
+
+    global _OPS
+    if _OPS is None:
+        _OPS = torch.library.Library("repro_torch", "FRAGMENT")
+    name = schema.split("(")[0]
+    _OPS.define(schema)
+    for key in ("CPU", "CUDA"):
+        _OPS.impl(name, impl, key)
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_OPS)
+    return getattr(torch.ops.repro_torch, name).default

@@ -1,8 +1,12 @@
 """Flash-attention forward: the CUDA kernel's wrapper and its plain twin.
 
-Counterpart of ``repro/kernels/flash.py``. ``flash_attention`` launches
-the hand-written CUDA kernel (``csrc/flash.cu``) on CUDA tensors and runs
-the plain PyTorch twin on CPU tensors; any other device raises. The twin
+Counterpart of ``repro/kernels/flash.py``. ``flash_attention`` checks its
+inputs and calls the op ``repro_torch::flash_attention``
+(``torch.library``, through ``build.define_op``), which launches the hand-written CUDA kernel
+(``csrc/flash.cu``) on CUDA tensors and runs the plain PyTorch twin on CPU
+tensors; on the meta device its fake gives the output's shape and computes
+nothing (the dry run, ``launch/dryrun.py``); any other device raises. Its
+FLOPs are registered with ``FlopCounterMode`` (``flash_flops``). The twin
 follows the Pallas kernel ``_flash_kernel``: an online softmax over
 (bq, bk) tiles with the state (m, l, acc) in float32, the same block-level
 causal skip (a key tile runs iff ``k_start <= q_start + bq - 1``), the same
@@ -20,7 +24,8 @@ output, and against the Pallas-faithful twin with the looser 2e-2 of
 ``tests/test_flash_kernel.py``.
 
 ``flash_attention.launches`` counts the kernel's launches: one is added
-where the kernel is launched and nowhere else.
+where the kernel is launched and nowhere else (not by the twin or the
+fake).
 
 The layout is JAX's: q (B, S, H, dqk), k (B, T, KV, dqk) and v (B, T,
 KV, dv) with H % KV == 0, output (B, S, H, dv) in v's dtype. S and T need
@@ -42,6 +47,7 @@ import functools
 import threading
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -171,8 +177,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v) -> str:
-    """Validate shapes, dtypes and devices; return the device type that runs."""
+def _check(q, k, v) -> None:
+    """Validate shapes, dtypes and devices."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"flash_attention: want q (B, S, H, dqk), k (B, T, KV, dqk) and "
                          f"v (B, T, KV, dv), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -187,10 +193,9 @@ def _check(q, k, v) -> str:
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype of "
                         f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device) or q.device.type not in ("cuda", "cpu"):
+    if not (q.device == k.device == v.device) or q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device} "
-                         "(want one cuda or cpu device)")
-    return q.device.type
+                         "(want one cuda, cpu or meta device)")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -201,15 +206,21 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None) -> torch.Tensor:
-    """Attention of q (B, S, H, dqk) over k (B, T, KV, dqk) and v (B, T, KV,
-    dv), H % KV == 0. Returns (B, S, H, dv) in v's dtype. ``scale``
-    defaults to dqk ** -0.5."""
-    on = _check(q, k, v)
+    """Attention of q (B, S, H, dqk) over k (B, T, KV, dqk) and v (B, T,
+    KV, dv), H % KV == 0. Returns (B, S, H, dv) in v's dtype. ``scale``
+    defaults to dqk ** -0.5. The op ``repro_torch::flash_attention``: a
+    CUDA tensor launches the kernel, a CPU tensor runs the twin, a meta
+    tensor gets the output's shape only."""
+    _check(q, k, v)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _flash_op(q, k, v, bool(causal), float(scale))
+
+
+def _flash(q, k, v, causal, scale):
+    if q.device.type == "cpu":
+        return flash_attention_twin(q, k, v, causal=causal, scale=scale)
     B, S, H, dqk = q.shape
     T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
-    scale = dqk ** -0.5 if scale is None else scale
-    if on == "cpu":
-        return flash_attention_twin(q, k, v, causal=causal, scale=scale)
     out = torch.empty((B, S, H, dv), dtype=v.dtype, device=q.device)
     if B * S == 0:
         return out
@@ -218,7 +229,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, KV, dqk, dv,
-            _DTYPE_CODES[q.dtype], float(scale), int(causal),
+            _DTYPE_CODES[q.dtype], scale, int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         msg = lib.flash_error_string(err).decode()
@@ -226,6 +237,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with _COUNT_LOCK:  # launches may come from several threads
         flash_attention.launches += 1
     return out
+
+
+_flash_op = build.define_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, float scale) -> Tensor", _flash,
+    lambda q, k, v, causal, scale: q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype))
+
+
+def kept_pairs(S: int, T: int, causal: bool) -> int:
+    """The (query, key) pairs the mask keeps: every pair, or causally
+    query i (0-based) with keys 0..i, at most T of them."""
+    if not causal:
+        return S * T
+    full = max(0, min(S, T))  # queries i < T keep i + 1 keys
+    return full * (full + 1) // 2 + (S - full) * T
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_flops(q_shape, k_shape, v_shape, causal, scale, *, out_shape=None, **kwargs) -> int:
+    """2 B H (dqk + dv) FLOPs a kept pair: its score and its share of PV."""
+    B, S, H, dqk = q_shape
+    return 2 * B * H * (dqk + v_shape[3]) * kept_pairs(S, k_shape[1], causal)
 
 
 _COUNT_LOCK = threading.Lock()

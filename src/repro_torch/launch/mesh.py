@@ -1,7 +1,8 @@
 """Production mesh construction: ``repro/launch/mesh.py`` over
 ``torch.distributed.device_mesh.init_device_mesh``.
 
-Functions only: importing this module touches no process group. A mesh
+Functions only: importing this module touches no process group, nor does
+``production_mesh_shape`` (the dry run's mesh, ``launch/dryrun.py``). A mesh
 needs an initialized default process group whose world size is the
 mesh's size (``torch.distributed.init_process_group``, or ``torchrun``).
 ``device`` follows the device rule (None: "cuda").
@@ -11,10 +12,17 @@ from __future__ import annotations
 from repro_torch.device import resolve
 
 
+def production_mesh_shape(*, multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """(shape, axis names) of the production mesh, joining no process
+    group: (16, 16) over ("data", "model"), or with ``multi_pod`` (2, 16,
+    16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _init(device, shape, axes)
+    return _init(device, *production_mesh_shape(multi_pod=multi_pod))
 
 
 def mesh_shape_for(n: int, model: int | None = None) -> tuple[int, int]:

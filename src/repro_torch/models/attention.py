@@ -96,7 +96,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash import flash_attention
-from repro_torch.models.layers import _const, _init, apply_rope, rms_norm_simple, rope_table, torch_dtype
+from repro_torch.models.layers import (_const, _init, apply_rope, make_cache, rms_norm_simple,
+                                      rope_table, torch_dtype)
 from repro_torch.sharding import parallel as par
 
 Q_CHUNK = 512
@@ -716,17 +717,21 @@ def _write_slots(cache, new, positions):
     return cache
 
 
-def init_gqa_cache(cfg, B: int, S_max: int, window: int = 0, device=None):
-    """Zeroed k and v of (B, S_max, KV, dh); with a window, a ring of
-    min(window, S_max) entries and its ``pos`` (int32, all -1)."""
+def gqa_cache_layout(cfg, B: int, S_max: int, window: int = 0) -> dict:
+    """``init_gqa_cache``'s tensors as ``{name: (shape, dtype, fill)}``."""
     dtype = torch_dtype(cfg.dtype)
     W = min(window, S_max) if window else S_max
     shape = (B, W, cfg.n_kv_heads, cfg.head_dim)
-    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
-         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"k": (shape, dtype, 0), "v": (shape, dtype, 0)}
     if window:
-        c["pos"] = torch.full((W,), -1, dtype=torch.int32, device=device)
+        c["pos"] = ((W,), torch.int32, -1)
     return c
+
+
+def init_gqa_cache(cfg, B: int, S_max: int, window: int = 0, device=None):
+    """Zeroed k and v of (B, S_max, KV, dh); with a window, a ring of
+    min(window, S_max) entries and its ``pos`` (int32, all -1)."""
+    return make_cache(gqa_cache_layout(cfg, B, S_max, window), device)
 
 
 # ------------------------------------------------------------- MLA mixer
@@ -854,9 +859,14 @@ def mla_forward(x, p: MLA, cfg, *, positions=None, cache=None, decode: bool = Fa
     return out, {"c_kv": c_kv, "k_pe": k_pe, **marker}
 
 
+def mla_cache_layout(cfg, B: int, S_max: int) -> dict:
+    """``init_mla_cache``'s tensors as ``{name: (shape, dtype, fill)}``."""
+    dtype = torch_dtype(cfg.dtype)
+    return {"c_kv": ((B, S_max, cfg.kv_lora_rank), dtype, 0),
+            "k_pe": ((B, S_max, cfg.qk_rope_dim), dtype, 0)}
+
+
 def init_mla_cache(cfg, B: int, S_max: int, device=None):
     """The compressed cache: ``c_kv`` (B, S_max, kv_lora_rank) and ``k_pe``
     (B, S_max, qk_rope_dim), zeroed."""
-    dtype = torch_dtype(cfg.dtype)
-    return {"c_kv": torch.zeros((B, S_max, cfg.kv_lora_rank), dtype=dtype, device=device),
-            "k_pe": torch.zeros((B, S_max, cfg.qk_rope_dim), dtype=dtype, device=device)}
+    return make_cache(mla_cache_layout(cfg, B, S_max), device)

@@ -65,6 +65,14 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def make_cache(layout: dict, device) -> dict:
+    """The tensors of a cache's ``layout``, ``{name: (shape, dtype,
+    fill)}`` (``attention.gqa_cache_layout`` and its kin), on ``device``."""
+    return {n: torch.zeros(shape, dtype=dtype, device=device) if fill == 0
+            else torch.full(shape, fill, dtype=dtype, device=device)
+            for n, (shape, dtype, fill) in layout.items()}
+
+
 def draw(gen, kind: str, arg, shape, dtype, device) -> torch.Tensor:
     """What ``_init`` ("randn", scale), ``_const`` ("full", value) or
     ``_s4d_log`` ("s4d") makes."""

@@ -27,7 +27,9 @@ and the vocabulary padded to the model axis. With a mesh in ``axes``
 parameter is this rank's block, by ``rules.param_specs`` (``specs``), of
 the leaf the one-rank model draws from the same seed. A rank draws one
 whole leaf at a time, in the one-rank model's order, and keeps its block,
-so it never holds the whole model. The forward takes the rank's block of
+so it never holds the whole model. On the meta device it holds the
+shapes of the rank's blocks, and ``set_layout`` re-lays nothing (the dry
+run, ``launch/dryrun.py``). The forward takes the rank's block of
 the batch and returns logits over its block of the padded vocabulary
 (``train/loss.py`` takes them so). With ``axes`` and no mesh the model
 holds the whole padded leaves: their shapes on the meta device are
@@ -99,7 +101,7 @@ class Model(nn.Module):
         self.axes = axes
         self.specs = None
         self.layout = "train"
-        if not self.sharded or dev.type == "meta":
+        if not self.sharded:
             gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
             self._build(gen, dev)
             return
@@ -109,6 +111,9 @@ class Model(nn.Module):
         names = {id(p): n for n, p in self.named_parameters()}
         self.global_shapes = {n: tuple(p.shape) for n, p in self.named_parameters()}
         self.specs = rules.param_specs(self.global_shapes, cfg, axes)
+        if dev.type == "meta":  # the rank's blocks' shapes only (the dry run)
+            self._reshape_blocks()
+            return
         gen = torch.Generator(device=dev).manual_seed(seed)
         for p, kind, arg in drawn:  # the one-rank model's order
             name = names[id(p)]
@@ -128,6 +133,17 @@ class Model(nn.Module):
         self.encoder = Encoder(cfg, gen, dev, axes=axes) if cfg.encoder_segments else None
         self.pos_embed = (_init(gen, (8192, cfg.d_model), 0.02, torch_dtype(cfg.dtype), dev)
                           if cfg.pos_embedding == "learned" else None)
+
+    def _reshape_blocks(self) -> None:
+        """On the meta device: each parameter as this rank's block of its
+        leaf by ``specs``, holding nothing."""
+        for name, spec in self.specs.items():
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner)
+            old = getattr(module, leaf)
+            block = torch.empty(par.local_shape(self.global_shapes[name], spec, self.axes),
+                                dtype=old.dtype, device="meta")
+            setattr(module, leaf, nn.Parameter(block, requires_grad=old.requires_grad))
 
     @property
     def sharded(self) -> bool:
@@ -149,6 +165,10 @@ class Model(nn.Module):
         if not self.sharded or self.layout == mode:
             return
         specs = rules.param_specs(self.global_shapes, self.cfg, self.axes, mode=mode)
+        if self.device.type == "meta":  # shapes only: nothing moves
+            self.specs, self.layout = specs, mode
+            self._reshape_blocks()
+            return
         for name, spec in specs.items():
             if spec != self.specs[name]:
                 owner, _, leaf = name.rpartition(".")
@@ -171,24 +191,28 @@ class Model(nn.Module):
         (GQA, a ring, a cross cache, MLA's compressed one) holds every KV
         head, over the rank's block of its positions where their count
         divides over "model", and says so with ``seq_len``, that count
-        (S_max, the ring's W, the memory's length)."""
+        (S_max, the ring's W, the memory's length). The whole caches are
+        laid out by their shapes alone (``tfm.block_cache_layout``): only
+        the rank's blocks are made."""
         device = self.device if device is None else device
         cfg = self.cfg
         if not self.sharded:
             return [tfm.init_block_cache(spec, cfg, B, S_max, device, memory_len=memory_len)
                     for spec in cfg.layer_list()]
-        whole = [tfm.init_block_cache(spec, cfg, B, S_max, "meta", memory_len=memory_len)
+        whole = [tfm.block_cache_layout(spec, cfg, B, S_max, memory_len=memory_len)
                  for spec in cfg.layer_list()]
-        specs = rules.cache_specs(whole, cfg, self.axes, seq_shard=seq_shard)
+        shapes = [{key: {n: shape for n, (shape, _, _) in mix.items()} for key, mix in c.items()}
+                  for c in whole]
+        specs = rules.cache_specs(shapes, cfg, self.axes, seq_shard=seq_shard)
         out = []
         for c, sp in zip(whole, specs):
             local = {}
             for key, mix in c.items():
-                local[key] = {n: torch.zeros(par.local_shape(t.shape, sp[key][n], self.axes),
-                                             dtype=t.dtype, device=device)
-                              for n, t in mix.items()}
-                seq = next((t.shape[1] for n, t in mix.items() if n in ("k", "ck", "c_kv")),
-                           None)
+                local[key] = {n: torch.zeros(par.local_shape(shape, sp[key][n], self.axes),
+                                             dtype=dtype, device=device)
+                              for n, (shape, dtype, _) in mix.items()}
+                seq = next((shape[1] for n, (shape, _, _) in mix.items()
+                            if n in ("k", "ck", "c_kv")), None)
                 if seq_shard and seq is not None:  # the positions' global count
                     local[key]["seq_len"] = seq
             out.append(local)

@@ -123,7 +123,12 @@ def _router(xf, router_w, cfg):
     w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     # load-balance aux (Switch): E * sum_e f_e * P_e
     E = router_w.shape[-1]
-    f = torch.bincount(ids.reshape(-1), minlength=E).float()
+    # the count of each expert id (bincount's, as a scatter of ones: the
+    # dry run's meta tensors have a kernel for it; counts below 2^24 are
+    # exact in float32)
+    flat = ids.reshape(-1)
+    f = torch.zeros(E, dtype=torch.float32, device=flat.device).scatter_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))
     f = f / torch.clamp_min(f.sum(), 1.0)
     aux = E * torch.sum(f * probs.mean(0))
     return w, ids.to(torch.int32), aux

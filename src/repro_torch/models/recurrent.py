@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import _const, _init, _s4d_log, torch_dtype
+from repro_torch.models.layers import _const, _init, _s4d_log, make_cache, torch_dtype
 from repro_torch.sharding import parallel as par
 
 SCAN_CHUNK = 256
@@ -185,11 +185,15 @@ def rglru_forward(x, p: RGLRU, cfg, *, cache=None, decode: bool = False, axes=No
     return out, ({"conv": new_conv, "h": h_last} if cache is not None else None)
 
 
+def rglru_cache_layout(cfg, B: int) -> dict:
+    """``init_rglru_cache``'s tensors as ``{name: (shape, dtype, fill)}``."""
+    w = cfg.lru_width
+    return {"conv": ((B, 3, w), torch_dtype(cfg.dtype), 0), "h": ((B, w), torch.float32, 0)}
+
+
 def init_rglru_cache(cfg, B: int, device=None) -> dict:
     """conv (B, 3, lru_width) in the model dtype, h (B, lru_width) float32."""
-    w = cfg.lru_width
-    return {"conv": torch.zeros((B, 3, w), dtype=torch_dtype(cfg.dtype), device=device),
-            "h": torch.zeros((B, w), dtype=torch.float32, device=device)}
+    return make_cache(rglru_cache_layout(cfg, B), device)
 
 
 # ----------------------------------------------------------------- Mamba
@@ -275,10 +279,14 @@ def mamba_forward(x, p: Mamba, cfg, *, cache=None, decode: bool = False, axes=No
     return out, ({"conv": new_conv, "h": h0} if cache is not None else None)
 
 
+def mamba_cache_layout(cfg, B: int) -> dict:
+    """``init_mamba_cache``'s tensors as ``{name: (shape, dtype, fill)}``."""
+    di = cfg.ssm_expand * cfg.d_model
+    return {"conv": ((B, cfg.ssm_conv - 1, di), torch_dtype(cfg.dtype), 0),
+            "h": ((B, di, cfg.ssm_state), torch.float32, 0)}
+
+
 def init_mamba_cache(cfg, B: int, device=None) -> dict:
     """conv (B, ssm_conv - 1, di) in the model dtype, h (B, di, ssm_state)
     float32."""
-    di = cfg.ssm_expand * cfg.d_model
-    return {"conv": torch.zeros((B, cfg.ssm_conv - 1, di), dtype=torch_dtype(cfg.dtype),
-                                device=device),
-            "h": torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32, device=device)}
+    return make_cache(mamba_cache_layout(cfg, B), device)

@@ -47,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
-from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm, torch_dtype
+from repro_torch.models.layers import MLP, Norm, apply_mlp, apply_norm, make_cache, torch_dtype
 from repro_torch.sharding import parallel as par
 
 
@@ -89,24 +89,31 @@ class Block(nn.Module):
                            if cfg.n_shared_experts else None)
 
 
+def block_cache_layout(spec, cfg, B: int, S_max: int, memory_len: int = 0) -> dict:
+    """``init_block_cache``'s tensors as ``{key: {name: (shape, dtype,
+    fill)}}``, with nothing made (``Model.init_caches`` lays a mesh's
+    caches out by them)."""
+    c = {}
+    if spec.mixer == "mla":
+        c["mix"] = attn.mla_cache_layout(cfg, B, S_max)
+    elif spec.mixer == "rglru":
+        c["mix"] = rec.rglru_cache_layout(cfg, B)
+    elif spec.mixer == "mamba":
+        c["mix"] = rec.mamba_cache_layout(cfg, B)
+    elif spec.mixer != "none":
+        c["mix"] = attn.gqa_cache_layout(cfg, B, S_max, window=_window(spec, cfg))
+    if spec.cross:
+        shape = (B, memory_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross"] = {name: (shape, torch_dtype(cfg.dtype), 0) for name in ("ck", "cv")}
+    return c
+
+
 def init_block_cache(spec, cfg, B: int, S_max: int, device=None, memory_len: int = 0) -> dict:
     """The mixer's zeroed cache as ``"mix"`` (none for mixer "none"), and
     for a cross block the ``"cross"`` cache: ``ck``/``cv`` of zeros, (B,
     memory_len, KV, dh) each, which prefill replaces."""
-    c = {}
-    if spec.mixer == "mla":
-        c["mix"] = attn.init_mla_cache(cfg, B, S_max, device=device)
-    elif spec.mixer == "rglru":
-        c["mix"] = rec.init_rglru_cache(cfg, B, device=device)
-    elif spec.mixer == "mamba":
-        c["mix"] = rec.init_mamba_cache(cfg, B, device=device)
-    elif spec.mixer != "none":
-        c["mix"] = attn.init_gqa_cache(cfg, B, S_max, window=_window(spec, cfg), device=device)
-    if spec.cross:
-        shape = (B, memory_len, cfg.n_kv_heads, cfg.head_dim)
-        c["cross"] = {name: torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device=device)
-                      for name in ("ck", "cv")}
-    return c
+    return {key: make_cache(layout, device)
+            for key, layout in block_cache_layout(spec, cfg, B, S_max, memory_len).items()}
 
 
 def _moe_sharded(h, p: Block, cfg, axes, use_pallas: bool):

@@ -33,6 +33,11 @@ axes.expert).index``, and its aux loss's ``lax.pmean`` over every mesh
 axis is ``AxisGroup.all_mean``.
 ``constrain`` (a sharding annotation inside a jitted program) has no
 counterpart in eager PyTorch.
+
+``CountingMesh`` stands in for a ``DeviceMesh`` in the dry run
+(``launch/dryrun.py``): it describes the production mesh, joins no process
+group, and its groups (``CountingGroup``) move nothing and count the bytes
+each collective returns, by ``repro``'s kind names (``COLL_KINDS``).
 """
 from __future__ import annotations
 
@@ -246,6 +251,91 @@ class AxisGroup:
         return (wire / self.size).reshape(t.shape).to(t.device)
 
 
+# Each collective of ``AxisGroup`` by the kind ``repro``'s HLO names it
+# (``hlo_stats._COLL``); the sort's swap is ``repro``'s ``ppermute``.
+COLL_KINDS = {"all_sum": "all-reduce", "all_sum_": "all-reduce", "all_mean": "all-reduce",
+              "all_amax": "all-reduce", "all_max": "all-reduce", "all_gather": "all-gather",
+              "all_to_all": "all-to-all", "all_to_all_v": "all-to-all",
+              "reduce_scatter": "reduce-scatter", "swap": "collective-permute"}
+
+
+def out_bytes(out) -> int:
+    """The bytes a collective returns: a tensor's, or 8 for each of
+    ``all_max``'s host integers (int64 on the wire)."""
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    return 8 * len(out)
+
+
+class CountingMesh:
+    """A stand-in for a ``DeviceMesh`` of ``shape`` over ``names`` that
+    joins no process group: the dry run's mesh (``launch/dryrun.py``).
+    ``get_coordinate`` is rank 0's. ``axis_group`` gives a
+    ``CountingGroup`` over it, whose collectives move nothing and add the
+    bytes they return to ``colls``, by ``COLL_KINDS``."""
+
+    def __init__(self, shape, names):
+        if len(shape) != len(names):
+            raise ValueError(f"mesh shape {tuple(shape)} and axes {tuple(names)} differ in rank")
+        self.shape = tuple(int(n) for n in shape)
+        self.mesh_dim_names = tuple(names)
+        self.ndim = len(self.shape)
+        self.colls: dict = {}
+
+    def size(self, dim: int | None = None) -> int:
+        return math.prod(self.shape) if dim is None else self.shape[dim]
+
+    def get_coordinate(self) -> list:
+        return [0] * self.ndim
+
+
+class CountingGroup:
+    """``AxisGroup``'s collectives on a ``CountingMesh``: each returns a
+    tensor of the shape and dtype the real one returns, zeros on the
+    input's device (``all_sum_`` returns its input, ``all_max`` the
+    values), and records that output's bytes on the mesh. Each method
+    records once: none calls another, so ``reduce_scatter`` (an
+    all-to-all and a sum on a real group) counts as one reduce-scatter."""
+
+    def __init__(self, mesh: CountingMesh, size: int):
+        self.mesh, self.size, self.index = mesh, size, 0
+
+    def _out(self, method: str, out):
+        kind = COLL_KINDS[method]
+        self.mesh.colls[kind] = self.mesh.colls.get(kind, 0) + out_bytes(out)
+        return out
+
+    def all_gather(self, t):
+        return self._out("all_gather", t.new_zeros((self.size, *t.shape)))
+
+    def all_to_all(self, t):
+        return self._out("all_to_all", t.new_zeros(t.shape))
+
+    def reduce_scatter(self, t):
+        return self._out("reduce_scatter", t.new_zeros((t.shape[0] // self.size, *t.shape[1:])))
+
+    def swap(self, t, partner: int, n_recv: int):
+        return self._out("swap", t.new_zeros(n_recv))
+
+    def all_to_all_v(self, t, send_sizes, recv_sizes):
+        return self._out("all_to_all_v", t.new_zeros((int(sum(recv_sizes)), *t.shape[1:])))
+
+    def all_max(self, values) -> list:
+        return self._out("all_max", [int(v) for v in values])
+
+    def all_sum(self, t):
+        return self._out("all_sum", t.new_zeros(t.shape))
+
+    def all_sum_(self, t):
+        return self._out("all_sum_", t)
+
+    def all_amax(self, t):
+        return self._out("all_amax", t.new_zeros(t.shape))
+
+    def all_mean(self, t):
+        return self._out("all_mean", t.new_zeros(t.shape))
+
+
 _GROUPS: dict = {}
 
 
@@ -257,9 +347,12 @@ def axis_group(mesh, axis="data") -> AxisGroup:
     ``mesh.mesh`` with ``new_subgroups_by_enumeration``, which every rank
     of the world must call, in the same order: the first sort over a new
     tuple is a collective call. Cached per mesh object and axes (the
-    cache keeps the mesh alive, so its id is not reused)."""
-    dist = _dist()
+    cache keeps the mesh alive, so its id is not reused). On a
+    ``CountingMesh``, its ``CountingGroup``."""
     axes = _axes(axis)
+    if isinstance(mesh, CountingMesh):
+        return CountingGroup(mesh, axis_size(mesh, axes))
+    dist = _dist()
     key = (id(mesh), axes)
     if key in _GROUPS:
         return _GROUPS[key][1]
@@ -332,7 +425,8 @@ class Axes:
 
 
 def from_mesh(mesh, expert_2d: bool = False) -> Axes | None:
-    """``Axes`` of a ``DeviceMesh`` (None for no mesh)."""
+    """``Axes`` of a ``DeviceMesh`` or a ``CountingMesh`` (None for no
+    mesh)."""
     if mesh is None:
         return None
     names = mesh.mesh_dim_names

@@ -180,11 +180,28 @@ def test_refs_sort_stably():
     assert_bits_equal(port_np(m), np.sort(np.concatenate([k, k], -1), -1))
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lies on a device that is neither cuda, cpu
+    nor meta, and runs no op."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype=torch.float32):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype, device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} reached a tensor the wrapper should refuse")
+
+
 def test_wrapper_refuses_other_devices_and_bad_rows():
+    """A meta tensor gets its output's shape only (the dry run); any device
+    but cuda, cpu and meta is refused before an op runs."""
     with pytest.raises(ValueError, match="power of two"):
         bitonic.bitonic_sort_rows(torch.zeros((2, 12)))
-    with pytest.raises(ValueError, match="want cuda or cpu"):
-        bitonic.bitonic_sort_rows(torch.zeros((2, 8), device="meta"))
+    meta = bitonic.bitonic_merge_rows_kv(*(torch.zeros((2, 8), device="meta"),) * 4)
+    assert [(t.shape, t.device.type) for t in meta] == [((2, 16), "meta")] * 2
+    with pytest.raises(ValueError, match="want cuda, cpu or meta"):
+        bitonic.bitonic_sort_rows(_Elsewhere((2, 8)))
     with pytest.raises(TypeError, match="unsupported dtype"):
         bitonic.bitonic_sort_rows(torch.zeros((2, 8), dtype=torch.complex64))
 

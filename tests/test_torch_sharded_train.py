@@ -35,6 +35,7 @@ run yet, raises naming its ROADMAP.md item, and what item 11.2 ported
 builds and steps on a one-rank mesh.
 """
 import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -222,16 +223,28 @@ def test_per_rank_checkpoint_and_another_mesh_shape(runs):
 
 
 @pytest.mark.parametrize("arch,item", [("dryrun", "item 11.4")])
-def test_what_a_mesh_does_not_run_names_its_item(arch, item):
-    """The dry run (item 11.4) is still to port; every mixer, the encoder,
-    cross-attention and Adafactor run under a mesh (item 11.2:
-    ``test_what_a_mesh_runs_now``)."""
+def test_what_a_mesh_does_not_run_names_its_item(arch, item, tmp_path):
+    """Nothing is left that a mesh does not run: the dry run (item 11.4)
+    writes its JSON for a cell of the production mesh, on the meta device,
+    and the port keeps no list of what it has still to port."""
+    import repro_torch.models
     from repro_torch.launch import dryrun
-    from repro_torch.models import _LATER
 
-    assert set(_LATER) == {"dryrun"}
-    with pytest.raises(NotImplementedError, match=item):
-        dryrun.main([])
+    assert (arch, item) == ("dryrun", "item 11.4")
+    assert not hasattr(repro_torch.models, "not_ported")
+    dryrun.main(["--arch", "whisper-base", "--shape", "decode_32k", "--out", str(tmp_path)])
+    with open(tmp_path / "whisper-base_decode_32k_single.json") as f:
+        got = json.load(f)
+    assert got["devices"] == 256 and got["mesh"] == "16x16" and got["kind"] == "decode"
+    assert got["flops_per_device"] > 0 and got["bytes_per_device_gb"] > 0
+
+
+def test_paper_sort_config_matches_repro():
+    """The last config module: the paper's workload, field for field."""
+    from repro.configs.paper_sort import CONFIG as jconfig
+    from repro_torch.configs.paper_sort import CONFIG
+
+    assert dataclasses.asdict(CONFIG) == dataclasses.asdict(jconfig)
 
 
 def _one_rank_axes():
